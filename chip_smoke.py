@@ -1,0 +1,455 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result:
+
+  1. device   — require CUDA, print the card's name and power limit, turn
+                TF32 off for matmuls and convolutions;
+  2. build    — compile the four CUDA kernels from ``src/repro_torch/kernels/
+                csrc`` with nvcc for sm_90a;
+  3. kernels  — hold each kernel against its plain PyTorch version at the
+                llama-130m shapes of GUM (rank 256, gamma 4), both projection
+                sides, plus one ragged shape; time kernel, plain version and
+                one torch.bmm-family call, and compute the bound;
+  4. slice    — GUM pretraining of llama-130m at full width through the
+                port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3),
+                asserting finite losses and the per-step dispatch and kernel
+                launch counts;
+  5. agree    — the same trainer at the llama-60m smoke size on the card and
+                on the CPU (plain versions) must give the same losses.
+
+The card's ``nvidia-smi`` name and power limit are printed first and again
+third from the end; the line before the last is a JSON object describing
+every kernel (launches on the main path, error, times, bound), and the last
+line is ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
+phase 3 (for iterating on a kernel).
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor cores
+# and HBM3 bandwidth.  The bound of a kernel is the larger of its flops over
+# the first and its bytes (each input read once, each output written once)
+# over the second.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# max|kernel - plain| / max|plain|.  The kernels and the plain versions
+# (cuBLAS) both sum in fp32, in another order, so they differ by rounding
+# only: 1e-5 for one GEMM; a 5-step Newton-Schulz compounds ten of them
+# through a cubic polynomial, 1e-4.
+TOL_GEMM = 1e-5
+TOL_NS = 1e-4
+
+KERNEL_META = {
+    "lowrank_update": ("src/repro_torch/kernels/csrc/lowrank_update.cu",
+                       "src/repro/kernels/lowrank_update.py:30"),
+    "back_project": ("src/repro_torch/kernels/csrc/back_project.cu",
+                     "src/repro/kernels/lowrank_update.py:105"),
+    "gram": ("src/repro_torch/kernels/csrc/gram.cu",
+             "src/repro/kernels/newton_schulz.py:34"),
+    "poly_apply": ("src/repro_torch/kernels/csrc/poly_apply.cu",
+                   "src/repro/kernels/newton_schulz.py:71"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn()`` over ``iters`` calls, a
+    pair of CUDA events around each, after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def rel_err(out, want) -> tuple[float, float]:
+    import torch
+
+    check(out.shape == want.shape, f"shape {tuple(out.shape)} != {tuple(want.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite kernel output")
+    abs_err = float((out - want).abs().max())
+    return abs_err, abs_err / max(float(want.abs().max()), 1e-30)
+
+
+# --------------------------------------------------------------------- phase 3
+
+
+def kernel_cases(torch, gen):
+    """(kernel, label, kernel fn, plain fn, library fn, flops, bytes,
+    principal) at the shapes GUM's llama-130m step gives each kernel; the
+    principal case of each kernel is the one its JSON row reports."""
+    from repro_torch.kernels import lowrank_update as lu
+    from repro_torch.kernels import newton_schulz as nsk
+    from repro_torch.kernels import ref
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    cases = []
+    beta, coeff = 0.95, 1.5
+
+    # lowrank_update: 7 stacked leaves (L=12, m=768 after the right-side
+    # transpose of w_out, n in {768, 2048}) with R; project: the gamma=4
+    # sampled blocks, no R.
+    for L, m, r, n, with_r, principal in [(12, 768, 256, 768, True, False),
+                                          (12, 768, 256, 2048, True, True),
+                                          (4, 768, 256, 768, False, False),
+                                          (4, 768, 256, 2048, False, False),
+                                          (2, 1000, 96, 1376, True, False)]:
+        p, g = randn(L, m, r), randn(L, m, n)
+        rs = randn(L, r, n) if with_r else None
+        nbytes = 4 * (L * m * r + L * m * n + L * r * n * (2 if with_r else 1))
+        if with_r:
+            lib = (lambda p=p, g=g, rs=rs: torch.baddbmm(rs, p.mT, g, beta=beta, alpha=coeff))
+        else:
+            lib = (lambda p=p, g=g: torch.bmm(p.mT, g))
+        cases.append(("lowrank_update", f"P{(L, m, r)} G{(L, m, n)} R={with_r}",
+                      (lambda p=p, g=g, rs=rs, c=(coeff if with_r else 1.0):
+                       lu.lowrank_update_batched(p, g, rs, beta, c)),
+                      (lambda p=p, g=g, rs=rs, c=(coeff if with_r else 1.0):
+                       ref.lowrank_update_ref(p, g, rs, beta, c)),
+                      lib, 2.0 * L * r * n * m, nbytes, principal))
+
+    # back_project: the 7 leaves' write-back (L=12) and the sampled blocks'
+    # P P^T G (L=4), r=256, n in {768, 2048}.
+    for L, m, r, n, principal in [(12, 768, 256, 768, False),
+                                  (12, 768, 256, 2048, True),
+                                  (4, 768, 256, 2048, False),
+                                  (2, 1000, 96, 1376, False)]:
+        p, s = randn(L, m, r), randn(L, r, n)
+        cases.append(("back_project", f"P{(L, m, r)} S{(L, r, n)}",
+                      (lambda p=p, s=s: lu.back_project_batched(p, s)),
+                      (lambda p=p, s=s: ref.back_project_ref(p, s)),
+                      (lambda p=p, s=s: torch.bmm(p, s)),
+                      2.0 * L * m * n * r, 4 * (L * m * r + L * r * n + L * m * n),
+                      principal))
+
+    # gram / poly_apply: NS on the low-rank momenta (12, 256, n) and on the
+    # full slots (4, 768, n); X is Frobenius-normalised as in NS.  X Xᵀ is
+    # symmetric, so the work it needs is one triangle and the diagonal:
+    # s(s+1)/2 dot products of length n per member (the kernel computes both
+    # halves; its bound does not count the mirrored half).
+    for L, s, n, principal in [(12, 256, 768, False), (12, 256, 2048, False),
+                               (4, 768, 768, False), (4, 768, 2048, True),
+                               (2, 1000, 1376, False)]:
+        x = randn(L, s, n)
+        x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+        cases.append(("gram", f"X{(L, s, n)}",
+                      (lambda x=x: nsk.gram(x)), (lambda x=x: ref.gram_ref(x)),
+                      (lambda x=x: torch.bmm(x, x.mT)),
+                      1.0 * L * s * (s + 1) * n, 4 * (L * s * n + L * s * s), principal))
+        g = ref.gram_ref(x)
+        a2 = -4.7750 * g + 2.0315 * (g @ g)
+        cases.append(("poly_apply", f"A2{(L, s, s)} X{(L, s, n)}",
+                      (lambda a2=a2, x=x: nsk.poly_matmul_axpy(a2, x, 3.4445)),
+                      (lambda a2=a2, x=x: ref.poly_matmul_axpy_ref(a2, x, 3.4445)),
+                      (lambda a2=a2, x=x: torch.baddbmm(x, a2, x, beta=3.4445)),
+                      2.0 * L * s * n * s, 4 * (L * s * s + 2 * L * s * n), principal))
+    return cases
+
+
+def phase_kernels(torch):
+    from repro_torch.core.lowrank_common import back_project, project
+    from repro_torch.core.newton_schulz import newton_schulz_plain
+    from repro_torch.kernels import build, dispatch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, label, kfn, pfn, lfn, flops, nbytes, principal in kernel_cases(torch, gen):
+        out, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(out, want)
+        check(rel <= TOL_GEMM, f"{name} {label}: rel err {rel:.3e} > {TOL_GEMM}")
+        ms, plain_ms, lib_ms = time_ms(kfn), time_ms(pfn), time_ms(lfn)
+        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        print(f"kernel {name:15s} {label:40s} ok  abs {abs_err:.2e} rel {rel:.2e}  "
+              f"ms {ms:.4f}  plain {plain_ms:.4f}  bmm {lib_ms:.4f}  "
+              f"bound {bound_ms:.4f} ({bound_by}, {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)  {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        row = rows.setdefault(name, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+        if principal:
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, shape=label)
+
+    # Dispatch level: both projection sides and the ragged shape, through the
+    # same transposes and lead flattening the optimizer uses.
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    for side, (L, m, n), r in [("left", (12, 768, 2048), 256),
+                               ("right", (12, 2048, 768), 256),
+                               ("left", (1, 1000, 1376), 96),
+                               ("right", (1, 1376, 1000), 96)]:
+        s_dim = m if side == "left" else n
+        p, g = randn(L, s_dim, r), randn(L, m, n)
+        st = randn(*((L, r, n) if side == "left" else (L, m, r)))
+        got = dispatch.lowrank_update(p, g, st, 0.95, 2.0, side=side, impl="cuda")
+        want = 0.95 * st + 2.0 * project(p, g, side)
+        _, rel = rel_err(got, want)
+        check(rel <= TOL_GEMM, f"dispatch lowrank_update {side} {(L, m, n)}: {rel:.3e}")
+        _, rel = rel_err(dispatch.project(p, g, side=side, impl="cuda"), project(p, g, side))
+        check(rel <= TOL_GEMM, f"dispatch project {side} {(L, m, n)}: {rel:.3e}")
+        _, rel = rel_err(dispatch.back_project(p, st, side=side, impl="cuda"),
+                         back_project(p, st, side))
+        check(rel <= TOL_GEMM, f"dispatch back_project {side} {(L, m, n)}: {rel:.3e}")
+        print(f"dispatch {side:5s} {(L, m, n)} r={r}: lowrank_update/project/back_project ok",
+              flush=True)
+
+    for shape in [(12, 256, 2048), (12, 256, 768), (4, 768, 2048), (4, 2048, 768),
+                  (4, 768, 768), (1, 1000, 1376)]:
+        x = randn(*shape)
+        out = dispatch.newton_schulz(x, impl="cuda")
+        want = newton_schulz_plain(x)
+        abs_err, rel = rel_err(out, want)
+        check(rel <= TOL_NS, f"newton_schulz {shape}: rel err {rel:.3e} > {TOL_NS}")
+        ms = time_ms(lambda x=x: dispatch.newton_schulz(x, impl="cuda"), iters=5)
+        plain_ms = time_ms(lambda x=x: newton_schulz_plain(x), iters=5)
+        print(f"newton_schulz {str(shape):16s} ok  abs {abs_err:.2e} rel {rel:.2e}  "
+              f"ms {ms:.3f}  plain {plain_ms:.3f}", flush=True)
+    torch.cuda.synchronize()
+    build.reset_launches()  # comparison launches do not count
+    return rows
+
+
+# --------------------------------------------------------------------- phase 4
+
+
+def phase_slice(torch):
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.core.lowrank_common import compute_projectors
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    steps, period = 6, 3
+    cfg = get_config("llama-130m")
+    model = build_model(cfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(
+        model,
+        OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=period),
+        RunConfig(steps=steps, log_every=1, seed=0),
+        DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=0),
+        device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    build.reset_launches()
+    with launch_count.count_launches() as dispatched:
+        result = trainer.train()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+
+    losses = result.losses
+    print(f"slice llama-130m ({n_params / 1e6:.1f}M params) GUM r=256 gamma=4 "
+          f"period={period}: losses {losses}", flush=True)
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"non-finite or missing losses: {losses}")
+    want_dispatch = {"lowrank_update": 7, "project": 7, "back_project": 14,
+                     "newton_schulz": 14}
+    want_launch = {"lowrank_update": 14, "back_project": 14, "gram": 70,
+                   "poly_apply": 70}
+    per_step = {k: v / steps for k, v in dispatched.items()}
+    check(per_step == want_dispatch, f"dispatch counts per step {per_step} != {want_dispatch}")
+    per_step = {k: v / steps for k, v in launches.items()}
+    check(per_step == want_launch, f"kernel launches per step {per_step} != {want_launch}")
+    print(f"slice dispatch per step {want_dispatch}; kernel launches per step "
+          f"{want_launch}", flush=True)
+
+    tokens = 8 * 1024
+    steady = [t for i, t in enumerate(result.step_seconds) if i % period]
+    refresh = [t for i, t in enumerate(result.step_seconds) if i % period == 0]
+    steady_ms = statistics.median(steady) * 1e3
+    print(f"slice step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
+          f"steady median {steady_ms:.3f}; refresh steps {[round(t * 1e3, 3) for t in refresh]}; "
+          f"tokens/s {tokens / (steady_ms / 1e3):.0f}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+
+    profile_steady_step(torch, trainer, steps)
+
+    # The projector refresh alone: one batched SVD per hidden leaf.
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    total = 0.0
+    for shape in [(12, 768, 768)] * 4 + [(12, 768, 2048)] * 2 + [(12, 2048, 768)]:
+        g = torch.randn(*shape, generator=gen, device="cuda")
+        side = "left" if shape[1] <= shape[2] else "right"
+        total += time_ms(lambda g=g, side=side: compute_projectors("svd", g, 256, side),
+                         iters=2, warmup=1)
+    print(f"slice svd refresh ms (7 leaves, torch.linalg.svd): {total:.3f}", flush=True)
+    return launches
+
+
+def profile_steady_step(torch, trainer, done: int) -> None:
+    """Device time of one steady step by kernel group (torch.profiler):
+    step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
+    is profiled.  Its idle share is 1 − busy / that step's own wall time
+    (host clock, ending in a synchronise, profiler on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import build_stream
+
+    stream = build_stream(trainer.data_cfg).resume(done)
+    params, state = trainer.model.params(), trainer.opt_state
+
+    def step(state):
+        tokens = torch.from_numpy(next(stream)).to("cuda")
+        state, _ = trainer.step_fn(params, state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return state
+
+    state = step(state)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state)
+        step_ms = (time.perf_counter() - t0) * 1e3
+    groups = dict.fromkeys(["lowrank_update", "back_project", "gram", "poly_apply",
+                            "cuBLAS gemm", "other"], 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = us if us is not None else ev.self_cuda_time_total
+        name = ev.key
+        kernel = next((k for k in KERNEL_META if name.startswith(f"{k}_kernel")), None)
+        if kernel:
+            groups[kernel] += us
+        elif "gemm" in name.lower() or "cutlass" in name.lower() or "xmma" in name:
+            groups["cuBLAS gemm"] += us
+        else:
+            groups["other"] += us
+    busy_ms = sum(groups.values()) / 1e3
+    parts = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items())
+    print(f"slice profiled steady step (step {done + 2}) device ms by group: {parts}; "
+          f"busy {busy_ms:.3f} of its {step_ms:.3f} wall ms "
+          f"(idle share {1 - busy_ms / step_ms:.3f})", flush=True)
+
+
+# --------------------------------------------------------------------- phase 5
+
+
+def phase_agree(torch):
+    """llama-60m smoke on the card (CUDA kernels) and on the CPU (plain
+    versions), same parameters, same sampled blocks: the losses agree.
+    Tolerance 1e-4 relative: the two devices sum in another order, and the
+    difference compounds over 3 optimizer steps."""
+    from repro_torch.configs import RunConfig, get_smoke
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    cfg = get_smoke("llama-60m")
+    model = build_model(cfg, device="cpu")
+    model.init_params(0)
+    params = {k: v.detach() for k, v in model.params().items()}
+    losses = {}
+    for device in ("cpu", "cuda"):
+        trainer = Trainer(build_model(cfg, device=device),
+                          OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2),
+                          RunConfig(steps=3, log_every=0, seed=0),
+                          DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0),
+                          device=device, params=params)
+        losses[device] = trainer.train().losses
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"agree llama-60m smoke cuda {losses['cuda']} cpu {losses['cpu']} "
+          f"max rel {worst:.2e}", flush=True)
+    check(worst <= 1e-4, f"cuda and cpu losses differ by {worst:.2e} > 1e-4")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    kernels_only = "--kernels-only" in sys.argv[1:]
+    smi = smi_line()
+    print(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    libs = build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s into "
+          f"{next(iter(libs.values())).parent}", flush=True)
+    for name, so in libs.items():
+        for line in (so.parent / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+
+    rows = phase_kernels(torch)
+    launches = dict.fromkeys(rows, 0)
+    if not kernels_only:
+        launches = phase_slice(torch)
+        phase_agree(torch)
+
+    kernels = []
+    for name, (source, replaces) in KERNEL_META.items():
+        row = rows[name]
+        check(kernels_only or launches[name] > 0, f"kernel {name} never launched on the path")
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                        "shape": row["shape"]})
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,170 @@
+"""Minimal functional optimizer API (optax-style), on PyTorch tensors.
+
+A :class:`Transform` is a pair of functions:
+
+    init(params)                     -> state
+    update(grads, state, params)     -> (updates, new_state)
+
+``updates`` are *added* to params (they already include the -lr sign).  A
+parameter tree is a flat ``{path: tensor}`` dict in the JAX package's leaf
+order (paths are ``/``-joined; sorted by their parts, which is the order
+``jax.tree_util`` flattens nested dicts in), so leaf index ``i`` and every
+path line up with the reference.  Masked-out leaves are ``None``.  States
+are nested tuples / NamedTuples / dicts of tensors; step counters are Python
+ints (PyTorch runs eagerly, so they never need to live on the device).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Union
+
+import torch
+
+PyTree = Any
+Schedule = Union[float, Callable[[int], float]]
+
+
+class Transform(NamedTuple):
+    init: Callable[[PyTree], PyTree]
+    update: Callable[[PyTree, PyTree, PyTree], tuple[PyTree, PyTree]]
+
+
+def sort_paths(paths) -> list[str]:
+    """Paths in ``jax.tree_util``'s flatten order for nested dicts."""
+    return sorted(paths, key=lambda p: p.split("/"))
+
+
+def schedule_value(lr: Schedule, count: int) -> float:
+    return float(lr(count) if callable(lr) else lr)
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """Map ``fn`` over the leaves of nested dicts / tuples / NamedTuples
+    (``None`` is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: PyTree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def apply_updates(params: dict, updates: dict) -> dict:
+    """Functional ``params + updates`` (``None`` updates leave a leaf as is)."""
+    return {k: p if updates.get(k) is None else p + updates[k].to(p.dtype)
+            for k, p in params.items()}
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    leaves = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
+
+
+def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-12), max=1.0)
+    return tree_map(lambda g: None if g is None else g * scale.to(g.dtype), grads)
+
+
+def tree_paths(tree: dict) -> dict:
+    """``{path: path}`` — the flat tree's own paths, same structure."""
+    return {k: k for k in tree}
+
+
+# ---------------------------------------------------------------------------
+# Label-partitioned composition (like optax.multi_transform).
+# ---------------------------------------------------------------------------
+
+
+class MultiState(NamedTuple):
+    inner: dict  # label -> state
+
+
+def multi_transform(
+    transforms: dict[str, Transform], label_fn: Callable[[dict], dict]
+) -> Transform:
+    """Route each leaf to the transform named by ``label_fn(params)``; each
+    inner transform sees the full tree with non-owned leaves ``None``."""
+
+    def mask(tree: dict, labels: dict, label: str) -> dict:
+        return {k: (v if labels[k] == label else None) for k, v in tree.items()}
+
+    def init(params: dict) -> MultiState:
+        labels = label_fn(params)
+        return MultiState(inner={k: t.init(mask(params, labels, k))
+                                 for k, t in transforms.items()})
+
+    def update(grads: dict, state: MultiState, params: dict):
+        labels = label_fn(params)
+        new_inner, upds = {}, {}
+        for k, t in transforms.items():
+            upds[k], new_inner[k] = t.update(mask(grads, labels, k), state.inner[k],
+                                             mask(params, labels, k))
+        merged = {path: upds[labels[path]][path] for path in grads}
+        return merged, MultiState(inner=new_inner)
+
+    return Transform(init, update)
+
+
+# Knobs of the JAX package's OptimizerConfig that the port does not run yet,
+# with the value that means "off".
+_NOT_PORTED = {
+    "pad_rank_to": 0, "fuse_families": False, "fused_epilogue": False,
+    "rank_policy": None, "rank_ladder": (), "shard_state": False,
+    "telemetry": False,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Config resolved by :func:`repro_torch.core.factory.build_optimizer`:
+    the JAX package's fields and defaults.  Setting a knob the port does not
+    run yet raises ``NotImplementedError``."""
+
+    # gum | adamw ported; the others raise in build_optimizer
+    name: str = "gum"
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    beta: float = 0.95          # momentum (muon-family)
+    b1: float = 0.9             # adam
+    b2: float = 0.999
+    eps: float = 1e-8
+    rank: int = 128             # low-rank projection rank
+    q: float = 0.25             # full-rank sampling probability (gum) == gamma/L
+    gamma: int = 2              # full-rank layers per period (gum/lisa)
+    period: int = 200           # K, projector refresh / resampling period
+    projector: str = "svd"      # svd (ported) | subspace | random | grass
+    base: str = "muon"          # base optimizer inside low-rank space
+    ns_steps: int = 5
+    compensation: str = "paper"  # paper | finetune (App. C.1 variant)
+    grad_clip: float = 0.0
+    seed: int = 0
+    # Hot-loop implementation: auto | cuda | torch — "auto" runs the CUDA
+    # kernels on CUDA tensors and plain PyTorch on CPU tensors.
+    kernel_impl: str = "auto"
+    pad_rank_to: int = 0
+    fuse_families: bool = False
+    fused_epilogue: bool = False
+    use_muon_scale: bool | None = None
+    rank_policy: Any = None
+    rank_ladder: tuple[int, ...] = ()
+    shard_state: bool = False
+    telemetry: bool = False
+
+    def __post_init__(self):
+        for knob, off in _NOT_PORTED.items():
+            if getattr(self, knob) != off:
+                raise NotImplementedError(
+                    f"OptimizerConfig.{knob}={getattr(self, knob)!r} is not ported "
+                    "to the PyTorch package yet")
+        if self.projector != "svd":
+            raise NotImplementedError(f"projector {self.projector!r} is not ported yet")
+        if self.use_muon_scale:
+            raise NotImplementedError("use_muon_scale is not ported yet (GUM's "
+                                      "default, off, is)")

@@ -1,0 +1,487 @@
+"""Composable optimizer combinators: the main-path subset of the JAX
+package's ``core/combinators.py``, on PyTorch tensors.
+
+atomic gradient transforms
+    scale_by_muon        momentum + Newton-Schulz orthogonalization
+    scale_by_adam        bias-corrected Adam direction
+    add_decayed_weights  decoupled weight decay   u + wd * p
+    scale_by_lr          -schedule(count) * u     (terminal step of a chain)
+
+wrapper transforms
+    lowrank(inner, ...)          owns the projector state: periodic SVD
+                                 refresh, project / back-project through the
+                                 kernel dispatch layer, runs ``inner`` in the
+                                 projected space
+    layerwise_unbias(base, ...)  the paper's sampling debiasing (gamma
+                                 full-rank slots, paper/finetune compensation)
+    with_matrix_routing(m, f)    matrices -> ``m``, the rest -> ``f``
+
+composition
+    chain(*transforms)           sequential application, optax semantics
+
+so GUM is ``chain(lowrank(layerwise_unbias(scale_by_muon())),
+add_decayed_weights(wd), scale_by_lr(lr))`` routed beside AdamW.
+
+Trees are flat ``{path: leaf}`` dicts in the reference's leaf order (see
+:mod:`repro_torch.core.api`).  ``lowrank`` hands its inner transform
+:class:`ProjGrad` leaves — lazy projected gradients carrying the projector,
+the raw fp32 gradient and the family geometry — and at init
+:class:`ProjInit` leaves; an inner transform returns projected-space tensors
+(``lowrank`` back-projects them) or :class:`FullUpdate`-wrapped full-shape
+tensors (returned as they are).  PyTorch runs eagerly, so the period
+boundary is a Python ``bool`` and only the taken branch runs.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.api import (
+    PyTree,
+    Schedule,
+    Transform,
+    multi_transform,
+    schedule_value,
+    tree_map,
+    tree_paths,
+)
+from repro_torch.core.lowrank_common import (
+    FamilyShape,
+    compute_projectors,
+    default_lowrank_filter,
+    family_shape,
+    gather_blocks,
+    lowrank_state_shape,
+    proj_shape,
+    scatter_blocks,
+)
+from repro_torch.kernels import dispatch
+
+# sampler(key, L, g_f) -> (g_f,) distinct block ids in [0, L); key is
+# (seed, count, leaf index), the inputs the reference folds into its PRNG key.
+Sampler = Callable[[tuple[int, int, int], int, int], torch.Tensor]
+
+
+def generator_sampler(key: tuple[int, int, int], L: int, g_f: int) -> torch.Tensor:
+    """Default block sampler: ``g_f`` of ``L`` blocks without replacement
+    from a CPU ``torch.Generator`` seeded by the key — counter-based like the
+    reference's ``fold_in`` chain, so a draw depends only on (seed, step,
+    leaf).  Not the reference's threefry bits: parity tests inject those."""
+    seed, count, leaf = key
+    gen = torch.Generator().manual_seed((seed * 1_000_003 + count) * 1_000_003 + leaf)
+    return torch.randperm(L, generator=gen)[:g_f]
+
+
+# ---------------------------------------------------------------------------
+# Leaf protocol objects
+# ---------------------------------------------------------------------------
+
+
+class TensorSpec(NamedTuple):
+    """Shape and device of a state tensor still to be allocated."""
+
+    shape: tuple[int, ...]
+    device: torch.device
+
+
+class ProjInit:
+    """Init-time stand-in for a low-rank leaf inside :func:`lowrank`:
+    ``low`` is the projected-space state's spec, ``fs`` the family geometry."""
+
+    __slots__ = ("fs", "low")
+
+    def __init__(self, fs: FamilyShape, low: TensorSpec):
+        self.fs = fs
+        self.low = low
+
+
+class ProjGrad:
+    """Lazy projected gradient leaf handed to transforms inside ``lowrank``."""
+
+    __slots__ = ("p", "g", "fs", "kernel_impl", "coeff", "reset", "refresh", "key")
+
+    def __init__(self, p, g, fs, kernel_impl, coeff=1.0, reset=False,
+                 refresh=False, key=None):
+        self.p = p                      # (*lead, s, r) refreshed projector
+        self.g = g                      # (*lead, m, n) raw fp32 gradient
+        self.fs = fs                    # FamilyShape
+        self.kernel_impl = kernel_impl
+        self.coeff = coeff              # float on the projected gradient
+        self.reset = reset              # zero momenta first (period boundary)
+        self.refresh = refresh          # period boundary: resample blocks
+        self.key = key                  # (seed, count, leaf index)
+
+    def with_coeff(self, coeff: float) -> "ProjGrad":
+        return ProjGrad(self.p, self.g, self.fs, self.kernel_impl, coeff,
+                        self.reset, self.refresh, self.key)
+
+    def apply_reset(self, x):
+        return torch.zeros_like(x) if self.reset else x
+
+    def fused_momentum(self, mu, beta: float):
+        """``beta * mu + coeff * PᵀG`` through the fused momentum kernel."""
+        return dispatch.lowrank_update(self.p, self.g, self.apply_reset(mu), beta,
+                                       self.coeff, side=self.fs.side,
+                                       impl=self.kernel_impl)
+
+    def back(self, s):
+        """Back-project a projected-space tensor to full shape."""
+        return dispatch.back_project(self.p, s, side=self.fs.side,
+                                     impl=self.kernel_impl)
+
+
+class FullUpdate:
+    """Marker for a leaf that is already in full (m, n) space."""
+
+    __slots__ = ("u",)
+
+    def __init__(self, u):
+        self.u = u
+
+
+def _zeros_momentum(leaf):
+    if leaf is None:
+        return None
+    if isinstance(leaf, ProjInit):
+        leaf = leaf.low
+    return torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
+
+
+def _reset_floats(tree: PyTree) -> PyTree:
+    """Zeros in place of every float tensor (ints and Python counters pass)."""
+    return tree_map(lambda x: torch.zeros_like(x)
+                    if isinstance(x, torch.Tensor) and x.is_floating_point() else x,
+                    tree)
+
+
+def _momentum_init(params: dict) -> dict:
+    return {k: _zeros_momentum(v) for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# chain
+# ---------------------------------------------------------------------------
+
+
+def chain(*transforms: Transform) -> Transform:
+    """Sequentially compose gradient transforms; state is the tuple of inner
+    states."""
+
+    def init(params: PyTree) -> tuple:
+        return tuple(t.init(params) for t in transforms)
+
+    def update(updates: PyTree, state: tuple, params: PyTree):
+        new_states = []
+        for t, s in zip(transforms, state):
+            updates, ns = t.update(updates, s, params)
+            new_states.append(ns)
+        return updates, tuple(new_states)
+
+    return Transform(init, update)
+
+
+# ---------------------------------------------------------------------------
+# atomic transforms
+# ---------------------------------------------------------------------------
+
+
+def scale_by_muon(beta: float = 0.95, ns_steps: int = 5,
+                  kernel_impl: str = "auto") -> Transform:
+    """Momentum + Newton-Schulz orthogonalization (the Muon direction,
+    non-Nesterov).  Full-rank leaves get plain EMA momentum; ProjGrad leaves
+    run the fused low-rank momentum kernel, then NS in the projected space
+    (Property II: NS(P X) = P NS(X))."""
+
+    def update(updates: dict, mu: dict, params: dict):
+        out, new_mu = {}, {}
+        for k, g in updates.items():
+            if g is None:
+                out[k] = new_mu[k] = None
+                continue
+            if isinstance(g, ProjGrad):
+                m2 = g.fused_momentum(mu[k], beta)
+            else:
+                m2 = beta * mu[k] + g.to(torch.float32)
+            out[k] = dispatch.newton_schulz(m2, steps=ns_steps, impl=kernel_impl)
+            new_mu[k] = m2
+        return out, new_mu
+
+    return Transform(_momentum_init, update)
+
+
+class ScaleByAdamState(NamedTuple):
+    count: int
+    mu: PyTree
+    nu: PyTree
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Transform:
+    """Bias-corrected Adam direction on full-shape leaves (GUM's AdamW
+    branch; Adam inside ``lowrank`` is not ported yet)."""
+
+    def init(params: dict) -> ScaleByAdamState:
+        return ScaleByAdamState(count=0, mu=_momentum_init(params),
+                                nu=_momentum_init(params))
+
+    def update(updates: dict, state: ScaleByAdamState, params: dict):
+        count = state.count + 1
+        bc1 = 1.0 - b1 ** count
+        bc2 = 1.0 - b2 ** count
+        out, mu, nu = {}, {}, {}
+        for k, g in updates.items():
+            m, v = state.mu[k], state.nu[k]
+            if g is None:
+                out[k] = mu[k] = nu[k] = None
+                continue
+            g32 = g.to(torch.float32)
+            m2 = b1 * m + (1 - b1) * g32
+            v2 = b2 * v + (1 - b2) * torch.square(g32)
+            out[k] = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+            mu[k], nu[k] = m2, v2
+        return out, ScaleByAdamState(count=count, mu=mu, nu=nu)
+
+    return Transform(init, update)
+
+
+def add_decayed_weights(weight_decay: float = 0.0) -> Transform:
+    """Decoupled weight decay ``u + wd * p`` (apply before scale_by_lr)."""
+
+    def update(updates: dict, state, params: dict):
+        if weight_decay == 0.0:
+            return updates, ()
+        return {k: None if u is None else u + weight_decay * params[k].to(torch.float32)
+                for k, u in updates.items()}, ()
+
+    return Transform(lambda params: (), update)
+
+
+class ScaleByLrState(NamedTuple):
+    count: int
+
+
+def scale_by_lr(lr: Schedule) -> Transform:
+    """Terminal step: ``-schedule(count) * u``."""
+
+    def update(updates: dict, state: ScaleByLrState, params: dict):
+        count = state.count + 1
+        step = schedule_value(lr, count)
+        return ({k: None if u is None else (-step) * u for k, u in updates.items()},
+                ScaleByLrState(count=count))
+
+    return Transform(lambda params: ScaleByLrState(count=0), update)
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+
+def with_matrix_routing(
+    matrix: Transform,
+    fallback: Transform,
+    *,
+    matrix_filter: Callable[[str, torch.Tensor], bool] = default_lowrank_filter,
+    matrix_label: str = "matrix",
+    fallback_label: str = "adamw",
+) -> Transform:
+    """Route hidden-matrix leaves to ``matrix`` and everything else
+    (embeddings / norms / biases) to ``fallback``."""
+
+    def label_fn(params: dict) -> dict:
+        return {k: matrix_label if matrix_filter(path, params[k]) else fallback_label
+                for k, path in tree_paths(params).items()}
+
+    return multi_transform({matrix_label: matrix, fallback_label: fallback}, label_fn)
+
+
+# ---------------------------------------------------------------------------
+# lowrank — the projection wrapper
+# ---------------------------------------------------------------------------
+
+
+class LowRankState(NamedTuple):
+    count: int
+    projs: dict     # per-leaf projector (*lead, s, r) (None elsewhere)
+    inner: PyTree   # the wrapped transform's state (projected space)
+
+
+def lowrank(
+    inner: Transform,
+    *,
+    rank: int = 128,
+    period: int = 200,
+    projector: str = "svd",
+    seed: int = 0,
+    reset_on_refresh: bool = False,
+    kernel_impl: str = "auto",
+) -> Transform:
+    """Run ``inner`` inside a periodically refreshed low-rank subspace.
+
+    Every ``period`` steps (at ``(count - 1) % period == 0``) each leaf's
+    projector is recomputed from its gradient by a batched SVD; with
+    ``reset_on_refresh`` the inner momenta are zeroed at that boundary.  The
+    leaf index ``i`` in the key handed to the inner transform is the leaf's
+    position in the full parameter tree, as in the reference."""
+
+    def init(params: dict) -> LowRankState:
+        projs, tmpls = {}, {}
+        for k, p in params.items():
+            if p is None:
+                projs[k] = tmpls[k] = None
+                continue
+            fs = family_shape(p, rank)
+            projs[k] = torch.zeros(proj_shape(fs), dtype=torch.float32, device=p.device)
+            tmpls[k] = ProjInit(fs, TensorSpec(lowrank_state_shape(fs), p.device))
+        return LowRankState(count=0, projs=projs, inner=inner.init(tmpls))
+
+    def update(updates: dict, state: LowRankState, params: dict):
+        count = state.count + 1
+        refresh = (count - 1) % period == 0
+        msgs, new_projs = {}, {}
+        for i, (k, p) in enumerate(params.items()):
+            g, proj = updates[k], state.projs[k]
+            if g is None or p is None:
+                msgs[k], new_projs[k] = None, proj
+                continue
+            fs = family_shape(p, rank)
+            g32 = g.to(torch.float32)
+            if refresh:
+                proj = compute_projectors(projector, g32, fs.rank, fs.side)
+            msgs[k] = ProjGrad(p=proj, g=g32, fs=fs, kernel_impl=kernel_impl,
+                               reset=refresh and reset_on_refresh, refresh=refresh,
+                               key=(seed, count, i))
+            new_projs[k] = proj
+
+        inner_out, new_inner = inner.update(msgs, state.inner, params)
+
+        out = {}
+        for k, msg in msgs.items():
+            o = inner_out[k]
+            if msg is None or o is None:
+                out[k] = None
+            elif isinstance(o, FullUpdate):
+                out[k] = o.u
+            else:
+                out[k] = msg.back(o)
+        return out, LowRankState(count=count, projs=new_projs, inner=new_inner)
+
+    return Transform(init, update)
+
+
+# ---------------------------------------------------------------------------
+# layerwise_unbias — the paper's debiasing, as a combinator
+# ---------------------------------------------------------------------------
+
+
+class LayerwiseUnbiasState(NamedTuple):
+    low: PyTree    # base state over the projected-space leaves
+    full: PyTree   # base state over the (gamma, m, n) full-rank slots
+    idx: dict      # per-leaf (gamma,) slot -> block assignment
+
+
+def layerwise_unbias(
+    base: Transform,
+    *,
+    gamma: int = 2,
+    compensation: str = "paper",
+    sampler: Optional[Sampler] = None,
+) -> Transform:
+    """Layerwise-sampling debiasing (Lemma 1) around a base transform.
+
+    Per period, ``gamma`` blocks per family (resampled at each projector
+    refresh by ``sampler``) run the base on the compensated full-rank
+    gradient; the rest run it on the scaled projected gradient:
+
+      paper    : c_low = 1/(1-q),  c_full = 1/q,  c_comp = 1
+      finetune : c_low = 1,        c_full = 1/q,  c_comp = 1-q   (App. C.1)
+
+    Must be composed inside :func:`lowrank`."""
+    if compensation not in ("paper", "finetune"):
+        raise ValueError(f"unknown compensation: {compensation}")
+    sampler = sampler or generator_sampler
+
+    def _coeffs(fs: FamilyShape):
+        g_f = min(gamma, fs.L)
+        q = g_f / fs.L
+        if q >= 1.0:
+            c_low = 0.0  # low branch fully overwritten by the scatter
+        elif compensation == "finetune":
+            c_low = 1.0
+        else:
+            c_low = 1.0 / max(1.0 - q, 1e-12)
+        c_comp = (1.0 - q) if compensation == "finetune" else 1.0
+        c_full = (1.0 / q) if g_f > 0 else 0.0
+        return g_f, q, c_low, c_comp, c_full
+
+    def init(params: dict) -> LayerwiseUnbiasState:
+        lows, fulls, idx = {}, {}, {}
+        for k, t in params.items():
+            if t is None:
+                lows[k] = fulls[k] = idx[k] = None
+                continue
+            if not isinstance(t, ProjInit):
+                raise TypeError("layerwise_unbias must be composed inside lowrank() "
+                                f"(init saw a {type(t).__name__} leaf)")
+            g_f, q, *_ = _coeffs(t.fs)
+            device = t.low.device
+            # q >= 1: the scatter overwrites the whole family, so the low
+            # branch carries no state for this leaf.
+            lows[k] = None if q >= 1.0 else t
+            fulls[k] = None if g_f == 0 else TensorSpec((g_f, t.fs.m, t.fs.n), device)
+            idx[k] = None if g_f == 0 else torch.arange(g_f, device=device)
+        return LayerwiseUnbiasState(low=base.init(lows), full=base.init(fulls), idx=idx)
+
+    def update(updates: dict, state: LayerwiseUnbiasState, params: dict):
+        low_upds, new_idx, full_upds, full_params = {}, {}, {}, {}
+        refresh_any = False
+        for k, g in updates.items():
+            if g is None:
+                low_upds[k] = new_idx[k] = full_upds[k] = full_params[k] = None
+                continue
+            if not isinstance(g, ProjGrad):
+                raise TypeError("layerwise_unbias must be composed inside lowrank() "
+                                f"(got a {type(g).__name__} leaf)")
+            fs = g.fs
+            g_f, q, c_low, c_comp, c_full = _coeffs(fs)
+            low_upds[k] = g.with_coeff(c_low) if q < 1.0 else None
+            if g_f == 0:
+                new_idx[k] = full_upds[k] = full_params[k] = None
+                continue
+            idx = state.idx[k]
+            if g.refresh:
+                refresh_any = True
+                idx = sampler(g.key, fs.L, g_f).to(device=g.g.device, dtype=torch.long)
+            new_idx[k] = idx
+            g_s = gather_blocks(g.g, idx, fs)        # (gamma, m, n)
+            p_s = gather_blocks(g.p, idx, fs)        # (gamma, s, r)
+            pptg = dispatch.back_project(
+                p_s, dispatch.project(p_s, g_s, side=fs.side, impl=g.kernel_impl),
+                side=fs.side, impl=g.kernel_impl)
+            full_upds[k] = c_full * (g_s - c_comp * pptg)
+            full_params[k] = gather_blocks(params[k], idx, fs)
+
+        # Slot -> block assignments change at the boundary, so the slots'
+        # base momenta always reset there.
+        full_state = _reset_floats(state.full) if refresh_any else state.full
+        low_out, new_low = base.update(low_upds, state.low, params)
+        full_out, new_full = base.update(full_upds, full_state, full_params)
+
+        outs = {}
+        for k, g in updates.items():
+            if g is None:
+                outs[k] = None
+                continue
+            fs = g.fs
+            g_f, q, *_ = _coeffs(fs)
+            if q < 1.0:
+                u = g.back(low_out[k])
+            else:
+                u = torch.zeros(fs.lead + (fs.m, fs.n), dtype=torch.float32,
+                                device=g.g.device)
+            if g_f > 0:
+                u = scatter_blocks(u, new_idx[k], full_out[k], fs)
+            outs[k] = FullUpdate(u)
+        return outs, LayerwiseUnbiasState(low=new_low, full=new_full, idx=new_idx)
+
+    return Transform(init, update)

@@ -1,0 +1,92 @@
+"""GUM — GaLore Unbiased with Muon (Algorithm 2 of the paper), as a
+composition of :mod:`repro_torch.core.combinators`::
+
+    gum_matrices = chain(
+        lowrank(layerwise_unbias(scale_by_muon(beta), gamma, compensation),
+                rank, period, projector, reset_on_refresh=True),
+        add_decayed_weights(wd), scale_by_lr(lr))
+    gum = with_matrix_routing(gum_matrices, adamw)
+
+Every ``period`` steps, ``gamma`` blocks of each layer-stacked family are
+sampled to run the compensated full-rank Muon update; the rest run the scaled
+low-rank Muon update (see ``layerwise_unbias``).  Update rules (left side,
+block l):
+
+  low-rank (unsampled):  R_l <- beta R_l + c_low  * P_lᵀ G_l
+                         W_l <- W_l - lr * P_l NS(R_l)
+  full-rank (sampled):   F_j <- beta F_j + c_full * (G_l - c_comp P_l P_lᵀ G_l)
+                         W_l <- W_l - lr * NS(F_j)
+
+``kernel_impl`` ("auto" | "cuda" | "torch") routes the momentum update, the
+projections and Newton–Schulz through the CUDA kernels on CUDA tensors.
+``sampler`` replaces the block sampler (see
+:func:`repro_torch.core.combinators.generator_sampler`).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.adamw import adamw
+from repro_torch.core.api import Schedule, Transform
+from repro_torch.core.combinators import (
+    Sampler,
+    add_decayed_weights,
+    chain,
+    layerwise_unbias,
+    lowrank,
+    scale_by_lr,
+    scale_by_muon,
+    with_matrix_routing,
+)
+from repro_torch.core.lowrank_common import default_lowrank_filter
+
+
+def gum_matrices(
+    lr: Schedule,
+    rank: int = 128,
+    gamma: int = 2,
+    period: int = 200,
+    projector: str = "svd",
+    base: str = "muon",
+    beta: float = 0.95,
+    ns_steps: int = 5,
+    weight_decay: float = 0.0,
+    compensation: str = "paper",
+    seed: int = 0,
+    kernel_impl: str = "auto",
+    sampler: Optional[Sampler] = None,
+) -> Transform:
+    """GUM over matrix leaves (route 1-D/embedding leaves via :func:`gum`)."""
+    if base != "muon":
+        raise NotImplementedError(f"GUM base {base!r} is not ported yet (muon only)")
+    inner = scale_by_muon(beta=beta, ns_steps=ns_steps, kernel_impl=kernel_impl)
+    lowrank_t = lowrank(
+        layerwise_unbias(inner, gamma=gamma, compensation=compensation,
+                         sampler=sampler),
+        rank=rank, period=period, projector=projector, seed=seed,
+        reset_on_refresh=True, kernel_impl=kernel_impl,
+    )
+    return chain(lowrank_t, add_decayed_weights(weight_decay), scale_by_lr(lr))
+
+
+def gum(
+    lr: Schedule,
+    rank: int = 128,
+    gamma: int = 2,
+    period: int = 200,
+    projector: str = "svd",
+    lowrank_filter: Callable[[str, torch.Tensor], bool] = default_lowrank_filter,
+    **kw,
+) -> Transform:
+    """Full GUM: unbiased low-rank Muon on hidden matrices, AdamW elsewhere
+    (embeddings / head / norms / biases), mirroring the paper's setup."""
+    matrices = gum_matrices(lr, rank=rank, gamma=gamma, period=period,
+                            projector=projector, **kw)
+    return with_matrix_routing(
+        matrices,
+        adamw(lr, weight_decay=kw.get("weight_decay", 0.0)),
+        matrix_filter=lowrank_filter,
+        matrix_label="gum",
+    )

@@ -1,0 +1,218 @@
+"""Kernel dispatch: route the optimizer's hot ops to the CUDA kernels or
+to their plain PyTorch versions.
+
+Mirrors the JAX package's ``kernels/dispatch.py`` op for op:
+
+  impl="auto"  — the CUDA kernel for CUDA tensors, plain PyTorch for CPU
+                 tensors (default).
+  impl="cuda"  — the CUDA kernel; raises for CPU tensors.
+  impl="torch" — plain PyTorch; raises for CUDA tensors.
+
+There is no quiet fallback: on a CUDA tensor an op launches its kernel or
+raises, whatever the shape — the kernels mask ragged edges themselves, so
+there are no padding wrappers and no shape-legality limits.  On top of the
+kernels' ``(L, a, b)`` contract the dispatchers add what the JAX ones do:
+lead flattening of ``(*lead, m, n)`` families, the right-side transposes
+(``(G P)ᵀ = Pᵀ Gᵀ``, ``(S Pᵀ)ᵀ = P Sᵀ``) and Newton–Schulz's transposition
+to the short side.  ``KernelEntry`` / :data:`REGISTRY` name each op with its
+plain reference; names must be in ``launch_count.DISPATCH_OPS``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import launch_count, ref
+from repro_torch.kernels.lowrank_update import (
+    back_project_batched,
+    lowrank_update_batched,
+    project_batched,
+)
+from repro_torch.kernels.newton_schulz import newton_schulz_cuda
+
+VALID_IMPLS = ("auto", "torch", "cuda")
+
+
+def resolve_impl(impl: str, x: torch.Tensor) -> str:
+    """``impl`` for an op on tensor ``x``: "cuda" or "torch"."""
+    if impl not in VALID_IMPLS:
+        raise ValueError(f"impl must be one of {VALID_IMPLS}, got {impl!r}")
+    on_cuda = x.device.type == "cuda"
+    if impl == "auto":
+        return "cuda" if on_cuda else "torch"
+    if impl == "cuda" and not on_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
+    if impl == "torch" and on_cuda:
+        raise ValueError("impl='torch' on a CUDA tensor: the port runs its "
+                         "CUDA kernels on the card (use 'auto' or 'cuda')")
+    return impl
+
+
+def _check_side(side: str) -> None:
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+
+
+def _flatten_lead(x: torch.Tensor) -> torch.Tensor:
+    """(*lead, a, b) -> contiguous (L, a, b)."""
+    return x.reshape((-1,) + tuple(x.shape[-2:])).contiguous()
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
+
+
+# --------------------------------------------------------------------------
+# Fused low-rank momentum update:  R' = beta·R + coeff·<P, G>
+# --------------------------------------------------------------------------
+
+
+def _project_torch(p, g, side):
+    from repro_torch.core.lowrank_common import project
+
+    return project(_f32(p), _f32(g), side)
+
+
+def _lowrank_kernel_form(p, g, r_state, side):
+    """Left-side batched layout for the kernel: the right side transposes
+    ((G P)ᵀ = Pᵀ Gᵀ) and leads flatten."""
+    lead = tuple(g.shape[:-2])
+    if side == "right":
+        g = g.mT
+        if r_state is not None:
+            r_state = r_state.mT
+    rk = None if r_state is None else _flatten_lead(_f32(r_state))
+    return _flatten_lead(_f32(p)), _flatten_lead(_f32(g)), rk, lead
+
+
+def _lowrank_unkernel_form(out, lead, side):
+    out = out.reshape(lead + tuple(out.shape[-2:]))
+    return out.mT if side == "right" else out
+
+
+def lowrank_update(p, g, r_state, beta: float, coeff: float, *,
+                   side: str = "left", impl: str = "auto") -> torch.Tensor:
+    """Dispatched momentum update over a family ``g (*lead, m, n)``.
+
+    left  side: p (*lead, m, r), r_state (*lead, r, n) -> beta·R + coeff·PᵀG
+    right side: p (*lead, n, r), r_state (*lead, m, r) -> beta·R + coeff·G P
+    """
+    _check_side(side)
+    impl = resolve_impl(impl, g)
+    launch_count.record("lowrank_update")
+    if impl == "torch":
+        return beta * _f32(r_state) + coeff * _project_torch(p, g, side)
+    pk, gk, rk, lead = _lowrank_kernel_form(p, g, r_state, side)
+    out = lowrank_update_batched(pk, gk, rk, beta, coeff)
+    return _lowrank_unkernel_form(out, lead, side)
+
+
+def project(p, g, *, side: str = "left", impl: str = "auto") -> torch.Tensor:
+    """Low-rank projection PᵀG / G P through the projection kernel."""
+    _check_side(side)
+    impl = resolve_impl(impl, g)
+    launch_count.record("project")
+    if impl == "torch":
+        return _project_torch(p, g, side)
+    pk, gk, _, lead = _lowrank_kernel_form(p, g, None, side)
+    return _lowrank_unkernel_form(project_batched(pk, gk, 1.0), lead, side)
+
+
+# --------------------------------------------------------------------------
+# Back-projection GEMM:  P @ S  /  S @ Pᵀ
+# --------------------------------------------------------------------------
+
+
+def back_project(p, s, *, side: str = "left", impl: str = "auto") -> torch.Tensor:
+    """Dispatched back-projection of a projected-space array to full shape.
+
+    left  side: p (*lead, m, r), s (*lead, r, n) -> P @ S
+    right side: p (*lead, n, r), s (*lead, m, r) -> S @ Pᵀ
+    """
+    _check_side(side)
+    impl = resolve_impl(impl, s)
+    launch_count.record("back_project")
+    if impl == "torch":
+        from repro_torch.core.lowrank_common import back_project as bp
+
+        return bp(_f32(p), _f32(s), side)
+    lead = tuple(s.shape[:-2])
+    if side == "right":
+        s = s.mT
+    out = back_project_batched(_flatten_lead(_f32(p)), _flatten_lead(_f32(s)))
+    out = out.reshape(lead + tuple(out.shape[-2:]))
+    return out.mT if side == "right" else out
+
+
+# --------------------------------------------------------------------------
+# Newton–Schulz orthogonalization
+# --------------------------------------------------------------------------
+
+
+def newton_schulz(x: torch.Tensor, *, steps: int = 5, eps: float = 1e-7,
+                  impl: str = "auto") -> torch.Tensor:
+    """Dispatched Newton–Schulz over (..., m, n): the CUDA kernels, or
+    :func:`repro_torch.core.newton_schulz.newton_schulz_plain` (Frobenius
+    normalisation, ``steps`` quintic iterations, transposed when m > n)."""
+    from repro_torch.core.newton_schulz import newton_schulz_plain
+
+    launch_count.record("newton_schulz")
+    if resolve_impl(impl, x) == "torch":
+        return newton_schulz_plain(x, steps=steps, eps=eps)
+    orig_dtype = x.dtype
+    lead = tuple(x.shape[:-2])
+    transposed = x.shape[-2] > x.shape[-1]
+    if transposed:
+        x = x.mT
+    out = newton_schulz_cuda(_flatten_lead(_f32(x)), steps=steps, eps=eps)
+    out = out.reshape(lead + tuple(out.shape[-2:]))
+    if transposed:
+        out = out.mT
+    return out.to(orig_dtype)
+
+
+# --------------------------------------------------------------------------
+# Registry
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelEntry:
+    """One dispatched op: its entry point and its plain reference."""
+
+    name: str
+    fn: Callable         # dispatching wrapper; accepts impl=
+    reference: Callable  # plain PyTorch version (repro_torch.kernels.ref)
+
+
+REGISTRY: dict[str, KernelEntry] = {}
+
+
+def register(entry: KernelEntry) -> KernelEntry:
+    if entry.name not in launch_count.DISPATCH_OPS:
+        raise ValueError(
+            f"kernel name {entry.name!r} is not in launch_count.DISPATCH_OPS "
+            f"{launch_count.DISPATCH_OPS}: the op vocabulary is closed")
+    REGISTRY[entry.name] = entry
+    return entry
+
+
+def get_kernel(name: str) -> KernelEntry:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown kernel {name!r}; registered: {sorted(REGISTRY)}") from None
+
+
+def _newton_schulz_ref(x, *, steps=5, eps=1e-7):
+    from repro_torch.core.newton_schulz import newton_schulz_plain
+
+    return newton_schulz_plain(x, steps=steps, eps=eps)
+
+
+register(KernelEntry("lowrank_update", lowrank_update, ref.lowrank_update_ref))
+register(KernelEntry("project", project, ref.project_ref))
+register(KernelEntry("back_project", back_project, ref.back_project_ref))
+register(KernelEntry("newton_schulz", newton_schulz, _newton_schulz_ref))

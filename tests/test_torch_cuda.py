@@ -1,0 +1,104 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test asks for the ``cuda_device`` fixture, which skips
+where ``torch.cuda.is_available()`` is false (CPU runs of the suite).  This
+file imports no JAX, so it also runs on the GPU machine, which has none:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: max|kernel − plain| / max|plain| ≤ 1e-5 for one GEMM, 1e-4 for a
+5-step Newton–Schulz (both sides sum in fp32, in another order).
+"""
+import pytest
+import torch
+
+from repro_torch.core.newton_schulz import newton_schulz_plain
+from repro_torch.kernels import build, dispatch, ref
+from repro_torch.kernels.lowrank_update import (
+    back_project_batched,
+    lowrank_update_batched,
+    project_batched,
+)
+from repro_torch.kernels.newton_schulz import gram, poly_matmul_axpy
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(12, 768, 256, 2048), (4, 768, 256, 768), (2, 1000, 96, 1376), (3, 5, 3, 7)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(out, want):
+    torch.cuda.synchronize()
+    return float((out - want).abs().max() / want.abs().max())
+
+
+def _randn(*shape):
+    return torch.randn(*shape, device="cuda")
+
+
+@pytest.mark.parametrize("L,m,r,n", SHAPES)
+def test_lowrank_kernels_match_plain(cuda_device, L, m, r, n):
+    p, g, rs, s = _randn(L, m, r), _randn(L, m, n), _randn(L, r, n), _randn(L, r, n)
+    before = dict(build.LAUNCHES)
+    assert _rel(lowrank_update_batched(p, g, rs, 0.95, 1.5),
+                ref.lowrank_update_ref(p, g, rs, 0.95, 1.5)) <= 1e-5
+    assert _rel(project_batched(p, g, 2.0), ref.project_ref(p, g, 2.0)) <= 1e-5
+    assert _rel(back_project_batched(p, s), ref.back_project_ref(p, s)) <= 1e-5
+    assert build.LAUNCHES["lowrank_update"] == before["lowrank_update"] + 2
+    assert build.LAUNCHES["back_project"] == before["back_project"] + 1
+
+
+@pytest.mark.parametrize("L,s,n", [(12, 256, 2048), (4, 768, 2048), (2, 1000, 1376),
+                                   (1, 1024, 1024), (3, 5, 9)])
+def test_newton_schulz_kernels_match_plain(cuda_device, L, s, n):
+    x = _randn(L, s, n)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    g = gram(x)
+    assert _rel(g, ref.gram_ref(x)) <= 1e-5
+    a2 = -4.7750 * g + 2.0315 * (g @ g)
+    assert _rel(poly_matmul_axpy(a2, x, 3.4445),
+                ref.poly_matmul_axpy_ref(a2, x, 3.4445)) <= 1e-5
+    assert _rel(dispatch.newton_schulz(x, impl="cuda"), newton_schulz_plain(x)) <= 1e-4
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    p, g = _randn(2, 8, 4), _randn(2, 8, 16)
+    with pytest.raises(TypeError):
+        lowrank_update_batched(p.double(), g.double(), None, 0.0, 1.0)
+    with pytest.raises(ValueError):
+        lowrank_update_batched(p, g.mT.contiguous().mT, None, 0.0, 1.0)
+    with pytest.raises(ValueError):
+        back_project_batched(p, _randn(2, 5, 16))
+    with pytest.raises(ValueError):
+        dispatch.project(p, g, impl="torch")
+
+
+def test_kernels_launch_on_the_operands_device(cuda_device):
+    """Operands on a device that is not the current one: each kernel launches
+    on the operands' device and its stream, and agrees with its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev = torch.device("cuda", 1)
+    assert torch.cuda.current_device() != dev.index
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev)
+
+    p, g, rs, s = randn(2, 1000, 96), randn(2, 1000, 1376), randn(2, 96, 1376), randn(2, 96, 1376)
+    assert _rel(lowrank_update_batched(p, g, rs, 0.95, 1.5),
+                ref.lowrank_update_ref(p, g, rs, 0.95, 1.5)) <= 1e-5
+    assert _rel(back_project_batched(p, s), ref.back_project_ref(p, s)) <= 1e-5
+    x = randn(2, 768, 2048)
+    x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    assert _rel(gram(x), ref.gram_ref(x)) <= 1e-5
+    out = dispatch.newton_schulz(x, impl="cuda")
+    assert out.device == dev
+    assert _rel(out, newton_schulz_plain(x)) <= 1e-4
+    assert torch.cuda.current_device() != dev.index

@@ -1,0 +1,104 @@
+"""The port stands alone and never falls back quietly.
+
+* No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX or
+  the JAX package ``repro`` (an AST scan of every import).
+* The entry points run on CUDA unless told otherwise: without a CUDA device
+  and without ``device="cpu"`` they raise.
+* A CUDA path asked for on a CPU tensor raises instead of taking the plain
+  version.
+* The port's launch vocabulary equals the reference's.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.kernels import launch_count as j_launch_count
+from repro_torch.configs import RunConfig, get_smoke
+from repro_torch.core import OptimizerConfig
+from repro_torch.data import DataConfig
+from repro_torch.kernels import dispatch, launch_count
+from repro_torch.kernels.lowrank_update import lowrank_update_batched
+from repro_torch.models import build_model
+from repro_torch.train import Trainer
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_entry_points_need_a_device_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("llama-60m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(model, OptimizerConfig(name="gum", rank=4, gamma=1),
+                RunConfig(steps=1), DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=1))
+
+
+def test_cuda_impl_on_cpu_tensors_raises():
+    p, g = torch.zeros(1, 8, 2), torch.zeros(1, 8, 16)
+    for call in (lambda: dispatch.lowrank_update(p, g, torch.zeros(1, 2, 16), 0.9, 1.0,
+                                                 impl="cuda"),
+                 lambda: dispatch.project(p, g, impl="cuda"),
+                 lambda: dispatch.back_project(p, torch.zeros(1, 2, 16), impl="cuda"),
+                 lambda: dispatch.newton_schulz(g, impl="cuda")):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def test_cuda_tensors_never_resolve_to_the_plain_version():
+    """Resolution reads only ``x.device``, so a stand-in with a CUDA device
+    shows what every op does with a CUDA tensor."""
+
+    class _OnCuda:
+        device = torch.device("cuda")
+
+    assert dispatch.resolve_impl("auto", _OnCuda()) == "cuda"
+    assert dispatch.resolve_impl("cuda", _OnCuda()) == "cuda"
+    with pytest.raises(ValueError, match="CUDA"):
+        dispatch.resolve_impl("torch", _OnCuda())
+
+
+def test_kernel_wrapper_rejects_unsupported_operands():
+    from repro_torch.kernels import build
+
+    with pytest.raises(ValueError, match="CUDA"):
+        build.check_operands(torch.device("cpu"), x=torch.zeros(1, 2, 2))
+    # the CPU path is the plain version, by the tensors' device alone
+    out = lowrank_update_batched(torch.ones(1, 4, 2), torch.ones(1, 4, 3), None, 0.0, 1.0)
+    assert torch.equal(out, torch.full((1, 2, 3), 4.0))
+
+
+def test_dispatch_vocabulary_equals_reference():
+    assert launch_count.DISPATCH_OPS == j_launch_count.DISPATCH_OPS
+    assert set(dispatch.REGISTRY) <= set(launch_count.DISPATCH_OPS)
+
+
+def test_unported_knobs_raise():
+    with pytest.raises(NotImplementedError):
+        OptimizerConfig(fuse_families=True)
+    with pytest.raises(NotImplementedError):
+        OptimizerConfig(projector="rsvd")
+    from repro_torch.core import build_optimizer
+
+    with pytest.raises(NotImplementedError):
+        build_optimizer(OptimizerConfig(name="galore"))
