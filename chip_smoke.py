@@ -7,24 +7,29 @@ Phases, in order; any failure exits non-zero and prints no result:
 
   1. device   — require CUDA, print the card's name and power limit, turn
                 TF32 off for matmuls and convolutions;
-  2. build    — compile the four CUDA kernels from ``src/repro_torch/kernels/
+  2. build    — compile the five CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` with nvcc for sm_90a;
   3. kernels  — hold each kernel against its plain PyTorch version at the
-                llama-130m shapes of GUM (rank 256, gamma 4), both projection
-                sides, plus one ragged shape; time kernel, plain version and
-                one torch.bmm-family call, and compute the bound;
+                llama-130m shapes of GUM (rank 256, gamma 4) and of GaLore's
+                family stacks, both projection sides, plus one ragged shape;
+                time kernel, plain version and one torch.bmm-family call,
+                and compute the bound;
   4. slice    — GUM pretraining of llama-130m at full width through the
                 port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3),
                 asserting finite losses and the per-step dispatch and kernel
                 launch counts;
+  4b. galore  — GaLore pretraining of llama-130m the same way, family-stacked
+                with the fused back-projection epilogue;
   5. agree    — the same trainer at the llama-60m smoke size on the card and
-                on the CPU (plain versions) must give the same losses.
+                on the CPU (plain versions) must give the same losses, for
+                GUM, GaLore-Muon with the fused epilogue and weight decay,
+                and family-stacked GUM.
 
 The card's ``nvidia-smi`` name and power limit are printed first and again
 third from the end; the line before the last is a JSON object describing
-every kernel (launches on the main path, error, times, bound), and the last
-line is ``{"ok": true, "device": {...}}``.  ``--kernels-only`` stops after
-phase 3 (for iterating on a kernel).
+every kernel (launches summed over the two full-width phases, error, times,
+bound), and the last line is ``{"ok": true, "device": {...}}``.
+``--kernels-only`` stops after phase 3 (for iterating on a kernel).
 """
 from __future__ import annotations
 
@@ -58,6 +63,8 @@ KERNEL_META = {
                        "src/repro/kernels/lowrank_update.py:30"),
     "back_project": ("src/repro_torch/kernels/csrc/back_project.cu",
                      "src/repro/kernels/lowrank_update.py:105"),
+    "back_project_epilogue": ("src/repro_torch/kernels/csrc/back_project_epilogue.cu",
+                              "src/repro/kernels/fused_step.py:35"),
     "gram": ("src/repro_torch/kernels/csrc/gram.cu",
              "src/repro/kernels/newton_schulz.py:34"),
     "poly_apply": ("src/repro_torch/kernels/csrc/poly_apply.cu",
@@ -116,8 +123,10 @@ def rel_err(out, want) -> tuple[float, float]:
 
 def kernel_cases(torch, gen):
     """(kernel, label, kernel fn, plain fn, library fn, flops, bytes,
-    principal) at the shapes GUM's llama-130m step gives each kernel; the
-    principal case of each kernel is the one its JSON row reports."""
+    principal) at the shapes GUM's and GaLore's llama-130m steps give each
+    kernel; the principal case of each kernel is the one its JSON row
+    reports."""
+    from repro_torch.kernels import fused_step as fst
     from repro_torch.kernels import lowrank_update as lu
     from repro_torch.kernels import newton_schulz as nsk
     from repro_torch.kernels import ref
@@ -164,6 +173,35 @@ def kernel_cases(torch, gen):
                       2.0 * L * m * n * r, 4 * (L * m * r + L * r * n + L * m * n),
                       principal))
 
+    # back_project_epilogue: GaLore's write-back per family stack (attn
+    # (48, 768, 768), mlp in/gate (24, 768, 2048), w_out (12, 2048, 768) on
+    # the right side), with W (weight decay) and without, and the ragged
+    # shape on both sides.  scale = -lr * alpha, decay = -lr * wd.
+    scale, decay = -0.0025, -1e-4
+    zero = torch.zeros(1, 1, 1, device="cuda")
+    for L, m, r, n, side, with_w, principal in [
+            (24, 768, 256, 2048, "left", True, True),
+            (24, 768, 256, 2048, "left", False, False),
+            (48, 768, 256, 768, "left", False, False),
+            (12, 2048, 256, 768, "right", True, False),
+            (12, 2048, 256, 768, "right", False, False),
+            (2, 1000, 96, 1376, "left", True, False),
+            (2, 1376, 96, 1000, "right", True, False)]:
+        p = randn(L, m if side == "left" else n, r)
+        s = randn(*((L, r, n) if side == "left" else (L, m, r)))
+        w = randn(L, m, n) if with_w else None
+        a, b = (p, s) if side == "left" else (s, p.mT)  # out = a @ b
+        nbytes = 4 * (L * m * r + L * r * n + L * m * n * (2 if with_w else 1))
+        cases.append(("back_project_epilogue",
+                      f"{side} P{tuple(p.shape)} S{tuple(s.shape)} W={with_w}",
+                      (lambda p=p, s=s, w=w, side=side:
+                       fst.back_project_epilogue_batched(p, s, w, scale, decay, side=side)),
+                      (lambda a=a, b=b, w=w: ref.back_project_epilogue_ref(a, b, w, scale, decay)),
+                      (lambda a=a, b=b, w=w: torch.baddbmm(zero if w is None else w, a, b,
+                                                           beta=0.0 if w is None else decay,
+                                                           alpha=scale)),
+                      2.0 * L * m * n * r, nbytes, principal))
+
     # gram / poly_apply: NS on the low-rank momenta (12, 256, n) and on the
     # full slots (4, 768, n); X is Frobenius-normalised as in NS.  X Xᵀ is
     # symmetric, so the work it needs is one triangle and the diagonal:
@@ -192,6 +230,8 @@ def phase_kernels(torch):
     from repro_torch.core.lowrank_common import back_project, project
     from repro_torch.core.newton_schulz import newton_schulz_plain
     from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.fused_step import back_project_epilogue_batched
+    from repro_torch.kernels.lowrank_update import back_project_batched
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -234,8 +274,21 @@ def phase_kernels(torch):
         _, rel = rel_err(dispatch.back_project(p, st, side=side, impl="cuda"),
                          back_project(p, st, side))
         check(rel <= TOL_GEMM, f"dispatch back_project {side} {(L, m, n)}: {rel:.3e}")
-        print(f"dispatch {side:5s} {(L, m, n)} r={r}: lowrank_update/project/back_project ok",
-              flush=True)
+        w = randn(L, m, n)
+        _, rel = rel_err(dispatch.back_project_epilogue(p, st, w=w, scale=-0.5, decay=-0.01,
+                                                        side=side, impl="cuda"),
+                         -0.5 * back_project(p, st, side) - 0.01 * w)
+        check(rel <= TOL_GEMM, f"dispatch back_project_epilogue {side} {(L, m, n)}: {rel:.3e}")
+        print(f"dispatch {side:5s} {(L, m, n)} r={r}: lowrank_update/project/back_project/"
+              f"back_project_epilogue ok", flush=True)
+
+    # The epilogue against the back-projection it replaces, at the mlp
+    # family's shape (no W, as GaLore's weight decay 0 gives).
+    p, s = randn(24, 768, 256), randn(24, 256, 2048)
+    epi_ms = time_ms(lambda: back_project_epilogue_batched(p, s, None, -0.0025, 0.0))
+    bp_ms = time_ms(lambda: back_project_batched(p, s))
+    print(f"epilogue vs back_project at P(24, 768, 256) S(24, 256, 2048): "
+          f"{epi_ms:.4f} ms vs {bp_ms:.4f} ms, ratio {epi_ms / bp_ms:.3f}", flush=True)
 
     for shape in [(12, 256, 2048), (12, 256, 768), (4, 768, 2048), (4, 2048, 768),
                   (4, 768, 768), (1, 1000, 1376)]:
@@ -256,25 +309,26 @@ def phase_kernels(torch):
 # --------------------------------------------------------------------- phase 4
 
 
-def phase_slice(torch):
+def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
+                     want_launch: dict) -> dict:
+    """Pretrain llama-130m at full width and depth through the port's
+    ``Trainer`` (6 steps, batch 8 x 1024, period 3: refreshes at steps 1 and
+    4), assert finite losses and the per-step dispatch and kernel launch
+    counts, print the step times and peak memory, and profile one steady
+    step.  Returns this phase's kernel launches."""
     from repro_torch.configs import RunConfig, get_config
-    from repro_torch.core import OptimizerConfig
-    from repro_torch.core.lowrank_common import compute_projectors
     from repro_torch.data import DataConfig
     from repro_torch.kernels import build, launch_count
     from repro_torch.models import build_model
     from repro_torch.train import Trainer
 
-    steps, period = 6, 3
+    steps, period = 6, opt_cfg.period
     cfg = get_config("llama-130m")
     model = build_model(cfg, device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
-    trainer = Trainer(
-        model,
-        OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=period),
-        RunConfig(steps=steps, log_every=1, seed=0),
-        DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=0),
-        device="cuda")
+    trainer = Trainer(model, opt_cfg, RunConfig(steps=steps, log_every=1, seed=0),
+                      DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=0),
+                      device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -285,32 +339,44 @@ def phase_slice(torch):
     launches = dict(build.LAUNCHES)
 
     losses = result.losses
-    print(f"slice llama-130m ({n_params / 1e6:.1f}M params) GUM r=256 gamma=4 "
-          f"period={period}: losses {losses}", flush=True)
+    print(f"{label} llama-130m ({n_params / 1e6:.1f}M params) {opt_cfg.name} "
+          f"r={opt_cfg.rank} period={period}: losses {losses}", flush=True)
     check(len(losses) == steps and all(math.isfinite(v) for v in losses),
-          f"non-finite or missing losses: {losses}")
-    want_dispatch = {"lowrank_update": 7, "project": 7, "back_project": 14,
-                     "newton_schulz": 14}
-    want_launch = {"lowrank_update": 14, "back_project": 14, "gram": 70,
-                   "poly_apply": 70}
+          f"{label}: non-finite or missing losses: {losses}")
     per_step = {k: v / steps for k, v in dispatched.items()}
-    check(per_step == want_dispatch, f"dispatch counts per step {per_step} != {want_dispatch}")
-    per_step = {k: v / steps for k, v in launches.items()}
-    check(per_step == want_launch, f"kernel launches per step {per_step} != {want_launch}")
-    print(f"slice dispatch per step {want_dispatch}; kernel launches per step "
+    check(per_step == want_dispatch,
+          f"{label}: dispatch counts per step {per_step} != {want_dispatch}")
+    per_step = {k: v / steps for k, v in launches.items() if v}
+    check(per_step == want_launch,
+          f"{label}: kernel launches per step {per_step} != {want_launch}")
+    print(f"{label} dispatch per step {want_dispatch}; kernel launches per step "
           f"{want_launch}", flush=True)
 
     tokens = 8 * 1024
     steady = [t for i, t in enumerate(result.step_seconds) if i % period]
     refresh = [t for i, t in enumerate(result.step_seconds) if i % period == 0]
     steady_ms = statistics.median(steady) * 1e3
-    print(f"slice step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
+    print(f"{label} step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
           f"steady median {steady_ms:.3f}; refresh steps {[round(t * 1e3, 3) for t in refresh]}; "
           f"tokens/s {tokens / (steady_ms / 1e3):.0f}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
           flush=True)
 
-    profile_steady_step(torch, trainer, steps)
+    profile_steady_step(torch, label, trainer, steps)
+    return launches
+
+
+def phase_slice(torch) -> dict:
+    """GUM, the paper's main path: Appendix C.3's rank 256, gamma 4."""
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.core.lowrank_common import compute_projectors
+
+    launches = train_full_width(
+        torch, "slice", OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3),
+        want_dispatch={"lowrank_update": 7, "project": 7, "back_project": 14,
+                       "newton_schulz": 14},
+        want_launch={"lowrank_update": 14, "back_project": 14, "gram": 70,
+                     "poly_apply": 70})
 
     # The projector refresh alone: one batched SVD per hidden leaf.
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -324,7 +390,22 @@ def phase_slice(torch):
     return launches
 
 
-def profile_steady_step(torch, trainer, done: int) -> None:
+def phase_galore(torch) -> dict:
+    """GaLore, the paper's baseline, at its published 130M settings (Zhao et
+    al. 2024, section 5 / appendix: rank 256, alpha 0.25, lr 1e-2, weight
+    decay 0; period cut from 200 to 3), family-stacked (3 launch units for
+    the 7 hidden leaves) with the fused back-projection epilogue."""
+    from repro_torch.core import OptimizerConfig
+
+    return train_full_width(
+        torch, "galore",
+        OptimizerConfig(name="galore", lr=1e-2, rank=256, period=3, weight_decay=0.0,
+                        fuse_families=True, fused_epilogue=True),
+        want_dispatch={"project": 3, "back_project_epilogue": 3},
+        want_launch={"lowrank_update": 3, "back_project_epilogue": 3})
+
+
+def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     """Device time of one steady step by kernel group (torch.profiler):
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
     is profiled.  Its idle share is 1 − busy / that step's own wall time
@@ -348,8 +429,7 @@ def profile_steady_step(torch, trainer, done: int) -> None:
         t0 = time.perf_counter()
         step(state)
         step_ms = (time.perf_counter() - t0) * 1e3
-    groups = dict.fromkeys(["lowrank_update", "back_project", "gram", "poly_apply",
-                            "cuBLAS gemm", "other"], 0.0)
+    groups = dict.fromkeys(list(KERNEL_META) + ["cuBLAS gemm", "other"], 0.0)
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -365,7 +445,7 @@ def profile_steady_step(torch, trainer, done: int) -> None:
             groups["other"] += us
     busy_ms = sum(groups.values()) / 1e3
     parts = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items())
-    print(f"slice profiled steady step (step {done + 2}) device ms by group: {parts}; "
+    print(f"{label} profiled steady step (step {done + 2}) device ms by group: {parts}; "
           f"busy {busy_ms:.3f} of its {step_ms:.3f} wall ms "
           f"(idle share {1 - busy_ms / step_ms:.3f})", flush=True)
 
@@ -375,12 +455,18 @@ def profile_steady_step(torch, trainer, done: int) -> None:
 
 def phase_agree(torch):
     """llama-60m smoke on the card (CUDA kernels) and on the CPU (plain
-    versions), same parameters, same sampled blocks: the losses agree.
-    Tolerance 1e-4 relative: the two devices sum in another order, and the
-    difference compounds over 3 optimizer steps."""
+    versions), same parameters, same sampled blocks: the losses agree, for
+    GUM, for GaLore-Muon family-stacked with the fused epilogue and weight
+    decay (the kernel's W operand), and for family-stacked GUM.  Tolerance
+    1e-4 relative: the two devices sum in another order, and the difference
+    compounds over 3 optimizer steps.  With period 2 the losses read only
+    the first period's updates, so the sign each device's SVD gives a
+    projector column (which GaLore's carried momentum would see after the
+    second refresh) does not enter them."""
     from repro_torch.configs import RunConfig, get_smoke
     from repro_torch.core import OptimizerConfig
     from repro_torch.data import DataConfig
+    from repro_torch.kernels import build
     from repro_torch.models import build_model
     from repro_torch.train import Trainer
 
@@ -388,18 +474,33 @@ def phase_agree(torch):
     model = build_model(cfg, device="cpu")
     model.init_params(0)
     params = {k: v.detach() for k, v in model.params().items()}
-    losses = {}
-    for device in ("cpu", "cuda"):
-        trainer = Trainer(build_model(cfg, device=device),
-                          OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2),
-                          RunConfig(steps=3, log_every=0, seed=0),
-                          DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0),
-                          device=device, params=params)
-        losses[device] = trainer.train().losses
-    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-    print(f"agree llama-60m smoke cuda {losses['cuda']} cpu {losses['cpu']} "
-          f"max rel {worst:.2e}", flush=True)
-    check(worst <= 1e-4, f"cuda and cpu losses differ by {worst:.2e} > 1e-4")
+    for label, opt_cfg, kernel in [
+            ("gum", OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2),
+             "lowrank_update"),
+            ("galore_muon fused epilogue wd",
+             OptimizerConfig(name="galore_muon", lr=1e-2, rank=4, period=2,
+                             weight_decay=0.01, fuse_families=True, fused_epilogue=True),
+             "back_project_epilogue"),
+            ("gum fused families",
+             OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2,
+                             fuse_families=True),
+             "lowrank_update")]:
+        losses = {}
+        for device in ("cpu", "cuda"):
+            before = build.LAUNCHES[kernel]
+            trainer = Trainer(build_model(cfg, device=device), opt_cfg,
+                              RunConfig(steps=3, log_every=0, seed=0),
+                              DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0),
+                              device=device, params=params)
+            losses[device] = trainer.train().losses
+            check((build.LAUNCHES[kernel] > before) == (device == "cuda"),
+                  f"agree {label} on {device}: {kernel} launches "
+                  f"{before} -> {build.LAUNCHES[kernel]}")
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        print(f"agree llama-60m smoke {label}: cuda {losses['cuda']} cpu {losses['cpu']} "
+              f"max rel {worst:.2e}", flush=True)
+        check(worst <= 1e-4, f"agree {label}: cuda and cpu losses differ by "
+              f"{worst:.2e} > 1e-4")
 
 
 def main() -> None:
@@ -430,7 +531,8 @@ def main() -> None:
     rows = phase_kernels(torch)
     launches = dict.fromkeys(rows, 0)
     if not kernels_only:
-        launches = phase_slice(torch)
+        gum, galore = phase_slice(torch), phase_galore(torch)
+        launches = {k: gum[k] + galore[k] for k in rows}
         phase_agree(torch)
 
     kernels = []

@@ -1,5 +1,5 @@
-"""Optimizer core: the functional Transform API, the combinators, GUM and
-AdamW, and the factory."""
+"""Optimizer core: the functional Transform API, the combinators, the
+family plan, GUM, GaLore and AdamW, and the factory."""
 from repro_torch.core.api import (
     MultiState,
     OptimizerConfig,

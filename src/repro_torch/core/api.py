@@ -57,9 +57,19 @@ def tree_leaves(tree: PyTree) -> list:
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
-    """Functional ``params + updates`` (``None`` updates leave a leaf as is)."""
-    return {k: p if updates.get(k) is None else p + updates[k].to(p.dtype)
-            for k, p in params.items()}
+    """Functional ``params + updates`` (``None`` updates leave a leaf as is).
+    A deferred-epilogue leaf (``combinators.PendingBack``) from a chain that
+    ended without ``scale_by_lr`` is materialized leaf by leaf (correct, just
+    not family-grouped)."""
+
+    def one(p, u):
+        if u is None:
+            return p
+        if hasattr(u, "materialize_update"):
+            u = u.materialize_update()
+        return p + u.to(p.dtype)
+
+    return {k: one(p, updates.get(k)) for k, p in params.items()}
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
@@ -115,8 +125,7 @@ def multi_transform(
 # Knobs of the JAX package's OptimizerConfig that the port does not run yet,
 # with the value that means "off".
 _NOT_PORTED = {
-    "pad_rank_to": 0, "fuse_families": False, "fused_epilogue": False,
-    "rank_policy": None, "rank_ladder": (), "shard_state": False,
+    "pad_rank_to": 0, "rank_policy": None, "rank_ladder": (), "shard_state": False,
     "telemetry": False,
 }
 
@@ -127,7 +136,8 @@ class OptimizerConfig:
     the JAX package's fields and defaults.  Setting a knob the port does not
     run yet raises ``NotImplementedError``."""
 
-    # gum | adamw ported; the others raise in build_optimizer
+    # gum | galore | galore_muon | adamw ported; the others raise in
+    # build_optimizer
     name: str = "gum"
     lr: float = 1e-3
     weight_decay: float = 0.0
@@ -149,7 +159,10 @@ class OptimizerConfig:
     # kernels on CUDA tensors and plain PyTorch on CPU tensors.
     kernel_impl: str = "auto"
     pad_rank_to: int = 0
+    # Family-stacked execution: one batched launch per shape family.
     fuse_families: bool = False
+    # Fold the chain tail (-lr, wd, alpha) into the back-projection through
+    # the fused back_project_epilogue kernel (galore / galore_muon).
     fused_epilogue: bool = False
     use_muon_scale: bool | None = None
     rank_policy: Any = None

@@ -3,9 +3,11 @@ package's ``core/combinators.py``, on PyTorch tensors.
 
 atomic gradient transforms
     scale_by_muon        momentum + Newton-Schulz orthogonalization
-    scale_by_adam        bias-corrected Adam direction
+    scale_by_adam        bias-corrected Adam direction (GaLore's alpha as
+                         ``scale``)
     add_decayed_weights  decoupled weight decay   u + wd * p
     scale_by_lr          -schedule(count) * u     (terminal step of a chain)
+    scale_by_factor      constant multiplier
 
 wrapper transforms
     lowrank(inner, ...)          owns the projector state: periodic SVD
@@ -20,7 +22,9 @@ composition
     chain(*transforms)           sequential application, optax semantics
 
 so GUM is ``chain(lowrank(layerwise_unbias(scale_by_muon())),
-add_decayed_weights(wd), scale_by_lr(lr))`` routed beside AdamW.
+add_decayed_weights(wd), scale_by_lr(lr))`` and GaLore
+``chain(lowrank(scale_by_adam(scale=alpha)), add_decayed_weights(wd),
+scale_by_lr(lr))``, each routed beside AdamW.
 
 Trees are flat ``{path: leaf}`` dicts in the reference's leaf order (see
 :mod:`repro_torch.core.api`).  ``lowrank`` hands its inner transform
@@ -30,6 +34,20 @@ the raw fp32 gradient and the family geometry — and at init
 (``lowrank`` back-projects them) or :class:`FullUpdate`-wrapped full-shape
 tensors (returned as they are).  PyTorch runs eagerly, so the period
 boundary is a Python ``bool`` and only the taken branch runs.
+
+``lowrank(fuse_families=True)`` groups same-signature leaves into stacked
+``(L, m, n)`` super-leaves (:mod:`repro_torch.core.family_plan`) and runs the
+whole pipeline — projector refresh, projection, inner transform,
+back-projection — once per family; the inner transform sees one
+:class:`ProjGrad` per family whose ``seg`` carries the member geometry, and
+``layerwise_unbias`` samples per member with each member's own key, so the
+stacked trajectory equals the per-leaf one.  ``fused_epilogue=True`` defers
+the final back-projection into :class:`PendingBack` leaves: the chain tail
+(``scale_by_factor``, ``add_decayed_weights``, ``scale_by_lr``) folds its
+scalars into them and ``scale_by_lr`` materializes the tree through the
+fused ``back_project_epilogue`` kernel, one launch per family.  Inners that
+emit :class:`FullUpdate` leaves (``layerwise_unbias``) own their
+back-projection, so the epilogue knob is inert for GUM.
 """
 from __future__ import annotations
 
@@ -46,6 +64,12 @@ from repro_torch.core.api import (
     tree_map,
     tree_paths,
 )
+from repro_torch.core.family_plan import (
+    build_family_plan,
+    member_keys,
+    stack_family,
+    unstack_family,
+)
 from repro_torch.core.lowrank_common import (
     FamilyShape,
     compute_projectors,
@@ -60,6 +84,8 @@ from repro_torch.kernels import dispatch
 
 # sampler(key, L, g_f) -> (g_f,) distinct block ids in [0, L); key is
 # (seed, count, leaf index), the inputs the reference folds into its PRNG key.
+# Under family stacking it is called once per member, with that member's key
+# and block count.
 Sampler = Callable[[tuple[int, int, int], int, int], torch.Tensor]
 
 
@@ -87,22 +113,25 @@ class TensorSpec(NamedTuple):
 
 class ProjInit:
     """Init-time stand-in for a low-rank leaf inside :func:`lowrank`:
-    ``low`` is the projected-space state's spec, ``fs`` the family geometry."""
+    ``low`` is the projected-space state's spec, ``fs`` the family geometry,
+    ``seg`` the member geometry under family stacking (None per leaf)."""
 
-    __slots__ = ("fs", "low")
+    __slots__ = ("fs", "low", "seg")
 
-    def __init__(self, fs: FamilyShape, low: TensorSpec):
+    def __init__(self, fs: FamilyShape, low: TensorSpec, seg=None):
         self.fs = fs
         self.low = low
+        self.seg = seg
 
 
 class ProjGrad:
     """Lazy projected gradient leaf handed to transforms inside ``lowrank``."""
 
-    __slots__ = ("p", "g", "fs", "kernel_impl", "coeff", "reset", "refresh", "key")
+    __slots__ = ("p", "g", "fs", "kernel_impl", "coeff", "reset", "refresh", "key",
+                 "seg")
 
     def __init__(self, p, g, fs, kernel_impl, coeff=1.0, reset=False,
-                 refresh=False, key=None):
+                 refresh=False, key=None, seg=None):
         self.p = p                      # (*lead, s, r) refreshed projector
         self.g = g                      # (*lead, m, n) raw fp32 gradient
         self.fs = fs                    # FamilyShape
@@ -110,14 +139,22 @@ class ProjGrad:
         self.coeff = coeff              # float on the projected gradient
         self.reset = reset              # zero momenta first (period boundary)
         self.refresh = refresh          # period boundary: resample blocks
-        self.key = key                  # (seed, count, leaf index)
+        self.key = key                  # (seed, count, leaf index); a list of
+                                        # them, one per member, when stacked
+        self.seg = seg                  # StackSeg when stacked (else None)
 
     def with_coeff(self, coeff: float) -> "ProjGrad":
         return ProjGrad(self.p, self.g, self.fs, self.kernel_impl, coeff,
-                        self.reset, self.refresh, self.key)
+                        self.reset, self.refresh, self.key, self.seg)
 
     def apply_reset(self, x):
         return torch.zeros_like(x) if self.reset else x
+
+    def materialize(self):
+        """The projected gradient PᵀG / G P through the projection kernel
+        (coeff NOT applied: elementwise consumers fold it in themselves)."""
+        return dispatch.project(self.p, self.g, side=self.fs.side,
+                                impl=self.kernel_impl)
 
     def fused_momentum(self, mu, beta: float):
         """``beta * mu + coeff * PᵀG`` through the fused momentum kernel."""
@@ -138,6 +175,91 @@ class FullUpdate:
 
     def __init__(self, u):
         self.u = u
+
+
+class PendingBack:
+    """Lazy scale-and-back-project leaf (``fused_epilogue=True``):
+    ``scale * back_project(p, s) + decay * W`` not yet computed.
+
+    Tail transforms fold their scalars in (``scale_by_lr`` and
+    ``scale_by_factor`` through :meth:`scaled`, ``add_decayed_weights``
+    through :meth:`decayed`); ``scale_by_lr``, the terminal stage of every
+    chain, then materializes the tree through
+    :func:`repro_torch.kernels.dispatch.back_project_epilogue`, one launch per
+    family stack (:func:`materialize_pending`).  Under family stacking every
+    member leaf shares one ``(p, s, w)`` payload and ``member`` selects this
+    leaf's slice; the grouped launch reads the scalars of the first member,
+    so a chain tail must apply the same scalars to every leaf, as every
+    built-in tail does.  ``w`` is the params tensor, or a thunk that stacks
+    the family's params, called only when ``decay`` is non-zero."""
+
+    __slots__ = ("p", "s", "w", "fs", "kernel_impl", "scale", "decay", "member",
+                 "members", "member_lead")
+
+    def __init__(self, p, s, w, fs, kernel_impl, scale=1.0, decay=0.0,
+                 member=None, members=1, member_lead=()):
+        self.p = p                      # projector, possibly family-stacked
+        self.s = s                      # projected-space update (group key)
+        self.w = w                      # params (the decay term), or a thunk
+        self.fs = fs
+        self.kernel_impl = kernel_impl
+        self.scale = scale              # float
+        self.decay = decay              # float
+        self.member = member            # None = unstacked leaf
+        self.members = members
+        self.member_lead = member_lead
+
+    def _replace(self, scale: float, decay: float) -> "PendingBack":
+        return PendingBack(self.p, self.s, self.w, self.fs, self.kernel_impl, scale,
+                           decay, self.member, self.members, self.member_lead)
+
+    def scaled(self, f: float) -> "PendingBack":
+        return self._replace(f * self.scale, f * self.decay)
+
+    def decayed(self, wd: float) -> "PendingBack":
+        return self._replace(self.scale, self.decay + wd)
+
+    def materialize_stack(self) -> torch.Tensor:
+        """The whole (possibly stacked) update through the fused epilogue;
+        the W operand is read only when ``decay`` is non-zero."""
+        w = None
+        if self.decay != 0.0:
+            w = self.w() if callable(self.w) else self.w
+        return dispatch.back_project_epilogue(
+            self.p, self.s, w=w, scale=self.scale, decay=self.decay,
+            side=self.fs.side, impl=self.kernel_impl)
+
+    def materialize_update(self) -> torch.Tensor:
+        """This leaf alone (the ungrouped path of ``apply_updates``)."""
+        return _member_slice(self.materialize_stack(), self)
+
+
+def _member_slice(stacked: torch.Tensor, leaf: PendingBack) -> torch.Tensor:
+    """This leaf's ``(*member_lead, m, n)`` slice of a family-stacked array
+    (the array itself for an unstacked leaf)."""
+    if leaf.member is None:
+        return stacked
+    parts = stacked.reshape((leaf.members,) + leaf.member_lead
+                            + tuple(stacked.shape[-2:]))
+    return parts[leaf.member]
+
+
+def materialize_pending(updates: dict) -> dict:
+    """Materialize every :class:`PendingBack` leaf, one
+    ``back_project_epilogue`` launch per family stack (members are grouped
+    by the identity of their shared ``s``).  Other leaves pass as they are."""
+    groups: dict[int, list[str]] = {}
+    for k, leaf in updates.items():
+        if isinstance(leaf, PendingBack):
+            groups.setdefault(id(leaf.s), []).append(k)
+    if not groups:
+        return updates
+    out = dict(updates)
+    for keys in groups.values():
+        full = updates[keys[0]].materialize_stack()
+        for k in keys:
+            out[k] = _member_slice(full, updates[k])
+    return out
 
 
 def _zeros_momentum(leaf):
@@ -178,6 +300,10 @@ def chain(*transforms: Transform) -> Transform:
             new_states.append(ns)
         return updates, tuple(new_states)
 
+    # A chain that starts with a params-reading lowrank inner (e.g.
+    # layerwise_unbias) reads them too.
+    if transforms and getattr(transforms[0].update, "wants_params", False):
+        update.wants_params = True
     return Transform(init, update)
 
 
@@ -216,9 +342,14 @@ class ScaleByAdamState(NamedTuple):
     nu: PyTree
 
 
-def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Transform:
-    """Bias-corrected Adam direction on full-shape leaves (GUM's AdamW
-    branch; Adam inside ``lowrank`` is not ported yet)."""
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                  scale: float = 1.0) -> Transform:
+    """Bias-corrected Adam direction, optionally pre-scaled (GaLore's alpha).
+
+    Full-shape leaves (AdamW) take it elementwise; :class:`ProjGrad` leaves
+    inside ``lowrank`` (GaLore) take it on the projected gradient from the
+    projection kernel, times the leaf's coeff, with both moments zeroed at a
+    period boundary under ``reset_on_refresh``."""
 
     def init(params: dict) -> ScaleByAdamState:
         return ScaleByAdamState(count=0, mu=_momentum_init(params),
@@ -234,10 +365,17 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Tran
             if g is None:
                 out[k] = mu[k] = nu[k] = None
                 continue
-            g32 = g.to(torch.float32)
+            if isinstance(g, ProjGrad):
+                g32 = g.materialize()
+                if g.coeff != 1.0:
+                    g32 = g.coeff * g32
+                m, v = g.apply_reset(m), g.apply_reset(v)
+            else:
+                g32 = g.to(torch.float32)
             m2 = b1 * m + (1 - b1) * g32
             v2 = b2 * v + (1 - b2) * torch.square(g32)
-            out[k] = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+            s = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+            out[k] = scale * s if scale != 1.0 else s
             mu[k], nu[k] = m2, v2
         return out, ScaleByAdamState(count=count, mu=mu, nu=nu)
 
@@ -247,11 +385,17 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Tran
 def add_decayed_weights(weight_decay: float = 0.0) -> Transform:
     """Decoupled weight decay ``u + wd * p`` (apply before scale_by_lr)."""
 
+    def one(u, p):
+        if u is None:
+            return None
+        if isinstance(u, PendingBack):
+            return u.decayed(weight_decay)
+        return u + weight_decay * p.to(torch.float32)
+
     def update(updates: dict, state, params: dict):
         if weight_decay == 0.0:
             return updates, ()
-        return {k: None if u is None else u + weight_decay * params[k].to(torch.float32)
-                for k, u in updates.items()}, ()
+        return {k: one(u, params[k]) for k, u in updates.items()}, ()
 
     return Transform(lambda params: (), update)
 
@@ -261,15 +405,46 @@ class ScaleByLrState(NamedTuple):
 
 
 def scale_by_lr(lr: Schedule) -> Transform:
-    """Terminal step: ``-schedule(count) * u``."""
+    """Terminal step: ``-schedule(count) * u``; deferred epilogues
+    (:class:`PendingBack`) materialize here, one fused launch per family."""
+
+    def one(u, step: float):
+        if u is None:
+            return None
+        if isinstance(u, PendingBack):
+            return u.scaled(-step)
+        return (-step) * u
 
     def update(updates: dict, state: ScaleByLrState, params: dict):
         count = state.count + 1
         step = schedule_value(lr, count)
-        return ({k: None if u is None else (-step) * u for k, u in updates.items()},
-                ScaleByLrState(count=count))
+        out = materialize_pending({k: one(u, step) for k, u in updates.items()})
+        return out, ScaleByLrState(count=count)
 
     return Transform(lambda params: ScaleByLrState(count=0), update)
+
+
+def scale_by_factor(factor: float) -> Transform:
+    """Constant multiplier (an alpha applied outside the base).  Composes
+    inside ``lowrank`` too: :class:`ProjGrad` leaves scale through their
+    coeff, :class:`FullUpdate` and :class:`PendingBack` leaves through their
+    payload."""
+
+    def one(u):
+        if u is None:
+            return None
+        if isinstance(u, ProjGrad):
+            return u.with_coeff(factor * u.coeff)
+        if isinstance(u, FullUpdate):
+            return FullUpdate(factor * u.u)
+        if isinstance(u, PendingBack):
+            return u.scaled(factor)
+        return factor * u
+
+    def update(updates: dict, state, params: dict):
+        return {k: one(u) for k, u in updates.items()}, ()
+
+    return Transform(lambda params: (), update)
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +477,8 @@ def with_matrix_routing(
 
 class LowRankState(NamedTuple):
     count: int
-    projs: dict     # per-leaf projector (*lead, s, r) (None elsewhere)
+    projs: dict     # per-leaf projector (*lead, s, r) (None elsewhere); under
+                    # family stacking {family index: (L, s, r)}
     inner: PyTree   # the wrapped transform's state (projected space)
 
 
@@ -315,6 +491,8 @@ def lowrank(
     seed: int = 0,
     reset_on_refresh: bool = False,
     kernel_impl: str = "auto",
+    fuse_families: bool = False,
+    fused_epilogue: bool = False,
 ) -> Transform:
     """Run ``inner`` inside a periodically refreshed low-rank subspace.
 
@@ -322,7 +500,13 @@ def lowrank(
     projector is recomputed from its gradient by a batched SVD; with
     ``reset_on_refresh`` the inner momenta are zeroed at that boundary.  The
     leaf index ``i`` in the key handed to the inner transform is the leaf's
-    position in the full parameter tree, as in the reference."""
+    position in the full parameter tree, as in the reference.
+
+    ``fuse_families=True`` runs the pipeline once per family stack (see the
+    module docstring); the inner state is then keyed by family index.
+    ``fused_epilogue=True`` returns :class:`PendingBack` leaves in place of
+    back-projected ones, for the chain tail to fold into one fused launch."""
+    wants_params = bool(getattr(inner.update, "wants_params", False))
 
     def init(params: dict) -> LowRankState:
         projs, tmpls = {}, {}
@@ -362,10 +546,79 @@ def lowrank(
                 out[k] = None
             elif isinstance(o, FullUpdate):
                 out[k] = o.u
+            elif fused_epilogue:
+                out[k] = PendingBack(p=msg.p, s=o, w=params[k], fs=msg.fs,
+                                     kernel_impl=kernel_impl)
             else:
                 out[k] = msg.back(o)
         return out, LowRankState(count=count, projs=new_projs, inner=new_inner)
 
+    def _plan(params: dict, grads: Optional[dict] = None):
+        paths, leaves = list(params), list(params.values())
+        plan = build_family_plan(leaves, rank)
+        if grads is not None:
+            for fam in plan.families:
+                for i in fam.members:
+                    if grads[paths[i]] is None:
+                        raise ValueError(
+                            "fuse_families=True requires gradient leaves to mask "
+                            f"together with param leaves ({paths[i]} has no gradient)")
+        return paths, leaves, plan
+
+    def init_fused(params: dict) -> LowRankState:
+        paths, _, plan = _plan(params)
+        projs, tmpls = {}, {}
+        for fi, fam in enumerate(plan.families):
+            device = params[paths[fam.members[0]]].device
+            projs[fi] = torch.zeros(proj_shape(fam.fs), dtype=torch.float32,
+                                    device=device)
+            tmpls[fi] = ProjInit(fam.fs, TensorSpec(lowrank_state_shape(fam.fs), device),
+                                 seg=fam.seg)
+        return LowRankState(count=0, projs=projs, inner=inner.init(tmpls))
+
+    def update_fused(updates: dict, state: LowRankState, params: dict):
+        count = state.count + 1
+        refresh = (count - 1) % period == 0
+        paths, leaves, plan = _plan(params, updates)
+        g_leaves = [None if updates[k] is None else updates[k].to(torch.float32)
+                    for k in paths]
+        msgs, new_projs, fam_params = {}, {}, {}
+        for fi, fam in enumerate(plan.families):
+            g32 = stack_family(fam, g_leaves)
+            proj = state.projs[fi]
+            if refresh:
+                proj = compute_projectors(projector, g32, fam.fs.rank, fam.fs.side)
+            msgs[fi] = ProjGrad(p=proj, g=g32, fs=fam.fs, kernel_impl=kernel_impl,
+                                reset=refresh and reset_on_refresh, refresh=refresh,
+                                key=member_keys(fam, seed, count), seg=fam.seg)
+            new_projs[fi] = proj
+            # Stacking the params costs a copy per family per step: only
+            # for an inner that reads them (layerwise_unbias).
+            fam_params[fi] = stack_family(fam, leaves) if wants_params else None
+
+        inner_out, new_inner = inner.update(msgs, state.inner, fam_params)
+
+        out = dict.fromkeys(paths)
+        for fi, fam in enumerate(plan.families):
+            o, msg = inner_out[fi], msgs[fi]
+            if isinstance(o, FullUpdate):
+                parts = unstack_family(fam, o.u)
+            elif fused_epilogue:
+                w = fam_params[fi]
+                if w is None:  # stacked only if the decay term needs it
+                    w = lambda fam=fam: stack_family(fam, leaves)
+                parts = [PendingBack(p=msg.p, s=o, w=w, fs=fam.fs, kernel_impl=kernel_impl,
+                                     member=j, members=fam.seg.members,
+                                     member_lead=fam.member_fs.lead)
+                         for j in range(fam.seg.members)]
+            else:
+                parts = unstack_family(fam, msg.back(o))
+            for i, part in zip(fam.members, parts):
+                out[paths[i]] = part
+        return out, LowRankState(count=count, projs=new_projs, inner=new_inner)
+
+    if fuse_families:
+        return Transform(init_fused, update_fused)
     return Transform(init, update)
 
 
@@ -396,14 +649,19 @@ def layerwise_unbias(
       paper    : c_low = 1/(1-q),  c_full = 1/q,  c_comp = 1
       finetune : c_low = 1,        c_full = 1/q,  c_comp = 1-q   (App. C.1)
 
+    Under family stacking the sampling unit is the member leaf: each member
+    draws ``gamma`` of its own blocks with its own key, so a stack has
+    ``members * gamma`` slots and the same coefficients as the per-leaf path.
+
     Must be composed inside :func:`lowrank`."""
     if compensation not in ("paper", "finetune"):
         raise ValueError(f"unknown compensation: {compensation}")
     sampler = sampler or generator_sampler
 
-    def _coeffs(fs: FamilyShape):
-        g_f = min(gamma, fs.L)
-        q = g_f / fs.L
+    def _coeffs(fs: FamilyShape, seg=None):
+        L_eff = seg.member_L if seg is not None else fs.L
+        g_f = min(gamma, L_eff)
+        q = g_f / L_eff
         if q >= 1.0:
             c_low = 0.0  # low branch fully overwritten by the scatter
         elif compensation == "finetune":
@@ -423,14 +681,31 @@ def layerwise_unbias(
             if not isinstance(t, ProjInit):
                 raise TypeError("layerwise_unbias must be composed inside lowrank() "
                                 f"(init saw a {type(t).__name__} leaf)")
-            g_f, q, *_ = _coeffs(t.fs)
+            g_f, q, *_ = _coeffs(t.fs, t.seg)
             device = t.low.device
             # q >= 1: the scatter overwrites the whole family, so the low
             # branch carries no state for this leaf.
             lows[k] = None if q >= 1.0 else t
-            fulls[k] = None if g_f == 0 else TensorSpec((g_f, t.fs.m, t.fs.n), device)
-            idx[k] = None if g_f == 0 else torch.arange(g_f, device=device)
+            if g_f == 0:
+                fulls[k] = idx[k] = None
+                continue
+            ids = torch.arange(g_f, device=device)
+            if t.seg is not None:  # g_f slots per member, offset to the stack
+                offs = t.seg.member_L * torch.arange(t.seg.members, device=device)
+                ids = (ids[None, :] + offs[:, None]).reshape(-1)
+            fulls[k] = TensorSpec((len(ids), t.fs.m, t.fs.n), device)
+            idx[k] = ids
         return LayerwiseUnbiasState(low=base.init(lows), full=base.init(fulls), idx=idx)
+
+    def _sample(g: ProjGrad, g_f: int) -> torch.Tensor:
+        """Fresh slot -> block ids: ``g_f`` per member, offset to the stack."""
+        if g.seg is None:
+            fresh = sampler(g.key, g.fs.L, g_f)
+        else:
+            mL = g.seg.member_L
+            fresh = torch.cat([sampler(key, mL, g_f).to(torch.long) + j * mL
+                               for j, key in enumerate(g.key)])
+        return fresh.to(device=g.g.device, dtype=torch.long)
 
     def update(updates: dict, state: LayerwiseUnbiasState, params: dict):
         low_upds, new_idx, full_upds, full_params = {}, {}, {}, {}
@@ -443,7 +718,7 @@ def layerwise_unbias(
                 raise TypeError("layerwise_unbias must be composed inside lowrank() "
                                 f"(got a {type(g).__name__} leaf)")
             fs = g.fs
-            g_f, q, c_low, c_comp, c_full = _coeffs(fs)
+            g_f, q, c_low, c_comp, c_full = _coeffs(fs, g.seg)
             low_upds[k] = g.with_coeff(c_low) if q < 1.0 else None
             if g_f == 0:
                 new_idx[k] = full_upds[k] = full_params[k] = None
@@ -451,10 +726,10 @@ def layerwise_unbias(
             idx = state.idx[k]
             if g.refresh:
                 refresh_any = True
-                idx = sampler(g.key, fs.L, g_f).to(device=g.g.device, dtype=torch.long)
+                idx = _sample(g, g_f)
             new_idx[k] = idx
-            g_s = gather_blocks(g.g, idx, fs)        # (gamma, m, n)
-            p_s = gather_blocks(g.p, idx, fs)        # (gamma, s, r)
+            g_s = gather_blocks(g.g, idx, fs)        # (slots, m, n)
+            p_s = gather_blocks(g.p, idx, fs)        # (slots, s, r)
             pptg = dispatch.back_project(
                 p_s, dispatch.project(p_s, g_s, side=fs.side, impl=g.kernel_impl),
                 side=fs.side, impl=g.kernel_impl)
@@ -473,7 +748,7 @@ def layerwise_unbias(
                 outs[k] = None
                 continue
             fs = g.fs
-            g_f, q, *_ = _coeffs(fs)
+            g_f, q, *_ = _coeffs(fs, g.seg)
             if q < 1.0:
                 u = g.back(low_out[k])
             else:
@@ -484,4 +759,5 @@ def layerwise_unbias(
             outs[k] = FullUpdate(u)
         return outs, LayerwiseUnbiasState(low=new_low, full=new_full, idx=new_idx)
 
+    update.wants_params = True  # gathers the sampled blocks' params
     return Transform(init, update)

@@ -19,6 +19,9 @@ block l):
 
 ``kernel_impl`` ("auto" | "cuda" | "torch") routes the momentum update, the
 projections and Newton–Schulz through the CUDA kernels on CUDA tensors.
+``fuse_families`` runs the pipeline once per shape family (sampling stays
+per member leaf); ``fused_epilogue`` is accepted and inert, since
+``layerwise_unbias`` emits full-shape updates.
 ``sampler`` replaces the block sampler (see
 :func:`repro_torch.core.combinators.generator_sampler`).
 """
@@ -57,6 +60,8 @@ def gum_matrices(
     seed: int = 0,
     kernel_impl: str = "auto",
     sampler: Optional[Sampler] = None,
+    fuse_families: bool = False,
+    fused_epilogue: bool = False,
 ) -> Transform:
     """GUM over matrix leaves (route 1-D/embedding leaves via :func:`gum`)."""
     if base != "muon":
@@ -67,6 +72,7 @@ def gum_matrices(
                          sampler=sampler),
         rank=rank, period=period, projector=projector, seed=seed,
         reset_on_refresh=True, kernel_impl=kernel_impl,
+        fuse_families=fuse_families, fused_epilogue=fused_epilogue,
     )
     return chain(lowrank_t, add_decayed_weights(weight_decay), scale_by_lr(lr))
 

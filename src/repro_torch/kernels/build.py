@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with :mod:`ctypes` — no
-PyTorch headers, so a build takes seconds, not minutes.  The four sources are
+PyTorch headers, so a build takes seconds, not minutes.  The sources are
 compiled in parallel, at first use, into
 ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed on a hash
 of every file under ``csrc/`` and the compiler flags; a finished build is
@@ -36,6 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "lowrank_update": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     "back_project": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "back_project_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "gram": (_P, _P, _I, _I, _I, _P),
     "poly_apply": (_P, _P, _P, _I, _I, _I, _F, _P),
 }
@@ -100,7 +101,7 @@ def build() -> dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (building all four on first use)."""
+    """The loaded library of kernel ``name`` (building all of them on first use)."""
     if not _LIBS:
         for kname, so in build().items():
             lib = ctypes.CDLL(str(so))

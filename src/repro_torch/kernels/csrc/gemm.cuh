@@ -1,5 +1,6 @@
-// Batched fp32 SIMT GEMM core shared by the port's four optimizer kernels
-// (lowrank_update.cu, back_project.cu, gram.cu, poly_apply.cu).
+// Batched fp32 SIMT GEMM core shared by the port's five optimizer kernels
+// (lowrank_update.cu, back_project.cu, back_project_epilogue.cu, gram.cu,
+// poly_apply.cu).
 //
 //   C[l](i, j) = alpha * sum_k A[l](i, k) * B[l](k, j)  +  beta * D[l](i, j)
 //
@@ -51,7 +52,7 @@ struct GemmArgs {
 };
 
 // The body of every kernel: one block's output tile.  Each .cu file wraps it
-// in a __global__ function of its own name, so traces tell the four apart.
+// in a __global__ function of its own name, so traces tell them apart.
 template <bool A_KC, bool B_NC>
 __device__ __forceinline__ void gemm_tile(const GemmArgs& p) {
   __shared__ __align__(16) float As[BK][BM + PAD];

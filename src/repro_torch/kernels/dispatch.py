@@ -14,8 +14,10 @@ there are no padding wrappers and no shape-legality limits.  On top of the
 kernels' ``(L, a, b)`` contract the dispatchers add what the JAX ones do:
 lead flattening of ``(*lead, m, n)`` families, the right-side transposes
 (``(G P)ᵀ = Pᵀ Gᵀ``, ``(S Pᵀ)ᵀ = P Sᵀ``) and Newton–Schulz's transposition
-to the short side.  ``KernelEntry`` / :data:`REGISTRY` name each op with its
-plain reference; names must be in ``launch_count.DISPATCH_OPS``.
+to the short side.  The fused epilogue takes both sides natively, so its
+dispatcher only flattens leads.  ``KernelEntry`` / :data:`REGISTRY` name
+each op with its plain reference; names must be in
+``launch_count.DISPATCH_OPS``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import launch_count, ref
+from repro_torch.kernels.fused_step import back_project_epilogue_batched
 from repro_torch.kernels.lowrank_update import (
     back_project_batched,
     lowrank_update_batched,
@@ -146,6 +149,34 @@ def back_project(p, s, *, side: str = "left", impl: str = "auto") -> torch.Tenso
     return out.mT if side == "right" else out
 
 
+def back_project_epilogue(p, s, *, w=None, scale: float = 1.0, decay: float = 0.0,
+                          side: str = "left", impl: str = "auto") -> torch.Tensor:
+    """Fused write-back of a projected-space update, ``scale·back_project(p,
+    s) + decay·W`` in one launch (see :mod:`repro_torch.kernels.fused_step`):
+    the materialization of ``combinators.PendingBack``, where scale carries
+    -lr (and GaLore's alpha), decay -lr·wd and ``w`` the (family-stacked)
+    params.
+
+    left  side: p (*lead, m, r), s (*lead, r, n), w (*lead, m, n) or None
+    right side: p (*lead, n, r), s (*lead, m, r), w (*lead, m, n) or None
+    """
+    _check_side(side)
+    impl = resolve_impl(impl, s)
+    launch_count.record("back_project_epilogue")
+    if impl == "torch":
+        from repro_torch.core.lowrank_common import back_project as bp
+
+        out = scale * bp(_f32(p), _f32(s), side)
+        if w is not None:
+            out = out + decay * _f32(w)
+        return out
+    lead = tuple(s.shape[:-2])
+    out = back_project_epilogue_batched(
+        _flatten_lead(_f32(p)), _flatten_lead(_f32(s)),
+        None if w is None else _flatten_lead(_f32(w)), scale, decay, side=side)
+    return out.reshape(lead + tuple(out.shape[-2:]))
+
+
 # --------------------------------------------------------------------------
 # Newton–Schulz orthogonalization
 # --------------------------------------------------------------------------
@@ -215,4 +246,6 @@ def _newton_schulz_ref(x, *, steps=5, eps=1e-7):
 register(KernelEntry("lowrank_update", lowrank_update, ref.lowrank_update_ref))
 register(KernelEntry("project", project, ref.project_ref))
 register(KernelEntry("back_project", back_project, ref.back_project_ref))
+register(KernelEntry("back_project_epilogue", back_project_epilogue,
+                     ref.back_project_epilogue_ref))
 register(KernelEntry("newton_schulz", newton_schulz, _newton_schulz_ref))

@@ -1,11 +1,11 @@
 """Dispatch-level launch counting, with the JAX package's op vocabulary.
 
 Every dispatched optimizer op (``lowrank_update``, ``project``,
-``back_project``, ``newton_schulz``; ``back_project_epilogue`` is named for
-the vocabulary but not ported yet) records one count per call while a
-:func:`count_launches` context is active.  PyTorch runs eagerly, so the
-counts are per executed call, one step at a time.  The CUDA kernels under
-these ops keep their own per-kernel counts (``kernels.build.LAUNCHES``).
+``back_project``, ``back_project_epilogue``, ``newton_schulz``) records one
+count per call while a :func:`count_launches` context is active.  PyTorch
+runs eagerly, so the counts are per executed call, one step at a time.  The
+CUDA kernels under these ops keep their own per-kernel counts
+(``kernels.build.LAUNCHES``).
 
 Usage::
 

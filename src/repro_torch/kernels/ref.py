@@ -1,14 +1,16 @@
 """Plain PyTorch versions of every op on the port's path.
 
-Each kernel wrapper in :mod:`lowrank_update` and :mod:`newton_schulz` runs
-the matching function here when its tensors lie on the CPU, and
-``chip_smoke.py`` holds each CUDA kernel against it on the card.  All
-functions compute in fp32 and accept a leading batch: ``(..., a, b)``.
+Each kernel wrapper in :mod:`lowrank_update`, :mod:`fused_step` and
+:mod:`newton_schulz` runs the matching function here when its tensors lie
+on the CPU, and ``chip_smoke.py`` holds each CUDA kernel against it on the
+card.  All functions compute in fp32 and accept a leading batch:
+``(..., a, b)``.
 
 Shapes convention (as in the JAX package's ``kernels/ref.py``):
   attention:      q (B, S, H, D), k/v (B, T, KV, D), GQA via H % KV == 0
   newton-schulz:  x (..., m, n)
   lowrank update: p (..., m, r), g (..., m, n), r_state (..., r, n)
+  epilogue:       p (..., m, r), s (..., r, n), w (..., m, n) or None
 """
 from __future__ import annotations
 
@@ -94,3 +96,14 @@ def project_ref(p: torch.Tensor, g: torch.Tensor, coeff: float = 1.0) -> torch.T
 def back_project_ref(p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Back-projection GEMM: P (..., m, r) @ S (..., r, n) -> (..., m, n)."""
     return _f32(p) @ _f32(s)
+
+
+def back_project_epilogue_ref(
+    p: torch.Tensor, s: torch.Tensor, w: Optional[torch.Tensor], scale: float,
+    decay: float,
+) -> torch.Tensor:
+    """Fused write-back: scale·(P @ S) + decay·W (W optional)."""
+    out = scale * (_f32(p) @ _f32(s))
+    if w is not None:
+        out = out + decay * _f32(w)
+    return out

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.newton_schulz import newton_schulz_plain
 from repro_torch.kernels import build, dispatch, ref
+from repro_torch.kernels.fused_step import back_project_epilogue_batched
 from repro_torch.kernels.lowrank_update import (
     back_project_batched,
     lowrank_update_batched,
@@ -53,6 +54,31 @@ def test_lowrank_kernels_match_plain(cuda_device, L, m, r, n):
     assert _rel(back_project_batched(p, s), ref.back_project_ref(p, s)) <= 1e-5
     assert build.LAUNCHES["lowrank_update"] == before["lowrank_update"] + 2
     assert build.LAUNCHES["back_project"] == before["back_project"] + 1
+
+
+# (L, m, r, n, side): llama-130m's mlp family (left) and mlp/w_out stack
+# (right), llama-60m's ragged d_ff with r = 96 on both sides, a tiny shape.
+EPILOGUE_SHAPES = [(24, 768, 256, 2048, "left"), (12, 2048, 256, 768, "right"),
+                   (2, 1000, 96, 1376, "left"), (2, 1376, 96, 1000, "right"),
+                   (3, 5, 3, 7, "right")]
+
+
+@pytest.mark.parametrize("L,m,r,n,side", EPILOGUE_SHAPES)
+def test_back_project_epilogue_kernel_matches_plain(cuda_device, L, m, r, n, side):
+    p = _randn(L, m if side == "left" else n, r)
+    s = _randn(*((L, r, n) if side == "left" else (L, m, r)))
+    w = _randn(L, m, n)
+    before = build.LAUNCHES["back_project_epilogue"]
+    plain = (lambda w: ref.back_project_epilogue_ref(p, s, w, -0.0025, -2.5e-5)
+             if side == "left" else
+             ref.back_project_epilogue_ref(s, p.mT, w, -0.0025, -2.5e-5))
+    for ww in (w, None):
+        assert _rel(back_project_epilogue_batched(p, s, ww, -0.0025, -2.5e-5, side=side),
+                    plain(ww)) <= 1e-5
+    got = dispatch.back_project_epilogue(p, s, w=w, scale=-0.0025, decay=-2.5e-5,
+                                         side=side, impl="cuda")
+    assert _rel(got, plain(w)) <= 1e-5
+    assert build.LAUNCHES["back_project_epilogue"] == before + 3
 
 
 @pytest.mark.parametrize("L,s,n", [(12, 256, 2048), (4, 768, 2048), (2, 1000, 1376),

@@ -13,7 +13,10 @@ leaf's Frobenius norm.  (Why a norm: with the paper compensation the sampled
 block's residual ``G − P Pᵀ G`` is exactly zero in span(P) but for fp32
 rounding, and Newton–Schulz amplifies such tiny singular values up to
 a⁵ ≈ 485×, so those few entries carry ~1e-4 of rounding on either side.)
-Per-step dispatch counts equal the reference's trace-time counts."""
+Per-step dispatch counts equal the reference's trace-time counts.  The
+same holds family-stacked (``fuse_families=True``), with the reference's
+stacked sampled blocks split per member and injected by each member's leaf
+index."""
 import jax
 import numpy as np
 import pytest
@@ -27,6 +30,8 @@ from repro.kernels import launch_count as j_launch_count
 from repro.models import build_model as j_build_model
 from repro_torch.convert import params_from_jax
 from repro_torch.core import OptimizerConfig, apply_updates, build_optimizer
+from repro_torch.core.family_plan import build_family_plan
+from repro_torch.core.lowrank_common import default_lowrank_filter
 from repro_torch.kernels import launch_count
 
 RTOL = 1e-4
@@ -69,15 +74,44 @@ def _unflatten(flat):
 
 # gamma=1 of L=2 blocks runs both branches (q = 1/2); gamma=2 only the
 # full-rank one (q = 1, no low-rank state); gamma=0 only the low-rank one.
-@pytest.mark.parametrize("compensation,gamma", [("paper", 1), ("finetune", 1),
-                                                ("paper", 2), ("paper", 0)])
-def test_gum_matches_reference(compensation, gamma):
+GRID = [("paper", 1), ("finetune", 1), ("paper", 2), ("paper", 0)]
+
+
+def _injected_per_leaf(jidx, paths):
+    """{leaf index: the reference's sampled blocks} from its per-leaf idx tree."""
+    out = {}
+    for i, path in enumerate(paths):
+        node = jidx
+        for part in path.split("/"):
+            node = node[part] if node is not None else None
+        if node is not None:
+            out[i] = np.asarray(node).astype(np.int64)
+    return out
+
+
+def _injected_per_member(jidx, plan):
+    """{leaf index: blocks} from the reference's stacked idx (one array of
+    ``members * g_f`` global block ids per family)."""
+    out = {}
+    for fam, idx in zip(plan.families, jidx):
+        if idx is None:
+            continue
+        idx = np.asarray(idx).astype(np.int64)
+        g_f = len(idx) // fam.seg.members
+        for j, i in enumerate(fam.members):
+            out[i] = idx[j * g_f:(j + 1) * g_f] - j * fam.seg.member_L
+    return out
+
+
+def _check_gum(compensation, gamma, fuse):
     kw = dict(name="gum", lr=1e-2, rank=4, gamma=gamma, period=3,
-              compensation=compensation, weight_decay=0.01)
+              compensation=compensation, weight_decay=0.01, fuse_families=fuse)
     jopt = j_build_optimizer(JOptimizerConfig(kernel_impl="jnp", **kw))
     jparams = j_build_model(j_get_smoke("llama-60m")).init(jax.random.PRNGKey(0))
     params = params_from_jax(jax.device_get(jparams))
     paths = list(params)
+    plan = build_family_plan(
+        [p if default_lowrank_filter(k, p) else None for k, p in params.items()], 4)
 
     injected: dict[int, np.ndarray] = {}
     opt = build_optimizer(OptimizerConfig(**kw),
@@ -97,12 +131,8 @@ def test_gum_matches_reference(compensation, gamma):
         jlr = jstate.inner["gum"][0]
         jidx = jax.device_get(jlr.inner.idx)
         injected.clear()
-        for i, path in enumerate(paths):
-            node = jidx
-            for part in path.split("/"):
-                node = node[part] if node is not None else None
-            if node is not None:
-                injected[i] = np.asarray(node).astype(np.int64)
+        injected.update(_injected_per_member(jidx, plan) if fuse
+                        else _injected_per_leaf(jidx, paths))
 
         with launch_count.count_launches() as counts:
             upd, state = opt.update({k: torch.from_numpy(v) for k, v in g.items()},
@@ -116,14 +146,33 @@ def test_gum_matches_reference(compensation, gamma):
 
         lr = state.inner["gum"][0]
         assert lr.count == step + 1
-        jprojs = {"/".join(str(k.key) for k in kp): np.asarray(v) for kp, v in
-                  jax.tree_util.tree_flatten_with_path(jax.device_get(jlr.projs))[0]}
-        for i, path in enumerate(paths):
-            if i in injected:
-                assert torch.equal(lr.inner.idx[path], torch.from_numpy(injected[i]))
-                p, jp = lr.projs[path].numpy(), jprojs[path]
-                np.testing.assert_allclose(p @ np.swapaxes(p, -1, -2),
-                                           jp @ np.swapaxes(jp, -1, -2),
-                                           rtol=0, atol=1e-5, err_msg=f"P Pᵀ {path}")
+        if fuse:  # per family: the stacked idx and projectors
+            pairs = [(lr.inner.idx[fi], None if idx is None else np.asarray(idx),
+                      lr.projs[fi].numpy(), np.asarray(jp))
+                     for fi, (idx, jp) in enumerate(zip(jidx, jlr.projs))]
+        else:
+            jprojs = {"/".join(str(k.key) for k in kp): np.asarray(v) for kp, v in
+                      jax.tree_util.tree_flatten_with_path(jax.device_get(jlr.projs))[0]}
+            pairs = [(lr.inner.idx[paths[i]], idx, lr.projs[paths[i]].numpy(),
+                      jprojs[paths[i]]) for i, idx in injected.items()]
+        assert len(pairs) == (3 if fuse else len(injected))
+        for idx, jidx_f, p, jp in pairs:
+            if jidx_f is not None:
+                assert torch.equal(idx, torch.from_numpy(jidx_f.astype(np.int64)))
+            np.testing.assert_allclose(p @ np.swapaxes(p, -1, -2),
+                                       jp @ np.swapaxes(jp, -1, -2),
+                                       rtol=0, atol=1e-5, err_msg=f"step {step} P Pᵀ")
         params = apply_updates(params, upd)
         jparams = j_apply_updates(jparams, jupd)
+
+
+@pytest.mark.parametrize("compensation,gamma", GRID)
+def test_gum_matches_reference(compensation, gamma):
+    _check_gum(compensation, gamma, fuse=False)
+
+
+@pytest.mark.parametrize("compensation,gamma", GRID)
+def test_gum_fused_families_matches_reference(compensation, gamma):
+    """``fuse_families=True``: three family stacks, sampled per member with
+    each member's own injected blocks."""
+    _check_gum(compensation, gamma, fuse=True)

@@ -60,6 +60,8 @@ def test_cuda_impl_on_cpu_tensors_raises():
                                                  impl="cuda"),
                  lambda: dispatch.project(p, g, impl="cuda"),
                  lambda: dispatch.back_project(p, torch.zeros(1, 2, 16), impl="cuda"),
+                 lambda: dispatch.back_project_epilogue(p, torch.zeros(1, 2, 16), w=g,
+                                                        impl="cuda"),
                  lambda: dispatch.newton_schulz(g, impl="cuda")):
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -94,11 +96,16 @@ def test_dispatch_vocabulary_equals_reference():
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError):
-        OptimizerConfig(fuse_families=True)
-    with pytest.raises(NotImplementedError):
-        OptimizerConfig(projector="rsvd")
+    for knob in (dict(pad_rank_to=128), dict(rank_policy="spectral:0.99"),
+                 dict(shard_state=True), dict(telemetry=True),
+                 dict(projector="random"), dict(projector="rsvd")):
+        with pytest.raises(NotImplementedError):
+            OptimizerConfig(**knob)
     from repro_torch.core import build_optimizer
+    from repro_torch.core.galore import galore
 
     with pytest.raises(NotImplementedError):
-        build_optimizer(OptimizerConfig(name="galore"))
+        galore(1e-3, base="sgdm")
+    for name in ("golore", "fira", "muon", "sgdm", "lisa", "unbiased_galore_adam"):
+        with pytest.raises(NotImplementedError):
+            build_optimizer(OptimizerConfig(name=name))

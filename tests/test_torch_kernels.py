@@ -163,7 +163,7 @@ def test_resolve_impl_by_device():
 
 def test_registry_names_the_ported_ops():
     assert set(dispatch.REGISTRY) == {"lowrank_update", "project", "back_project",
-                                      "newton_schulz"}
+                                      "back_project_epilogue", "newton_schulz"}
     assert dispatch.get_kernel("back_project").fn is dispatch.back_project
     with pytest.raises(KeyError):
         dispatch.get_kernel("nope")
