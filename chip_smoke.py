@@ -7,34 +7,47 @@ Phases, in order; any failure exits non-zero and prints no result:
 
   1. device   — require CUDA, print the card's name and power limit, turn
                 TF32 off for matmuls and convolutions;
-  2. build    — compile the five CUDA kernels from ``src/repro_torch/kernels/
-                csrc`` with nvcc for sm_90a;
+  2. build    — compile the seven CUDA kernels from ``src/repro_torch/
+                kernels/csrc`` with nvcc for sm_90a, all at once;
   3. kernels  — hold each kernel against its plain PyTorch version at the
                 llama-130m shapes of GUM (rank 256, gamma 4) and of GaLore's
                 family stacks, both projection sides, plus one ragged shape;
-                time kernel, plain version and one torch.bmm-family call,
-                and compute the bound;
+                flash attention at llama-130m's prefill, a GQA short-query
+                and a ragged case; the SSD scan at mamba2-370m's prefill and
+                a ragged case; time kernel, plain version and one PyTorch
+                call computing the same function where there is one, and
+                compute the bound;
   4. slice    — GUM pretraining of llama-130m at full width through the
                 port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3),
                 asserting finite losses and the per-step dispatch and kernel
                 launch counts;
   4b. galore  — GaLore pretraining of llama-130m the same way, family-stacked
                 with the fused back-projection epilogue;
+  6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
+                flash_attention launches) against "xla", then a
+                continuous-batching engine of 8 slots answering 16 requests,
+                two of them checked against direct decode;
+  7. serve    — mamba2-370m (bf16): prefill 4 x 4096 (48 ssd_scan launches)
+                against "xla" in fp32 and in bf16, then the same engine run,
+                a request in a reused slot checked against direct decode;
   5. agree    — the same trainer at the llama-60m smoke size on the card and
                 on the CPU (plain versions) must give the same losses, for
                 GUM, GaLore-Muon with the fused epilogue and weight decay,
-                and family-stacked GUM.
+                and family-stacked GUM; and the prefill logits of the two
+                smoke models at attn_impl="pallas".
 
 The card's ``nvidia-smi`` name and power limit are printed first and again
 third from the end; the line before the last is a JSON object describing
-every kernel (launches summed over the two full-width phases, error, times,
-bound), and the last line is ``{"ok": true, "device": {...}}``.
+every kernel (launches summed over the full-width paths, each read from
+counts set to 0 just before it, error, times, bound), and the last line is
+``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 3 (for iterating on a kernel).
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -57,8 +70,19 @@ PEAK_BYTES = 3.35e12
 # through a cubic polynomial, 1e-4.
 TOL_GEMM = 1e-5
 TOL_NS = 1e-4
+# Flash attention: the kernel's online softmax and the plain version's
+# one-pass softmax both sum in fp32, in another order: 1e-5 (the kernel's
+# exp is expf, not the fast __expf).  The SSD scan sums ~N + 2·chunk
+# products per output through exponentials of cumulative sums and carries
+# the state over up to 64 chunks: 1e-4.
+TOL_FLASH = 1e-5
+TOL_SSD = 1e-4
 
 KERNEL_META = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:35"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:25"),
     "lowrank_update": ("src/repro_torch/kernels/csrc/lowrank_update.cu",
                        "src/repro/kernels/lowrank_update.py:30"),
     "back_project": ("src/repro_torch/kernels/csrc/back_project.cu",
@@ -110,8 +134,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def rel_err(out, want) -> tuple[float, float]:
+    """max|out - want| and that over max|want|; tuples compare member by
+    member and give the worst of each."""
     import torch
 
+    if isinstance(out, tuple):
+        errs = [rel_err(o, w) for o, w in zip(out, want)]
+        return max(e[0] for e in errs), max(e[1] for e in errs)
     check(out.shape == want.shape, f"shape {tuple(out.shape)} != {tuple(want.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite kernel output")
     abs_err = float((out - want).abs().max())
@@ -226,6 +255,78 @@ def kernel_cases(torch, gen):
     return cases
 
 
+def causal_pairs(S: int, T: int, causal: bool) -> int:
+    """(query, key) pairs attention computes: under causal, query r (the
+    (T - S + r)-th position) sees keys 0..T - S + r."""
+    if not causal:
+        return S * T
+    return sum(min(T, T - S + r + 1) for r in range(S))
+
+
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> float:
+    """The work the SSD function needs: C Bᵀ once per batch row and chunk
+    (all heads share b and c), the causal triangle of the intra-chunk
+    product, the inter-chunk product and the state update per head."""
+    total = 0.0
+    for c0 in range(0, S, chunk):
+        n = min(chunk, S - c0)
+        total += B * 2.0 * n * n * N
+        total += B * H * (2.0 * P * n * (n + 1) / 2 + 2 * 2.0 * n * N * P)
+    return total
+
+
+def serving_kernel_cases(torch, gen):
+    """Cases of the serving path's two kernels, in kernel_cases' form plus a
+    tolerance: flash attention at llama-130m's prefill, a GQA short-query
+    case (S < T, head dim 128) and a ragged one; the SSD scan at
+    mamba2-370m's prefill (bf16 x) and a ragged fp32 one."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    cases = []
+    for B, S, T, H, KV, D, principal in [(8, 1024, 1024, 12, 12, 64, True),
+                                         (2, 256, 1024, 16, 4, 128, False),
+                                         (2, 1000, 1000, 12, 12, 64, False)]:
+        q, k, v = randn(B, S, H, D), randn(B, T, KV, D), randn(B, T, KV, D)
+        lib = None
+        if principal:  # SDPA's is_causal aligns top-left: equal only for S == T
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            lib = (lambda qt=qt, kt=kt, vt=vt:
+                   F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        flops = 4.0 * D * causal_pairs(S, T, True) * B * H
+        nbytes = 4 * (2 * B * S * H * D + 2 * B * T * KV * D)
+        cases.append(("flash_attention", f"q{(B, S, H, D)} kv{(B, T, KV, D)} causal",
+                      (lambda q=q, k=k, v=v: flash_attention(q, k, v)),
+                      (lambda q=q, k=k, v=v: ref.attention_ref(q, k, v)),
+                      lib, flops, nbytes, principal, TOL_FLASH))
+
+    for B, S, H, P, N, chunk, xdtype, principal in [
+            (4, 4096, 32, 64, 128, 128, torch.bfloat16, True),
+            (2, 4000, 32, 64, 128, 64, torch.float32, False)]:
+        x = randn(B, S, H, P).to(xdtype)
+        dt = F.softplus(randn(B, S, H) - 1.0)
+        a = -torch.exp(torch.linspace(0.0, math.log(16.0), H, device="cuda"))
+        b, c = randn(B, S, N), randn(B, S, N)
+
+        def plain(x=x, dt=dt, a=a, b=b, c=c, chunk=chunk):
+            G = ref.ssd_chunk_cumsum(dt, a, chunk)
+            return ref.ssd_chunked_scan_ref(x, dt, G, b, c, chunk)
+
+        nbytes = (x.element_size() * x.numel() + 4 * (dt.numel() + a.numel() + 2 * b.numel()
+                                                      + B * S * H * P + B * H * N * P))
+        cases.append(("ssd_scan", f"x{(B, S, H, P)} {str(xdtype)[6:]} N={N} chunk={chunk}",
+                      (lambda x=x, dt=dt, a=a, b=b, c=c, chunk=chunk:
+                       ssd_scan(x, dt, a, b, c, chunk=chunk)),
+                      plain, None, ssd_flops(B, S, H, P, N, chunk), nbytes, principal, TOL_SSD))
+    return cases
+
+
 def phase_kernels(torch):
     from repro_torch.core.lowrank_common import back_project, project
     from repro_torch.core.newton_schulz import newton_schulz_plain
@@ -235,16 +336,20 @@ def phase_kernels(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, label, kfn, pfn, lfn, flops, nbytes, principal in kernel_cases(torch, gen):
+    cases = [case + (TOL_GEMM,) for case in kernel_cases(torch, gen)]
+    cases += serving_kernel_cases(torch, gen)
+    for name, label, kfn, pfn, lfn, flops, nbytes, principal, tol in cases:
         out, want = kfn(), pfn()
         torch.cuda.synchronize()
         abs_err, rel = rel_err(out, want)
-        check(rel <= TOL_GEMM, f"{name} {label}: rel err {rel:.3e} > {TOL_GEMM}")
-        ms, plain_ms, lib_ms = time_ms(kfn), time_ms(pfn), time_ms(lfn)
+        check(rel <= tol, f"{name} {label}: rel err {rel:.3e} > {tol}")
+        ms, plain_ms = time_ms(kfn), time_ms(pfn)
+        lib_ms = None if lfn is None else time_ms(lfn)
         bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
         bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-        print(f"kernel {name:15s} {label:40s} ok  abs {abs_err:.2e} rel {rel:.2e}  "
-              f"ms {ms:.4f}  plain {plain_ms:.4f}  bmm {lib_ms:.4f}  "
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"kernel {name:15s} {label:40s} ok  abs {abs_err:.2e} rel {rel:.2e} (tol {tol})  "
+              f"ms {ms:.4f}  plain {plain_ms:.4f}  library {lib_txt}  "
               f"bound {bound_ms:.4f} ({bound_by}, {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB)  {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
         row = rows.setdefault(name, {"max_abs_err": 0.0})
@@ -410,7 +515,6 @@ def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
     is profiled.  Its idle share is 1 − busy / that step's own wall time
     (host clock, ending in a synchronise, profiler on)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import build_stream
@@ -429,25 +533,230 @@ def profile_steady_step(torch, label: str, trainer, done: int) -> None:
         t0 = time.perf_counter()
         step(state)
         step_ms = (time.perf_counter() - t0) * 1e3
+    print_groups(f"{label} profiled steady step (step {done + 2})", prof, step_ms)
+
+
+def print_groups(label: str, prof, wall_ms: float) -> None:
+    """Device time of a profiled window by group — each port kernel, the
+    cuBLAS GEMMs, the rest — its busy time and its idle share against the
+    window's own host wall time."""
+    from torch.autograd import DeviceType
+
     groups = dict.fromkeys(list(KERNEL_META) + ["cuBLAS gemm", "other"], 0.0)
+    other = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", None)
         us = us if us is not None else ev.self_cuda_time_total
         name = ev.key
-        kernel = next((k for k in KERNEL_META if name.startswith(f"{k}_kernel")), None)
+        low = name.lower()
+        kernel = next((k for k in KERNEL_META if re.search(rf"(^|\W){k}_kernel", name)), None)
         if kernel:
             groups[kernel] += us
-        elif "gemm" in name.lower() or "cutlass" in name.lower() or "xmma" in name:
+        elif any(tag in low for tag in ("gemm", "cutlass", "xmma", "nvjet")):
             groups["cuBLAS gemm"] += us
         else:
             groups["other"] += us
+            other[name] = other.get(name, 0.0) + us
     busy_ms = sum(groups.values()) / 1e3
-    parts = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items())
-    print(f"{label} profiled steady step (step {done + 2}) device ms by group: {parts}; "
-          f"busy {busy_ms:.3f} of its {step_ms:.3f} wall ms "
-          f"(idle share {1 - busy_ms / step_ms:.3f})", flush=True)
+    parts = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items() if v)
+    top = "; ".join(f"{v / 1e3:.3f} {k[:60]}" for k, v in
+                    sorted(other.items(), key=lambda kv: -kv[1])[:4])
+    print(f"{label} device ms by group: {parts}; busy {busy_ms:.3f} of its {wall_ms:.3f} "
+          f"wall ms (idle share {1 - busy_ms / wall_ms:.3f}); largest in other: {top}",
+          flush=True)
+
+
+# --------------------------------------------------------------------- phases 6, 7
+
+
+def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
+                tol: float, direct_batch: int) -> dict:
+    """Serve ``arch`` at full width on the card, through the port's entry
+    points: ``make_prefill_step`` at ``attn_impl="pallas"`` on ``batch`` x
+    ``seq`` seeded prompts (exactly one ``kernel`` launch per layer; logits,
+    and the KV cache where the family has one, against the same prefill at
+    ``attn_impl="xla"``: rel <= ``tol`` in fp32, and in bf16 as
+    :func:`check_low_precision_prefill` says), then a ``ServeEngine`` of 8 slots
+    answering 16 seeded requests (prompts of 16–256 tokens, 32 new tokens
+    each, so slots are reused), two of which — one in a reused slot — must
+    equal the direct greedy decode of that request alone
+    (``greedy_decode(batch=direct_batch)``).  Prints the prefill and engine
+    times, tokens/s and peak memory, profiles one prefill, and returns the
+    kernel launches of the prefill and engine run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine, greedy_decode
+
+    cfg = get_config(arch)
+    model = build_model(cfg.replace(attn_impl="pallas"), device="cuda")
+    model.init_params(0)
+    xla = build_model(cfg.replace(attn_impl="xla"), device="cuda")
+    xla.load_params({k: v.detach() for k, v in model.params().items()})
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device="cuda")
+    prefill, prefill_xla = make_prefill_step(model), make_prefill_step(xla)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, 257, 16)]
+    torch.cuda.synchronize()
+
+    # The path: one prefill, then the engine; counts set to 0 just before.
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    logits, cache = prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(prefill_launches == {kernel: cfg.n_layers},
+          f"{label}: prefill kernel launches {prefill_launches} != {{{kernel!r}: {cfg.n_layers}}}")
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(model, slots=8, max_seq=1024)
+    reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    engine_peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(build.LAUNCHES)
+
+    # The prefill against attn_impl="xla" on the card.
+    check(bool(torch.isfinite(logits.float()).all()), f"{label}: non-finite prefill logits")
+    check(tuple(logits.shape) == (batch, seq, cfg.vocab), f"{label}: logits {tuple(logits.shape)}")
+    want, want_cache = prefill_xla({"tokens": tokens})
+    _, rel = rel_err(logits.float(), want.float())
+    errs = {"logits": rel}
+    for key in (cache or {}):
+        errs[key] = rel_err(cache[key], want_cache[key])[1]
+    print(f"{label} {arch} ({n_params / 1e6:.1f}M params, {cfg.dtype}) prefill {batch} x {seq}: "
+          f"{prefill_launches} launches; pallas vs xla max rel {errs}", flush=True)
+    if cfg.dtype == "float32":
+        check(all(e <= tol for e in errs.values()), f"{label}: pallas vs xla {errs} > {tol}")
+    else:
+        check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol)
+    del want, want_cache
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(walls)
+    print(f"{label} prefill ms {[round(w, 3) for w in walls]}, median {ms:.3f}; "
+          f"prefill tokens/s {batch * seq / (ms / 1e3):.0f}; "
+          f"peak memory {prefill_peak:.3f} GiB", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    print_groups(f"{label} profiled prefill", prof, wall)
+    del logits, cache
+
+    # The engine: every request done, two of them equal to direct decode.
+    check(len(engine.finished) == 16 and all(len(r.output) == 32 for r in reqs),
+          f"{label}: engine finished {len(engine.finished)} requests")
+    reused = [r for r in reqs if r.reused_slot]
+    check(len(reused) >= 1, f"{label}: no slot was reused")
+    generated = sum(len(r.output) for r in reqs)
+    ticks = engine.tick_seconds
+    print(f"{label} engine: 16 requests (prompts {min(map(len, prompts))}–"
+          f"{max(map(len, prompts))} tokens, 32 new each) on 8 slots, {len(reused)} in reused "
+          f"slots: {len(ticks)} ticks in {engine_s:.3f} s, median tick "
+          f"{statistics.median(ticks) * 1e3:.3f} ms, generated tokens/s "
+          f"{generated / engine_s:.1f}, peak memory {engine_peak:.3f} GiB", flush=True)
+    # One tick's decode step under the profiler: the 8 rows at their
+    # positions of the engine's last tick.
+    step = make_serve_step(model)
+    step_tokens = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
+    step_pos = torch.arange(8, device="cuda") * 64
+    step(engine.cache, step_tokens, step_pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(engine.cache, step_tokens, step_pos)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    print_groups(f"{label} profiled decode step (8 rows)", prof, wall)
+    for req in (reqs[0], reused[0]):
+        direct = greedy_decode(model, req.prompt, 32, 1024, batch=direct_batch,
+                               row=req.slot if direct_batch > 1 else 0)
+        check(req.output == direct, f"{label}: request {req.uid} (slot {req.slot}, reused "
+              f"{req.reused_slot}) {req.output} != direct decode {direct}")
+        print(f"{label} request {req.uid} (slot {req.slot}, reused slot {req.reused_slot}, "
+              f"prompt {len(req.prompt)}) equals direct decode: {req.output[:8]}...", flush=True)
+    build.reset_launches()
+    return launches
+
+
+def fro_rel(a, b) -> float:
+    """||a - b|| / ||b|| over every element (Frobenius), summed in fp64."""
+    import torch
+
+    def norm(x):
+        return torch.linalg.vector_norm(x.float().flatten(), dtype=torch.float64)
+
+    return float(norm(a.float() - b.float()) / norm(b))
+
+
+def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol) -> None:
+    """A bf16 prefill through the kernels against the plain (xla) one.
+    Both round every op to bf16 (2^-8 relative) but sum the SSD in fp32 in
+    another order, so their roundings part at a few elements per block and
+    the residual stream carries the difference through every layer: the
+    largest single logit moves by a few percent.  So hold it where bf16
+    itself sets the scale: the same prefill in fp32 through both paths
+    must agree within ``tol`` (1e-4), and in bf16 the kernel path must lie
+    no farther from the plain bf16 path, in Frobenius norm, than the plain
+    bf16 path lies from the fp32 result."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    fp32 = {}
+    for impl in ("pallas", "xla"):
+        m32 = build_model(cfg.replace(attn_impl=impl, dtype="float32"), device="cuda")
+        m32.load_params({k: v.detach() for k, v in model.params().items()})
+        fp32[impl] = make_prefill_step(m32)({"tokens": tokens})[0]
+        del m32
+    _, rel32 = rel_err(fp32["pallas"], fp32["xla"])
+    kernel_vs_plain = fro_rel(logits, want)
+    plain_vs_fp32 = fro_rel(want, fp32["xla"])
+    print(f"{label} fp32 prefill at full width: pallas vs xla max rel {rel32:.3e} (tol {tol}); "
+          f"{cfg.dtype}: pallas vs xla {kernel_vs_plain:.3e}, xla vs fp32 {plain_vs_fp32:.3e}, "
+          f"pallas vs fp32 {fro_rel(logits, fp32['xla']):.3e} (Frobenius rel)", flush=True)
+    check(rel32 <= tol, f"{label}: fp32 pallas vs xla {rel32:.3e} > {tol}")
+    check(kernel_vs_plain <= plain_vs_fp32,
+          f"{label}: {cfg.dtype} pallas vs xla {kernel_vs_plain:.3e} exceeds the plain "
+          f"path's own distance from fp32 {plain_vs_fp32:.3e}")
+    del fp32
+
+
+def phase_serve_llama(torch) -> dict:
+    """llama-130m (fp32): prefill 8 x 1024 through flash attention.  The
+    direct decode is the single-request one (batch 1): fp32 GEMMs of one
+    row and of eight round alike to far below the logits' gaps."""
+    return phase_serve(torch, "serve-llama", "llama-130m", 8, 1024, "flash_attention",
+                       1e-4, direct_batch=1)
+
+
+def phase_serve_mamba(torch) -> dict:
+    """mamba2-370m (bf16 activations, fp32 parameters): prefill 4 x 4096
+    through the SSD scan, held to the plain path as
+    :func:`check_low_precision_prefill` says (fp32 within 1e-4).  The direct decode
+    runs the request alone in its slot's row of an 8-row cache (the other
+    rows idle, as the engine's): bf16 GEMMs of another batch size pick
+    other cuBLAS kernels, which round differently and move near-tied bf16
+    logits."""
+    return phase_serve(torch, "serve-mamba", "mamba2-370m", 4, 4096, "ssd_scan",
+                       1e-4, direct_batch=8)
 
 
 # --------------------------------------------------------------------- phase 5
@@ -503,6 +812,39 @@ def phase_agree(torch):
               f"{worst:.2e} > 1e-4")
 
 
+def phase_agree_serve(torch):
+    """The prefill of llama-60m SMOKE and mamba2-370m SMOKE (fp32) at
+    attn_impl="pallas" on the card (the kernels, D = 16; chunk 16, N 16,
+    P 16, a ragged last chunk) and on the CPU (their plain versions), same
+    parameters: logits within 1e-4 relative (fp32 sums in another order
+    through two or three layers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    for arch, kernel, seq in [("llama-60m", "flash_attention", 64),
+                              ("mamba2-370m", "ssd_scan", 60)]:
+        cfg = get_smoke(arch).replace(attn_impl="pallas")
+        cpu = build_model(cfg, device="cpu")
+        cpu.init_params(0)
+        card = build_model(cfg, device="cuda")
+        card.load_params({k: v.detach() for k, v in cpu.params().items()})
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, seq)))
+        before = build.LAUNCHES[kernel]
+        got, _ = make_prefill_step(card)({"tokens": tokens.to("cuda")})
+        torch.cuda.synchronize()
+        check(build.LAUNCHES[kernel] == before + cfg.n_layers,
+              f"agree prefill {arch}: {kernel} launches {before} -> {build.LAUNCHES[kernel]}")
+        want, _ = make_prefill_step(cpu)({"tokens": tokens})
+        _, rel = rel_err(got.cpu(), want)
+        print(f"agree {arch} smoke prefill at attn_impl=pallas: cuda vs cpu max rel "
+              f"{rel:.2e}", flush=True)
+        check(rel <= 1e-4, f"agree prefill {arch}: {rel:.2e} > 1e-4")
+
+
 def main() -> None:
     import torch
 
@@ -531,9 +873,11 @@ def main() -> None:
     rows = phase_kernels(torch)
     launches = dict.fromkeys(rows, 0)
     if not kernels_only:
-        gum, galore = phase_slice(torch), phase_galore(torch)
-        launches = {k: gum[k] + galore[k] for k in rows}
+        paths = [phase_slice(torch), phase_galore(torch), phase_serve_llama(torch),
+                 phase_serve_mamba(torch)]
+        launches = {k: sum(path[k] for path in paths) for k in rows}
         phase_agree(torch)
+        phase_agree_serve(torch)
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

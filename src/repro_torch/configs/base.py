@@ -1,5 +1,5 @@
 """Model and run configuration dataclasses (a copy of the JAX package's
-``configs/base.py``; the port reads only the dense-family fields)."""
+``configs/base.py``; the port reads the dense-family and ssm fields)."""
 from __future__ import annotations
 
 import dataclasses

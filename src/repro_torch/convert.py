@@ -1,9 +1,12 @@
-"""Carry parameters between the JAX package and the port as numpy arrays.
+"""Carry parameters and decode caches between the JAX package and the port
+as numpy arrays.
 
 The JAX reference keeps parameters as a nested dict pytree; the port keeps a
 flat ``{path: tensor}`` dict with ``/``-joined paths in the same leaf order.
-Nothing here imports JAX: pass ``jax.device_get(params)`` (or any nested
-dict of array-likes) in, and get nested numpy dicts out.
+Decode caches are flat in both (``{"k", "v"}`` or ``{"conv", "ssm"}``).
+Nothing here imports JAX: pass ``jax.device_get(tree)`` (or any nested
+dict of array-likes) in, and get nested numpy dicts out.  bfloat16 arrays
+(numpy's ``ml_dtypes`` bfloat16) become ``torch.bfloat16`` tensors.
 """
 from __future__ import annotations
 
@@ -23,13 +26,28 @@ def _flatten(tree: Any, prefix: str, out: dict) -> None:
         out[prefix] = tree
 
 
+def _tensor(arr: Any, device) -> torch.Tensor:
+    arr = np.array(arr, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(arr).to(device)
+
+
 def params_from_jax(tree: Any, device: Optional[str | torch.device] = "cpu"
                     ) -> dict[str, torch.Tensor]:
-    """Nested dict of arrays -> ``{path: tensor}`` on ``device``."""
+    """Nested dict of arrays -> ``{path: tensor}`` on ``device`` (the
+    parameter tree of every ported family: the mamba blocks and an untied
+    ``embed/lm_head`` carry across like the rest)."""
     flat: dict = {}
     _flatten(tree, "", flat)
-    return {k: torch.from_numpy(np.array(flat[k], copy=True)).to(device)
-            for k in sort_paths(flat)}
+    return {k: _tensor(flat[k], device) for k in sort_paths(flat)}
+
+
+def cache_from_jax(cache: dict, device: Optional[str | torch.device] = "cpu"
+                   ) -> dict[str, torch.Tensor]:
+    """A reference decode cache (``init_cache`` / ``decode_step``'s) -> the
+    port's, same keys, shapes and dtypes."""
+    return params_from_jax(cache, device)
 
 
 def params_to_numpy(params: dict[str, torch.Tensor]) -> dict:

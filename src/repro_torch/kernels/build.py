@@ -39,6 +39,8 @@ SIGNATURES = {
     "back_project_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "gram": (_P, _P, _I, _I, _I, _P),
     "poly_apply": (_P, _P, _P, _I, _I, _I, _F, _P),
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 KERNELS = tuple(SIGNATURES)
 
@@ -126,9 +128,11 @@ def launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def check_operands(device: torch.device, **tensors) -> None:
-    """Raise unless every given tensor is a contiguous fp32 3-D tensor on
-    the CUDA ``device`` (None entries are skipped: optional operands)."""
+def check_operands(device: torch.device, *, ndim: int = 3, dtype_error=TypeError,
+                   **tensors) -> None:
+    """Raise unless every given tensor is a contiguous fp32 ``ndim``-D tensor
+    on the CUDA ``device`` (None entries are skipped: optional operands); a
+    wrong dtype raises ``dtype_error``."""
     if device.type != "cuda":
         raise ValueError(f"CUDA kernels need CUDA tensors, got {device}")
     for name, t in tensors.items():
@@ -137,8 +141,8 @@ def check_operands(device: torch.device, **tensors) -> None:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 3:
-            raise ValueError(f"{name} must be (L, a, b), got {tuple(t.shape)}")
+            raise dtype_error(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

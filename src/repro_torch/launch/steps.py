@@ -1,6 +1,6 @@
-"""The train step: loss, autograd gradients, global-norm clipping, the
-NaN/Inf guard and the optimizer update (the port of the JAX package's
-``launch/steps.py::make_train_step``, ``microbatches=1``)."""
+"""The train, prefill and serve steps (the port of the JAX package's
+``launch/steps.py``: ``make_train_step`` at ``microbatches=1``,
+``make_prefill_step`` and ``make_serve_step``)."""
 from __future__ import annotations
 
 from typing import Callable
@@ -46,3 +46,29 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
         return opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(model) -> Callable:
+    """``batch -> (logits, cache)``: the forward pass of an inference
+    prefill, with the populated KV cache for the attention families and None
+    for the ssm family (whose prefill builds no decode cache, as in the
+    reference).  Runs without autograd, so the forward-only kernels run."""
+    want_cache = model.cfg.family in ("dense", "moe", "vlm")
+
+    @torch.no_grad()
+    def prefill_step(batch: dict):
+        logits, cache = model(batch["tokens"], return_cache=True)
+        return logits, (cache if want_cache else None)
+
+    return prefill_step
+
+
+def make_serve_step(model) -> Callable:
+    """``(cache, tokens (B, 1), pos) -> (logits, cache)``: one decode step,
+    ``pos`` an int or one position per row; the cache is updated in place."""
+
+    @torch.no_grad()
+    def serve_step(cache: dict, tokens: torch.Tensor, pos):
+        return model.decode_step(cache, tokens, pos)
+
+    return serve_step

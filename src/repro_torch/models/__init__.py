@@ -1,3 +1,3 @@
-from repro_torch.models.transformer import Transformer, build_model, lm_loss
+from repro_torch.models.transformer import Mamba2, Transformer, build_model, lm_loss
 
-__all__ = ["Transformer", "build_model", "lm_loss"]
+__all__ = ["Mamba2", "Transformer", "build_model", "lm_loss"]

@@ -1,6 +1,7 @@
-"""Primitive layers: RMSNorm, rotary embeddings, SwiGLU and the
-truncated-normal initializer (as the JAX package's ``models/layers.py``,
-dense-family subset, fp32)."""
+"""Primitive layers: RMSNorm, rotary embeddings, SwiGLU, the unembedding
+and the truncated-normal initializer (as the JAX package's
+``models/layers.py``, the subset the dense and ssm families use).  Each
+layer computes in its input's dtype, and the norm casts back to it."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +19,7 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> to
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32 (the reference's ``apply_norm``), cast back to x's dtype."""
     x32 = x.to(torch.float32)
     ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(ms + eps) * scale).to(x.dtype)
@@ -49,3 +51,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> to
 def swiglu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
                w_out: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
+
+
+def unembed(x: torch.Tensor, embed: torch.Tensor, lm_head=None) -> torch.Tensor:
+    """Logits in x's dtype: the tied unembedding ``x @ embedᵀ``, or the
+    untied head ``x @ lm_head`` (d, vocab) when there is one."""
+    if lm_head is None:
+        return x @ embed.to(x.dtype).T
+    return x @ lm_head.to(x.dtype)

@@ -1,20 +1,37 @@
-"""The dense decoder of the paper's LLaMA configs (the dense path of the JAX
-package's ``models/transformer.py``) as an ``nn.Module``.
+"""Model assembly for the ported families (the JAX package's
+``models/transformer.py``): the dense LLaMA decoder and the Mamba-2 (ssm)
+model, each an ``nn.Module``.
 
 Parameters are **layer-stacked** under the reference's paths, so the
-optimizer sees the same leaves::
+optimizer sees the same leaves.  Dense::
 
     blocks/attn/{wq, wk, wv, wo}   (L, d, H*hd) / (L, H*hd, d)
     blocks/ln1/norm_scale          (L, d)
     blocks/ln2/norm_scale          (L, d)
     blocks/mlp/{w_in, w_gate}      (L, d, d_ff)
     blocks/mlp/w_out               (L, d_ff, d)
-    embed/embed                    (vocab, d)      tied with the unembedding
+    embed/embed                    (vocab, d)      tied unless embed/lm_head
+    embed/lm_head                  (d, vocab)      only when not tied
+    final_norm/norm_scale          (d,)
+
+ssm (Mamba-2)::
+
+    blocks/ln1/norm_scale          (L, d)
+    blocks/mamba/{a_log, conv_bias, conv_w, dt_bias, gnorm_scale, skip_d,
+                  ssm_in, ssm_out} (L, ...)   see models/mamba2.py
+    embed/{embed, lm_head}
     final_norm/norm_scale          (d,)
 
 GUM samples gamma of the L blocks of each stacked leaf, so one module per
 layer would change what a block is.  ``forward`` loops over the layers.
 There is no rematerialisation: autograd keeps each layer's activations.
+Parameters are fp32; the ssm model computes in ``cfg.dtype`` (bf16 at
+mamba2-370m), casting each weight at its use, as the reference does.
+
+Serving: ``forward(tokens, return_cache=True)`` (prefill), ``init_cache``,
+``decode_step(cache, tokens, pos)`` with one position per batch row, and
+``reset_slot`` (zero one row's recurrent state).  ``decode_step`` updates
+the cache **in place** and returns it; the reference returns a new one.
 """
 from __future__ import annotations
 
@@ -25,9 +42,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import sort_paths
+from repro_torch.kernels import ops
 from repro_torch.launch.devices import resolve_device
-from repro_torch.models.attention import self_attention
-from repro_torch.models.layers import rms_norm, swiglu_mlp, trunc_normal_
+from repro_torch.models import mamba2
+from repro_torch.models.attention import decode_self_attention, self_attention
+from repro_torch.models.layers import rms_norm, swiglu_mlp, trunc_normal_, unembed
 
 
 def _group(**params: torch.Tensor) -> nn.Module:
@@ -37,58 +56,35 @@ def _group(**params: torch.Tensor) -> nn.Module:
     return m
 
 
-class Transformer(nn.Module):
-    """Dense LLaMA-style decoder (RMSNorm, RoPE, SwiGLU, tied embeddings)."""
+def _positions(pos, batch: int, device: torch.device) -> torch.Tensor:
+    """A scalar or (B,) decode position as a (B,) int64 tensor on ``device``."""
+    pos = torch.as_tensor(pos, device=device, dtype=torch.int64)
+    return pos.expand(batch) if pos.dim() == 0 else pos
 
-    def __init__(self, cfg: ModelConfig, device: torch.device):
-        """Allocate the parameters on ``device``, uninitialised: set them
-        with :meth:`init_params` or :meth:`load_params` (``Trainer`` does
-        one of the two)."""
-        super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
-        if (cfg.act != "swiglu" or not cfg.tie_embeddings or cfg.norm != "rmsnorm"
-                or cfg.qkv_bias or cfg.mlp_bias or cfg.frontend != "none"):
-            raise NotImplementedError(f"{cfg.name}: only the dense SwiGLU/RMSNorm/"
-                                      "tied-embedding decoder is ported")
-        if cfg.dtype != "float32" or cfg.param_dtype != "float32":
-            raise NotImplementedError("only fp32 parameters and activations are ported")
-        if cfg.attn_impl != "xla":
-            raise NotImplementedError(f"attn_impl={cfg.attn_impl!r} is not ported yet")
-        self.cfg = cfg
-        L, d, H, KV, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads,
-                               cfg.hd, cfg.d_ff)
 
-        def empty(*shape):
-            return torch.empty(shape, dtype=torch.float32, device=device)
+class _LM(nn.Module):
+    """What both families share: parameter paths, loading, the embedding and
+    the head."""
 
-        self.embed = _group(embed=empty(cfg.vocab, d))
-        self.blocks = nn.Module()
-        self.blocks.attn = _group(wq=empty(L, d, H * hd), wk=empty(L, d, KV * hd),
-                                  wv=empty(L, d, KV * hd), wo=empty(L, H * hd, d))
-        self.blocks.ln1 = _group(norm_scale=empty(L, d))
-        self.blocks.ln2 = _group(norm_scale=empty(L, d))
-        self.blocks.mlp = _group(w_in=empty(L, d, ff), w_gate=empty(L, d, ff),
-                                 w_out=empty(L, ff, d))
-        self.final_norm = _group(norm_scale=empty(d))
+    cfg: ModelConfig
 
-    def init_params(self, seed: int) -> None:
-        """Initialise every parameter from ``seed`` (a ``torch.Generator``
-        on the parameters' device): truncated normals with the reference's
-        scales, norms at one.  Not the reference's threefry draws: parity
-        tests load the reference's parameters with :meth:`load_params`."""
-        cfg = self.cfg
-        gen = torch.Generator(device=self.embed.embed.device).manual_seed(seed)
-        d, ff = cfg.d_model, cfg.d_ff
-        attn, mlp = self.blocks.attn, self.blocks.mlp
+    def _empty(self, *shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, device=self._device)
+
+    def _init_embed(self, gen: torch.Generator) -> None:
         trunc_normal_(self.embed.embed, 0.02, gen)
-        for w in (attn.wq, attn.wk, attn.wv, mlp.w_in, mlp.w_gate):
-            trunc_normal_(w, d ** -0.5, gen)
-        trunc_normal_(attn.wo, (cfg.n_heads * cfg.hd) ** -0.5, gen)
-        trunc_normal_(mlp.w_out, ff ** -0.5, gen)
-        with torch.no_grad():
-            for norm in (self.blocks.ln1, self.blocks.ln2, self.final_norm):
-                norm.norm_scale.fill_(1.0)
+        if not self.cfg.tie_embeddings:
+            trunc_normal_(self.embed.lm_head, 0.02, gen)
+
+    @property
+    def device(self) -> torch.device:
+        """The parameters' device."""
+        return self.embed.embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activation dtype (``cfg.dtype``)."""
+        return getattr(torch, self.cfg.dtype)
 
     def params(self) -> dict[str, nn.Parameter]:
         """``{path: parameter}`` in the reference's leaf order."""
@@ -108,22 +104,201 @@ class Transformer(nn.Module):
                     raise ValueError(f"{k}: shape {tuple(params[k].shape)} != {tuple(p.shape)}")
                 p.copy_(params[k])
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) int -> logits (B, S, vocab), fp32."""
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        # gather, then cast: the reference's cast-then-gather, elementwise
+        return self.embed.embed[tokens].to(self.dtype)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.final_norm.norm_scale)
+        return unembed(x, self.embed.embed, getattr(self.embed, "lm_head", None))
+
+
+class Transformer(_LM):
+    """Dense LLaMA-style decoder (RMSNorm, RoPE, SwiGLU; tied or untied
+    head), fp32."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        """Allocate the parameters on ``device``, uninitialised: set them
+        with :meth:`init_params` or :meth:`load_params` (``Trainer`` does
+        one of the two)."""
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(f"model family {cfg.family!r} is not a dense model")
+        if (cfg.act != "swiglu" or cfg.norm != "rmsnorm" or cfg.qkv_bias or cfg.mlp_bias
+                or cfg.frontend != "none"):
+            raise NotImplementedError(f"{cfg.name}: only the dense SwiGLU/RMSNorm "
+                                      "decoder is ported")
+        if cfg.dtype != "float32" or cfg.param_dtype != "float32":
+            raise NotImplementedError("only fp32 parameters and activations are ported "
+                                      "for the dense family")
+        ops.check_impl(cfg.attn_impl)
+        self.cfg, self._device = cfg, device
+        L, d, H, KV, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                               cfg.hd, cfg.d_ff)
+        empty = self._empty
+        head = {} if cfg.tie_embeddings else {"lm_head": empty(d, cfg.vocab)}
+        self.embed = _group(embed=empty(cfg.vocab, d), **head)
+        self.blocks = nn.Module()
+        self.blocks.attn = _group(wq=empty(L, d, H * hd), wk=empty(L, d, KV * hd),
+                                  wv=empty(L, d, KV * hd), wo=empty(L, H * hd, d))
+        self.blocks.ln1 = _group(norm_scale=empty(L, d))
+        self.blocks.ln2 = _group(norm_scale=empty(L, d))
+        self.blocks.mlp = _group(w_in=empty(L, d, ff), w_gate=empty(L, d, ff),
+                                 w_out=empty(L, ff, d))
+        self.final_norm = _group(norm_scale=empty(d))
+
+    def init_params(self, seed: int) -> None:
+        """Initialise every parameter from ``seed`` (a ``torch.Generator``
+        on the parameters' device): truncated normals with the reference's
+        scales, norms at one.  Not the reference's threefry draws: parity
+        tests load the reference's parameters with :meth:`load_params`."""
         cfg = self.cfg
-        x = self.embed.embed[tokens]
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        d, ff = cfg.d_model, cfg.d_ff
+        attn, mlp = self.blocks.attn, self.blocks.mlp
+        self._init_embed(gen)
+        for w in (attn.wq, attn.wk, attn.wv, mlp.w_in, mlp.w_gate):
+            trunc_normal_(w, d ** -0.5, gen)
+        trunc_normal_(attn.wo, (cfg.n_heads * cfg.hd) ** -0.5, gen)
+        trunc_normal_(mlp.w_out, ff ** -0.5, gen)
+        with torch.no_grad():
+            for norm in (self.blocks.ln1, self.blocks.ln2, self.final_norm):
+                norm.norm_scale.fill_(1.0)
+
+    def forward(self, tokens: torch.Tensor, return_cache: bool = False):
+        """tokens (B, S) int -> logits (B, S, vocab), fp32; with
+        ``return_cache`` -> (logits, {"k", "v": (L, B, S, KV, hd)})."""
+        cfg = self.cfg
+        x = self._embed(tokens)
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)[None, :]
         causal = cfg.causal and not cfg.encoder_only
         attn, mlp, b = self.blocks.attn, self.blocks.mlp, self.blocks
+        ks, vs = [], []
         for l in range(cfg.n_layers):
             h = rms_norm(x, b.ln1.norm_scale[l])
-            x = x + self_attention(h, attn.wq[l], attn.wk[l], attn.wv[l], attn.wo[l],
-                                   cfg, positions, causal)
+            h, (k, v) = self_attention(h, attn.wq[l], attn.wk[l], attn.wv[l], attn.wo[l],
+                                       cfg, positions, causal)
+            x = x + h
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
             h = rms_norm(x, b.ln2.norm_scale[l])
             x = x + swiglu_mlp(h, mlp.w_in[l], mlp.w_gate[l], mlp.w_out[l])
-        x = rms_norm(x, self.final_norm.norm_scale)
-        return x @ self.embed.embed.T  # tied unembedding
+        logits = self._head(x)
+        if return_cache:
+            return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return logits
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None) -> dict[str, torch.Tensor]:
+        """Zero KV cache {"k", "v": (L, batch, max_seq, KV, hd)} on the
+        model's device, in ``dtype`` (default the activation dtype)."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.hd)
+        dtype = dtype or self.dtype
+        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos):
+        """One token per row: tokens (B, 1), pos an int or (B,) -> (logits
+        (B, 1, vocab), cache), row b at position pos[b]."""
+        cfg = self.cfg
+        pos = _positions(pos, tokens.shape[0], tokens.device)
+        x = self._embed(tokens)
+        attn, mlp, b = self.blocks.attn, self.blocks.mlp, self.blocks
+        for l in range(cfg.n_layers):
+            h = rms_norm(x, b.ln1.norm_scale[l])
+            x = x + decode_self_attention(h, attn.wq[l], attn.wk[l], attn.wv[l], attn.wo[l],
+                                          cfg, cache["k"][l], cache["v"][l], pos)
+            h = rms_norm(x, b.ln2.norm_scale[l])
+            x = x + swiglu_mlp(h, mlp.w_in[l], mlp.w_gate[l], mlp.w_out[l])
+        return self._head(x), cache
+
+    def reset_slot(self, cache: dict, slot: int) -> None:
+        """Nothing to reset: a row's KV entries past its position are masked
+        (kv_len = pos + 1) and rewritten before they are read."""
+
+
+class Mamba2(_LM):
+    """Attention-free Mamba-2 (SSD) model: pre-norm Mamba blocks, untied or
+    tied head; fp32 parameters, activations in ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        if cfg.family != "ssm":
+            raise NotImplementedError(f"model family {cfg.family!r} is not an ssm model")
+        if cfg.ssm_ngroups != 1 or cfg.norm != "rmsnorm" or cfg.frontend != "none":
+            raise NotImplementedError(f"{cfg.name}: only ngroups=1 with RMSNorm and a "
+                                      "token embedding is ported")
+        if cfg.param_dtype != "float32" or cfg.dtype not in ("float32", "bfloat16"):
+            raise NotImplementedError("the ssm family takes fp32 parameters and fp32 or "
+                                      "bf16 activations")
+        ops.check_impl(cfg.attn_impl)
+        self.cfg, self._device = cfg, device
+        L, d = cfg.n_layers, cfg.d_model
+        empty = self._empty
+        head = {} if cfg.tie_embeddings else {"lm_head": empty(d, cfg.vocab)}
+        self.embed = _group(embed=empty(cfg.vocab, d), **head)
+        self.blocks = nn.Module()
+        self.blocks.ln1 = _group(norm_scale=empty(L, d))
+        self.blocks.mamba = _group(**{name: empty(L, *shape) for name, shape
+                                      in mamba2.param_shapes(cfg).items()})
+        self.final_norm = _group(norm_scale=empty(d))
+
+    def init_params(self, seed: int) -> None:
+        """Initialise from ``seed``: the reference's distributions and
+        constants, not its draws (see :meth:`Transformer.init_params`)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._init_embed(gen)
+        mamba2.init_mamba_block(self._layer(None), self.cfg, gen)
+        with torch.no_grad():
+            self.blocks.ln1.norm_scale.fill_(1.0)
+            self.final_norm.norm_scale.fill_(1.0)
+
+    def _layer(self, l: Optional[int]) -> dict[str, torch.Tensor]:
+        """Layer ``l``'s block parameters by name (None: the whole stacks)."""
+        return {k: p if l is None else p[l] for k, p in self.blocks.mamba.named_parameters()}
+
+    def forward(self, tokens: torch.Tensor, return_cache: bool = False):
+        """tokens (B, S) -> logits (B, S, vocab) in the activation dtype;
+        with ``return_cache`` -> (logits, None): as in the reference, the
+        ssm prefill builds no decode cache."""
+        x = self._embed(tokens)
+        for l in range(self.cfg.n_layers):
+            h = rms_norm(x, self.blocks.ln1.norm_scale[l])
+            x = x + mamba2.apply_mamba_block(self._layer(l), h, self.cfg)
+        logits = self._head(x)
+        return (logits, None) if return_cache else logits
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None) -> dict[str, torch.Tensor]:
+        """Zero recurrent state {"conv": (L, batch, W - 1, conv_dim) in
+        ``dtype`` (default the activation dtype), "ssm": (L, batch, H, N, P)
+        fp32}; ``max_seq`` does not bound it."""
+        del max_seq
+        return mamba2.init_mamba_cache(self.cfg, batch, dtype or self.dtype, self.device,
+                                       layers=self.cfg.n_layers)
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos):
+        """One token per row: tokens (B, 1) -> (logits (B, 1, vocab), cache).
+        The state carries the position, so ``pos`` is not read."""
+        del pos
+        x = self._embed(tokens)
+        for l in range(self.cfg.n_layers):
+            h = rms_norm(x, self.blocks.ln1.norm_scale[l])
+            o, conv, ssm = mamba2.decode_mamba_block(self._layer(l), h, cache["conv"][l],
+                                                     cache["ssm"][l], self.cfg)
+            cache["conv"][l] = conv
+            cache["ssm"][l] = ssm
+            x = x + o
+        return self._head(x), cache
+
+    def reset_slot(self, cache: dict, slot: int) -> None:
+        """Zero row ``slot`` of the conv window and the SSD state, so a new
+        request there starts from the empty state."""
+        cache["conv"][:, slot] = 0
+        cache["ssm"][:, slot] = 0
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *, shift: bool = True) -> torch.Tensor:
@@ -136,10 +311,16 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *, shift: bool = True) 
     return torch.mean(lse - gold)
 
 
+FAMILIES = {"dense": Transformer, "ssm": Mamba2}
+
+
 def build_model(cfg: ModelConfig, *,
-                device: Optional[str | torch.device] = None) -> Transformer:
-    """The model for ``cfg`` on ``device`` (default: the CUDA device; raises
-    when there is none — pass ``device="cpu"`` for the CPU), with its
-    parameters allocated but not initialised (see :meth:`Transformer.
-    init_params`)."""
-    return Transformer(cfg, resolve_device(device))
+                device: Optional[str | torch.device] = None) -> Transformer | Mamba2:
+    """The model for ``cfg`` (by ``cfg.family``) on ``device`` (default: the
+    CUDA device; raises when there is none — pass ``device="cpu"`` for the
+    CPU), with its parameters allocated but not initialised (see
+    ``init_params``).  Families not yet ported raise."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"model family {cfg.family!r} is not ported yet; "
+                                  f"ported: {sorted(FAMILIES)}")
+    return FAMILIES[cfg.family](cfg, resolve_device(device))

@@ -1,0 +1,3 @@
+from repro_torch.serve.engine import Request, ServeEngine
+
+__all__ = ["Request", "ServeEngine"]

@@ -1,0 +1,115 @@
+"""The port's attention ops against the JAX package's, on identical inputs.
+
+* ``flash_attention`` (kernel row 7; on the CPU its wrapper runs the plain
+  version) against ``repro``'s Pallas kernel in interpret mode: causal and
+  not, GQA, and a short query (S < T, causal row offset T - S), with block
+  sizes that split both axes so the reference skips masked kv blocks.
+* ``attention_chunked_ref`` and ``decode_attention_ref`` / ``kv_len``
+  against their ``repro.kernels.ref`` counterparts, and ``ops.attention`` at
+  every impl.
+
+Tolerance: 1e-5 of each output's largest entry (fp32 sums in another order;
+the reference's -1e30 mask and the port's -inf give the same zeros).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as j_ops
+from repro.kernels import ref as j_ref
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+
+TOL = 1e-5
+
+
+def _close(got: torch.Tensor, want, name=""):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=TOL,
+                               atol=TOL * float(np.abs(want).max()), err_msg=name)
+
+
+def _qkv(B, S, T, H, KV, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, T, KV, D)).astype(np.float32),
+            rng.standard_normal((B, T, KV, D)).astype(np.float32))
+
+
+# (B, S, T, H, KV, D, causal, block_q, block_kv)
+FLASH_CASES = [
+    (2, 32, 32, 4, 4, 16, True, 8, 8),      # MHA, causal, masked blocks skipped
+    (2, 32, 32, 4, 4, 16, False, 16, 8),    # not causal
+    (1, 32, 32, 8, 2, 16, True, 8, 16),     # GQA 4:1
+    (2, 16, 64, 4, 1, 32, True, 8, 16),     # S < T: row offset 48, MQA
+    (1, 24, 40, 6, 3, 64, False, 8, 8),     # S < T, not causal, D = 64
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal,bq,bkv", FLASH_CASES)
+def test_flash_attention_matches_pallas_interpret(B, S, T, H, KV, D, causal, bq, bkv):
+    q, k, v = _qkv(B, S, T, H, KV, D)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                   block_q=bq, block_kv=bkv, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    _close(flash_attention(tq, tk, tv, causal=causal), want, "flash_attention")
+    _close(ops.attention(tq, tk, tv, causal=causal, impl="pallas"), want, "ops pallas")
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_chunked", "pallas"])
+def test_ops_attention_impls_match_reference(impl):
+    q, k, v = _qkv(2, 16, 1024, 4, 2, 16, seed=1)   # T = 2 kv blocks of 512
+    want = j_ops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="xla")
+    got = ops.attention(*(torch.from_numpy(a) for a in (q, k, v)), impl=impl)
+    _close(got, want, impl)
+
+
+@pytest.mark.parametrize("S,T,causal", [(32, 32, True), (8, 32, True), (16, 32, False)])
+def test_attention_chunked_ref_matches_reference(S, T, causal):
+    q, k, v = _qkv(2, S, T, 4, 2, 8, seed=2)
+    want = j_ref.attention_chunked_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       causal=causal, block_kv=8)
+    got = ref.attention_chunked_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal=causal, block_kv=8)
+    _close(got, want, "attention_chunked_ref")
+
+
+def test_decode_attention_per_row_positions_match_reference():
+    """One query per row over a 24-slot cache; each row at its own position,
+    against the reference's scalar-position decode of that row alone."""
+    q, k, v = _qkv(3, 1, 24, 4, 2, 16, seed=3)
+    pos = np.array([0, 7, 23])
+    got = ref.decode_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   torch.from_numpy(pos))
+    for b in range(3):
+        want = j_ref.decode_attention_ref(jnp.asarray(q[b:b + 1]), jnp.asarray(k[b:b + 1]),
+                                          jnp.asarray(v[b:b + 1]), jnp.int32(pos[b]))
+        _close(got[b:b + 1], want, f"row {b}")
+    # a scalar position applies to every row
+    want = j_ref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.int32(9))
+    _close(ref.decode_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), 9), want)
+
+
+def test_attention_ref_kv_len_matches_reference():
+    q, k, v = _qkv(2, 4, 12, 4, 4, 8, seed=4)
+    want = j_ref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=True, kv_len=10)
+    got = ref.attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=True, kv_len=10)
+    _close(got, want, "kv_len")
+
+
+def test_flash_attention_is_forward_only_and_checks_shapes():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 8))
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        flash_attention(q.requires_grad_(), k, v)
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="S <= T"):
+        flash_attention(*(torch.from_numpy(a) for a in _qkv(1, 8, 4, 2, 2, 8)))
+    with pytest.raises(ValueError, match="H % KV"):
+        flash_attention(*(torch.from_numpy(a) for a in _qkv(1, 8, 8, 3, 2, 8)))
+    with pytest.raises(ValueError, match="attn_impl"):
+        ops.attention(q.detach(), k, v, impl="interpret")

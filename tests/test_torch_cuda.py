@@ -128,3 +128,80 @@ def test_kernels_launch_on_the_operands_device(cuda_device):
     assert out.device == dev
     assert _rel(out, newton_schulz_plain(x)) <= 1e-4
     assert torch.cuda.current_device() != dev.index
+
+
+# Serving kernels.  Flash attention: 1e-5 of the largest output (the online
+# softmax sums in another order); the SSD scan: 1e-4 (sums through
+# exponentials of cumulative sums, state carried across chunks).
+
+# (B, S, T, H, KV, D, causal): llama-130m's prefill, GQA short query with
+# D = 128, ragged S and T, the smoke model's D = 16, a tiny ragged one.
+FLASH_SHAPES = [(8, 1024, 1024, 12, 12, 64, True), (2, 256, 1024, 16, 4, 128, True),
+                (2, 1000, 1000, 12, 12, 64, True), (2, 64, 64, 4, 4, 16, True),
+                (1, 5, 9, 2, 1, 8, True), (2, 100, 300, 8, 2, 32, False)]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda_device, B, S, T, H, KV, D, causal):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _randn(B, S, H, D), _randn(B, T, KV, D), _randn(B, T, KV, D)
+    before = build.LAUNCHES["flash_attention"]
+    assert _rel(flash_attention(q, k, v, causal=causal),
+                ref.attention_ref(q, k, v, causal=causal)) <= 1e-5
+    assert build.LAUNCHES["flash_attention"] == before + 1
+
+
+# (B, S, H, P, N, chunk, bf16 x): mamba2-370m's prefill, the ragged fp32
+# case, the smoke sizes with a ragged tail, a chunk longer than S.
+SSD_SHAPES = [(4, 4096, 32, 64, 128, 128, True), (2, 4000, 32, 64, 128, 64, False),
+              (2, 60, 8, 16, 16, 16, False), (1, 7, 2, 8, 4, 16, True)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,bf16", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda_device, B, S, H, P, N, chunk, bf16):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    x = _randn(B, S, H, P)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    dt = F.softplus(_randn(B, S, H) - 1.0)
+    a = -torch.exp(torch.linspace(0.0, 2.77, H, device="cuda"))
+    b, c = _randn(B, S, N), _randn(B, S, N)
+    before = build.LAUNCHES["ssd_scan"]
+    y, state = ssd_scan(x, dt, a, b, c, chunk=chunk)
+    ch = min(chunk, S)
+    want_y, want_state = ref.ssd_chunked_scan_ref(x, dt, ref.ssd_chunk_cumsum(dt, a, ch),
+                                                  b, c, ch)
+    assert _rel(y, want_y) <= 1e-4
+    assert _rel(state, want_state) <= 1e-4
+    assert build.LAUNCHES["ssd_scan"] == before + 1
+
+
+def test_serving_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    q, k = _randn(1, 8, 2, 16), _randn(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="head dim"):
+        big = _randn(1, 8, 2, 160)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="is on cpu"):  # k and v left on the CPU
+        flash_attention(q, k.cpu(), k.cpu())
+    x, dt, a, bc = _randn(1, 16, 2, 8), _randn(1, 16, 2).abs(), -torch.ones(2, device="cuda"), \
+        _randn(1, 16, 4)
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt, a, bc, bc, chunk=8)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt.double(), a, bc, bc, chunk=8)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ssd_scan(x, dt, a, bc.cpu(), bc.cpu(), chunk=8)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(_randn(1, 300, 2, 8), _randn(1, 300, 2).abs(), a, _randn(1, 300, 4),
+                 _randn(1, 300, 4), chunk=256)
