@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                 and a ragged case; the SSD scan at mamba2-370m's prefill and
                 a ragged case; time kernel, plain version and one PyTorch
                 call computing the same function where there is one, and
-                compute the bound;
+                compute the bound (for ``lowrank_update``, which runs on the
+                tensor cores, over TF32's peak, its fp32 SIMT bound beside);
   4. slice    — GUM pretraining of llama-130m at full width through the
                 port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3),
                 asserting finite losses and the per-step dispatch and kernel
@@ -63,11 +64,18 @@ sys.path.insert(0, str(ROOT / "src"))
 # over the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# TF32 on the tensor cores (dense).  lowrank_update computes fp32-accurate
+# products there by 3xTF32, three TF32 products for each fp32 one, so its
+# bound is 3 x flops over this peak (and its fp32 SIMT bound is printed
+# beside it).
+PEAK_TF32_FLOPS = 495e12
+TF32X3_KERNELS = ("lowrank_update",)
 
 # max|kernel - plain| / max|plain|.  The kernels and the plain versions
 # (cuBLAS) both sum in fp32, in another order, so they differ by rounding
-# only: 1e-5 for one GEMM; a 5-step Newton-Schulz compounds ten of them
-# through a cubic polynomial, 1e-4.
+# only: 1e-5 for one GEMM (lowrank_update's 3xTF32 products add about 2^-21
+# relative each); a 5-step Newton-Schulz compounds ten of them through a
+# cubic polynomial, 1e-4.
 TOL_GEMM = 1e-5
 TOL_NS = 1e-4
 # Flash attention: the kernel's online softmax and the plain version's
@@ -133,6 +141,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
+def bounds_ms(name: str, flops: float, nbytes: float) -> tuple[float, str, float]:
+    """The least time of a kernel's work on the card, what bounds it, and
+    its fp32 SIMT bound: max(flops / peak, bytes / HBM rate), where the
+    peak is TF32's over the products a tensor-core kernel executes, else
+    fp32 SIMT's."""
+    simt = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    ops = 3 * flops / PEAK_TF32_FLOPS if name in TF32X3_KERNELS else flops / PEAK_FP32_FLOPS
+    by = "operations" if ops >= nbytes / PEAK_BYTES else "bytes"
+    return max(ops, nbytes / PEAK_BYTES) * 1e3, by, simt
+
+
 def rel_err(out, want) -> tuple[float, float]:
     """max|out - want| and that over max|want|; tuples compare member by
     member and give the worst of each."""
@@ -148,6 +167,21 @@ def rel_err(out, want) -> tuple[float, float]:
 
 
 # --------------------------------------------------------------------- phase 3
+
+
+def galore_families(rank: int = 256) -> list[tuple[int, int, int, str]]:
+    """(L, m, n, side) of each family stack that llama-130m's family-stacked
+    GaLore step hands ``project``: ``core/family_plan.py``'s plan over the
+    hidden matrices (parameters on the meta device, nothing allocated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.family_plan import build_family_plan
+    from repro_torch.core.lowrank_common import default_lowrank_filter
+    from repro_torch.models import build_model
+
+    params = build_model(get_config("llama-130m"), device="meta").params()
+    leaves = [p if default_lowrank_filter(k, p) else None for k, p in params.items()]
+    return [(f.fs.L, f.fs.m, f.fs.n, f.fs.side)
+            for f in build_family_plan(leaves, rank).families]
 
 
 def kernel_cases(torch, gen):
@@ -166,27 +200,49 @@ def kernel_cases(torch, gen):
     cases = []
     beta, coeff = 0.95, 1.5
 
-    # lowrank_update: 7 stacked leaves (L=12, m=768 after the right-side
-    # transpose of w_out, n in {768, 2048}) with R; project: the gamma=4
-    # sampled blocks, no R.
-    for L, m, r, n, with_r, principal in [(12, 768, 256, 768, True, False),
-                                          (12, 768, 256, 2048, True, True),
-                                          (4, 768, 256, 768, False, False),
-                                          (4, 768, 256, 2048, False, False),
-                                          (2, 1000, 96, 1376, True, False)]:
-        p, g = randn(L, m, r), randn(L, m, n)
-        rs = randn(L, r, n) if with_r else None
-        nbytes = 4 * (L * m * r + L * m * n + L * r * n * (2 if with_r else 1))
+    # lowrank_update at GUM's per-leaf shapes (rank 256, gamma 4): the momentum
+    # update with R of the 12-block leaves (attention 768 x 768 and mlp
+    # in/gate 768 x 2048 on the left, w_out 2048 x 768 on the right, native),
+    # the projection of the 4 sampled blocks, no R; GaLore's projection of
+    # its three family stacks (read from the family plan); the ragged
+    # llama-60m shape on both sides, and r and n not multiples of 4 (the
+    # 4-byte copies); a left-side projection over m = 2048, the deepest
+    # reduction, where one tensor-core accumulator over the whole sum would
+    # drift past TOL_GEMM (the kernel's per-slice sums).
+    cases_lu = [(12, 768, 256, 768, "left", True, False),
+                (12, 768, 256, 2048, "left", True, True),
+                (12, 2048, 256, 768, "right", True, False),
+                (4, 768, 256, 768, "left", False, False),
+                (4, 768, 256, 2048, "left", False, False),
+                (4, 2048, 256, 768, "right", False, False),
+                (4, 2048, 256, 768, "left", False, False)]
+    cases_lu += [(L, m, 256, n, side, False, False) for L, m, n, side in galore_families()]
+    cases_lu += [(2, 1000, 96, 1376, "left", True, False),
+                 (2, 1376, 96, 1000, "right", True, False),
+                 (2, 1000, 97, 1375, "right", True, False)]
+    for L, m, r, n, side, with_r, principal in cases_lu:
+        right = side == "right"
+        p, g = randn(L, n if right else m, r), randn(L, m, n)
+        out_shape = (L, m, r) if right else (L, r, n)
+        rs = randn(*out_shape) if with_r else None
+        nbytes = 4 * (p.numel() + g.numel() + L * r * (m if right else n) * (2 if with_r else 1))
+        a, b = (g, p) if right else (p.mT, g)  # the product is a @ b
+        c = coeff if with_r else 1.0
         if with_r:
-            lib = (lambda p=p, g=g, rs=rs: torch.baddbmm(rs, p.mT, g, beta=beta, alpha=coeff))
+            lib = (lambda a=a, b=b, rs=rs: torch.baddbmm(rs, a, b, beta=beta, alpha=coeff))
         else:
-            lib = (lambda p=p, g=g: torch.bmm(p.mT, g))
-        cases.append(("lowrank_update", f"P{(L, m, r)} G{(L, m, n)} R={with_r}",
-                      (lambda p=p, g=g, rs=rs, c=(coeff if with_r else 1.0):
-                       lu.lowrank_update_batched(p, g, rs, beta, c)),
-                      (lambda p=p, g=g, rs=rs, c=(coeff if with_r else 1.0):
-                       ref.lowrank_update_ref(p, g, rs, beta, c)),
-                      lib, 2.0 * L * r * n * m, nbytes, principal))
+            lib = (lambda a=a, b=b: torch.bmm(a, b))
+        if right:  # G P = (Pᵀ Gᵀ)ᵀ
+            plain = (lambda p=p, g=g, rs=rs, c=c: ref.lowrank_update_ref(
+                p, g.mT, None if rs is None else rs.mT, beta, c).mT)
+        else:
+            plain = (lambda p=p, g=g, rs=rs, c=c: ref.lowrank_update_ref(p, g, rs, beta, c))
+        bm, bn = lu.lowrank_update_tile(L, m, r, n, side)
+        cases.append(("lowrank_update", f"{side} P{tuple(p.shape)} G{tuple(g.shape)} R={with_r} "
+                      f"tile {bm}x{bn}",
+                      (lambda p=p, g=g, rs=rs, c=c, side=side:
+                       lu.lowrank_update_batched(p, g, rs, beta, c, side=side)),
+                      plain, lib, 2.0 * L * r * n * m, nbytes, principal))
 
     # back_project: the 7 leaves' write-back (L=12) and the sampled blocks'
     # P P^T G (L=4), r=256, n in {768, 2048}.
@@ -345,13 +401,15 @@ def phase_kernels(torch):
         check(rel <= tol, f"{name} {label}: rel err {rel:.3e} > {tol}")
         ms, plain_ms = time_ms(kfn), time_ms(pfn)
         lib_ms = None if lfn is None else time_ms(lfn)
-        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        bound_ms, bound_by, simt_ms = bounds_ms(name, flops, nbytes)
+        check(bound_ms <= ms, f"{name} {label}: {ms:.4f} ms beats its bound {bound_ms:.4f} ms")
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        simt_txt = f" (fp32 SIMT {simt_ms:.4f})" if simt_ms != bound_ms else ""
         print(f"kernel {name:15s} {label:40s} ok  abs {abs_err:.2e} rel {rel:.2e} (tol {tol})  "
               f"ms {ms:.4f}  plain {plain_ms:.4f}  library {lib_txt}  "
-              f"bound {bound_ms:.4f} ({bound_by}, {flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)  {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+              f"bound {bound_ms:.4f}{simt_txt} ({bound_by}, {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), share {bound_ms / ms:.1%}  "
+              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], abs_err)
         if principal:

@@ -1,6 +1,6 @@
-// Batched fp32 SIMT GEMM core shared by the port's five optimizer kernels
-// (lowrank_update.cu, back_project.cu, back_project_epilogue.cu, gram.cu,
-// poly_apply.cu).
+// Batched fp32 SIMT GEMM core shared by four of the port's optimizer kernels
+// (back_project.cu, back_project_epilogue.cu, gram.cu, poly_apply.cu;
+// lowrank_update.cu runs on the tensor cores with a design of its own).
 //
 //   C[l](i, j) = alpha * sum_k A[l](i, k) * B[l](k, j)  +  beta * D[l](i, j)
 //

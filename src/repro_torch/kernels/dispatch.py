@@ -12,12 +12,12 @@ There is no quiet fallback: on a CUDA tensor an op launches its kernel or
 raises, whatever the shape — the kernels mask ragged edges themselves, so
 there are no padding wrappers and no shape-legality limits.  On top of the
 kernels' ``(L, a, b)`` contract the dispatchers add what the JAX ones do:
-lead flattening of ``(*lead, m, n)`` families, the right-side transposes
-(``(G P)ᵀ = Pᵀ Gᵀ``, ``(S Pᵀ)ᵀ = P Sᵀ``) and Newton–Schulz's transposition
-to the short side.  The fused epilogue takes both sides natively, so its
-dispatcher only flattens leads.  ``KernelEntry`` / :data:`REGISTRY` name
-each op with its plain reference; names must be in
-``launch_count.DISPATCH_OPS``.
+lead flattening of ``(*lead, m, n)`` families, the back-projection's
+right-side transpose (``(S Pᵀ)ᵀ = P Sᵀ``) and Newton–Schulz's transposition
+to the short side.  The momentum update, the projection and the fused
+epilogue take both sides natively, so their dispatchers only flatten
+leads.  ``KernelEntry`` / :data:`REGISTRY` name each op with its plain
+reference; names must be in ``launch_count.DISPATCH_OPS``.
 """
 from __future__ import annotations
 
@@ -78,23 +78,6 @@ def _project_torch(p, g, side):
     return project(_f32(p), _f32(g), side)
 
 
-def _lowrank_kernel_form(p, g, r_state, side):
-    """Left-side batched layout for the kernel: the right side transposes
-    ((G P)ᵀ = Pᵀ Gᵀ) and leads flatten."""
-    lead = tuple(g.shape[:-2])
-    if side == "right":
-        g = g.mT
-        if r_state is not None:
-            r_state = r_state.mT
-    rk = None if r_state is None else _flatten_lead(_f32(r_state))
-    return _flatten_lead(_f32(p)), _flatten_lead(_f32(g)), rk, lead
-
-
-def _lowrank_unkernel_form(out, lead, side):
-    out = out.reshape(lead + tuple(out.shape[-2:]))
-    return out.mT if side == "right" else out
-
-
 def lowrank_update(p, g, r_state, beta: float, coeff: float, *,
                    side: str = "left", impl: str = "auto") -> torch.Tensor:
     """Dispatched momentum update over a family ``g (*lead, m, n)``.
@@ -107,9 +90,12 @@ def lowrank_update(p, g, r_state, beta: float, coeff: float, *,
     launch_count.record("lowrank_update")
     if impl == "torch":
         return beta * _f32(r_state) + coeff * _project_torch(p, g, side)
-    pk, gk, rk, lead = _lowrank_kernel_form(p, g, r_state, side)
-    out = lowrank_update_batched(pk, gk, rk, beta, coeff)
-    return _lowrank_unkernel_form(out, lead, side)
+    # Leads flatten; both sides keep their own layout (the kernel takes the
+    # right side natively).
+    rk = None if r_state is None else _flatten_lead(_f32(r_state))
+    out = lowrank_update_batched(_flatten_lead(_f32(p)), _flatten_lead(_f32(g)), rk,
+                                 beta, coeff, side=side)
+    return out.reshape(tuple(g.shape[:-2]) + tuple(out.shape[-2:]))
 
 
 def project(p, g, *, side: str = "left", impl: str = "auto") -> torch.Tensor:
@@ -119,8 +105,8 @@ def project(p, g, *, side: str = "left", impl: str = "auto") -> torch.Tensor:
     launch_count.record("project")
     if impl == "torch":
         return _project_torch(p, g, side)
-    pk, gk, _, lead = _lowrank_kernel_form(p, g, None, side)
-    return _lowrank_unkernel_form(project_batched(pk, gk, 1.0), lead, side)
+    out = project_batched(_flatten_lead(_f32(p)), _flatten_lead(_f32(g)), side=side)
+    return out.reshape(tuple(g.shape[:-2]) + tuple(out.shape[-2:]))
 
 
 # --------------------------------------------------------------------------

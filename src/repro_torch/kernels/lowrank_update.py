@@ -6,14 +6,18 @@ Each wrapper runs its CUDA kernel (``csrc/lowrank_update.cu``,
 :mod:`repro_torch.kernels.ref` for CPU tensors — and takes the plain version
 for no other reason: on a CUDA tensor it launches the kernel or raises.  The
 kernels mask ragged shapes themselves, so operands need no padding.
-Layouts follow the JAX package's ``kernels/lowrank_update.py``:
+Layouts follow the JAX package's ``kernels/lowrank_update.py``; the momentum
+update and the projection also take the right side natively, G and R in
+the caller's layout:
 
-  lowrank_update_batched  p (L, m, r), g (L, m, n), R (L, r, n) -> (L, r, n)
-  project_batched         p (L, m, r), g (L, m, n)              -> (L, r, n)
+  lowrank_update_batched  left   p (L, m, r), g (L, m, n), R (L, r, n) -> (L, r, n)
+                          right  p (L, n, r), g (L, m, n), R (L, m, r) -> (L, m, r)
+  project_batched         the same with no R
   back_project_batched    p (L, m, r), s (L, r, n)              -> (L, m, n)
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -23,27 +27,50 @@ from repro_torch.kernels import build, ref
 
 def lowrank_update_batched(
     p: torch.Tensor, g: torch.Tensor, r_state: Optional[torch.Tensor],
-    beta: float, coeff: float,
+    beta: float, coeff: float, *, side: str = "left",
 ) -> torch.Tensor:
-    """``beta·R + coeff·PᵀG``; ``r_state=None`` gives ``coeff·PᵀG``."""
+    """``beta·R + coeff·PᵀG`` (left) or ``beta·R + coeff·G P`` (right);
+    ``r_state=None`` gives the product times ``coeff``."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    right = side == "right"
     if g.device.type == "cpu":
+        if right:  # G P = (Pᵀ Gᵀ)ᵀ
+            rt = None if r_state is None else r_state.mT
+            return ref.lowrank_update_ref(p, g.mT, rt, beta, coeff).mT
         return ref.lowrank_update_ref(p, g, r_state, beta, coeff)
     build.check_operands(g.device, p=p, g=g, r_state=r_state)
-    L, m, r = p.shape
-    n = g.shape[-1]
-    if g.shape != (L, m, n) or (r_state is not None and r_state.shape != (L, r, n)):
-        raise ValueError(f"shape mismatch: p {tuple(p.shape)}, g {tuple(g.shape)}, "
+    L, m, n = g.shape
+    r = p.shape[-1]
+    out_shape = (L, m, r) if right else (L, r, n)
+    if p.shape != (L, n if right else m, r) or (
+            r_state is not None and r_state.shape != out_shape):
+        raise ValueError(f"shape mismatch ({side}): p {tuple(p.shape)}, g {tuple(g.shape)}, "
                          f"r_state {None if r_state is None else tuple(r_state.shape)}")
-    out = torch.empty((L, r, n), device=g.device, dtype=torch.float32)
+    out = torch.empty(out_shape, device=g.device, dtype=torch.float32)
     build.launch("lowrank_update", g.device, p.data_ptr(), g.data_ptr(),
                  None if r_state is None else r_state.data_ptr(),
-                 out.data_ptr(), L, m, r, n, float(beta), float(coeff))
+                 out.data_ptr(), L, m, r, n, float(beta), float(coeff), int(right))
     return out
 
 
-def project_batched(p: torch.Tensor, g: torch.Tensor, coeff: float = 1.0) -> torch.Tensor:
-    """``coeff·PᵀG`` — the momentum kernel with no R operand."""
-    return lowrank_update_batched(p, g, None, 0.0, coeff)
+def lowrank_update_tile(L: int, m: int, r: int, n: int, side: str = "left") -> tuple[int, int]:
+    """The block tile (rows, columns of the output) that the CUDA kernel
+    picks for these shapes, read from the kernel's library; builds the
+    kernels on first use and launches nothing."""
+    fn = build.library("lowrank_update").lowrank_update_tile
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    code = fn(L, m, r, n, int(side == "right"))
+    if code == 0:
+        raise ValueError(f"no tile for L={L} m={m} r={r} n={n} side={side!r}")
+    return divmod(code, 1000)
+
+
+def project_batched(p: torch.Tensor, g: torch.Tensor, coeff: float = 1.0, *,
+                    side: str = "left") -> torch.Tensor:
+    """``coeff·PᵀG`` / ``coeff·G P`` — the momentum kernel with no R operand."""
+    return lowrank_update_batched(p, g, None, 0.0, coeff, side=side)
 
 
 def back_project_batched(p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

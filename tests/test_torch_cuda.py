@@ -7,7 +7,9 @@ file imports no JAX, so it also runs on the GPU machine, which has none:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: max|kernel − plain| / max|plain| ≤ 1e-5 for one GEMM, 1e-4 for a
-5-step Newton–Schulz (both sides sum in fp32, in another order).
+5-step Newton–Schulz (both sides sum in fp32, in another order;
+``lowrank_update`` forms its products on the tensor cores by 3xTF32, about
+2^-21 relative each, see ``tests/test_torch_tf32x3.py``).
 """
 import pytest
 import torch
@@ -18,6 +20,7 @@ from repro_torch.kernels.fused_step import back_project_epilogue_batched
 from repro_torch.kernels.lowrank_update import (
     back_project_batched,
     lowrank_update_batched,
+    lowrank_update_tile,
     project_batched,
 )
 from repro_torch.kernels.newton_schulz import gram, poly_matmul_axpy
@@ -54,6 +57,74 @@ def test_lowrank_kernels_match_plain(cuda_device, L, m, r, n):
     assert _rel(back_project_batched(p, s), ref.back_project_ref(p, s)) <= 1e-5
     assert build.LAUNCHES["lowrank_update"] == before["lowrank_update"] + 2
     assert build.LAUNCHES["back_project"] == before["back_project"] + 1
+
+
+# Branches of the lowrank_update kernel (csrc/lowrank_update.cu), each case
+# (L, m, r, n, side) with R and without.  Block tiles: the kernel picks the
+# largest of 64x64, 64x32, 32x32 that gives two blocks an SM, else 32x32
+# (read back through lowrank_update_tile).  Copies: 16 bytes when r and n
+# are multiples of 4, else 4 bytes.  Slices are 32 deep, so K (m on the
+# left, n on the right) not a multiple of 32 leaves a ragged last slice.
+LOWRANK_BRANCHES = [
+    (12, 768, 256, 2048, "left"),   # 64x64, 16-byte copies
+    (4, 768, 256, 768, "left"),     # 64x32
+    (2, 1000, 96, 1376, "left"),    # 32x32, ragged K = 1000
+    (12, 2048, 256, 768, "right"),  # 64x64 on the right side
+    (4, 2048, 256, 768, "left"),    # K = 2048: the per-slice sums keep it in 1e-5
+    (2, 1000, 97, 1375, "left"),    # 4-byte copies, r odd
+    (2, 1000, 97, 1375, "right"),   # 4-byte copies, ragged K = 1375
+    (2, 1000, 96, 1375, "left"),    # 4-byte copies, n odd only
+    (1, 1000, 96, 1376, "left"),    # L = 1
+    (1, 1376, 96, 1000, "right"),   # L = 1, right
+    (3, 200, 8, 300, "left"),       # r < 16
+    (3, 300, 5, 200, "right"),      # r < 16, not a multiple of 4
+    (2, 37, 13, 50, "left"),        # everything ragged and small
+]
+
+
+def test_lowrank_branches_cover_every_tile_and_copy_width(cuda_device):
+    tiles = {lowrank_update_tile(*case) for case in LOWRANK_BRANCHES}
+    assert tiles == {(64, 64), (64, 32), (32, 32)}
+
+
+def test_lowrank_branches_cover_both_copy_widths():
+    assert {r % 4 == 0 and n % 4 == 0 for _, _, r, n, _ in LOWRANK_BRANCHES} == {True, False}
+
+
+def _lowrank_plain(p, g, rs, beta, coeff, side):
+    if side == "right":  # G P = (Pᵀ Gᵀ)ᵀ
+        return ref.lowrank_update_ref(p, g.mT, None if rs is None else rs.mT, beta, coeff).mT
+    return ref.lowrank_update_ref(p, g, rs, beta, coeff)
+
+
+@pytest.mark.parametrize("L,m,r,n,side", LOWRANK_BRANCHES)
+def test_lowrank_update_kernel_branches_match_plain(cuda_device, L, m, r, n, side):
+    p = _randn(L, n if side == "right" else m, r)
+    g = _randn(L, m, n)
+    rs = _randn(*((L, m, r) if side == "right" else (L, r, n)))
+    for with_r in (True, False):
+        r_state = rs if with_r else None
+        before = build.LAUNCHES["lowrank_update"]
+        got = lowrank_update_batched(p, g, r_state, 0.95, 1.5, side=side)
+        assert build.LAUNCHES["lowrank_update"] == before + 1
+        assert _rel(got, _lowrank_plain(p, g, r_state, 0.95, 1.5, side)) <= 1e-5
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_dispatch_lowrank_both_sides_match_plain(cuda_device, side):
+    """Both sides through the dispatcher, leads and all: G and R go to the
+    kernel in their own layout (one launch each, no transposed copies)."""
+    from repro_torch.core.lowrank_common import project
+
+    m, n, r = (768, 2048, 256) if side == "left" else (2048, 768, 256)
+    p = _randn(3, 4, n if side == "right" else m, r)
+    g = _randn(3, 4, m, n)
+    st = _randn(3, 4, *((m, r) if side == "right" else (r, n)))
+    before = build.LAUNCHES["lowrank_update"]
+    got = dispatch.lowrank_update(p, g, st, 0.95, 2.0, side=side, impl="cuda")
+    assert _rel(got, 0.95 * st + 2.0 * project(p, g, side)) <= 1e-5
+    assert _rel(dispatch.project(p, g, side=side, impl="cuda"), project(p, g, side)) <= 1e-5
+    assert build.LAUNCHES["lowrank_update"] == before + 2
 
 
 # (L, m, r, n, side): llama-130m's mlp family (left) and mlp/w_out stack

@@ -72,6 +72,26 @@ def test_project_batched_matches_pallas():
     _close(project_batched(torch.from_numpy(p), torch.from_numpy(g), 2.0), want)
 
 
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_lowrank_update_batched_both_sides_match_dispatch(side):
+    """The wrapper's own layouts on both sides (the CUDA kernel takes the
+    right side natively: p (L, n, r), g (L, m, n), R (L, m, r)), through its
+    CPU route, against the JAX package's dispatch in interpret mode."""
+    L, m, n, r = 2, 40, 72, 12
+    if side == "right":
+        m, n = n, m
+    p = _proj(20, L, m if side == "left" else n, r)
+    g = _rand(21, L, m, n)
+    st = _rand(22, L, *((r, n) if side == "left" else (m, r)))
+    got = lowrank_update_batched(torch.from_numpy(p), torch.from_numpy(g),
+                                 torch.from_numpy(st), 0.9, 1.5, side=side)
+    want = jdispatch.lowrank_update(jnp.asarray(p), jnp.asarray(g), jnp.asarray(st), 0.9, 1.5,
+                                    side=side, impl="interpret")
+    _close(got, want)
+    got = project_batched(torch.from_numpy(p), torch.from_numpy(g), 1.0, side=side)
+    _close(got, jdispatch.project(jnp.asarray(p), jnp.asarray(g), side=side, impl="interpret"))
+
+
 def test_back_project_batched_matches_pallas():
     p, s = _proj(5, 2, 64, 16), _rand(6, 2, 16, 128)
     want = j_back_project_batched(jnp.asarray(p), jnp.asarray(s),
