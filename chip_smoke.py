@@ -12,16 +12,20 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. kernels  — hold each kernel against its plain PyTorch version at the
                 llama-130m shapes of GUM (rank 256, gamma 4) and of GaLore's
                 family stacks, both projection sides, plus one ragged shape;
-                flash attention at llama-130m's prefill, a GQA short-query
-                and a ragged case; the SSD scan at mamba2-370m's prefill and
-                a ragged case; time kernel, plain version and one PyTorch
-                call computing the same function where there is one, and
-                compute the bound (for ``lowrank_update``, which runs on the
-                tensor cores, over TF32's peak, its fp32 SIMT bound beside);
+                flash attention at llama-130m's prefill, a GQA short-query,
+                a ragged and a padded-head-dim case; the SSD scan at
+                mamba2-370m's prefill and a ragged case; time kernel, plain
+                version and one PyTorch call computing the same function
+                where there is one, and compute the bound (for
+                ``lowrank_update`` and ``flash_attention``, which run on the
+                tensor cores, over TF32's peak, their fp32 SIMT bound
+                beside);
   4. slice    — GUM pretraining of llama-130m at full width through the
-                port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3),
+                port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3,
+                the config's remat: each layer recomputed in backward),
                 asserting finite losses and the per-step dispatch and kernel
-                launch counts;
+                launch counts; first, the peak memory and time of one
+                forward+backward with remat off, "nothing" and "dots";
   4b. galore  — GaLore pretraining of llama-130m the same way, family-stacked
                 with the fused back-projection epilogue;
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
@@ -64,12 +68,12 @@ sys.path.insert(0, str(ROOT / "src"))
 # over the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# TF32 on the tensor cores (dense).  lowrank_update computes fp32-accurate
-# products there by 3xTF32, three TF32 products for each fp32 one, so its
-# bound is 3 x flops over this peak (and its fp32 SIMT bound is printed
-# beside it).
+# TF32 on the tensor cores (dense).  lowrank_update and flash_attention
+# compute fp32-accurate products there by 3xTF32, three TF32 products for
+# each fp32 one, so their bound is 3 x flops over this peak (and their fp32
+# SIMT bound is printed beside it).
 PEAK_TF32_FLOPS = 495e12
-TF32X3_KERNELS = ("lowrank_update",)
+TF32X3_KERNELS = ("lowrank_update", "flash_attention")
 
 # max|kernel - plain| / max|plain|.  The kernels and the plain versions
 # (cuBLAS) both sum in fp32, in another order, so they differ by rounding
@@ -79,8 +83,9 @@ TF32X3_KERNELS = ("lowrank_update",)
 TOL_GEMM = 1e-5
 TOL_NS = 1e-4
 # Flash attention: the kernel's online softmax and the plain version's
-# one-pass softmax both sum in fp32, in another order: 1e-5 (the kernel's
-# exp is expf, not the fast __expf).  The SSD scan sums ~N + 2·chunk
+# one-pass softmax both sum in fp32, in another order, and the kernel forms
+# both products by 3xTF32: 1e-5 (the kernel's exp is expf, not the fast
+# __expf).  The SSD scan sums ~N + 2·chunk
 # products per output through exponentials of cumulative sums and carries
 # the state over up to 64 chunks: 1e-4.
 TOL_FLASH = 1e-5
@@ -334,7 +339,8 @@ def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> float:
 def serving_kernel_cases(torch, gen):
     """Cases of the serving path's two kernels, in kernel_cases' form plus a
     tolerance: flash attention at llama-130m's prefill, a GQA short-query
-    case (S < T, head dim 128) and a ragged one; the SSD scan at
+    case (S < T, head dim 128), a ragged one and one whose head dim 20 the
+    kernel pads to its k8 steps; the SSD scan at
     mamba2-370m's prefill (bf16 x) and a ragged fp32 one."""
     import torch.nn.functional as F
 
@@ -348,7 +354,8 @@ def serving_kernel_cases(torch, gen):
     cases = []
     for B, S, T, H, KV, D, principal in [(8, 1024, 1024, 12, 12, 64, True),
                                          (2, 256, 1024, 16, 4, 128, False),
-                                         (2, 1000, 1000, 12, 12, 64, False)]:
+                                         (2, 1000, 1000, 12, 12, 64, False),
+                                         (2, 130, 130, 4, 2, 20, False)]:
         q, k, v = randn(B, S, H, D), randn(B, T, KV, D), randn(B, T, KV, D)
         lib = None
         if principal:  # SDPA's is_causal aligns top-left: equal only for S == T
@@ -529,11 +536,49 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     return launches
 
 
+def remat_peaks(torch) -> None:
+    """Peak device memory and host time (synchronised) of one forward +
+    backward of llama-130m at batch 8 x 1024 with remat off, "nothing"
+    (the config's setting, which the trainer runs) and "dots"."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, lm_loss
+
+    cfg = get_config("llama-130m")
+    model = build_model(cfg, device="cuda")
+    model.init_params(0)
+    params = list(model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (8, 1024), generator=gen, device="cuda")
+    peaks, parts = {}, []
+    for label, remat, policy in [("off", False, "nothing"), ("nothing", True, "nothing"),
+                                 ("dots", True, "dots")]:
+        model.cfg = cfg.replace(remat=remat, remat_policy=policy)
+
+        def fwd_bwd():
+            return torch.autograd.grad(lm_loss(model(tokens), tokens), params)
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grads = fwd_bwd()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+        del grads
+        parts.append(f"{label} {peaks[label]:.3f} GiB, {ms:.3f} ms")
+    print(f"slice remat, one forward+backward of llama-130m at batch 8 x 1024 "
+          f"(peak memory, time): {'; '.join(parts)}", flush=True)
+    check(peaks["nothing"] < peaks["dots"] < peaks["off"],
+          f"remat peaks not ordered nothing < dots < off: {peaks}")
+
+
 def phase_slice(torch) -> dict:
     """GUM, the paper's main path: Appendix C.3's rank 256, gamma 4."""
     from repro_torch.core import OptimizerConfig
     from repro_torch.core.lowrank_common import compute_projectors
 
+    remat_peaks(torch)
     launches = train_full_width(
         torch, "slice", OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3),
         want_dispatch={"lowrank_update": 7, "project": 7, "back_project": 14,

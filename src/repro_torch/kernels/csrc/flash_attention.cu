@@ -1,4 +1,5 @@
-// Causal GQA flash attention, forward only, fp32 inside:
+// Causal GQA flash attention, forward only, fp32 accurate on the tensor cores
+// by 3xTF32:
 //   o = softmax(q k^T * scale) v   over q (B, S, H, D), k/v (B, T, KV, D)
 //
 // Replaces the Pallas kernel _flash_kernel / flash_attention
@@ -12,31 +13,65 @@
 // takes ragged S and T: rows past S are not stored and columns past T are
 // masked like the causal ones.
 //
-// Design: the TPU runs the kv axis as a sequential grid dimension with the
-// running state in VMEM scratch; here one 256-thread block owns a 64-row q
-// tile of one (b, h) and loops over the 64-row kv tiles itself, so the state
-// never leaves registers.  Thread (ty, tx) = (tid / 16, tid % 16) owns query
-// rows ty*4 + {0..3}; for the scores it owns kv columns tx + 16*{0..3}, for
-// the output head dims tx + 16*{0..NC-1}.  The 16 threads of a row group
-// share a half warp, so row max and row sum are xor shuffles within it.
-// Q and K sit in shared memory with rows of D + 4 floats, so a quarter warp's
-// float4 reads of K along d hit 32 distinct banks; V and the probability tile
-// P are read along their contiguous axis.  Blocks walk the q tiles from the
-// last (the longest causal loop) to the first, so the long ones start early.
+// Bound on the H100: the causal pairs need 4 * D flops each (q k and p v);
+// 3xTF32 issues three TF32 products per fp32 one, so the least time is
+// max(3 * flops / 495 TFLOP/s, bytes / 3.35 TB/s).  At llama-130m's prefill,
+// q/k/v (8, 1024, 12, 64), that is 12.9 GFLOP executed three times on
+// 100.7 MB: 0.0782 ms, bound by operations (0.1925 ms by fp32 SIMT FMA).
 //
-// Bound: at llama-130m's prefill, q/k/v (8, 1024, 12, 64), the causal pairs
-// need 4 * D flops each (q k and p v): 12.9 GFLOP on 101 MB, far above the
-// fp32 SIMT ridge (20 flops per byte), so fp32 FMA issue bounds it (0.19 ms
-// at 67 TFLOP/s).  fmaf in full fp32 and expf (not __expf): the kernel is
-// held to the fp32 reference, so no TF32 and no fast math.  Tensor cores,
-// TMA and a q tile per warpgroup are left for a later change.
+// Design.  A 128-thread block owns a 64-row q tile of one (b, h); each of its
+// four warps owns 16 query rows and loops over the 32-row kv tiles, so the
+// running state never leaves registers.  Against the four limits of the
+// fp32 SIMT kernel this replaces:
+//  1. Tensor cores.  Both products are mma.sync.m16n8k8 TF32 with fp32
+//     accumulation, each operand split as it is read (tf32x3.cuh).  Each kv
+//     tile's scores, and its P V, sum from zero on the tensor cores (at most
+//     128 and 32 deep, so the accumulator's truncation stays far below
+//     2^-21); acc = alpha * acc + (P V of the tile) carries the output in
+//     fp32, as the Pallas kernel's scratch does.  Q's fragments are read
+//     from shared memory and split again at every tile: held split in
+//     registers (with 64-row kv tiles) they took the kernel to 239 registers
+//     at D = 64 and two blocks an SM; re-read, it needs 128, and four blocks
+//     (16 warps) fit an SM in registers and in shared memory (52 KB a block
+//     at D = 64), which measured faster (PERF.md).  expf, not __expf: the
+//     kernel is held to the fp32 reference.
+//  2. Loads overlap compute.  K and V tiles come through a ring of two
+//     stages in dynamic shared memory, filled by cp.async: 16-byte
+//     cp.async.cg (4-byte cp.async.ca when a base pointer is not 16-byte
+//     aligned), the source size 0 past a ragged T so the copy fills zeros.
+//     Tile j+1 loads while tile j computes; one __syncthreads a tile.  Each
+//     thread keeps one 16-byte column and every RS-th row, so a copy costs
+//     no division.  D is padded in shared memory to 16, 32, 64 or 128 with
+//     zeros (written once), so a k8 step never reads past the head.
+//  3. P stays in registers.  The score fragment c0, c1 (row g, columns 2t,
+//     2t+1; c2, c3 eight rows down) gives each thread two rows, so row max
+//     and row sum are two xor shuffles within the four threads of a group.
+//     P V wants A fragments at columns t and t+4; a sum over k does not
+//     depend on its order, so A's k index t reads column 2t and t+4 reads
+//     2t+1 (a0 = c0, a1 = c2, a2 = c1, a3 = c3), and V's B fragment reads kv
+//     rows 2t and 2t+1 in the same order.  No shared round trip, no barrier.
+//  4. Mask only where needed.  A warp skips the mask test on kv tiles that
+//     lie wholly at or below its rows' diagonal and inside T, and skips the
+//     products of tiles wholly above it (their p would all be 0).
+// Shared rows are D_pad + 4 floats: (D_pad + 4) / 4 is odd, so every
+// fragment load of a warp (Q and K along d, V along kv rows 2t, 2t+1) hits
+// 32 distinct banks.  The grid's slowest axis walks the q tiles from the last
+// (the longest causal loop) to the first, so the long tiles of every head
+// start first.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BKV = 64;   // kv rows per tile
-constexpr int THREADS = 256;
+using namespace repro_torch;
+
+constexpr int BQ = 64;       // query rows per block, 16 per warp
+constexpr int BKV = 32;      // kv rows a tile
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 2;    // K/V tiles in the ring
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
 
 struct FlashArgs {
@@ -47,174 +82,260 @@ struct FlashArgs {
   int B, S, T, H, KV, D;
   float scale;
   int causal;
+  int vec;  // 1 when q, k, v and o are 16-byte aligned
 };
 
-__device__ __forceinline__ float group_max(float x) {
+// Shapes of one instantiation: DP = D padded (16, 32, 64 or 128).
+template <int DP>
+struct Layout {
+  static constexpr int LD = DP + 4;   // shared row stride
+  static constexpr int KD = DP / 8;   // k8 steps of Q K^T, n8 tiles of P V
+  static constexpr int CPR = DP / 4;  // 16-byte chunks a row
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int KV_FLOATS = BKV * LD;
+  static constexpr int STAGE_FLOATS = 2 * KV_FLOATS;  // K tile, then V tile
+  static constexpr int SMEM_BYTES = (Q_FLOATS + STAGES * STAGE_FLOATS) * 4;
+  // Blocks an SM the registers must allow (ptxas then uses at most 128 a
+  // thread at D <= 64, with no spills).
+  static constexpr int MIN_BLOCKS = DP <= 64 ? 4 : 2;
+  static_assert((LD / 4) % 2 == 1, "fragment loads must hit distinct banks");
+  static_assert(THREADS % CPR == 0, "a thread keeps one column");
+};
+
+// Copies ROWS rows of D floats (rows `stride` floats apart in memory) into
+// shared rows LD floats apart: this thread's column c4 of rows r0, r0 + RS,
+// ...; rows at or past rows_left fill zeros (source size 0).
+template <int ROWS, int LD, int CPR>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, size_t stride,
+                                          int rows_left, int c4, int r0, bool vec) {
+  constexpr int RS = THREADS / CPR;
+  static_assert(ROWS % RS == 0, "rows must tile the block");
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+  for (int i = 0; i < ROWS / RS; ++i) {
+    const int r = r0 + i * RS;
+    const bool ok = r < rows_left;
+    const float* from = ok ? src + r * stride + c4 : src;
+    float* to = dst + r * LD + c4;
+    if (vec) {
+      cp_async16(to, from, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(to + e, ok ? from + e : src, ok ? 4 : 0);
+    }
+  }
 }
 
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// NC = head-dim columns per thread (D <= 16 * NC).
-template <int NC>
-__global__ void __launch_bounds__(THREADS) flash_attention_kernel(FlashArgs p) {
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
+    flash_attention_kernel(FlashArgs p) {
+  using L = Layout<DP>;
+  constexpr int LD = L::LD, KD = L::KD, NS = BKV / 8;  // NS: n8 tiles of the scores
   extern __shared__ __align__(16) float smem[];
-  const int D = p.D;
-  const int ld = D + 4;              // row stride of Qs, Ks, Vs
-  float* Qs = smem;                  // [BQ][ld]
-  float* Ks = Qs + BQ * ld;          // [BKV][ld]
-  float* Vs = Ks + BKV * ld;         // [BKV][ld]
-  float* Ps = Vs + BKV * ld;         // [BQ][BKV + 4]
-  constexpr int ldp = BKV + 4;
+  float* Qs = smem;                   // [BQ][LD]
+  float* ring = smem + L::Q_FLOATS;   // STAGES x ([BKV][LD] K, [BKV][LD] V)
 
   const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // mma group id
+  const int t = lane & 3;   // thread in group
+  const int D = p.D;
   const int nq = (p.S + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.z)) * BQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int kvh = h / (p.H / p.KV);
-  const int offset = p.T - p.S;       // causal row offset for short q
+  const int offset = p.T - p.S;  // causal row offset for short q
   const size_t q_row = static_cast<size_t>(p.H) * D;    // stride of s in q, o
   const size_t kv_row = static_cast<size_t>(p.KV) * D;  // stride of t in k, v
   const float* qb = p.q + (static_cast<size_t>(b) * p.S * p.H + h) * D;
   const float* kb = p.k + (static_cast<size_t>(b) * p.T * p.KV + kvh) * D;
   const float* vb = p.v + (static_cast<size_t>(b) * p.T * p.KV + kvh) * D;
+  const bool vec = p.vec != 0;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e % D;
-    Qs[r * ld + d] = (q0 + r < p.S) ? qb[(q0 + r) * q_row + d] : 0.f;
+  // Pad columns D..DP-1 of Q and of every ring stage are zero; the copies
+  // never write them.
+  if (D < DP) {
+    const int pad = DP - D;
+    const int rows = BQ + STAGES * 2 * BKV;
+    for (int e = tid; e < rows * pad; e += THREADS) smem[(e / pad) * LD + D + e % pad] = 0.f;
   }
 
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  // This thread's copy column and first row.
+  const int c4 = (tid % L::CPR) * 4;
+  const int r0 = tid / L::CPR;
+  const bool copies = c4 < D;  // columns past D are padding
 
-  // Last kv column any stored row of this tile may see.
+  // Last kv column any stored row of this block may see, and the tiles.
   const int last_row = min(q0 + BQ, p.S) - 1 + offset;
   const int k_end = p.causal ? min(p.T, last_row + 1) : p.T;
-
-  for (int k0 = 0; k0 < k_end; k0 += BKV) {
-    __syncthreads();  // the previous tile's Ks, Vs and Ps are consumed
-    for (int e = tid; e < BKV * D; e += THREADS) {
-      const int r = e / D, d = e % D;
-      const bool ok = k0 + r < p.T;
-      Ks[r * ld + d] = ok ? kb[(k0 + r) * kv_row + d] : 0.f;
-      Vs[r * ld + d] = ok ? vb[(k0 + r) * kv_row + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
+  const int ntiles = (k_end + BKV - 1) / BKV;
+  auto load_tile = [&](int j) {
+    float* ks = ring + (j % STAGES) * L::STAGE_FLOATS;
+    const int kv0 = j * BKV;
+    load_rows<BKV, LD, L::CPR>(ks, kb + kv0 * kv_row, kv_row, p.T - kv0, c4, r0, vec);
+    load_rows<BKV, LD, L::CPR>(ks + L::KV_FLOATS, vb + kv0 * kv_row, kv_row, p.T - kv0, c4,
+                               r0, vec);
+  };
+  if (copies) {
+    load_rows<BQ, LD, L::CPR>(Qs, qb + q0 * q_row, q_row, p.S - q0, c4, r0, vec);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * ld + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * ld + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i + offset;
-      float row_max = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < p.T && (!p.causal || col <= qpos);
-        s[i][j] = ok ? s[i][j] * p.scale : NEG_INF;
-        row_max = fmaxf(row_max, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(row_max));
-      const float alpha = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pij = expf(s[i][j] - m_new);
-        row_sum += pij;
-        Ps[(ty * 4 + i) * ldp + tx + 16 * j] = pij;
-      }
-      l[i] = fmaf(alpha, l[i], group_sum(row_sum));
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    const int kn = min(BKV, p.T - k0);
-    for (int kk = 0; kk < kn; kk += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty * 4 + i) * ldp + kk]);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          const float v0 = Vs[(kk + 0) * ld + d], v1 = Vs[(kk + 1) * ld + d];
-          const float v2 = Vs[(kk + 2) * ld + d], v3 = Vs[(kk + 3) * ld + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][c] = fmaf(pv[i].x, v0, acc[i][c]);
-            acc[i][c] = fmaf(pv[i].y, v1, acc[i][c]);
-            acc[i][c] = fmaf(pv[i].z, v2, acc[i][c]);
-            acc[i][c] = fmaf(pv[i].w, v3, acc[i][c]);
-          }
-        }
-      }
-    }
+    for (int j = 0; j < STAGES - 1; ++j)
+      if (j < ntiles) load_tile(j);
   }
+  cp_async_commit();
 
+  // This warp's rows: wr0 .. wr0 + 15, of which those below S are stored.
+  const int wr0 = q0 + warp * 16;
+  const bool warp_rows = wr0 < p.S;
+  const int wlast = min(wr0 + 15, p.S - 1) + offset;  // its last row's last key
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[KD][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<STAGES - 2>();  // tile it (and Q) landed for this thread ...
+    __syncthreads();              // ... and for all; tile it-1's stage is free
+    if (copies && it + STAGES - 1 < ntiles) load_tile(it + STAGES - 1);
+    cp_async_commit();
+
+    const int kv0 = it * BKV;
+    // Tiles wholly above this warp's diagonal contribute p = 0 exactly.
+    if (!warp_rows || (p.causal && kv0 > wlast)) continue;
+    const float* Ks = ring + (it % STAGES) * L::STAGE_FLOATS;
+    const float* Vs = Ks + L::KV_FLOATS;
+
+    // S = Q K^T, from zero.  Q's A fragment of the warp's 16 rows: a0 (g, t),
+    // a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B(k = d, n = kv) = K[kv][d]:
+    // b0 (t, g), b1 (t+4, g).
+    float s[NS][4];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        split_tf32(Qs[(warp * 16 + g + (v & 1) * 8) * LD + kk * 8 + t + (v >> 1) * 4], ahi[v],
+                   alo[v]);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float* kr = Ks + (j * 8 + g) * LD + kk * 8 + t;
+        uint32_t bhi[2], blo[2];
+        split_tf32(kr[0], bhi[0], blo[0]);
+        split_tf32(kr[4], bhi[1], blo[1]);
+        mma_3xtf32(s[j], ahi, alo, bhi, blo, kk == 0 ? zero : s[j]);
+      }
+    }
+
+    // Online softmax over the thread's two rows: r = 0 holds c0, c1 (row
+    // g), r = 1 holds c2, c3 (row g + 8).
+    const bool mask = (p.causal && kv0 + BKV - 1 > wr0 + offset) || kv0 + BKV > p.T;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float x = s[j][v] * p.scale;
+        if (mask) {
+          const int col = kv0 + j * 8 + 2 * t + (v & 1);
+          const int qpos = wr0 + g + (v >> 1) * 8 + offset;
+          x = (col < p.T && (!p.causal || col <= qpos)) ? x : NEG_INF;
+        }
+        s[j][v] = x;
+        mx[v >> 1] = fmaxf(mx[v >> 1], x);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        s[j][v] = expf(s[j][v] - m[v >> 1]);
+        sum[v >> 1] += s[j][v];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = fmaf(alpha[r], l[r], quad_sum(sum[r]));
+
+    // P V of this tile, from zero: k runs over the tile's kv rows in the
+    // permuted order (k index t -> row 2t, t+4 -> 2t+1 of each k8 step).
+    float part[KD][4];
+#pragma unroll
+    for (int ks = 0; ks < NS; ++ks) {
+      uint32_t ahi[4], alo[4];
+      split_tf32(s[ks][0], ahi[0], alo[0]);
+      split_tf32(s[ks][2], ahi[1], alo[1]);
+      split_tf32(s[ks][1], ahi[2], alo[2]);
+      split_tf32(s[ks][3], ahi[3], alo[3]);
+      const float* vr = Vs + (ks * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int j = 0; j < KD; ++j) {
+        uint32_t bhi[2], blo[2];
+        split_tf32(vr[j * 8], bhi[0], blo[0]);
+        split_tf32(vr[LD + j * 8], bhi[1], blo[1]);
+        mma_3xtf32(part[j], ahi, alo, bhi, blo, ks == 0 ? zero : part[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KD; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[j][v] = fmaf(alpha[v >> 1], acc[j][v], part[j][v]);
+  }
+  cp_async_wait<0>();
+
+  // o = acc / max(l, 1e-30): c0, c1 at (g, 2t), (g, 2t+1); c2, c3 eight
+  // rows down.  D % 4 == 0, so d < D implies d + 1 < D.
   float* ob = p.o + (static_cast<size_t>(b) * p.S * p.H + h) * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= p.S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    const int row = wr0 + g + r * 8;
+    if (row >= p.S) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    float* orow = ob + row * q_row;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) ob[r * q_row + d] = acc[i][c] * inv;
+    for (int j = 0; j < KD; ++j) {
+      const int d = j * 8 + 2 * t;
+      if (d >= D) continue;
+      const float o0 = acc[j][2 * r] / den, o1 = acc[j][2 * r + 1] / den;
+      if (vec) {
+        *reinterpret_cast<float2*>(orow + d) = make_float2(o0, o1);
+      } else {
+        orow[d] = o0;
+        orow[d + 1] = o1;
+      }
     }
   }
 }
 
-template <int NC>
-int launch(const FlashArgs& a, void* stream) {
-  const int bytes = static_cast<int>(sizeof(float)) *
-                    ((BQ + 2 * BKV) * (a.D + 4) + BQ * (BKV + 4));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+bool aligned(const void* ptr, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(ptr) & (bytes - 1)) == 0;
+}
+
+template <int DP>
+int launch(const FlashArgs& a, cudaStream_t stream) {
+  using L = Layout<DP>;
+  const cudaError_t err = allow_smem<flash_attention_kernel<DP>>(L::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
-  flash_attention_kernel<NC>
-      <<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid(a.H, a.B, (a.S + BQ - 1) / BQ);
+  flash_attention_kernel<DP><<<grid, THREADS, L::SMEM_BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -226,10 +347,13 @@ extern "C" int flash_attention(const float* q, const float* k, const float* v, f
                                int B, int S, int T, int H, int KV, int D, float scale,
                                int causal, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 4 != 0 ||
-      D > 128)
+      D > 128 || B > 65535 || (S + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const FlashArgs a{q, k, v, o, B, S, T, H, KV, D, scale, causal};
-  if (D <= 32) return launch<2>(a, stream);
-  if (D <= 64) return launch<4>(a, stream);
-  return launch<8>(a, stream);
+  const int vec = aligned(q, 16) && aligned(k, 16) && aligned(v, 16) && aligned(o, 16);
+  const FlashArgs a{q, k, v, o, B, S, T, H, KV, D, scale, causal, vec};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 16) return launch<16>(a, s);
+  if (D <= 32) return launch<32>(a, s);
+  if (D <= 64) return launch<64>(a, s);
+  return launch<128>(a, s);
 }

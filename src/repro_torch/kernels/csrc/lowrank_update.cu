@@ -60,14 +60,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using namespace repro_torch;
 
 constexpr int BK = 32;         // reduction depth of one ring slice
 constexpr int STAGES = 3;      // slices in the ring
 constexpr int THREADS = 128;   // 2 x 2 warps
 constexpr int MIN_BLOCKS = 4;  // blocks an SM: at most 128 registers a thread
 constexpr int SMS = 132;       // H100 SXM
-constexpr int MAX_DEVICES = 64;
 
 struct Args {
   const float* a;  // A(i, k): a[k * lda + i] (left) or a[i * lda + k] (right)
@@ -81,27 +84,6 @@ struct Args {
   int out_vec;  // 1 when C (and D) allow 8-byte accesses
   int m_fast;   // 1 when blockIdx.x walks the M tiles
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Copies one operand's BK-deep slices into the ring.  The slice is ROWS x
 // COLS in shared memory (row stride LD) and in memory (stride ld); K_ROWS
@@ -172,32 +154,6 @@ struct SliceLoader {
     }
   }
 };
-
-// x = hi + lo, each a TF32 value (fp32 with the low 13 mantissa bits 0):
-// hi is x rounded to nearest, ties away from zero, as cvt.rna.tf32.f32
-// rounds it, by adding half of the dropped unit to the bit pattern and
-// clearing the low 13 bits (equal to cvt.rna for every finite x, and it
-// keeps inf; a NaN x still gives a NaN lo).  Two integer instructions: on
-// sm_90a cvt.rna.tf32.f32 compiles to these plus an inf/NaN test and a
-// select.  lo = x - hi is exact in fp32 and rounded the same way.
-__device__ __forceinline__ uint32_t round_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = round_tf32(x);
-  lo = round_tf32(x - __uint_as_float(hi));
-}
-
-// D = A B + C for one m16n8k8 tile, TF32 operands, fp32 accumulation.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b,
-                                         const float* c) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(c[0]),
-        "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
 
 template <int BM, int BN, bool A_KC>
 struct Tile {
@@ -356,19 +312,9 @@ long long blocks(const Args& p, int L, int bm, int bn) {
 template <int BM, int BN, bool A_KC, bool VEC>
 int launch(Args p, int L, cudaStream_t stream) {
   using T = Tile<BM, BN, A_KC>;
-  auto kernel = lowrank_update_kernel<BM, BN, A_KC, VEC>;
-  if (T::SMEM_BYTES > 48 * 1024) {  // once a device: the attribute is per device
-    static bool raised[MAX_DEVICES] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= MAX_DEVICES || !raised[dev]) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 T::SMEM_BYTES);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (dev < MAX_DEVICES) raised[dev] = true;
-    }
-  }
+  constexpr auto kernel = lowrank_update_kernel<BM, BN, A_KC, VEC>;
+  const cudaError_t err = allow_smem<kernel>(T::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int mt = (p.M + BM - 1) / BM, nt = (p.N + BN - 1) / BN;
   p.m_fast = mt <= nt;
   const dim3 grid(p.m_fast ? mt : nt, p.m_fast ? nt : mt, L);

@@ -8,7 +8,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.api import Transform, clip_by_global_norm, global_norm
-from repro_torch.models.transformer import Transformer, lm_loss
+from repro_torch.models.transformer import Transformer, check_logit_chunk, lm_loss
 
 
 def make_train_step(model: Transformer, optimizer: Transform, *,
@@ -21,11 +21,13 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
     gradient norm is not finite the step applies no update and returns the
     old optimizer state (``update_applied=False``) — the outcome of the
     reference's in-jit guard, decided on the host from one synchronising
-    read per step.
+    read per step.  ``cfg.logit_chunk > 0`` raises (the chunked loss is not
+    ported yet).
     """
     if microbatches != 1:
         raise NotImplementedError("gradient accumulation (microbatches > 1) is "
                                   "not ported yet")
+    check_logit_chunk(model.cfg)
 
     def train_step(params: dict, opt_state, batch: dict):
         tokens = batch["tokens"]

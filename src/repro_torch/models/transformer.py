@@ -24,7 +24,10 @@ ssm (Mamba-2)::
 
 GUM samples gamma of the L blocks of each stacked leaf, so one module per
 layer would change what a block is.  ``forward`` loops over the layers.
-There is no rematerialisation: autograd keeps each layer's activations.
+Under ``cfg.remat``, when autograd records, each layer runs under
+``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``):
+``remat_policy="dots"`` keeps the un-batched products, any other policy
+keeps nothing, and backward recomputes the rest.
 Parameters are fp32; the ssm model computes in ``cfg.dtype`` (bf16 at
 mamba2-370m), casting each weight at its use, as the reference does.
 
@@ -35,10 +38,16 @@ the cache **in place** and returns it; the reference returns a new one.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import sort_paths
@@ -54,6 +63,30 @@ def _group(**params: torch.Tensor) -> nn.Module:
     for name, t in params.items():
         m.register_parameter(name, nn.Parameter(t))
     return m
+
+
+# The products without batch dimensions, which remat_policy="dots" keeps (the
+# reference's jax.checkpoint_policies.dots_with_no_batch_dims_saveable): the
+# layers' x @ w reach aten.mm; attention's batched q kᵀ and p v (aten.bmm)
+# are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` (one layer's body) under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` is set and autograd records, as the reference's ``_remat``
+    wraps it in ``jax.checkpoint``: ``"dots"`` saves the outputs of the
+    un-batched products, any other policy saves nothing."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context_fn)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def _positions(pos, batch: int, device: torch.device) -> torch.Tensor:
@@ -174,17 +207,22 @@ class Transformer(_LM):
         positions = torch.arange(S, device=tokens.device)[None, :]
         causal = cfg.causal and not cfg.encoder_only
         attn, mlp, b = self.blocks.attn, self.blocks.mlp, self.blocks
-        ks, vs = [], []
-        for l in range(cfg.n_layers):
+
+        def layer(x: torch.Tensor, l: int):
             h = rms_norm(x, b.ln1.norm_scale[l])
             h, (k, v) = self_attention(h, attn.wq[l], attn.wk[l], attn.wv[l], attn.wo[l],
                                        cfg, positions, causal)
             x = x + h
+            h = rms_norm(x, b.ln2.norm_scale[l])
+            return x + swiglu_mlp(h, mlp.w_in[l], mlp.w_gate[l], mlp.w_out[l]), k, v
+
+        layer = _remat(layer, cfg)
+        ks, vs = [], []
+        for l in range(cfg.n_layers):
+            x, k, v = layer(x, l)
             if return_cache:
                 ks.append(k)
                 vs.append(v)
-            h = rms_norm(x, b.ln2.norm_scale[l])
-            x = x + swiglu_mlp(h, mlp.w_in[l], mlp.w_gate[l], mlp.w_out[l])
         logits = self._head(x)
         if return_cache:
             return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -264,10 +302,14 @@ class Mamba2(_LM):
         """tokens (B, S) -> logits (B, S, vocab) in the activation dtype;
         with ``return_cache`` -> (logits, None): as in the reference, the
         ssm prefill builds no decode cache."""
+        def layer(x: torch.Tensor, l: int) -> torch.Tensor:
+            h = rms_norm(x, self.blocks.ln1.norm_scale[l])
+            return x + mamba2.apply_mamba_block(self._layer(l), h, self.cfg)
+
+        layer = _remat(layer, self.cfg)
         x = self._embed(tokens)
         for l in range(self.cfg.n_layers):
-            h = rms_norm(x, self.blocks.ln1.norm_scale[l])
-            x = x + mamba2.apply_mamba_block(self._layer(l), h, self.cfg)
+            x = layer(x, l)
         logits = self._head(x)
         return (logits, None) if return_cache else logits
 
@@ -311,6 +353,15 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *, shift: bool = True) 
     return torch.mean(lse - gold)
 
 
+def check_logit_chunk(cfg: ModelConfig) -> None:
+    """Raise on ``logit_chunk > 0``: the reference then trains through
+    ``chunked_lm_loss``, which is not ported yet (ROADMAP queue 1, item 1)."""
+    if cfg.logit_chunk > 0:
+        raise NotImplementedError(f"{cfg.name}: logit_chunk={cfg.logit_chunk} (the chunked "
+                                  "cross-entropy, chunked_lm_loss) is not ported yet; "
+                                  "see ROADMAP queue 1, item 1")
+
+
 FAMILIES = {"dense": Transformer, "ssm": Mamba2}
 
 
@@ -323,4 +374,5 @@ def build_model(cfg: ModelConfig, *,
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} is not ported yet; "
                                   f"ported: {sorted(FAMILIES)}")
+    check_logit_chunk(cfg)
     return FAMILIES[cfg.family](cfg, resolve_device(device))

@@ -206,20 +206,55 @@ def test_kernels_launch_on_the_operands_device(cuda_device):
 # exponentials of cumulative sums, state carried across chunks).
 
 # (B, S, T, H, KV, D, causal): llama-130m's prefill, GQA short query with
-# D = 128, ragged S and T, the smoke model's D = 16, a tiny ragged one.
+# D = 128, ragged S and T, the smoke model's D = 16, a tiny ragged one; a
+# head dim with D % 8 == 4 (zero-padded to the kernel's k8 steps); T not a
+# multiple of the kv tile (64 rows, 32 at D = 128) with S < T and S not a
+# multiple of 16, at D = 64 and D = 128.
 FLASH_SHAPES = [(8, 1024, 1024, 12, 12, 64, True), (2, 256, 1024, 16, 4, 128, True),
                 (2, 1000, 1000, 12, 12, 64, True), (2, 64, 64, 4, 4, 16, True),
-                (1, 5, 9, 2, 1, 8, True), (2, 100, 300, 8, 2, 32, False)]
+                (1, 5, 9, 2, 1, 8, True), (2, 100, 300, 8, 2, 32, False),
+                (2, 130, 130, 4, 2, 20, True), (2, 77, 200, 6, 3, 64, True),
+                (1, 45, 150, 4, 2, 128, True)]
+
+
+def _flash_case(B, S, T, H, KV, D, causal, q_scale=1.0):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = q_scale * _randn(B, S, H, D), _randn(B, T, KV, D), _randn(B, T, KV, D)
+    before = build.LAUNCHES["flash_attention"]
+    assert _rel(flash_attention(q, k, v, causal=causal),
+                ref.attention_ref(q, k, v, causal=causal)) <= 1e-5
+    assert build.LAUNCHES["flash_attention"] == before + 1
 
 
 @pytest.mark.parametrize("B,S,T,H,KV,D,causal", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain(cuda_device, B, S, T, H, KV, D, causal):
+    _flash_case(B, S, T, H, KV, D, causal)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal", [(2, 1000, 1000, 12, 12, 64, True),
+                                                 (2, 77, 200, 6, 3, 128, False)])
+def test_flash_attention_kernel_with_large_scores(cuda_device, B, S, T, H, KV, D, causal):
+    """q scaled by 8: scores of tens, so the running max moves often and
+    alpha = exp(m_old - m_new) rescales the carried output hard."""
+    _flash_case(B, S, T, H, KV, D, causal, q_scale=8.0)
+
+
+def test_flash_attention_kernel_with_unaligned_operands(cuda_device):
+    """Operands one float past a 16-byte boundary: the 4-byte copies and
+    scalar stores."""
     from repro_torch.kernels.flash_attention import flash_attention
 
-    q, k, v = _randn(B, S, H, D), _randn(B, T, KV, D), _randn(B, T, KV, D)
+    def shifted(*shape):
+        n = 1
+        for s in shape:
+            n *= s
+        return _randn(n + 1)[1:].view(*shape)
+
+    q, k, v = shifted(2, 70, 4, 36), shifted(2, 90, 2, 36), shifted(2, 90, 2, 36)
+    assert q.data_ptr() % 16 and q.is_contiguous()
     before = build.LAUNCHES["flash_attention"]
-    assert _rel(flash_attention(q, k, v, causal=causal),
-                ref.attention_ref(q, k, v, causal=causal)) <= 1e-5
+    assert _rel(flash_attention(q, k, v), ref.attention_ref(q, k, v)) <= 1e-5
     assert build.LAUNCHES["flash_attention"] == before + 1
 
 

@@ -47,8 +47,22 @@ def test_param_paths_and_shapes_match(setup):
 
 
 def test_logits_loss_and_grads_match(setup):
-    cfg, jmodel, jparams, model, tokens = setup
+    _, jmodel, jparams, model, tokens = setup
+    _check_logits_loss_and_grads(jmodel, jparams, model, tokens)
 
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_logits_loss_and_grads_match_with_remat(setup, policy):
+    """Both sides rematerialise each layer (jax.checkpoint against
+    torch.utils.checkpoint) and still agree as without it."""
+    cfg, _, jparams, _, tokens = setup
+    jmodel = j_build_model(j_get_smoke("llama-60m").replace(remat=True, remat_policy=policy))
+    model = build_model(cfg.replace(remat=True, remat_policy=policy), device="cpu")
+    model.load_params(params_from_jax(jax.device_get(jparams)))
+    _check_logits_loss_and_grads(jmodel, jparams, model, tokens)
+
+
+def _check_logits_loss_and_grads(jmodel, jparams, model, tokens):
     def jloss(p):
         logits, aux, _ = jmodel.forward(p, jax.numpy.asarray(tokens))
         return jmodel.loss(logits, jax.numpy.asarray(tokens), aux), logits

@@ -1,5 +1,5 @@
-"""The numerics of the ``lowrank_update`` kernel's 3xTF32 products, emulated
-on the CPU.
+"""The numerics of the ``lowrank_update`` and ``flash_attention`` kernels'
+3xTF32 products, emulated on the CPU.
 
 The kernel (``src/repro_torch/kernels/csrc/lowrank_update.cu``) splits each
 fp32 operand x into hi = x rounded to TF32 (10 mantissa bits; nearest, ties
@@ -9,7 +9,8 @@ a_hi·b_hi in fp32, dropping a_lo·b_lo.  Here the same split feeds three fp32
 matrix products (products of TF32 values are exact in fp32, as on the
 tensor cores).  The kernel is held to max|out − want| / max|want| ≤ 1e-5
 on the card; this file shows that the split itself stays inside that
-against the fp64 product, and that a single TF32 product does not.
+against the fp64 product, and that a single TF32 product does not; then
+the same for flash attention, at the end of the file.
 """
 import numpy as np
 import pytest
@@ -108,3 +109,62 @@ def test_3xtf32_error_does_not_grow_with_the_reduction(k):
     g = _rand(7, 1, k, 512)
     want = want_fp64(p, g, None, 0.0, 1.0)
     assert rel_err(lowrank_update(product_3xtf32, p, g, None, 0.0, 1.0), want) <= TOL / 4
+
+
+# ---------------------------------------------------------------- flash attention
+#
+# The flash_attention kernel (csrc/flash_attention.cu) forms both of its
+# products by the same split: each 64-row kv tile's scores q kᵀ start from
+# zero, the fp32 online softmax (running max m, denominator l) gives the
+# tile's probabilities p, p v of the tile starts from zero too, and the
+# output is carried as acc = alpha·acc + (p v of the tile) in fp32.
+
+
+def flash_attention_emulated(prod, q, k, v, block_kv=64):
+    """Causal attention of one head, q (S, D), k/v (T, D), the kernel's way."""
+    S, D = q.shape
+    T = k.shape[0]
+    scale = np.float32(D ** -0.5)
+    rows = np.arange(S)[:, None] + (T - S)
+    m = np.full((S, 1), -1e30, np.float32)
+    l = np.zeros((S, 1), np.float32)
+    acc = np.zeros((S, D), np.float32)
+    for k0 in range(0, T, block_kv):
+        kt, vt = k[k0:k0 + block_kv], v[k0:k0 + block_kv]
+        s = prod(q, np.ascontiguousarray(kt.T)) * scale
+        cols = k0 + np.arange(kt.shape[0])[None, :]
+        s = np.where(cols <= rows, s, np.float32(-1e30))
+        m_new = np.maximum(m, s.max(axis=1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new)
+        l = alpha * l + p.sum(axis=1, keepdims=True, dtype=np.float32)
+        acc = alpha * acc + prod(p, vt)
+        m = m_new
+    return acc / np.maximum(l, np.float32(1e-30))
+
+
+def attention_fp64(q, k, v):
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    S, D = q.shape
+    s = q @ k.T * D ** -0.5
+    s = np.where(np.arange(k.shape[0])[None, :] <= np.arange(S)[:, None] + k.shape[0] - S,
+                 s, -np.inf)
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    return (p / p.sum(axis=1, keepdims=True)) @ v
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_3xtf32_flash_attention_stays_within_the_tolerance(q_scale):
+    """S = T = 256, D = 64, causal; q scaled by 8 gives scores of tens, so the
+    running max moves often and alpha rescales the carried output hard."""
+    q = np.float32(q_scale) * _rand(8, 256, 64)
+    k, v = _rand(9, 256, 64), _rand(10, 256, 64)
+    out = flash_attention_emulated(product_3xtf32, q, k, v)
+    assert out.dtype == np.float32
+    assert rel_err(out, attention_fp64(q, k, v)) <= TOL
+
+
+def test_a_single_tf32_flash_attention_misses_the_tolerance():
+    q, k, v = _rand(8, 256, 64), _rand(9, 256, 64), _rand(10, 256, 64)
+    assert rel_err(flash_attention_emulated(product_1xtf32, q, k, v),
+                   attention_fp64(q, k, v)) > 10 * TOL

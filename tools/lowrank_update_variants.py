@@ -148,13 +148,15 @@ def host_us(fn, calls: int = 200) -> float:
     return (t1 - t0) / calls * 1e6
 
 
-def build_all(sources: dict[str, str]) -> dict[str, tuple[Path, str]]:
-    """Compile each ``{name: source}`` at once; ``{name: (.so, log)}``."""
+def build_all(sources: dict[str, str], kernel: str = "lowrank_update",
+              out_dir: Path = OUT) -> dict[str, tuple[Path, str]]:
+    """Compile each ``{name: source}`` of ``kernel`` at once, each into
+    ``out_dir/name/``; ``{name: (.so, log)}``."""
     from repro_torch.kernels import build
 
     procs = {}
     for name, text in sources.items():
-        cu, so = OUT / name / "lowrank_update.cu", OUT / name / "liblowrank_update.so"
+        cu, so = out_dir / name / f"{kernel}.cu", out_dir / name / f"lib{kernel}.so"
         cu.parent.mkdir(parents=True, exist_ok=True)
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
@@ -187,7 +189,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    src = (build.CSRC / "lowrank_update.cu").read_text()
+    # The split and the mma live in tf32x3.cuh: inline it, so that the
+    # variants can edit them and each source builds on its own.
+    header = (build.CSRC / "tf32x3.cuh").read_text().replace("#pragma once\n", "")
+    src = (build.CSRC / "lowrank_update.cu").read_text().replace('#include "tf32x3.cuh"\n',
+                                                                 header)
     sources = variants(src)
     if args.parent is not None:  # its headers beside it, as #include "..." finds them
         (OUT / "parent").mkdir(parents=True, exist_ok=True)
