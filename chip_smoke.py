@@ -17,9 +17,9 @@ Phases, in order; any failure exits non-zero and prints no result:
                 mamba2-370m's prefill and a ragged case; time kernel, plain
                 version and one PyTorch call computing the same function
                 where there is one, and compute the bound (for
-                ``lowrank_update`` and ``flash_attention``, which run on the
-                tensor cores, over TF32's peak, their fp32 SIMT bound
-                beside);
+                ``lowrank_update``, ``gram``, ``poly_apply`` and
+                ``flash_attention``, which run on the tensor cores, over
+                TF32's peak, their fp32 SIMT bound beside);
   4. slice    — GUM pretraining of llama-130m at full width through the
                 port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3,
                 the config's remat: each layer recomputed in backward),
@@ -68,18 +68,18 @@ sys.path.insert(0, str(ROOT / "src"))
 # over the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# TF32 on the tensor cores (dense).  lowrank_update and flash_attention
-# compute fp32-accurate products there by 3xTF32, three TF32 products for
-# each fp32 one, so their bound is 3 x flops over this peak (and their fp32
-# SIMT bound is printed beside it).
+# TF32 on the tensor cores (dense).  lowrank_update, gram, poly_apply and
+# flash_attention compute fp32-accurate products there by 3xTF32, three TF32
+# products for each fp32 one, so their bound is 3 x flops over this peak
+# (and their fp32 SIMT bound is printed beside it).
 PEAK_TF32_FLOPS = 495e12
-TF32X3_KERNELS = ("lowrank_update", "flash_attention")
+TF32X3_KERNELS = ("lowrank_update", "gram", "poly_apply", "flash_attention")
 
 # max|kernel - plain| / max|plain|.  The kernels and the plain versions
 # (cuBLAS) both sum in fp32, in another order, so they differ by rounding
-# only: 1e-5 for one GEMM (lowrank_update's 3xTF32 products add about 2^-21
-# relative each); a 5-step Newton-Schulz compounds ten of them through a
-# cubic polynomial, 1e-4.
+# only: 1e-5 for one GEMM (the tensor-core GEMMs' 3xTF32 products add about
+# 2^-21 relative each); a 5-step Newton-Schulz compounds ten of them through
+# a cubic polynomial, 1e-4.
 TOL_GEMM = 1e-5
 TOL_NS = 1e-4
 # Flash attention: the kernel's online softmax and the plain version's
@@ -91,21 +91,22 @@ TOL_NS = 1e-4
 TOL_FLASH = 1e-5
 TOL_SSD = 1e-4
 
+# kernel -> (source, the TPU kernel it replaces, the shared headers it is
+# built on: the 3xTF32 GEMM core, the 3xTF32 helpers, the fp32 SIMT core)
+CSRC = "src/repro_torch/kernels/csrc/"
+TC_GEMM = (CSRC + "tf32x3_gemm.cuh", CSRC + "tf32x3.cuh")
 KERNEL_META = {
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:35"),
-    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                 "src/repro/kernels/ssd_scan.py:25"),
-    "lowrank_update": ("src/repro_torch/kernels/csrc/lowrank_update.cu",
-                       "src/repro/kernels/lowrank_update.py:30"),
-    "back_project": ("src/repro_torch/kernels/csrc/back_project.cu",
-                     "src/repro/kernels/lowrank_update.py:105"),
-    "back_project_epilogue": ("src/repro_torch/kernels/csrc/back_project_epilogue.cu",
-                              "src/repro/kernels/fused_step.py:35"),
-    "gram": ("src/repro_torch/kernels/csrc/gram.cu",
-             "src/repro/kernels/newton_schulz.py:34"),
-    "poly_apply": ("src/repro_torch/kernels/csrc/poly_apply.cu",
-                   "src/repro/kernels/newton_schulz.py:71"),
+    "flash_attention": (CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:35",
+                        (CSRC + "tf32x3.cuh",)),
+    "ssd_scan": (CSRC + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:25", ()),
+    "lowrank_update": (CSRC + "lowrank_update.cu", "src/repro/kernels/lowrank_update.py:30",
+                       TC_GEMM),
+    "back_project": (CSRC + "back_project.cu", "src/repro/kernels/lowrank_update.py:105",
+                     (CSRC + "gemm.cuh",)),
+    "back_project_epilogue": (CSRC + "back_project_epilogue.cu",
+                              "src/repro/kernels/fused_step.py:35", (CSRC + "gemm.cuh",)),
+    "gram": (CSRC + "gram.cu", "src/repro/kernels/newton_schulz.py:34", TC_GEMM),
+    "poly_apply": (CSRC + "poly_apply.cu", "src/repro/kernels/newton_schulz.py:71", TC_GEMM),
 }
 
 
@@ -295,20 +296,23 @@ def kernel_cases(torch, gen):
     # gram / poly_apply: NS on the low-rank momenta (12, 256, n) and on the
     # full slots (4, 768, n); X is Frobenius-normalised as in NS.  X Xᵀ is
     # symmetric, so the work it needs is one triangle and the diagonal:
-    # s(s+1)/2 dot products of length n per member (the kernel computes both
-    # halves; its bound does not count the mirrored half).
+    # s(s+1)/2 dot products of length n per member (the kernel computes the
+    # tiles of one triangle and mirrors them).  Labels name the block tile
+    # each kernel picks.
     for L, s, n, principal in [(12, 256, 768, False), (12, 256, 2048, False),
                                (4, 768, 768, False), (4, 768, 2048, True),
                                (2, 1000, 1376, False)]:
         x = randn(L, s, n)
         x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
-        cases.append(("gram", f"X{(L, s, n)}",
+        bm, bn = nsk.gram_tile(L, s, n)
+        cases.append(("gram", f"X{(L, s, n)} tile {bm}x{bn}",
                       (lambda x=x: nsk.gram(x)), (lambda x=x: ref.gram_ref(x)),
                       (lambda x=x: torch.bmm(x, x.mT)),
                       1.0 * L * s * (s + 1) * n, 4 * (L * s * n + L * s * s), principal))
         g = ref.gram_ref(x)
         a2 = -4.7750 * g + 2.0315 * (g @ g)
-        cases.append(("poly_apply", f"A2{(L, s, s)} X{(L, s, n)}",
+        bm, bn = nsk.poly_apply_tile(L, s, n)
+        cases.append(("poly_apply", f"A2{(L, s, s)} X{(L, s, n)} tile {bm}x{bn}",
                       (lambda a2=a2, x=x: nsk.poly_matmul_axpy(a2, x, 3.4445)),
                       (lambda a2=a2, x=x: ref.poly_matmul_axpy_ref(a2, x, 3.4445)),
                       (lambda a2=a2, x=x: torch.baddbmm(x, a2, x, beta=3.4445)),
@@ -406,6 +410,8 @@ def phase_kernels(torch):
         torch.cuda.synchronize()
         abs_err, rel = rel_err(out, want)
         check(rel <= tol, f"{name} {label}: rel err {rel:.3e} > {tol}")
+        check(name != "gram" or bool(torch.equal(out, out.mT)),
+              f"gram {label}: the output is not exactly symmetric")
         ms, plain_ms = time_ms(kfn), time_ms(pfn)
         lib_ms = None if lfn is None else time_ms(lfn)
         bound_ms, bound_by, simt_ms = bounds_ms(name, flops, nbytes)
@@ -983,11 +989,12 @@ def main() -> None:
         phase_agree_serve(torch)
 
     kernels = []
-    for name, (source, replaces) in KERNEL_META.items():
+    for name, (source, replaces, headers) in KERNEL_META.items():
         row = rows[name]
         check(kernels_only or launches[name] > 0, f"kernel {name} never launched on the path")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "headers": list(headers), "replaces": replaces,
+                        "launches": launches[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -114,6 +114,21 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def tile(name: str, *args: int) -> tuple[int, int]:
+    """The block tile (rows, columns of the output) that kernel ``name``
+    picks for the integer arguments ``args``, read from its library's
+    ``<name>_tile`` entry (which returns rows * 1000 + columns, 0 for
+    arguments the kernel refuses); builds the kernels on first use and
+    launches nothing."""
+    fn = getattr(library(name), f"{name}_tile")
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    code = fn(*args)
+    if code == 0:
+        raise ValueError(f"{name}: no tile for arguments {args}")
+    return divmod(code, 1000)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel ``name`` on ``device`` — the operands' device, made
     current for the launch whichever device is current outside — on that

@@ -1,6 +1,6 @@
-// Batched fp32 SIMT GEMM core shared by four of the port's optimizer kernels
-// (back_project.cu, back_project_epilogue.cu, gram.cu, poly_apply.cu;
-// lowrank_update.cu runs on the tensor cores with a design of its own).
+// Batched fp32 SIMT GEMM core shared by two of the port's optimizer kernels
+// (back_project.cu, back_project_epilogue.cu; lowrank_update.cu,
+// poly_apply.cu and gram.cu run on the tensor cores, tf32x3_gemm.cuh).
 //
 //   C[l](i, j) = alpha * sum_k A[l](i, k) * B[l](k, j)  +  beta * D[l](i, j)
 //
@@ -24,8 +24,8 @@
 // O(M*K + K*N + M*N) floats, i.e. 40-120 flops per byte, above the fp32 SIMT
 // ridge (67 TFLOP/s / 3.35 TB/s = 20 flops per byte), so the kernels are
 // bound by fp32 FMA issue.  The register tile gives 64 FMAs per 4 shared
-// loads.  Tensor cores (wgmma), TMA and split-K for the short Gram grids are
-// left for a later change.
+// loads.  Tensor cores (the 3xTF32 core of tf32x3_gemm.cuh) are left for a
+// later change.
 #pragma once
 
 #include <cuda_runtime.h>

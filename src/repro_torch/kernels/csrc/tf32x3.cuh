@@ -1,5 +1,5 @@
-// Parts shared by the port's two tensor-core kernels (lowrank_update.cu,
-// flash_attention.cu): the 3xTF32 split of an fp32 operand, the TF32
+// Parts shared by the port's tensor-core kernels (flash_attention.cu and the
+// GEMM core tf32x3_gemm.cuh): the 3xTF32 split of an fp32 operand, the TF32
 // m16n8k8 mma.sync, the cp.async copies that fill their shared-memory
 // rings, and the opt-in to more than 48 KB of dynamic shared memory.
 //

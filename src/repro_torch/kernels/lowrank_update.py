@@ -17,7 +17,6 @@ the caller's layout:
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -58,13 +57,7 @@ def lowrank_update_tile(L: int, m: int, r: int, n: int, side: str = "left") -> t
     """The block tile (rows, columns of the output) that the CUDA kernel
     picks for these shapes, read from the kernel's library; builds the
     kernels on first use and launches nothing."""
-    fn = build.library("lowrank_update").lowrank_update_tile
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_int
-    code = fn(L, m, r, n, int(side == "right"))
-    if code == 0:
-        raise ValueError(f"no tile for L={L} m={m} r={r} n={n} side={side!r}")
-    return divmod(code, 1000)
+    return build.tile("lowrank_update", L, m, r, n, int(side == "right"))
 
 
 def project_batched(p: torch.Tensor, g: torch.Tensor, coeff: float = 1.0, *,

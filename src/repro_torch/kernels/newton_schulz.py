@@ -7,7 +7,9 @@ kernels and a small polynomial:
   1. :func:`gram`             — ``G = X Xᵀ``       (``csrc/gram.cu``)
   2. :func:`poly_matmul_axpy` — ``a·X + A2 @ X``   (``csrc/poly_apply.cu``)
 
-and ``A2 = b·G + c·G@G`` on the ``(s, s)`` Gram stays a ``torch.matmul``, as
+both on the 3xTF32 tensor-core core ``csrc/tf32x3_gemm.cuh`` (``gram``
+computes one triangle and mirrors it, so its output is exactly symmetric);
+``A2 = b·G + c·G@G`` on the ``(s, s)`` Gram stays a ``torch.matmul``, as
 it stays in XLA in the reference.  Each wrapper runs its kernel for CUDA
 tensors and the plain version (:mod:`repro_torch.kernels.ref`) for CPU
 tensors only.  Inputs are ``(L, s, n)`` with ``s <= n``; the transposition
@@ -17,7 +19,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.newton_schulz import NS_COEFFS
 from repro_torch.kernels import build, ref
 
 
@@ -30,6 +31,12 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((L, s, s), device=x.device, dtype=torch.float32)
     build.launch("gram", x.device, x.data_ptr(), out.data_ptr(), L, s, n)
     return out
+
+
+def gram_tile(L: int, s: int, n: int) -> tuple[int, int]:
+    """The square block tile the ``gram`` kernel picks for X (L, s, n)
+    (``build.tile``; launches nothing)."""
+    return build.tile("gram", L, s, n)
 
 
 def poly_matmul_axpy(a2: torch.Tensor, x: torch.Tensor, a: float) -> torch.Tensor:
@@ -46,8 +53,18 @@ def poly_matmul_axpy(a2: torch.Tensor, x: torch.Tensor, a: float) -> torch.Tenso
     return out
 
 
+def poly_apply_tile(L: int, s: int, n: int) -> tuple[int, int]:
+    """The block tile the ``poly_apply`` kernel picks for A2 (L, s, s),
+    X (L, s, n) (``build.tile``; launches nothing)."""
+    return build.tile("poly_apply", L, s, n)
+
+
 def ns_iteration(x: torch.Tensor) -> torch.Tensor:
     """One quintic NS step through the two kernels (fp32, (L, s, n))."""
+    # imported here: repro_torch.core imports the dispatcher, which imports
+    # this module, so a top-level import fails when this module comes first
+    from repro_torch.core.newton_schulz import NS_COEFFS
+
     a, b, c = NS_COEFFS
     g = gram(x)
     a2 = b * g + c * (g @ g)  # (L, s, s): small, stays a plain matmul

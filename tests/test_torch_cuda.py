@@ -8,8 +8,9 @@ file imports no JAX, so it also runs on the GPU machine, which has none:
 
 Tolerance: max|kernel − plain| / max|plain| ≤ 1e-5 for one GEMM, 1e-4 for a
 5-step Newton–Schulz (both sides sum in fp32, in another order;
-``lowrank_update`` forms its products on the tensor cores by 3xTF32, about
-2^-21 relative each, see ``tests/test_torch_tf32x3.py``).
+``lowrank_update``, ``gram`` and ``poly_apply`` form their products on the
+tensor cores by 3xTF32, about 2^-21 relative each, see
+``tests/test_torch_tf32x3.py``).
 """
 import pytest
 import torch
@@ -23,7 +24,7 @@ from repro_torch.kernels.lowrank_update import (
     lowrank_update_tile,
     project_batched,
 )
-from repro_torch.kernels.newton_schulz import gram, poly_matmul_axpy
+from repro_torch.kernels.newton_schulz import gram, gram_tile, poly_apply_tile, poly_matmul_axpy
 
 pytestmark = pytest.mark.cuda
 
@@ -152,17 +153,78 @@ def test_back_project_epilogue_kernel_matches_plain(cuda_device, L, m, r, n, sid
     assert build.LAUNCHES["back_project_epilogue"] == before + 3
 
 
-@pytest.mark.parametrize("L,s,n", [(12, 256, 2048), (4, 768, 2048), (2, 1000, 1376),
-                                   (1, 1024, 1024), (3, 5, 9)])
+# Branches of the Newton–Schulz kernels (csrc/gram.cu and csrc/poly_apply.cu
+# on csrc/tf32x3_gemm.cuh), each case (L, s, n).  gram: square tiles, 64 x 64
+# when one triangle of them gives two blocks an SM, else 32 x 32 (gram_tile);
+# poly_apply: lowrank_update's rule over the (s, n) output (poly_apply_tile).
+# Copies: 16 bytes when n (gram) or s and n (poly_apply) are multiples of 4,
+# else 4 bytes.  s not a multiple of the tile leaves a partial last triangle
+# tile on both of gram's writes.
+NS_BRANCHES = [
+    (12, 256, 2048),  # gram 32x32 (64x64 gives 10 x 12 blocks), poly 64x64
+    (4, 768, 2048),   # gram 64x64 (78 x 4 blocks), poly 64x64
+    (2, 1000, 1376),  # gram 64x64, partial last tile (1000 = 15 x 64 + 40)
+    (1, 1024, 1024),  # gram 32x32 at L = 1
+    (2, 1000, 1375),  # 4-byte copies at 64x64 (both kernels)
+    (2, 257, 1030),   # gram 32x32, poly 64x32, 4-byte copies, 257 = 8 x 32 + 1
+    (2, 320, 1024),   # poly 64x32, 16-byte copies
+    (1, 256, 512),    # poly 32x32, 16-byte copies
+    (3, 5, 9),        # one partial tile, 4-byte copies
+]
+
+
+def test_ns_branches_cover_both_copy_widths():
+    assert {n % 4 == 0 for _, _, n in NS_BRANCHES} == {True, False}
+    assert {s % 4 == 0 and n % 4 == 0 for _, s, n in NS_BRANCHES} == {True, False}
+
+
+def test_ns_branches_cover_every_tile(cuda_device):
+    assert {gram_tile(*case) for case in NS_BRANCHES} == {(64, 64), (32, 32)}
+    assert {poly_apply_tile(*case) for case in NS_BRANCHES} == {(64, 64), (64, 32), (32, 32)}
+
+
+@pytest.mark.parametrize("L,s,n", NS_BRANCHES)
 def test_newton_schulz_kernels_match_plain(cuda_device, L, s, n):
     x = _randn(L, s, n)
     x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
+    before = dict(build.LAUNCHES)
     g = gram(x)
+    assert torch.equal(g, g.mT)  # one triangle, mirrored
     assert _rel(g, ref.gram_ref(x)) <= 1e-5
     a2 = -4.7750 * g + 2.0315 * (g @ g)
     assert _rel(poly_matmul_axpy(a2, x, 3.4445),
                 ref.poly_matmul_axpy_ref(a2, x, 3.4445)) <= 1e-5
+    assert {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]} == {
+        "gram": 1, "poly_apply": 1}
     assert _rel(dispatch.newton_schulz(x, impl="cuda"), newton_schulz_plain(x)) <= 1e-4
+
+
+def _device_kernel_names(fn) -> list[str]:
+    """Names of the kernels the card ran in ``fn()`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("L,s,n", NS_BRANCHES)
+def test_ns_kernels_launch_the_tile_their_query_names(cuda_device, L, s, n):
+    """The template arguments of the kernel each launch ran (tile and copy
+    width, from its name in the profiler) against gram_tile /
+    poly_apply_tile and the operands' alignment."""
+    import re
+
+    x = _randn(L, s, n)
+    a2 = _randn(L, s, s)
+    names = " ".join(_device_kernel_names(lambda: (gram(x), poly_matmul_axpy(a2, x, 1.5))))
+    got = re.findall(r"gram_kernel<(\d+), (true|false)>", names)
+    assert got == [(str(gram_tile(L, s, n)[0]), str(n % 4 == 0).lower())]
+    got = re.findall(r"poly_apply_kernel<(\d+), (\d+), (true|false)>", names)
+    bm, bn = poly_apply_tile(L, s, n)
+    assert got == [(str(bm), str(bn), str(s % 4 == 0 and n % 4 == 0).lower())]
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

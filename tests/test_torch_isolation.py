@@ -7,8 +7,12 @@
 * A CUDA path asked for on a CPU tensor raises instead of taking the plain
   version.
 * The port's launch vocabulary equals the reference's.
+* Each kernel module imports on its own, first in a fresh interpreter (no
+  import cycle through ``repro_torch.core``).
 """
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -41,6 +45,18 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_repro(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+KERNEL_MODULES = sorted(p.stem for p in (ROOT / "src" / "repro_torch" / "kernels").glob("*.py")
+                        if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULES)
+def test_kernel_module_imports_first(module):
+    run = subprocess.run([sys.executable, "-c", f"import repro_torch.kernels.{module}"],
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr[-2000:]
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

@@ -1,7 +1,7 @@
-"""The numerics of the ``lowrank_update`` and ``flash_attention`` kernels'
-3xTF32 products, emulated on the CPU.
+"""The numerics of the port's 3xTF32 tensor-core kernels (``lowrank_update``,
+``gram``, ``poly_apply``, ``flash_attention``), emulated on the CPU.
 
-The kernel (``src/repro_torch/kernels/csrc/lowrank_update.cu``) splits each
+The GEMM core (``src/repro_torch/kernels/csrc/tf32x3_gemm.cuh``) splits each
 fp32 operand x into hi = x rounded to TF32 (10 mantissa bits; nearest, ties
 away from zero: add 0x1000 to the bit pattern and clear the low 13 bits) and
 lo = (x - hi) rounded the same way, and sums a_lo·b_hi + a_hi·b_lo +
@@ -10,7 +10,8 @@ matrix products (products of TF32 values are exact in fp32, as on the
 tensor cores).  The kernel is held to max|out − want| / max|want| ≤ 1e-5
 on the card; this file shows that the split itself stays inside that
 against the fp64 product, and that a single TF32 product does not; then
-the same for flash attention, at the end of the file.
+the same for a Newton–Schulz chain of ``gram`` and ``poly_apply`` products
+and for flash attention, with ``gram``'s triangle of tiles.
 """
 import numpy as np
 import pytest
@@ -109,6 +110,115 @@ def test_3xtf32_error_does_not_grow_with_the_reduction(k):
     g = _rand(7, 1, k, 512)
     want = want_fp64(p, g, None, 0.0, 1.0)
     assert rel_err(lowrank_update(product_3xtf32, p, g, None, 0.0, 1.0), want) <= TOL / 4
+
+
+# ---------------------------------------------------------------- Newton–Schulz
+#
+# Five quintic steps X' = a·X + A2 X, A2 = b·G + c·G², G = X Xᵀ, as the port
+# runs them: G by the gram kernel and A2 X by poly_apply, both 3xTF32, and A2
+# a plain fp32 matmul in between.  Newton–Schulz magnifies rounding, so the
+# chain is held against fp64 Newton–Schulz from the same fp32 start: within
+# 2e-5 (and chip_smoke's TOL_NS = 1e-4), within twice plain fp32's own
+# distance, while one TF32 product a GEMM lands past 1e-3.
+
+NS_COEFFS = (3.4445, -4.7750, 2.0315)
+TOL_NS = 1e-4
+
+
+def newton_schulz_emulated(prod, x, steps=5):
+    a, b, c = (np.float32(v) for v in NS_COEFFS)
+    for _ in range(steps):
+        g = prod(x, np.ascontiguousarray(x.T))
+        x = a * x + prod(b * g + c * (g @ g), x)
+    return x
+
+
+def newton_schulz_fp64(x, steps=5):
+    a, b, c = NS_COEFFS
+    x = x.astype(np.float64)
+    for _ in range(steps):
+        g = x @ x.T
+        x = a * x + (b * g + c * (g @ g)) @ x
+    return x
+
+
+def _ns_start(seed, s, n):
+    x = _rand(seed, s, n)
+    return (x / np.linalg.norm(x.astype(np.float64))).astype(np.float32)
+
+
+@pytest.mark.parametrize("s,n", [(96, 384), (256, 768)])
+def test_3xtf32_newton_schulz_stays_at_fp32s_distance(s, n):
+    x = _ns_start(11, s, n)
+    want = newton_schulz_fp64(x)
+    got = newton_schulz_emulated(product_3xtf32, x)
+    assert got.dtype == np.float32
+    err = rel_err(got, want)
+    assert err <= 2e-5 and err <= TOL_NS
+    assert err <= 2 * rel_err(newton_schulz_emulated(np.matmul, x), want)
+
+
+@pytest.mark.parametrize("s,n", [(96, 384), (256, 768)])
+def test_a_single_tf32_newton_schulz_misses_the_tolerance(s, n):
+    x = _ns_start(11, s, n)
+    assert rel_err(newton_schulz_emulated(product_1xtf32, x), newton_schulz_fp64(x)) > 1e-3
+
+
+# gram's grid: block b of a member takes the square tile (bi, bj), bi <= bj,
+# with b = bj (bj + 1) / 2 + bi, decoded from an fp32 square root as the
+# kernel decodes it; it writes its tile and, off the diagonal, the transpose
+# to (bj, bi); a diagonal tile writes its upper half and mirrors it.
+
+
+def triangle_tile(b: int) -> tuple[int, int]:
+    bj = int((np.sqrt(np.float32(8 * b + 1), dtype=np.float32) - np.float32(1)) * np.float32(0.5))
+    while bj * (bj + 1) // 2 > b:
+        bj -= 1
+    while (bj + 1) * (bj + 2) // 2 <= b:
+        bj += 1
+    return b - bj * (bj + 1) // 2, bj
+
+
+def test_triangle_decode_visits_each_upper_tile_once():
+    for t in (1, 2, 12, 24, 64, 200):
+        tiles = [triangle_tile(b) for b in range(t * (t + 1) // 2)]
+        assert sorted(tiles) == [(i, j) for i in range(t) for j in range(i, t)]
+
+
+def gram_tiles(prod, x, tile, triangle):
+    """X Xᵀ tile by tile: every tile of the square, or the triangle's tiles
+    written and mirrored as the gram kernel writes them (NaN where nothing
+    was written)."""
+    s = x.shape[0]
+    t = -(-s // tile)
+    out = np.full((s, s), np.nan, np.float32)
+    pairs = ([triangle_tile(b) for b in range(t * (t + 1) // 2)] if triangle
+             else [(i, j) for i in range(t) for j in range(t)])
+    for bi, bj in pairs:
+        rows, cols = slice(bi * tile, (bi + 1) * tile), slice(bj * tile, (bj + 1) * tile)
+        block = prod(x[rows], np.ascontiguousarray(x[cols].T))
+        if not triangle:
+            out[rows, cols] = block
+        elif bi < bj:
+            out[rows, cols] = block
+            out[cols, rows] = block.T
+        else:
+            upper = np.triu(block)
+            out[rows, cols] = upper + np.triu(block, 1).T
+    return out
+
+
+@pytest.mark.parametrize("s,tile", [(100, 32), (96, 32), (130, 64), (5, 32)])
+def test_gram_triangle_is_exactly_symmetric_and_the_squares_upper_half(s, tile):
+    """Ragged s leaves a partial last tile on both writes."""
+    x = _ns_start(12, s, 384)
+    tri = gram_tiles(product_3xtf32, x, tile, triangle=True)
+    square = gram_tiles(product_3xtf32, x, tile, triangle=False)
+    assert not np.isnan(tri).any()
+    np.testing.assert_array_equal(tri, tri.T)
+    upper = np.triu_indices(s)
+    np.testing.assert_array_equal(tri[upper], square[upper])
+    assert rel_err(tri, x.astype(np.float64) @ x.T.astype(np.float64)) <= TOL
 
 
 # ---------------------------------------------------------------- flash attention

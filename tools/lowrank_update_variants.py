@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time variants of the ``lowrank_update`` kernel against the one the port
 builds, on one NVIDIA GPU, to show what each design choice of
-``src/repro_torch/kernels/csrc/lowrank_update.cu`` buys.  A measurement
-script for the record in PERF.md, not part of the port: a variant raises
-when the source no longer has the text it edits.
+``src/repro_torch/kernels/csrc/lowrank_update.cu`` and of the core it runs
+on, ``csrc/tf32x3_gemm.cuh``, buys.  A measurement script for the record in
+PERF.md, not part of the port: a variant raises when the source no longer
+has the text it edits.
 
     python3 tools/lowrank_update_variants.py [--parent DIR]
 
@@ -189,11 +190,14 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    # The split and the mma live in tf32x3.cuh: inline it, so that the
-    # variants can edit them and each source builds on its own.
+    # The main loop lives in tf32x3_gemm.cuh and the split and the mma in
+    # tf32x3.cuh: inline both, so that the variants can edit them and each
+    # source builds on its own.
     header = (build.CSRC / "tf32x3.cuh").read_text().replace("#pragma once\n", "")
-    src = (build.CSRC / "lowrank_update.cu").read_text().replace('#include "tf32x3.cuh"\n',
-                                                                 header)
+    core = ((build.CSRC / "tf32x3_gemm.cuh").read_text().replace("#pragma once\n", "")
+            .replace('#include "tf32x3.cuh"\n', header))
+    src = (build.CSRC / "lowrank_update.cu").read_text().replace(
+        '#include "tf32x3_gemm.cuh"\n', core)
     sources = variants(src)
     if args.parent is not None:  # its headers beside it, as #include "..." finds them
         (OUT / "parent").mkdir(parents=True, exist_ok=True)
