@@ -16,10 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
                 a ragged and a padded-head-dim case; the SSD scan at
                 mamba2-370m's prefill and a ragged case; time kernel, plain
                 version and one PyTorch call computing the same function
-                where there is one, and compute the bound (for
-                ``lowrank_update``, ``gram``, ``poly_apply`` and
-                ``flash_attention``, which run on the tensor cores, over
-                TF32's peak, their fp32 SIMT bound beside);
+                where there is one, and compute the bound (over TF32's
+                peak for every kernel but ``ssd_scan``, since they run on
+                the tensor cores, their fp32 SIMT bound beside);
   4. slice    — GUM pretraining of llama-130m at full width through the
                 port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3,
                 the config's remat: each layer recomputed in backward),
@@ -68,12 +67,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # over the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# TF32 on the tensor cores (dense).  lowrank_update, gram, poly_apply and
-# flash_attention compute fp32-accurate products there by 3xTF32, three TF32
-# products for each fp32 one, so their bound is 3 x flops over this peak
-# (and their fp32 SIMT bound is printed beside it).
+# TF32 on the tensor cores (dense).  Every kernel but ssd_scan computes its
+# fp32-accurate products there by 3xTF32, three TF32 products for each fp32
+# one: the five GEMM kernels on one core (csrc/tf32x3_gemm.cuh) and
+# flash_attention.  So their bound is 3 x flops over this peak (and their
+# fp32 SIMT bound is printed beside it).
 PEAK_TF32_FLOPS = 495e12
-TF32X3_KERNELS = ("lowrank_update", "gram", "poly_apply", "flash_attention")
+TF32X3_KERNELS = ("lowrank_update", "back_project", "back_project_epilogue", "gram",
+                  "poly_apply", "flash_attention")
 
 # max|kernel - plain| / max|plain|.  The kernels and the plain versions
 # (cuBLAS) both sum in fp32, in another order, so they differ by rounding
@@ -92,7 +93,7 @@ TOL_FLASH = 1e-5
 TOL_SSD = 1e-4
 
 # kernel -> (source, the TPU kernel it replaces, the shared headers it is
-# built on: the 3xTF32 GEMM core, the 3xTF32 helpers, the fp32 SIMT core)
+# built on: the 3xTF32 GEMM core and the 3xTF32 helpers)
 CSRC = "src/repro_torch/kernels/csrc/"
 TC_GEMM = (CSRC + "tf32x3_gemm.cuh", CSRC + "tf32x3.cuh")
 KERNEL_META = {
@@ -102,9 +103,9 @@ KERNEL_META = {
     "lowrank_update": (CSRC + "lowrank_update.cu", "src/repro/kernels/lowrank_update.py:30",
                        TC_GEMM),
     "back_project": (CSRC + "back_project.cu", "src/repro/kernels/lowrank_update.py:105",
-                     (CSRC + "gemm.cuh",)),
+                     TC_GEMM),
     "back_project_epilogue": (CSRC + "back_project_epilogue.cu",
-                              "src/repro/kernels/fused_step.py:35", (CSRC + "gemm.cuh",)),
+                              "src/repro/kernels/fused_step.py:35", TC_GEMM),
     "gram": (CSRC + "gram.cu", "src/repro/kernels/newton_schulz.py:34", TC_GEMM),
     "poly_apply": (CSRC + "poly_apply.cu", "src/repro/kernels/newton_schulz.py:71", TC_GEMM),
 }
@@ -251,23 +252,38 @@ def kernel_cases(torch, gen):
                       plain, lib, 2.0 * L * r * n * m, nbytes, principal))
 
     # back_project: the 7 leaves' write-back (L=12) and the sampled blocks'
-    # P P^T G (L=4), r=256, n in {768, 2048}.
-    for L, m, r, n, principal in [(12, 768, 256, 768, False),
-                                  (12, 768, 256, 2048, True),
-                                  (4, 768, 256, 2048, False),
-                                  (2, 1000, 96, 1376, False)]:
-        p, s = randn(L, m, r), randn(L, r, n)
-        cases.append(("back_project", f"P{(L, m, r)} S{(L, r, n)}",
-                      (lambda p=p, s=s: lu.back_project_batched(p, s)),
-                      (lambda p=p, s=s: ref.back_project_ref(p, s)),
-                      (lambda p=p, s=s: torch.bmm(p, s)),
+    # P P^T G (L=4), r=256, n in {768, 2048}, w_out (2048 x 768) on the
+    # right side, native; the ragged llama-60m shape; r = 97 (4-byte
+    # copies) on both sides, and r = 4 (phase 5's rank: K below one 8-deep
+    # mma step, most of the one slice zero-filled).  Labels name the block
+    # tile the kernel picks.
+    for L, m, r, n, side, principal in [(12, 768, 256, 768, "left", False),
+                                        (12, 768, 256, 2048, "left", True),
+                                        (4, 768, 256, 2048, "left", False),
+                                        (12, 2048, 256, 768, "right", False),
+                                        (4, 2048, 256, 768, "right", False),
+                                        (2, 1000, 96, 1376, "left", False),
+                                        (2, 1000, 97, 1375, "left", False),
+                                        (2, 1000, 97, 1375, "right", False),
+                                        (4, 768, 4, 2048, "left", False),
+                                        (4, 2048, 4, 768, "right", False)]:
+        p = randn(L, m if side == "left" else n, r)
+        s = randn(*((L, r, n) if side == "left" else (L, m, r)))
+        a, b = (p, s) if side == "left" else (s, p.mT)  # out = a @ b
+        bm, bn = lu.back_project_tile(L, m, r, n, side)
+        cases.append(("back_project",
+                      f"{side} P{tuple(p.shape)} S{tuple(s.shape)} tile {bm}x{bn}",
+                      (lambda p=p, s=s, side=side: lu.back_project_batched(p, s, side=side)),
+                      (lambda a=a, b=b: ref.back_project_ref(a, b)),
+                      (lambda a=a, b=b: torch.bmm(a, b)),
                       2.0 * L * m * n * r, 4 * (L * m * r + L * r * n + L * m * n),
                       principal))
 
     # back_project_epilogue: GaLore's write-back per family stack (attn
     # (48, 768, 768), mlp in/gate (24, 768, 2048), w_out (12, 2048, 768) on
-    # the right side), with W (weight decay) and without, and the ragged
-    # shape on both sides.  scale = -lr * alpha, decay = -lr * wd.
+    # the right side), with W (weight decay) and without, the ragged shape
+    # on both sides, r = 97 and r = 4 as for back_project.  scale = -lr *
+    # alpha, decay = -lr * wd.
     scale, decay = -0.0025, -1e-4
     zero = torch.zeros(1, 1, 1, device="cuda")
     for L, m, r, n, side, with_w, principal in [
@@ -277,7 +293,11 @@ def kernel_cases(torch, gen):
             (12, 2048, 256, 768, "right", True, False),
             (12, 2048, 256, 768, "right", False, False),
             (2, 1000, 96, 1376, "left", True, False),
-            (2, 1376, 96, 1000, "right", True, False)]:
+            (2, 1376, 96, 1000, "right", True, False),
+            (2, 1000, 97, 1375, "left", True, False),
+            (2, 1000, 97, 1375, "right", False, False),
+            (4, 768, 4, 2048, "left", False, False),
+            (4, 2048, 4, 768, "right", True, False)]:
         p = randn(L, m if side == "left" else n, r)
         s = randn(*((L, r, n) if side == "left" else (L, m, r)))
         w = randn(L, m, n) if with_w else None

@@ -35,7 +35,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> C argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     "lowrank_update": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
-    "back_project": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "back_project": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "back_project_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "gram": (_P, _P, _I, _I, _I, _P),
     "poly_apply": (_P, _P, _P, _I, _I, _I, _F, _P),

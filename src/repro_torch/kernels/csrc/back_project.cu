@@ -1,31 +1,81 @@
-// Back-projection GEMM  out = P @ S.
+// Back-projection GEMM on the tensor cores, fp32 accurate by 3xTF32:
+//
+//   right 0 (left):  out = P S      P (L, m, r), S (L, r, n)
+//   right 1 (right): out = S P^T    P (L, n, r), S (L, m, r)
+//
+// out (L, m, n) either way, contiguous: the right side reads P along its
+// rank axis as it lies (a K-major B operand), so there is no transposed copy
+// of S and no transposed view of the output.
 //
 // Replaces the Pallas kernel _back_project_kernel
 // (src/repro/kernels/lowrank_update.py:105, back_project_batched:116).  The
 // TPU version holds the whole rank axis in one tile and does one MXU product
-// per output tile; here the block loops over r in 16-deep slices, so any rank
-// works.
+// per output tile; here the block loops over r in 32-deep slices, so any rank
+// works, and a rank below one slice (r = 4) is zero-filled in the copies.
 //
-// Bound: at llama-130m, P (12, 768, 256) and S (12, 256, 2048) give 9.7
-// GFLOP on 110 MB, 88 flops per byte: fp32 FMA issue (see gemm.cuh).
-#include "gemm.cuh"
+// Bound on the H100: three TF32 products per fp32 product, so at llama-130m,
+// P (12, 768, 256) and S (12, 256, 2048), 3 * 9.66 GFLOP over 495 TFLOP/s is
+// 0.0586 ms, above the 110 MB's 0.0329 ms at 3.35 TB/s: bound by operations.
+// The reduction is short (K = r = 256, 8 slices), so the ring's fill is a
+// quarter of each block's slices.
+//
+// It runs on the shared core of tf32x3_gemm.cuh: A (P on the left, S on the
+// right) K-contiguous, B = S row-major on the left, B(k, j) = P[j, k] on the
+// right; no epilogue operand.
+#include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(repro_torch::THREADS)
-    back_project_kernel(repro_torch::GemmArgs p) {
-  repro_torch::gemm_tile<true, true>(p);
+#include "tf32x3_gemm.cuh"
+
+namespace {
+
+using namespace repro_torch::tc;
+
+template <int BM, int BN, bool B_KC, bool VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) back_project_kernel(Args p) {
+  gemm_tile<BM, BN, true, B_KC, VEC, false>(p);
 }
 
-// p (L, m, r), s (L, r, n), out (L, m, n); all contiguous fp32 on the device.
-extern "C" int back_project(const float* p, const float* s, float* out, int L,
-                            int m, int r, int n, void* stream) {
-  repro_torch::GemmArgs a{};
-  a.a = p;  // A(i, k) = P[i, k]
+template <int BM, int BN, bool B_KC, bool VEC>
+int launch_tile(const Args& p, int L, cudaStream_t stream) {
+  constexpr auto kernel = back_project_kernel<BM, BN, B_KC, VEC>;
+  return launch<kernel, Tile<BM, BN, true, B_KC>>(p, L, stream);
+}
+
+template <bool B_KC, bool VEC>
+int launch_tiled(const Args& p, int L, cudaStream_t stream) {
+  switch (pick_tile(p, L)) {
+    case 64064: return launch_tile<64, 64, B_KC, VEC>(p, L, stream);
+    case 64032: return launch_tile<64, 32, B_KC, VEC>(p, L, stream);
+    default: return launch_tile<32, 32, B_KC, VEC>(p, L, stream);
+  }
+}
+
+bool valid(int L, int m, int r, int n, int right) {
+  return L > 0 && m > 0 && r > 0 && n > 0 && (right == 0 || right == 1);
+}
+
+}  // namespace
+
+// left:  p (L, m, r), s (L, r, n);  right (right != 0):  p (L, n, r),
+// s (L, m, r);  out (L, m, n).  All contiguous fp32 on the device.  Returns
+// cudaGetLastError() (0 on success): a refused launch never runs, so the
+// caller must check the code.
+extern "C" int back_project(const float* p, const float* s, float* out, int L, int m,
+                            int r, int n, int right, void* stream) {
+  if (!valid(L, m, r, n, right)) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
   a.lda = r;
   a.a_batch = static_cast<long long>(m) * r;
-  a.b = s;  // B(k, j) = S[k, j]
-  a.ldb = n;
+  if (right) {  // A(i, k) = S[i, k]; B(k, j) = P[j, k]: k contiguous
+    a.a = s;
+    a.b = p;
+    a.ldb = r;
+  } else {  // A(i, k) = P[i, k]; B(k, j) = S[k, j]
+    a.a = p;
+    a.b = s;
+    a.ldb = n;
+  }
   a.b_batch = static_cast<long long>(r) * n;
-  a.d = nullptr;
   a.c = out;
   a.ldc = n;
   a.c_batch = static_cast<long long>(m) * n;
@@ -33,6 +83,20 @@ extern "C" int back_project(const float* p, const float* s, float* out, int L,
   a.N = n;
   a.K = r;
   a.alpha = 1.f;
-  a.beta = 0.f;
-  return repro_torch::launch_gemm(back_project_kernel, a, L, stream);
+  set_out_vec(a);
+  const bool vec = rows_aligned16(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (right)
+    return vec ? launch_tiled<true, true>(a, L, st) : launch_tiled<true, false>(a, L, st);
+  return vec ? launch_tiled<false, true>(a, L, st) : launch_tiled<false, false>(a, L, st);
+}
+
+// The block tile back_project picks for these operands, as BM * 1000 + BN
+// (64064, 64032 or 32032); 0 for arguments it refuses.  Launches nothing.
+extern "C" int back_project_tile(int L, int m, int r, int n, int right) {
+  if (!valid(L, m, r, n, right)) return 0;
+  Args a{};
+  a.M = m;
+  a.N = n;
+  return pick_tile(a, L);
 }

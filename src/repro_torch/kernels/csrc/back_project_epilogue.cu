@@ -1,5 +1,6 @@
 // Fused back-projection epilogue  out = scale * back_project(P, S) + decay * W
-// (W may be null: out = scale * back_project(P, S)).
+// (W may be null: out = scale * back_project(P, S)), fp32 accurate by 3xTF32
+// on the tensor cores.
 //
 // Replaces the Pallas kernels _epilogue_kernel and _epilogue_w_kernel
 // (src/repro/kernels/fused_step.py:35 and :42, back_project_epilogue_batched:53)
@@ -9,54 +10,73 @@
 // traced; here the step count is a Python int and the learning rate a Python
 // float, so both are passed by value.
 //
-// It shares back_project.cu's GEMM tile (gemm.cuh); the epilogue is the
-// core's own  alpha * acc + beta * D  store with alpha = scale, beta = decay,
-// D = W, so the product never round-trips device memory before the affine.
-// Both sides are taken natively through the operand-layout flags, in W's own
-// (m, n) layout:
+// It is back_project.cu's product on the shared core of tf32x3_gemm.cuh,
+// with the core's own epilogue  alpha * acc + beta * D  (alpha = scale,
+// beta = decay, D = W), so the product never round-trips device memory
+// before the affine.  Both sides are taken natively, in W's own (m, n)
+// layout:
 //   left   P (m, r), S (r, n):  out(i, j) = sum_k P(i, k) S(k, j)
 //   right  P (n, r), S (m, r):  out(i, j) = sum_k S(i, k) P(j, k)
 // so the right side (mlp/w_out) needs no transpose of S, W or out.
 //
-// Bound: at llama-130m's mlp family, P (24, 768, 256), S (24, 256, 2048) and
-// W (24, 768, 2048) give 19.3 GFLOP on 371 MB, 52 flops per byte: above the
-// fp32 SIMT ridge (20 flops per byte), so fp32 FMA issue bounds it (see
-// gemm.cuh).
-#include "gemm.cuh"
+// Bound on the H100: at llama-130m's mlp family, P (24, 768, 256),
+// S (24, 256, 2048) and W (24, 768, 2048) give 19.3 GFLOP on 371 MB: three
+// TF32 products per fp32 product over 495 TFLOP/s is 0.1171 ms, just above
+// the bytes' 0.1108 ms at 3.35 TB/s, so it sits near the ridge (bound by
+// operations).
+#include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(repro_torch::THREADS)
-    back_project_epilogue_kernel(repro_torch::GemmArgs p) {
-  repro_torch::gemm_tile<true, true>(p);
+#include "tf32x3_gemm.cuh"
+
+namespace {
+
+using namespace repro_torch::tc;
+
+template <int BM, int BN, bool B_KC, bool VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) back_project_epilogue_kernel(Args p) {
+  gemm_tile<BM, BN, true, B_KC, VEC, false>(p);
 }
 
-__global__ void __launch_bounds__(repro_torch::THREADS)
-    back_project_epilogue_kernel_right(repro_torch::GemmArgs p) {
-  repro_torch::gemm_tile<true, false>(p);
+template <int BM, int BN, bool B_KC, bool VEC>
+int launch_tile(const Args& p, int L, cudaStream_t stream) {
+  constexpr auto kernel = back_project_epilogue_kernel<BM, BN, B_KC, VEC>;
+  return launch<kernel, Tile<BM, BN, true, B_KC>>(p, L, stream);
 }
+
+template <bool B_KC, bool VEC>
+int launch_tiled(const Args& p, int L, cudaStream_t stream) {
+  switch (pick_tile(p, L)) {
+    case 64064: return launch_tile<64, 64, B_KC, VEC>(p, L, stream);
+    case 64032: return launch_tile<64, 32, B_KC, VEC>(p, L, stream);
+    default: return launch_tile<32, 32, B_KC, VEC>(p, L, stream);
+  }
+}
+
+}  // namespace
 
 // left:  p (L, m, r), s (L, r, n);  right (right != 0):  p (L, n, r),
 // s (L, m, r);  w (L, m, n) or null, out (L, m, n).  All contiguous fp32 on
-// the device.
+// the device.  Returns cudaGetLastError() (0 on success): a refused launch
+// never runs, so the caller must check the code.
 extern "C" int back_project_epilogue(const float* p, const float* s, const float* w,
                                      float* out, int L, int m, int r, int n,
                                      int right, float scale, float decay,
                                      void* stream) {
-  repro_torch::GemmArgs a{};
-  if (right) {
-    a.a = s;  // A(i, k) = S[i, k]
-    a.lda = r;
-    a.a_batch = static_cast<long long>(m) * r;
-    a.b = p;  // B(k, j) = P[j, k]: k (the rank axis) is contiguous
+  if (L <= 0 || m <= 0 || r <= 0 || n <= 0 || (right != 0 && right != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.lda = r;
+  a.a_batch = static_cast<long long>(m) * r;
+  if (right) {  // A(i, k) = S[i, k]; B(k, j) = P[j, k]: k contiguous
+    a.a = s;
+    a.b = p;
     a.ldb = r;
-    a.b_batch = static_cast<long long>(n) * r;
-  } else {
-    a.a = p;  // A(i, k) = P[i, k]
-    a.lda = r;
-    a.a_batch = static_cast<long long>(m) * r;
-    a.b = s;  // B(k, j) = S[k, j]
+  } else {  // A(i, k) = P[i, k]; B(k, j) = S[k, j]
+    a.a = p;
+    a.b = s;
     a.ldb = n;
-    a.b_batch = static_cast<long long>(r) * n;
   }
+  a.b_batch = static_cast<long long>(r) * n;
   a.d = w;
   a.c = out;
   a.ldc = n;
@@ -66,7 +86,10 @@ extern "C" int back_project_epilogue(const float* p, const float* s, const float
   a.K = r;
   a.alpha = scale;
   a.beta = decay;
-  return repro_torch::launch_gemm(
-      right ? back_project_epilogue_kernel_right : back_project_epilogue_kernel, a, L,
-      stream);
+  set_out_vec(a);
+  const bool vec = rows_aligned16(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (right)
+    return vec ? launch_tiled<true, true>(a, L, st) : launch_tiled<true, false>(a, L, st);
+  return vec ? launch_tiled<false, true>(a, L, st) : launch_tiled<false, false>(a, L, st);
 }

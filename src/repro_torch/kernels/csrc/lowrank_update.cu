@@ -28,7 +28,8 @@
 // The product runs on the 3xTF32 tensor-core core of tf32x3_gemm.cuh
 // (mma.sync with each operand split into two TF32 halves, a 3-stage cp.async
 // ring, 128-thread blocks of at most 128 registers, a block tile picked per
-// launch), which poly_apply.cu and gram.cu share; its note gives the design.
+// launch), which the port's other GEMM kernels share; its note gives the
+// design.
 #include <cuda_runtime.h>
 
 #include "tf32x3_gemm.cuh"

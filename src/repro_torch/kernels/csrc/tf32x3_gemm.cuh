@@ -1,5 +1,6 @@
 // The batched 3xTF32 tensor-core GEMM core of the port's optimizer kernels
-// (lowrank_update.cu, poly_apply.cu, gram.cu), fp32 accurate:
+// (lowrank_update.cu, back_project.cu, back_project_epilogue.cu,
+// poly_apply.cu, gram.cu), fp32 accurate:
 //
 //   C[l](i, j) = alpha * sum_k A[l](i, k) * B[l](k, j)  +  beta * D[l](i, j)
 //
@@ -18,8 +19,9 @@
 // Each .cu declares its own __global__ <name>_kernel around gemm_tile, so
 // traces tell the kernels apart, and picks its block tile per launch.
 //
-// Design, against the four limits of the fp32 SIMT core (gemm.cuh) it
-// replaced for these kernels:
+// Design, against the four limits of the fp32 SIMT core these kernels first
+// ran on (128 x 128 block tiles of fmaf, 256-thread blocks, no asynchronous
+// copies):
 //  1. Tensor cores.  mma.sync.m16n8k8 TF32 with fp32 accumulation.  Each
 //     operand x is split in registers as its fragment is read: hi = x
 //     rounded to TF32 (as cvt.rna.tf32.f32 rounds, see round_tf32), lo = the
@@ -87,7 +89,10 @@ struct Args {
 // 16-byte aligned rows) or 1 (cp.async.ca); a thread keeps one column and
 // every RS-th row, so its addresses and its masks on the fixed axis are
 // computed once, and a slice costs a few instructions a copy.  Past a
-// ragged edge the source size is 0: zeros.
+// ragged edge the source size is 0: the copy reads nothing and writes
+// zeros, so its address may lie outside the operand and no register holds
+// a fallback source (that register spilled the non-symmetric 64 x 64
+// kernel with both operands K-major and 4-byte copies).
 template <int ROWS, int COLS, int LD, bool K_ROWS, bool VEC>
 struct SliceLoader {
   static constexpr int W = VEC ? 4 : 1;
@@ -97,14 +102,12 @@ struct SliceLoader {
   static_assert(THREADS % CPR == 0 && ROWS % RS == 0, "slice must tile the block");
   static_assert(NC <= 32, "row mask is 32 bits");
 
-  const float* base;  // the operand's member (the source of masked copies)
   const float* src;   // this thread's first copy at k = 0
   int ld, K, c, r0;
   int dst0;           // shared offset of the first copy
   int fixed;          // K_ROWS: bytes valid on the fixed axis; else row mask
 
-  __device__ __forceinline__ SliceLoader(const float* base_, int ld_, int K_, int mn0, int mn) {
-    base = base_;
+  __device__ __forceinline__ SliceLoader(const float* base, int ld_, int K_, int mn0, int mn) {
     ld = ld_;
     K = K_;
     const int tid = threadIdx.x;
@@ -143,9 +146,9 @@ struct SliceLoader {
       }
       float* dst = stage + dst0 + t * RS * LD;
       if (VEC)
-        cp_async16(dst, bytes ? from : base, bytes);
+        cp_async16(dst, from, bytes);
       else
-        cp_async4(dst, bytes ? from : base, bytes);
+        cp_async4(dst, from, bytes);
     }
   }
 };

@@ -11,13 +11,13 @@ Mirrors the JAX package's ``kernels/dispatch.py`` op for op:
 There is no quiet fallback: on a CUDA tensor an op launches its kernel or
 raises, whatever the shape — the kernels mask ragged edges themselves, so
 there are no padding wrappers and no shape-legality limits.  On top of the
-kernels' ``(L, a, b)`` contract the dispatchers add what the JAX ones do:
-lead flattening of ``(*lead, m, n)`` families, the back-projection's
-right-side transpose (``(S Pᵀ)ᵀ = P Sᵀ``) and Newton–Schulz's transposition
-to the short side.  The momentum update, the projection and the fused
-epilogue take both sides natively, so their dispatchers only flatten
-leads.  ``KernelEntry`` / :data:`REGISTRY` name each op with its plain
-reference; names must be in ``launch_count.DISPATCH_OPS``.
+kernels' ``(L, a, b)`` contract the dispatchers add lead flattening of
+``(*lead, m, n)`` families and Newton–Schulz's transposition to the short
+side.  The momentum update, the projection, the back-projection and the
+fused epilogue take both sides natively, so their dispatchers only flatten
+leads (the JAX ones transpose the right side).  ``KernelEntry`` /
+:data:`REGISTRY` name each op with its plain reference; names must be in
+``launch_count.DISPATCH_OPS``.
 """
 from __future__ import annotations
 
@@ -127,12 +127,8 @@ def back_project(p, s, *, side: str = "left", impl: str = "auto") -> torch.Tenso
         from repro_torch.core.lowrank_common import back_project as bp
 
         return bp(_f32(p), _f32(s), side)
-    lead = tuple(s.shape[:-2])
-    if side == "right":
-        s = s.mT
-    out = back_project_batched(_flatten_lead(_f32(p)), _flatten_lead(_f32(s)))
-    out = out.reshape(lead + tuple(out.shape[-2:]))
-    return out.mT if side == "right" else out
+    out = back_project_batched(_flatten_lead(_f32(p)), _flatten_lead(_f32(s)), side=side)
+    return out.reshape(tuple(s.shape[:-2]) + tuple(out.shape[-2:]))
 
 
 def back_project_epilogue(p, s, *, w=None, scale: float = 1.0, decay: float = 0.0,

@@ -6,14 +6,14 @@ Each wrapper runs its CUDA kernel (``csrc/lowrank_update.cu``,
 :mod:`repro_torch.kernels.ref` for CPU tensors — and takes the plain version
 for no other reason: on a CUDA tensor it launches the kernel or raises.  The
 kernels mask ragged shapes themselves, so operands need no padding.
-Layouts follow the JAX package's ``kernels/lowrank_update.py``; the momentum
-update and the projection also take the right side natively, G and R in
-the caller's layout:
+Layouts follow the JAX package's ``kernels/lowrank_update.py``; all three
+also take the right side natively, every operand in the caller's layout:
 
   lowrank_update_batched  left   p (L, m, r), g (L, m, n), R (L, r, n) -> (L, r, n)
                           right  p (L, n, r), g (L, m, n), R (L, m, r) -> (L, m, r)
   project_batched         the same with no R
-  back_project_batched    p (L, m, r), s (L, r, n)              -> (L, m, n)
+  back_project_batched    left   p (L, m, r), s (L, r, n)              -> (L, m, n)
+                          right  p (L, n, r), s (L, m, r)              -> (L, m, n)
 """
 from __future__ import annotations
 
@@ -66,16 +66,28 @@ def project_batched(p: torch.Tensor, g: torch.Tensor, coeff: float = 1.0, *,
     return lowrank_update_batched(p, g, None, 0.0, coeff, side=side)
 
 
-def back_project_batched(p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """``P @ S``."""
+def back_project_batched(p: torch.Tensor, s: torch.Tensor, *,
+                         side: str = "left") -> torch.Tensor:
+    """``P S`` (left) or ``S Pᵀ`` (right), contiguous (L, m, n)."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    right = side == "right"
     if s.device.type == "cpu":
+        if right:  # S Pᵀ is the left-side product with (S, Pᵀ) as (P, S)
+            return ref.back_project_ref(s, p.mT)
         return ref.back_project_ref(p, s)
     build.check_operands(s.device, p=p, s=s)
-    L, m, r = p.shape
-    n = s.shape[-1]
-    if s.shape != (L, r, n):
-        raise ValueError(f"shape mismatch: p {tuple(p.shape)}, s {tuple(s.shape)}")
+    L, r = p.shape[0], p.shape[-1]
+    m, n = (s.shape[1], p.shape[1]) if right else (p.shape[1], s.shape[-1])
+    if s.shape != ((L, m, r) if right else (L, r, n)):
+        raise ValueError(f"shape mismatch ({side}): p {tuple(p.shape)}, s {tuple(s.shape)}")
     out = torch.empty((L, m, n), device=s.device, dtype=torch.float32)
     build.launch("back_project", s.device, p.data_ptr(), s.data_ptr(), out.data_ptr(),
-                 L, m, r, n)
+                 L, m, r, n, int(right))
     return out
+
+
+def back_project_tile(L: int, m: int, r: int, n: int, side: str = "left") -> tuple[int, int]:
+    """The block tile (rows, columns of the (m, n) output) that the CUDA
+    kernel picks for these shapes (``build.tile``; launches nothing)."""
+    return build.tile("back_project", L, m, r, n, int(side == "right"))

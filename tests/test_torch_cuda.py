@@ -7,10 +7,9 @@ file imports no JAX, so it also runs on the GPU machine, which has none:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: max|kernel − plain| / max|plain| ≤ 1e-5 for one GEMM, 1e-4 for a
-5-step Newton–Schulz (both sides sum in fp32, in another order;
-``lowrank_update``, ``gram`` and ``poly_apply`` form their products on the
-tensor cores by 3xTF32, about 2^-21 relative each, see
-``tests/test_torch_tf32x3.py``).
+5-step Newton–Schulz (both sides sum in fp32, in another order; the GEMM
+kernels form their products on the tensor cores by 3xTF32, about 2^-21
+relative each, see ``tests/test_torch_tf32x3.py``).
 """
 import pytest
 import torch
@@ -20,6 +19,7 @@ from repro_torch.kernels import build, dispatch, ref
 from repro_torch.kernels.fused_step import back_project_epilogue_batched
 from repro_torch.kernels.lowrank_update import (
     back_project_batched,
+    back_project_tile,
     lowrank_update_batched,
     lowrank_update_tile,
     project_batched,
@@ -153,6 +153,110 @@ def test_back_project_epilogue_kernel_matches_plain(cuda_device, L, m, r, n, sid
     assert build.LAUNCHES["back_project_epilogue"] == before + 3
 
 
+# Branches of the back-projection kernels (csrc/back_project.cu and
+# csrc/back_project_epilogue.cu on csrc/tf32x3_gemm.cuh), each case (L, m, r,
+# n, side): out (L, m, n) = P S on the left, S Pᵀ on the right (B read
+# K-major).  Tiles as lowrank_update's rule over (m, n) (back_project_tile);
+# copies 16 bytes when r (and n on the left) are multiples of 4, else 4
+# bytes.  K = r: 8 slices at 256, a ragged last slice at 96 and 97, one
+# mostly zero-filled slice at r < 32, and r = 4, 5 below one 8-deep mma
+# step.  n odd takes the scalar stores.
+BACK_PROJECT_BRANCHES = [
+    (12, 768, 256, 2048, "left"),   # 64x64, 16-byte copies
+    (12, 2048, 256, 768, "right"),  # 64x64 on the right: GUM's w_out write-back
+    (4, 2048, 256, 768, "right"),   # the sampled blocks' P Pᵀ G on w_out
+    (1, 768, 256, 768, "left"),     # 64x32, L = 1
+    (1, 768, 96, 768, "right"),     # 64x32 on the right, ragged K
+    (2, 1000, 96, 1376, "left"),    # ragged m and n
+    (1, 1376, 96, 1000, "right"),   # L = 1, right
+    (2, 1000, 96, 1375, "left"),    # 4-byte copies from n odd only
+    (2, 1000, 97, 1375, "left"),    # 4-byte copies, r odd
+    (2, 1000, 97, 1375, "right"),   # 4-byte copies, both operands K-major
+    (1, 300, 8, 200, "left"),       # 32x32, r = 8: one mma step
+    (3, 200, 5, 300, "right"),      # 32x32, r = 5, 4-byte copies
+    (4, 768, 4, 2048, "left"),      # r = 4, 16-byte copies, zero-filled slice
+    (4, 2048, 4, 768, "right"),     # r = 4 on the right
+    (2, 37, 13, 50, "left"),        # everything ragged and small
+]
+
+
+def _bp_vec(r, n, side):
+    return r % 4 == 0 and (side == "right" or n % 4 == 0)
+
+
+def test_back_project_branches_cover_ranks_sides_and_copy_widths():
+    assert {case[4] for case in BACK_PROJECT_BRANCHES} == {"left", "right"}
+    assert {256, 96, 97, 8, 5, 4} <= {case[2] for case in BACK_PROJECT_BRANCHES}
+    for side in ("left", "right"):
+        assert {_bp_vec(r, n, sd) for _, _, r, n, sd in BACK_PROJECT_BRANCHES
+                if sd == side} == {True, False}
+    assert 1 in {case[0] for case in BACK_PROJECT_BRANCHES}
+
+
+def test_back_project_branches_cover_every_tile(cuda_device):
+    for side in ("left", "right"):
+        tiles = {back_project_tile(*case) for case in BACK_PROJECT_BRANCHES if case[4] == side}
+        assert tiles == {(64, 64), (64, 32), (32, 32)}
+
+
+def _back_project_operands(L, m, r, n, side):
+    p = _randn(L, m if side == "left" else n, r)
+    s = _randn(*((L, r, n) if side == "left" else (L, m, r)))
+    a, b = (p, s) if side == "left" else (s, p.mT)  # the product is a @ b
+    return p, s, a, b
+
+
+@pytest.mark.parametrize("L,m,r,n,side", BACK_PROJECT_BRANCHES)
+def test_back_project_kernel_branches_match_plain(cuda_device, L, m, r, n, side):
+    """Row 3, and row 6 with W and without, on every branch: one launch
+    each, a contiguous (L, m, n) output, within 1e-5 of the plain version."""
+    p, s, a, b = _back_project_operands(L, m, r, n, side)
+    w = _randn(L, m, n)
+    before = dict(build.LAUNCHES)
+    got = back_project_batched(p, s, side=side)
+    assert got.shape == (L, m, n) and got.is_contiguous()
+    assert _rel(got, ref.back_project_ref(a, b)) <= 1e-5
+    for ww in (w, None):
+        got = back_project_epilogue_batched(p, s, ww, -0.5, -0.25, side=side)
+        assert _rel(got, ref.back_project_epilogue_ref(a, b, ww, -0.5, -0.25)) <= 1e-5
+    assert {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]} == {
+        "back_project": 1, "back_project_epilogue": 2}
+
+
+@pytest.mark.parametrize("L,m,r,n,side", BACK_PROJECT_BRANCHES)
+def test_back_project_kernels_launch_the_tile_their_query_names(cuda_device, L, m, r, n,
+                                                                  side):
+    """The template arguments of the kernel each launch ran (tile, B's
+    layout and copy width, from its name in the profiler) against
+    back_project_tile, the side and the operands' alignment; the epilogue
+    picks the same."""
+    import re
+
+    p, s, _, _ = _back_project_operands(L, m, r, n, side)
+    names = " ".join(_device_kernel_names(lambda: (
+        back_project_batched(p, s, side=side),
+        back_project_epilogue_batched(p, s, None, 1.0, 0.0, side=side))))
+    bm, bn = back_project_tile(L, m, r, n, side)
+    want = [(str(bm), str(bn), str(side == "right").lower(), str(_bp_vec(r, n, side)).lower())]
+    for kernel in ("back_project_kernel", "back_project_epilogue_kernel"):
+        got = re.findall(rf"\b{kernel}<(\d+), (\d+), (true|false), (true|false)>", names)
+        assert got == want, (kernel, names)
+
+
+def test_dispatch_back_project_right_side_is_one_launch_and_contiguous(cuda_device):
+    """GUM's w_out write-back through the dispatcher, leads and all: one
+    device kernel, the back_project kernel, no copy of S or of the output,
+    and a contiguous (..., m, n) result."""
+    from repro_torch.core.lowrank_common import back_project
+
+    p, s = _randn(3, 4, 768, 256), _randn(3, 4, 2048, 256)
+    got = dispatch.back_project(p, s, side="right", impl="cuda")
+    assert got.shape == (3, 4, 2048, 768) and got.is_contiguous()
+    assert _rel(got, back_project(p, s, "right")) <= 1e-5
+    names = _device_kernel_names(lambda: dispatch.back_project(p, s, side="right", impl="cuda"))
+    assert len(names) == 1 and "back_project_kernel<" in names[0], names
+
+
 # Branches of the Newton–Schulz kernels (csrc/gram.cu and csrc/poly_apply.cu
 # on csrc/tf32x3_gemm.cuh), each case (L, s, n).  gram: square tiles, 64 x 64
 # when one triangle of them gives two blocks an SM, else 32 x 32 (gram_tile);
@@ -235,6 +339,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         lowrank_update_batched(p, g.mT.contiguous().mT, None, 0.0, 1.0)
     with pytest.raises(ValueError):
         back_project_batched(p, _randn(2, 5, 16))
+    with pytest.raises(ValueError):  # right: s (L, m, r) with r = 4
+        back_project_batched(p, _randn(2, 5, 3), side="right")
+    with pytest.raises(ValueError):
+        back_project_batched(p, _randn(3, 5, 4), side="right")
+    with pytest.raises(ValueError):
+        back_project_batched(p, _randn(2, 4, 16), side="up")
     with pytest.raises(ValueError):
         dispatch.project(p, g, impl="torch")
 

@@ -99,6 +99,19 @@ def test_back_project_batched_matches_pallas():
     _close(back_project_batched(torch.from_numpy(p), torch.from_numpy(s)), want)
 
 
+def test_back_project_batched_right_side_matches_pallas():
+    """The right side, S Pᵀ with p (L, n, r), s (L, m, r), against the
+    reference's right side as its dispatcher forms it: S swapped, the
+    left-side kernel (P Sᵀ, (L, n, m)), the output swapped back.  The port
+    returns (L, m, n) contiguous."""
+    p, s = _proj(5, 2, 64, 16), _rand(6, 2, 128, 16)
+    want = j_back_project_batched(jnp.asarray(p), jnp.swapaxes(jnp.asarray(s), -1, -2),
+                                  block_m=32, block_n=64, interpret=True)
+    got = back_project_batched(torch.from_numpy(p), torch.from_numpy(s), side="right")
+    assert got.shape == (2, 128, 64) and got.is_contiguous()
+    _close(got, jnp.swapaxes(want, -1, -2))
+
+
 def test_gram_and_poly_apply_match_pallas():
     x = _rand(7, 2, 16, 128) / 8
     g_want = j_gram(jnp.asarray(x), block_n=32, interpret=True)

@@ -1,5 +1,6 @@
 """The numerics of the port's 3xTF32 tensor-core kernels (``lowrank_update``,
-``gram``, ``poly_apply``, ``flash_attention``), emulated on the CPU.
+``back_project``, ``back_project_epilogue``, ``gram``, ``poly_apply``,
+``flash_attention``), emulated on the CPU.
 
 The GEMM core (``src/repro_torch/kernels/csrc/tf32x3_gemm.cuh``) splits each
 fp32 operand x into hi = x rounded to TF32 (10 mantissa bits; nearest, ties
@@ -10,8 +11,9 @@ matrix products (products of TF32 values are exact in fp32, as on the
 tensor cores).  The kernel is held to max|out − want| / max|want| ≤ 1e-5
 on the card; this file shows that the split itself stays inside that
 against the fp64 product, and that a single TF32 product does not; then
-the same for a Newton–Schulz chain of ``gram`` and ``poly_apply`` products
-and for flash attention, with ``gram``'s triangle of tiles.
+the same for the back-projection and its fused epilogue (a reduction over
+the rank only), for a Newton–Schulz chain of ``gram`` and ``poly_apply``
+products and for flash attention, with ``gram``'s triangle of tiles.
 """
 import numpy as np
 import pytest
@@ -110,6 +112,58 @@ def test_3xtf32_error_does_not_grow_with_the_reduction(k):
     g = _rand(7, 1, k, 512)
     want = want_fp64(p, g, None, 0.0, 1.0)
     assert rel_err(lowrank_update(product_3xtf32, p, g, None, 0.0, 1.0), want) <= TOL / 4
+
+
+# ---------------------------------------------------------------- back-projection
+#
+# back_project (row 3) and back_project_epilogue (row 6) on the same core:
+# out = P S on the left, P (m, r), S (r, n); out = S Pᵀ on the right, P
+# (n, r), S (m, r), B read K-major; the epilogue is scale·(the product) +
+# decay·W.  The reduction is over the rank r only: 256 at llama-130m (8
+# slices), 97 ragged (the last slice 1 deep).  P is scaled as orthonormal
+# columns are.
+
+
+def back_project_emulated(prod, p, s, side, w=None, scale=1.0, decay=0.0):
+    a, b = (p, s) if side == "left" else (s, np.ascontiguousarray(p.T))
+    out = np.float32(scale) * prod(a, b)
+    return out if w is None else out + np.float32(decay) * w
+
+
+def back_project_fp64(p, s, side, w=None, scale=1.0, decay=0.0):
+    p, s = p.astype(np.float64), s.astype(np.float64)
+    out = scale * (p @ s if side == "left" else s @ p.T)
+    return out if w is None else out + decay * w.astype(np.float64)
+
+
+def _back_project_case(side, r, with_w):
+    m, n = (768, 2048) if side == "left" else (2048, 768)
+    p = _rand(13, m if side == "left" else n, r) / np.float32(np.sqrt(m if side == "left" else n))
+    s = _rand(14, *((r, n) if side == "left" else (m, r)))
+    w = _rand(15, m, n) if with_w else None
+    return p, s, w
+
+
+# (side, r, with W): GUM's write-back on both sides, GaLore's with W, ragged r
+BACK_PROJECT_CASES = [("left", 256, False), ("right", 256, False), ("left", 97, False),
+                      ("right", 97, False), ("left", 256, True), ("right", 97, True)]
+
+
+@pytest.mark.parametrize("side,r,with_w", BACK_PROJECT_CASES)
+def test_3xtf32_back_project_stays_within_the_tolerance(side, r, with_w):
+    """scale and decay of one size, so that W's term counts as much as the
+    product's."""
+    p, s, w = _back_project_case(side, r, with_w)
+    got = back_project_emulated(product_3xtf32, p, s, side, w, -0.5, -0.25)
+    assert got.dtype == np.float32
+    assert rel_err(got, back_project_fp64(p, s, side, w, -0.5, -0.25)) <= TOL
+
+
+@pytest.mark.parametrize("side,r,with_w", BACK_PROJECT_CASES)
+def test_a_single_tf32_back_project_misses_the_tolerance(side, r, with_w):
+    p, s, w = _back_project_case(side, r, with_w)
+    got = back_project_emulated(product_1xtf32, p, s, side, w, -0.5, -0.25)
+    assert rel_err(got, back_project_fp64(p, s, side, w, -0.5, -0.25)) > 10 * TOL
 
 
 # ---------------------------------------------------------------- Newton–Schulz
