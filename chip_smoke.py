@@ -14,11 +14,13 @@ Phases, in order; any failure exits non-zero and prints no result:
                 family stacks, both projection sides, plus one ragged shape;
                 flash attention at llama-130m's prefill, a GQA short-query,
                 a ragged and a padded-head-dim case; the SSD scan at
-                mamba2-370m's prefill and a ragged case; time kernel, plain
-                version and one PyTorch call computing the same function
-                where there is one, and compute the bound (over TF32's
-                peak for every kernel but ``ssd_scan``, since they run on
-                the tensor cores, their fp32 SIMT bound beside);
+                mamba2-370m's prefill, with a ragged last chunk at the same
+                widths and a ragged fp32 case; time kernel, plain version
+                and one PyTorch call computing the same function where
+                there is one, and compute the bound (over TF32's peak, the
+                products counted as the kernels' 3xTF32 executes them,
+                since they all run on the tensor cores; their fp32 SIMT
+                bound beside);
   4. slice    — GUM pretraining of llama-130m at full width through the
                 port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3,
                 the config's remat: each layer recomputed in backward),
@@ -52,6 +54,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -67,14 +70,13 @@ sys.path.insert(0, str(ROOT / "src"))
 # over the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# TF32 on the tensor cores (dense).  Every kernel but ssd_scan computes its
-# fp32-accurate products there by 3xTF32, three TF32 products for each fp32
-# one: the five GEMM kernels on one core (csrc/tf32x3_gemm.cuh) and
-# flash_attention.  So their bound is 3 x flops over this peak (and their
-# fp32 SIMT bound is printed beside it).
+# TF32 on the tensor cores (dense).  Every kernel computes its fp32-accurate
+# products there by 3xTF32, three TF32 products for each fp32 one: the five
+# GEMM kernels on one core (csrc/tf32x3_gemm.cuh), flash_attention and
+# ssd_scan.  So their bound is 3 x flops over this peak (and their fp32 SIMT
+# bound is printed beside it); ssd_scan's products with bf16 x take two
+# (x is exact in TF32, its low part zero: see ssd_flops).
 PEAK_TF32_FLOPS = 495e12
-TF32X3_KERNELS = ("lowrank_update", "back_project", "back_project_epilogue", "gram",
-                  "poly_apply", "flash_attention")
 
 # max|kernel - plain| / max|plain|.  The kernels and the plain versions
 # (cuBLAS) both sum in fp32, in another order, so they differ by rounding
@@ -87,8 +89,8 @@ TOL_NS = 1e-4
 # one-pass softmax both sum in fp32, in another order, and the kernel forms
 # both products by 3xTF32: 1e-5 (the kernel's exp is expf, not the fast
 # __expf).  The SSD scan sums ~N + 2·chunk
-# products per output through exponentials of cumulative sums and carries
-# the state over up to 64 chunks: 1e-4.
+# products per output (3xTF32 too) through exponentials of cumulative sums
+# and carries the state over up to 64 chunks: 1e-4.
 TOL_FLASH = 1e-5
 TOL_SSD = 1e-4
 
@@ -99,7 +101,7 @@ TC_GEMM = (CSRC + "tf32x3_gemm.cuh", CSRC + "tf32x3.cuh")
 KERNEL_META = {
     "flash_attention": (CSRC + "flash_attention.cu", "src/repro/kernels/flash_attention.py:35",
                         (CSRC + "tf32x3.cuh",)),
-    "ssd_scan": (CSRC + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:25", ()),
+    "ssd_scan": (CSRC + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:25", TC_GEMM),
     "lowrank_update": (CSRC + "lowrank_update.cu", "src/repro/kernels/lowrank_update.py:30",
                        TC_GEMM),
     "back_project": (CSRC + "back_project.cu", "src/repro/kernels/lowrank_update.py:105",
@@ -130,6 +132,21 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers a thread, spill-store bytes) of each __global__
+    function in an ``nvcc -Xptxas=-v`` log, names demangled where the
+    machine has ``c++filt``."""
+    rows = re.findall(r"Function properties for (\w+)\n.*?(\d+) bytes spill stores.*?"
+                      r"Used (\d+) registers", log, re.S)
+    names = [name for name, _, _ in rows]
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt", *names], capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    return [(name.replace("(anonymous namespace)::", ""), int(regs), int(spills))
+            for name, (_, spills, regs) in zip(names, rows)]
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median device time of one call of ``fn()`` over ``iters`` calls, a
     pair of CUDA events around each, after ``warmup`` calls."""
@@ -148,13 +165,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
-def bounds_ms(name: str, flops: float, nbytes: float) -> tuple[float, str, float]:
+def bounds_ms(flops: float, nbytes: float,
+              tf32_flops: float | None = None) -> tuple[float, str, float]:
     """The least time of a kernel's work on the card, what bounds it, and
     its fp32 SIMT bound: max(flops / peak, bytes / HBM rate), where the
-    peak is TF32's over the products a tensor-core kernel executes, else
-    fp32 SIMT's."""
+    peak is TF32's over the TF32 products the kernel executes
+    (``tf32_flops``, by default three for each of its ``flops``)."""
     simt = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    ops = 3 * flops / PEAK_TF32_FLOPS if name in TF32X3_KERNELS else flops / PEAK_FP32_FLOPS
+    if tf32_flops is None:
+        tf32_flops = 3 * flops
+    ops = tf32_flops / PEAK_TF32_FLOPS
     by = "operations" if ops >= nbytes / PEAK_BYTES else "bytes"
     return max(ops, nbytes / PEAK_BYTES) * 1e3, by, simt
 
@@ -348,16 +368,21 @@ def causal_pairs(S: int, T: int, causal: bool) -> int:
     return sum(min(T, T - S + r + 1) for r in range(S))
 
 
-def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int) -> float:
-    """The work the SSD function needs: C Bᵀ once per batch row and chunk
-    (all heads share b and c), the causal triangle of the intra-chunk
-    product, the inter-chunk product and the state update per head."""
-    total = 0.0
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int,
+              x_bf16: bool) -> tuple[float, float]:
+    """The work the SSD function needs, and the TF32 products that work
+    takes at fp32 accuracy: C Bᵀ once per batch row and chunk (all heads
+    share b and c), the causal triangle of the intra-chunk product, the
+    inter-chunk product and the state update per head.  By 3xTF32 each
+    product is three TF32 products, but the intra-chunk product and the
+    state update have x as one operand, and bf16 x is exact in TF32 (its
+    low part is zero): two there."""
+    fp32_ops = x_ops = 0.0
     for c0 in range(0, S, chunk):
         n = min(chunk, S - c0)
-        total += B * 2.0 * n * n * N
-        total += B * H * (2.0 * P * n * (n + 1) / 2 + 2 * 2.0 * n * N * P)
-    return total
+        fp32_ops += B * 2.0 * n * n * N + B * H * 2.0 * n * N * P  # C Bᵀ, inter-chunk
+        x_ops += B * H * (2.0 * P * n * (n + 1) / 2 + 2.0 * n * N * P)  # intra, state
+    return fp32_ops + x_ops, 3 * fp32_ops + (2 if x_bf16 else 3) * x_ops
 
 
 def serving_kernel_cases(torch, gen):
@@ -365,7 +390,9 @@ def serving_kernel_cases(torch, gen):
     tolerance: flash attention at llama-130m's prefill, a GQA short-query
     case (S < T, head dim 128), a ragged one and one whose head dim 20 the
     kernel pads to its k8 steps; the SSD scan at
-    mamba2-370m's prefill (bf16 x) and a ragged fp32 one."""
+    mamba2-370m's prefill (bf16 x), the same widths with a ragged last chunk
+    (the kernel splits P = 64 over two blocks, and the last chunk of the
+    last batch row ends inside its slices), and a ragged fp32 one."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -395,6 +422,7 @@ def serving_kernel_cases(torch, gen):
 
     for B, S, H, P, N, chunk, xdtype, principal in [
             (4, 4096, 32, 64, 128, 128, torch.bfloat16, True),
+            (4, 4000, 32, 64, 128, 128, torch.bfloat16, False),
             (2, 4000, 32, 64, 128, 64, torch.float32, False)]:
         x = randn(B, S, H, P).to(xdtype)
         dt = F.softplus(randn(B, S, H) - 1.0)
@@ -407,10 +435,11 @@ def serving_kernel_cases(torch, gen):
 
         nbytes = (x.element_size() * x.numel() + 4 * (dt.numel() + a.numel() + 2 * b.numel()
                                                       + B * S * H * P + B * H * N * P))
+        flops, tf32_flops = ssd_flops(B, S, H, P, N, chunk, xdtype == torch.bfloat16)
         cases.append(("ssd_scan", f"x{(B, S, H, P)} {str(xdtype)[6:]} N={N} chunk={chunk}",
                       (lambda x=x, dt=dt, a=a, b=b, c=c, chunk=chunk:
                        ssd_scan(x, dt, a, b, c, chunk=chunk)),
-                      plain, None, ssd_flops(B, S, H, P, N, chunk), nbytes, principal, TOL_SSD))
+                      plain, None, flops, nbytes, principal, TOL_SSD, tf32_flops))
     return cases
 
 
@@ -425,7 +454,7 @@ def phase_kernels(torch):
     rows = {}
     cases = [case + (TOL_GEMM,) for case in kernel_cases(torch, gen)]
     cases += serving_kernel_cases(torch, gen)
-    for name, label, kfn, pfn, lfn, flops, nbytes, principal, tol in cases:
+    for name, label, kfn, pfn, lfn, flops, nbytes, principal, tol, *tf32 in cases:
         out, want = kfn(), pfn()
         torch.cuda.synchronize()
         abs_err, rel = rel_err(out, want)
@@ -434,7 +463,7 @@ def phase_kernels(torch):
               f"gram {label}: the output is not exactly symmetric")
         ms, plain_ms = time_ms(kfn), time_ms(pfn)
         lib_ms = None if lfn is None else time_ms(lfn)
-        bound_ms, bound_by, simt_ms = bounds_ms(name, flops, nbytes)
+        bound_ms, bound_by, simt_ms = bounds_ms(flops, nbytes, *tf32)
         check(bound_ms <= ms, f"{name} {label}: {ms:.4f} ms beats its bound {bound_ms:.4f} ms")
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
         simt_txt = f" (fp32 SIMT {simt_ms:.4f})" if simt_ms != bound_ms else ""
@@ -665,6 +694,11 @@ def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     print_groups(f"{label} profiled steady step (step {done + 2})", prof, step_ms)
 
 
+# Profiler group of each port kernel: its __global__ functions by name.
+# ssd_scan launches two (ssd_cb_kernel, then ssd_scan_kernel).
+GROUPS = {k: rf"(^|\W){k}_kernel" for k in KERNEL_META} | {"ssd_scan": r"(^|\W)ssd_\w*kernel"}
+
+
 def print_groups(label: str, prof, wall_ms: float) -> None:
     """Device time of a profiled window by group — each port kernel, the
     cuBLAS GEMMs, the rest — its busy time and its idle share against the
@@ -680,7 +714,7 @@ def print_groups(label: str, prof, wall_ms: float) -> None:
         us = us if us is not None else ev.self_cuda_time_total
         name = ev.key
         low = name.lower()
-        kernel = next((k for k in KERNEL_META if re.search(rf"(^|\W){k}_kernel", name)), None)
+        kernel = next((k for k, pattern in GROUPS.items() if re.search(pattern, name)), None)
         if kernel:
             groups[kernel] += us
         elif any(tag in low for tag in ("gemm", "cutlass", "xmma", "nvjet")):
@@ -995,9 +1029,9 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s into "
           f"{next(iter(libs.values())).parent}", flush=True)
     for name, so in libs.items():
-        for line in (so.parent / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        for entry, regs, spills in ptxas_report((so.parent / f"{name}.log").read_text()):
+            print(f"ptxas {name}: {entry}: {regs} registers, {spills} bytes spill stores",
+                  flush=True)
 
     rows = phase_kernels(torch)
     launches = dict.fromkeys(rows, 0)

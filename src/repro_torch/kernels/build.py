@@ -40,7 +40,7 @@ SIGNATURES = {
     "gram": (_P, _P, _I, _I, _I, _P),
     "poly_apply": (_P, _P, _P, _I, _I, _I, _F, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 KERNELS = tuple(SIGNATURES)
 

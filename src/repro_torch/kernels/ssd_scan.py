@@ -8,6 +8,9 @@ the kernel as in the reference.  Then the CUDA kernel (``csrc/ssd_scan.cu``)
 runs for CUDA tensors and the plain version
 (:func:`repro_torch.kernels.ref.ssd_chunked_scan_ref`) for CPU tensors —
 for no other reason: on a CUDA tensor it launches the kernel or raises.
+The kernel computes C Bᵀ once per (batch row, chunk), shared by all heads,
+into a workspace this wrapper allocates (B, ⌈S/chunk⌉, chunk, chunk rounded
+up to 4) fp32, then scans; both passes count as one launch.
 
 Layouts: x (B, S, H, P) fp32 or bf16 (read as it is, no fp32 copy), dt
 (B, S, H) fp32 (post-softplus), a (H,) negative, b/c (B, S, N) fp32 shared
@@ -50,7 +53,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
                          f"{MAX_CHUNK}, N <= {MAX_STATE}, P <= {MAX_HEAD_DIM}")
     y = torch.empty((B, S, H, P), device=x.device, dtype=torch.float32)
     state = torch.empty((B, H, N, P), device=x.device, dtype=torch.float32)
+    # C Bᵀ of every (batch row, chunk), rows padded to 16 bytes: the kernel's
+    # workspace, written by its first pass and read by the scan.
+    cb = torch.empty((B, -(-S // chunk), chunk, -(-chunk // 4) * 4), device=x.device,
+                     dtype=torch.float32)
     build.launch("ssd_scan", x.device, x.data_ptr(), dt.data_ptr(), G.data_ptr(),
-                 b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
+                 b.data_ptr(), c.data_ptr(), cb.data_ptr(), y.data_ptr(), state.data_ptr(),
                  B, S, H, P, N, chunk, int(x.dtype == torch.bfloat16))
     return y, state

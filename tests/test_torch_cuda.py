@@ -431,9 +431,26 @@ def test_flash_attention_kernel_with_unaligned_operands(cuda_device):
 
 
 # (B, S, H, P, N, chunk, bf16 x): mamba2-370m's prefill, the ragged fp32
-# case, the smoke sizes with a ragged tail, a chunk longer than S.
+# case, the smoke sizes with a ragged tail, a chunk longer than S; then the
+# edges of the kernel's tiling (blocks of 32 columns of P, or of 64 when
+# B * H * ceil(P / 64) > 66; 64-deep slices of the chunk and of N; 16-row
+# warp tiles; 16-byte copies where rows allow): P = 24 and 40, not a
+# multiple of the 32-column split; N = 20 (a partial slice) and N = 18
+# (N % 4 != 0: 4-byte copies of b and c); chunks 40 and 8, not multiples of
+# 16; P = 20 in bf16 and P = 17 in fp32, whose rows of x allow no 16-byte
+# copy (and odd P no 8-byte store of y); fp32 x at chunk 128; the 64-column
+# blocks with P = 40 and 24 (the second warp column partial or empty) and
+# with fp32 x at chunk 128; a ragged last chunk in the last batch row in
+# most.
 SSD_SHAPES = [(4, 4096, 32, 64, 128, 128, True), (2, 4000, 32, 64, 128, 64, False),
-              (2, 60, 8, 16, 16, 16, False), (1, 7, 2, 8, 4, 16, True)]
+              (2, 60, 8, 16, 16, 16, False), (1, 7, 2, 8, 4, 16, True),
+              (2, 300, 4, 24, 64, 64, True), (2, 300, 4, 40, 64, 64, False),
+              (2, 200, 4, 64, 20, 64, True), (2, 200, 4, 64, 18, 64, False),
+              (2, 250, 4, 32, 32, 40, True), (1, 50, 2, 8, 8, 8, False),
+              (2, 130, 3, 20, 24, 32, True), (1, 100, 2, 17, 16, 32, False),
+              (3, 1000, 4, 64, 128, 128, True), (2, 520, 8, 64, 128, 128, False),
+              (1, 200, 68, 40, 64, 64, False), (2, 130, 40, 24, 20, 32, True),
+              (1, 300, 70, 64, 128, 128, False)]
 
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk,bf16", SSD_SHAPES)

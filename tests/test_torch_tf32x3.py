@@ -1,6 +1,6 @@
 """The numerics of the port's 3xTF32 tensor-core kernels (``lowrank_update``,
 ``back_project``, ``back_project_epilogue``, ``gram``, ``poly_apply``,
-``flash_attention``), emulated on the CPU.
+``flash_attention``, ``ssd_scan``), emulated on the CPU.
 
 The GEMM core (``src/repro_torch/kernels/csrc/tf32x3_gemm.cuh``) splits each
 fp32 operand x into hi = x rounded to TF32 (10 mantissa bits; nearest, ties
@@ -13,7 +13,9 @@ on the card; this file shows that the split itself stays inside that
 against the fp64 product, and that a single TF32 product does not; then
 the same for the back-projection and its fused epilogue (a reduction over
 the rank only), for a Newton–Schulz chain of ``gram`` and ``poly_apply``
-products and for flash attention, with ``gram``'s triangle of tiles.
+products and for flash attention, with ``gram``'s triangle of tiles, and
+for a chunked SSD scan with bf16 x (two TF32 products where x is one
+operand).
 """
 import numpy as np
 import pytest
@@ -332,3 +334,101 @@ def test_a_single_tf32_flash_attention_misses_the_tolerance():
     q, k, v = _rand(8, 256, 64), _rand(9, 256, 64), _rand(10, 256, 64)
     assert rel_err(flash_attention_emulated(product_1xtf32, q, k, v),
                    attention_fp64(q, k, v)) > 10 * TOL
+
+
+# ---------------------------------------------------------------- the SSD scan
+#
+# The ssd_scan kernel (csrc/ssd_scan.cu) forms C Bᵀ once per chunk on the
+# GEMM core, then per head and chunk M = (C Bᵀ) ⊙ L ⊙ dt in fp32 (the
+# exponent masked before exp), y = M X + (C ⊙ e^G) S_prev and the state
+# increment (B ⊙ w)ᵀ X, w_j = dt_j e^{G_last − G_j}, each product by the
+# split over 32-deep slices that sum from zero, fp32 adds carrying the
+# slices; the state is carried as S = e^{G_last} S + inc in fp32.  x is
+# bf16, exact in TF32, so the products with x drop a·x_lo: two TF32
+# products there (a_lo·x + a_hi·x), three elsewhere.  Held against an fp64
+# scan of the same inputs: within 1e-4 (chip_smoke's TOL_SSD) and within
+# twice plain fp32's own distance, while one TF32 product a product misses.
+
+TOL_SSD = 1e-4
+
+
+def product_3xtf32_x(a: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """a @ x where x is exact in TF32 (bf16): a_lo·x + a_hi·x."""
+    a_hi, a_lo = split(a)
+    assert not (x.view(np.uint32) & 0x1FFF).any()
+    return a_lo @ x + a_hi @ x
+
+
+def sliced(prod, a: np.ndarray, b: np.ndarray, depth: int = 32) -> list[np.ndarray]:
+    """The per-slice sums of a @ b, each 32 deep from zero."""
+    return [prod(a[:, k:k + depth], b[k:k + depth]) for k in range(0, a.shape[1], depth)]
+
+
+def carried(parts: list[np.ndarray]) -> np.ndarray:
+    out = np.zeros_like(parts[0])
+    for part in parts:
+        out = out + part
+    return out
+
+
+def ssd_scan_emulated(prod, prod_x, x, dt, G, b, c, chunk):
+    """One batch row of the scan, per head and chunk as the kernel orders
+    it; ``prod`` forms the products with fp32 operands, ``prod_x`` those
+    with x.  x (S, H, P), dt and G (S, H), b and c (S, N)."""
+    S, H, P = x.shape
+    ys, states = np.zeros((S, H, P), x.dtype), []
+    for h in range(H):
+        st = np.zeros((b.shape[1], P), x.dtype)
+        for c0 in range(0, S, chunk):
+            rows = slice(c0, c0 + chunk)
+            cc, bb, xx = c[rows], b[rows], np.ascontiguousarray(x[rows, h])
+            g, d = G[rows, h], dt[rows, h]
+            cb = carried(sliced(prod, cc, np.ascontiguousarray(bb.T)))
+            diff = g[:, None] - g[None, :]
+            e = np.where(np.tril(np.ones((len(g), len(g)), bool)), diff, np.float32(-np.inf))
+            m = cb * np.exp(e) * d[None, :]
+            parts = sliced(prod_x, m, xx) + sliced(prod, cc * np.exp(g)[:, None], st)
+            ys[rows, h] = carried(parts)
+            w = d * np.exp(g[-1] - g)
+            inc = carried(sliced(prod_x, np.ascontiguousarray((bb * w[:, None]).T), xx))
+            st = np.exp(g[-1]) * st + inc
+        states.append(st)
+    return ys, np.stack(states)
+
+
+def ssd_inputs(S=512, H=2, P=64, N=128, chunk=128, seed=20):
+    rng = np.random.default_rng(seed)
+    bits = rng.standard_normal((S, H, P)).astype(np.float32).view(np.uint32)
+    x = ((bits + np.uint32(0x8000)) & np.uint32(0xFFFF0000)).view(np.float32)  # bf16 values
+    dt = np.log1p(np.exp(rng.standard_normal((S, H)) - 1.0)).astype(np.float32)
+    a = -np.exp(np.linspace(0.0, np.log(16.0), H)).astype(np.float32)
+    G = np.cumsum((a[None, :] * dt).reshape(S // chunk, chunk, H), axis=1,
+                  dtype=np.float32).reshape(S, H)
+    b, c = (rng.standard_normal((S, N)).astype(np.float32) for _ in range(2))
+    return x, dt, G, b, c
+
+
+def ssd_scan_fp64(x, dt, G, b, c, chunk):
+    f64 = [t.astype(np.float64) for t in (x, dt, G, b, c)]
+    return ssd_scan_emulated(np.matmul, np.matmul, *f64, chunk)
+
+
+def _ssd_err(got, want) -> float:
+    return max(rel_err(g, w) for g, w in zip(got, want))
+
+
+def test_3xtf32_ssd_scan_stays_at_fp32s_distance():
+    """S = 512 (four chunks of 128), H 2, P 64, N 128, bf16 x."""
+    inputs = ssd_inputs()
+    want = ssd_scan_fp64(*inputs, 128)
+    got = ssd_scan_emulated(product_3xtf32, product_3xtf32_x, *inputs, 128)
+    assert got[0].dtype == np.float32 and got[1].dtype == np.float32
+    err = _ssd_err(got, want)
+    assert err <= TOL_SSD
+    assert err <= 2 * _ssd_err(ssd_scan_emulated(np.matmul, np.matmul, *inputs, 128), want)
+
+
+def test_a_single_tf32_ssd_scan_misses_the_tolerance():
+    inputs = ssd_inputs()
+    got = ssd_scan_emulated(product_1xtf32, product_1xtf32, *inputs, 128)
+    assert _ssd_err(got, ssd_scan_fp64(*inputs, 128)) > TOL_SSD
