@@ -12,6 +12,7 @@ Phases, in order; any failure exits non-zero and prints no result:
   3. kernels  — hold each kernel against its plain PyTorch version at the
                 llama-130m shapes of GUM (rank 256, gamma 4) and of GaLore's
                 family stacks, both projection sides, plus one ragged shape;
+                Newton–Schulz's two kernels also at Muon's full-rank shapes;
                 flash attention at llama-130m's prefill, a GQA short-query,
                 a ragged and a padded-head-dim case; the SSD scan at
                 mamba2-370m's prefill, with a ragged last chunk at the same
@@ -29,6 +30,11 @@ Phases, in order; any failure exits non-zero and prints no result:
                 forward+backward with remat off, "nothing" and "dots";
   4b. galore  — GaLore pretraining of llama-130m the same way, family-stacked
                 with the fused back-projection epilogue;
+  4c. baselines — the paper's other optimizers the same way: Muon, GoLore
+                (family-stacked, fused epilogue), Fira, unbiased GaLore-Adam
+                and GUM with SGDM and the rsvd projector; then the projector
+                refresh alone for each of the five kinds, with the default
+                noise's host draw and copy;
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
                 flash_attention launches) against "xla", then a
                 continuous-batching engine of 8 slots answering 16 requests,
@@ -39,8 +45,9 @@ Phases, in order; any failure exits non-zero and prints no result:
   5. agree    — the same trainer at the llama-60m smoke size on the card and
                 on the CPU (plain versions) must give the same losses, for
                 GUM, GaLore-Muon with the fused epilogue and weight decay,
-                and family-stacked GUM; and the prefill logits of the two
-                smoke models at attn_impl="pallas".
+                family-stacked GUM and phase 4c's optimizers and LISA; and
+                the prefill logits of the two smoke models at
+                attn_impl="pallas".
 
 The card's ``nvidia-smi`` name and power limit are printed first and again
 third from the end; the line before the last is a JSON object describing
@@ -333,14 +340,16 @@ def kernel_cases(torch, gen):
                                                            alpha=scale)),
                       2.0 * L * m * n * r, nbytes, principal))
 
-    # gram / poly_apply: NS on the low-rank momenta (12, 256, n) and on the
-    # full slots (4, 768, n); X is Frobenius-normalised as in NS.  X Xᵀ is
+    # gram / poly_apply: NS on the low-rank momenta (12, 256, n), on the
+    # full slots (4, 768, n) and on Muon's full-rank momenta (12, 768, n);
+    # X is Frobenius-normalised as in NS.  X Xᵀ is
     # symmetric, so the work it needs is one triangle and the diagonal:
     # s(s+1)/2 dot products of length n per member (the kernel computes the
     # tiles of one triangle and mirrors them).  Labels name the block tile
     # each kernel picks.
     for L, s, n, principal in [(12, 256, 768, False), (12, 256, 2048, False),
                                (4, 768, 768, False), (4, 768, 2048, True),
+                               (12, 768, 768, False), (12, 768, 2048, False),
                                (2, 1000, 1376, False)]:
         x = randn(L, s, n)
         x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
@@ -668,6 +677,91 @@ def phase_galore(torch) -> dict:
         want_launch={"lowrank_update": 3, "back_project_epilogue": 3})
 
 
+# Phase 4c: the paper's other optimizers at llama-130m, rank 256, period 3,
+# each with its per-step dispatch counts (derived from the code: 7 hidden
+# leaves, 3 family stacks) and kernel launches (lowrank_update runs
+# lowrank_update and project; each newton_schulz runs 5 gram and 5
+# poly_apply).  tests/test_torch_optimizers.py holds the dispatch counts
+# against the reference's count_launches at the smoke size, and the
+# launches against this mapping.
+BASELINES = [
+    # Muon (the reference's benchmarks/pretrain_proxy.py: lr 1e-2, beta 0.95;
+    # Nesterov and the muon scale on, the defaults) on the 7 hidden matrices.
+    ("muon", dict(name="muon", lr=1e-2, beta=0.95),
+     {"newton_schulz": 7}, {"gram": 35, "poly_apply": 35}),
+    # GoLore: random projectors, SGDM inside, family-stacked with the fused
+    # epilogue (weight decay 0: no W operand).
+    ("golore", dict(name="golore", lr=1e-2, rank=256, period=3, base="sgdm",
+                    fuse_families=True, fused_epilogue=True),
+     {"lowrank_update": 3, "back_project_epilogue": 3},
+     {"lowrank_update": 3, "back_project_epilogue": 3}),
+    # Fira (alpha 0.25): per leaf one projection and two back-projections.
+    ("fira", dict(name="fira", lr=1e-2, rank=256, period=3),
+     {"project": 7, "back_project": 14}, {"lowrank_update": 7, "back_project": 14}),
+    # Unbiased GaLore-Adam at Appendix C.3's GUM settings (rank 256, gamma 4):
+    # per leaf Adam's projection, the sampled blocks' P Pᵀ G, the write-back.
+    ("unbiased_galore_adam", dict(name="unbiased_galore_adam", lr=1e-2, rank=256, gamma=4,
+                                  period=3),
+     {"project": 14, "back_project": 14}, {"lowrank_update": 14, "back_project": 14}),
+    # GUM with SGDM inside and the randomized range finder (rsvd) refresh.
+    ("gum-sgdm-rsvd", dict(name="gum", lr=5e-3, rank=256, gamma=4, period=3, base="sgdm",
+                           projector="rsvd"),
+     {"lowrank_update": 7, "project": 7, "back_project": 14},
+     {"lowrank_update": 14, "back_project": 14}),
+]
+
+
+def phase_baselines(torch) -> dict:
+    """Each of :data:`BASELINES` through :func:`train_full_width`, then the
+    projector refresh alone (the 7 hidden leaves of llama-130m, rank 256)
+    for each kind, and the default noise's host draw and its copy to the
+    card, which the random kinds pay once a period."""
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.core.lowrank_common import compute_projectors, generator_noise
+
+    launches: dict = {}
+    for label, kw, want_dispatch, want_launch in BASELINES:
+        got = train_full_width(torch, f"baseline {label}", OptimizerConfig(**kw),
+                               want_dispatch, want_launch)
+        launches = {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    leaves = [torch.randn(*shape, generator=gen, device="cuda") for shape in
+              [(12, 768, 768)] * 4 + [(12, 768, 2048)] * 2 + [(12, 2048, 768)]]
+    # each kind's draw a leaf: (distribution, its shape after the lead)
+    draws = {"subspace": ("normal", lambda m, n: (n, 256)),
+             "rsvd": ("normal", lambda m, n: (n, 256)),
+             "random": ("normal", lambda m, n: (m, 256)),
+             "grass": ("gumbel", lambda m, n: (m,))}
+    for kind in ("svd", "subspace", "rsvd", "random", "grass"):
+        refresh = host = copy = 0.0
+        for i, g in enumerate(leaves):
+            side = "left" if g.shape[1] <= g.shape[2] else "right"
+            key = (0, 1, i)
+            refresh += time_ms(lambda g=g, side=side, key=key: compute_projectors(
+                kind, g, 256, side, key=key), iters=3, warmup=1)
+            if kind in draws:
+                dist, tail = draws[kind]
+                shape = (12,) + tail(*sorted(g.shape[1:]))  # (short side, long side)
+                walls = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    generator_noise(key, dist, shape)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                host += statistics.median(walls)
+                copy += time_ms(lambda key=key, dist=dist, shape=shape: generator_noise(
+                    key, dist, shape).to("cuda"), iters=3, warmup=1)
+        p = compute_projectors(kind, leaves[-1], 256, "right", key=(0, 1, 6))
+        eye = torch.eye(256, device="cuda").expand(12, 256, 256)
+        err = float((p.mT @ p - eye).abs().max())
+        check(err <= 1e-4, f"{kind} refresh: |PᵀP - I| {err:.2e} > 1e-4")
+        noise_txt = (f"; default noise host draw {host:.3f} ms, draw and copy to the card "
+                     f"{copy:.3f} ms" if kind in draws else "")
+        print(f"baselines {kind} refresh ms (7 leaves, rank 256, |PᵀP - I| {err:.1e}): "
+              f"{refresh:.3f}{noise_txt}", flush=True)
+    return launches
+
+
 def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     """Device time of one steady step by kernel group (torch.profiler):
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
@@ -927,14 +1021,17 @@ def phase_serve_mamba(torch) -> dict:
 
 def phase_agree(torch):
     """llama-60m smoke on the card (CUDA kernels) and on the CPU (plain
-    versions), same parameters, same sampled blocks: the losses agree, for
-    GUM, for GaLore-Muon family-stacked with the fused epilogue and weight
-    decay (the kernel's W operand), and for family-stacked GUM.  Tolerance
-    1e-4 relative: the two devices sum in another order, and the difference
-    compounds over 3 optimizer steps.  With period 2 the losses read only
-    the first period's updates, so the sign each device's SVD gives a
-    projector column (which GaLore's carried momentum would see after the
-    second refresh) does not enter them."""
+    versions), same parameters, same sampled blocks and projector draws (the
+    default sampler and noise draw on the host): the losses agree, for GUM,
+    for GaLore-Muon family-stacked with the fused epilogue and weight decay
+    (the kernel's W operand), for family-stacked GUM, and for phase 4c's
+    optimizers and LISA.  Tolerance 1e-4 relative: the two devices sum in
+    another order, and the difference compounds over 3 optimizer steps.
+    With period 2 the losses read only the first period's updates, so the
+    sign each device's SVD or QR gives a projector column (which a carried
+    momentum would see after the second refresh) does not enter them.
+    Each path's kernel must launch on the card and not on the CPU; LISA
+    runs AdamW alone, so no kernel may launch for it on either."""
     from repro_torch.configs import RunConfig, get_smoke
     from repro_torch.core import OptimizerConfig
     from repro_torch.data import DataConfig
@@ -956,18 +1053,36 @@ def phase_agree(torch):
             ("gum fused families",
              OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2,
                              fuse_families=True),
+             "lowrank_update"),
+            ("muon", OptimizerConfig(name="muon", lr=1e-2), "gram"),
+            ("golore fused epilogue",
+             OptimizerConfig(name="golore", lr=1e-2, rank=4, period=2, base="sgdm",
+                             fuse_families=True, fused_epilogue=True),
+             "back_project_epilogue"),
+            ("fira", OptimizerConfig(name="fira", lr=1e-2, rank=4, period=2), "back_project"),
+            ("unbiased_galore_adam",
+             OptimizerConfig(name="unbiased_galore_adam", lr=1e-2, rank=4, gamma=1, period=2),
+             "back_project"),
+            ("lisa", OptimizerConfig(name="lisa", lr=1e-3, gamma=1, period=2), None),
+            ("gum sgdm rsvd",
+             OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2, base="sgdm",
+                             projector="rsvd"),
              "lowrank_update")]:
         losses = {}
         for device in ("cpu", "cuda"):
-            before = build.LAUNCHES[kernel]
+            before = dict(build.LAUNCHES)
             trainer = Trainer(build_model(cfg, device=device), opt_cfg,
                               RunConfig(steps=3, log_every=0, seed=0),
                               DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0),
                               device=device, params=params)
             losses[device] = trainer.train().losses
-            check((build.LAUNCHES[kernel] > before) == (device == "cuda"),
-                  f"agree {label} on {device}: {kernel} launches "
-                  f"{before} -> {build.LAUNCHES[kernel]}")
+            if kernel is None:
+                check(build.LAUNCHES == before, f"agree {label} on {device}: kernels "
+                      f"launched {before} -> {build.LAUNCHES}")
+            else:
+                check((build.LAUNCHES[kernel] > before[kernel]) == (device == "cuda"),
+                      f"agree {label} on {device}: {kernel} launches "
+                      f"{before[kernel]} -> {build.LAUNCHES[kernel]}")
         worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
         print(f"agree llama-60m smoke {label}: cuda {losses['cuda']} cpu {losses['cpu']} "
               f"max rel {worst:.2e}", flush=True)
@@ -1036,9 +1151,9 @@ def main() -> None:
     rows = phase_kernels(torch)
     launches = dict.fromkeys(rows, 0)
     if not kernels_only:
-        paths = [phase_slice(torch), phase_galore(torch), phase_serve_llama(torch),
-                 phase_serve_mamba(torch)]
-        launches = {k: sum(path[k] for path in paths) for k in rows}
+        paths = [phase_slice(torch), phase_galore(torch), phase_baselines(torch),
+                 phase_serve_llama(torch), phase_serve_mamba(torch)]
+        launches = {k: sum(path.get(k, 0) for path in paths) for k in rows}
         phase_agree(torch)
         phase_agree_serve(torch)
 

@@ -1,7 +1,10 @@
-"""AdamW — the paper's full-rank baseline, and GUM's optimizer for the
-leaves it does not project (embeddings, norms)::
+"""AdamW and SGDM — the paper's full-rank baselines; AdamW is also the
+optimizer of the leaves the low-rank methods do not project (embeddings,
+norms)::
 
     adamw = chain(scale_by_adam(b1, b2, eps), add_decayed_weights(wd),
+                  scale_by_lr(lr))
+    sgdm  = chain(scale_by_momentum(beta), add_decayed_weights(wd),
                   scale_by_lr(lr))
 """
 from __future__ import annotations
@@ -12,6 +15,7 @@ from repro_torch.core.combinators import (
     chain,
     scale_by_adam,
     scale_by_lr,
+    scale_by_momentum,
 )
 
 
@@ -25,6 +29,15 @@ def adamw(
     """AdamW (decoupled weight decay)."""
     return chain(
         scale_by_adam(b1=b1, b2=b2, eps=eps),
+        add_decayed_weights(weight_decay),
+        scale_by_lr(lr),
+    )
+
+
+def sgdm(lr: Schedule, beta: float = 0.9, weight_decay: float = 0.0) -> Transform:
+    """SGD with EMA momentum — a Property-II compliant base."""
+    return chain(
+        scale_by_momentum(beta=beta),
         add_decayed_weights(weight_decay),
         scale_by_lr(lr),
     )

@@ -87,6 +87,12 @@ def tree_paths(tree: dict) -> dict:
     return {k: k for k in tree}
 
 
+def state_bytes(state: PyTree) -> int:
+    """Total bytes of all tensors in an optimizer state (memory accounting)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(state)
+               if isinstance(x, torch.Tensor))
+
+
 # ---------------------------------------------------------------------------
 # Label-partitioned composition (like optax.multi_transform).
 # ---------------------------------------------------------------------------
@@ -136,8 +142,8 @@ class OptimizerConfig:
     the JAX package's fields and defaults.  Setting a knob the port does not
     run yet raises ``NotImplementedError``."""
 
-    # gum | galore | galore_muon | adamw ported; the others raise in
-    # build_optimizer
+    # gum | galore | galore_muon | golore | muon | adamw | sgdm | fira | lisa
+    # | unbiased_galore_adam
     name: str = "gum"
     lr: float = 1e-3
     weight_decay: float = 0.0
@@ -149,7 +155,7 @@ class OptimizerConfig:
     q: float = 0.25             # full-rank sampling probability (gum) == gamma/L
     gamma: int = 2              # full-rank layers per period (gum/lisa)
     period: int = 200           # K, projector refresh / resampling period
-    projector: str = "svd"      # svd (ported) | subspace | random | grass
+    projector: str = "svd"      # svd | subspace | rsvd | random | grass
     base: str = "muon"          # base optimizer inside low-rank space
     ns_steps: int = 5
     compensation: str = "paper"  # paper | finetune (App. C.1 variant)
@@ -164,6 +170,8 @@ class OptimizerConfig:
     # Fold the chain tail (-lr, wd, alpha) into the back-projection through
     # the fused back_project_epilogue kernel (galore / galore_muon).
     fused_epilogue: bool = False
+    # Muon's sqrt(max(1, m/n)) RMS-matching factor.  None = each optimizer's
+    # default (muon: on; gum: off, as Algorithm 2).
     use_muon_scale: bool | None = None
     rank_policy: Any = None
     rank_ladder: tuple[int, ...] = ()
@@ -176,8 +184,3 @@ class OptimizerConfig:
                 raise NotImplementedError(
                     f"OptimizerConfig.{knob}={getattr(self, knob)!r} is not ported "
                     "to the PyTorch package yet")
-        if self.projector != "svd":
-            raise NotImplementedError(f"projector {self.projector!r} is not ported yet")
-        if self.use_muon_scale:
-            raise NotImplementedError("use_muon_scale is not ported yet (GUM's "
-                                      "default, off, is)")

@@ -1,21 +1,27 @@
-"""Composable optimizer combinators: the main-path subset of the JAX
-package's ``core/combinators.py``, on PyTorch tensors.
+"""Composable optimizer combinators: the JAX package's
+``core/combinators.py`` on PyTorch tensors, less its telemetry, rank-policy
+probes, sharded refresh and external-refresh hook.
 
 atomic gradient transforms
+    scale_by_momentum    EMA momentum (SGDM; Property-II compliant)
     scale_by_muon        momentum + Newton-Schulz orthogonalization
+                         (optionally Nesterov and Muon's shape scale)
     scale_by_adam        bias-corrected Adam direction (GaLore's alpha as
                          ``scale``)
     add_decayed_weights  decoupled weight decay   u + wd * p
     scale_by_lr          -schedule(count) * u     (terminal step of a chain)
     scale_by_factor      constant multiplier
+    clip_by_global_norm  global-norm clipping as a chain stage
 
 wrapper transforms
-    lowrank(inner, ...)          owns the projector state: periodic SVD
-                                 refresh, project / back-project through the
-                                 kernel dispatch layer, runs ``inner`` in the
+    lowrank(inner, ...)          owns the projector state: periodic refresh
+                                 (svd | subspace | rsvd | random | grass),
+                                 project / back-project through the kernel
+                                 dispatch layer, runs ``inner`` in the
                                  projected space
     layerwise_unbias(base, ...)  the paper's sampling debiasing (gamma
                                  full-rank slots, paper/finetune compensation)
+    with_fira_residual(base)     Fira's out-of-subspace residual
     with_matrix_routing(m, f)    matrices -> ``m``, the rest -> ``f``
 
 composition
@@ -64,6 +70,7 @@ from repro_torch.core.api import (
     tree_map,
     tree_paths,
 )
+from repro_torch.core.api import clip_by_global_norm as _clip_tree
 from repro_torch.core.family_plan import (
     build_family_plan,
     member_keys,
@@ -72,6 +79,7 @@ from repro_torch.core.family_plan import (
 )
 from repro_torch.core.lowrank_common import (
     FamilyShape,
+    Noise,
     compute_projectors,
     default_lowrank_filter,
     family_shape,
@@ -80,6 +88,7 @@ from repro_torch.core.lowrank_common import (
     proj_shape,
     scatter_blocks,
 )
+from repro_torch.core.newton_schulz import muon_scale
 from repro_torch.kernels import dispatch
 
 # sampler(key, L, g_f) -> (g_f,) distinct block ids in [0, L); key is
@@ -312,12 +321,21 @@ def chain(*transforms: Transform) -> Transform:
 # ---------------------------------------------------------------------------
 
 
-def scale_by_muon(beta: float = 0.95, ns_steps: int = 5,
-                  kernel_impl: str = "auto") -> Transform:
-    """Momentum + Newton-Schulz orthogonalization (the Muon direction,
-    non-Nesterov).  Full-rank leaves get plain EMA momentum; ProjGrad leaves
-    run the fused low-rank momentum kernel, then NS in the projected space
-    (Property II: NS(P X) = P NS(X))."""
+def _shape_scale(g, p, use_muon_scale: bool) -> float:
+    """Muon's sqrt(max(1, m/n)) for a leaf (1.0 when off): the family's
+    (m, n) on a ProjGrad, else the param's (the gradient's) last two dims."""
+    if not use_muon_scale:
+        return 1.0
+    if isinstance(g, ProjGrad):
+        return muon_scale((g.fs.m, g.fs.n))
+    return muon_scale(tuple((p if p is not None else g).shape))
+
+
+def scale_by_momentum(beta: float = 0.9, use_muon_scale: bool = False) -> Transform:
+    """EMA momentum direction ``mu' = beta mu + g`` (Property-II compliant).
+    On :class:`ProjGrad` leaves the update runs through the fused low-rank
+    momentum kernel.  ``use_muon_scale`` applies Muon's sqrt(max(1, m/n))
+    factor (GUM's ``base="sgdm"`` variant)."""
 
     def update(updates: dict, mu: dict, params: dict):
         out, new_mu = {}, {}
@@ -329,7 +347,45 @@ def scale_by_muon(beta: float = 0.95, ns_steps: int = 5,
                 m2 = g.fused_momentum(mu[k], beta)
             else:
                 m2 = beta * mu[k] + g.to(torch.float32)
-            out[k] = dispatch.newton_schulz(m2, steps=ns_steps, impl=kernel_impl)
+            scale = _shape_scale(g, params.get(k), use_muon_scale)
+            out[k] = scale * m2 if scale != 1.0 else m2
+            new_mu[k] = m2
+        return out, new_mu
+
+    return Transform(_momentum_init, update)
+
+
+def scale_by_muon(beta: float = 0.95, ns_steps: int = 5, nesterov: bool = False,
+                  use_muon_scale: bool = False, kernel_impl: str = "auto") -> Transform:
+    """Momentum + Newton-Schulz orthogonalization (the Muon direction).
+    Full-rank leaves get EMA momentum (with ``nesterov``, NS reads ``beta
+    mu' + g``); ProjGrad leaves run the fused low-rank momentum kernel —
+    under ``nesterov`` the projection kernel, since the projected gradient
+    enters twice — then NS in the projected space (Property II: NS(P X) =
+    P NS(X)).  ``use_muon_scale`` multiplies by sqrt(max(1, m/n))."""
+
+    def update(updates: dict, mu: dict, params: dict):
+        out, new_mu = {}, {}
+        for k, g in updates.items():
+            if g is None:
+                out[k] = new_mu[k] = None
+                continue
+            if isinstance(g, ProjGrad):
+                if nesterov:
+                    r_g = g.materialize()
+                    if g.coeff != 1.0:
+                        r_g = g.coeff * r_g
+                    m2 = beta * g.apply_reset(mu[k]) + r_g
+                    mom = beta * m2 + r_g
+                else:
+                    m2 = mom = g.fused_momentum(mu[k], beta)
+            else:
+                g32 = g.to(torch.float32)
+                m2 = beta * mu[k] + g32
+                mom = beta * m2 + g32 if nesterov else m2
+            o = dispatch.newton_schulz(mom, steps=ns_steps, impl=kernel_impl)
+            scale = _shape_scale(g, params.get(k), use_muon_scale)
+            out[k] = scale * o if scale != 1.0 else o
             new_mu[k] = m2
         return out, new_mu
 
@@ -357,8 +413,11 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def update(updates: dict, state: ScaleByAdamState, params: dict):
         count = state.count + 1
-        bc1 = 1.0 - b1 ** count
-        bc2 = 1.0 - b2 ** count
+        # In fp32 as the reference does (a float exponent: an int one takes
+        # another pow): 1 - b2**t cancels, so one ulp of b2**t moves bc2 by
+        # ~3e-5 relative at small t.
+        t = torch.tensor(float(count))
+        bc1, bc2 = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** t) for b in (b1, b2))
         out, mu, nu = {}, {}, {}
         for k, g in updates.items():
             m, v = state.mu[k], state.nu[k]
@@ -447,6 +506,17 @@ def scale_by_factor(factor: float) -> Transform:
     return Transform(lambda params: (), update)
 
 
+def clip_by_global_norm(max_norm: float) -> Transform:
+    """Global-norm clipping as a chain stage (the transform twin of
+    :func:`repro_torch.core.api.clip_by_global_norm`); deferred epilogues
+    materialize first, since the norm reads every leaf."""
+
+    def update(updates: dict, state, params: dict):
+        return _clip_tree(materialize_pending(updates), max_norm), ()
+
+    return Transform(lambda params: (), update)
+
+
 # ---------------------------------------------------------------------------
 # routing
 # ---------------------------------------------------------------------------
@@ -489,18 +559,26 @@ def lowrank(
     period: int = 200,
     projector: str = "svd",
     seed: int = 0,
+    subspace_iters: int = 2,
     reset_on_refresh: bool = False,
     kernel_impl: str = "auto",
     fuse_families: bool = False,
     fused_epilogue: bool = False,
+    noise: Optional[Noise] = None,
 ) -> Transform:
     """Run ``inner`` inside a periodically refreshed low-rank subspace.
 
     Every ``period`` steps (at ``(count - 1) % period == 0``) each leaf's
-    projector is recomputed from its gradient by a batched SVD; with
-    ``reset_on_refresh`` the inner momenta are zeroed at that boundary.  The
-    leaf index ``i`` in the key handed to the inner transform is the leaf's
-    position in the full parameter tree, as in the reference.
+    projector is recomputed from its gradient by
+    :func:`~repro_torch.core.lowrank_common.compute_projectors` (``projector``
+    any of svd | subspace | rsvd | random | grass; ``subspace_iters`` power
+    steps for subspace); with ``reset_on_refresh`` the inner momenta are
+    zeroed at that boundary.  The key ``(seed, count, i)`` of leaf ``i`` —
+    its position in the full parameter tree, as in the reference — is handed
+    to the inner transform (its block sampler) and to ``noise``, the
+    projector's random draws (default
+    :func:`~repro_torch.core.lowrank_common.generator_noise`); family stacks
+    draw per member with each member's key.
 
     ``fuse_families=True`` runs the pipeline once per family stack (see the
     module docstring); the inner state is then keyed by family index.
@@ -530,11 +608,13 @@ def lowrank(
                 continue
             fs = family_shape(p, rank)
             g32 = g.to(torch.float32)
+            key = (seed, count, i)
             if refresh:
-                proj = compute_projectors(projector, g32, fs.rank, fs.side)
+                proj = compute_projectors(projector, g32, fs.rank, fs.side, key=key,
+                                          subspace_iters=subspace_iters, noise=noise)
             msgs[k] = ProjGrad(p=proj, g=g32, fs=fs, kernel_impl=kernel_impl,
                                reset=refresh and reset_on_refresh, refresh=refresh,
-                               key=(seed, count, i))
+                               key=key)
             new_projs[k] = proj
 
         inner_out, new_inner = inner.update(msgs, state.inner, params)
@@ -585,12 +665,14 @@ def lowrank(
         msgs, new_projs, fam_params = {}, {}, {}
         for fi, fam in enumerate(plan.families):
             g32 = stack_family(fam, g_leaves)
-            proj = state.projs[fi]
+            proj, keys = state.projs[fi], member_keys(fam, seed, count)
             if refresh:
-                proj = compute_projectors(projector, g32, fam.fs.rank, fam.fs.side)
+                proj = compute_projectors(projector, g32, fam.fs.rank, fam.fs.side,
+                                          key=keys, subspace_iters=subspace_iters,
+                                          noise=noise)
             msgs[fi] = ProjGrad(p=proj, g=g32, fs=fam.fs, kernel_impl=kernel_impl,
                                 reset=refresh and reset_on_refresh, refresh=refresh,
-                                key=member_keys(fam, seed, count), seg=fam.seg)
+                                key=keys, seg=fam.seg)
             new_projs[fi] = proj
             # Stacking the params costs a copy per family per step: only
             # for an inner that reads them (layerwise_unbias).
@@ -761,3 +843,97 @@ def layerwise_unbias(
 
     update.wants_params = True  # gathers the sampled blocks' params
     return Transform(init, update)
+
+
+# ---------------------------------------------------------------------------
+# with_fira_residual — Fira's out-of-subspace residual, as a combinator
+# ---------------------------------------------------------------------------
+
+
+class FiraResidualState(NamedTuple):
+    inner: PyTree
+    prev_norm: dict  # per-leaf (*lead,) norm-growth-limiter memory
+
+
+def with_fira_residual(base: Transform, *, limiter: float = 1.01,
+                       eps: float = 1e-8) -> Transform:
+    """Fira (Chen et al., 2024): add back the gradient component outside the
+    projected subspace, scaled per block by phi = ||s|| / ||PᵀG|| (s the
+    base's projected-space update), under the norm-growth limiter: a
+    block's scaled residual norm may grow at most ``limiter``-fold a step.
+    Per leaf it projects once (``ProjGrad.materialize``) and back-projects
+    twice (the residual and the update).  Must be composed inside
+    :func:`lowrank`; no unbiasedness guarantee (the paper's point of
+    comparison)."""
+
+    def init(params: dict) -> FiraResidualState:
+        return FiraResidualState(
+            inner=base.init(params),
+            prev_norm={k: None if t is None
+                       else torch.zeros(t.fs.lead, dtype=torch.float32, device=t.low.device)
+                       for k, t in params.items()})
+
+    def update(updates: dict, state: FiraResidualState, params: dict):
+        r_gs, reset = {}, False
+        for k, g in updates.items():
+            if g is None:
+                r_gs[k] = None
+                continue
+            if not isinstance(g, ProjGrad):
+                raise TypeError("with_fira_residual must be composed inside lowrank() "
+                                f"(got a {type(g).__name__} leaf)")
+            reset = reset or g.reset
+            r_gs[k] = g.materialize()
+
+        # The base sees plain tensors, so lowrank's reset never reaches it:
+        # honour reset_on_refresh here.
+        inner_state, prev_norm = state.inner, state.prev_norm
+        if reset:
+            inner_state, prev_norm = _reset_floats(inner_state), _reset_floats(prev_norm)
+        s_out, new_inner = base.update(r_gs, inner_state, params)
+
+        outs, new_pn = {}, {}
+        for k, g in updates.items():
+            if g is None:
+                outs[k], new_pn[k] = None, prev_norm[k]
+                continue
+            r_g, s, prev = r_gs[k], s_out[k], prev_norm[k]
+            resid = g.g - g.back(r_g)
+            phi = (torch.linalg.vector_norm(s, dim=(-2, -1))
+                   / (torch.linalg.vector_norm(r_g, dim=(-2, -1)) + eps))
+            scaled = phi[..., None, None] * resid
+            rnorm = torch.linalg.vector_norm(scaled, dim=(-2, -1))
+            cap = torch.where(prev > 0, limiter * prev, rnorm)
+            shrink = torch.clamp(cap / (rnorm + eps), max=1.0)
+            new_pn[k] = rnorm * shrink
+            outs[k] = FullUpdate(g.back(s) + shrink[..., None, None] * scaled)
+        return outs, FiraResidualState(inner=new_inner, prev_norm=new_pn)
+
+    if getattr(base.update, "wants_params", False):
+        update.wants_params = True
+    return Transform(init, update)
+
+
+# ---------------------------------------------------------------------------
+# state introspection
+# ---------------------------------------------------------------------------
+
+
+def find_lowrank_states(state: PyTree) -> list[LowRankState]:
+    """Every :class:`LowRankState` inside an optimizer state, in tree order
+    (tests and the smoke read projectors through this instead of guessing
+    chain indices)."""
+    found: list[LowRankState] = []
+
+    def walk(s):
+        if isinstance(s, LowRankState):
+            found.append(s)
+        elif isinstance(s, tuple):
+            for c in s:
+                walk(c)
+        elif isinstance(s, dict):
+            for c in s.values():
+                walk(c)
+
+    walk(state)
+    return found

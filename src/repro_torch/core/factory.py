@@ -1,49 +1,74 @@
 """Optimizer factory: OptimizerConfig -> combinator-composed Transform.
 
-Ported names: ``gum``, ``galore``, ``galore_muon`` and ``adamw``.  The JAX
-package's other optimizers (golore, muon, sgdm, fira, lisa,
-unbiased_galore_adam) raise ``NotImplementedError`` until they are ported
-(see ROADMAP.md).
+Every name the JAX package's factory builds: ``adamw``, ``sgdm``, ``muon``,
+``galore``, ``galore_muon``, ``golore``, ``gum``, ``unbiased_galore_adam``,
+``fira`` and ``lisa``, each composed as the reference's ``_compose`` does
+(the same arguments forwarded, the same defaults left).  The knobs the port
+does not run yet raise in ``OptimizerConfig`` (``core/api.py``), and
+``audit=True`` raises here: the chain linter (``repro.analysis``) is not
+ported.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.core.adamw import adamw
+from repro_torch.core.adamw import adamw, sgdm
 from repro_torch.core.api import OptimizerConfig, Transform
 from repro_torch.core.combinators import Sampler
-from repro_torch.core.galore import galore
-from repro_torch.core.gum import gum
+from repro_torch.core.fira import fira
+from repro_torch.core.galore import galore, golore
+from repro_torch.core.gum import gum, unbiased_galore_adam
+from repro_torch.core.lisa import lisa
+from repro_torch.core.lowrank_common import Noise
+from repro_torch.core.muon import muon
 
-NOT_PORTED = ("sgdm", "muon", "golore", "unbiased_galore_adam", "fira", "lisa")
 
-
-def build_optimizer(cfg: OptimizerConfig, *,
-                    sampler: Optional[Sampler] = None) -> Transform:
-    """``sampler`` replaces GUM's block sampler (tests inject the reference's
-    sampled blocks through it)."""
+def build_optimizer(cfg: OptimizerConfig, *, audit: bool = False,
+                    sampler: Optional[Sampler] = None,
+                    noise: Optional[Noise] = None) -> Transform:
+    """``sampler`` replaces the block sampler of GUM, unbiased GaLore-Adam
+    and LISA, ``noise`` the projectors' random draws (tests inject the
+    reference's draws through them)."""
+    if audit:
+        raise NotImplementedError("build_optimizer(audit=True) needs the chain "
+                                  "linter (repro.analysis), which is not ported yet")
     name = cfg.name.lower()
     fusion = {"fuse_families": cfg.fuse_families, "fused_epilogue": cfg.fused_epilogue}
+    lowrank_kw = {"seed": cfg.seed, "kernel_impl": cfg.kernel_impl, "noise": noise,
+                  **fusion}
+    muon_scale = {} if cfg.use_muon_scale is None else {"use_muon_scale": cfg.use_muon_scale}
     if name == "adamw":
         return adamw(cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
                      weight_decay=cfg.weight_decay)
+    if name == "sgdm":
+        return sgdm(cfg.lr, beta=cfg.beta, weight_decay=cfg.weight_decay)
+    if name == "muon":
+        return muon(cfg.lr, beta=cfg.beta, weight_decay=cfg.weight_decay,
+                    ns_steps=cfg.ns_steps, kernel_impl=cfg.kernel_impl, **muon_scale)
+    if name in ("galore", "galore_muon"):
+        base = {"galore": {"base": "adam"},
+                "galore_muon": {"base": "muon", "beta": cfg.beta, "ns_steps": cfg.ns_steps}}
+        return galore(cfg.lr, rank=cfg.rank, period=cfg.period, projector=cfg.projector,
+                      weight_decay=cfg.weight_decay, **base[name], **lowrank_kw)
+    if name == "golore":
+        return golore(cfg.lr, rank=cfg.rank, period=cfg.period, base=cfg.base, **lowrank_kw)
     if name == "gum":
         return gum(
             cfg.lr, rank=cfg.rank, gamma=cfg.gamma, period=cfg.period,
             projector=cfg.projector, base=cfg.base, beta=cfg.beta,
             ns_steps=cfg.ns_steps, weight_decay=cfg.weight_decay,
-            compensation=cfg.compensation, seed=cfg.seed,
-            kernel_impl=cfg.kernel_impl, sampler=sampler, **fusion,
+            compensation=cfg.compensation, sampler=sampler, **lowrank_kw, **muon_scale,
         )
-    if name == "galore":
-        return galore(cfg.lr, rank=cfg.rank, period=cfg.period, projector=cfg.projector,
-                      base="adam", weight_decay=cfg.weight_decay, seed=cfg.seed,
-                      kernel_impl=cfg.kernel_impl, **fusion)
-    if name == "galore_muon":
-        return galore(cfg.lr, rank=cfg.rank, period=cfg.period, projector=cfg.projector,
-                      base="muon", beta=cfg.beta, ns_steps=cfg.ns_steps,
-                      weight_decay=cfg.weight_decay, seed=cfg.seed,
-                      kernel_impl=cfg.kernel_impl, **fusion)
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"optimizer {cfg.name!r} is not ported yet")
+    if name == "unbiased_galore_adam":
+        return unbiased_galore_adam(
+            cfg.lr, rank=cfg.rank, gamma=cfg.gamma, period=cfg.period,
+            projector=cfg.projector, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+            weight_decay=cfg.weight_decay, compensation=cfg.compensation,
+            sampler=sampler, **lowrank_kw,
+        )
+    if name == "fira":
+        return fira(cfg.lr, rank=cfg.rank, period=cfg.period, **lowrank_kw)
+    if name == "lisa":
+        return lisa(cfg.lr, gamma=cfg.gamma, period=cfg.period, seed=cfg.seed,
+                    sampler=sampler)
     raise ValueError(f"unknown optimizer: {cfg.name!r}")

@@ -1,10 +1,11 @@
-"""GaLore (Zhao et al., 2024), Algorithm 1 of the paper, as a composition
-of :mod:`repro_torch.core.combinators`::
+"""GaLore (Zhao et al., 2024) and GoLore, Algorithm 1 of the paper, as
+compositions of :mod:`repro_torch.core.combinators`::
 
     galore      = chain(lowrank(scale_by_adam(scale=alpha)),
                         add_decayed_weights(wd), scale_by_lr(lr))     # biased
     galore_muon = chain(lowrank(scale_by_muon(beta)),
                         add_decayed_weights(wd), scale_by_lr(lr))     # = GUM q=0
+    golore      = galore with projector="random", base="sgdm" (He et al.)
 
 routed beside AdamW for the non-matrix leaves (embeddings, norms).
 
@@ -12,8 +13,11 @@ routed beside AdamW for the non-matrix leaves (embeddings, norms).
                   the Adam moments live in the projected space and the
                   update is back-projected).
   * base="muon" — GaLore-Muon, the paper's biased baseline.
-  * base="sgdm" — not ported yet (needs ``scale_by_momentum``).
+  * base="sgdm" — GaLore with SGD momentum (through the fused low-rank
+                  momentum kernel).
 
+``projector`` is any of svd | subspace | rsvd | random | grass (``noise``
+replaces the projector's random draws, see ``lowrank``).
 ``fuse_families`` runs the projected pipeline once per shape family;
 ``fused_epilogue`` folds ``-lr``, ``wd`` and the back-projection into one
 ``back_project_epilogue`` launch per family.  ``kernel_impl`` ("auto" |
@@ -22,7 +26,7 @@ tensors.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -34,10 +38,11 @@ from repro_torch.core.combinators import (
     lowrank,
     scale_by_adam,
     scale_by_lr,
+    scale_by_momentum,
     scale_by_muon,
     with_matrix_routing,
 )
-from repro_torch.core.lowrank_common import default_lowrank_filter
+from repro_torch.core.lowrank_common import Noise, default_lowrank_filter
 
 
 def galore_matrices(
@@ -55,9 +60,11 @@ def galore_matrices(
     weight_decay: float = 0.0,
     reset_on_update: bool = False,
     seed: int = 0,
+    subspace_iters: int = 2,
     kernel_impl: str = "auto",
     fuse_families: bool = False,
     fused_epilogue: bool = False,
+    noise: Optional[Noise] = None,
 ) -> Transform:
     """GaLore over matrix leaves only (route others via :func:`galore`)."""
     if base == "adam":
@@ -65,14 +72,14 @@ def galore_matrices(
     elif base == "muon":
         inner = scale_by_muon(beta=beta, ns_steps=ns_steps, kernel_impl=kernel_impl)
     elif base == "sgdm":
-        raise NotImplementedError("GaLore base 'sgdm' is not ported yet "
-                                  "(scale_by_momentum)")
+        inner = scale_by_momentum(beta=beta)
     else:
         raise ValueError(f"unsupported base: {base}")
     return chain(
         lowrank(inner, rank=rank, period=period, projector=projector, seed=seed,
-                reset_on_refresh=reset_on_update, kernel_impl=kernel_impl,
-                fuse_families=fuse_families, fused_epilogue=fused_epilogue),
+                subspace_iters=subspace_iters, reset_on_refresh=reset_on_update,
+                kernel_impl=kernel_impl, fuse_families=fuse_families,
+                fused_epilogue=fused_epilogue, noise=noise),
         add_decayed_weights(weight_decay),
         scale_by_lr(lr),
     )
@@ -95,3 +102,10 @@ def galore(
         matrix_filter=lowrank_filter,
         matrix_label="galore",
     )
+
+
+def golore(lr: Schedule, rank: int = 128, period: int = 200, base: str = "sgdm",
+           **kw) -> Transform:
+    """GoLore (He et al., 2024): GaLore with a gradient-independent random
+    orthonormal projector — convergent but blind to the gradient's subspace."""
+    return galore(lr, rank=rank, period=period, projector="random", base=base, **kw)

@@ -12,7 +12,7 @@ hot path goes through :mod:`repro_torch.kernels.dispatch` instead.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -88,16 +88,94 @@ def scatter_blocks(x: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     return out.reshape(x.shape)
 
 
-def compute_projectors(kind: str, g: torch.Tensor, rank: int, side: str) -> torch.Tensor:
+# noise(key, kind, shape) -> a float32 tensor of ``shape``: standard normal
+# ("normal"), standard Gumbel ("gumbel") or uniform on [0, 1) ("uniform")
+# draws.  ``key`` is (seed, count, leaf index), the inputs the reference folds
+# into its PRNG key; a caller that draws twice from one key draws two kinds.
+Noise = Callable[[tuple[int, int, int], str, tuple[int, ...]], torch.Tensor]
+NOISE_KINDS = ("normal", "gumbel", "uniform")
+
+
+def generator_noise(key: tuple[int, int, int], kind: str,
+                    shape: tuple[int, ...]) -> torch.Tensor:
+    """Default noise: draws on the CPU from a ``torch.Generator`` seeded by
+    the key and the kind, so a draw depends only on (seed, step, leaf, kind)
+    and the card and the CPU draw the same numbers.  Not the reference's
+    threefry bits: parity tests inject those."""
+    seed, count, leaf = key
+    mixed = ((seed * 1_000_003 + count) * 1_000_003 + leaf) * 4 + 1 + NOISE_KINDS.index(kind)
+    gen = torch.Generator().manual_seed(mixed & (2**63 - 1))
+    if kind == "normal":
+        return torch.randn(shape, generator=gen)
+    if kind == "uniform":
+        return torch.rand(shape, generator=gen)
+    # Gumbel(0, 1) = -log(E), E ~ Exp(1)
+    return -torch.log(torch.empty(shape).exponential_(generator=gen))
+
+
+def _draw(noise: Noise, key, kind: str, lead: tuple[int, ...], tail: tuple[int, ...],
+          device: torch.device) -> torch.Tensor:
+    """``lead + tail`` draws on ``device``.  ``key`` is one leaf's key, or a
+    list of per-member keys of a family stack (``lead = (members *
+    member_L,)``), each member drawing its own ``(member_L,) + tail`` block
+    as its leaf does on the per-leaf path."""
+    if isinstance(key, list):
+        per = lead[0] // len(key)
+        out = torch.cat([noise(k, kind, (per,) + tail) for k in key])
+    else:
+        out = noise(key, kind, lead + tail)
+    return out.to(device=device, dtype=torch.float32)
+
+
+def compute_projectors(kind: str, g: torch.Tensor, rank: int, side: str, *,
+                       key=None, subspace_iters: int = 2,
+                       noise: Optional[Noise] = None) -> torch.Tensor:
     """Batched per-block projectors ``(*lead, s, rank)`` with orthonormal
-    columns (Property I): the top-``rank`` left singular vectors of each
-    block (of Gᵀ on the right side), by ``torch.linalg.svd``."""
-    if kind != "svd":
-        raise NotImplementedError(f"projector {kind!r} is not ported yet (svd only)")
+    columns (Property I), for every block of ``g (*lead, m, n)`` (of Gᵀ on
+    the right side, so ``s`` is the projected side):
+
+      svd       top-``rank`` left singular vectors (``torch.linalg.svd``,
+                then one QR to hold Property I to fp32 rounding)
+      subspace  orth((G Gᵀ)^iters G Ω), QR between the power steps
+      rsvd      orth(G Ω): the subspace projector with zero iterations
+      random    orth(Z), Z Gaussian: independent of the gradient (GoLore)
+      grass     ``rank`` one-hot columns: rows by Gumbel top-k over the log
+                row norms (sampling without replacement ∝ row norm)
+
+    Ω, Z and the Gumbel draw come from ``noise`` (default
+    :func:`generator_noise`) under ``key`` — one leaf's (seed, count, leaf)
+    or a list of them, one per member of a family stack."""
     if side == "right":
         g = g.mT
-    u, _, _ = torch.linalg.svd(g.to(torch.float32), full_matrices=False)
-    return u[..., :, :rank].contiguous()
+    g32 = g.to(torch.float32)
+    lead = tuple(g32.shape[:-2])
+    m, n = int(g32.shape[-2]), int(g32.shape[-1])
+    noise = noise or generator_noise
+    if kind == "svd":
+        u = torch.linalg.svd(g32, full_matrices=False).U[..., :, :rank]
+        # The card's Jacobi SVD leaves |UᵀU − I| up to 4e-4 at 768 x 768: one
+        # QR restores Property I without moving span(U), each column's sign
+        # kept (Q R = U with R ≈ I up to signs).
+        q, r = torch.linalg.qr(u)
+        sign = torch.where(torch.diagonal(r, dim1=-2, dim2=-1) < 0, -1.0, 1.0)
+        return (q * sign.unsqueeze(-2)).contiguous()
+    if kind in ("subspace", "rsvd"):
+        iters = 0 if kind == "rsvd" else subspace_iters
+        y = g32 @ _draw(noise, key, "normal", lead, (n, rank), g32.device)
+        for _ in range(iters):
+            y = torch.linalg.qr(y).Q
+            y = g32 @ (g32.mT @ y)
+        return torch.linalg.qr(y).Q.contiguous()
+    if kind == "random":
+        z = _draw(noise, key, "normal", lead, (m, rank), g32.device)
+        return torch.linalg.qr(z).Q.contiguous()
+    if kind == "grass":
+        logits = torch.log(torch.linalg.vector_norm(g32, dim=-1) + 1e-30)  # (*lead, m)
+        scores = logits + _draw(noise, key, "gumbel", lead, (m,), g32.device)
+        idx = torch.topk(scores, rank, dim=-1).indices                      # (*lead, rank)
+        p = torch.nn.functional.one_hot(idx, m).to(torch.float32)           # (*lead, rank, m)
+        return p.mT.contiguous()
+    raise ValueError(f"unknown projector kind: {kind!r}")
 
 
 def default_lowrank_filter(path: str, p) -> bool:

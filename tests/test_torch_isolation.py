@@ -113,15 +113,11 @@ def test_dispatch_vocabulary_equals_reference():
 
 def test_unported_knobs_raise():
     for knob in (dict(pad_rank_to=128), dict(rank_policy="spectral:0.99"),
-                 dict(shard_state=True), dict(telemetry=True),
-                 dict(projector="random"), dict(projector="rsvd")):
+                 dict(rank_ladder=(64, 128)), dict(shard_state=True),
+                 dict(telemetry=True)):
         with pytest.raises(NotImplementedError):
             OptimizerConfig(**knob)
     from repro_torch.core import build_optimizer
-    from repro_torch.core.galore import galore
 
     with pytest.raises(NotImplementedError):
-        galore(1e-3, base="sgdm")
-    for name in ("golore", "fira", "muon", "sgdm", "lisa", "unbiased_galore_adam"):
-        with pytest.raises(NotImplementedError):
-            build_optimizer(OptimizerConfig(name=name))
+        build_optimizer(OptimizerConfig(name="gum"), audit=True)
