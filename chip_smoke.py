@@ -35,6 +35,21 @@ Phases, in order; any failure exits non-zero and prints no result:
                 and GUM with SGDM and the rsvd projector; then the projector
                 refresh alone for each of the five kinds, with the default
                 noise's host draw and copy;
+  4d. accumulate — llama-130m GUM (phase 4's settings) with gradient
+                accumulation: the gradient of one batch at microbatches 1, 2
+                and 4 (within 1e-5 per leaf, losses within 1e-6); 6 steps at
+                microbatches 4 through the ``Trainer``; 6 steps of GUM's
+                projected-space accumulator (``gum_accum_tools``) at 4
+                microbatches with its exact per-step dispatch and launch
+                counts and its reconstruction held to P Pᵀ G plus the sampled
+                blocks of the full accumulation on a refresh and a steady
+                step; the chunked loss (``logit_chunk`` 1024 and 256) against
+                the unchunked one, with a lower peak; rows 2–3 at rank 96
+                with ``pad_rank_to`` 0 and 128, equal outputs;
+  4e. resume  — two uninterrupted 6-step GUM runs equal bitwise, then a run
+                of 3 steps and a new ``Trainer`` resuming it to 6 equal to
+                them bitwise (losses, parameters, optimizer state), and the
+                checkpoint's save, verify and restore times and size;
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
                 flash_attention launches) against "xla", then a
                 continuous-batching engine of 8 slots answering 16 requests,
@@ -54,17 +69,22 @@ third from the end; the line before the last is a JSON object describing
 every kernel (launches summed over the full-width paths, each read from
 counts set to 0 just before it, error, times, bound), and the last line is
 ``{"ok": true, "device": {...}}``.
-``--kernels-only`` stops after phase 3 (for iterating on a kernel).
+``--kernels-only`` stops after phase 3 (for iterating on a kernel) and
+prints neither the kernels line nor the ok line.  Every training phase
+writes its checkpoints under its own temporary directory and removes it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -543,38 +563,58 @@ def phase_kernels(torch):
 # --------------------------------------------------------------------- phase 4
 
 
+@contextlib.contextmanager
+def scratch_dir(label: str):
+    """A temporary directory (checkpoints of one phase), removed after."""
+    path = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def llama130m_data():
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+
+    cfg = get_config("llama-130m")
+    return cfg, DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=0)
+
+
 def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
-                     want_launch: dict) -> dict:
+                     want_launch: dict, microbatches: int = 1) -> tuple[dict, float]:
     """Pretrain llama-130m at full width and depth through the port's
     ``Trainer`` (6 steps, batch 8 x 1024, period 3: refreshes at steps 1 and
-    4), assert finite losses and the per-step dispatch and kernel launch
-    counts, print the step times and peak memory, and profile one steady
-    step.  Returns this phase's kernel launches."""
-    from repro_torch.configs import RunConfig, get_config
-    from repro_torch.data import DataConfig
+    4; ``microbatches`` slices of each batch), assert finite losses and the
+    per-step dispatch and kernel launch counts, print the step times and
+    peak memory, and profile one steady step.  Returns this phase's kernel
+    launches and the peak memory (GiB) of its 6 steps."""
+    from repro_torch.configs import RunConfig
     from repro_torch.kernels import build, launch_count
     from repro_torch.models import build_model
     from repro_torch.train import Trainer
 
     steps, period = 6, opt_cfg.period
-    cfg = get_config("llama-130m")
+    cfg, data = llama130m_data()
     model = build_model(cfg, device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
-    trainer = Trainer(model, opt_cfg, RunConfig(steps=steps, log_every=1, seed=0),
-                      DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=0),
-                      device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    with scratch_dir(label.replace(" ", "_")) as ckpt_dir:
+        trainer = Trainer(model, opt_cfg,
+                          RunConfig(steps=steps, log_every=1, seed=0, ckpt_dir=ckpt_dir),
+                          data, device="cuda", microbatches=microbatches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
 
-    build.reset_launches()
-    with launch_count.count_launches() as dispatched:
-        result = trainer.train()
-    torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
+        build.reset_launches()
+        with launch_count.count_launches() as dispatched:
+            result = trainer.train()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
 
     losses = result.losses
     print(f"{label} llama-130m ({n_params / 1e6:.1f}M params) {opt_cfg.name} "
-          f"r={opt_cfg.rank} period={period}: losses {losses}", flush=True)
+          f"r={opt_cfg.rank} period={period} microbatches={microbatches}: losses {losses}",
+          flush=True)
     check(len(losses) == steps and all(math.isfinite(v) for v in losses),
           f"{label}: non-finite or missing losses: {losses}")
     per_step = {k: v / steps for k, v in dispatched.items()}
@@ -590,14 +630,14 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     steady = [t for i, t in enumerate(result.step_seconds) if i % period]
     refresh = [t for i, t in enumerate(result.step_seconds) if i % period == 0]
     steady_ms = statistics.median(steady) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
           f"steady median {steady_ms:.3f}; refresh steps {[round(t * 1e3, 3) for t in refresh]}; "
-          f"tokens/s {tokens / (steady_ms / 1e3):.0f}; "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          f"tokens/s {tokens / (steady_ms / 1e3):.0f}; max_memory_allocated {peak:.3f} GiB",
           flush=True)
 
     profile_steady_step(torch, label, trainer, steps)
-    return launches
+    return launches, peak
 
 
 def remat_peaks(torch) -> None:
@@ -643,7 +683,7 @@ def phase_slice(torch) -> dict:
     from repro_torch.core.lowrank_common import compute_projectors
 
     remat_peaks(torch)
-    launches = train_full_width(
+    launches, _ = train_full_width(
         torch, "slice", OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3),
         want_dispatch={"lowrank_update": 7, "project": 7, "back_project": 14,
                        "newton_schulz": 14},
@@ -674,7 +714,7 @@ def phase_galore(torch) -> dict:
         OptimizerConfig(name="galore", lr=1e-2, rank=256, period=3, weight_decay=0.0,
                         fuse_families=True, fused_epilogue=True),
         want_dispatch={"project": 3, "back_project_epilogue": 3},
-        want_launch={"lowrank_update": 3, "back_project_epilogue": 3})
+        want_launch={"lowrank_update": 3, "back_project_epilogue": 3})[0]
 
 
 # Phase 4c: the paper's other optimizers at llama-130m, rank 256, period 3,
@@ -711,6 +751,26 @@ BASELINES = [
 ]
 
 
+def accum_counts(microbatches: int, leaves: int, units: int) -> tuple[dict, dict]:
+    """Per-step dispatch counts and kernel launches of GUM's projected-space
+    accumulation (``gum_accum_tools``; ``make_train_step(lowrank_accum=)``)
+    over ``leaves`` hidden leaves run as ``units`` launch units (the leaves,
+    or their family stacks under ``fuse_families``), from the code: every
+    microbatch projects each leaf once (``project``), the mean is
+    reconstructed per leaf (``back_project``), and GUM's update runs per
+    unit one momentum update, one projection and one back-projection for
+    the sampled blocks' P Pᵀ G, the low branch's write-back and two
+    Newton–Schulz (low-rank momentum and full slots); the refresh adds no
+    dispatched op.  Launches: ``project`` runs the lowrank_update kernel,
+    each Newton–Schulz 5 gram and 5 poly_apply."""
+    dispatch = {"lowrank_update": units, "project": microbatches * leaves + units,
+                "back_project": leaves + 2 * units, "newton_schulz": 2 * units}
+    launch = {"lowrank_update": dispatch["lowrank_update"] + dispatch["project"],
+              "back_project": dispatch["back_project"],
+              "gram": 5 * dispatch["newton_schulz"], "poly_apply": 5 * dispatch["newton_schulz"]}
+    return dispatch, launch
+
+
 def phase_baselines(torch) -> dict:
     """Each of :data:`BASELINES` through :func:`train_full_width`, then the
     projector refresh alone (the 7 hidden leaves of llama-130m, rank 256)
@@ -721,7 +781,7 @@ def phase_baselines(torch) -> dict:
 
     launches: dict = {}
     for label, kw, want_dispatch, want_launch in BASELINES:
-        got = train_full_width(torch, f"baseline {label}", OptimizerConfig(**kw),
+        got, _ = train_full_width(torch, f"baseline {label}", OptimizerConfig(**kw),
                                want_dispatch, want_launch)
         launches = {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
 
@@ -759,6 +819,365 @@ def phase_baselines(torch) -> dict:
                      f"{copy:.3f} ms" if kind in draws else "")
         print(f"baselines {kind} refresh ms (7 leaves, rank 256, |PᵀP - I| {err:.1e}): "
               f"{refresh:.3f}{noise_txt}", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------- phases 4d, 4e
+
+GUM_130M = dict(name="gum", lr=5e-3, rank=256, gamma=4, period=3)
+GUM_DISPATCH = {"lowrank_update": 7, "project": 7, "back_project": 14, "newton_schulz": 14}
+GUM_LAUNCH = {"lowrank_update": 14, "back_project": 14, "gram": 70, "poly_apply": 70}
+
+
+def leaf_rel(got: dict, want: dict) -> tuple[float, str]:
+    """The worst leaf's max|got - want| / max|want|, and its path."""
+    worst = max((float((got[k].float() - w.float()).abs().max())
+                 / max(float(w.abs().max()), 1e-30), k) for k, w in want.items())
+    return worst
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def accumulate_gradients(torch, model, batch) -> None:
+    """The gradient of one batch at microbatches 1, 2 and 4 (``launch.steps.
+    loss_and_grads``, what the step accumulates): each within 1e-5 per leaf
+    and its loss within 1e-6 of microbatches 1's; peak memory of each."""
+    from repro_torch.launch.steps import loss_and_grads
+
+    params = model.params()
+    want, parts = None, []
+    for mb in (1, 2, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, params, batch, mb)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = peak_gib(torch)
+        grads = {k: g.cpu() for k, g in grads.items()}
+        if want is None:
+            want = (float(loss), grads)
+            parts.append(f"1: loss {float(loss):.6f}, {ms:.3f} ms, peak {peak:.3f} GiB")
+            continue
+        loss_rel = abs(float(loss) - want[0]) / abs(want[0])
+        rel, leaf = leaf_rel(grads, want[1])
+        parts.append(f"{mb}: loss rel {loss_rel:.2e}, worst leaf {leaf} {rel:.2e}, "
+                     f"{ms:.3f} ms, peak {peak:.3f} GiB")
+        check(loss_rel <= 1e-6, f"accumulate: loss at microbatches {mb} off by {loss_rel:.2e}")
+        check(rel <= 1e-5, f"accumulate: gradient {leaf} at microbatches {mb} off by {rel:.2e}")
+    print("accumulate llama-130m gradient of one 8 x 1024 batch by microbatches "
+          f"(against 1): {'; '.join(parts)}", flush=True)
+
+
+def capture_reconstruction(tools, captured: dict):
+    """``tools`` whose ``reconstruct`` also copies to the host, on a step run
+    with ``captured["on"]`` set, the full-shape gradient it hands the
+    update and the projectors and sampled blocks it read."""
+
+    def reconstruct(compact: dict, state, params: dict) -> dict:
+        grads = tools.reconstruct(compact, state, params)
+        if captured.pop("on", False):
+            lr = state.inner["gum"][0]
+            captured["got"] = {k: g.cpu() for k, g in grads.items()}
+            captured["views"] = {k: (p.cpu(), lr.inner.idx[k]) for k, p in lr.projs.items()
+                                 if p is not None}
+        return grads
+
+    return tools._replace(reconstruct=reconstruct)
+
+
+def check_reconstruction(torch, label: str, captured: dict, mean_grads: dict) -> None:
+    """The full-shape gradient that the timed step reconstructed (captured
+    by :func:`capture_reconstruction`) within 1e-5 per leaf of ``P Pᵀ Ḡ``
+    with the sampled blocks of ``Ḡ`` for a low-rank leaf, and of ``Ḡ`` for
+    the others; ``Ḡ`` is the full-shape fp32 accumulation of the same
+    microbatches at the same parameters (``loss_and_grads``), and P and the
+    blocks are those the step read."""
+    from repro_torch.core.lowrank_common import family_shape
+
+    worst = (0.0, "")
+    for k, got in captured.pop("got").items():
+        got, g = got.to("cuda"), mean_grads[k].to("cuda")
+        want = g
+        if k in captured["views"]:
+            proj, idx = captured["views"][k]
+            proj = proj.to("cuda")
+            side = family_shape(g, GUM_130M["rank"]).side
+            want = proj @ (proj.mT @ g) if side == "left" else (g @ proj) @ proj.mT
+            want[idx] = g[idx]
+        worst = max(worst, (float((got - want).abs().max() / want.abs().max()), k))
+    print(f"accumulate {label}: the step's reconstruction vs P Pᵀ Ḡ + sampled blocks "
+          f"(Ḡ as is off the low-rank leaves), worst leaf {worst[1]} rel {worst[0]:.2e}",
+          flush=True)
+    check(worst[0] <= 1e-5, f"accumulate {label}: reconstruction off by {worst[0]:.2e} "
+          f"on {worst[1]}")
+
+
+def projected_accumulation(torch, full_peak: float) -> dict:
+    """Six GUM steps at 4 microbatches through ``gum_accum_tools`` and
+    ``make_train_step(lowrank_accum=)``: finite losses, the exact per-step
+    dispatch and launch counts (:func:`accum_counts`), the step's own
+    reconstruction checked on a refresh step (1) and a steady step (2)
+    (:func:`check_reconstruction`), step times and the peak memory beside
+    the full-shape accumulator's.  Returns the kernel launches of the six
+    steps."""
+    from repro_torch.core import gum_accum_tools
+    from repro_torch.data import build_stream
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import build_model
+
+    cfg, data = llama130m_data()
+    model = build_model(cfg, device="cuda")
+    model.init_params(0)
+    opt = {k: v for k, v in GUM_130M.items() if k != "name"}
+    tools = gum_accum_tools(opt.pop("lr"), **opt)
+    captured: dict = {}
+    step = make_train_step(model, tools.transform, microbatches=4,
+                           lowrank_accum=capture_reconstruction(tools, captured))
+    params = model.params()
+    state = tools.transform.init({k: p.detach() for k, p in params.items()})
+    want_dispatch, want_launch = accum_counts(4, 7, 7)
+    stream = build_stream(data)
+    batches = [torch.from_numpy(next(stream)).to("cuda") for _ in range(6)]
+    losses, seconds, launches = [], [], {}
+    peak = 0.0
+    for i, tokens in enumerate(batches):
+        mean_grads = None
+        if i in (0, 1):  # Ḡ at the parameters the step starts from, kept on the host
+            _, mean_grads = loss_and_grads(model, params, {"tokens": tokens}, 4)
+            mean_grads = {k: g.cpu() for k, g in mean_grads.items()}
+            captured["on"] = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        with launch_count.count_launches() as counts:
+            state, metrics = step(params, state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        peak = max(peak, peak_gib(torch))
+        got = {k: v for k, v in build.LAUNCHES.items() if v}
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        check(counts == want_dispatch,
+              f"gum_accum_tools step {i + 1}: dispatch {counts} != {want_dispatch}")
+        check(got == want_launch,
+              f"gum_accum_tools step {i + 1}: kernel launches {got} != {want_launch}")
+        if mean_grads is not None:
+            check("got" in captured, f"gum_accum_tools step {i + 1}: the step reconstructed "
+                  "no gradient")
+            check_reconstruction(torch, f"gum_accum_tools step {i + 1} "
+                                 f"({'refresh' if i == 0 else 'steady'})", captured, mean_grads)
+    check(all(math.isfinite(v) for v in losses), f"gum_accum_tools: losses {losses}")
+    print(f"accumulate gum_accum_tools llama-130m microbatches=4: losses {losses}; dispatch "
+          f"per step {want_dispatch}; kernel launches per step {want_launch}", flush=True)
+    steady = [t for i, t in enumerate(seconds) if i in (2, 4, 5)]
+    print(f"accumulate gum_accum_tools step ms: all {[round(t * 1e3, 3) for t in seconds]}; "
+          f"steady median (steps 3, 5, 6; steps 1-2 copy their reconstruction to the host) "
+          f"{statistics.median(steady) * 1e3:.3f}; peak memory {peak:.3f} GiB "
+          f"(the full-shape fp32 accumulator's 6 Trainer steps above: {full_peak:.3f} GiB)",
+          flush=True)
+    build.reset_launches()
+    return launches
+
+
+def chunked_loss(torch, model, batch) -> None:
+    """One forward and backward of llama-130m at ``logit_chunk`` 0, 1024
+    and 256 (remat as the config): loss within 1e-6, gradients within 1e-5
+    per leaf of the unchunked ones, each peak printed; 1024 is the whole
+    shifted sequence in one chunk, whose logits live only inside the loss's
+    forward and backward, and every chunked peak must be below the
+    unchunked one."""
+    from repro_torch.launch.steps import loss_and_grads
+
+    cfg = model.cfg
+    params = model.params()
+    peaks, parts, want = {}, [], None
+    for chunk in (0, 1024, 256):
+        model.cfg = cfg.replace(logit_chunk=chunk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peaks[chunk] = peak_gib(torch)
+        grads = {k: g.cpu() for k, g in grads.items()}
+        if want is None:
+            want = (float(loss), grads)
+            parts.append(f"0: {peaks[0]:.3f} GiB, {ms:.3f} ms")
+            continue
+        loss_rel = abs(float(loss) - want[0]) / abs(want[0])
+        rel, leaf = leaf_rel(grads, want[1])
+        parts.append(f"{chunk}: {peaks[chunk]:.3f} GiB, {ms:.3f} ms, loss rel {loss_rel:.2e}, "
+                     f"worst leaf {leaf} {rel:.2e}")
+        check(loss_rel <= 1e-6, f"logit_chunk {chunk}: loss off by {loss_rel:.2e}")
+        check(rel <= 1e-5, f"logit_chunk {chunk}: gradient {leaf} off by {rel:.2e}")
+        check(peaks[chunk] < peaks[0], f"logit_chunk {chunk}: peak {peaks[chunk]:.3f} GiB is "
+              f"not below the unchunked {peaks[0]:.3f} GiB")
+    model.cfg = cfg
+    print(f"accumulate chunked loss, one forward+backward of llama-130m at 8 x 1024 by "
+          f"logit_chunk (peak memory, time): {'; '.join(parts)}", flush=True)
+
+
+def pad_rank(torch) -> None:
+    """Rows 2–3 through the dispatcher at rank 96 (llama-130m's shapes,
+    both sides) with ``pad_rank_to`` 0 and 128 (the rank axis padded to 128
+    and sliced back): equal outputs, and the time of each."""
+    from repro_torch.kernels import build, dispatch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for side, (L, m, n) in (("left", (12, 768, 2048)), ("right", (12, 2048, 768))):
+        p = torch.randn(L, m if side == "left" else n, 96, generator=gen, device="cuda")
+        g = torch.randn(L, m, n, generator=gen, device="cuda")
+        s = torch.randn(*((L, 96, n) if side == "left" else (L, m, 96)), generator=gen,
+                        device="cuda")
+        parts = []
+        for op, fn in (("project", lambda pad: dispatch.project(p, g, side=side,
+                                                                pad_rank_to=pad)),
+                       ("back_project", lambda pad: dispatch.back_project(
+                           p, s, side=side, pad_rank_to=pad))):
+            a, b = fn(0), fn(128)
+            check(bool(torch.equal(a, b)), f"pad_rank_to {op} {side}: padded output differs "
+                  f"by {float((a - b).abs().max()):.2e}")
+            ms0, ms128 = time_ms(lambda: fn(0)), time_ms(lambda: fn(128))
+            parts.append(f"{op} equal, ms {ms0:.4f} unpadded, {ms128:.4f} padded")
+        print(f"accumulate pad_rank_to rank 96 -> 128 {side} {(L, m, n)}: {'; '.join(parts)}",
+              flush=True)
+    build.reset_launches()  # comparison launches do not count
+
+
+def phase_accumulate(torch) -> dict:
+    """Phase 4d: gradient accumulation at llama-130m (phase 4's GUM).
+    Returns the kernel launches of its two training runs."""
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.data import build_stream
+    from repro_torch.models import build_model
+
+    cfg, data = llama130m_data()
+    model = build_model(cfg, device="cuda")
+    model.init_params(0)
+    batch = {"tokens": torch.from_numpy(build_stream(data).batch_at(0)).to("cuda")}
+    accumulate_gradients(torch, model, batch)
+    chunked_loss(torch, model, batch)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, full_peak = train_full_width(torch, "accumulate trainer",
+                                           OptimizerConfig(**GUM_130M), GUM_DISPATCH,
+                                           GUM_LAUNCH, microbatches=4)
+    got = projected_accumulation(torch, full_peak)
+    launches = {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
+    pad_rank(torch)
+    return launches
+
+
+def flat_state(tree) -> list:
+    from repro_torch.checkpoint.manager import flatten_with_paths
+
+    return flatten_with_paths(tree)
+
+
+def bitwise_diff(a, b) -> list[str]:
+    """The leaves of two (params, state) trees that are not bitwise equal,
+    each with its max abs difference."""
+    import torch
+
+    out = []
+    fa, fb = flat_state(a), flat_state(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return ["the trees differ in structure"]
+    for (path, x), (_, y) in zip(fa, fb):
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                out.append(f"{path} ({float((x.float() - y.float()).abs().max()):.2e})")
+        elif x != y:
+            out.append(f"{path} ({x} != {y})")
+    return out
+
+
+def phase_resume(torch) -> dict:
+    """Phase 4e: exact resume at llama-130m (phase 4's GUM, checkpoints
+    every 3 steps; step 4 is a refresh).  Two uninterrupted 6-step runs
+    from the same parameters must agree bitwise; then a 3-step run and a
+    new ``Trainer`` resuming it to 6 must equal them bitwise (losses,
+    parameters, every optimizer-state leaf) with ``resumed_from == 3``.
+    Then the checkpoint alone: save, verify and restore times and its
+    bytes on disk.  Returns the kernel launches of the four runs."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    cfg, data = llama130m_data()
+    init = build_model(cfg, device="cuda")
+    init.init_params(0)
+    params0 = {k: v.detach().clone() for k, v in init.params().items()}
+    del init
+
+    def run(ckpt_dir: str, steps: int, keep: bool = False):
+        trainer = Trainer(build_model(cfg, device="cuda"), OptimizerConfig(**GUM_130M),
+                          RunConfig(steps=steps, ckpt_every=3, log_every=0, seed=0,
+                                    ckpt_dir=ckpt_dir),
+                          data, device="cuda", params=params0)
+        result = trainer.train()
+        if not keep:  # about 1 GB a checkpoint
+            shutil.rmtree(ckpt_dir)
+        return trainer, result
+
+    def tree(trainer):
+        return ({k: p.detach() for k, p in trainer.model.params().items()}, trainer.opt_state)
+
+    with scratch_dir("resume") as root:
+        build.reset_launches()
+        a1, ra1 = run(os.path.join(root, "a1"), 6)
+        a2, ra2 = run(os.path.join(root, "a2"), 6)
+        _, rb1 = run(os.path.join(root, "b"), 3, keep=True)
+        b2, rb2 = run(os.path.join(root, "b"), 6)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        print(f"resume llama-130m gum: uninterrupted {ra1.losses} and {ra2.losses}; "
+              f"3 steps {rb1.losses} + resumed from {rb2.resumed_from} {rb2.losses}", flush=True)
+        rerun = bitwise_diff(tree(a1), tree(a2))
+        check(ra1.losses == ra2.losses and not rerun,
+              f"resume: two uninterrupted runs differ: losses {ra1.losses} vs {ra2.losses}; "
+              f"leaves {rerun[:8]}")
+        resumed = bitwise_diff(tree(a1), tree(b2))
+        check(rb2.resumed_from == 3, f"resume: resumed_from {rb2.resumed_from} != 3")
+        check(rb1.losses + rb2.losses == ra1.losses and not resumed,
+              f"resume: the resumed run differs: losses {rb1.losses + rb2.losses} vs "
+              f"{ra1.losses}; leaves {resumed[:8]}")
+        n_leaves = len(flat_state(tree(a1)))
+        print(f"resume: two uninterrupted runs equal bitwise, and 3 + 3 resumed steps equal "
+              f"6 bitwise: losses, parameters and {n_leaves} (params, state) leaves", flush=True)
+
+        mgr = CheckpointManager(os.path.join(root, "timing"))
+        t0 = time.perf_counter()
+        mgr.save(6, tree(a1))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ok = mgr.verify_step(6)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        check(ok, "resume: the checkpoint does not verify")
+        template = (dict(params0), a1.optimizer.init(dict(params0)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore(6, template)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(not bitwise_diff(restored, tree(a1)), "resume: the restored tree differs")
+        step_dir = mgr._step_dir(6)
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        param_bytes = sum(v.numel() * v.element_size() for v in params0.values())
+        print(f"resume checkpoint of llama-130m GUM (params and state, {n_leaves} leaves): "
+              f"{nbytes} bytes on disk ({nbytes / 1e9:.3f} GB; parameters {param_bytes} bytes); "
+              f"save {save_ms:.1f} ms, verify {verify_ms:.1f} ms, restore to the card "
+              f"{restore_ms:.1f} ms (with its verify)", flush=True)
     return launches
 
 
@@ -1071,11 +1490,13 @@ def phase_agree(torch):
         losses = {}
         for device in ("cpu", "cuda"):
             before = dict(build.LAUNCHES)
-            trainer = Trainer(build_model(cfg, device=device), opt_cfg,
-                              RunConfig(steps=3, log_every=0, seed=0),
-                              DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0),
-                              device=device, params=params)
-            losses[device] = trainer.train().losses
+            with scratch_dir("agree") as ckpt_dir:
+                trainer = Trainer(build_model(cfg, device=device), opt_cfg,
+                                  RunConfig(steps=3, log_every=0, seed=0, ckpt_dir=ckpt_dir),
+                                  DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2,
+                                             seed=0),
+                                  device=device, params=params)
+                losses[device] = trainer.train().losses
             if kernel is None:
                 check(build.LAUNCHES == before, f"agree {label} on {device}: kernels "
                       f"launched {before} -> {build.LAUNCHES}")
@@ -1123,6 +1544,12 @@ def phase_agree_serve(torch):
         check(rel <= 1e-4, f"agree prefill {arch}: {rel:.2e} > 1e-4")
 
 
+# The full-width paths, in order; each returns its kernel launches.
+PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_baselines,
+          "accumulate": phase_accumulate, "resume": phase_resume,
+          "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba}
+
+
 def main() -> None:
     import torch
 
@@ -1149,18 +1576,19 @@ def main() -> None:
                   flush=True)
 
     rows = phase_kernels(torch)
-    launches = dict.fromkeys(rows, 0)
-    if not kernels_only:
-        paths = [phase_slice(torch), phase_galore(torch), phase_baselines(torch),
-                 phase_serve_llama(torch), phase_serve_mamba(torch)]
-        launches = {k: sum(path.get(k, 0) for path in paths) for k in rows}
-        phase_agree(torch)
-        phase_agree_serve(torch)
+    if kernels_only:
+        print("kernels-only: phase 3 passed; the path did not run, so no result is printed",
+              flush=True)
+        return
+    paths = [fn(torch) for fn in PHASES.values()]
+    launches = {k: sum(path.get(k, 0) for path in paths) for k in rows}
+    phase_agree(torch)
+    phase_agree_serve(torch)
 
     kernels = []
     for name, (source, replaces, headers) in KERNEL_META.items():
         row = rows[name]
-        check(kernels_only or launches[name] > 0, f"kernel {name} never launched on the path")
+        check(launches[name] > 0, f"kernel {name} never launched on the path")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "headers": list(headers), "replaces": replaces,
                         "launches": launches[name],

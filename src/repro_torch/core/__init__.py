@@ -1,7 +1,8 @@
 """Optimizer core: the functional Transform API, the combinators, the
 projectors and the family plan, every named optimizer of the paper (GUM,
 unbiased GaLore-Adam, Algorithm 3, GaLore / GaLore-Muon / GoLore, Muon,
-AdamW, SGDM, Fira, LISA), and the factory."""
+AdamW, SGDM, Fira, LISA), the projected-space gradient accumulation of GUM
+(``gum_accum_tools``), and the factory."""
 from repro_torch.core.adamw import adamw, sgdm
 from repro_torch.core.api import (
     MultiState,
@@ -39,7 +40,13 @@ from repro_torch.core.factory import build_optimizer
 from repro_torch.core.family_plan import FamilyPlan, StackSeg, build_family_plan
 from repro_torch.core.fira import fira, fira_matrices
 from repro_torch.core.galore import galore, galore_matrices, golore
-from repro_torch.core.gum import gum, gum_matrices, unbiased_galore_adam
+from repro_torch.core.gum import (
+    GUMAccumTools,
+    gum,
+    gum_accum_tools,
+    gum_matrices,
+    unbiased_galore_adam,
+)
 from repro_torch.core.lisa import lisa
 from repro_torch.core.lowrank_common import default_lowrank_filter, generator_noise
 from repro_torch.core.muon import muon, muon_matrices
@@ -55,13 +62,13 @@ from repro_torch.core.projectors import (
 from repro_torch.core.unbiased import unbiased_lowrank
 
 __all__ = [
-    "FamilyPlan", "FullUpdate", "LayerwiseUnbiasState", "LowRankState", "MultiState",
+    "FamilyPlan", "FullUpdate", "GUMAccumTools", "LayerwiseUnbiasState", "LowRankState", "MultiState",
     "OptimizerConfig", "PendingBack", "ProjGrad", "StackSeg", "Transform",
     "adamw", "add_decayed_weights", "apply_updates", "build_family_plan",
     "build_optimizer", "chain", "clip_by_global_norm", "default_lowrank_filter",
     "find_lowrank_states", "fira", "fira_matrices", "galore", "galore_matrices",
     "generator_noise", "generator_sampler", "global_norm", "golore", "grass_projector",
-    "gum", "gum_matrices", "layerwise_unbias", "lisa", "lowrank", "make_projector",
+    "gum", "gum_accum_tools", "gum_matrices", "layerwise_unbias", "lisa", "lowrank", "make_projector",
     "materialize_pending", "multi_transform", "muon", "muon_matrices", "muon_scale",
     "random_projector", "rsvd_projector", "scale_by_adam", "scale_by_factor",
     "scale_by_lr", "scale_by_momentum", "scale_by_muon", "sgdm", "state_bytes",

@@ -131,8 +131,7 @@ def multi_transform(
 # Knobs of the JAX package's OptimizerConfig that the port does not run yet,
 # with the value that means "off".
 _NOT_PORTED = {
-    "pad_rank_to": 0, "rank_policy": None, "rank_ladder": (), "shard_state": False,
-    "telemetry": False,
+    "rank_policy": None, "rank_ladder": (), "shard_state": False, "telemetry": False,
 }
 
 
@@ -164,6 +163,8 @@ class OptimizerConfig:
     # Hot-loop implementation: auto | cuda | torch — "auto" runs the CUDA
     # kernels on CUDA tensors and plain PyTorch on CPU tensors.
     kernel_impl: str = "auto"
+    # Zero-pad the rank axis of the dispatched ops to a multiple of this
+    # (rounded up to 8); 0 pads nothing.
     pad_rank_to: int = 0
     # Family-stacked execution: one batched launch per shape family.
     fuse_families: bool = False
@@ -179,6 +180,8 @@ class OptimizerConfig:
     telemetry: bool = False
 
     def __post_init__(self):
+        if self.pad_rank_to < 0:
+            raise ValueError(f"pad_rank_to must be >= 0, got {self.pad_rank_to}")
         for knob, off in _NOT_PORTED.items():
             if getattr(self, knob) != off:
                 raise NotImplementedError(

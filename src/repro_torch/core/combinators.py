@@ -1,6 +1,6 @@
 """Composable optimizer combinators: the JAX package's
 ``core/combinators.py`` on PyTorch tensors, less its telemetry, rank-policy
-probes, sharded refresh and external-refresh hook.
+probes and sharded refresh.
 
 atomic gradient transforms
     scale_by_momentum    EMA momentum (SGDM; Property-II compliant)
@@ -40,6 +40,12 @@ the raw fp32 gradient and the family geometry — and at init
 (``lowrank`` back-projects them) or :class:`FullUpdate`-wrapped full-shape
 tensors (returned as they are).  PyTorch runs eagerly, so the period
 boundary is a Python ``bool`` and only the taken branch runs.
+
+``lowrank(external_refresh=True)`` leaves the period boundary to its
+``update.refresh(grads, state, params)`` hook (the projected-space gradient
+accumulation refreshes against microbatch 0's raw gradient before it
+projects); the inner transform's ``refresh_state`` hook resamples and
+resets there.
 
 ``lowrank(fuse_families=True)`` groups same-signature leaves into stacked
 ``(L, m, n)`` super-leaves (:mod:`repro_torch.core.family_plan`) and runs the
@@ -136,15 +142,16 @@ class ProjInit:
 class ProjGrad:
     """Lazy projected gradient leaf handed to transforms inside ``lowrank``."""
 
-    __slots__ = ("p", "g", "fs", "kernel_impl", "coeff", "reset", "refresh", "key",
-                 "seg")
+    __slots__ = ("p", "g", "fs", "kernel_impl", "pad_rank_to", "coeff", "reset",
+                 "refresh", "key", "seg")
 
-    def __init__(self, p, g, fs, kernel_impl, coeff=1.0, reset=False,
+    def __init__(self, p, g, fs, kernel_impl, pad_rank_to=0, coeff=1.0, reset=False,
                  refresh=False, key=None, seg=None):
         self.p = p                      # (*lead, s, r) refreshed projector
         self.g = g                      # (*lead, m, n) raw fp32 gradient
         self.fs = fs                    # FamilyShape
         self.kernel_impl = kernel_impl
+        self.pad_rank_to = pad_rank_to  # the dispatcher's rank padding
         self.coeff = coeff              # float on the projected gradient
         self.reset = reset              # zero momenta first (period boundary)
         self.refresh = refresh          # period boundary: resample blocks
@@ -153,8 +160,8 @@ class ProjGrad:
         self.seg = seg                  # StackSeg when stacked (else None)
 
     def with_coeff(self, coeff: float) -> "ProjGrad":
-        return ProjGrad(self.p, self.g, self.fs, self.kernel_impl, coeff,
-                        self.reset, self.refresh, self.key, self.seg)
+        return ProjGrad(self.p, self.g, self.fs, self.kernel_impl, self.pad_rank_to,
+                        coeff, self.reset, self.refresh, self.key, self.seg)
 
     def apply_reset(self, x):
         return torch.zeros_like(x) if self.reset else x
@@ -163,18 +170,18 @@ class ProjGrad:
         """The projected gradient PᵀG / G P through the projection kernel
         (coeff NOT applied: elementwise consumers fold it in themselves)."""
         return dispatch.project(self.p, self.g, side=self.fs.side,
-                                impl=self.kernel_impl)
+                                impl=self.kernel_impl, pad_rank_to=self.pad_rank_to)
 
     def fused_momentum(self, mu, beta: float):
         """``beta * mu + coeff * PᵀG`` through the fused momentum kernel."""
         return dispatch.lowrank_update(self.p, self.g, self.apply_reset(mu), beta,
                                        self.coeff, side=self.fs.side,
-                                       impl=self.kernel_impl)
+                                       impl=self.kernel_impl, pad_rank_to=self.pad_rank_to)
 
     def back(self, s):
         """Back-project a projected-space tensor to full shape."""
         return dispatch.back_project(self.p, s, side=self.fs.side,
-                                     impl=self.kernel_impl)
+                                     impl=self.kernel_impl, pad_rank_to=self.pad_rank_to)
 
 
 class FullUpdate:
@@ -184,6 +191,19 @@ class FullUpdate:
 
     def __init__(self, u):
         self.u = u
+
+
+class RefreshMsg:
+    """Per-leaf message of the external-refresh hook (see :func:`lowrank`):
+    the family geometry and the sampling key, a list of per-member keys and
+    the member geometry under family stacking."""
+
+    __slots__ = ("fs", "key", "seg")
+
+    def __init__(self, fs: FamilyShape, key, seg=None):
+        self.fs = fs
+        self.key = key
+        self.seg = seg
 
 
 class PendingBack:
@@ -202,16 +222,17 @@ class PendingBack:
     built-in tail does.  ``w`` is the params tensor, or a thunk that stacks
     the family's params, called only when ``decay`` is non-zero."""
 
-    __slots__ = ("p", "s", "w", "fs", "kernel_impl", "scale", "decay", "member",
-                 "members", "member_lead")
+    __slots__ = ("p", "s", "w", "fs", "kernel_impl", "pad_rank_to", "scale", "decay",
+                 "member", "members", "member_lead")
 
-    def __init__(self, p, s, w, fs, kernel_impl, scale=1.0, decay=0.0,
+    def __init__(self, p, s, w, fs, kernel_impl, pad_rank_to=0, scale=1.0, decay=0.0,
                  member=None, members=1, member_lead=()):
         self.p = p                      # projector, possibly family-stacked
         self.s = s                      # projected-space update (group key)
         self.w = w                      # params (the decay term), or a thunk
         self.fs = fs
         self.kernel_impl = kernel_impl
+        self.pad_rank_to = pad_rank_to
         self.scale = scale              # float
         self.decay = decay              # float
         self.member = member            # None = unstacked leaf
@@ -219,8 +240,9 @@ class PendingBack:
         self.member_lead = member_lead
 
     def _replace(self, scale: float, decay: float) -> "PendingBack":
-        return PendingBack(self.p, self.s, self.w, self.fs, self.kernel_impl, scale,
-                           decay, self.member, self.members, self.member_lead)
+        return PendingBack(self.p, self.s, self.w, self.fs, self.kernel_impl,
+                           self.pad_rank_to, scale, decay, self.member, self.members,
+                           self.member_lead)
 
     def scaled(self, f: float) -> "PendingBack":
         return self._replace(f * self.scale, f * self.decay)
@@ -236,7 +258,7 @@ class PendingBack:
             w = self.w() if callable(self.w) else self.w
         return dispatch.back_project_epilogue(
             self.p, self.s, w=w, scale=self.scale, decay=self.decay,
-            side=self.fs.side, impl=self.kernel_impl)
+            side=self.fs.side, impl=self.kernel_impl, pad_rank_to=self.pad_rank_to)
 
     def materialize_update(self) -> torch.Tensor:
         """This leaf alone (the ungrouped path of ``apply_updates``)."""
@@ -561,7 +583,9 @@ def lowrank(
     seed: int = 0,
     subspace_iters: int = 2,
     reset_on_refresh: bool = False,
+    external_refresh: bool = False,
     kernel_impl: str = "auto",
+    pad_rank_to: int = 0,
     fuse_families: bool = False,
     fused_epilogue: bool = False,
     noise: Optional[Noise] = None,
@@ -580,11 +604,38 @@ def lowrank(
     :func:`~repro_torch.core.lowrank_common.generator_noise`); family stacks
     draw per member with each member's key.
 
+    ``external_refresh=True`` skips the in-update refresh: the caller runs
+    the attached ``update.refresh(grads, state, params)`` hook on the step
+    (before ``update``), which recomputes the projectors on a period
+    boundary, has the inner transform resample and reset (its
+    ``refresh_state`` hook; without one, ``reset_on_refresh`` zeroes its
+    floats) and leaves ``count`` to ``update``.  Keys are the in-update
+    path's, so the trajectory is the same either way.
+
+    ``pad_rank_to`` is the dispatcher's rank padding (see
+    :func:`repro_torch.kernels.dispatch._rank_granule`).
     ``fuse_families=True`` runs the pipeline once per family stack (see the
     module docstring); the inner state is then keyed by family index.
     ``fused_epilogue=True`` returns :class:`PendingBack` leaves in place of
     back-projected ones, for the chain tail to fold into one fused launch."""
     wants_params = bool(getattr(inner.update, "wants_params", False))
+    inner_refresh_state = getattr(inner.update, "refresh_state", None)
+    in_update_refresh = not external_refresh
+
+    def _refresh_inner(state: LowRankState, msgs: dict):
+        if inner_refresh_state is not None:
+            return inner_refresh_state(state.inner, msgs)
+        return _reset_floats(state.inner) if reset_on_refresh else state.inner
+
+    def _msg(proj, g32, fs, refresh: bool, key, seg=None) -> ProjGrad:
+        refresh = refresh and in_update_refresh
+        return ProjGrad(p=proj, g=g32, fs=fs, kernel_impl=kernel_impl,
+                        pad_rank_to=pad_rank_to, reset=refresh and reset_on_refresh,
+                        refresh=refresh, key=key, seg=seg)
+
+    def _pending(msg: ProjGrad, o, w, **member) -> PendingBack:
+        return PendingBack(p=msg.p, s=o, w=w, fs=msg.fs, kernel_impl=kernel_impl,
+                           pad_rank_to=pad_rank_to, **member)
 
     def init(params: dict) -> LowRankState:
         projs, tmpls = {}, {}
@@ -609,12 +660,10 @@ def lowrank(
             fs = family_shape(p, rank)
             g32 = g.to(torch.float32)
             key = (seed, count, i)
-            if refresh:
+            if refresh and in_update_refresh:
                 proj = compute_projectors(projector, g32, fs.rank, fs.side, key=key,
                                           subspace_iters=subspace_iters, noise=noise)
-            msgs[k] = ProjGrad(p=proj, g=g32, fs=fs, kernel_impl=kernel_impl,
-                               reset=refresh and reset_on_refresh, refresh=refresh,
-                               key=key)
+            msgs[k] = _msg(proj, g32, fs, refresh, key)
             new_projs[k] = proj
 
         inner_out, new_inner = inner.update(msgs, state.inner, params)
@@ -627,11 +676,29 @@ def lowrank(
             elif isinstance(o, FullUpdate):
                 out[k] = o.u
             elif fused_epilogue:
-                out[k] = PendingBack(p=msg.p, s=o, w=params[k], fs=msg.fs,
-                                     kernel_impl=kernel_impl)
+                out[k] = _pending(msg, o, params[k])
             else:
                 out[k] = msg.back(o)
         return out, LowRankState(count=count, projs=new_projs, inner=new_inner)
+
+    def refresh(grads: dict, state: LowRankState, params: dict) -> LowRankState:
+        count = state.count + 1
+        if (count - 1) % period:
+            return state
+        msgs, new_projs = {}, {}
+        for i, (k, p) in enumerate(params.items()):
+            g, proj = grads[k], state.projs[k]
+            if g is None or p is None or proj is None:
+                msgs[k], new_projs[k] = None, proj
+                continue
+            fs = family_shape(p, rank)
+            key = (seed, count, i)
+            new_projs[k] = compute_projectors(projector, g.to(torch.float32), fs.rank,
+                                              fs.side, key=key,
+                                              subspace_iters=subspace_iters, noise=noise)
+            msgs[k] = RefreshMsg(fs=fs, key=key)
+        return LowRankState(count=state.count, projs=new_projs,
+                            inner=_refresh_inner(state, msgs))
 
     def _plan(params: dict, grads: Optional[dict] = None):
         paths, leaves = list(params), list(params.values())
@@ -644,6 +711,10 @@ def lowrank(
                             "fuse_families=True requires gradient leaves to mask "
                             f"together with param leaves ({paths[i]} has no gradient)")
         return paths, leaves, plan
+
+    def _stacked_grads(paths, updates) -> list:
+        return [None if updates[k] is None else updates[k].to(torch.float32)
+                for k in paths]
 
     def init_fused(params: dict) -> LowRankState:
         paths, _, plan = _plan(params)
@@ -660,19 +731,16 @@ def lowrank(
         count = state.count + 1
         refresh = (count - 1) % period == 0
         paths, leaves, plan = _plan(params, updates)
-        g_leaves = [None if updates[k] is None else updates[k].to(torch.float32)
-                    for k in paths]
+        g_leaves = _stacked_grads(paths, updates)
         msgs, new_projs, fam_params = {}, {}, {}
         for fi, fam in enumerate(plan.families):
             g32 = stack_family(fam, g_leaves)
             proj, keys = state.projs[fi], member_keys(fam, seed, count)
-            if refresh:
+            if refresh and in_update_refresh:
                 proj = compute_projectors(projector, g32, fam.fs.rank, fam.fs.side,
                                           key=keys, subspace_iters=subspace_iters,
                                           noise=noise)
-            msgs[fi] = ProjGrad(p=proj, g=g32, fs=fam.fs, kernel_impl=kernel_impl,
-                                reset=refresh and reset_on_refresh, refresh=refresh,
-                                key=keys, seg=fam.seg)
+            msgs[fi] = _msg(proj, g32, fam.fs, refresh, keys, fam.seg)
             new_projs[fi] = proj
             # Stacking the params costs a copy per family per step: only
             # for an inner that reads them (layerwise_unbias).
@@ -689,9 +757,8 @@ def lowrank(
                 w = fam_params[fi]
                 if w is None:  # stacked only if the decay term needs it
                     w = lambda fam=fam: stack_family(fam, leaves)
-                parts = [PendingBack(p=msg.p, s=o, w=w, fs=fam.fs, kernel_impl=kernel_impl,
-                                     member=j, members=fam.seg.members,
-                                     member_lead=fam.member_fs.lead)
+                parts = [_pending(msg, o, w, member=j, members=fam.seg.members,
+                                  member_lead=fam.member_fs.lead)
                          for j in range(fam.seg.members)]
             else:
                 parts = unstack_family(fam, msg.back(o))
@@ -699,8 +766,26 @@ def lowrank(
                 out[paths[i]] = part
         return out, LowRankState(count=count, projs=new_projs, inner=new_inner)
 
+    def refresh_fused(grads: dict, state: LowRankState, params: dict) -> LowRankState:
+        count = state.count + 1
+        if (count - 1) % period:
+            return state
+        paths, _, plan = _plan(params, grads)
+        g_leaves = _stacked_grads(paths, grads)
+        msgs, new_projs = {}, {}
+        for fi, fam in enumerate(plan.families):
+            keys = member_keys(fam, seed, count)
+            new_projs[fi] = compute_projectors(projector, stack_family(fam, g_leaves),
+                                               fam.fs.rank, fam.fs.side, key=keys,
+                                               subspace_iters=subspace_iters, noise=noise)
+            msgs[fi] = RefreshMsg(fs=fam.fs, key=keys, seg=fam.seg)
+        return LowRankState(count=state.count, projs=new_projs,
+                            inner=_refresh_inner(state, msgs))
+
     if fuse_families:
+        update_fused.refresh = refresh_fused
         return Transform(init_fused, update_fused)
+    update.refresh = refresh
     return Transform(init, update)
 
 
@@ -779,15 +864,16 @@ def layerwise_unbias(
             idx[k] = ids
         return LayerwiseUnbiasState(low=base.init(lows), full=base.init(fulls), idx=idx)
 
-    def _sample(g: ProjGrad, g_f: int) -> torch.Tensor:
-        """Fresh slot -> block ids: ``g_f`` per member, offset to the stack."""
-        if g.seg is None:
-            fresh = sampler(g.key, g.fs.L, g_f)
+    def _sample(msg, g_f: int, device: torch.device) -> torch.Tensor:
+        """Fresh slot -> block ids for a ProjGrad or RefreshMsg: ``g_f`` per
+        member, offset to the stack."""
+        if msg.seg is None:
+            fresh = sampler(msg.key, msg.fs.L, g_f)
         else:
-            mL = g.seg.member_L
+            mL = msg.seg.member_L
             fresh = torch.cat([sampler(key, mL, g_f).to(torch.long) + j * mL
-                               for j, key in enumerate(g.key)])
-        return fresh.to(device=g.g.device, dtype=torch.long)
+                               for j, key in enumerate(msg.key)])
+        return fresh.to(device=device, dtype=torch.long)
 
     def update(updates: dict, state: LayerwiseUnbiasState, params: dict):
         low_upds, new_idx, full_upds, full_params = {}, {}, {}, {}
@@ -808,13 +894,15 @@ def layerwise_unbias(
             idx = state.idx[k]
             if g.refresh:
                 refresh_any = True
-                idx = _sample(g, g_f)
+                idx = _sample(g, g_f, g.g.device)
             new_idx[k] = idx
             g_s = gather_blocks(g.g, idx, fs)        # (slots, m, n)
             p_s = gather_blocks(g.p, idx, fs)        # (slots, s, r)
+            pad = g.pad_rank_to
             pptg = dispatch.back_project(
-                p_s, dispatch.project(p_s, g_s, side=fs.side, impl=g.kernel_impl),
-                side=fs.side, impl=g.kernel_impl)
+                p_s, dispatch.project(p_s, g_s, side=fs.side, impl=g.kernel_impl,
+                                      pad_rank_to=pad),
+                side=fs.side, impl=g.kernel_impl, pad_rank_to=pad)
             full_upds[k] = c_full * (g_s - c_comp * pptg)
             full_params[k] = gather_blocks(params[k], idx, fs)
 
@@ -841,7 +929,22 @@ def layerwise_unbias(
             outs[k] = FullUpdate(u)
         return outs, LayerwiseUnbiasState(low=new_low, full=new_full, idx=new_idx)
 
+    def refresh_state(state: LayerwiseUnbiasState, msgs: dict) -> LayerwiseUnbiasState:
+        """The external refresh (``lowrank``'s ``update.refresh``): resample
+        every leaf's slots and zero both branches' momenta."""
+        new_idx = {}
+        for k, msg in msgs.items():
+            idx = state.idx[k]
+            if msg is None or idx is None:
+                new_idx[k] = idx
+                continue
+            members = msg.seg.members if msg.seg is not None else 1
+            new_idx[k] = _sample(msg, idx.shape[0] // members, idx.device)
+        return LayerwiseUnbiasState(low=_reset_floats(state.low),
+                                    full=_reset_floats(state.full), idx=new_idx)
+
     update.wants_params = True  # gathers the sampled blocks' params
+    update.refresh_state = refresh_state
     return Transform(init, update)
 
 

@@ -34,8 +34,8 @@ def build_optimizer(cfg: OptimizerConfig, *, audit: bool = False,
                                   "linter (repro.analysis), which is not ported yet")
     name = cfg.name.lower()
     fusion = {"fuse_families": cfg.fuse_families, "fused_epilogue": cfg.fused_epilogue}
-    lowrank_kw = {"seed": cfg.seed, "kernel_impl": cfg.kernel_impl, "noise": noise,
-                  **fusion}
+    lowrank_kw = {"seed": cfg.seed, "kernel_impl": cfg.kernel_impl,
+                  "pad_rank_to": cfg.pad_rank_to, "noise": noise, **fusion}
     muon_scale = {} if cfg.use_muon_scale is None else {"use_muon_scale": cfg.use_muon_scale}
     if name == "adamw":
         return adamw(cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,

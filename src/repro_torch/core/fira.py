@@ -43,6 +43,7 @@ def fira_matrices(
     limiter: float = 1.01,
     seed: int = 0,
     kernel_impl: str = "auto",
+    pad_rank_to: int = 0,
     noise: Optional[Noise] = None,
     fuse_families: bool = False,
     fused_epilogue: bool = False,
@@ -53,7 +54,7 @@ def fira_matrices(
             with_fira_residual(scale_by_adam(b1=b1, b2=b2, eps=eps), limiter=limiter,
                                eps=eps),
             rank=rank, period=period, projector=projector, seed=seed,
-            kernel_impl=kernel_impl, fuse_families=fuse_families,
+            kernel_impl=kernel_impl, pad_rank_to=pad_rank_to, fuse_families=fuse_families,
             fused_epilogue=fused_epilogue, noise=noise,
         ),
         scale_by_factor(scale),

@@ -18,7 +18,9 @@ routed beside AdamW for the non-matrix leaves (embeddings, norms).
 
 ``projector`` is any of svd | subspace | rsvd | random | grass (``noise``
 replaces the projector's random draws, see ``lowrank``).
-``fuse_families`` runs the projected pipeline once per shape family;
+``pad_rank_to`` pads the rank axis of the dispatched ops (see
+``kernels/dispatch.py``).  ``fuse_families`` runs the projected pipeline
+once per shape family;
 ``fused_epilogue`` folds ``-lr``, ``wd`` and the back-projection into one
 ``back_project_epilogue`` launch per family.  ``kernel_impl`` ("auto" |
 "cuda" | "torch") routes the hot ops through the CUDA kernels on CUDA
@@ -62,6 +64,7 @@ def galore_matrices(
     seed: int = 0,
     subspace_iters: int = 2,
     kernel_impl: str = "auto",
+    pad_rank_to: int = 0,
     fuse_families: bool = False,
     fused_epilogue: bool = False,
     noise: Optional[Noise] = None,
@@ -78,7 +81,8 @@ def galore_matrices(
     return chain(
         lowrank(inner, rank=rank, period=period, projector=projector, seed=seed,
                 subspace_iters=subspace_iters, reset_on_refresh=reset_on_update,
-                kernel_impl=kernel_impl, fuse_families=fuse_families,
+                kernel_impl=kernel_impl, pad_rank_to=pad_rank_to,
+                fuse_families=fuse_families,
                 fused_epilogue=fused_epilogue, noise=noise),
         add_decayed_weights(weight_decay),
         scale_by_lr(lr),

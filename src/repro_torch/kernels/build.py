@@ -13,7 +13,9 @@ of the package on a machine without ``nvcc``.
 pointer as ``c_void_p``, launches on the operands' device and that device's
 current PyTorch stream, raises when
 the C entry point returns a non-zero ``cudaGetLastError()`` code, and only
-then adds one to that kernel's count in :data:`LAUNCHES`.
+then adds one to that kernel's count in :data:`LAUNCHES` and to the count of
+the template instantiation it ran in :data:`VARIANTS` (each C entry point
+reports it through its ``int* variant`` out-argument).
 """
 from __future__ import annotations
 
@@ -32,20 +34,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# kernel name -> C argument types (pointers and the stream as c_void_p)
+# kernel name -> C argument types (pointers, the variant out-argument and the
+# stream as c_void_p; the last two are always the variant and the stream)
 SIGNATURES = {
-    "lowrank_update": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
-    "back_project": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "back_project_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    "gram": (_P, _P, _I, _I, _I, _P),
-    "poly_apply": (_P, _P, _P, _I, _I, _I, _F, _P),
-    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "lowrank_update": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P),
+    "back_project": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "back_project_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "gram": (_P, _P, _I, _I, _I, _P, _P),
+    "poly_apply": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
+    "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 KERNELS = tuple(SIGNATURES)
+VARIANT_LEN = 8  # csrc/tf32x3.cuh
 
 # Launches per kernel since the last reset_launches(); only launch() adds.
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# Launches per kernel and template instantiation since the last
+# reset_launches(): {name: {template arguments: launches}}, the arguments in
+# the kernel's template order, bools as 0 / 1 (e.g. back_project (64, 64,
+# 1, 1): a 64 x 64 tile, P read K-major on the right side, 16-byte copies).
+VARIANTS: dict[str, dict[tuple[int, ...], int]] = {name: {} for name in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -53,6 +62,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+        VARIANTS[name] = {}
 
 
 def _nvcc() -> str:
@@ -135,12 +145,16 @@ def launch(name: str, device: torch.device, *args) -> None:
     device's current stream, with C ``args`` (tensors pass their
     ``data_ptr()``; None passes a null pointer)."""
     fn = getattr(library(name), name)
+    variant = (ctypes.c_int * VARIANT_LEN)(*([-1] * VARIANT_LEN))
     with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(*args, ctypes.addressof(variant),
+                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
     LAUNCHES[name] += 1
+    key = tuple(v for v in variant if v != -1)
+    VARIANTS[name][key] = VARIANTS[name].get(key, 0) + 1
 
 
 def check_operands(device: torch.device, *, ndim: int = 3, dtype_error=TypeError,

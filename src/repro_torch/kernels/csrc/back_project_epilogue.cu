@@ -38,17 +38,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) back_project_epilogue_ker
 }
 
 template <int BM, int BN, bool B_KC, bool VEC>
-int launch_tile(const Args& p, int L, cudaStream_t stream) {
+int launch_tile(const Args& p, int L, int* variant, cudaStream_t stream) {
   constexpr auto kernel = back_project_epilogue_kernel<BM, BN, B_KC, VEC>;
+  repro_torch::report_variant(variant, BM, BN, B_KC, VEC);
   return launch<kernel, Tile<BM, BN, true, B_KC>>(p, L, stream);
 }
 
 template <bool B_KC, bool VEC>
-int launch_tiled(const Args& p, int L, cudaStream_t stream) {
+int launch_tiled(const Args& p, int L, int* variant, cudaStream_t stream) {
   switch (pick_tile(p, L)) {
-    case 64064: return launch_tile<64, 64, B_KC, VEC>(p, L, stream);
-    case 64032: return launch_tile<64, 32, B_KC, VEC>(p, L, stream);
-    default: return launch_tile<32, 32, B_KC, VEC>(p, L, stream);
+    case 64064: return launch_tile<64, 64, B_KC, VEC>(p, L, variant, stream);
+    case 64032: return launch_tile<64, 32, B_KC, VEC>(p, L, variant, stream);
+    default: return launch_tile<32, 32, B_KC, VEC>(p, L, variant, stream);
   }
 }
 
@@ -61,7 +62,7 @@ int launch_tiled(const Args& p, int L, cudaStream_t stream) {
 extern "C" int back_project_epilogue(const float* p, const float* s, const float* w,
                                      float* out, int L, int m, int r, int n,
                                      int right, float scale, float decay,
-                                     void* stream) {
+                                     int* variant, void* stream) {
   if (L <= 0 || m <= 0 || r <= 0 || n <= 0 || (right != 0 && right != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
@@ -90,6 +91,6 @@ extern "C" int back_project_epilogue(const float* p, const float* s, const float
   const bool vec = rows_aligned16(a);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (right)
-    return vec ? launch_tiled<true, true>(a, L, st) : launch_tiled<true, false>(a, L, st);
-  return vec ? launch_tiled<false, true>(a, L, st) : launch_tiled<false, false>(a, L, st);
+    return vec ? launch_tiled<true, true>(a, L, variant, st) : launch_tiled<true, false>(a, L, variant, st);
+  return vec ? launch_tiled<false, true>(a, L, variant, st) : launch_tiled<false, false>(a, L, variant, st);
 }

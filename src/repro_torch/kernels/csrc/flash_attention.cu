@@ -24,11 +24,16 @@
 // running state never leaves registers.  Against the four limits of the
 // fp32 SIMT kernel this replaces:
 //  1. Tensor cores.  Both products are mma.sync.m16n8k8 TF32 with fp32
-//     accumulation, each operand split as it is read (tf32x3.cuh).  Each kv
-//     tile's scores, and its P V, sum from zero on the tensor cores (at most
-//     128 and 32 deep, so the accumulator's truncation stays far below
-//     2^-21); acc = alpha * acc + (P V of the tile) carries the output in
-//     fp32, as the Pallas kernel's scratch does.  Q's fragments are read
+//     accumulation, each operand split as it is read (tf32x3.cuh).  The
+//     accumulator truncates each add toward zero, so a long sum drifts:
+//     each kv tile's scores sum on the tensor cores in 32-deep slices from
+//     zero, the slices added in fp32, as the GEMM core's do (at D = 128 one
+//     128-deep sum left the output 1.4x farther from fp64 than the fp32
+//     plain path: tools/flash_attention_seed_sweep.py, and the model in
+//     tests/test_torch_tf32x3.py), and its P V, 32 deep, from zero; acc =
+//     alpha * acc + (P V of the tile) carries the output in fp32, as the
+//     Pallas kernel's scratch does.  The slice's accumulator is live only
+//     while the scores form, when P V's is not.  Q's fragments are read
 //     from shared memory and split again at every tile: held split in
 //     registers (with 64-row kv tiles) they took the kernel to 239 registers
 //     at D = 64 and two blocks an SM; re-read, it needs 128, and four blocks
@@ -69,6 +74,7 @@ using namespace repro_torch;
 
 constexpr int BQ = 64;       // query rows per block, 16 per warp
 constexpr int BKV = 32;      // kv rows a tile
+constexpr int KSL = 4;       // k8 steps of a slice of Q K^T (32 deep)
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int STAGES = 2;    // K/V tiles in the ring
@@ -220,10 +226,10 @@ __global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
     const float* Ks = ring + (it % STAGES) * L::STAGE_FLOATS;
     const float* Vs = Ks + L::KV_FLOATS;
 
-    // S = Q K^T, from zero.  Q's A fragment of the warp's 16 rows: a0 (g, t),
-    // a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B(k = d, n = kv) = K[kv][d]:
-    // b0 (t, g), b1 (t+4, g).
-    float s[NS][4];
+    // S = Q K^T in slices of KSL k8 steps, each from zero, added in fp32.
+    // Q's A fragment of the warp's 16 rows: a0 (g, t), a1 (g+8, t), a2 (g,
+    // t+4), a3 (g+8, t+4); B(k = d, n = kv) = K[kv][d]: b0 (t, g), b1 (t+4, g).
+    float s[NS][4], slice[NS][4];
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
       uint32_t ahi[4], alo[4];
@@ -237,7 +243,13 @@ __global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
         uint32_t bhi[2], blo[2];
         split_tf32(kr[0], bhi[0], blo[0]);
         split_tf32(kr[4], bhi[1], blo[1]);
-        mma_3xtf32(s[j], ahi, alo, bhi, blo, kk == 0 ? zero : s[j]);
+        mma_3xtf32(slice[j], ahi, alo, bhi, blo, kk % KSL == 0 ? zero : slice[j]);
+      }
+      if (kk % KSL == KSL - 1 || kk == KD - 1) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) s[j][v] = kk < KSL ? slice[j][v] : s[j][v] + slice[j][v];
       }
     }
 
@@ -330,8 +342,9 @@ bool aligned(const void* ptr, uintptr_t bytes) {
 }
 
 template <int DP>
-int launch(const FlashArgs& a, cudaStream_t stream) {
+int launch(const FlashArgs& a, int* variant, cudaStream_t stream) {
   using L = Layout<DP>;
+  report_variant(variant, DP, a.vec);
   const cudaError_t err = allow_smem<flash_attention_kernel<DP>>(L::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.H, a.B, (a.S + BQ - 1) / BQ);
@@ -345,15 +358,15 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 // device; H % KV == 0, D % 4 == 0, D <= 128 (the wrapper checks).
 extern "C" int flash_attention(const float* q, const float* k, const float* v, float* o,
                                int B, int S, int T, int H, int KV, int D, float scale,
-                               int causal, void* stream) {
+                               int causal, int* variant, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 4 != 0 ||
       D > 128 || B > 65535 || (S + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = aligned(q, 16) && aligned(k, 16) && aligned(v, 16) && aligned(o, 16);
   const FlashArgs a{q, k, v, o, B, S, T, H, KV, D, scale, causal, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch<16>(a, s);
-  if (D <= 32) return launch<32>(a, s);
-  if (D <= 64) return launch<64>(a, s);
-  return launch<128>(a, s);
+  if (D <= 16) return launch<16>(a, variant, s);
+  if (D <= 32) return launch<32>(a, variant, s);
+  if (D <= 64) return launch<64>(a, variant, s);
+  return launch<128>(a, variant, s);
 }

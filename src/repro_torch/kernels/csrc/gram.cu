@@ -40,8 +40,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) gram_kernel(Args p) {
 }
 
 template <int B, bool VEC>
-int launch_tile(const Args& p, int L, cudaStream_t stream) {
+int launch_tile(const Args& p, int L, int* variant, cudaStream_t stream) {
   constexpr auto kernel = gram_kernel<B, VEC>;
+  repro_torch::report_variant(variant, B, VEC);
   return launch<kernel, Tile<B, B, true, true>, true>(p, L, stream);
 }
 
@@ -59,7 +60,8 @@ bool valid(int L, int s, int n) { return L > 0 && s > 0 && n > 0; }
 // x (L, s, n), out (L, s, s); contiguous fp32 on the device.  Returns
 // cudaGetLastError() (0 on success): a refused launch never runs, so the
 // caller must check the code.
-extern "C" int gram(const float* x, float* out, int L, int s, int n, void* stream) {
+extern "C" int gram(const float* x, float* out, int L, int s, int n, int* variant,
+                    void* stream) {
   if (!valid(L, s, n)) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.a = x;  // A(i, k) = X[i, k]; B(k, j) = X[j, k], set in the kernel
@@ -78,8 +80,10 @@ extern "C" int gram(const float* x, float* out, int L, int s, int n, void* strea
   const bool vec = rows_aligned16(a);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pick_gram_tile(L, s) == 64064)
-    return vec ? launch_tile<64, true>(a, L, st) : launch_tile<64, false>(a, L, st);
-  return vec ? launch_tile<32, true>(a, L, st) : launch_tile<32, false>(a, L, st);
+    return vec ? launch_tile<64, true>(a, L, variant, st)
+               : launch_tile<64, false>(a, L, variant, st);
+  return vec ? launch_tile<32, true>(a, L, variant, st)
+             : launch_tile<32, false>(a, L, variant, st);
 }
 
 // The square tile gram picks for these operands, as B * 1000 + B (64064 or

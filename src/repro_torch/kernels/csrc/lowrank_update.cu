@@ -44,17 +44,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) lowrank_update_kernel(Arg
 }
 
 template <int BM, int BN, bool A_KC, bool VEC>
-int launch_tile(const Args& p, int L, cudaStream_t stream) {
+int launch_tile(const Args& p, int L, int* variant, cudaStream_t stream) {
   constexpr auto kernel = lowrank_update_kernel<BM, BN, A_KC, VEC>;
+  repro_torch::report_variant(variant, BM, BN, A_KC, VEC);
   return launch<kernel, Tile<BM, BN, A_KC, false>>(p, L, stream);
 }
 
 template <bool A_KC, bool VEC>
-int launch_tiled(const Args& p, int L, cudaStream_t stream) {
+int launch_tiled(const Args& p, int L, int* variant, cudaStream_t stream) {
   switch (pick_tile(p, L)) {
-    case 64064: return launch_tile<64, 64, A_KC, VEC>(p, L, stream);
-    case 64032: return launch_tile<64, 32, A_KC, VEC>(p, L, stream);
-    default: return launch_tile<32, 32, A_KC, VEC>(p, L, stream);
+    case 64064: return launch_tile<64, 64, A_KC, VEC>(p, L, variant, stream);
+    case 64032: return launch_tile<64, 32, A_KC, VEC>(p, L, variant, stream);
+    default: return launch_tile<32, 32, A_KC, VEC>(p, L, variant, stream);
   }
 }
 
@@ -79,7 +80,7 @@ void set_dims(Args& a, int m, int r, int n, int side) {
 // launch never runs, so the caller must check the code.
 extern "C" int lowrank_update(const float* p, const float* g, const float* r_state,
                               float* out, int L, int m, int r, int n, float beta,
-                              float coeff, int side, void* stream) {
+                              float coeff, int side, int* variant, void* stream) {
   if (L <= 0 || m <= 0 || r <= 0 || n <= 0 || (side != 0 && side != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
@@ -109,8 +110,8 @@ extern "C" int lowrank_update(const float* p, const float* g, const float* r_sta
   const bool vec = rows_aligned16(a);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (side == 0)
-    return vec ? launch_tiled<false, true>(a, L, s) : launch_tiled<false, false>(a, L, s);
-  return vec ? launch_tiled<true, true>(a, L, s) : launch_tiled<true, false>(a, L, s);
+    return vec ? launch_tiled<false, true>(a, L, variant, s) : launch_tiled<false, false>(a, L, variant, s);
+  return vec ? launch_tiled<true, true>(a, L, variant, s) : launch_tiled<true, false>(a, L, variant, s);
 }
 
 // The block tile lowrank_update picks for these operands, as BM * 1000 + BN

@@ -29,17 +29,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) poly_apply_kernel(Args p)
 }
 
 template <int BM, int BN, bool VEC>
-int launch_tile(const Args& p, int L, cudaStream_t stream) {
+int launch_tile(const Args& p, int L, int* variant, cudaStream_t stream) {
   constexpr auto kernel = poly_apply_kernel<BM, BN, VEC>;
+  repro_torch::report_variant(variant, BM, BN, VEC);
   return launch<kernel, Tile<BM, BN, true, false>>(p, L, stream);
 }
 
 template <bool VEC>
-int launch_tiled(const Args& p, int L, cudaStream_t stream) {
+int launch_tiled(const Args& p, int L, int* variant, cudaStream_t stream) {
   switch (pick_tile(p, L)) {
-    case 64064: return launch_tile<64, 64, VEC>(p, L, stream);
-    case 64032: return launch_tile<64, 32, VEC>(p, L, stream);
-    default: return launch_tile<32, 32, VEC>(p, L, stream);
+    case 64064: return launch_tile<64, 64, VEC>(p, L, variant, stream);
+    case 64032: return launch_tile<64, 32, VEC>(p, L, variant, stream);
+    default: return launch_tile<32, 32, VEC>(p, L, variant, stream);
   }
 }
 
@@ -51,7 +52,7 @@ bool valid(int L, int s, int n) { return L > 0 && s > 0 && n > 0; }
 // Returns cudaGetLastError() (0 on success): a refused launch never runs, so
 // the caller must check the code.
 extern "C" int poly_apply(const float* a2, const float* x, float* out, int L, int s,
-                          int n, float a, void* stream) {
+                          int n, float a, int* variant, void* stream) {
   if (!valid(L, s, n)) return static_cast<int>(cudaErrorInvalidValue);
   Args g{};
   g.a = a2;  // A(i, k) = A2[i, k]: k contiguous
@@ -71,7 +72,8 @@ extern "C" int poly_apply(const float* a2, const float* x, float* out, int L, in
   g.beta = a;
   set_out_vec(g);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return rows_aligned16(g) ? launch_tiled<true>(g, L, st) : launch_tiled<false>(g, L, st);
+  return rows_aligned16(g) ? launch_tiled<true>(g, L, variant, st)
+                           : launch_tiled<false>(g, L, variant, st);
 }
 
 // The block tile poly_apply picks for these operands, as BM * 1000 + BN

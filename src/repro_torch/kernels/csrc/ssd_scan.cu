@@ -110,8 +110,10 @@ __global__ void __launch_bounds__(tc::THREADS, tc::MIN_BLOCKS)
 }
 
 template <int BM, int BN, bool VEC>
-int launch_cb(const tc::Args& p, const CbGeom& geo, int L, cudaStream_t stream) {
+int launch_cb(const tc::Args& p, const CbGeom& geo, int L, int* variant,
+              cudaStream_t stream) {
   constexpr auto kernel = ssd_cb_kernel<BM, BN, VEC>;
+  report_variant(variant, BM, BN, VEC);
   using T = tc::Tile<BM, BN, true, true>;
   const cudaError_t err = allow_smem<kernel>(T::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -531,9 +533,16 @@ __global__ void __launch_bounds__(Geometry<WC>::THREADS, Geometry<WC>::MIN_BLOCK
   }
 }
 
+// The variant's slots 3-5: the scan kernel's template arguments (x bf16,
+// VEC, WC) after the C B^T kernel's three.
 template <typename XT, bool VEC, int WC>
-int launch_scan(const ScanArgs& a, cudaStream_t stream) {
+int launch_scan(const ScanArgs& a, int* variant, cudaStream_t stream) {
   using Geo = Geometry<WC>;
+  if (variant != nullptr) {
+    variant[3] = sizeof(XT) == 2;
+    variant[4] = VEC;
+    variant[5] = WC;
+  }
   constexpr auto kernel = ssd_scan_kernel<XT, VEC, WC>;
   const cudaError_t err = allow_smem<kernel>(smem_bytes<XT, WC>(MAX_CHUNK));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -548,13 +557,13 @@ int launch_scan(const ScanArgs& a, cudaStream_t stream) {
 // while their blocks cover more than half the SMs (measured at mamba2-370m's
 // prefill, 128 blocks, and at half its batch, 64: PERF.md).
 template <typename XT, bool VEC>
-int launch_scan(const ScanArgs& a, cudaStream_t stream) {
+int launch_scan(const ScanArgs& a, int* variant, cudaStream_t stream) {
   const long long wide_blocks = static_cast<long long>(a.B) * a.H * ((a.P + 63) / 64);
-  return 2 * wide_blocks > tc::SMS ? launch_scan<XT, VEC, 2>(a, stream)
-                                   : launch_scan<XT, VEC, 1>(a, stream);
+  return 2 * wide_blocks > tc::SMS ? launch_scan<XT, VEC, 2>(a, variant, stream)
+                                   : launch_scan<XT, VEC, 1>(a, variant, stream);
 }
 
-int launch_all(const ScanArgs& a, int x_bf16, cudaStream_t stream) {
+int launch_all(const ScanArgs& a, int x_bf16, int* variant, cudaStream_t stream) {
   // C B^T: A(i, k) = c[i, k], B(k, j) = b[j, k], members (batch row, chunk)
   // placed by the kernel itself (a_batch and b_batch unused).
   tc::Args cb{};
@@ -579,21 +588,22 @@ int launch_all(const ScanArgs& a, int x_bf16, cudaStream_t stream) {
   int rc;
   switch (tile) {
     case 64064:
-      rc = launch_cb<64, 64, true>(cb, geo, L, stream);
+      rc = launch_cb<64, 64, true>(cb, geo, L, variant, stream);
       break;
     case 64032:
-      rc = vec ? launch_cb<64, 32, true>(cb, geo, L, stream)
-               : launch_cb<64, 32, false>(cb, geo, L, stream);
+      rc = vec ? launch_cb<64, 32, true>(cb, geo, L, variant, stream)
+               : launch_cb<64, 32, false>(cb, geo, L, variant, stream);
       break;
     default:
-      rc = vec ? launch_cb<32, 32, true>(cb, geo, L, stream)
-               : launch_cb<32, 32, false>(cb, geo, L, stream);
+      rc = vec ? launch_cb<32, 32, true>(cb, geo, L, variant, stream)
+               : launch_cb<32, 32, false>(cb, geo, L, variant, stream);
   }
   if (rc != 0) return rc;
   if (x_bf16)
-    return vec ? launch_scan<__nv_bfloat16, true>(a, stream)
-               : launch_scan<__nv_bfloat16, false>(a, stream);
-  return vec ? launch_scan<float, true>(a, stream) : launch_scan<float, false>(a, stream);
+    return vec ? launch_scan<__nv_bfloat16, true>(a, variant, stream)
+               : launch_scan<__nv_bfloat16, false>(a, variant, stream);
+  return vec ? launch_scan<float, true>(a, variant, stream)
+             : launch_scan<float, false>(a, variant, stream);
 }
 
 }  // namespace
@@ -606,7 +616,7 @@ int launch_all(const ScanArgs& a, int x_bf16, cudaStream_t stream) {
 // success): a refused launch never runs, so the caller must check the code.
 extern "C" int ssd_scan(const void* x, const float* dt, const float* g, const float* b,
                         const float* c, float* cb, float* y, float* state, int B, int S, int H,
-                        int P, int N, int chunk, int x_bf16, void* stream) {
+                        int P, int N, int chunk, int x_bf16, int* variant, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > MAX_P || N <= 0 || N > MAX_N ||
       chunk <= 0 || chunk > MAX_CHUNK || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -617,5 +627,5 @@ extern "C" int ssd_scan(const void* x, const float* dt, const float* g, const fl
   const int yvec = P % 2 == 0 && tc::aligned(y, 8) && tc::aligned(state, 8);
   const ScanArgs a{x, dt, g, b, c, cb, y, state, B, S, H, P, N, chunk, nch, (chunk + 3) / 4 * 4,
                    xvec, yvec};
-  return launch_all(a, x_bf16, static_cast<cudaStream_t>(stream));
+  return launch_all(a, x_bf16, variant, static_cast<cudaStream_t>(stream));
 }

@@ -13,6 +13,19 @@
 
 namespace repro_torch {
 
+// Every C entry point reports the template arguments of the kernel it
+// launched through an out-argument of VARIANT_LEN ints, in the kernel's
+// template order, bools as 0 / 1, unused slots -1 (a null pointer: nothing
+// is reported).  kernels/build.py records them beside its launch counts.
+constexpr int VARIANT_LEN = 8;
+
+inline void report_variant(int* out, int a0, int a1 = -1, int a2 = -1, int a3 = -1,
+                           int a4 = -1, int a5 = -1) {
+  if (out == nullptr) return;
+  const int vals[6] = {a0, a1, a2, a3, a4, a5};
+  for (int i = 0; i < VARIANT_LEN; ++i) out[i] = i < 6 ? vals[i] : -1;
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),

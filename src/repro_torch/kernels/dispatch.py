@@ -10,7 +10,12 @@ Mirrors the JAX package's ``kernels/dispatch.py`` op for op:
 
 There is no quiet fallback: on a CUDA tensor an op launches its kernel or
 raises, whatever the shape — the kernels mask ragged edges themselves, so
-there are no padding wrappers and no shape-legality limits.  On top of the
+there are no shape-legality limits.  ``pad_rank_to > 0`` (the reference's
+opt-in lane alignment) zero-pads the rank axis to a multiple of
+:func:`_rank_granule` before the momentum update, the projection and both
+back-projections, and slices the pad off after, on either impl: zero
+projector columns add zero rows to PᵀG and nothing to P S, so the numbers
+are those of ``pad_rank_to=0``, which pads nothing.  On top of the
 kernels' ``(L, a, b)`` contract the dispatchers add lead flattening of
 ``(*lead, m, n)`` families and Newton–Schulz's transposition to the short
 side.  The momentum update, the projection, the back-projection and the
@@ -67,6 +72,45 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+_SUBLANE = 8  # the reference's fp32 sublane granule
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def _rank_granule(pad_rank_to: int) -> int:
+    """The multiple the rank axis is padded to: ``pad_rank_to`` rounded up
+    to the 8-row granule (e.g. 128: r = 96 runs at 128).  At 0 the
+    reference pads to the granule itself, which the CUDA kernels do not
+    need (they mask ragged edges), so the port pads nothing there."""
+    if pad_rank_to < 0:
+        raise ValueError(f"pad_rank_to must be >= 0, got {pad_rank_to}")
+    return max(_SUBLANE, _round_up(pad_rank_to, _SUBLANE)) if pad_rank_to else _SUBLANE
+
+
+def _padded_rank(r: int, pad_rank_to: int) -> int:
+    granule = _rank_granule(pad_rank_to)
+    return _round_up(r, granule) if pad_rank_to else r
+
+
+def _pad_axis(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
+    """``x`` zero-padded at the end of ``axis`` (negative) to ``size``."""
+    if x.shape[axis] == size:
+        return x
+    widths = [0, 0] * (-axis - 1) + [0, size - x.shape[axis]]
+    return torch.nn.functional.pad(x, widths)
+
+
+def _unpad(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
+    return x if x.shape[axis] == size else x.narrow(axis, 0, size).contiguous()
+
+
+def _rank_axis(side: str) -> int:
+    """The rank axis of a projected-space array: (r, n) left, (m, r) right."""
+    return -2 if side == "left" else -1
+
+
 # --------------------------------------------------------------------------
 # Fused low-rank momentum update:  R' = beta·R + coeff·<P, G>
 # --------------------------------------------------------------------------
@@ -79,7 +123,8 @@ def _project_torch(p, g, side):
 
 
 def lowrank_update(p, g, r_state, beta: float, coeff: float, *,
-                   side: str = "left", impl: str = "auto") -> torch.Tensor:
+                   side: str = "left", impl: str = "auto",
+                   pad_rank_to: int = 0) -> torch.Tensor:
     """Dispatched momentum update over a family ``g (*lead, m, n)``.
 
     left  side: p (*lead, m, r), r_state (*lead, r, n) -> beta·R + coeff·PᵀG
@@ -88,25 +133,33 @@ def lowrank_update(p, g, r_state, beta: float, coeff: float, *,
     _check_side(side)
     impl = resolve_impl(impl, g)
     launch_count.record("lowrank_update")
+    r, axis = p.shape[-1], _rank_axis(side)
+    rp = _padded_rank(r, pad_rank_to)
+    p = _pad_axis(p, -1, rp)
+    if r_state is not None:
+        r_state = _pad_axis(r_state, axis, rp)
     if impl == "torch":
-        return beta * _f32(r_state) + coeff * _project_torch(p, g, side)
+        return _unpad(beta * _f32(r_state) + coeff * _project_torch(p, g, side), axis, r)
     # Leads flatten; both sides keep their own layout (the kernel takes the
     # right side natively).
     rk = None if r_state is None else _flatten_lead(_f32(r_state))
     out = lowrank_update_batched(_flatten_lead(_f32(p)), _flatten_lead(_f32(g)), rk,
                                  beta, coeff, side=side)
-    return out.reshape(tuple(g.shape[:-2]) + tuple(out.shape[-2:]))
+    return _unpad(out.reshape(tuple(g.shape[:-2]) + tuple(out.shape[-2:])), axis, r)
 
 
-def project(p, g, *, side: str = "left", impl: str = "auto") -> torch.Tensor:
+def project(p, g, *, side: str = "left", impl: str = "auto",
+            pad_rank_to: int = 0) -> torch.Tensor:
     """Low-rank projection PᵀG / G P through the projection kernel."""
     _check_side(side)
     impl = resolve_impl(impl, g)
     launch_count.record("project")
+    r, axis = p.shape[-1], _rank_axis(side)
+    p = _pad_axis(p, -1, _padded_rank(r, pad_rank_to))
     if impl == "torch":
-        return _project_torch(p, g, side)
+        return _unpad(_project_torch(p, g, side), axis, r)
     out = project_batched(_flatten_lead(_f32(p)), _flatten_lead(_f32(g)), side=side)
-    return out.reshape(tuple(g.shape[:-2]) + tuple(out.shape[-2:]))
+    return _unpad(out.reshape(tuple(g.shape[:-2]) + tuple(out.shape[-2:])), axis, r)
 
 
 # --------------------------------------------------------------------------
@@ -114,7 +167,14 @@ def project(p, g, *, side: str = "left", impl: str = "auto") -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def back_project(p, s, *, side: str = "left", impl: str = "auto") -> torch.Tensor:
+def _pad_rank_pair(p, s, side: str, pad_rank_to: int):
+    """P and the projected-space S, both zero-padded on the rank axis."""
+    rp = _padded_rank(p.shape[-1], pad_rank_to)
+    return _pad_axis(p, -1, rp), _pad_axis(s, _rank_axis(side), rp)
+
+
+def back_project(p, s, *, side: str = "left", impl: str = "auto",
+                 pad_rank_to: int = 0) -> torch.Tensor:
     """Dispatched back-projection of a projected-space array to full shape.
 
     left  side: p (*lead, m, r), s (*lead, r, n) -> P @ S
@@ -123,6 +183,7 @@ def back_project(p, s, *, side: str = "left", impl: str = "auto") -> torch.Tenso
     _check_side(side)
     impl = resolve_impl(impl, s)
     launch_count.record("back_project")
+    p, s = _pad_rank_pair(p, s, side, pad_rank_to)
     if impl == "torch":
         from repro_torch.core.lowrank_common import back_project as bp
 
@@ -132,7 +193,8 @@ def back_project(p, s, *, side: str = "left", impl: str = "auto") -> torch.Tenso
 
 
 def back_project_epilogue(p, s, *, w=None, scale: float = 1.0, decay: float = 0.0,
-                          side: str = "left", impl: str = "auto") -> torch.Tensor:
+                          side: str = "left", impl: str = "auto",
+                          pad_rank_to: int = 0) -> torch.Tensor:
     """Fused write-back of a projected-space update, ``scale·back_project(p,
     s) + decay·W`` in one launch (see :mod:`repro_torch.kernels.fused_step`):
     the materialization of ``combinators.PendingBack``, where scale carries
@@ -145,6 +207,7 @@ def back_project_epilogue(p, s, *, w=None, scale: float = 1.0, decay: float = 0.
     _check_side(side)
     impl = resolve_impl(impl, s)
     launch_count.record("back_project_epilogue")
+    p, s = _pad_rank_pair(p, s, side, pad_rank_to)
     if impl == "torch":
         from repro_torch.core.lowrank_common import back_project as bp
 

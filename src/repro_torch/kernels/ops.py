@@ -1,5 +1,5 @@
-"""Public attention and SSD ops with the JAX package's ``impl`` names
-(the port of its ``kernels/ops.py``).
+"""Public attention, SSD and optimizer ops with the JAX package's ``impl``
+names (the port of its ``kernels/ops.py``).
 
 ``impl`` for :func:`attention` and :func:`ssd` (``cfg.attn_impl``):
   "xla"          — the plain full-sequence version (``ref.attention_ref``,
@@ -12,7 +12,9 @@
 As in the reference, :func:`ssd` runs the kernel for every impl but "xla"
 (``models/mamba2.py`` passes "xla" through and any other name on).  Decode
 has no kernel in the reference either: :func:`decode_attention` and
-:func:`ssd_decode_step` are the plain versions.  The kernel ops are not
+:func:`ssd_decode_step` are the plain versions.  :func:`newton_schulz` and
+:func:`lowrank_update` take "xla" for the plain version and hand any other
+name to :mod:`repro_torch.kernels.dispatch` ("pallas" as "auto").  The kernel ops are not
 dispatch ops: ``launch_count.DISPATCH_OPS`` keeps the reference's optimizer
 vocabulary, and the kernels count their launches in ``build.LAUNCHES``.
 """
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -46,6 +48,27 @@ def decode_attention(q, k, v, pos) -> torch.Tensor:
     """One query token per row over the (B, Smax, KV, D) cache, positions
     0..pos of each row (``pos`` an int or (B,))."""
     return ref.decode_attention_ref(q, k, v, pos)
+
+
+def _dispatch_impl(impl: str) -> str:
+    return "auto" if impl == "pallas" else impl
+
+
+def newton_schulz(x: torch.Tensor, *, steps: int = 5, impl: str = "xla") -> torch.Tensor:
+    """Batched (…, m, n) Newton–Schulz."""
+    if impl == "xla":
+        from repro_torch.core.newton_schulz import newton_schulz_plain
+
+        return newton_schulz_plain(x, steps=steps)
+    return dispatch.newton_schulz(x, steps=steps, impl=_dispatch_impl(impl))
+
+
+def lowrank_update(p: torch.Tensor, g: torch.Tensor, r_state: torch.Tensor, beta: float,
+                   coeff: float, *, impl: str = "xla") -> torch.Tensor:
+    """``beta·R + coeff·PᵀG`` for p (L, m, r), g (L, m, n), R (L, r, n)."""
+    if impl == "xla":
+        return ref.lowrank_update_ref(p, g, r_state, beta, coeff)
+    return dispatch.lowrank_update(p, g, r_state, beta, coeff, impl=_dispatch_impl(impl))
 
 
 def ssd(x, dt, a, b, c, d, *, chunk: int = 64,

@@ -1,51 +1,152 @@
 """The train, prefill and serve steps (the port of the JAX package's
-``launch/steps.py``: ``make_train_step`` at ``microbatches=1``,
-``make_prefill_step`` and ``make_serve_step``)."""
+``launch/steps.py``: ``make_train_step`` with gradient accumulation and the
+projected-space accumulator, ``make_prefill_step`` and
+``make_serve_step``)."""
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.api import Transform, clip_by_global_norm, global_norm
-from repro_torch.models.transformer import Transformer, check_logit_chunk, lm_loss
+from repro_torch.models.transformer import Transformer, chunked_lm_loss, lm_loss
+
+
+def _loss_from_batch(model: Transformer, batch: dict) -> torch.Tensor:
+    """The next-token loss of one batch: through :func:`chunked_lm_loss`
+    when ``cfg.logit_chunk > 0`` (no ``(B, S, V)`` logits are held), else
+    :func:`lm_loss` on the full logits."""
+    tokens = batch["tokens"]
+    chunk = model.cfg.logit_chunk
+    if chunk > 0:
+        return chunked_lm_loss(model(tokens, return_hidden=True), tokens, chunk,
+                               model.embed.embed, getattr(model.embed, "lm_head", None))
+    return lm_loss(model(tokens), tokens)
+
+
+def split_microbatches(batch: dict, microbatches: int) -> list[dict]:
+    """The batch's rows in ``microbatches`` equal, consecutive slices."""
+    rows = batch["tokens"].shape[0]
+    if rows % microbatches:
+        raise ValueError(f"batch of {rows} rows does not split into {microbatches} "
+                         "equal microbatches")
+    size = rows // microbatches
+    return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            for i in range(microbatches)]
+
+
+def _value_and_grad(model: Transformer, params: dict, batch: dict):
+    loss = _loss_from_batch(model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def loss_and_grads(model: Transformer, params: dict, batch: dict,
+                   microbatches: int = 1) -> tuple[torch.Tensor, dict]:
+    """The batch's loss and gradients, accumulated over ``microbatches``
+    slices of its rows as the reference does: an fp32 accumulator seeded
+    from microbatch 0, the others added in order, then the summed loss and
+    gradients divided by ``microbatches``."""
+    if microbatches == 1:
+        return _value_and_grad(model, params, batch)
+    first, *rest = split_microbatches(batch, microbatches)
+    loss, grads = _value_and_grad(model, params, first)
+    grads = {k: g.to(torch.float32) for k, g in grads.items()}
+    for mb in rest:
+        mb_loss, mb_grads = _value_and_grad(model, params, mb)
+        loss = loss + mb_loss
+        for k, g in mb_grads.items():
+            grads[k].add_(g.to(torch.float32))
+    return loss / microbatches, {k: g / microbatches for k, g in grads.items()}
+
+
+def _guarded_update(transform: Transform, params: dict, opt_state, grads: dict,
+                    loss: torch.Tensor, grad_clip: float):
+    """Clip, then apply ``transform``'s update in place unless the loss or
+    the (clipped) gradient norm is not finite."""
+    if grad_clip > 0:
+        grads = clip_by_global_norm(grads, grad_clip)
+    gnorm = global_norm(grads)
+    finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+    if finite:
+        with torch.no_grad():
+            updates, opt_state = transform.update(
+                grads, opt_state, {k: p.detach() for k, p in params.items()})
+            for k, p in params.items():
+                if updates[k] is not None:
+                    p.add_(updates[k].to(p.dtype))
+    metrics = {"loss": loss.detach(), "grad_norm": gnorm, "update_applied": finite}
+    return opt_state, metrics
 
 
 def make_train_step(model: Transformer, optimizer: Transform, *,
-                    grad_clip: float = 0.0, microbatches: int = 1) -> Callable:
+                    grad_clip: float = 0.0, microbatches: int = 1,
+                    lowrank_accum=None) -> Callable:
     """``(params, opt_state, batch) -> (opt_state, metrics)``.
 
     ``params`` is ``model.params()``, updated **in place** (``p += u`` under
     ``no_grad``, so no second copy of the weights exists); the optimizer
-    itself is functional.  **NaN/Inf guard:** when the loss or the (clipped)
-    gradient norm is not finite the step applies no update and returns the
-    old optimizer state (``update_applied=False``) — the outcome of the
-    reference's in-jit guard, decided on the host from one synchronising
-    read per step.  ``cfg.logit_chunk > 0`` raises (the chunked loss is not
-    ported yet).
+    itself is functional.  ``microbatches > 1`` accumulates the gradients
+    of that many equal slices of the batch's rows (:func:`loss_and_grads`;
+    a batch that does not divide raises ``ValueError``).
+
+    ``lowrank_accum`` (a :class:`repro_torch.core.gum.GUMAccumTools`) with
+    ``microbatches > 1`` accumulates in the PROJECTED space instead: the
+    low-rank leaves hold ``Pᵀ G`` plus the gamma sampled blocks in place
+    of a full-shape fp32 gradient, and ``lowrank_accum.transform`` takes the
+    step (``optimizer`` is not used).
+
+    **NaN/Inf guard:** when the loss or the (clipped) gradient norm is not
+    finite the step applies no update and returns the old optimizer state
+    (``update_applied=False``) — the outcome of the reference's in-jit
+    guard, decided on the host from one synchronising read per step.
     """
-    if microbatches != 1:
-        raise NotImplementedError("gradient accumulation (microbatches > 1) is "
-                                  "not ported yet")
-    check_logit_chunk(model.cfg)
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    if lowrank_accum is not None and microbatches > 1:
+        return _make_lowrank_accum_step(model, lowrank_accum, grad_clip, microbatches)
 
     def train_step(params: dict, opt_state, batch: dict):
-        tokens = batch["tokens"]
-        loss = lm_loss(model(tokens), tokens)
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        if grad_clip > 0:
-            grads = clip_by_global_norm(grads, grad_clip)
-        gnorm = global_norm(grads)
-        finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
-        if finite:
+        loss, grads = loss_and_grads(model, params, batch, microbatches)
+        return _guarded_update(optimizer, params, opt_state, grads, loss, grad_clip)
+
+    return train_step
+
+
+def _make_lowrank_accum_step(model: Transformer, tools, grad_clip: float,
+                             microbatches: int) -> Callable:
+    """Microbatch 0's raw gradients refresh the projectors (on a period
+    boundary), every microbatch is projected and summed, and the mean is
+    reconstructed to full shape for the standard update."""
+
+    def add(acc: Optional[dict], part: Optional[dict]) -> Optional[dict]:
+        if part is None:
+            return acc
+        for key, t in part.items():
+            acc[key].add_(t)
+        return acc
+
+    def train_step(params: dict, opt_state, batch: dict):
+        detached = {k: p.detach() for k, p in params.items()}
+        first, *rest = split_microbatches(batch, microbatches)
+        loss, grads = _value_and_grad(model, params, first)
+        with torch.no_grad():
+            opt_state = tools.refresh(grads, opt_state, detached)
+            acc = tools.project(grads, opt_state, detached)
+        del grads
+        for mb in rest:
+            mb_loss, grads = _value_and_grad(model, params, mb)
+            loss = loss + mb_loss
             with torch.no_grad():
-                updates, opt_state = optimizer.update(
-                    grads, opt_state, {k: p.detach() for k, p in params.items()})
-                for k, p in params.items():
-                    if updates[k] is not None:
-                        p.add_(updates[k].to(p.dtype))
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "update_applied": finite}
-        return opt_state, metrics
+                part = tools.project(grads, opt_state, detached)
+            acc = {k: add(a, part[k]) for k, a in acc.items()}
+            del grads, part
+        loss = loss / microbatches
+        with torch.no_grad():
+            acc = {k: None if a is None else {key: t / microbatches for key, t in a.items()}
+                   for k, a in acc.items()}
+            grads = tools.reconstruct(acc, opt_state, detached)
+        return _guarded_update(tools.transform, params, opt_state, grads, loss, grad_clip)
 
     return train_step
 

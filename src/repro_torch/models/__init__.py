@@ -1,3 +1,9 @@
-from repro_torch.models.transformer import Mamba2, Transformer, build_model, lm_loss
+from repro_torch.models.transformer import (
+    Mamba2,
+    Transformer,
+    build_model,
+    chunked_lm_loss,
+    lm_loss,
+)
 
-__all__ = ["Mamba2", "Transformer", "build_model", "lm_loss"]
+__all__ = ["Mamba2", "Transformer", "build_model", "chunked_lm_loss", "lm_loss"]

@@ -141,9 +141,11 @@ class _LM(nn.Module):
         # gather, then cast: the reference's cast-then-gather, elementwise
         return self.embed.embed[tokens].to(self.dtype)
 
+    def _final(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.final_norm.norm_scale)
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_norm.norm_scale)
-        return unembed(x, self.embed.embed, getattr(self.embed, "lm_head", None))
+        return unembed(self._final(x), self.embed.embed, getattr(self.embed, "lm_head", None))
 
 
 class Transformer(_LM):
@@ -198,9 +200,12 @@ class Transformer(_LM):
             for norm in (self.blocks.ln1, self.blocks.ln2, self.final_norm):
                 norm.norm_scale.fill_(1.0)
 
-    def forward(self, tokens: torch.Tensor, return_cache: bool = False):
+    def forward(self, tokens: torch.Tensor, return_cache: bool = False,
+                return_hidden: bool = False):
         """tokens (B, S) int -> logits (B, S, vocab), fp32; with
-        ``return_cache`` -> (logits, {"k", "v": (L, B, S, KV, hd)})."""
+        ``return_cache`` -> (logits, {"k", "v": (L, B, S, KV, hd)}); with
+        ``return_hidden`` the final-normed hidden states (B, S, d) in place
+        of the logits (:func:`chunked_lm_loss` unembeds them)."""
         cfg = self.cfg
         x = self._embed(tokens)
         S = tokens.shape[1]
@@ -223,7 +228,7 @@ class Transformer(_LM):
             if return_cache:
                 ks.append(k)
                 vs.append(v)
-        logits = self._head(x)
+        logits = self._final(x) if return_hidden else self._head(x)
         if return_cache:
             return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
         return logits
@@ -298,10 +303,12 @@ class Mamba2(_LM):
         """Layer ``l``'s block parameters by name (None: the whole stacks)."""
         return {k: p if l is None else p[l] for k, p in self.blocks.mamba.named_parameters()}
 
-    def forward(self, tokens: torch.Tensor, return_cache: bool = False):
+    def forward(self, tokens: torch.Tensor, return_cache: bool = False,
+                return_hidden: bool = False):
         """tokens (B, S) -> logits (B, S, vocab) in the activation dtype;
         with ``return_cache`` -> (logits, None): as in the reference, the
-        ssm prefill builds no decode cache."""
+        ssm prefill builds no decode cache; with ``return_hidden`` the
+        final-normed hidden states in place of the logits."""
         def layer(x: torch.Tensor, l: int) -> torch.Tensor:
             h = rms_norm(x, self.blocks.ln1.norm_scale[l])
             return x + mamba2.apply_mamba_block(self._layer(l), h, self.cfg)
@@ -310,7 +317,7 @@ class Mamba2(_LM):
         x = self._embed(tokens)
         for l in range(self.cfg.n_layers):
             x = layer(x, l)
-        logits = self._head(x)
+        logits = self._final(x) if return_hidden else self._head(x)
         return (logits, None) if return_cache else logits
 
     def init_cache(self, batch: int, max_seq: int,
@@ -353,13 +360,64 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *, shift: bool = True) 
     return torch.mean(lse - gold)
 
 
-def check_logit_chunk(cfg: ModelConfig) -> None:
-    """Raise on ``logit_chunk > 0``: the reference then trains through
-    ``chunked_lm_loss``, which is not ported yet (ROADMAP queue 1, item 1)."""
-    if cfg.logit_chunk > 0:
-        raise NotImplementedError(f"{cfg.name}: logit_chunk={cfg.logit_chunk} (the chunked "
-                                  "cross-entropy, chunked_lm_loss) is not ported yet; "
-                                  "see ROADMAP queue 1, item 1")
+class _ChunkCrossEntropy(torch.autograd.Function):
+    """``sum((logsumexp(h w) - (h w)[target]) * mask)`` over one chunk of
+    rows.  The chunk's ``(B, chunk, V)`` logits live only inside forward and
+    backward, one buffer each: forward takes the logsumexp in place, and
+    backward recomputes the logits and turns them into the softmax's
+    gradient in place."""
+
+    @staticmethod
+    def forward(ctx, h, w, targets, mask):
+        logits = (h @ w.to(h.dtype)).to(torch.float32)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        top = logits.amax(dim=-1)
+        lse = logits.sub_(top[..., None]).exp_().sum(dim=-1).log_().add_(top)
+        ctx.save_for_backward(h, w, targets, mask, lse)
+        return torch.sum((lse - gold) * mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, w, targets, mask, lse = ctx.saved_tensors
+        wh = w.to(h.dtype)
+        d = (h @ wh).to(torch.float32)
+        d.sub_(lse[..., None]).exp_()                       # softmax
+        d.scatter_add_(-1, targets[..., None],
+                       torch.full(targets.shape + (1,), -1.0, device=d.device))
+        d.mul_((grad * mask)[..., None])                    # d loss / d logits
+        d = d.to(h.dtype)
+        dh = d @ wh.mT
+        dw = h.reshape(-1, h.shape[-1]).mT @ d.reshape(-1, d.shape[-1])
+        return dh, dw.to(w.dtype), None, None
+
+
+def chunked_lm_loss(hidden: torch.Tensor, targets: torch.Tensor, chunk: int,
+                    embed: torch.Tensor, lm_head: Optional[torch.Tensor] = None, *,
+                    shift: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy with the logits made ``chunk`` positions
+    at a time, never as the full ``(B, S, V)`` tensor (the reference's
+    ``chunked_lm_loss``, ``cfg.logit_chunk``): ``hidden`` is the
+    final-normed ``(B, S, d)`` (``forward(return_hidden=True)``), the head
+    the tied ``embed`` (vocab, d) or the untied ``lm_head`` (d, vocab).  The
+    last chunk is zero-padded and masked out; backward recomputes each
+    chunk's logits."""
+    if shift:
+        hidden, targets = hidden[:, :-1], targets[:, 1:]
+    B, S, _ = hidden.shape
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+    targets = targets.long()
+    valid = (torch.arange(S + pad, device=hidden.device) < S).to(torch.float32)
+    valid = valid.expand(B, S + pad)
+    w = embed.T if lm_head is None else lm_head
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S + pad, chunk):
+        part = slice(c0, c0 + chunk)
+        total = total + _ChunkCrossEntropy.apply(hidden[:, part], w, targets[:, part],
+                                                 valid[:, part])
+    return total / (B * S)
 
 
 FAMILIES = {"dense": Transformer, "ssm": Mamba2}
@@ -374,5 +432,4 @@ def build_model(cfg: ModelConfig, *,
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} is not ported yet; "
                                   f"ported: {sorted(FAMILIES)}")
-    check_logit_chunk(cfg)
     return FAMILIES[cfg.family](cfg, resolve_device(device))

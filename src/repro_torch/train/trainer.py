@@ -1,15 +1,28 @@
-"""A minimal training loop over the synthetic stream (the port of the JAX
-package's ``train/trainer.py`` without checkpointing, resilience,
-telemetry, rank policy or a mesh — later slices).  ``RunConfig``'s
-checkpoint fields are accepted and not used yet."""
+"""The training loop over the synthetic stream, with periodic checkpoints
+and exact resume (the port of the JAX package's ``train/trainer.py``; its
+resilience, telemetry, rank policy and mesh are not ported).
+
+* **resume** (``RunConfig.resume``): from the newest *verified* committed
+  checkpoint in ``RunConfig.ckpt_dir`` — a newest step that fails
+  verification is skipped with a warning — and the data stream skips ahead
+  to it, so N steps plus N resumed steps equal 2N steps bitwise;
+* **checkpoints**: parameters and optimizer state every
+  ``RunConfig.ckpt_every`` steps and once at the end (unless the periodic
+  save just committed that step), keeping ``RunConfig.keep_ckpts``;
+* the NaN/Inf guard of the step (``update_applied``) and a
+  :class:`StepTimeMonitor` of straggling steps.
+"""
 from __future__ import annotations
 
+import collections
 import dataclasses
+import statistics
 import time
 from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import OptimizerConfig, build_optimizer
 from repro_torch.core.api import Transform
@@ -19,12 +32,36 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models.transformer import Transformer
 
 
+class StepTimeMonitor:
+    """Flags straggling steps: wall time > mean + z·std over a window."""
+
+    def __init__(self, window: int = 50, z: float = 3.0, min_samples: int = 10):
+        self.times = collections.deque(maxlen=window)
+        self.z = z
+        self.min_samples = min_samples
+        self.flagged: list[tuple[int, float]] = []
+
+    def record(self, step: int, dt: float) -> bool:
+        is_straggler = False
+        if len(self.times) >= self.min_samples:
+            mu = statistics.fmean(self.times)
+            sd = statistics.pstdev(self.times) or 1e-9
+            if dt > mu + self.z * sd:
+                is_straggler = True
+                self.flagged.append((step, dt))
+        self.times.append(dt)
+        return is_straggler
+
+
 @dataclasses.dataclass
 class TrainResult:
     final_step: int
-    losses: list[float]
+    losses: list[float]            # the applied steps of this run, in order
     skipped_nonfinite: int
-    # Host wall time of each step, ending in a device synchronise.
+    straggler_steps: list[tuple[int, float]]
+    resumed_from: Optional[int]
+    # Host wall time of each step of this run, ending in a device
+    # synchronise (checkpoint saves excluded).
     step_seconds: list[float]
 
 
@@ -36,51 +73,93 @@ class Trainer:
         run_cfg: RunConfig,
         data_cfg: DataConfig,
         *,
+        microbatches: int = 1,
         device: Optional[str | torch.device] = None,
         optimizer: Optional[Transform] = None,
         params: Optional[dict[str, torch.Tensor]] = None,
     ):
         """``device`` defaults to the CUDA device and raises when there is
         none (pass ``device="cpu"`` for the CPU); the model moves there.
+        ``microbatches`` splits each batch's rows into that many slices
+        whose gradients accumulate in fp32 (:func:`make_train_step`).
         ``optimizer`` overrides the ``opt_cfg`` factory path with any
         :class:`~repro_torch.core.api.Transform`.  ``params`` (``{path:
         tensor}``, e.g. from :func:`repro_torch.convert.params_from_jax`) is
         the initial state; without it the model is initialised from
-        ``run_cfg.seed``."""
+        ``run_cfg.seed``.  A resumed run takes its parameters and optimizer
+        state from the checkpoint instead."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.opt_cfg = opt_cfg
         self.run = run_cfg
         self.data_cfg = data_cfg
+        self.microbatches = microbatches
         if params is not None:
             self.model.load_params(params)
         else:
             self.model.init_params(run_cfg.seed)
+        self.ckpt = CheckpointManager(run_cfg.ckpt_dir, keep=run_cfg.keep_ckpts)
+        self.monitor = StepTimeMonitor()
         self.optimizer = optimizer if optimizer is not None else build_optimizer(opt_cfg)
         self.step_fn = make_train_step(self.model, self.optimizer,
-                                        grad_clip=run_cfg.grad_clip)
+                                        grad_clip=run_cfg.grad_clip,
+                                        microbatches=microbatches)
+
+    def _save(self, step: int, params: dict, opt_state) -> None:
+        self.ckpt.save(step, ({k: p.detach() for k, p in params.items()}, opt_state))
+
+    def _resume_step(self) -> Optional[int]:
+        """The step to resume from (None: start afresh)."""
+        if not self.run.resume:
+            return None
+        latest = self.ckpt.latest_verified_step()
+        newest = self.ckpt.latest_step()
+        if newest is not None and newest != latest:
+            print(f"checkpoint: newest committed step {newest} failed verification — "
+                  f"resuming from last verified {latest}", flush=True)
+        return latest
 
     def train(self, steps: Optional[int] = None) -> TrainResult:
         steps = steps or self.run.steps
         stream = build_stream(self.data_cfg)
         params = self.model.params()
-        opt_state = self.optimizer.init({k: p.detach() for k, p in params.items()})
+        detached = {k: p.detach() for k, p in params.items()}
+        opt_state = self.optimizer.init(detached)
+        start_step = resumed_from = self._resume_step()
+        if resumed_from is not None:
+            (saved, opt_state), _ = self.ckpt.restore(resumed_from, (detached, opt_state))
+            with torch.no_grad():  # in place: the step updates these tensors
+                for k, p in params.items():
+                    p.copy_(saved[k])
+            stream.resume(resumed_from)  # exact skip-ahead
+        else:
+            start_step = 0
+
         losses, seconds, skipped = [], [], 0
         cuda = self.device.type == "cuda"
-        for step in range(steps):
+        for step in range(start_step, steps):
             t0 = time.perf_counter()
             tokens = torch.from_numpy(next(stream)).to(self.device)
             opt_state, metrics = self.step_fn(params, opt_state, {"tokens": tokens})
             loss = float(metrics["loss"])
             if cuda:
                 torch.cuda.synchronize(self.device)
-            seconds.append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            seconds.append(dt)
+            self.monitor.record(step, dt)
             if metrics["update_applied"]:
                 losses.append(loss)
             else:
                 skipped += 1
+            if self.run.ckpt_every and (step + 1) % self.run.ckpt_every == 0:
+                self._save(step + 1, params, opt_state)
             if self.run.log_every and (step + 1) % self.run.log_every == 0:
                 print(f"[step {step + 1}] loss {loss:.4f}", flush=True)
+        # The final save, unless the loop's periodic save committed this step.
+        if not (self.run.ckpt_every and steps % self.run.ckpt_every == 0
+                and steps > start_step):
+            self._save(steps, params, opt_state)
         self.opt_state = opt_state
         return TrainResult(final_step=steps, losses=losses, skipped_nonfinite=skipped,
+                           straggler_steps=self.monitor.flagged, resumed_from=resumed_from,
                            step_seconds=seconds)

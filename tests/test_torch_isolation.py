@@ -41,6 +41,11 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+def test_the_scan_covers_every_subpackage():
+    subpackages = {p.parent.name for p in PORT_FILES if p.name == "__init__.py"}
+    assert {"checkpoint", "core", "kernels", "models", "train", "launch"} <= subpackages
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
@@ -59,7 +64,7 @@ def test_kernel_module_imports_first(module):
     assert run.returncode == 0, run.stderr[-2000:]
 
 
-def test_entry_points_need_a_device_without_cuda(monkeypatch):
+def test_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke("llama-60m")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -67,7 +72,8 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     model = build_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(model, OptimizerConfig(name="gum", rank=4, gamma=1),
-                RunConfig(steps=1), DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=1))
+                RunConfig(steps=1, ckpt_dir=str(tmp_path)),
+                DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=1))
 
 
 def test_cuda_impl_on_cpu_tensors_raises():
@@ -111,13 +117,24 @@ def test_dispatch_vocabulary_equals_reference():
     assert set(dispatch.REGISTRY) <= set(launch_count.DISPATCH_OPS)
 
 
-def test_unported_knobs_raise():
-    for knob in (dict(pad_rank_to=128), dict(rank_policy="spectral:0.99"),
+def test_unported_knobs_raise(tmp_path):
+    for knob in (dict(rank_policy="spectral:0.99"),
                  dict(rank_ladder=(64, 128)), dict(shard_state=True),
                  dict(telemetry=True)):
         with pytest.raises(NotImplementedError):
             OptimizerConfig(**knob)
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import build_optimizer
 
     with pytest.raises(NotImplementedError):
         build_optimizer(OptimizerConfig(name="gum"), audit=True)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"a": torch.zeros(2)})
+    with pytest.raises(NotImplementedError):
+        mgr.restore(1, {"a": torch.zeros(2)}, shardings={"a": None})
+    with pytest.raises(NotImplementedError):
+        CheckpointManager(str(tmp_path), telemetry=object())
+    # ported since: rank padding (a negative value is refused)
+    OptimizerConfig(pad_rank_to=128)
+    with pytest.raises(ValueError):
+        OptimizerConfig(pad_rank_to=-1)

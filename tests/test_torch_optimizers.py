@@ -251,7 +251,8 @@ def test_trainer_tracks_reference_losses(tmp_path, name):
     jparams = j_build_model(jcfg).init(jax.random.PRNGKey(0))  # the trainer's init
     trainer = Trainer(
         build_model(get_smoke("llama-60m"), device="cpu"), OptimizerConfig(**opt),
-        RunConfig(steps=4, log_every=0, seed=0), DataConfig(**data), device="cpu",
+        RunConfig(steps=4, ckpt_dir=str(tmp_path / "torch"), log_every=0, seed=0),
+        DataConfig(**data), device="cpu",
         optimizer=build_optimizer(OptimizerConfig(**opt), noise=jax_noise(None)),
         params=params_from_jax(jax.device_get(jparams)))
     losses = trainer.train().losses

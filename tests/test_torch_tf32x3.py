@@ -336,6 +336,57 @@ def test_a_single_tf32_flash_attention_misses_the_tolerance():
                    attention_fp64(q, k, v)) > 10 * TOL
 
 
+def product_3xtf32_tc(a: np.ndarray, b: np.ndarray, depth: int) -> np.ndarray:
+    """a @ b as the tensor cores accumulate it: k8 steps of the three
+    split products, each mma adding its exact 8-term sum to the fp32
+    accumulator rounded toward zero (the accumulator truncates); slices of
+    ``depth`` start from zero and add in fp32 (round to nearest)."""
+    out = None
+    for s0 in range(0, a.shape[1], depth):
+        a_hi, a_lo = (x.astype(np.float64) for x in split(a[:, s0:s0 + depth]))
+        b_hi, b_lo = (x.astype(np.float64) for x in split(b[s0:s0 + depth]))
+        acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+        for k0 in range(0, a_hi.shape[1], 8):
+            k = slice(k0, k0 + 8)
+            for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                exact = acc.astype(np.float64) + x[:, k] @ y[k]
+                acc = exact.astype(np.float32)
+                away = np.abs(acc.astype(np.float64)) > np.abs(exact)
+                acc[away] = np.nextafter(acc[away], np.float32(0))
+        out = acc if out is None else out + acc
+    return out
+
+
+def attention_fp32(q, k, v):
+    """The plain path's arithmetic: one fp32 softmax over fp32 products."""
+    S, D = q.shape
+    s = (q @ k.T) * np.float32(D ** -0.5)
+    s = np.where(np.arange(k.shape[0])[None, :] <= np.arange(S)[:, None] + k.shape[0] - S,
+                 s, np.float32(-np.inf))
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    return (p / p.sum(axis=1, keepdims=True, dtype=np.float32)) @ v
+
+
+def test_flash_attention_scores_in_32_deep_slices_keep_fp32s_distance():
+    """D = 128, q x 8: with the accumulator's truncation modelled, one
+    128-deep score sum leaves the output farther from fp64 than the fp32
+    plain path, and the kernel's 32-deep slices (KSL in
+    csrc/flash_attention.cu) bring it within it (the median over 8 heads of
+    max|out - fp64| / max|fp64|)."""
+    errs = {"one sum": [], "slices": [], "plain": []}
+    for h in range(8):
+        q = np.float32(8.0) * _rand(40 + h, 77, 128)
+        k, v = _rand(60 + h, 200, 128), _rand(80 + h, 200, 128)
+        want = attention_fp64(q, k, v)
+        for name, depth in (("one sum", 128), ("slices", 32)):
+            out = flash_attention_emulated(
+                lambda a, b, depth=depth: product_3xtf32_tc(a, b, depth), q, k, v, block_kv=32)
+            errs[name].append(rel_err(out, want))
+        errs["plain"].append(rel_err(attention_fp32(q, k, v), want))
+    med = {name: float(np.median(e)) for name, e in errs.items()}
+    assert med["slices"] <= med["plain"] < med["one sum"], med
+
+
 # ---------------------------------------------------------------- the SSD scan
 #
 # The ssd_scan kernel (csrc/ssd_scan.cu) forms C Bᵀ once per chunk on the

@@ -63,7 +63,8 @@ def test_trainer_tracks_reference_losses(tmp_path):
     jparams = j_build_model(jcfg).init(jax.random.PRNGKey(0))  # the trainer's init
     trainer = Trainer(
         build_model(get_smoke("llama-60m"), device="cpu"), OptimizerConfig(**OPT),
-        RunConfig(steps=STEPS, log_every=0, seed=0), DataConfig(**data),
+        RunConfig(steps=STEPS, ckpt_dir=str(tmp_path / "torch"), log_every=0, seed=0),
+        DataConfig(**data),
         device="cpu",
         optimizer=build_optimizer(OptimizerConfig(**OPT), sampler=jax_sampler),
         params=params_from_jax(jax.device_get(jparams)))

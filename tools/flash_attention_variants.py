@@ -18,6 +18,9 @@ point:
                 scale: the time bounds what the accurate exponent costs);
   no_split      no split arithmetic, one TF32 product (WRONG results: the
                 time bounds what 3xTF32 costs);
+  score_one_sum the scores of a kv tile in one sum from zero at every D,
+                as before the 32-deep slices (at D = 128 farther from
+                fp64 than the fp32 plain path: what the slices cost);
   parent:NAME   with ``--parent DIR`` (repeatable; NAME is the directory's
                 name): ``DIR/flash_attention.cu`` with the headers beside
                 it, an earlier version of the kernel with the same C entry
@@ -57,6 +60,7 @@ def variants(src: str) -> dict[str, str]:
         "as_built": src,
         "kv64": src.replace("constexpr int BKV = 32;", "constexpr int BKV = 64;"),
         "fast_exp": src.replace("expf(", "__expf("),
+        "score_one_sum": src.replace("constexpr int KSL = 4;", "constexpr int KSL = 16;"),
         "no_split": src.replace(split, "__device__ __forceinline__ void split_tf32(float x, "
                                        "uint32_t& hi, uint32_t& lo) {\n  hi = round_tf32(x);\n"
                                        "  lo = 0u;\n}\n")
@@ -75,7 +79,7 @@ def main() -> None:
     import torch.nn.functional as F
 
     from chip_smoke import time_ms  # puts src/ on the path
-    from lowrank_update_variants import build_all, spin_time_ms
+    from lowrank_update_variants import build_all, spin_time_ms, without_variant
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -105,9 +109,11 @@ def main() -> None:
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
         print(f"{name:14s} registers {regs}, spill stores {spills} bytes", flush=True)
         fn = getattr(ctypes.CDLL(str(so)), "flash_attention")
-        fn.argtypes = list(build.SIGNATURES["flash_attention"])
+        sig = list(build.SIGNATURES["flash_attention"])
+        parent = name.startswith("parent")
+        fn.argtypes = sig[:-2] + sig[-1:] if parent else sig  # no variant out-argument
         fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[name] = fn if parent else without_variant(fn)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream

@@ -111,6 +111,13 @@ def loop_mix(so: Path, cuobjdump: str) -> str:
     return "main loop not found"
 
 
+def without_variant(fn):
+    """A raw C entry point ``fn`` (argument types ``build.SIGNATURES``) as
+    a function of its arguments and the stream, passing a null variant
+    out-argument."""
+    return lambda *args: fn(*args[:-1], None, args[-1])
+
+
 def spin_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """``chip_smoke.time_ms`` with the timed calls queued behind a spin
     kernel that lasts about 1.5 times as long as the host takes to launch
@@ -213,9 +220,10 @@ def main() -> None:
         print(f"{name:16s} registers {regs}, spill stores {spills} bytes{mix}", flush=True)
         fn = getattr(ctypes.CDLL(str(so)), "lowrank_update")
         sig = list(build.SIGNATURES["lowrank_update"])
-        fn.argtypes = sig[:-2] + sig[-1:] if name == "parent" else sig  # no side argument
+        # the parent: no side and no variant out-argument
+        fn.argtypes = sig[:-3] + sig[-1:] if name == "parent" else sig
         fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[name] = fn if name == "parent" else without_variant(fn)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream

@@ -99,7 +99,7 @@ def main() -> None:
     import torch
 
     from chip_smoke import time_ms  # puts src/ on the path
-    from lowrank_update_variants import build_all, spin_time_ms
+    from lowrank_update_variants import build_all, spin_time_ms, without_variant
     from repro_torch.kernels import build
     from repro_torch.kernels.newton_schulz import gram, poly_matmul_axpy
 
@@ -128,9 +128,10 @@ def main() -> None:
             print(f"{kernel:10s} {name:12s} registers {regs}, spill stores {spills} bytes",
                   flush=True)
             fn = getattr(ctypes.CDLL(str(so)), kernel)
-            fn.argtypes = list(build.SIGNATURES[kernel])
+            sig = list(build.SIGNATURES[kernel])
+            fn.argtypes = sig[:-2] + sig[-1:] if name == "parent" else sig  # no variant
             fn.restype = ctypes.c_int
-            fns[kernel, name] = fn
+            fns[kernel, name] = fn if name == "parent" else without_variant(fn)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream

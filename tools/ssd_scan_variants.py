@@ -140,7 +140,7 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import ptxas_report, time_ms  # puts src/ on the path
-    from lowrank_update_variants import build_all, spin_time_ms
+    from lowrank_update_variants import build_all, spin_time_ms, without_variant
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -166,9 +166,10 @@ def main() -> None:
                                          for k, r, s in kernels if "ssd_scan" in k), flush=True)
         fn = getattr(ctypes.CDLL(str(so)), "ssd_scan")
         sig = list(build.SIGNATURES["ssd_scan"])
-        fn.argtypes = sig[:5] + sig[6:] if name == "parent" else sig  # no workspace
+        # the parent: no workspace and no variant out-argument
+        fn.argtypes = sig[:5] + sig[6:-2] + sig[-1:] if name == "parent" else sig
         fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[name] = fn if name == "parent" else without_variant(fn)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
