@@ -14,14 +14,18 @@ Phases, in order; any failure exits non-zero and prints no result:
                 family stacks, both projection sides, plus one ragged shape;
                 Newton–Schulz's two kernels also at Muon's full-rank shapes;
                 flash attention at llama-130m's prefill, a GQA short-query,
-                a ragged and a padded-head-dim case; the SSD scan at
+                a ragged and a padded-head-dim case, and its 16-bit
+                instantiations: bf16 at chatglm3-6b's prefill, fp16 at a
+                GQA shape and a ragged bf16 case, each beside SDPA in the
+                same dtype; the SSD scan at
                 mamba2-370m's prefill, with a ragged last chunk at the same
                 widths and a ragged fp32 case; time kernel, plain version
                 and one PyTorch call computing the same function where
                 there is one, and compute the bound (over TF32's peak, the
                 products counted as the kernels' 3xTF32 executes them,
                 since they all run on the tensor cores; their fp32 SIMT
-                bound beside);
+                bound beside; the 16-bit flash attention's over BF16's
+                peak, the fastest exact products the card has for it);
   4. slice    — GUM pretraining of llama-130m at full width through the
                 port's ``Trainer`` (6 steps, batch 8 x 1024 tokens, period 3,
                 the config's remat: each layer recomputed in backward),
@@ -57,17 +61,28 @@ Phases, in order; any failure exits non-zero and prints no result:
   7. serve    — mamba2-370m (bf16): prefill 4 x 4096 (48 ssd_scan launches)
                 against "xla" in fp32 and in bf16, then the same engine run,
                 a request in a reused slot checked against direct decode;
+  8. serve    — the dense variants as published, bf16 activations and fp32
+                parameters, one at a time on the card: chatglm3-6b (28
+                layers), starcoder2-7b (32) and qwen1.5-4b (40), each a
+                prefill 4 x 2048 through the bf16 instantiation of flash
+                attention (one launch a layer) against "xla" in fp32 and in
+                bf16 on the same parameters, then an engine: chatglm3-6b 8
+                slots and 16 requests, two checked against direct decode;
+                the others 4 slots and 4 requests, one checked;
   5. agree    — the same trainer at the llama-60m smoke size on the card and
                 on the CPU (plain versions) must give the same losses, for
                 GUM, GaLore-Muon with the fused epilogue and weight decay,
                 family-stacked GUM and phase 4c's optimizers and LISA; and
-                the prefill logits of the two smoke models at
+                the prefill logits of the five smoke models (llama-60m,
+                mamba2-370m, the three dense variants) at
                 attn_impl="pallas".
 
 The card's ``nvidia-smi`` name and power limit are printed first and again
 third from the end; the line before the last is a JSON object describing
 every kernel (launches summed over the full-width paths, each read from
-counts set to 0 just before it, error, times, bound), and the last line is
+counts set to 0 just before it, error, times, bound; flash attention's
+bf16 instantiation beside it under "bf16", with phase 8's launches), and
+the last line is
 ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 3 (for iterating on a kernel) and
 prints neither the kernels line nor the ok line.  Every training phase
@@ -104,6 +119,16 @@ PEAK_BYTES = 3.35e12
 # bound is printed beside it); ssd_scan's products with bf16 x take two
 # (x is exact in TF32, its low part zero: see ssd_flops).
 PEAK_TF32_FLOPS = 495e12
+# BF16 and FP16 on the tensor cores (dense), twice TF32's rate.  The bound of
+# the 16-bit flash attention is the function's, not the kernel's choice of
+# instruction: q kᵀ on 16-bit q and k is one exact product at this peak
+# (fp32 accumulation).  P·V keeps P in fp32 against 16-bit V; the fastest
+# exact route the card has splits P into 16-bit parts that hold at least the
+# 22 significand bits of the TF32 high/low split the kernel issues (two fp16
+# parts, 11 + 11 bits; three bf16 parts, 8 + 8 + 8, as the "bf16x3" product
+# of Henry, Tang and Heinecke, ARITH 2019), each part one product at this
+# peak.  That is quicker than two TF32 products (3 / 989 < 2 / 495).
+PEAK_BF16_FLOPS = 989e12
 
 # max|kernel - plain| / max|plain|.  The kernels and the plain versions
 # (cuBLAS) both sum in fp32, in another order, so they differ by rounding
@@ -120,6 +145,13 @@ TOL_NS = 1e-4
 # and carries the state over up to 64 chunks: 1e-4.
 TOL_FLASH = 1e-5
 TOL_SSD = 1e-4
+# Flash attention on bf16 / fp16 q, k, v: fp32 inside as in fp32, then one
+# rounding of the output to the element type: 2^-8 of the largest output in
+# bf16, 2^-11 in fp16.  Its bound counts 16-bit products at PEAK_BF16_FLOPS,
+# per flop over the two halves (q kᵀ one, P·V one per part of P): bf16
+# (1 + 3) / 2, fp16 (1 + 2) / 2.
+TOL_FLASH_16 = {"torch.bfloat16": 2.0 ** -8, "torch.float16": 2.0 ** -11}
+FLASH_16_PRODUCTS = {"torch.bfloat16": 2.0, "torch.float16": 1.5}
 
 # kernel -> (source, the TPU kernel it replaces, the shared headers it is
 # built on: the 3xTF32 GEMM core and the 3xTF32 helpers)
@@ -192,16 +224,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(start.elapsed_time(end) for start, end in events)
 
 
-def bounds_ms(flops: float, nbytes: float,
-              tf32_flops: float | None = None) -> tuple[float, str, float]:
+def bounds_ms(flops: float, nbytes: float, tf32_flops: float | None = None,
+              bf16_flops: float = 0.0) -> tuple[float, str, float]:
     """The least time of a kernel's work on the card, what bounds it, and
-    its fp32 SIMT bound: max(flops / peak, bytes / HBM rate), where the
-    peak is TF32's over the TF32 products the kernel executes
-    (``tf32_flops``, by default three for each of its ``flops``)."""
+    its fp32 SIMT bound: max(products' time, bytes / HBM rate), the
+    products' time being the TF32 products (``tf32_flops``, by default three
+    for each of its ``flops``) over TF32's peak plus the 16-bit ones
+    (``bf16_flops``) over BF16's."""
     simt = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
     if tf32_flops is None:
         tf32_flops = 3 * flops
-    ops = tf32_flops / PEAK_TF32_FLOPS
+    ops = tf32_flops / PEAK_TF32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
     by = "operations" if ops >= nbytes / PEAK_BYTES else "bytes"
     return max(ops, nbytes / PEAK_BYTES) * 1e3, by, simt
 
@@ -418,7 +451,10 @@ def serving_kernel_cases(torch, gen):
     """Cases of the serving path's two kernels, in kernel_cases' form plus a
     tolerance: flash attention at llama-130m's prefill, a GQA short-query
     case (S < T, head dim 128), a ragged one and one whose head dim 20 the
-    kernel pads to its k8 steps; the SSD scan at
+    kernel pads to its k8 steps, then its 16-bit instantiations (bf16 at
+    chatglm3-6b's prefill, fp16 at a GQA shape, a ragged bf16 one; their
+    principal is tagged "bf16" and reported beside the fp32 one); the SSD
+    scan at
     mamba2-370m's prefill (bf16 x), the same widths with a ragged last chunk
     (the kernel splits P = 64 over two blocks, and the last chunk of the
     last batch row ends inside its slices), and a ragged fp32 one."""
@@ -446,8 +482,30 @@ def serving_kernel_cases(torch, gen):
         nbytes = 4 * (2 * B * S * H * D + 2 * B * T * KV * D)
         cases.append(("flash_attention", f"q{(B, S, H, D)} kv{(B, T, KV, D)} causal",
                       (lambda q=q, k=k, v=v: flash_attention(q, k, v)),
-                      (lambda q=q, k=k, v=v: ref.attention_ref(q, k, v)),
+                      (lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v)),
                       lib, flops, nbytes, principal, TOL_FLASH))
+
+    # The 16-bit instantiations, which the dense variants' bf16 prefill runs:
+    # chatglm3-6b's prefill (the JSON row's "bf16" entry), fp16 at
+    # starcoder2-7b's heads, and a ragged bf16 one at qwen1.5-4b's.  SDPA in
+    # the same dtype (it rounds P to it, so its numbers are not the
+    # kernel's) with enable_gqa beside each.
+    for B, S, H, KV, dtype, tag in [(4, 2048, 32, 2, torch.bfloat16, "bf16"),
+                                    (2, 1024, 36, 4, torch.float16, False),
+                                    (2, 1000, 20, 20, torch.bfloat16, False)]:
+        D = 128
+        q, k, v = (randn(*shape).to(dtype) for shape in
+                   ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        flops = 4.0 * D * causal_pairs(S, S, True) * B * H
+        cases.append(("flash_attention",
+                      f"q{(B, S, H, D)} kv{(B, S, KV, D)} causal {str(dtype)[6:]}",
+                      (lambda q=q, k=k, v=v: flash_attention(q, k, v)),
+                      (lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v)),
+                      (lambda qt=qt, kt=kt, vt=vt, gqa=KV != H: F.scaled_dot_product_attention(
+                          qt, kt, vt, is_causal=True, enable_gqa=gqa)),
+                      flops, 2 * (2 * B * S * H * D + 2 * B * S * KV * D), tag,
+                      TOL_FLASH_16[str(dtype)], 0.0, FLASH_16_PRODUCTS[str(dtype)] * flops))
 
     for B, S, H, P, N, chunk, xdtype, principal in [
             (4, 4096, 32, 64, 128, 128, torch.bfloat16, True),
@@ -503,9 +561,13 @@ def phase_kernels(torch):
               f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], abs_err)
-        if principal:
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, shape=label)
+        # True: the row's principal shape; a tag: an instantiation's, beside it
+        found = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, shape=label)
+        if principal is True:
+            row.update(found)
+        elif principal:
+            row[principal] = found | {"max_abs_err": abs_err}
 
     # Dispatch level: both projection sides and the ragged shape, through the
     # same transposes and lead flattening the optimizer uses.
@@ -1247,25 +1309,43 @@ def print_groups(label: str, prof, wall_ms: float) -> None:
 # --------------------------------------------------------------------- phases 6, 7
 
 
+@contextlib.contextmanager
+def with_config(model, **changes):
+    """``model`` with ``changes`` made to its config for the block: the
+    attention route or the activation dtype, which the model reads at each
+    call.  The parameters stay the one copy on the card (a 7B model's fp32
+    parameters take 30 GB; a second model for the plain route would not
+    fit beside the first and its fp32 prefill)."""
+    cfg = model.cfg
+    model.cfg = cfg.replace(**changes)
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+
+
 def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
-                tol: float, direct_batch: int) -> dict:
+                tol: float, direct_batch: int, *, slots: int = 8, requests: int = 16,
+                checked: int = 2) -> dict:
     """Serve ``arch`` at full width on the card, through the port's entry
     points: ``make_prefill_step`` at ``attn_impl="pallas"`` on ``batch`` x
-    ``seq`` seeded prompts (exactly one ``kernel`` launch per layer; logits,
-    and the KV cache where the family has one, against the same prefill at
-    ``attn_impl="xla"``: rel <= ``tol`` in fp32, and in bf16 as
-    :func:`check_low_precision_prefill` says), then a ``ServeEngine`` of 8 slots
-    answering 16 seeded requests (prompts of 16–256 tokens, 32 new tokens
-    each, so slots are reused), two of which — one in a reused slot — must
-    equal the direct greedy decode of that request alone
+    ``seq`` seeded prompts (exactly one ``kernel`` launch per layer, all of
+    the instantiation for the model's activation dtype; logits, and the KV
+    cache where the family has one, against the same prefill at
+    ``attn_impl="xla"`` on the same parameters: rel <= ``tol`` in fp32, and
+    in bf16 as :func:`check_low_precision_prefill` says), then a
+    ``ServeEngine`` of ``slots`` slots answering ``requests`` seeded
+    requests (prompts of 16–256 tokens, 32 new tokens each), ``checked`` of which — the second in a reused slot where slots
+    are reused — must equal the direct greedy decode of that request alone
     (``greedy_decode(batch=direct_batch)``).  Prints the prefill and engine
-    times, tokens/s and peak memory, profiles one prefill, and returns the
-    kernel launches of the prefill and engine run."""
+    times, tokens/s and peak memory, profiles one prefill and one decode
+    step, and returns the kernel launches of the prefill and engine run."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import DTYPES
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeEngine, greedy_decode
@@ -1273,15 +1353,13 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     cfg = get_config(arch)
     model = build_model(cfg.replace(attn_impl="pallas"), device="cuda")
     model.init_params(0)
-    xla = build_model(cfg.replace(attn_impl="xla"), device="cuda")
-    xla.load_params({k: v.detach() for k, v in model.params().items()})
     n_params = sum(p.numel() for p in model.parameters())
     gen = torch.Generator(device="cuda").manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device="cuda")
-    prefill, prefill_xla = make_prefill_step(model), make_prefill_step(xla)
+    prefill = make_prefill_step(model)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
-               for n in rng.integers(16, 257, 16)]
+               for n in rng.integers(16, 257, requests)]
     torch.cuda.synchronize()
 
     # The path: one prefill, then the engine; counts set to 0 just before.
@@ -1290,11 +1368,17 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     logits, cache = prefill({"tokens": tokens})
     torch.cuda.synchronize()
     prefill_launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    prefill_variants = dict(build.VARIANTS[kernel])
     prefill_peak = torch.cuda.max_memory_allocated() / 2**30
     check(prefill_launches == {kernel: cfg.n_layers},
           f"{label}: prefill kernel launches {prefill_launches} != {{{kernel!r}: {cfg.n_layers}}}")
+    if kernel == "flash_attention":  # every launch the activation dtype's instantiation
+        code = DTYPES[model.dtype]
+        check(all(key[0] == code for key in prefill_variants),
+              f"{label}: flash_attention instantiations {prefill_variants}, "
+              f"expected element type {code} ({cfg.dtype})")
     torch.cuda.reset_peak_memory_stats()
-    engine = ServeEngine(model, slots=8, max_seq=1024)
+    engine = ServeEngine(model, slots=slots, max_seq=1024)
     reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
     t0 = time.perf_counter()
     engine.run()
@@ -1306,18 +1390,21 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     # The prefill against attn_impl="xla" on the card.
     check(bool(torch.isfinite(logits.float()).all()), f"{label}: non-finite prefill logits")
     check(tuple(logits.shape) == (batch, seq, cfg.vocab), f"{label}: logits {tuple(logits.shape)}")
-    want, want_cache = prefill_xla({"tokens": tokens})
+    with with_config(model, attn_impl="xla"):
+        want, want_cache = prefill({"tokens": tokens})
     _, rel = rel_err(logits.float(), want.float())
     errs = {"logits": rel}
     for key in (cache or {}):
-        errs[key] = rel_err(cache[key], want_cache[key])[1]
+        errs[key] = rel_err(cache[key].float(), want_cache[key].float())[1]
     print(f"{label} {arch} ({n_params / 1e6:.1f}M params, {cfg.dtype}) prefill {batch} x {seq}: "
-          f"{prefill_launches} launches; pallas vs xla max rel {errs}", flush=True)
+          f"{prefill_launches} launches, instantiations {prefill_variants}; pallas vs xla "
+          f"max rel {errs}", flush=True)
+    del cache, want_cache
     if cfg.dtype == "float32":
         check(all(e <= tol for e in errs.values()), f"{label}: pallas vs xla {errs} > {tol}")
     else:
         check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol)
-    del want, want_cache
+    del want
 
     walls = []
     for _ in range(3):
@@ -1335,25 +1422,25 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     print_groups(f"{label} profiled prefill", prof, wall)
-    del logits, cache
+    del logits
 
-    # The engine: every request done, two of them equal to direct decode.
-    check(len(engine.finished) == 16 and all(len(r.output) == 32 for r in reqs),
+    # The engine: every request done, `checked` of them equal to direct decode.
+    check(len(engine.finished) == requests and all(len(r.output) == 32 for r in reqs),
           f"{label}: engine finished {len(engine.finished)} requests")
     reused = [r for r in reqs if r.reused_slot]
-    check(len(reused) >= 1, f"{label}: no slot was reused")
+    check(len(reused) >= 1 or requests <= slots, f"{label}: no slot was reused")
     generated = sum(len(r.output) for r in reqs)
     ticks = engine.tick_seconds
-    print(f"{label} engine: 16 requests (prompts {min(map(len, prompts))}–"
-          f"{max(map(len, prompts))} tokens, 32 new each) on 8 slots, {len(reused)} in reused "
-          f"slots: {len(ticks)} ticks in {engine_s:.3f} s, median tick "
+    print(f"{label} engine: {requests} requests (prompts {min(map(len, prompts))}–"
+          f"{max(map(len, prompts))} tokens, 32 new each) on {slots} slots, "
+          f"{len(reused)} in reused slots: {len(ticks)} ticks in {engine_s:.3f} s, median tick "
           f"{statistics.median(ticks) * 1e3:.3f} ms, generated tokens/s "
           f"{generated / engine_s:.1f}, peak memory {engine_peak:.3f} GiB", flush=True)
-    # One tick's decode step under the profiler: the 8 rows at their
-    # positions of the engine's last tick.
+    # One tick's decode step under the profiler: every row busy, at spread
+    # positions.
     step = make_serve_step(model)
-    step_tokens = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
-    step_pos = torch.arange(8, device="cuda") * 64
+    step_tokens = torch.zeros((slots, 1), dtype=torch.int64, device="cuda")
+    step_pos = torch.arange(slots, device="cuda") * 64
     step(engine.cache, step_tokens, step_pos)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1361,8 +1448,9 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
         step(engine.cache, step_tokens, step_pos)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    print_groups(f"{label} profiled decode step (8 rows)", prof, wall)
-    for req in (reqs[0], reused[0]):
+    print_groups(f"{label} profiled decode step ({slots} rows)", prof, wall)
+    del engine
+    for req in ([reqs[0]] + reused[:1])[:checked]:
         direct = greedy_decode(model, req.prompt, 32, 1024, batch=direct_batch,
                                row=req.slot if direct_batch > 1 else 0)
         check(req.output == direct, f"{label}: request {req.uid} (slot {req.slot}, reused "
@@ -1385,23 +1473,23 @@ def fro_rel(a, b) -> float:
 
 def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol) -> None:
     """A bf16 prefill through the kernels against the plain (xla) one.
-    Both round every op to bf16 (2^-8 relative) but sum the SSD in fp32 in
-    another order, so their roundings part at a few elements per block and
-    the residual stream carries the difference through every layer: the
-    largest single logit moves by a few percent.  So hold it where bf16
-    itself sets the scale: the same prefill in fp32 through both paths
-    must agree within ``tol`` (1e-4), and in bf16 the kernel path must lie
-    no farther from the plain bf16 path, in Frobenius norm, than the plain
-    bf16 path lies from the fp32 result."""
+    Both round every op to bf16 (2^-8 relative) but sum in fp32 in another
+    order (the SSD scan; attention, whose plain route also rounds P to bf16
+    where the kernel keeps it in fp32, as the reference's two routes do),
+    so their roundings part at a few elements per block and the residual
+    stream carries the difference through every layer: the largest single
+    logit moves by a few percent.  So hold it where bf16 itself sets the
+    scale: the same prefill in fp32 through both paths must agree within
+    ``tol`` (1e-4), and in bf16 the kernel path must lie no farther from
+    the plain bf16 path, in Frobenius norm, than the plain bf16 path lies
+    from the fp32 result.  Every prefill runs on ``model``'s parameters."""
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import build_model
 
     fp32 = {}
+    prefill = make_prefill_step(model)
     for impl in ("pallas", "xla"):
-        m32 = build_model(cfg.replace(attn_impl=impl, dtype="float32"), device="cuda")
-        m32.load_params({k: v.detach() for k, v in model.params().items()})
-        fp32[impl] = make_prefill_step(m32)({"tokens": tokens})[0]
-        del m32
+        with with_config(model, attn_impl=impl, dtype="float32"):
+            fp32[impl] = prefill({"tokens": tokens})[0]
     _, rel32 = rel_err(fp32["pallas"], fp32["xla"])
     kernel_vs_plain = fro_rel(logits, want)
     plain_vs_fp32 = fro_rel(want, fp32["xla"])
@@ -1433,6 +1521,31 @@ def phase_serve_mamba(torch) -> dict:
     logits."""
     return phase_serve(torch, "serve-mamba", "mamba2-370m", 4, 4096, "ssd_scan",
                        1e-4, direct_batch=8)
+
+
+# Phase 8: the dense variants as published (bf16 activations, fp32
+# parameters), (slots, requests, direct decodes checked) of each engine run.
+DENSE_VARIANTS = {"chatglm3-6b": (8, 16, 2), "starcoder2-7b": (4, 4, 1),
+                  "qwen1.5-4b": (4, 4, 1)}
+
+
+def phase_serve_dense(torch) -> dict:
+    """Phase 8: chatglm3-6b, starcoder2-7b and qwen1.5-4b at full width
+    (28 / 32 / 40 layers; 6.2B / 7.4B / 4.0B fp32 parameters, bf16
+    activations), one model on the card at a time: prefill 4 x 2048 through
+    the bf16 instantiation of flash attention, one launch a layer, against
+    "xla" as :func:`check_low_precision_prefill` says, then the engine
+    (DENSE_VARIANTS).  The direct decode runs the request in its slot's row
+    of a cache as wide as the engine's, for the reason phase 7 gives."""
+    print(f"serve-dense on {smi_line()}", flush=True)
+    launches: dict = {}
+    for arch, (slots, requests, checked) in DENSE_VARIANTS.items():
+        got = phase_serve(torch, f"serve-{arch}", arch, 4, 2048, "flash_attention", 1e-4,
+                          direct_batch=slots, slots=slots, requests=requests, checked=checked)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------- phase 5
@@ -1512,11 +1625,13 @@ def phase_agree(torch):
 
 
 def phase_agree_serve(torch):
-    """The prefill of llama-60m SMOKE and mamba2-370m SMOKE (fp32) at
-    attn_impl="pallas" on the card (the kernels, D = 16; chunk 16, N 16,
-    P 16, a ragged last chunk) and on the CPU (their plain versions), same
-    parameters: logits within 1e-4 relative (fp32 sums in another order
-    through two or three layers)."""
+    """The prefill of llama-60m SMOKE, mamba2-370m SMOKE and the three dense
+    variants' SMOKE (fp32; chatglm3-6b's 2-D RoPE, qwen1.5-4b's MHA and qkv
+    biases, starcoder2-7b's layernorm, GELU and mlp biases, a ragged
+    sequence) at attn_impl="pallas" on the card (the kernels, D = 16; chunk
+    16, N 16, P 16, a ragged last chunk) and on the CPU (their plain
+    versions), same parameters: logits within 1e-4 relative (fp32 sums in
+    another order through two or three layers)."""
     import numpy as np
 
     from repro_torch.configs import get_smoke
@@ -1525,7 +1640,10 @@ def phase_agree_serve(torch):
     from repro_torch.models import build_model
 
     for arch, kernel, seq in [("llama-60m", "flash_attention", 64),
-                              ("mamba2-370m", "ssd_scan", 60)]:
+                              ("mamba2-370m", "ssd_scan", 60),
+                              ("chatglm3-6b", "flash_attention", 64),
+                              ("qwen1.5-4b", "flash_attention", 64),
+                              ("starcoder2-7b", "flash_attention", 60)]:
         cfg = get_smoke(arch).replace(attn_impl="pallas")
         cpu = build_model(cfg, device="cpu")
         cpu.init_params(0)
@@ -1547,7 +1665,11 @@ def phase_agree_serve(torch):
 # The full-width paths, in order; each returns its kernel launches.
 PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_baselines,
           "accumulate": phase_accumulate, "resume": phase_resume,
-          "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba}
+          "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
+          "serve-dense": phase_serve_dense}
+# An instantiation reported beside its kernel's row, by the phase whose
+# launches are all of it.
+TAGGED = {("flash_attention", "bf16"): "serve-dense"}
 
 
 def main() -> None:
@@ -1580,8 +1702,8 @@ def main() -> None:
         print("kernels-only: phase 3 passed; the path did not run, so no result is printed",
               flush=True)
         return
-    paths = [fn(torch) for fn in PHASES.values()]
-    launches = {k: sum(path.get(k, 0) for path in paths) for k in rows}
+    paths = {name: fn(torch) for name, fn in PHASES.items()}
+    launches = {k: sum(path.get(k, 0) for path in paths.values()) for k in rows}
     phase_agree(torch)
     phase_agree_serve(torch)
 
@@ -1596,6 +1718,11 @@ def main() -> None:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": row["shape"]})
+        for (kname, tag), phase in TAGGED.items():
+            if kname == name:
+                tagged = paths[phase].get(name, 0)
+                check(tagged > 0, f"kernel {name} ({tag}) never launched on the path")
+                kernels[-1][tag] = row[tag] | {"launches": tagged}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,18 +1,28 @@
 """Architecture registry: id -> (full config, smoke config).
 
-The paper's dense LLaMA configs and mamba2-370m (the ssm family) are
-ported; the other architectures of the JAX package's registry come with
-their model families.
+The paper's dense LLaMA configs, the dense variants (chatglm3-6b,
+qwen1.5-4b, starcoder2-7b) and mamba2-370m (the ssm family) are ported; the
+other architectures of the JAX package's registry come with their model
+families.
 """
 from __future__ import annotations
 
-from repro_torch.configs import llama_paper, mamba2_370m
+from repro_torch.configs import (
+    chatglm3_6b,
+    llama_paper,
+    mamba2_370m,
+    qwen1_5_4b,
+    starcoder2_7b,
+)
 from repro_torch.configs.base import ModelConfig
 
 _ARCHS = {
     "llama-60m": (llama_paper.LLAMA_60M, llama_paper.SMOKE),
     "llama-130m": (llama_paper.LLAMA_130M, llama_paper.SMOKE),
     "llama-350m": (llama_paper.LLAMA_350M, llama_paper.SMOKE),
+    "chatglm3-6b": (chatglm3_6b.CONFIG, chatglm3_6b.SMOKE),
+    "qwen1.5-4b": (qwen1_5_4b.CONFIG, qwen1_5_4b.SMOKE),
+    "starcoder2-7b": (starcoder2_7b.CONFIG, starcoder2_7b.SMOKE),
     "mamba2-370m": (mamba2_370m.CONFIG, mamba2_370m.SMOKE),
 }
 ARCHS = tuple(_ARCHS)

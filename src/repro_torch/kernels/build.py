@@ -42,7 +42,7 @@ SIGNATURES = {
     "back_project_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
     "gram": (_P, _P, _I, _I, _I, _P, _P),
     "poly_apply": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
-    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P),
     "ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 KERNELS = tuple(SIGNATURES)
@@ -158,10 +158,11 @@ def launch(name: str, device: torch.device, *args) -> None:
 
 
 def check_operands(device: torch.device, *, ndim: int = 3, dtype_error=TypeError,
-                   **tensors) -> None:
-    """Raise unless every given tensor is a contiguous fp32 ``ndim``-D tensor
-    on the CUDA ``device`` (None entries are skipped: optional operands); a
-    wrong dtype raises ``dtype_error``."""
+                   dtypes: tuple[torch.dtype, ...] = (torch.float32,), **tensors) -> None:
+    """Raise unless every given tensor is a contiguous ``ndim``-D tensor of
+    one of ``dtypes`` (fp32 alone by default) on the CUDA ``device`` (None
+    entries are skipped: optional operands); a wrong dtype raises
+    ``dtype_error``."""
     if device.type != "cuda":
         raise ValueError(f"CUDA kernels need CUDA tensors, got {device}")
     for name, t in tensors.items():
@@ -169,8 +170,9 @@ def check_operands(device: torch.device, *, ndim: int = 3, dtype_error=TypeError
             continue
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise dtype_error(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise dtype_error(f"{name} must be one of {[str(d)[6:] for d in dtypes]}, "
+                              f"got {t.dtype}")
         if t.dim() != ndim:
             raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
         if not t.is_contiguous():

@@ -1,31 +1,43 @@
 // Causal GQA flash attention, forward only, fp32 accurate on the tensor cores
-// by 3xTF32:
+// by 3xTF32, for fp32, bf16 and fp16 q, k, v:
 //   o = softmax(q k^T * scale) v   over q (B, S, H, D), k/v (B, T, KV, D)
 //
 // Replaces the Pallas kernel _flash_kernel / flash_attention
 // (src/repro/kernels/flash_attention.py:35, :88), which the JAX package runs
-// for attn_impl="pallas".  It computes what that kernel computes: a running
-// max m, denominator l and accumulator per query row over the kv blocks, the
-// reference's -1e30 mask value and its max(l, 1e-30) in the denominator, the
-// causal row offset T - S (the S queries are the last S positions of the T
-// keys), GQA by reading kv head h / (H / KV) with no repeated K/V, and kv
-// blocks wholly above the diagonal skipped.  Unlike the Pallas kernel it
-// takes ragged S and T: rows past S are not stored and columns past T are
-// masked like the causal ones.
+// for attn_impl="pallas".  It computes what that kernel computes: every
+// block cast to fp32, a running max m, denominator l and accumulator per
+// query row over the kv blocks, P kept in fp32, the reference's -1e30 mask
+// value and its max(l, 1e-30) in the denominator, the output rounded to
+// q's dtype only at the store, the causal row offset T - S (the S queries
+// are the last S positions of the T keys), GQA by reading kv head
+// h / (H / KV) with no repeated K/V, and kv blocks wholly above the
+// diagonal skipped.  Unlike the Pallas kernel it takes ragged S and T: rows
+// past S are not stored and columns past T are masked like the causal ones.
 //
-// Bound on the H100: the causal pairs need 4 * D flops each (q k and p v);
-// 3xTF32 issues three TF32 products per fp32 one, so the least time is
-// max(3 * flops / 495 TFLOP/s, bytes / 3.35 TB/s).  At llama-130m's prefill,
-// q/k/v (8, 1024, 12, 64), that is 12.9 GFLOP executed three times on
-// 100.7 MB: 0.0782 ms, bound by operations (0.1925 ms by fp32 SIMT FMA).
+// Bound on the H100: the causal pairs need 4 * D flops each (q k and p v).
+// fp32: 3xTF32 issues three TF32 products per fp32 one, so the least time
+// is max(3 * flops / 495 TFLOP/s, bytes / 3.35 TB/s).  At llama-130m's
+// prefill, q/k/v (8, 1024, 12, 64), that is 12.9 GFLOP executed three
+// times on 100.7 MB: 0.0782 ms, bound by operations (0.1925 ms by fp32 SIMT
+// FMA).  bf16 and fp16 values are exact in TF32 (8 and 10 mantissa bits,
+// inside its exponent range), so the low part of q, k and v is zero: q k
+// takes one TF32 product and p v two (P's high and low parts times V), 1.5x
+// the flops in all.  At chatglm3-6b's prefill, q (4, 2048, 32, 128) and k/v
+// (4, 2048, 2, 128) bf16, that is 137.5 GFLOP executed 1.5 times on
+// 142.6 MB: 0.417 ms by operations (0.043 ms by bytes).  A native bf16
+// m16n8k16 product for q k would be exact too, at twice TF32's rate; the
+// TF32 product keeps one fragment layout, one code path for bf16 and fp16
+// and the fp32 kernel's order of sums.
 //
 // Design.  A 128-thread block owns a 64-row q tile of one (b, h); each of its
 // four warps owns 16 query rows and loops over the 32-row kv tiles, so the
 // running state never leaves registers.  Against the four limits of the
 // fp32 SIMT kernel this replaces:
 //  1. Tensor cores.  Both products are mma.sync.m16n8k8 TF32 with fp32
-//     accumulation, each operand split as it is read (tf32x3.cuh).  The
-//     accumulator truncates each add toward zero, so a long sum drifts:
+//     accumulation, each fp32 operand split as it is read (tf32x3.cuh); a
+//     16-bit element becomes its exact TF32 pattern (bf16: a shift) and its
+//     zero low-part products are skipped.  The accumulator truncates each
+//     add toward zero, so a long sum drifts:
 //     each kv tile's scores sum on the tensor cores in 32-deep slices from
 //     zero, the slices added in fp32, as the GEMM core's do (at D = 128 one
 //     128-deep sum left the output 1.4x farther from fp64 than the fp32
@@ -38,16 +50,23 @@
 //     registers (with 64-row kv tiles) they took the kernel to 239 registers
 //     at D = 64 and two blocks an SM; re-read, it needs 128, and four blocks
 //     (16 warps) fit an SM in registers and in shared memory (52 KB a block
-//     at D = 64), which measured faster (PERF.md).  expf, not __expf: the
-//     kernel is held to the fp32 reference.
+//     at D = 64 in fp32), which measured faster (PERF.md).  expf, not
+//     __expf: the kernel is held to the fp32 reference.
 //  2. Loads overlap compute.  K and V tiles come through a ring of two
-//     stages in dynamic shared memory, filled by cp.async: 16-byte
-//     cp.async.cg (4-byte cp.async.ca when a base pointer is not 16-byte
-//     aligned), the source size 0 past a ragged T so the copy fills zeros.
-//     Tile j+1 loads while tile j computes; one __syncthreads a tile.  Each
-//     thread keeps one 16-byte column and every RS-th row, so a copy costs
-//     no division.  D is padded in shared memory to 16, 32, 64 or 128 with
-//     zeros (written once), so a k8 step never reads past the head.
+//     stages in dynamic shared memory, filled by cp.async, in the operands'
+//     own element type (a 16-bit tile takes half the bytes: 52 KB a block
+//     at D = 128): 16-byte cp.async.cg where every base pointer is 16-byte
+//     aligned and rows are whole 16-byte chunks, else 8- or 4-byte
+//     cp.async.ca, the source size 0 past a ragged T or past D so the copy
+//     fills zeros.  The 16-byte copies are an instantiation of their own
+//     (V16): with the width tested at run time for every row the fp32
+//     kernel ran 2-3% slower than the fp32-only kernel before it and the
+//     bf16 one 13% slower than this (tools/flash_attention_variants.py,
+//     PERF.md).  Tile j+1 loads while tile j computes; one __syncthreads a
+//     tile.  Each thread keeps one 16-byte column chunk and every RS-th
+//     row, so a copy costs no division.  D is padded in shared memory to 16,
+//     32, 64 or 128 with zeros (written once), so a k8 step never reads past
+//     the head.
 //  3. P stays in registers.  The score fragment c0, c1 (row g, columns 2t,
 //     2t+1; c2, c3 eight rows down) gives each thread two rows, so row max
 //     and row sum are two xor shuffles within the four threads of a group.
@@ -55,14 +74,18 @@
 //     depend on its order, so A's k index t reads column 2t and t+4 reads
 //     2t+1 (a0 = c0, a1 = c2, a2 = c1, a3 = c3), and V's B fragment reads kv
 //     rows 2t and 2t+1 in the same order.  No shared round trip, no barrier.
+//     16-bit Q K^T takes the same order along d, so a0/a2 of Q and b0/b1 of
+//     K are one 32-bit shared load each.
 //  4. Mask only where needed.  A warp skips the mask test on kv tiles that
 //     lie wholly at or below its rows' diagonal and inside T, and skips the
 //     products of tiles wholly above it (their p would all be 0).
-// Shared rows are D_pad + 4 floats: (D_pad + 4) / 4 is odd, so every
-// fragment load of a warp (Q and K along d, V along kv rows 2t, 2t+1) hits
-// 32 distinct banks.  The grid's slowest axis walks the q tiles from the last
-// (the longest causal loop) to the first, so the long tiles of every head
-// start first.
+// Shared rows are D_pad + 16 bytes: D_pad / 2 + 4 words (16-bit) or D_pad +
+// 4 (fp32), 4 mod 8, so every fragment load of a warp (Q and K along d, V
+// along kv rows 2t, 2t+1) hits distinct banks.  The grid's slowest axis
+// walks the q tiles from the last (the longest causal loop) to the first,
+// so the long tiles of every head start first.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,53 +103,79 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int STAGES = 2;    // K/V tiles in the ring
 constexpr float NEG_INF = -1e30f;  // the reference's mask value
 
+// Element types by the C entry's code: 0 fp32, 1 bf16, 2 fp16.  A 16-bit
+// element is kept as its bits (uint16_t) in shared memory and converted as
+// a fragment reads it.
+template <int EC>
+struct Elem {
+  using S = uint16_t;
+};
+template <>
+struct Elem<0> {
+  using S = float;
+};
+
 struct FlashArgs {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
   int B, S, T, H, KV, D;
   float scale;
   int causal;
-  int vec;  // 1 when q, k, v and o are 16-byte aligned
+  int cw;    // bytes a cp.async copies: 16, 8 or 4
+  int pair;  // 1 when o is aligned for a store of two elements
 };
 
 // Shapes of one instantiation: DP = D padded (16, 32, 64 or 128).
-template <int DP>
+template <int EC, int DP>
 struct Layout {
-  static constexpr int LD = DP + 4;   // shared row stride
-  static constexpr int KD = DP / 8;   // k8 steps of Q K^T, n8 tiles of P V
-  static constexpr int CPR = DP / 4;  // 16-byte chunks a row
-  static constexpr int Q_FLOATS = BQ * LD;
-  static constexpr int KV_FLOATS = BKV * LD;
-  static constexpr int STAGE_FLOATS = 2 * KV_FLOATS;  // K tile, then V tile
-  static constexpr int SMEM_BYTES = (Q_FLOATS + STAGES * STAGE_FLOATS) * 4;
+  using S = typename Elem<EC>::S;
+  static constexpr int EB = sizeof(S);
+  static constexpr int LD = DP + 16 / EB;  // shared row stride, elements
+  static constexpr int KD = DP / 8;        // k8 steps of Q K^T, n8 tiles of P V
+  static constexpr int EPC = 16 / EB;      // elements of a 16-byte chunk
+  static constexpr int CPR = DP / EPC;     // chunks a row
+  static constexpr int Q_ELEMS = BQ * LD;
+  static constexpr int KV_ELEMS = BKV * LD;
+  static constexpr int STAGE_ELEMS = 2 * KV_ELEMS;  // K tile, then V tile
+  static constexpr int SMEM_BYTES = (Q_ELEMS + STAGES * STAGE_ELEMS) * EB;
   // Blocks an SM the registers must allow (ptxas then uses at most 128 a
   // thread at D <= 64, with no spills).
   static constexpr int MIN_BLOCKS = DP <= 64 ? 4 : 2;
-  static_assert((LD / 4) % 2 == 1, "fragment loads must hit distinct banks");
-  static_assert(THREADS % CPR == 0, "a thread keeps one column");
+  static_assert((LD * EB / 4) % 8 == 4, "fragment loads must hit distinct banks");
+  static_assert(THREADS % CPR == 0, "a thread keeps one column chunk");
 };
 
-// Copies ROWS rows of D floats (rows `stride` floats apart in memory) into
-// shared rows LD floats apart: this thread's column c4 of rows r0, r0 + RS,
-// ...; rows at or past rows_left fill zeros (source size 0).
-template <int ROWS, int LD, int CPR>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, size_t stride,
-                                          int rows_left, int c4, int r0, bool vec) {
-  constexpr int RS = THREADS / CPR;
-  static_assert(ROWS % RS == 0, "rows must tile the block");
+// Copies ROWS rows of D elements (rows `stride` elements apart in memory)
+// into shared rows LD elements apart: this thread's 16-byte chunk at column
+// c0 of rows r0, r0 + RS, ... below ROWS, in one 16-byte copy (V16), else in
+// copies of cw bytes (8 or 4); a copy of a row at or past rows_left, or of
+// columns at or past D, fills zeros (source size 0).
+template <int ROWS, int LD, int CPR, bool V16, typename S>
+__device__ __forceinline__ void load_rows(S* dst, const S* src, size_t stride, int rows_left,
+                                          int D, int c0, int r0, int cw) {
+  constexpr int RS = THREADS / CPR;  // rows a pass (above ROWS: 16-bit, D_pad 16)
+  constexpr int EB = sizeof(S), EPC = 16 / EB;
+  static_assert(ROWS % RS == 0 || RS % ROWS == 0, "rows must tile the block");
 #pragma unroll
-  for (int i = 0; i < ROWS / RS; ++i) {
+  for (int i = 0; i < (ROWS + RS - 1) / RS; ++i) {
     const int r = r0 + i * RS;
+    if (RS > ROWS && r >= ROWS) break;
     const bool ok = r < rows_left;
-    const float* from = ok ? src + r * stride + c4 : src;
-    float* to = dst + r * LD + c4;
-    if (vec) {
+    const S* from = ok ? src + r * stride + c0 : src;
+    S* to = dst + r * LD + c0;
+    if constexpr (V16) {
       cp_async16(to, from, ok ? 16 : 0);
     } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cp_async4(to + e, ok ? from + e : src, ok ? 4 : 0);
+      const int n = cw / EB;  // elements a copy
+      for (int e = 0; e < EPC; e += n) {
+        const bool in = ok && c0 + e < D;
+        if (cw == 8)
+          cp_async8(to + e, in ? from + e : src, in ? 8 : 0);
+        else
+          cp_async4(to + e, in ? from + e : src, in ? 4 : 0);
+      }
     }
   }
 }
@@ -141,14 +190,45 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
+// A 16-bit element's exact TF32 pattern (its fp32 bits): bf16 by a shift,
+// fp16 by the conversion.
+template <int EC>
+__device__ __forceinline__ uint32_t tf32_of(uint16_t h) {
+  if constexpr (EC == 1) return static_cast<uint32_t>(h) << 16;
+  return __float_as_uint(__half2float(__ushort_as_half(h)));
+}
+
+// The two 16-bit elements of one 32-bit word (lower address first).
+template <int EC>
+__device__ __forceinline__ void tf32_of_pair(uint32_t w, uint32_t& first, uint32_t& second) {
+  first = tf32_of<EC>(static_cast<uint16_t>(w & 0xffffu));
+  second = tf32_of<EC>(static_cast<uint16_t>(w >> 16));
+}
+
+// Two fp32 outputs rounded to nearest even in the element type, packed into
+// one word (the first at the lower address).
+template <int EC>
+__device__ __forceinline__ uint32_t pack_pair(float a, float b) {
+  if constexpr (EC == 1) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+template <int EC, int DP, bool V16>
+__global__ void __launch_bounds__(THREADS, Layout<EC, DP>::MIN_BLOCKS)
     flash_attention_kernel(FlashArgs p) {
-  using L = Layout<DP>;
+  using L = Layout<EC, DP>;
+  using S = typename L::S;
+  constexpr bool EXACT = EC != 0;  // 16-bit q, k, v: their low TF32 parts are zero
   constexpr int LD = L::LD, KD = L::KD, NS = BKV / 8;  // NS: n8 tiles of the scores
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                   // [BQ][LD]
-  float* ring = smem + L::Q_FLOATS;   // STAGES x ([BKV][LD] K, [BKV][LD] V)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* smem = reinterpret_cast<S*>(smem_raw);
+  S* Qs = smem;                   // [BQ][LD]
+  S* ring = smem + L::Q_ELEMS;    // STAGES x ([BKV][LD] K, [BKV][LD] V)
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -164,37 +244,37 @@ __global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
   const int offset = p.T - p.S;  // causal row offset for short q
   const size_t q_row = static_cast<size_t>(p.H) * D;    // stride of s in q, o
   const size_t kv_row = static_cast<size_t>(p.KV) * D;  // stride of t in k, v
-  const float* qb = p.q + (static_cast<size_t>(b) * p.S * p.H + h) * D;
-  const float* kb = p.k + (static_cast<size_t>(b) * p.T * p.KV + kvh) * D;
-  const float* vb = p.v + (static_cast<size_t>(b) * p.T * p.KV + kvh) * D;
-  const bool vec = p.vec != 0;
+  const S* qb = static_cast<const S*>(p.q) + (static_cast<size_t>(b) * p.S * p.H + h) * D;
+  const S* kb = static_cast<const S*>(p.k) + (static_cast<size_t>(b) * p.T * p.KV + kvh) * D;
+  const S* vb = static_cast<const S*>(p.v) + (static_cast<size_t>(b) * p.T * p.KV + kvh) * D;
 
-  // Pad columns D..DP-1 of Q and of every ring stage are zero; the copies
-  // never write them.
+  // Pad columns of Q and of every ring stage are zero: the copies fill the
+  // columns of chunks they copy and never touch the chunks past D.
   if (D < DP) {
     const int pad = DP - D;
     const int rows = BQ + STAGES * 2 * BKV;
-    for (int e = tid; e < rows * pad; e += THREADS) smem[(e / pad) * LD + D + e % pad] = 0.f;
+    for (int e = tid; e < rows * pad; e += THREADS) smem[(e / pad) * LD + D + e % pad] = S(0);
   }
 
-  // This thread's copy column and first row.
-  const int c4 = (tid % L::CPR) * 4;
+  // This thread's copy chunk and first row.
+  const int c0 = (tid % L::CPR) * L::EPC;
   const int r0 = tid / L::CPR;
-  const bool copies = c4 < D;  // columns past D are padding
+  const bool copies = c0 < D;  // chunks past D are padding
 
   // Last kv column any stored row of this block may see, and the tiles.
   const int last_row = min(q0 + BQ, p.S) - 1 + offset;
   const int k_end = p.causal ? min(p.T, last_row + 1) : p.T;
   const int ntiles = (k_end + BKV - 1) / BKV;
   auto load_tile = [&](int j) {
-    float* ks = ring + (j % STAGES) * L::STAGE_FLOATS;
+    S* ks = ring + (j % STAGES) * L::STAGE_ELEMS;
     const int kv0 = j * BKV;
-    load_rows<BKV, LD, L::CPR>(ks, kb + kv0 * kv_row, kv_row, p.T - kv0, c4, r0, vec);
-    load_rows<BKV, LD, L::CPR>(ks + L::KV_FLOATS, vb + kv0 * kv_row, kv_row, p.T - kv0, c4,
-                               r0, vec);
+    load_rows<BKV, LD, L::CPR, V16>(ks, kb + kv0 * kv_row, kv_row, p.T - kv0, D, c0, r0,
+                                    p.cw);
+    load_rows<BKV, LD, L::CPR, V16>(ks + L::KV_ELEMS, vb + kv0 * kv_row, kv_row, p.T - kv0, D,
+                                    c0, r0, p.cw);
   };
   if (copies) {
-    load_rows<BQ, LD, L::CPR>(Qs, qb + q0 * q_row, q_row, p.S - q0, c4, r0, vec);
+    load_rows<BQ, LD, L::CPR, V16>(Qs, qb + q0 * q_row, q_row, p.S - q0, D, c0, r0, p.cw);
 #pragma unroll
     for (int j = 0; j < STAGES - 1; ++j)
       if (j < ntiles) load_tile(j);
@@ -223,27 +303,44 @@ __global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
     const int kv0 = it * BKV;
     // Tiles wholly above this warp's diagonal contribute p = 0 exactly.
     if (!warp_rows || (p.causal && kv0 > wlast)) continue;
-    const float* Ks = ring + (it % STAGES) * L::STAGE_FLOATS;
-    const float* Vs = Ks + L::KV_FLOATS;
+    const S* Ks = ring + (it % STAGES) * L::STAGE_ELEMS;
+    const S* Vs = Ks + L::KV_ELEMS;
 
     // S = Q K^T in slices of KSL k8 steps, each from zero, added in fp32.
     // Q's A fragment of the warp's 16 rows: a0 (g, t), a1 (g+8, t), a2 (g,
     // t+4), a3 (g+8, t+4); B(k = d, n = kv) = K[kv][d]: b0 (t, g), b1 (t+4, g).
+    // 16-bit: k index t reads column 2t and t+4 column 2t+1 of the k8 step,
+    // in A and in B alike, so each pair is one 32-bit load.
     float s[NS][4], slice[NS][4];
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ahi[4], alo[4];
+      if constexpr (EXACT) {
+        uint32_t a[4];
+        const S* qr = Qs + (warp * 16 + g) * LD + kk * 8 + 2 * t;
+        tf32_of_pair<EC>(*reinterpret_cast<const uint32_t*>(qr), a[0], a[2]);
+        tf32_of_pair<EC>(*reinterpret_cast<const uint32_t*>(qr + 8 * LD), a[1], a[3]);
 #pragma unroll
-      for (int v = 0; v < 4; ++v)
-        split_tf32(Qs[(warp * 16 + g + (v & 1) * 8) * LD + kk * 8 + t + (v >> 1) * 4], ahi[v],
-                   alo[v]);
+        for (int j = 0; j < NS; ++j) {
+          uint32_t bk[2];
+          tf32_of_pair<EC>(
+              *reinterpret_cast<const uint32_t*>(Ks + (j * 8 + g) * LD + kk * 8 + 2 * t),
+              bk[0], bk[1]);
+          mma_tf32(slice[j], a, bk, kk % KSL == 0 ? zero : slice[j]);
+        }
+      } else {
+        uint32_t ahi[4], alo[4];
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float* kr = Ks + (j * 8 + g) * LD + kk * 8 + t;
-        uint32_t bhi[2], blo[2];
-        split_tf32(kr[0], bhi[0], blo[0]);
-        split_tf32(kr[4], bhi[1], blo[1]);
-        mma_3xtf32(slice[j], ahi, alo, bhi, blo, kk % KSL == 0 ? zero : slice[j]);
+        for (int v = 0; v < 4; ++v)
+          split_tf32(Qs[(warp * 16 + g + (v & 1) * 8) * LD + kk * 8 + t + (v >> 1) * 4],
+                     ahi[v], alo[v]);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float* kr = Ks + (j * 8 + g) * LD + kk * 8 + t;
+          uint32_t bhi[2], blo[2];
+          split_tf32(kr[0], bhi[0], blo[0]);
+          split_tf32(kr[4], bhi[1], blo[1]);
+          mma_3xtf32(slice[j], ahi, alo, bhi, blo, kk % KSL == 0 ? zero : slice[j]);
+        }
       }
       if (kk % KSL == KSL - 1 || kk == KD - 1) {
 #pragma unroll
@@ -289,6 +386,7 @@ __global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
 
     // P V of this tile, from zero: k runs over the tile's kv rows in the
     // permuted order (k index t -> row 2t, t+4 -> 2t+1 of each k8 step).
+    // P is fp32 (split); 16-bit V is exact, so P_lo V + P_hi V.
     float part[KD][4];
 #pragma unroll
     for (int ks = 0; ks < NS; ++ks) {
@@ -297,13 +395,19 @@ __global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
       split_tf32(s[ks][2], ahi[1], alo[1]);
       split_tf32(s[ks][1], ahi[2], alo[2]);
       split_tf32(s[ks][3], ahi[3], alo[3]);
-      const float* vr = Vs + (ks * 8 + 2 * t) * LD + g;
+      const S* vr = Vs + (ks * 8 + 2 * t) * LD + g;
 #pragma unroll
       for (int j = 0; j < KD; ++j) {
-        uint32_t bhi[2], blo[2];
-        split_tf32(vr[j * 8], bhi[0], blo[0]);
-        split_tf32(vr[LD + j * 8], bhi[1], blo[1]);
-        mma_3xtf32(part[j], ahi, alo, bhi, blo, ks == 0 ? zero : part[j]);
+        if constexpr (EXACT) {
+          const uint32_t bv[2] = {tf32_of<EC>(vr[j * 8]), tf32_of<EC>(vr[LD + j * 8])};
+          mma_tf32(part[j], alo, bv, ks == 0 ? zero : part[j]);
+          mma_tf32(part[j], ahi, bv, part[j]);
+        } else {
+          uint32_t bhi[2], blo[2];
+          split_tf32(vr[j * 8], bhi[0], blo[0]);
+          split_tf32(vr[LD + j * 8], bhi[1], blo[1]);
+          mma_3xtf32(part[j], ahi, alo, bhi, blo, ks == 0 ? zero : part[j]);
+        }
       }
     }
 #pragma unroll
@@ -313,21 +417,24 @@ __global__ void __launch_bounds__(THREADS, Layout<DP>::MIN_BLOCKS)
   }
   cp_async_wait<0>();
 
-  // o = acc / max(l, 1e-30): c0, c1 at (g, 2t), (g, 2t+1); c2, c3 eight
-  // rows down.  D % 4 == 0, so d < D implies d + 1 < D.
-  float* ob = p.o + (static_cast<size_t>(b) * p.S * p.H + h) * D;
+  // o = acc / max(l, 1e-30), rounded to the element type here only: c0, c1
+  // at (g, 2t), (g, 2t+1); c2, c3 eight rows down.  D % 4 == 0, so d < D
+  // implies d + 1 < D.
+  S* ob = static_cast<S*>(p.o) + (static_cast<size_t>(b) * p.S * p.H + h) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wr0 + g + r * 8;
     if (row >= p.S) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    float* orow = ob + row * q_row;
+    S* orow = ob + row * q_row;
 #pragma unroll
     for (int j = 0; j < KD; ++j) {
       const int d = j * 8 + 2 * t;
       if (d >= D) continue;
       const float o0 = acc[j][2 * r] / den, o1 = acc[j][2 * r + 1] / den;
-      if (vec) {
+      if constexpr (EXACT) {
+        *reinterpret_cast<uint32_t*>(orow + d) = pack_pair<EC>(o0, o1);
+      } else if (p.pair) {
         *reinterpret_cast<float2*>(orow + d) = make_float2(o0, o1);
       } else {
         orow[d] = o0;
@@ -341,32 +448,55 @@ bool aligned(const void* ptr, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(ptr) & (bytes - 1)) == 0;
 }
 
-template <int DP>
-int launch(const FlashArgs& a, int* variant, cudaStream_t stream) {
-  using L = Layout<DP>;
-  report_variant(variant, DP, a.vec);
-  const cudaError_t err = allow_smem<flash_attention_kernel<DP>>(L::SMEM_BYTES);
+template <int EC, int DP, bool V16>
+int launch_kernel(const FlashArgs& a, int* variant, cudaStream_t stream) {
+  using L = Layout<EC, DP>;
+  report_variant(variant, EC, DP, a.cw);
+  const cudaError_t err = allow_smem<flash_attention_kernel<EC, DP, V16>>(L::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.H, a.B, (a.S + BQ - 1) / BQ);
-  flash_attention_kernel<DP><<<grid, THREADS, L::SMEM_BYTES, stream>>>(a);
+  flash_attention_kernel<EC, DP, V16><<<grid, THREADS, L::SMEM_BYTES, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int EC, int DP>
+int launch(const FlashArgs& a, int* variant, cudaStream_t stream) {
+  return a.cw == 16 ? launch_kernel<EC, DP, true>(a, variant, stream)
+                    : launch_kernel<EC, DP, false>(a, variant, stream);
+}
+
+template <int EC>
+int launch_dp(const FlashArgs& a, int* variant, cudaStream_t stream) {
+  if (a.D <= 16) return launch<EC, 16>(a, variant, stream);
+  if (a.D <= 32) return launch<EC, 32>(a, variant, stream);
+  if (a.D <= 64) return launch<EC, 64>(a, variant, stream);
+  return launch<EC, 128>(a, variant, stream);
 }
 
 }  // namespace
 
-// q (B, S, H, D), k/v (B, T, KV, D), o (B, S, H, D): contiguous fp32 on the
-// device; H % KV == 0, D % 4 == 0, D <= 128 (the wrapper checks).
-extern "C" int flash_attention(const float* q, const float* k, const float* v, float* o,
-                               int B, int S, int T, int H, int KV, int D, float scale,
-                               int causal, int* variant, void* stream) {
+// q (B, S, H, D), k/v (B, T, KV, D), o (B, S, H, D): contiguous on the
+// device, all of one element type `dtype` (0 fp32, 1 bf16, 2 fp16), every
+// pointer 4-byte aligned; H % KV == 0, D % 4 == 0, D <= 128 (the wrapper
+// checks).  The variant reported: (dtype, D padded, copy bytes).
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
+                               int S, int T, int H, int KV, int D, float scale, int causal,
+                               int dtype, int* variant, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 4 != 0 ||
-      D > 128 || B > 65535 || (S + BQ - 1) / BQ > 65535)
+      D > 128 || B > 65535 || (S + BQ - 1) / BQ > 65535 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = aligned(q, 16) && aligned(k, 16) && aligned(v, 16) && aligned(o, 16);
-  const FlashArgs a{q, k, v, o, B, S, T, H, KV, D, scale, causal, vec};
+  const int eb = dtype == 0 ? 4 : 2;
+  auto all = [&](uintptr_t bytes) {
+    return aligned(q, bytes) && aligned(k, bytes) && aligned(v, bytes) && aligned(o, bytes);
+  };
+  if (!all(4)) return static_cast<int>(cudaErrorMisalignedAddress);
+  // Rows start D * eb bytes apart, so a copy width divides every row's start
+  // when it divides the base pointers and D * eb.
+  const int cw = all(16) && D * eb % 16 == 0 ? 16 : all(8) && D * eb % 8 == 0 ? 8 : 4;
+  const FlashArgs a{q, k, v, o, B, S, T, H, KV, D, scale, causal, cw,
+                    aligned(o, 2 * eb) ? 1 : 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch<16>(a, variant, s);
-  if (D <= 32) return launch<32>(a, variant, s);
-  if (D <= 64) return launch<64>(a, variant, s);
-  return launch<128>(a, variant, s);
+  if (dtype == 1) return launch_dp<1>(a, variant, s);
+  if (dtype == 2) return launch_dp<2>(a, variant, s);
+  return launch_dp<0>(a, variant, s);
 }

@@ -6,8 +6,10 @@ matching function here when its tensors lie on the CPU, and
 ``chip_smoke.py`` holds each CUDA kernel against it on the card.  The
 attention and SSD functions are also the ``xla`` / ``xla_chunked`` paths of
 :mod:`repro_torch.kernels.ops`, as their counterparts are in the JAX
-package.  All functions compute in fp32; the matrix ops accept a leading
-batch ``(..., a, b)``.
+package; flash attention's plain version is :func:`flash_attention_ref`,
+which keeps P in fp32 where the ``xla`` routes round it to v's dtype.  All
+functions compute in fp32; the matrix ops accept a leading batch
+``(..., a, b)``.
 
 Shapes convention (as in the JAX package's ``kernels/ref.py``):
   attention:      q (B, S, H, D), k/v (B, T, KV, D), GQA via H % KV == 0
@@ -30,19 +32,11 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ attention
 
 
-def attention_ref(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    scale: Optional[float] = None,
-    kv_len=None,
-) -> torch.Tensor:
-    """Softmax attention with GQA and fp32 softmax.  Under ``causal`` the S
-    queries are the last S positions of the T-long kv sequence (row offset
-    ``T - S``).  ``kv_len`` (an int or a (B,) tensor, one length per batch
-    row) masks the kv positions at and past it."""
+def _attention(q, k, v, *, causal: bool, scale: Optional[float], kv_len,
+               round_p: bool) -> torch.Tensor:
+    """Softmax attention from fp32 logits of the inputs' exact values, an
+    fp32 softmax and P·V summed in fp32, out in q's dtype; ``round_p``
+    rounds P to v's dtype before P·V."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -59,15 +53,54 @@ def attention_ref(
         mask = mask & (cols[None, None, :] < kv_len)
     logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
     p = torch.softmax(logits, dim=-1)
+    del logits
+    if round_p:
+        p = _f32(p.to(v.dtype))
     o = torch.einsum("bkgst,btkd->bskgd", p, _f32(v))
     return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    kv_len=None,
+) -> torch.Tensor:
+    """Softmax attention with GQA, as the JAX package's ``attention_ref``
+    (``impl="xla"``): fp32 logits and softmax, **P rounded to v's dtype**
+    before P·V, which sums in fp32; out in q's dtype.  Under ``causal`` the
+    S queries are the last S positions of the T-long kv sequence (row
+    offset ``T - S``).  ``kv_len`` (an int or a (B,) tensor, one length per
+    batch row) masks the kv positions at and past it.  In fp32 it equals
+    :func:`flash_attention_ref`."""
+    return _attention(q, k, v, causal=causal, scale=scale, kv_len=kv_len, round_p=True)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The flash attention kernel's plain version (kernel row 7): what the
+    Pallas ``_flash_kernel`` computes, every block cast to fp32, fp32
+    logits, softmax and **P kept in fp32** for P·V; out in q's dtype.  The
+    wrapper runs it for CPU tensors, and the card holds the kernel
+    against it."""
+    return _attention(q, k, v, causal=causal, scale=scale, kv_len=None, round_p=False)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          pos) -> torch.Tensor:
     """Single-step decode: q (B, 1, H, D) over a (B, Smax, KV, D) cache with
     valid length pos + 1 (positions 0..pos); ``pos`` an int or one position
-    per batch row (B,)."""
+    per batch row (B,).  P is rounded to the cache's dtype, as in
+    :func:`attention_ref`."""
     return attention_ref(q, k, v, causal=False,
                          kv_len=torch.as_tensor(pos, device=q.device) + 1)
 
@@ -81,9 +114,12 @@ def attention_chunked_ref(
     scale: Optional[float] = None,
     block_kv: int = 512,
 ) -> torch.Tensor:
-    """Flash-algorithm attention in plain torch: a loop over kv blocks with
-    a running (max, denominator, accumulator), fp32; equal to
-    :func:`attention_ref`.  Peak score memory is O(S·block_kv) per head."""
+    """Flash-algorithm attention in plain torch (``impl="xla_chunked"``): a
+    loop over kv blocks with a running (max, denominator, accumulator) in
+    fp32, each block's P rounded to v's dtype for P·V (the denominator sums
+    it unrounded), as the JAX package's ``attention_chunked_ref``; equal
+    to :func:`attention_ref` in fp32.  Peak score memory is O(S·block_kv)
+    per head."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -111,7 +147,8 @@ def attention_chunked_ref(
         p = torch.where(torch.isneginf(s), 0.0, p)
         alpha = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
         l = alpha * l + p.sum(dim=-1)
-        acc = alpha[..., None] * acc + torch.einsum("bkgst,btkd->bkgsd", p, vblk)
+        acc = alpha[..., None] * acc + torch.einsum("bkgst,btkd->bkgsd",
+                                                    _f32(p.to(v.dtype)), vblk)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,KV,G,S,D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)

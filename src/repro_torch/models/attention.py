@@ -1,5 +1,7 @@
 """GQA self-attention and its one-token decode (the self-attention half of
-the JAX package's ``models/attention.py``), on one layer's weights."""
+the JAX package's ``models/attention.py``), on one layer's weights ``p``:
+``wq``, ``wk``, ``wv``, ``wo`` and, under ``cfg.qkv_bias``, ``bias_q``,
+``bias_k``, ``bias_v``, each cast to the activations' dtype at its use."""
 from __future__ import annotations
 
 import torch
@@ -9,38 +11,43 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
 
 
-def _qkv(x: torch.Tensor, wq, wk, wv, cfg: ModelConfig):
+def _qkv(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: ModelConfig):
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
-    q = (x @ wq.to(x.dtype)).reshape(x.shape[:-1] + (H, hd))
-    k = (x @ wk.to(x.dtype)).reshape(x.shape[:-1] + (KV, hd))
-    v = (x @ wv.to(x.dtype)).reshape(x.shape[:-1] + (KV, hd))
-    return q, k, v
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if "bias_q" in p:
+        q = q + p["bias_q"].to(x.dtype)
+        k = k + p["bias_k"].to(x.dtype)
+        v = v + p["bias_v"].to(x.dtype)
+    return (q.reshape(x.shape[:-1] + (H, hd)), k.reshape(x.shape[:-1] + (KV, hd)),
+            v.reshape(x.shape[:-1] + (KV, hd)))
 
 
-def self_attention(x: torch.Tensor, wq, wk, wv, wo, cfg: ModelConfig,
+def self_attention(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: ModelConfig,
                    positions: torch.Tensor, causal: bool):
     """Full-sequence attention of x (B, S, D) through ``ops.attention`` at
     ``cfg.attn_impl``; returns the output and the fresh (k, v), each
     (B, S, KV, hd) after RoPE."""
-    q, k, v = _qkv(x, wq, wk, wv, cfg)
+    q, k, v = _qkv(x, p, cfg)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
     o = ops.attention(q, k, v, causal=causal, impl=cfg.attn_impl)
-    return o.reshape(x.shape[:-1] + (cfg.n_heads * cfg.hd,)) @ wo.to(x.dtype), (k, v)
+    return o.reshape(x.shape[:-1] + (cfg.n_heads * cfg.hd,)) @ p["wo"].to(x.dtype), (k, v)
 
 
-def decode_self_attention(x: torch.Tensor, wq, wk, wv, wo, cfg: ModelConfig,
+def decode_self_attention(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: ModelConfig,
                           kcache: torch.Tensor, vcache: torch.Tensor,
                           pos: torch.Tensor) -> torch.Tensor:
     """One-token decode: x (B, 1, D), caches (B, Smax, KV, hd), pos (B,) —
     each row at its own position.  Writes the new k and v into row b of the
     caches at ``pos[b]`` **in place** (the reference returns updated copies)
     and attends over positions 0..pos[b]."""
-    q, k, v = _qkv(x, wq, wk, wv, cfg)
+    q, k, v = _qkv(x, p, cfg)
     q = apply_rope(q, pos[:, None], cfg)
     k = apply_rope(k, pos[:, None], cfg)
     rows = torch.arange(x.shape[0], device=x.device)
     kcache[rows, pos] = k[:, 0].to(kcache.dtype)
     vcache[rows, pos] = v[:, 0].to(vcache.dtype)
     o = ops.decode_attention(q, kcache, vcache, pos)
-    return o.reshape(x.shape[:-1] + (cfg.n_heads * cfg.hd,)) @ wo.to(x.dtype)
+    return o.reshape(x.shape[:-1] + (cfg.n_heads * cfg.hd,)) @ p["wo"].to(x.dtype)

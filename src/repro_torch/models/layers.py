@@ -1,8 +1,12 @@
-"""Primitive layers: RMSNorm, rotary embeddings, SwiGLU, the unembedding
-and the truncated-normal initializer (as the JAX package's
-``models/layers.py``, the subset the dense and ssm families use).  Each
-layer computes in its input's dtype, and the norm casts back to it."""
+"""Primitive layers: RMSNorm and LayerNorm, rotary embeddings (full,
+partial and ChatGLM's 2-D), the MLP variants (SwiGLU, GeGLU, GELU, squared
+ReLU) with optional biases, the unembedding and the truncated-normal
+initializer (as the JAX package's ``models/layers.py``).  Each layer
+computes in its input's dtype, casting each weight to it at its use, and
+the norm computes in fp32 and casts back."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -18,11 +22,21 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> to
         return t.mul_(std)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32 (the reference's ``apply_norm``), cast back to x's dtype."""
+def apply_norm(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: ModelConfig,
+               eps: float = 1e-6) -> torch.Tensor:
+    """The reference's ``apply_norm`` with one norm's parameters ``p``, in
+    fp32, cast back to x's dtype: LayerNorm (population variance, ``eps``
+    inside the rsqrt, then ``norm_scale`` and ``norm_bias``) when
+    ``cfg.norm == "layernorm"``, else RMSNorm (``norm_scale``)."""
     x32 = x.to(torch.float32)
-    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+    if cfg.norm == "layernorm":
+        mu = torch.mean(x32, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+        out = (x32 - mu) * torch.rsqrt(var + eps) * p["norm_scale"] + p["norm_bias"]
+    else:
+        ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+        out = x32 * torch.rsqrt(ms + eps) * p["norm_scale"]
+    return out.to(x.dtype)
 
 
 def rope_angles(positions: torch.Tensor, dim: int, theta: float):
@@ -34,23 +48,52 @@ def rope_angles(positions: torch.Tensor, dim: int, theta: float):
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Rotary embedding on (..., S, H, hd), interleaved pairs (0::2, 1::2)."""
+    """Rotary embedding on (..., S, H, hd), interleaved pairs (0::2, 1::2)
+    of the leading ``rot`` head dims; the rest pass through.  ``rot`` is
+    ``hd * rope_fraction`` (half for ChatGLM's ``rope2d``) rounded down to
+    even, and the frequencies run over ``rot``."""
     if cfg.rope == "none":
         return x
-    if cfg.rope != "rope" or cfg.rope_fraction != 1.0:
-        raise NotImplementedError(f"rope={cfg.rope!r} (fraction {cfg.rope_fraction}) "
-                                  "is not ported yet")
     hd = x.shape[-1]
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)  # (..., S, hd/2)
+    rot = int(hd * (0.5 if cfg.rope == "rope2d" else cfg.rope_fraction))
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    cos, sin = rope_angles(positions, rot, cfg.rope_theta)  # (..., S, rot/2)
     cos, sin = cos[..., :, None, :], sin[..., :, None, :]  # broadcast over heads
-    x1, x2 = x[..., 0::2], x[..., 1::2]
-    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.reshape(x.shape).to(x.dtype)
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).reshape(xr.shape)
+    return torch.cat([out, xp], dim=-1).to(x.dtype)
 
 
-def swiglu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
-               w_out: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
+def mlp_act(h: torch.Tensor, g: Optional[torch.Tensor], act: str) -> torch.Tensor:
+    """The MLP's activation; GELU is the tanh form, as ``jax.nn.gelu``'s
+    default."""
+    if act == "swiglu":
+        return F.silu(g) * h
+    if act == "geglu":
+        return F.gelu(g, approximate="tanh") * h
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if act == "relu2":  # squared ReLU (Primer / Nemotron-4)
+        r = F.relu(h)
+        return r * r
+    raise ValueError(f"unknown act {act}")
+
+
+def apply_mlp(x: torch.Tensor, p: dict[str, torch.Tensor], act: str) -> torch.Tensor:
+    """``act(x w_in + bias_in[, x w_gate]) w_out + bias_out`` with one
+    layer's weights ``p`` (``w_gate`` for the gated acts, the biases where
+    the config has them)."""
+    h = x @ p["w_in"].to(x.dtype)
+    if "bias_in" in p:
+        h = h + p["bias_in"].to(x.dtype)
+    g = x @ p["w_gate"].to(x.dtype) if "w_gate" in p else None
+    out = mlp_act(h, g, act) @ p["w_out"].to(x.dtype)
+    if "bias_out" in p:
+        out = out + p["bias_out"].to(x.dtype)
+    return out
 
 
 def unembed(x: torch.Tensor, embed: torch.Tensor, lm_head=None) -> torch.Tensor:

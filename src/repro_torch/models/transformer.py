@@ -1,18 +1,24 @@
 """Model assembly for the ported families (the JAX package's
-``models/transformer.py``): the dense LLaMA decoder and the Mamba-2 (ssm)
-model, each an ``nn.Module``.
+``models/transformer.py``): the dense decoder (the paper's LLaMA and the
+dense variants: chatglm3-6b, qwen1.5-4b, starcoder2-7b) and the Mamba-2
+(ssm) model, each an ``nn.Module``.
 
 Parameters are **layer-stacked** under the reference's paths, so the
 optimizer sees the same leaves.  Dense::
 
     blocks/attn/{wq, wk, wv, wo}   (L, d, H*hd) / (L, H*hd, d)
-    blocks/ln1/norm_scale          (L, d)
-    blocks/ln2/norm_scale          (L, d)
-    blocks/mlp/{w_in, w_gate}      (L, d, d_ff)
+    blocks/attn/bias_q             (L, H*hd)       under qkv_bias
+    blocks/attn/{bias_k, bias_v}   (L, KV*hd)      under qkv_bias
+    blocks/ln{1,2}/norm_scale      (L, d)
+    blocks/ln{1,2}/norm_bias       (L, d)          layernorm only
+    blocks/mlp/{w_in, w_gate}      (L, d, d_ff)    w_gate for swiglu / geglu
     blocks/mlp/w_out               (L, d_ff, d)
+    blocks/mlp/bias_in             (L, d_ff)       under mlp_bias
+    blocks/mlp/bias_out            (L, d)          under mlp_bias
     embed/embed                    (vocab, d)      tied unless embed/lm_head
     embed/lm_head                  (d, vocab)      only when not tied
     final_norm/norm_scale          (d,)
+    final_norm/norm_bias           (d,)            layernorm only
 
 ssm (Mamba-2)::
 
@@ -28,8 +34,9 @@ Under ``cfg.remat``, when autograd records, each layer runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``):
 ``remat_policy="dots"`` keeps the un-batched products, any other policy
 keeps nothing, and backward recomputes the rest.
-Parameters are fp32; the ssm model computes in ``cfg.dtype`` (bf16 at
-mamba2-370m), casting each weight at its use, as the reference does.
+Parameters are fp32; both families compute in ``cfg.dtype`` (bf16 for
+every full-size config but the paper's LLaMA), casting each weight at its
+use, as the reference does.
 
 Serving: ``forward(tokens, return_cache=True)`` (prefill), ``init_cache``,
 ``decode_step(cache, tokens, pos)`` with one position per batch row, and
@@ -55,7 +62,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.devices import resolve_device
 from repro_torch.models import mamba2
 from repro_torch.models.attention import decode_self_attention, self_attention
-from repro_torch.models.layers import rms_norm, swiglu_mlp, trunc_normal_, unembed
+from repro_torch.models.layers import apply_mlp, apply_norm, trunc_normal_, unembed
 
 
 def _group(**params: torch.Tensor) -> nn.Module:
@@ -63,6 +70,12 @@ def _group(**params: torch.Tensor) -> nn.Module:
     for name, t in params.items():
         m.register_parameter(name, nn.Parameter(t))
     return m
+
+
+def _at(group: nn.Module, l: Optional[int] = None) -> dict[str, torch.Tensor]:
+    """A group's parameters by name: layer ``l`` of each stack, or the
+    tensors themselves (``l`` None)."""
+    return {k: p if l is None else p[l] for k, p in group.named_parameters()}
 
 
 # The products without batch dimensions, which remat_policy="dots" keeps (the
@@ -142,15 +155,34 @@ class _LM(nn.Module):
         return self.embed.embed[tokens].to(self.dtype)
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.final_norm.norm_scale)
+        return apply_norm(x, _at(self.final_norm), self.cfg)
+
+    def _norm_group(self, *lead: int) -> nn.Module:
+        """A norm's parameters, allocated: ``norm_scale`` (lead + (d,)) and,
+        under layernorm, ``norm_bias``."""
+        d = self.cfg.d_model
+        bias = {"norm_bias": self._empty(*lead, d)} if self.cfg.norm == "layernorm" else {}
+        return _group(norm_scale=self._empty(*lead, d), **bias)
+
+    def _init_norms(self, *groups: nn.Module) -> None:
+        with torch.no_grad():
+            for norm in groups:
+                norm.norm_scale.fill_(1.0)
+                if hasattr(norm, "norm_bias"):
+                    norm.norm_bias.zero_()
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return unembed(self._final(x), self.embed.embed, getattr(self.embed, "lm_head", None))
 
 
 class Transformer(_LM):
-    """Dense LLaMA-style decoder (RMSNorm, RoPE, SwiGLU; tied or untied
-    head), fp32."""
+    """Dense decoder: pre-norm blocks of GQA self-attention and an MLP, tied
+    or untied head.  ``act`` swiglu / geglu / gelu / relu2, ``norm``
+    rmsnorm / layernorm, ``qkv_bias``, ``mlp_bias``, ``rope`` rope (any
+    ``rope_fraction``) / rope2d / none; fp32 parameters, activations in
+    ``cfg.dtype`` (fp32 or bf16)."""
+
+    ACTS = ("swiglu", "geglu", "gelu", "relu2")
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         """Allocate the parameters on ``device``, uninitialised: set them
@@ -159,13 +191,13 @@ class Transformer(_LM):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(f"model family {cfg.family!r} is not a dense model")
-        if (cfg.act != "swiglu" or cfg.norm != "rmsnorm" or cfg.qkv_bias or cfg.mlp_bias
-                or cfg.frontend != "none"):
-            raise NotImplementedError(f"{cfg.name}: only the dense SwiGLU/RMSNorm "
-                                      "decoder is ported")
-        if cfg.dtype != "float32" or cfg.param_dtype != "float32":
-            raise NotImplementedError("only fp32 parameters and activations are ported "
-                                      "for the dense family")
+        if (cfg.act not in self.ACTS or cfg.norm not in ("rmsnorm", "layernorm")
+                or cfg.rope not in ("rope", "rope2d", "none") or cfg.frontend != "none"):
+            raise NotImplementedError(f"{cfg.name}: act {cfg.act!r}, norm {cfg.norm!r}, rope "
+                                      f"{cfg.rope!r}, frontend {cfg.frontend!r} is not ported")
+        if cfg.dtype not in ("float32", "bfloat16") or cfg.param_dtype != "float32":
+            raise NotImplementedError("the dense family takes fp32 parameters and fp32 or "
+                                      "bf16 activations")
         ops.check_impl(cfg.attn_impl)
         self.cfg, self._device = cfg, device
         L, d, H, KV, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads,
@@ -174,52 +206,64 @@ class Transformer(_LM):
         head = {} if cfg.tie_embeddings else {"lm_head": empty(d, cfg.vocab)}
         self.embed = _group(embed=empty(cfg.vocab, d), **head)
         self.blocks = nn.Module()
+        qkv_bias = ({"bias_q": empty(L, H * hd), "bias_k": empty(L, KV * hd),
+                     "bias_v": empty(L, KV * hd)} if cfg.qkv_bias else {})
         self.blocks.attn = _group(wq=empty(L, d, H * hd), wk=empty(L, d, KV * hd),
-                                  wv=empty(L, d, KV * hd), wo=empty(L, H * hd, d))
-        self.blocks.ln1 = _group(norm_scale=empty(L, d))
-        self.blocks.ln2 = _group(norm_scale=empty(L, d))
-        self.blocks.mlp = _group(w_in=empty(L, d, ff), w_gate=empty(L, d, ff),
-                                 w_out=empty(L, ff, d))
-        self.final_norm = _group(norm_scale=empty(d))
+                                  wv=empty(L, d, KV * hd), wo=empty(L, H * hd, d), **qkv_bias)
+        self.blocks.ln1 = self._norm_group(L)
+        self.blocks.ln2 = self._norm_group(L)
+        gate = {"w_gate": empty(L, d, ff)} if cfg.act in ("swiglu", "geglu") else {}
+        mlp_bias = {"bias_in": empty(L, ff), "bias_out": empty(L, d)} if cfg.mlp_bias else {}
+        self.blocks.mlp = _group(w_in=empty(L, d, ff), **gate, w_out=empty(L, ff, d),
+                                 **mlp_bias)
+        self.final_norm = self._norm_group()
 
     def init_params(self, seed: int) -> None:
         """Initialise every parameter from ``seed`` (a ``torch.Generator``
         on the parameters' device): truncated normals with the reference's
-        scales, norms at one.  Not the reference's threefry draws: parity
-        tests load the reference's parameters with :meth:`load_params`."""
+        scales, norms at one, biases at zero.  Not the reference's threefry
+        draws: parity tests load the reference's parameters with
+        :meth:`load_params`."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
         d, ff = cfg.d_model, cfg.d_ff
         attn, mlp = self.blocks.attn, self.blocks.mlp
         self._init_embed(gen)
-        for w in (attn.wq, attn.wk, attn.wv, mlp.w_in, mlp.w_gate):
-            trunc_normal_(w, d ** -0.5, gen)
+        for w in (attn.wq, attn.wk, attn.wv, mlp.w_in, getattr(mlp, "w_gate", None)):
+            if w is not None:
+                trunc_normal_(w, d ** -0.5, gen)
         trunc_normal_(attn.wo, (cfg.n_heads * cfg.hd) ** -0.5, gen)
         trunc_normal_(mlp.w_out, ff ** -0.5, gen)
         with torch.no_grad():
-            for norm in (self.blocks.ln1, self.blocks.ln2, self.final_norm):
-                norm.norm_scale.fill_(1.0)
+            for name, p in self.named_parameters():
+                if name.split(".")[-1].startswith("bias_"):
+                    p.zero_()
+        self._init_norms(self.blocks.ln1, self.blocks.ln2, self.final_norm)
+
+    def _layer(self, l: int) -> dict[str, dict[str, torch.Tensor]]:
+        """Layer ``l``'s parameters: {"attn", "ln1", "ln2", "mlp": {name: tensor}}."""
+        b = self.blocks
+        return {"attn": _at(b.attn, l), "ln1": _at(b.ln1, l), "ln2": _at(b.ln2, l),
+                "mlp": _at(b.mlp, l)}
 
     def forward(self, tokens: torch.Tensor, return_cache: bool = False,
                 return_hidden: bool = False):
-        """tokens (B, S) int -> logits (B, S, vocab), fp32; with
-        ``return_cache`` -> (logits, {"k", "v": (L, B, S, KV, hd)}); with
-        ``return_hidden`` the final-normed hidden states (B, S, d) in place
-        of the logits (:func:`chunked_lm_loss` unembeds them)."""
+        """tokens (B, S) int -> logits (B, S, vocab) in the activation
+        dtype; with ``return_cache`` -> (logits, {"k", "v": (L, B, S, KV,
+        hd)}); with ``return_hidden`` the final-normed hidden states (B, S,
+        d) in place of the logits (:func:`chunked_lm_loss` unembeds them)."""
         cfg = self.cfg
         x = self._embed(tokens)
         S = tokens.shape[1]
         positions = torch.arange(S, device=tokens.device)[None, :]
         causal = cfg.causal and not cfg.encoder_only
-        attn, mlp, b = self.blocks.attn, self.blocks.mlp, self.blocks
 
         def layer(x: torch.Tensor, l: int):
-            h = rms_norm(x, b.ln1.norm_scale[l])
-            h, (k, v) = self_attention(h, attn.wq[l], attn.wk[l], attn.wv[l], attn.wo[l],
-                                       cfg, positions, causal)
+            p = self._layer(l)
+            h, (k, v) = self_attention(apply_norm(x, p["ln1"], cfg), p["attn"], cfg,
+                                       positions, causal)
             x = x + h
-            h = rms_norm(x, b.ln2.norm_scale[l])
-            return x + swiglu_mlp(h, mlp.w_in[l], mlp.w_gate[l], mlp.w_out[l]), k, v
+            return x + apply_mlp(apply_norm(x, p["ln2"], cfg), p["mlp"], cfg.act), k, v
 
         layer = _remat(layer, cfg)
         ks, vs = [], []
@@ -249,13 +293,11 @@ class Transformer(_LM):
         cfg = self.cfg
         pos = _positions(pos, tokens.shape[0], tokens.device)
         x = self._embed(tokens)
-        attn, mlp, b = self.blocks.attn, self.blocks.mlp, self.blocks
         for l in range(cfg.n_layers):
-            h = rms_norm(x, b.ln1.norm_scale[l])
-            x = x + decode_self_attention(h, attn.wq[l], attn.wk[l], attn.wv[l], attn.wo[l],
-                                          cfg, cache["k"][l], cache["v"][l], pos)
-            h = rms_norm(x, b.ln2.norm_scale[l])
-            x = x + swiglu_mlp(h, mlp.w_in[l], mlp.w_gate[l], mlp.w_out[l])
+            p = self._layer(l)
+            x = x + decode_self_attention(apply_norm(x, p["ln1"], cfg), p["attn"], cfg,
+                                          cache["k"][l], cache["v"][l], pos)
+            x = x + apply_mlp(apply_norm(x, p["ln2"], cfg), p["mlp"], cfg.act)
         return self._head(x), cache
 
     def reset_slot(self, cache: dict, slot: int) -> None:
@@ -284,10 +326,10 @@ class Mamba2(_LM):
         head = {} if cfg.tie_embeddings else {"lm_head": empty(d, cfg.vocab)}
         self.embed = _group(embed=empty(cfg.vocab, d), **head)
         self.blocks = nn.Module()
-        self.blocks.ln1 = _group(norm_scale=empty(L, d))
+        self.blocks.ln1 = self._norm_group(L)
         self.blocks.mamba = _group(**{name: empty(L, *shape) for name, shape
                                       in mamba2.param_shapes(cfg).items()})
-        self.final_norm = _group(norm_scale=empty(d))
+        self.final_norm = self._norm_group()
 
     def init_params(self, seed: int) -> None:
         """Initialise from ``seed``: the reference's distributions and
@@ -295,13 +337,11 @@ class Mamba2(_LM):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self._init_embed(gen)
         mamba2.init_mamba_block(self._layer(None), self.cfg, gen)
-        with torch.no_grad():
-            self.blocks.ln1.norm_scale.fill_(1.0)
-            self.final_norm.norm_scale.fill_(1.0)
+        self._init_norms(self.blocks.ln1, self.final_norm)
 
     def _layer(self, l: Optional[int]) -> dict[str, torch.Tensor]:
         """Layer ``l``'s block parameters by name (None: the whole stacks)."""
-        return {k: p if l is None else p[l] for k, p in self.blocks.mamba.named_parameters()}
+        return _at(self.blocks.mamba, l)
 
     def forward(self, tokens: torch.Tensor, return_cache: bool = False,
                 return_hidden: bool = False):
@@ -310,7 +350,7 @@ class Mamba2(_LM):
         ssm prefill builds no decode cache; with ``return_hidden`` the
         final-normed hidden states in place of the logits."""
         def layer(x: torch.Tensor, l: int) -> torch.Tensor:
-            h = rms_norm(x, self.blocks.ln1.norm_scale[l])
+            h = apply_norm(x, _at(self.blocks.ln1, l), self.cfg)
             return x + mamba2.apply_mamba_block(self._layer(l), h, self.cfg)
 
         layer = _remat(layer, self.cfg)
@@ -335,7 +375,7 @@ class Mamba2(_LM):
         del pos
         x = self._embed(tokens)
         for l in range(self.cfg.n_layers):
-            h = rms_norm(x, self.blocks.ln1.norm_scale[l])
+            h = apply_norm(x, _at(self.blocks.ln1, l), self.cfg)
             o, conv, ssm = mamba2.decode_mamba_block(self._layer(l), h, cache["conv"][l],
                                                      cache["ssm"][l], self.cfg)
             cache["conv"][l] = conv

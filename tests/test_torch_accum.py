@@ -45,17 +45,7 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model, chunked_lm_loss, lm_loss
 from test_torch_optimizers import _chip_smoke
 from test_torch_trainer import jax_sampler
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel workers, and
-    small ops on eight threads a worker oversubscribe the cores (six
-    workers ran this file's trainers about 50x slower than one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 RTOL = 1e-4

@@ -7,9 +7,19 @@
 * ``attention_chunked_ref`` and ``decode_attention_ref`` / ``kv_len``
   against their ``repro.kernels.ref`` counterparts, and ``ops.attention`` at
   every impl.
+* In bf16 and fp16: the three plain routes (``"xla"``, ``"xla_chunked"``,
+  decode), which round P to v's dtype before P·V, against the reference's
+  three; the kernel's plain version (``flash_attention_ref``, P in fp32)
+  against the Pallas kernel in interpret mode.
 
-Tolerance: 1e-5 of each output's largest entry (fp32 sums in another order;
-the reference's -1e30 mask and the port's -inf give the same zeros).
+Tolerance: 1e-5 of each output's largest entry in fp32 (fp32 sums in another
+order; the reference's -1e30 mask and the port's -inf give the same zeros).
+In bf16 and fp16 both sides sum in fp32 in another order and round once
+(P, then the output), so an element is equal, or, where an fp32 sum lands on
+the other side of a rounding boundary, one step apart: at most 5% of the
+elements differ, each by at most one step of the dtype at the output's
+largest magnitude.  (A route that kept P in fp32 where the reference rounds
+it differs in about 40% of the elements.)
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +31,8 @@ from repro.kernels import ref as j_ref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-5
 
@@ -29,6 +41,28 @@ def _close(got: torch.Tensor, want, name=""):
     want = np.asarray(want)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=TOL,
                                atol=TOL * float(np.abs(want).max()), err_msg=name)
+
+
+# (torch dtype, jax dtype, fp32 mantissa bits the dtype drops)
+LOW = [(torch.bfloat16, jnp.bfloat16, 16), (torch.float16, jnp.float16, 13)]
+
+
+def _within_one_step(got: torch.Tensor, want, dropped: int, name=""):
+    """At most 5% of ``got``'s elements differ from ``want``, each by at
+    most one step of their dtype (which keeps 23 - ``dropped`` mantissa
+    bits) at ``want``'s largest magnitude."""
+    got = got.to(torch.float32).numpy()
+    want = np.asarray(want, np.float32)
+    diff = np.abs(got - want)
+    step = float(np.spacing(np.abs(want).max())) * 2.0 ** dropped
+    assert diff.max() <= step, (name, float(diff.max()), step)
+    assert (diff > 0).mean() <= 0.05, (name, int((diff > 0).sum()), diff.size)
+
+
+def _low(arrays, tdtype, jdtype):
+    """fp32 numpy inputs rounded to the low dtype, for each package."""
+    return ([torch.from_numpy(a).to(tdtype) for a in arrays],
+            [jnp.asarray(a, dtype=jdtype) for a in arrays])
 
 
 def _qkv(B, S, T, H, KV, D, seed=0):
@@ -113,3 +147,51 @@ def test_flash_attention_is_forward_only_and_checks_shapes():
         flash_attention(*(torch.from_numpy(a) for a in _qkv(1, 8, 8, 3, 2, 8)))
     with pytest.raises(ValueError, match="attn_impl"):
         ops.attention(q.detach(), k, v, impl="interpret")
+
+
+@pytest.mark.parametrize("tdtype,jdtype,dropped", LOW, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("route", ["xla", "xla_chunked", "decode"])
+def test_plain_routes_in_low_precision_match_reference(route, tdtype, jdtype, dropped):
+    """The reference rounds P to v's dtype on these routes (its einsum of
+    ``p.astype(v.dtype)``); so must the port."""
+    if route == "decode":
+        q, k, v = _qkv(2, 1, 24, 4, 2, 16, seed=5)
+        (tq, tk, tv), (jq, jk, jv) = _low((q, k, v), tdtype, jdtype)
+        got = ops.decode_attention(tq, tk, tv, 17)
+        want = j_ref.decode_attention_ref(jq, jk, jv, jnp.int32(17))
+    else:
+        q, k, v = _qkv(2, 64, 1024, 4, 2, 16, seed=6)   # T = 2 kv blocks of 512
+        (tq, tk, tv), (jq, jk, jv) = _low((q, k, v), tdtype, jdtype)
+        got = ops.attention(tq, tk, tv, impl=route)
+        want = j_ops.attention(jq, jk, jv, impl=route)
+    assert got.dtype == tdtype
+    _within_one_step(got, want, dropped, route)
+
+
+@pytest.mark.parametrize("tdtype,jdtype,dropped", LOW, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal,bq,bkv", FLASH_CASES[::2])
+def test_flash_attention_low_precision_matches_pallas_interpret(B, S, T, H, KV, D, causal, bq,
+                                                                bkv, tdtype, jdtype, dropped):
+    """The kernel's plain version keeps P in fp32, as the Pallas kernel does."""
+    (tq, tk, tv), (jq, jk, jv) = _low(_qkv(B, S, T, H, KV, D, seed=7), tdtype, jdtype)
+    want = j_flash(jq, jk, jv, causal=causal, block_q=bq, block_kv=bkv, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tdtype and want.dtype == jdtype
+    _within_one_step(got, want, dropped, "flash_attention")
+
+
+def test_plain_routes_differ_only_in_p_rounding():
+    """attention_ref (P rounded to v's dtype) and flash_attention_ref (P in
+    fp32) are equal in fp32 and part in bf16."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 64, 64, 4, 2, 16, seed=8))
+    assert torch.equal(ref.attention_ref(q, k, v), ref.flash_attention_ref(q, k, v))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    assert not torch.equal(ref.attention_ref(q, k, v), ref.flash_attention_ref(q, k, v))
+
+
+def test_flash_attention_rejects_mixed_and_unported_dtypes():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 8))
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        flash_attention(q.to(torch.bfloat16), k, v)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        flash_attention(q.double(), k.double(), v.double())

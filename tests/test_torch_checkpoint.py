@@ -26,17 +26,7 @@ from repro_torch.checkpoint import CheckpointCorruptionError, CheckpointManager
 from repro_torch.checkpoint.manager import flatten_with_paths
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core import OptimizerConfig, build_optimizer
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel workers, and
-    small ops on eight threads a worker oversubscribe the cores (six
-    workers ran this file's trainers about 50x slower than one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 def _tree(seed: int) -> dict:

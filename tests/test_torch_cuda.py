@@ -413,9 +413,10 @@ def test_kernels_launch_on_the_operands_device(cuda_device):
     assert torch.cuda.current_device() != dev.index
 
 
-# Serving kernels.  Flash attention: 1e-5 of the largest output (the online
-# softmax sums in another order); the SSD scan: 1e-4 (sums through
-# exponentials of cumulative sums, state carried across chunks).
+# Serving kernels.  Flash attention in fp32: 1e-5 of the largest output
+# against fp64 (the online softmax sums in another order); in bf16 and fp16
+# see FLASH_LOW_SHAPES; the SSD scan: 1e-4 (sums through exponentials of
+# cumulative sums, state carried across chunks).
 
 # (B, S, T, H, KV, D, causal): llama-130m's prefill, GQA short query with
 # D = 128, ragged S and T, the smoke model's D = 16, a tiny ragged one; a
@@ -441,6 +442,11 @@ def _attention_fp64(q, k, v, causal):
     return (torch.softmax(s, dim=-1) @ vd).transpose(1, 2)
 
 
+def _padded(D: int) -> int:
+    """The head dim the kernel pads D to (its instantiation's DP)."""
+    return next(dp for dp in (16, 32, 64, 128) if D <= dp)
+
+
 def _flash_case(B, S, T, H, KV, D, causal, q_scale=1.0):
     """Against fp64, not the fp32 plain path: with scores of tens (q x 8)
     the plain path itself lies up to 6.4e-6 from fp64, so the kernel at
@@ -448,10 +454,11 @@ def _flash_case(B, S, T, H, KV, D, causal, q_scale=1.0):
     from repro_torch.kernels.flash_attention import flash_attention
 
     q, k, v = q_scale * _randn(B, S, H, D), _randn(B, T, KV, D), _randn(B, T, KV, D)
-    before = build.LAUNCHES["flash_attention"]
+    before = _variants()
     assert _rel(flash_attention(q, k, v, causal=causal),
                 _attention_fp64(q, k, v, causal)) <= 1e-5
-    assert build.LAUNCHES["flash_attention"] == before + 1
+    # (element type 0 = fp32, padded head dim, 16-byte copies)
+    assert _variants_since(before) == {"flash_attention": {(0, _padded(D), 16): 1}}
 
 
 @pytest.mark.parametrize("B,S,T,H,KV,D,causal", FLASH_SHAPES)
@@ -472,17 +479,76 @@ def test_flash_attention_kernel_with_unaligned_operands(cuda_device):
     scalar stores."""
     from repro_torch.kernels.flash_attention import flash_attention
 
-    def shifted(*shape):
-        n = 1
-        for s in shape:
-            n *= s
-        return _randn(n + 1)[1:].view(*shape)
-
-    q, k, v = shifted(2, 70, 4, 36), shifted(2, 90, 2, 36), shifted(2, 90, 2, 36)
+    q, k, v = _shifted(1, 2, 70, 4, 36), _shifted(1, 2, 90, 2, 36), _shifted(1, 2, 90, 2, 36)
     assert q.data_ptr() % 16 and q.is_contiguous()
-    before = build.LAUNCHES["flash_attention"]
-    assert _rel(flash_attention(q, k, v), ref.attention_ref(q, k, v)) <= 1e-5
-    assert build.LAUNCHES["flash_attention"] == before + 1
+    before = _variants()
+    assert _rel(flash_attention(q, k, v), ref.flash_attention_ref(q, k, v)) <= 1e-5
+    assert _variants_since(before) == {"flash_attention": {(0, 64, 4): 1}}
+
+
+def _shifted(offset, *shape, dtype=torch.float32):
+    """A contiguous tensor ``offset`` elements past an allocation's start."""
+    n = 1
+    for s in shape:
+        n *= s
+    return _randn(n + offset).to(dtype)[offset:].view(*shape)
+
+
+# 16-bit instantiations (bf16, fp16): fp32 inside (scores, online softmax, P,
+# accumulator), one rounding at the store.  The kernel is held to its plain
+# version (flash_attention_ref, the same fp32 arithmetic in another order)
+# within one rounding of the output, 2^-8 of its largest entry in bf16 and
+# 2^-11 in fp16, and to the fp64 result: no farther than the plain version
+# (rounded to the same dtype) plus that one rounding.
+# (B, S, T, H, KV, D, causal): the heads of chatglm3-6b (32 over 2 kv
+# heads, D = 128), starcoder2-7b (36 over 4) and qwen1.5-4b (20, MHA) at a
+# shorter sequence; a short query, not causal; D = 20 (D % 8 == 4: 8-byte
+# copies); a tiny ragged one; ragged S and T at D = 64.
+FLASH_LOW_SHAPES = [(2, 256, 256, 32, 2, 128, True), (2, 200, 200, 36, 4, 128, True),
+                    (1, 130, 130, 20, 20, 128, True), (2, 100, 300, 8, 2, 32, False),
+                    (2, 130, 130, 4, 2, 20, True), (1, 5, 9, 2, 1, 8, True),
+                    (2, 77, 200, 6, 3, 64, True)]
+# (dtype, the element-type code the C entry reports, mantissa bits)
+LOW_DTYPES = [(torch.bfloat16, 1, 8), (torch.float16, 2, 11)]
+
+
+def _flash_low_case(q, k, v, causal, code, bits, cw):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    before = _variants()
+    out = flash_attention(q, k, v, causal=causal)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal)
+    exact = _attention_fp64(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype
+    one = 2.0 ** -bits * float(plain.float().abs().max())
+    assert float((out.float() - plain.float()).abs().max()) <= one
+    assert (float((out.double() - exact).abs().max())
+            <= float((plain.double() - exact).abs().max()) + one)
+    D = q.shape[-1]
+    assert _variants_since(before) == {"flash_attention": {(code, _padded(D), cw): 1}}
+
+
+@pytest.mark.parametrize("dtype,code,bits", LOW_DTYPES, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal", FLASH_LOW_SHAPES)
+def test_flash_attention_16bit_kernel_matches_plain(cuda_device, B, S, T, H, KV, D, causal,
+                                                     dtype, code, bits):
+    q, k, v = (x.to(dtype) for x in (_randn(B, S, H, D), _randn(B, T, KV, D),
+                                     _randn(B, T, KV, D)))
+    _flash_low_case(q, k, v, causal, code, bits, 16 if D % 8 == 0 else 8)
+
+
+@pytest.mark.parametrize("dtype,code,bits", LOW_DTYPES, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("offset,cw", [(2, 4), (4, 8)])
+def test_flash_attention_16bit_kernel_with_unaligned_operands(cuda_device, dtype, code, bits,
+                                                              offset, cw):
+    """16-bit operands 4 or 8 bytes past a 16-byte boundary: 4- and 8-byte
+    copies."""
+    q = _shifted(offset, 2, 70, 4, 64, dtype=dtype)
+    k, v = _shifted(offset, 2, 90, 2, 64, dtype=dtype), _shifted(offset, 2, 90, 2, 64,
+                                                                 dtype=dtype)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    _flash_low_case(q, k, v, True, code, bits, cw)
 
 
 # (B, S, H, P, N, chunk, bf16 x): mamba2-370m's prefill, the ragged fp32
@@ -535,8 +601,15 @@ def test_serving_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     q, k = _randn(1, 8, 2, 16), _randn(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError):  # mixed dtypes
+        flash_attention(q.half(), k, k)
     with pytest.raises(NotImplementedError):
-        flash_attention(q.half(), k.half(), k.half())
+        flash_attention(q.bfloat16(), k.half(), k.half())
+    with pytest.raises(NotImplementedError):  # float64: not an instantiation
+        flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="4-byte"):  # one bf16 past a 4-byte boundary
+        odd = _shifted(1, 1, 8, 2, 16, dtype=torch.bfloat16)
+        flash_attention(odd, odd, odd)
     with pytest.raises(ValueError, match="head dim"):
         big = _randn(1, 8, 2, 160)
         flash_attention(big, big, big)

@@ -35,6 +35,8 @@ from repro_torch.core.family_plan import (
 from repro_torch.core.lowrank_common import default_lowrank_filter, family_shape
 from repro_torch.kernels import dispatch, launch_count, ref
 from repro_torch.kernels.fused_step import back_project_epilogue_batched
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 RTOL = 1e-5
 

@@ -32,6 +32,8 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import OptimizerConfig, apply_updates, build_optimizer, combinators
 from repro_torch.kernels import launch_count
 from test_torch_gum import _close, _grads, _unflatten
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 STEPS = 8
 # (fuse_families, fused_epilogue)

@@ -33,6 +33,8 @@ from repro_torch.core import OptimizerConfig, apply_updates, build_optimizer
 from repro_torch.core.family_plan import build_family_plan
 from repro_torch.core.lowrank_common import default_lowrank_filter
 from repro_torch.kernels import launch_count
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 RTOL = 1e-4
 STEPS = 8

@@ -35,6 +35,8 @@ from repro_torch.kernels.newton_schulz import (
     ns_iteration,
     poly_matmul_axpy,
 )
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 ATOL = 1e-5
 ATOL_NS = 1e-4

@@ -13,6 +13,8 @@ from repro.models import build_model as j_build_model
 from repro_torch.configs import get_smoke
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.models import build_model, lm_loss
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 RTOL = 1e-4
 

@@ -47,6 +47,8 @@ from repro_torch.models import build_model
 from repro_torch.train import Trainer
 from test_torch_galore import _flat
 from test_torch_gum import _grads, _unflatten
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 STEPS = 8
 KEY = jax.random.PRNGKey(0)

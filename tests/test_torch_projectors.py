@@ -21,6 +21,8 @@ from repro.core.projectors import make_projector as j_make_projector
 from repro.core.projectors import projection_side as j_projection_side
 from repro_torch.core import projectors
 from repro_torch.core.lowrank_common import compute_projectors
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 KINDS = ["svd", "subspace", "rsvd", "random", "grass"]
 RANK = 4

@@ -16,6 +16,8 @@ from repro_torch.core import OptimizerConfig, build_optimizer
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model, lm_loss
 from repro_torch.models.transformer import Transformer
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 ARCHS = ["llama-60m", "mamba2-370m"]
 

@@ -36,17 +36,7 @@ from repro_torch.models import build_model
 from repro_torch.train import Trainer
 from repro_torch.train.trainer import StepTimeMonitor
 from test_torch_trainer import jax_sampler
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite runs files in parallel workers, and
-    small ops on eight threads a worker oversubscribe the cores (six
-    workers ran this file's trainers about 50x slower than one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 N = 3

@@ -33,6 +33,8 @@ from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import build_model
 from repro_torch.serve import ServeEngine
 from repro_torch.serve.engine import greedy_decode
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-4
 ARCHS = ["llama-60m", "mamba2-370m"]

@@ -28,6 +28,8 @@ from repro.models import mamba2 as j_mamba2
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import ops, ref
 from repro_torch.models import mamba2
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 TOL = 1e-4
 TOL_BF16 = 2.0 ** -7

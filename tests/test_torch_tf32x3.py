@@ -15,7 +15,8 @@ the same for the back-projection and its fused epilogue (a reduction over
 the rank only), for a Newton–Schulz chain of ``gram`` and ``poly_apply``
 products and for flash attention, with ``gram``'s triangle of tiles, and
 for a chunked SSD scan with bf16 x (two TF32 products where x is one
-operand).
+operand); and flash attention's 16-bit instantiation (bf16 / fp16 q, k, v,
+exact in TF32: one product for q kᵀ, two for p v, the skipped ones zero).
 """
 import numpy as np
 import pytest
@@ -286,8 +287,10 @@ def test_gram_triangle_is_exactly_symmetric_and_the_squares_upper_half(s, tile):
 # output is carried as acc = alpha·acc + (p v of the tile) in fp32.
 
 
-def flash_attention_emulated(prod, q, k, v, block_kv=64):
-    """Causal attention of one head, q (S, D), k/v (T, D), the kernel's way."""
+def flash_attention_emulated(prod, q, k, v, block_kv=64, prod_pv=None):
+    """Causal attention of one head, q (S, D), k/v (T, D), the kernel's way
+    (``prod_pv``, default ``prod``, forms p v)."""
+    prod_pv = prod_pv or prod
     S, D = q.shape
     T = k.shape[0]
     scale = np.float32(D ** -0.5)
@@ -304,7 +307,7 @@ def flash_attention_emulated(prod, q, k, v, block_kv=64):
         alpha = np.exp(m - m_new)
         p = np.exp(s - m_new)
         l = alpha * l + p.sum(axis=1, keepdims=True, dtype=np.float32)
-        acc = alpha * acc + prod(p, vt)
+        acc = alpha * acc + prod_pv(p, vt)
         m = m_new
     return acc / np.maximum(l, np.float32(1e-30))
 
@@ -336,20 +339,26 @@ def test_a_single_tf32_flash_attention_misses_the_tolerance():
                    attention_fp64(q, k, v)) > 10 * TOL
 
 
-def product_3xtf32_tc(a: np.ndarray, b: np.ndarray, depth: int) -> np.ndarray:
-    """a @ b as the tensor cores accumulate it: k8 steps of the three
-    split products, each mma adding its exact 8-term sum to the fp32
-    accumulator rounded toward zero (the accumulator truncates); slices of
-    ``depth`` start from zero and add in fp32 (round to nearest)."""
+TERMS = (("lo", "hi"), ("hi", "lo"), ("hi", "hi"))  # a_lo b_hi, a_hi b_lo, a_hi b_hi
+
+
+def product_3xtf32_tc(a: np.ndarray, b: np.ndarray, depth: int, terms=TERMS) -> np.ndarray:
+    """a @ b as the tensor cores accumulate it: k8 steps of the split
+    products ``terms`` (all three by default), each mma adding its exact
+    8-term sum to the fp32 accumulator rounded toward zero (the accumulator
+    truncates); slices of ``depth`` start from zero and add in fp32 (round
+    to nearest)."""
     out = None
     for s0 in range(0, a.shape[1], depth):
-        a_hi, a_lo = (x.astype(np.float64) for x in split(a[:, s0:s0 + depth]))
-        b_hi, b_lo = (x.astype(np.float64) for x in split(b[s0:s0 + depth]))
+        a_parts = dict(zip(("hi", "lo"), (x.astype(np.float64) for x in
+                                           split(a[:, s0:s0 + depth]))))
+        b_parts = dict(zip(("hi", "lo"), (x.astype(np.float64) for x in
+                                           split(b[s0:s0 + depth]))))
         acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
-        for k0 in range(0, a_hi.shape[1], 8):
+        for k0 in range(0, a_parts["hi"].shape[1], 8):
             k = slice(k0, k0 + 8)
-            for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
-                exact = acc.astype(np.float64) + x[:, k] @ y[k]
+            for ta, tb in terms:
+                exact = acc.astype(np.float64) + a_parts[ta][:, k] @ b_parts[tb][k]
                 acc = exact.astype(np.float32)
                 away = np.abs(acc.astype(np.float64)) > np.abs(exact)
                 acc[away] = np.nextafter(acc[away], np.float32(0))
@@ -385,6 +394,52 @@ def test_flash_attention_scores_in_32_deep_slices_keep_fp32s_distance():
         errs["plain"].append(rel_err(attention_fp32(q, k, v), want))
     med = {name: float(np.median(e)) for name, e in errs.items()}
     assert med["slices"] <= med["plain"] < med["one sum"], med
+
+
+# The 16-bit instantiations (bf16, fp16 q, k, v): every element is exact in
+# TF32, so its low part is zero; the kernel forms q kᵀ from the high parts
+# alone (one TF32 product) and p v as p_lo·v + p_hi·v (two), and rounds the
+# fp32 output to the element type at the store.
+
+
+def to_16bit(x: np.ndarray, kind: str) -> np.ndarray:
+    """fp32 values rounded to bf16 or fp16 (nearest even), kept as fp32."""
+    if kind == "fp16":
+        return x.astype(np.float16).astype(np.float32)
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "fp16"])
+def test_16bit_flash_attention_skips_only_zero_products(kind):
+    """D = 128, q x 8, the tensor cores' truncating accumulator modelled:
+    q, k and v have zero low parts; the skipped products change no bit of
+    the output; it stays within 1e-5 of fp64 before the store, and rounded
+    to the element type no farther from fp64 than the plain fp32 path
+    rounded the same way, plus one rounding (the card's rule)."""
+    q = to_16bit(np.float32(8.0) * _rand(70, 77, 128), kind)
+    k, v = to_16bit(_rand(71, 200, 128), kind), to_16bit(_rand(72, 200, 128), kind)
+    for x in (q, k, v):
+        hi, lo = split(x)
+        assert not lo.any() and np.array_equal(hi, x)
+
+    def three(a, b):
+        return product_3xtf32_tc(a, b, 32)
+
+    out_full = flash_attention_emulated(three, q, k, v, block_kv=32)
+    out = flash_attention_emulated(
+        lambda a, b: product_3xtf32_tc(a, b, 32, terms=(("hi", "hi"),)), q, k, v, block_kv=32,
+        prod_pv=lambda p, b: product_3xtf32_tc(p, b, 32, terms=(("lo", "hi"), ("hi", "hi"))))
+    assert np.array_equal(out, out_full)
+    want = attention_fp64(q, k, v)
+    assert rel_err(out, want) <= TOL
+    bits = 8 if kind == "bf16" else 11
+    plain = to_16bit(attention_fp32(q, k, v), kind)
+    one = 2.0 ** -bits * np.abs(plain).max()
+    stored = to_16bit(out, kind)
+    assert np.abs(stored - plain).max() <= one
+    assert np.abs(stored - want).max() <= np.abs(plain - want).max() + one
 
 
 # ---------------------------------------------------------------- the SSD scan

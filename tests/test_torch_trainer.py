@@ -28,6 +28,8 @@ from repro_torch.core import OptimizerConfig, build_optimizer
 from repro_torch.data import DataConfig, SyntheticLMStream
 from repro_torch.models import build_model
 from repro_torch.train import Trainer
+from torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 OPT = dict(name="gum", lr=1e-3, rank=4, gamma=1, period=3)
 STEPS = 6

@@ -32,6 +32,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.lowrank_common import back_project, project
 from repro_torch.core.newton_schulz import newton_schulz_plain
+from torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
 def alg3_noise(key, kind, shape):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Flash attention (kernel row 7) over many seeded inputs at one shape,
 held against an fp64 reference: is the kernel farther from the exact
-result than the plain fp32 path (``ref.attention_ref``) is?
+result than the plain fp32 path (``ref.flash_attention_ref``) is?
 
     python3 tools/flash_attention_seed_sweep.py [--seeds 256] \
         [--shape 2,77,200,6,3,128] [--causal 0] [--q-scale 8]
@@ -74,7 +74,7 @@ def main() -> None:
         k = torch.randn(B, T, KV, D, generator=gen, device="cuda")
         v = torch.randn(B, T, KV, D, generator=gen, device="cuda")
         got = flash_attention(q, k, v, causal=causal)
-        plain = ref.attention_ref(q, k, v, causal=causal)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal)
         want = exact(q, k, v, causal)
         e = {"kernel-fp64": rel(got, want), "plain-fp64": rel(plain, want),
              "kernel-plain": rel(got, plain)}

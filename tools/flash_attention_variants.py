@@ -31,8 +31,10 @@ on the same inputs.  Each is timed as ``chip_smoke.time_ms`` does (the
 median of 20 calls, a CUDA event pair around each) and with the calls
 queued behind a spin kernel (``tools/lowrank_update_variants.spin_time_ms``),
 and each prints max|out - fp64| / max|fp64| at q/k/v (8, 1024, 12, 64)
-causal (llama-130m's prefill) and at the GQA short-query case q (2, 256,
-16, 128), k/v (2, 1024, 4, 128).
+causal (llama-130m's prefill), at the GQA short-query case q (2, 256,
+16, 128), k/v (2, 1024, 4, 128), and in bf16 at chatglm3-6b's prefill, q
+(4, 2048, 32, 128), k/v (4, 2048, 2, 128) (an entry point without the
+dtype argument, fp32 alone, is not timed there).
 """
 from __future__ import annotations
 
@@ -47,8 +49,9 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 OUT = ROOT / "build" / "flash_attention_variants"
 
-# (B, S, T, H, KV, D)
-SHAPES = [(8, 1024, 1024, 12, 12, 64), (2, 256, 1024, 16, 4, 128)]
+# (B, S, T, H, KV, D, dtype)
+SHAPES = [(8, 1024, 1024, 12, 12, 64, "float32"), (2, 256, 1024, 16, 4, 128, "float32"),
+          (4, 2048, 2048, 32, 2, 128, "bfloat16")]
 
 
 def variants(src: str) -> dict[str, str]:
@@ -79,9 +82,9 @@ def main() -> None:
     import torch.nn.functional as F
 
     from chip_smoke import time_ms  # puts src/ on the path
-    from lowrank_update_variants import build_all, spin_time_ms, without_variant
+    from lowrank_update_variants import build_all, spin_time_ms
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import DTYPES, flash_attention
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, action="append", default=[],
@@ -104,23 +107,30 @@ def main() -> None:
         sources[name] = (parent / "flash_attention.cu").read_text()
     fns = {}
     for name, (so, log) in build_all(sources, "flash_attention", OUT).items():
-        # {padded head dim: registers a thread} (the parent: by template argument)
-        regs = dict(re.findall(r"kernelILi(\d+)E.*?Used (\d+) registers", log, re.S))
+        # {template arguments (mangled): registers a thread}
+        regs = dict(re.findall(r"kernelI((?:L[ib]\d+E)+)E.*?Used (\d+) registers", log, re.S))
         spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
         print(f"{name:14s} registers {regs}, spill stores {spills} bytes", flush=True)
         fn = getattr(ctypes.CDLL(str(so)), "flash_attention")
-        sig = list(build.SIGNATURES["flash_attention"])
-        parent = name.startswith("parent")
-        fn.argtypes = sig[:-2] + sig[-1:] if parent else sig  # no variant out-argument
+        # An earlier entry point may lack the dtype argument (an fp32-only
+        # kernel) and the variant out-argument (older still).
+        has_dtype, has_variant = ("int dtype" in sources[name],
+                                  "int* variant" in sources[name])
+        sig = list(build.SIGNATURES["flash_attention"])  # ..., causal, dtype, variant, stream
+        fn.argtypes = (sig[:-3] + sig[-3:-2] * has_dtype + sig[-2:-1] * has_variant
+                       + sig[-1:])
         fn.restype = ctypes.c_int
-        fns[name] = fn if parent else without_variant(fn)
+        fns[name] = (lambda fn, has_dtype, has_variant: lambda *args: fn(
+            *args[:-2], *args[-2:-1] * has_dtype, *[None] * has_variant, args[-1]))(
+                fn, has_dtype, has_variant)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for B, S, T, H, KV, D in SHAPES:
-        q = torch.randn(B, S, H, D, generator=gen, device="cuda")
-        k = torch.randn(B, T, KV, D, generator=gen, device="cuda")
-        v = torch.randn(B, T, KV, D, generator=gen, device="cuda")
+    for B, S, T, H, KV, D, dtype in SHAPES:
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
+        k = torch.randn(B, T, KV, D, generator=gen, device="cuda").to(dt)
+        v = torch.randn(B, T, KV, D, generator=gen, device="cuda").to(dt)
         out = torch.empty_like(q)
         rep = H // KV
         kd, vd = (x.double().repeat_interleave(rep, dim=2).transpose(1, 2) for x in (k, v))
@@ -130,8 +140,9 @@ def main() -> None:
         s = s.masked_fill(torch.arange(T, device="cuda")[None, :] > rows, float("-inf"))
         want = (torch.softmax(s, dim=-1) @ vd).transpose(1, 2)
         del s, kd, vd, qd
+        code = DTYPES[dt]
         c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, KV, D,
-                  D ** -0.5, 1, stream)
+                  D ** -0.5, 1, code, stream)  # causal
 
         def raw(fn):
             def call():
@@ -140,13 +151,14 @@ def main() -> None:
                 return out
             return call
 
-        calls = {name: raw(fn) for name, fn in fns.items()}
+        calls = {name: raw(fn) for name, fn in fns.items()
+                 if code == 0 or "int dtype" in sources[name]}  # earlier: fp32 alone
         calls["wrapper"] = lambda: flash_attention(q, k, v)
         if S == T:
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             calls["sdpa"] = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True).transpose(1, 2)
-        print(f"q {(B, S, H, D)} kv {(B, T, KV, D)} causal:", flush=True)
+                qt, kt, vt, is_causal=True, enable_gqa=KV != H).transpose(1, 2)
+        print(f"q {(B, S, H, D)} kv {(B, T, KV, D)} causal {dtype}:", flush=True)
         for name, call in calls.items():
             got = call()
             torch.cuda.synchronize()
