@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero and prints no result:
                 a ragged and a padded-head-dim case, and its 16-bit
                 instantiations: bf16 at chatglm3-6b's prefill, fp16 at a
                 GQA shape and a ragged bf16 case, each beside SDPA in the
-                same dtype; the SSD scan at
+                same dtype; at head dim 192, nemotron-4-340b's prefill in
+                bf16 and in fp32, and a ragged fp16 case at head dim 200
+                (the 256 tier); the SSD scan at
                 mamba2-370m's prefill, with a ragged last chunk at the same
                 widths and a ragged fp32 case; time kernel, plain version
                 and one PyTorch call computing the same function where
@@ -69,19 +71,29 @@ Phases, in order; any failure exits non-zero and prints no result:
                 bf16 on the same parameters, then an engine: chatglm3-6b 8
                 slots and 16 requests, two checked against direct decode;
                 the others 4 slots and 4 requests, one checked;
+  9. serve    — nemotron-4-340b at full width (d 18432, 96 heads over 8,
+                head dim 192, d_ff 73728, vocab 256000), depth cut to 2
+                layers, parameters stored in bf16 (``param_dtype``) and bf16
+                activations: first the same draws stored in fp32, alone on
+                the card, prefilled once in fp32 for the reference logits;
+                then prefill 1 x 4096 through flash attention's bf16
+                head-dim-192 instantiation (one launch a layer) against
+                "xla" in fp32 and in bf16, then an engine of 4 slots and 4
+                requests, one checked against direct decode;
   5. agree    — the same trainer at the llama-60m smoke size on the card and
                 on the CPU (plain versions) must give the same losses, for
                 GUM, GaLore-Muon with the fused epilogue and weight decay,
                 family-stacked GUM and phase 4c's optimizers and LISA; and
-                the prefill logits of the five smoke models (llama-60m,
-                mamba2-370m, the three dense variants) at
-                attn_impl="pallas".
+                the prefill logits of the smoke models (llama-60m,
+                mamba2-370m, the three dense variants, nemotron-4-340b and
+                its head-dim-192 variant) at attn_impl="pallas".
 
 The card's ``nvidia-smi`` name and power limit are printed first and again
 third from the end; the line before the last is a JSON object describing
 every kernel (launches summed over the full-width paths, each read from
 counts set to 0 just before it, error, times, bound; flash attention's
-bf16 instantiation beside it under "bf16", with phase 8's launches), and
+bf16 instantiation beside it under "bf16", with phase 8's launches, and its
+bf16 head-dim-192 one under "bf16_d192", with phase 9's), and
 the last line is
 ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 3 (for iterating on a kernel) and
@@ -453,8 +465,9 @@ def serving_kernel_cases(torch, gen):
     case (S < T, head dim 128), a ragged one and one whose head dim 20 the
     kernel pads to its k8 steps, then its 16-bit instantiations (bf16 at
     chatglm3-6b's prefill, fp16 at a GQA shape, a ragged bf16 one; their
-    principal is tagged "bf16" and reported beside the fp32 one); the SSD
-    scan at
+    principal is tagged "bf16" and reported beside the fp32 one) and its
+    head-dim tiers above 128 (nemotron-4-340b's prefill at D = 192 in bf16,
+    tagged "bf16_d192", and in fp32; fp16 at D = 200); the SSD scan at
     mamba2-370m's prefill (bf16 x), the same widths with a ragged last chunk
     (the kernel splits P = 64 over two blocks, and the last chunk of the
     last batch row ends inside its slices), and a ragged fp32 one."""
@@ -487,25 +500,32 @@ def serving_kernel_cases(torch, gen):
 
     # The 16-bit instantiations, which the dense variants' bf16 prefill runs:
     # chatglm3-6b's prefill (the JSON row's "bf16" entry), fp16 at
-    # starcoder2-7b's heads, and a ragged bf16 one at qwen1.5-4b's.  SDPA in
-    # the same dtype (it rounds P to it, so its numbers are not the
-    # kernel's) with enable_gqa beside each.
-    for B, S, H, KV, dtype, tag in [(4, 2048, 32, 2, torch.bfloat16, "bf16"),
-                                    (2, 1024, 36, 4, torch.float16, False),
-                                    (2, 1000, 20, 20, torch.bfloat16, False)]:
-        D = 128
+    # starcoder2-7b's heads, and a ragged bf16 one at qwen1.5-4b's; then the
+    # head-dim-192 tier at nemotron-4-340b's prefill (phase 9; the JSON row's
+    # "bf16_d192" entry), the same in fp32 (phase 9's fp32 comparison
+    # prefill runs it), and a ragged fp16 one at D = 200, padded to the 256
+    # tier.  SDPA in the same dtype (in 16 bits it rounds P to it, so its
+    # numbers are not the kernel's) with enable_gqa beside each.
+    for B, S, H, KV, D, dtype, tag in [(4, 2048, 32, 2, 128, torch.bfloat16, "bf16"),
+                                       (2, 1024, 36, 4, 128, torch.float16, False),
+                                       (2, 1000, 20, 20, 128, torch.bfloat16, False),
+                                       (1, 4096, 96, 8, 192, torch.bfloat16, "bf16_d192"),
+                                       (1, 4096, 96, 8, 192, torch.float32, False),
+                                       (2, 1000, 16, 4, 200, torch.float16, False)]:
         q, k, v = (randn(*shape).to(dtype) for shape in
                    ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         flops = 4.0 * D * causal_pairs(S, S, True) * B * H
+        low = dtype != torch.float32
         cases.append(("flash_attention",
                       f"q{(B, S, H, D)} kv{(B, S, KV, D)} causal {str(dtype)[6:]}",
                       (lambda q=q, k=k, v=v: flash_attention(q, k, v)),
                       (lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v)),
                       (lambda qt=qt, kt=kt, vt=vt, gqa=KV != H: F.scaled_dot_product_attention(
                           qt, kt, vt, is_causal=True, enable_gqa=gqa)),
-                      flops, 2 * (2 * B * S * H * D + 2 * B * S * KV * D), tag,
-                      TOL_FLASH_16[str(dtype)], 0.0, FLASH_16_PRODUCTS[str(dtype)] * flops))
+                      flops, q.element_size() * (2 * B * S * H * D + 2 * B * S * KV * D), tag,
+                      *((TOL_FLASH_16[str(dtype)], 0.0, FLASH_16_PRODUCTS[str(dtype)] * flops)
+                        if low else (TOL_FLASH,))))
 
     for B, S, H, P, N, chunk, xdtype, principal in [
             (4, 4096, 32, 64, 128, 128, torch.bfloat16, True),
@@ -1324,19 +1344,29 @@ def with_config(model, **changes):
         model.cfg = cfg
 
 
+def prompt_tokens(torch, vocab: int, batch: int, seq: int):
+    """The seeded (batch, seq) prompt tokens of a serving phase's prefill."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return torch.randint(0, vocab, (batch, seq), generator=gen, device="cuda")
+
+
 def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
                 tol: float, direct_batch: int, *, slots: int = 8, requests: int = 16,
-                checked: int = 2) -> dict:
-    """Serve ``arch`` at full width on the card, through the port's entry
+                checked: int = 2, changes: dict | None = None, reference=None) -> dict:
+    """Serve ``arch`` (its config with ``changes``: a depth cut, the
+    parameter storage) at full width on the card, through the port's entry
     points: ``make_prefill_step`` at ``attn_impl="pallas"`` on ``batch`` x
     ``seq`` seeded prompts (exactly one ``kernel`` launch per layer, all of
-    the instantiation for the model's activation dtype; logits, and the KV
+    the instantiation for the model's activation dtype and, for flash
+    attention, head dim; logits, and the KV
     cache where the family has one, against the same prefill at
     ``attn_impl="xla"`` on the same parameters: rel <= ``tol`` in fp32, and
-    in bf16 as :func:`check_low_precision_prefill` says), then a
+    in bf16 as :func:`check_low_precision_prefill` says, against
+    ``reference`` where one is given), then a
     ``ServeEngine`` of ``slots`` slots answering ``requests`` seeded
-    requests (prompts of 16–256 tokens, 32 new tokens each), ``checked`` of which — the second in a reused slot where slots
-    are reused — must equal the direct greedy decode of that request alone
+    requests (prompts of 16–256 tokens, 32 new tokens each), ``checked``
+    of which — the second in a reused slot where slots are reused — must
+    equal the direct greedy decode of that request alone
     (``greedy_decode(batch=direct_batch)``).  Prints the prefill and engine
     times, tokens/s and peak memory, profiles one prefill and one decode
     step, and returns the kernel launches of the prefill and engine run."""
@@ -1350,12 +1380,11 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeEngine, greedy_decode
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**(changes or {}))
     model = build_model(cfg.replace(attn_impl="pallas"), device="cuda")
     model.init_params(0)
     n_params = sum(p.numel() for p in model.parameters())
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device="cuda")
+    tokens = prompt_tokens(torch, cfg.vocab, batch, seq)
     prefill = make_prefill_step(model)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
@@ -1373,10 +1402,10 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     check(prefill_launches == {kernel: cfg.n_layers},
           f"{label}: prefill kernel launches {prefill_launches} != {{{kernel!r}: {cfg.n_layers}}}")
     if kernel == "flash_attention":  # every launch the activation dtype's instantiation
-        code = DTYPES[model.dtype]
-        check(all(key[0] == code for key in prefill_variants),
+        code, tier = DTYPES[model.dtype], next(dp for dp in FLASH_TIERS if cfg.hd <= dp)
+        check(all(key[:2] == (code, tier) for key in prefill_variants),
               f"{label}: flash_attention instantiations {prefill_variants}, "
-              f"expected element type {code} ({cfg.dtype})")
+              f"expected element type {code} ({cfg.dtype}) and head dim {tier}")
     torch.cuda.reset_peak_memory_stats()
     engine = ServeEngine(model, slots=slots, max_seq=1024)
     reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
@@ -1396,14 +1425,16 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     errs = {"logits": rel}
     for key in (cache or {}):
         errs[key] = rel_err(cache[key].float(), want_cache[key].float())[1]
-    print(f"{label} {arch} ({n_params / 1e6:.1f}M params, {cfg.dtype}) prefill {batch} x {seq}: "
+    print(f"{label} {arch} ({cfg.n_layers} layers, {n_params / 1e6:.1f}M params stored in "
+          f"{cfg.param_dtype}, {cfg.dtype}) prefill {batch} x {seq}: "
           f"{prefill_launches} launches, instantiations {prefill_variants}; pallas vs xla "
           f"max rel {errs}", flush=True)
     del cache, want_cache
     if cfg.dtype == "float32":
         check(all(e <= tol for e in errs.values()), f"{label}: pallas vs xla {errs} > {tol}")
     else:
-        check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol)
+        check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol,
+                                    reference)
     del want
 
     walls = []
@@ -1471,7 +1502,8 @@ def fro_rel(a, b) -> float:
     return float(norm(a.float() - b.float()) / norm(b))
 
 
-def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol) -> None:
+def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol,
+                                reference=None) -> None:
     """A bf16 prefill through the kernels against the plain (xla) one.
     Both round every op to bf16 (2^-8 relative) but sum in fp32 in another
     order (the SSD scan; attention, whose plain route also rounds P to bf16
@@ -1482,7 +1514,13 @@ def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, 
     scale: the same prefill in fp32 through both paths must agree within
     ``tol`` (1e-4), and in bf16 the kernel path must lie no farther from
     the plain bf16 path, in Frobenius norm, than the plain bf16 path lies
-    from the fp32 result.  Every prefill runs on ``model``'s parameters."""
+    from the fp32 result.  Every prefill runs on ``model``'s parameters.
+    The fp32 result is the same prefill in fp32 on them where they are
+    stored in fp32; where they are stored in bf16 (``param_dtype``) it is
+    ``reference``, the fp32 logits of the same draws stored in fp32: a bf16
+    path's rounding includes its weights', and the fp32 prefill on bf16
+    weights shares that rounding, which would leave the rule comparing two
+    bf16 paths' activation roundings with one of them alone."""
     from repro_torch.launch.steps import make_prefill_step
 
     fp32 = {}
@@ -1491,11 +1529,21 @@ def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, 
         with with_config(model, attn_impl=impl, dtype="float32"):
             fp32[impl] = prefill({"tokens": tokens})[0]
     _, rel32 = rel_err(fp32["pallas"], fp32["xla"])
+    if cfg.param_dtype == "float32":
+        reference = fp32["xla"]
+    else:
+        check(reference is not None, f"{label}: bf16-stored parameters need the fp32 "
+              "reference of their draws")
+        reference = reference.to(logits.device)
+        print(f"{label} on its {cfg.param_dtype} parameters: {cfg.dtype} xla vs their fp32 "
+              f"prefill {fro_rel(want, fp32['xla']):.3e}, pallas vs it "
+              f"{fro_rel(logits, fp32['xla']):.3e}; that fp32 prefill vs the fp32-stored "
+              f"reference {fro_rel(fp32['xla'], reference):.3e} (Frobenius rel)", flush=True)
     kernel_vs_plain = fro_rel(logits, want)
-    plain_vs_fp32 = fro_rel(want, fp32["xla"])
+    plain_vs_fp32 = fro_rel(want, reference)
     print(f"{label} fp32 prefill at full width: pallas vs xla max rel {rel32:.3e} (tol {tol}); "
           f"{cfg.dtype}: pallas vs xla {kernel_vs_plain:.3e}, xla vs fp32 {plain_vs_fp32:.3e}, "
-          f"pallas vs fp32 {fro_rel(logits, fp32['xla']):.3e} (Frobenius rel)", flush=True)
+          f"pallas vs fp32 {fro_rel(logits, reference):.3e} (Frobenius rel)", flush=True)
     check(rel32 <= tol, f"{label}: fp32 pallas vs xla {rel32:.3e} > {tol}")
     check(kernel_vs_plain <= plain_vs_fp32,
           f"{label}: {cfg.dtype} pallas vs xla {kernel_vs_plain:.3e} exceeds the plain "
@@ -1523,6 +1571,8 @@ def phase_serve_mamba(torch) -> dict:
                        1e-4, direct_batch=8)
 
 
+# The head dims flash attention pads D to (its instantiations).
+FLASH_TIERS = (16, 32, 64, 128, 192, 256)
 # Phase 8: the dense variants as published (bf16 activations, fp32
 # parameters), (slots, requests, direct decodes checked) of each engine run.
 DENSE_VARIANTS = {"chatglm3-6b": (8, 16, 2), "starcoder2-7b": (4, 4, 1),
@@ -1545,6 +1595,56 @@ def phase_serve_dense(torch) -> dict:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
+    return launches
+
+
+# Phase 9: nemotron-4-340b at full width, its depth cut from 96 layers to
+# NEMOTRON_LAYERS, its parameters stored in bf16 as the reference's
+# param_dtype stores them (16.35B parameters, 32.7 GB: in fp32 two layers
+# with the embedding and the untied head would take 65.4 GB before any
+# activation).  The peak comes at the head of the fp32 "xla" comparison
+# prefill: the parameters, three logits held (2.1 + 2.1 + 4.2 GB), the fp32
+# cast of lm_head at its use (18.9 GB) and the new logits (4.2 GB), about
+# 64 GB of the card's 85.5 GB.
+NEMOTRON_LAYERS = 2
+
+
+def phase_serve_nemotron(torch) -> dict:
+    """Phase 9: nemotron-4-340b (d 18432, 96 heads over 8, head dim 192,
+    d_ff 73728, vocab 256000) at NEMOTRON_LAYERS layers, bf16 parameters and
+    activations: prefill 1 x 4096 (its published sequence length) through
+    flash attention's bf16 head-dim-192 instantiation, one launch a layer,
+    against "xla" as :func:`check_low_precision_prefill` says (its fp32
+    prefill runs the fp32 head-dim-192 tier), then an engine of 4 slots and
+    4 requests, one checked against direct decode in its slot's row of a
+    4-row cache (phase 7's reason)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    cfg = get_config("nemotron-4-340b")
+    print(f"serve-nemotron on {smi_line()}: depth cut from {cfg.n_layers} to "
+          f"{NEMOTRON_LAYERS} layers, param_dtype bfloat16", flush=True)
+    # The fp32 reference first, alone on the card: the same seed's draws
+    # stored in fp32 (65.4 GB), prefilled in fp32; its logits wait on the host.
+    cfg32 = cfg.replace(n_layers=NEMOTRON_LAYERS, dtype="float32", attn_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg32, device="cuda")
+    model.init_params(0)
+    with torch.no_grad():
+        reference = make_prefill_step(model)({"tokens": prompt_tokens(torch, cfg.vocab, 1,
+                                                                        4096)})[0].cpu()
+    print(f"serve-nemotron fp32-stored reference prefill: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M fp32 parameters, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    launches = phase_serve(torch, "serve-nemotron", "nemotron-4-340b", 1, 4096,
+                           "flash_attention", 1e-4, direct_batch=4, slots=4, requests=4,
+                           checked=1, changes={"n_layers": NEMOTRON_LAYERS,
+                                               "param_dtype": "bfloat16"},
+                           reference=reference)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1625,13 +1725,14 @@ def phase_agree(torch):
 
 
 def phase_agree_serve(torch):
-    """The prefill of llama-60m SMOKE, mamba2-370m SMOKE and the three dense
+    """The prefill of llama-60m SMOKE, mamba2-370m SMOKE, the three dense
     variants' SMOKE (fp32; chatglm3-6b's 2-D RoPE, qwen1.5-4b's MHA and qkv
     biases, starcoder2-7b's layernorm, GELU and mlp biases, a ragged
-    sequence) at attn_impl="pallas" on the card (the kernels, D = 16; chunk
-    16, N 16, P 16, a ragged last chunk) and on the CPU (their plain
-    versions), same parameters: logits within 1e-4 relative (fp32 sums in
-    another order through two or three layers)."""
+    sequence) and nemotron-4-340b's SMOKE (squared ReLU, untied head) and
+    its head-dim-192 variant at attn_impl="pallas" on the card (the
+    kernels, D = 16 and 192; chunk 16, N 16, P 16, a ragged last chunk) and
+    on the CPU (their plain versions), same parameters: logits within 1e-4
+    relative (fp32 sums in another order through two or three layers)."""
     import numpy as np
 
     from repro_torch.configs import get_smoke
@@ -1639,12 +1740,15 @@ def phase_agree_serve(torch):
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import build_model
 
-    for arch, kernel, seq in [("llama-60m", "flash_attention", 64),
-                              ("mamba2-370m", "ssd_scan", 60),
-                              ("chatglm3-6b", "flash_attention", 64),
-                              ("qwen1.5-4b", "flash_attention", 64),
-                              ("starcoder2-7b", "flash_attention", 60)]:
-        cfg = get_smoke(arch).replace(attn_impl="pallas")
+    for arch, changes, kernel, seq in [("llama-60m", {}, "flash_attention", 64),
+                                       ("mamba2-370m", {}, "ssd_scan", 60),
+                                       ("chatglm3-6b", {}, "flash_attention", 64),
+                                       ("qwen1.5-4b", {}, "flash_attention", 64),
+                                       ("starcoder2-7b", {}, "flash_attention", 60),
+                                       ("nemotron-4-340b", {}, "flash_attention", 64),
+                                       ("nemotron-4-340b", {"head_dim": 192},
+                                        "flash_attention", 60)]:
+        cfg = get_smoke(arch).replace(attn_impl="pallas", **changes)
         cpu = build_model(cfg, device="cpu")
         cpu.init_params(0)
         card = build_model(cfg, device="cuda")
@@ -1657,8 +1761,8 @@ def phase_agree_serve(torch):
               f"agree prefill {arch}: {kernel} launches {before} -> {build.LAUNCHES[kernel]}")
         want, _ = make_prefill_step(cpu)({"tokens": tokens})
         _, rel = rel_err(got.cpu(), want)
-        print(f"agree {arch} smoke prefill at attn_impl=pallas: cuda vs cpu max rel "
-              f"{rel:.2e}", flush=True)
+        print(f"agree {arch} smoke{f' {changes}' if changes else ''} prefill at "
+              f"attn_impl=pallas: cuda vs cpu max rel {rel:.2e}", flush=True)
         check(rel <= 1e-4, f"agree prefill {arch}: {rel:.2e} > 1e-4")
 
 
@@ -1666,10 +1770,11 @@ def phase_agree_serve(torch):
 PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_baselines,
           "accumulate": phase_accumulate, "resume": phase_resume,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
-          "serve-dense": phase_serve_dense}
+          "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron}
 # An instantiation reported beside its kernel's row, by the phase whose
 # launches are all of it.
-TAGGED = {("flash_attention", "bf16"): "serve-dense"}
+TAGGED = {("flash_attention", "bf16"): "serve-dense",
+          ("flash_attention", "bf16_d192"): "serve-nemotron"}
 
 
 def main() -> None:

@@ -1,9 +1,9 @@
 """Architecture registry: id -> (full config, smoke config).
 
 The paper's dense LLaMA configs, the dense variants (chatglm3-6b,
-qwen1.5-4b, starcoder2-7b) and mamba2-370m (the ssm family) are ported; the
-other architectures of the JAX package's registry come with their model
-families.
+qwen1.5-4b, starcoder2-7b, nemotron-4-340b) and mamba2-370m (the ssm family)
+are ported; the other architectures of the JAX package's registry come with
+their model families.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from repro_torch.configs import (
     chatglm3_6b,
     llama_paper,
     mamba2_370m,
+    nemotron_4_340b,
     qwen1_5_4b,
     starcoder2_7b,
 )
@@ -23,6 +24,7 @@ _ARCHS = {
     "chatglm3-6b": (chatglm3_6b.CONFIG, chatglm3_6b.SMOKE),
     "qwen1.5-4b": (qwen1_5_4b.CONFIG, qwen1_5_4b.SMOKE),
     "starcoder2-7b": (starcoder2_7b.CONFIG, starcoder2_7b.SMOKE),
+    "nemotron-4-340b": (nemotron_4_340b.CONFIG, nemotron_4_340b.SMOKE),
     "mamba2-370m": (mamba2_370m.CONFIG, mamba2_370m.SMOKE),
 }
 ARCHS = tuple(_ARCHS)

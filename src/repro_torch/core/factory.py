@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.core.adamw import adamw, sgdm
 from repro_torch.core.api import OptimizerConfig, Transform
 from repro_torch.core.combinators import Sampler
@@ -32,6 +34,28 @@ def build_optimizer(cfg: OptimizerConfig, *, audit: bool = False,
     if audit:
         raise NotImplementedError("build_optimizer(audit=True) needs the chain "
                                   "linter (repro.analysis), which is not ported yet")
+    opt = _build(cfg, sampler, noise)
+    return Transform(_fp32_leaves(opt.init), opt.update)
+
+
+def _fp32_leaves(init):
+    """``init`` refusing 16-bit leaves: the reference keeps fp32 optimizer
+    states over bf16-stored parameters (``ModelConfig.param_dtype``), a path
+    the port does not run yet."""
+    def checked(params: dict):
+        low = sorted(k for k, p in params.items()
+                     if p.dtype in (torch.bfloat16, torch.float16))
+        if low:
+            raise NotImplementedError(
+                f"optimizer state over 16-bit parameters (ModelConfig.param_dtype) is not "
+                f"ported to the PyTorch package yet: {low}")
+        return init(params)
+
+    return checked
+
+
+def _build(cfg: OptimizerConfig, sampler: Optional[Sampler],
+           noise: Optional[Noise]) -> Transform:
     name = cfg.name.lower()
     fusion = {"fuse_families": cfg.fuse_families, "fused_epilogue": cfg.fused_epilogue}
     lowrank_kw = {"seed": cfg.seed, "kernel_impl": cfg.kernel_impl,

@@ -64,9 +64,12 @@
 //     bf16 one 13% slower than this (tools/flash_attention_variants.py,
 //     PERF.md).  Tile j+1 loads while tile j computes; one __syncthreads a
 //     tile.  Each thread keeps one 16-byte column chunk and every RS-th
-//     row, so a copy costs no division.  D is padded in shared memory to 16,
-//     32, 64 or 128 with zeros (written once), so a k8 step never reads past
-//     the head.
+//     row, so a copy costs no division; where a row's chunks do not divide
+//     the block's threads (D padded to 192: 48 chunks a row in fp32, 24 in
+//     16-bit) it keeps three chunks, a third of a row apart (16 or 8
+//     threads a row; a warp's copies stay contiguous).
+//     D is padded in shared memory to 16, 32, 64, 128, 192 or 256 with zeros
+//     (written once), so a k8 step never reads past the head.
 //  3. P stays in registers.  The score fragment c0, c1 (row g, columns 2t,
 //     2t+1; c2, c3 eight rows down) gives each thread two rows, so row max
 //     and row sum are two xor shuffles within the four threads of a group.
@@ -75,13 +78,19 @@
 //     2t+1 (a0 = c0, a1 = c2, a2 = c1, a3 = c3), and V's B fragment reads kv
 //     rows 2t and 2t+1 in the same order.  No shared round trip, no barrier.
 //     16-bit Q K^T takes the same order along d, so a0/a2 of Q and b0/b1 of
-//     K are one 32-bit shared load each.
+//     K are one 32-bit shared load each.  Above D_pad 128 the accumulator
+//     alone takes KD * 4 registers a thread (96 at 192, 128 at 256), and a
+//     tile's P V beside it as many again: P V forms PG = 8 column tiles at a
+//     time, each group folded into the accumulator before the next starts
+//     (P split again for each group from the scores, 16 registers, not
+//     kept split, 32).  A column tile's sum runs over the same kv rows in
+//     the same order in either form, so the result is the same bits.
 //  4. Mask only where needed.  A warp skips the mask test on kv tiles that
 //     lie wholly at or below its rows' diagonal and inside T, and skips the
 //     products of tiles wholly above it (their p would all be 0).
 // Shared rows are D_pad + 16 bytes: D_pad / 2 + 4 words (16-bit) or D_pad +
-// 4 (fp32), 4 mod 8, so every fragment load of a warp (Q and K along d, V
-// along kv rows 2t, 2t+1) hits distinct banks.  The grid's slowest axis
+// 4 (fp32), 4 mod 8 at every D_pad, so every fragment load of a warp (Q and
+// K along d, V along kv rows 2t, 2t+1) hits distinct banks.  The grid's slowest axis
 // walks the q tiles from the last (the longest causal loop) to the first,
 // so the long tiles of every head start first.
 #include <cuda_bf16.h>
@@ -127,7 +136,7 @@ struct FlashArgs {
   int pair;  // 1 when o is aligned for a store of two elements
 };
 
-// Shapes of one instantiation: DP = D padded (16, 32, 64 or 128).
+// Shapes of one instantiation: DP = D padded (16, 32, 64, 128, 192 or 256).
 template <int EC, int DP>
 struct Layout {
   using S = typename Elem<EC>::S;
@@ -141,21 +150,34 @@ struct Layout {
   static constexpr int STAGE_ELEMS = 2 * KV_ELEMS;  // K tile, then V tile
   static constexpr int SMEM_BYTES = (Q_ELEMS + STAGES * STAGE_ELEMS) * EB;
   // Blocks an SM the registers must allow (ptxas then uses at most 128 a
-  // thread at D <= 64, with no spills).
-  static constexpr int MIN_BLOCKS = DP <= 64 ? 4 : 2;
+  // thread at D <= 64, with no spills).  Above D_pad 128 shared memory sets
+  // it: one fp32 block (147 KB at 192, 195 KB at 256) or two 16-bit ones
+  // (75 KB, 99 KB) fit an SM's 228 KB.
+  static constexpr int MIN_BLOCKS = DP <= 64 ? 4 : DP <= 128 || EC != 0 ? 2 : 1;
+  // Column tiles of P V formed at a time (see the design note, item 3).
+  static constexpr int PG = DP <= 128 ? KD : 8;
+  // 16-byte chunks of a row a thread copies (load_rows): one where a row's
+  // chunks divide the block's threads, else three (D_pad 192: 48 chunks a
+  // row in fp32, 24 in 16-bit, so 16 or 8 threads a row).
+  static constexpr int CPT = THREADS % CPR == 0 ? 1 : 3;
+  static_assert(CPR % CPT == 0 && THREADS % (CPR / CPT) == 0, "chunk groups must tile rows");
   static_assert((LD * EB / 4) % 8 == 4, "fragment loads must hit distinct banks");
-  static_assert(THREADS % CPR == 0, "a thread keeps one column chunk");
+  static_assert(KD % PG == 0, "P V's column groups must tile the head");
+  static_assert(SMEM_BYTES <= 227 * 1024, "a block's shared memory");
 };
 
 // Copies ROWS rows of D elements (rows `stride` elements apart in memory)
-// into shared rows LD elements apart: this thread's 16-byte chunk at column
-// c0 of rows r0, r0 + RS, ... below ROWS, in one 16-byte copy (V16), else in
-// copies of cw bytes (8 or 4); a copy of a row at or past rows_left, or of
-// columns at or past D, fills zeros (source size 0).
-template <int ROWS, int LD, int CPR, bool V16, typename S>
+// into shared rows LD elements apart, in 16-byte chunks of CPR a row: with
+// TPR = CPR / CPT threads a row, thread tid keeps the CPT chunks tid % TPR
+// + k TPR (c0 the first's column) of rows r0 = tid / TPR, r0 + RS, ...
+// below ROWS, so a warp's copies of one k are contiguous in memory.  A
+// chunk is one 16-byte copy (V16), else copies of cw bytes (8 or 4); a copy
+// of a row at or past rows_left, or of columns at or past D, fills zeros
+// (source size 0), and a chunk wholly past D is not copied (padding).
+template <int ROWS, int LD, int CPR, int CPT, bool V16, typename S>
 __device__ __forceinline__ void load_rows(S* dst, const S* src, size_t stride, int rows_left,
                                           int D, int c0, int r0, int cw) {
-  constexpr int RS = THREADS / CPR;  // rows a pass (above ROWS: 16-bit, D_pad 16)
+  constexpr int RS = THREADS / (CPR / CPT);  // rows a pass (above ROWS: 16-bit, D_pad 16)
   constexpr int EB = sizeof(S), EPC = 16 / EB;
   static_assert(ROWS % RS == 0 || RS % ROWS == 0, "rows must tile the block");
 #pragma unroll
@@ -163,18 +185,22 @@ __device__ __forceinline__ void load_rows(S* dst, const S* src, size_t stride, i
     const int r = r0 + i * RS;
     if (RS > ROWS && r >= ROWS) break;
     const bool ok = r < rows_left;
-    const S* from = ok ? src + r * stride + c0 : src;
-    S* to = dst + r * LD + c0;
-    if constexpr (V16) {
-      cp_async16(to, from, ok ? 16 : 0);
-    } else {
-      const int n = cw / EB;  // elements a copy
-      for (int e = 0; e < EPC; e += n) {
-        const bool in = ok && c0 + e < D;
-        if (cw == 8)
-          cp_async8(to + e, in ? from + e : src, in ? 8 : 0);
-        else
-          cp_async4(to + e, in ? from + e : src, in ? 4 : 0);
+#pragma unroll
+    for (int c = c0; c < c0 + CPR * EPC; c += CPR / CPT * EPC) {
+      if (CPT > 1 && c >= D) break;  // CPT = 1: the caller skips chunks past D
+      const S* from = ok ? src + r * stride + c : src;
+      S* to = dst + r * LD + c;
+      if constexpr (V16) {
+        cp_async16(to, from, ok ? 16 : 0);
+      } else {
+        const int n = cw / EB;  // elements a copy
+        for (int e = 0; e < EPC; e += n) {
+          const bool in = ok && c + e < D;
+          if (cw == 8)
+            cp_async8(to + e, in ? from + e : src, in ? 8 : 0);
+          else
+            cp_async4(to + e, in ? from + e : src, in ? 4 : 0);
+        }
       }
     }
   }
@@ -224,7 +250,7 @@ __global__ void __launch_bounds__(THREADS, Layout<EC, DP>::MIN_BLOCKS)
   using L = Layout<EC, DP>;
   using S = typename L::S;
   constexpr bool EXACT = EC != 0;  // 16-bit q, k, v: their low TF32 parts are zero
-  constexpr int LD = L::LD, KD = L::KD, NS = BKV / 8;  // NS: n8 tiles of the scores
+  constexpr int LD = L::LD, KD = L::KD, PG = L::PG, NS = BKV / 8;  // NS: n8 tiles of the scores
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S* smem = reinterpret_cast<S*>(smem_raw);
   S* Qs = smem;                   // [BQ][LD]
@@ -256,9 +282,10 @@ __global__ void __launch_bounds__(THREADS, Layout<EC, DP>::MIN_BLOCKS)
     for (int e = tid; e < rows * pad; e += THREADS) smem[(e / pad) * LD + D + e % pad] = S(0);
   }
 
-  // This thread's copy chunk and first row.
-  const int c0 = (tid % L::CPR) * L::EPC;
-  const int r0 = tid / L::CPR;
+  // This thread's first copy chunk and first row.
+  constexpr int TPR = L::CPR / L::CPT;  // threads a row
+  const int c0 = (tid % TPR) * L::EPC;
+  const int r0 = tid / TPR;
   const bool copies = c0 < D;  // chunks past D are padding
 
   // Last kv column any stored row of this block may see, and the tiles.
@@ -268,13 +295,14 @@ __global__ void __launch_bounds__(THREADS, Layout<EC, DP>::MIN_BLOCKS)
   auto load_tile = [&](int j) {
     S* ks = ring + (j % STAGES) * L::STAGE_ELEMS;
     const int kv0 = j * BKV;
-    load_rows<BKV, LD, L::CPR, V16>(ks, kb + kv0 * kv_row, kv_row, p.T - kv0, D, c0, r0,
-                                    p.cw);
-    load_rows<BKV, LD, L::CPR, V16>(ks + L::KV_ELEMS, vb + kv0 * kv_row, kv_row, p.T - kv0, D,
-                                    c0, r0, p.cw);
+    load_rows<BKV, LD, L::CPR, L::CPT, V16>(ks, kb + kv0 * kv_row, kv_row, p.T - kv0, D, c0,
+                                            r0, p.cw);
+    load_rows<BKV, LD, L::CPR, L::CPT, V16>(ks + L::KV_ELEMS, vb + kv0 * kv_row, kv_row,
+                                            p.T - kv0, D, c0, r0, p.cw);
   };
   if (copies) {
-    load_rows<BQ, LD, L::CPR, V16>(Qs, qb + q0 * q_row, q_row, p.S - q0, D, c0, r0, p.cw);
+    load_rows<BQ, LD, L::CPR, L::CPT, V16>(Qs, qb + q0 * q_row, q_row, p.S - q0, D, c0, r0,
+                                           p.cw);
 #pragma unroll
     for (int j = 0; j < STAGES - 1; ++j)
       if (j < ntiles) load_tile(j);
@@ -384,36 +412,41 @@ __global__ void __launch_bounds__(THREADS, Layout<EC, DP>::MIN_BLOCKS)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = fmaf(alpha[r], l[r], quad_sum(sum[r]));
 
-    // P V of this tile, from zero: k runs over the tile's kv rows in the
-    // permuted order (k index t -> row 2t, t+4 -> 2t+1 of each k8 step).
-    // P is fp32 (split); 16-bit V is exact, so P_lo V + P_hi V.
-    float part[KD][4];
+    // P V of this tile, from zero, PG column tiles at a time (all KD up to
+    // D_pad 128): k runs over the tile's kv rows in the permuted order (k
+    // index t -> row 2t, t+4 -> 2t+1 of each k8 step).  P is fp32 (split);
+    // 16-bit V is exact, so P_lo V + P_hi V.
 #pragma unroll
-    for (int ks = 0; ks < NS; ++ks) {
-      uint32_t ahi[4], alo[4];
-      split_tf32(s[ks][0], ahi[0], alo[0]);
-      split_tf32(s[ks][2], ahi[1], alo[1]);
-      split_tf32(s[ks][1], ahi[2], alo[2]);
-      split_tf32(s[ks][3], ahi[3], alo[3]);
-      const S* vr = Vs + (ks * 8 + 2 * t) * LD + g;
+    for (int j0 = 0; j0 < KD; j0 += PG) {
+      float part[PG][4];
 #pragma unroll
-      for (int j = 0; j < KD; ++j) {
-        if constexpr (EXACT) {
-          const uint32_t bv[2] = {tf32_of<EC>(vr[j * 8]), tf32_of<EC>(vr[LD + j * 8])};
-          mma_tf32(part[j], alo, bv, ks == 0 ? zero : part[j]);
-          mma_tf32(part[j], ahi, bv, part[j]);
-        } else {
-          uint32_t bhi[2], blo[2];
-          split_tf32(vr[j * 8], bhi[0], blo[0]);
-          split_tf32(vr[LD + j * 8], bhi[1], blo[1]);
-          mma_3xtf32(part[j], ahi, alo, bhi, blo, ks == 0 ? zero : part[j]);
+      for (int ks = 0; ks < NS; ++ks) {
+        uint32_t ahi[4], alo[4];
+        split_tf32(s[ks][0], ahi[0], alo[0]);
+        split_tf32(s[ks][2], ahi[1], alo[1]);
+        split_tf32(s[ks][1], ahi[2], alo[2]);
+        split_tf32(s[ks][3], ahi[3], alo[3]);
+        const S* vr = Vs + (ks * 8 + 2 * t) * LD + g + j0 * 8;
+#pragma unroll
+        for (int j = 0; j < PG; ++j) {
+          if constexpr (EXACT) {
+            const uint32_t bv[2] = {tf32_of<EC>(vr[j * 8]), tf32_of<EC>(vr[LD + j * 8])};
+            mma_tf32(part[j], alo, bv, ks == 0 ? zero : part[j]);
+            mma_tf32(part[j], ahi, bv, part[j]);
+          } else {
+            uint32_t bhi[2], blo[2];
+            split_tf32(vr[j * 8], bhi[0], blo[0]);
+            split_tf32(vr[LD + j * 8], bhi[1], blo[1]);
+            mma_3xtf32(part[j], ahi, alo, bhi, blo, ks == 0 ? zero : part[j]);
+          }
         }
       }
+#pragma unroll
+      for (int j = 0; j < PG; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          acc[j0 + j][v] = fmaf(alpha[v >> 1], acc[j0 + j][v], part[j][v]);
     }
-#pragma unroll
-    for (int j = 0; j < KD; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[j][v] = fmaf(alpha[v >> 1], acc[j][v], part[j][v]);
   }
   cp_async_wait<0>();
 
@@ -470,20 +503,22 @@ int launch_dp(const FlashArgs& a, int* variant, cudaStream_t stream) {
   if (a.D <= 16) return launch<EC, 16>(a, variant, stream);
   if (a.D <= 32) return launch<EC, 32>(a, variant, stream);
   if (a.D <= 64) return launch<EC, 64>(a, variant, stream);
-  return launch<EC, 128>(a, variant, stream);
+  if (a.D <= 128) return launch<EC, 128>(a, variant, stream);
+  if (a.D <= 192) return launch<EC, 192>(a, variant, stream);
+  return launch<EC, 256>(a, variant, stream);
 }
 
 }  // namespace
 
 // q (B, S, H, D), k/v (B, T, KV, D), o (B, S, H, D): contiguous on the
 // device, all of one element type `dtype` (0 fp32, 1 bf16, 2 fp16), every
-// pointer 4-byte aligned; H % KV == 0, D % 4 == 0, D <= 128 (the wrapper
+// pointer 4-byte aligned; H % KV == 0, D % 4 == 0, D <= 256 (the wrapper
 // checks).  The variant reported: (dtype, D padded, copy bytes).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                int S, int T, int H, int KV, int D, float scale, int causal,
                                int dtype, int* variant, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || D <= 0 || D % 4 != 0 ||
-      D > 128 || B > 65535 || (S + BQ - 1) / BQ > 65535 || dtype < 0 || dtype > 2)
+      D > 256 || B > 65535 || (S + BQ - 1) / BQ > 65535 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int eb = dtype == 0 ? 4 : 2;
   auto all = [&](uintptr_t bytes) {

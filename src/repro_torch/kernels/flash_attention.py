@@ -10,8 +10,10 @@ H % KV == 0, out (B, S, H, D); under ``causal`` the S queries are the last S
 of the T keys.  q, k and v share one dtype, fp32, bf16 or fp16, and the
 output is in it; inside, as in the Pallas kernel, the scores, the online
 softmax, P and the accumulator are fp32, rounded only at the store.  The
-kernel takes D % 4 == 0 and D <= 128, ragged S and T (the reference asks
-for multiples of its blocks), and 16-bit operands on 4-byte boundaries.
+kernel takes D % 4 == 0 and D <= 256 (padded to 16, 32, 64, 128, 192 or 256
+in shared memory: nemotron-4-340b's head dim is 192), ragged S and T (the
+reference asks for multiples of its blocks), and 16-bit operands on 4-byte
+boundaries; on a CUDA tensor any other D raises.
 
 Like the Pallas kernel it has no backward: a call that autograd would
 record raises, on either device, instead of returning a result whose
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 # The element types the kernel is instantiated for, by the code its C entry
 # point takes.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

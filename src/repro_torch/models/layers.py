@@ -15,11 +15,17 @@ from repro_torch.configs.base import ModelConfig
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
-    """In-place ``std * truncated_normal(-2, 2)``, the reference's init."""
+    """In-place ``std * truncated_normal(-2, 2)``, the reference's init.  A
+    leaf stored below fp32 (``param_dtype``) is drawn whole in fp32 and cast,
+    as the reference casts its fp32 draw, so it holds the fp32 leaf's draw,
+    rounded; the fp32 copy lives for one leaf at a time (18.9 GB for
+    nemotron-4-340b's embedding)."""
     with torch.no_grad():
-        torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+        draw = t if t.dtype == torch.float32 else torch.empty_like(t, dtype=torch.float32)
+        torch.nn.init.trunc_normal_(draw, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                     generator=generator)
-        return t.mul_(std)
+        draw.mul_(std)
+        return t if draw is t else t.copy_(draw)
 
 
 def apply_norm(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: ModelConfig,

@@ -34,9 +34,13 @@ Under ``cfg.remat``, when autograd records, each layer runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``):
 ``remat_policy="dots"`` keeps the un-batched products, any other policy
 keeps nothing, and backward recomputes the rest.
-Parameters are fp32; both families compute in ``cfg.dtype`` (bf16 for
-every full-size config but the paper's LLaMA), casting each weight at its
-use, as the reference does.
+Parameters are fp32, or, for the dense family under
+``cfg.param_dtype="bfloat16"``, stored as the reference stores them: every
+leaf with two or more dims in bf16 (the layer-stacked norms and biases
+included), the ``(d,)`` leaves of ``final_norm`` in fp32.  Both families
+compute in ``cfg.dtype`` (bf16 for every full-size config but the paper's
+LLaMA), casting each weight at its use, as the reference does (a no-op on a
+bf16 leaf in bf16, an up-cast when a bf16-stored model runs in fp32).
 
 Serving: ``forward(tokens, return_cache=True)`` (prefill), ``init_cache``,
 ``decode_step(cache, tokens, pos)`` with one position per batch row, and
@@ -115,7 +119,10 @@ class _LM(nn.Module):
     cfg: ModelConfig
 
     def _empty(self, *shape) -> torch.Tensor:
-        return torch.empty(shape, dtype=torch.float32, device=self._device)
+        """An uninitialised leaf as the reference stores it: in
+        ``cfg.param_dtype`` with two or more dims, else fp32."""
+        dtype = getattr(torch, self.cfg.param_dtype) if len(shape) >= 2 else torch.float32
+        return torch.empty(shape, dtype=dtype, device=self._device)
 
     def _init_embed(self, gen: torch.Generator) -> None:
         trunc_normal_(self.embed.embed, 0.02, gen)
@@ -139,7 +146,8 @@ class _LM(nn.Module):
 
     def load_params(self, params: dict[str, torch.Tensor]) -> None:
         """Copy ``{path: tensor}`` (e.g. from :func:`repro_torch.convert.
-        params_from_jax`) into the parameters; every path must match."""
+        params_from_jax`) into the parameters; every path must match.  Each
+        parameter keeps its dtype: a tensor of another dtype is cast to it."""
         own = self.params()
         if set(params) != set(own):
             raise KeyError(f"parameter paths differ: missing {sorted(set(own) - set(params))}, "
@@ -179,8 +187,8 @@ class Transformer(_LM):
     """Dense decoder: pre-norm blocks of GQA self-attention and an MLP, tied
     or untied head.  ``act`` swiglu / geglu / gelu / relu2, ``norm``
     rmsnorm / layernorm, ``qkv_bias``, ``mlp_bias``, ``rope`` rope (any
-    ``rope_fraction``) / rope2d / none; fp32 parameters, activations in
-    ``cfg.dtype`` (fp32 or bf16)."""
+    ``rope_fraction``) / rope2d / none; fp32 or bf16 parameters
+    (``param_dtype``), activations in ``cfg.dtype`` (fp32 or bf16)."""
 
     ACTS = ("swiglu", "geglu", "gelu", "relu2")
 
@@ -195,9 +203,10 @@ class Transformer(_LM):
                 or cfg.rope not in ("rope", "rope2d", "none") or cfg.frontend != "none"):
             raise NotImplementedError(f"{cfg.name}: act {cfg.act!r}, norm {cfg.norm!r}, rope "
                                       f"{cfg.rope!r}, frontend {cfg.frontend!r} is not ported")
-        if cfg.dtype not in ("float32", "bfloat16") or cfg.param_dtype != "float32":
-            raise NotImplementedError("the dense family takes fp32 parameters and fp32 or "
-                                      "bf16 activations")
+        if cfg.dtype not in ("float32", "bfloat16") or cfg.param_dtype not in ("float32",
+                                                                              "bfloat16"):
+            raise NotImplementedError("the dense family takes fp32 or bf16 parameters and "
+                                      "fp32 or bf16 activations")
         ops.check_impl(cfg.attn_impl)
         self.cfg, self._device = cfg, device
         L, d, H, KV, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads,
@@ -221,8 +230,9 @@ class Transformer(_LM):
     def init_params(self, seed: int) -> None:
         """Initialise every parameter from ``seed`` (a ``torch.Generator``
         on the parameters' device): truncated normals with the reference's
-        scales, norms at one, biases at zero.  Not the reference's threefry
-        draws: parity tests load the reference's parameters with
+        scales, drawn in fp32 and cast to a bf16 leaf (:func:`trunc_normal_`),
+        norms at one, biases at zero.  Not the reference's threefry draws:
+        parity tests load the reference's parameters with
         :meth:`load_params`."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)

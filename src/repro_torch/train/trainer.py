@@ -87,7 +87,14 @@ class Trainer:
         tensor}``, e.g. from :func:`repro_torch.convert.params_from_jax`) is
         the initial state; without it the model is initialised from
         ``run_cfg.seed``.  A resumed run takes its parameters and optimizer
-        state from the checkpoint instead."""
+        state from the checkpoint instead.  A model whose parameters are
+        stored below fp32 (``ModelConfig.param_dtype``) raises: the
+        reference trains such leaves with fp32 optimizer states, which the
+        port does not yet."""
+        if model.cfg.param_dtype != "float32":
+            raise NotImplementedError(
+                f"training a model with ModelConfig.param_dtype={model.cfg.param_dtype!r} is "
+                "not ported to the PyTorch package yet (serving is)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.opt_cfg = opt_cfg

@@ -3,7 +3,9 @@
 * ``flash_attention`` (kernel row 7; on the CPU its wrapper runs the plain
   version) against ``repro``'s Pallas kernel in interpret mode: causal and
   not, GQA, and a short query (S < T, causal row offset T - S), with block
-  sizes that split both axes so the reference skips masked kv blocks.
+  sizes that split both axes so the reference skips masked kv blocks; and
+  at the head dims the kernel pads to 192 and 256 (nemotron-4-340b's 192,
+  256, and a ragged 200), in fp32, bf16 and fp16.
 * ``attention_chunked_ref`` and ``decode_attention_ref`` / ``kv_len``
   against their ``repro.kernels.ref`` counterparts, and ``ops.attention`` at
   every impl.
@@ -90,6 +92,36 @@ def test_flash_attention_matches_pallas_interpret(B, S, T, H, KV, D, causal, bq,
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     _close(flash_attention(tq, tk, tv, causal=causal), want, "flash_attention")
     _close(ops.attention(tq, tk, tv, causal=causal, impl="pallas"), want, "ops pallas")
+
+
+# Head dims above 128 (B, S, T, H, KV, D, causal, block_q, block_kv):
+# nemotron-4-340b's 192 with GQA 2:1, 256 with a short query and MQA, a
+# ragged 200 not causal.
+WIDE_CASES = [
+    (1, 32, 32, 4, 2, 192, True, 8, 16),
+    (1, 16, 48, 4, 1, 256, True, 8, 16),
+    (1, 24, 40, 6, 3, 200, False, 8, 8),
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal,bq,bkv", WIDE_CASES)
+def test_flash_attention_wide_heads_match_pallas_interpret(B, S, T, H, KV, D, causal, bq, bkv):
+    q, k, v = _qkv(B, S, T, H, KV, D, seed=9)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                   block_q=bq, block_kv=bkv, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    _close(flash_attention(tq, tk, tv, causal=causal), want, "flash_attention")
+
+
+@pytest.mark.parametrize("tdtype,jdtype,dropped", LOW, ids=["bf16", "fp16"])
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal,bq,bkv", WIDE_CASES)
+def test_flash_attention_wide_heads_low_precision_match_pallas_interpret(
+        B, S, T, H, KV, D, causal, bq, bkv, tdtype, jdtype, dropped):
+    (tq, tk, tv), (jq, jk, jv) = _low(_qkv(B, S, T, H, KV, D, seed=10), tdtype, jdtype)
+    want = j_flash(jq, jk, jv, causal=causal, block_q=bq, block_kv=bkv, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tdtype and want.dtype == jdtype
+    _within_one_step(got, want, dropped, "flash_attention")
 
 
 @pytest.mark.parametrize("impl", ["xla", "xla_chunked", "pallas"])

@@ -422,12 +422,17 @@ def test_kernels_launch_on_the_operands_device(cuda_device):
 # D = 128, ragged S and T, the smoke model's D = 16, a tiny ragged one; a
 # head dim with D % 8 == 4 (zero-padded to the kernel's k8 steps); T not a
 # multiple of the kv tile (64 rows, 32 at D = 128) with S < T and S not a
-# multiple of 16, at D = 64 and D = 128.
+# multiple of 16, at D = 64 and D = 128; the tiers above 128: nemotron-4-340b's
+# heads (96 over 8, D = 192) at a shorter sequence, D = 256 with a short
+# query, D = 200 (padded to 256) not causal, D = 132 (padded to 192, its last
+# 16-byte chunk of a row partly padding) with ragged S and T.
 FLASH_SHAPES = [(8, 1024, 1024, 12, 12, 64, True), (2, 256, 1024, 16, 4, 128, True),
                 (2, 1000, 1000, 12, 12, 64, True), (2, 64, 64, 4, 4, 16, True),
                 (1, 5, 9, 2, 1, 8, True), (2, 100, 300, 8, 2, 32, False),
                 (2, 130, 130, 4, 2, 20, True), (2, 77, 200, 6, 3, 64, True),
-                (1, 45, 150, 4, 2, 128, True)]
+                (1, 45, 150, 4, 2, 128, True), (1, 300, 300, 96, 8, 192, True),
+                (2, 100, 260, 4, 2, 256, True), (1, 77, 200, 6, 3, 200, False),
+                (2, 90, 130, 4, 1, 132, True)]
 
 
 def _attention_fp64(q, k, v, causal):
@@ -444,7 +449,7 @@ def _attention_fp64(q, k, v, causal):
 
 def _padded(D: int) -> int:
     """The head dim the kernel pads D to (its instantiation's DP)."""
-    return next(dp for dp in (16, 32, 64, 128) if D <= dp)
+    return next(dp for dp in (16, 32, 64, 128, 192, 256) if D <= dp)
 
 
 def _flash_case(B, S, T, H, KV, D, causal, q_scale=1.0):
@@ -467,7 +472,9 @@ def test_flash_attention_kernel_matches_plain(cuda_device, B, S, T, H, KV, D, ca
 
 
 @pytest.mark.parametrize("B,S,T,H,KV,D,causal", [(2, 1000, 1000, 12, 12, 64, True),
-                                                 (2, 77, 200, 6, 3, 128, False)])
+                                                 (2, 77, 200, 6, 3, 128, False),
+                                                 (1, 300, 300, 8, 1, 192, True),
+                                                 (1, 77, 200, 4, 2, 256, False)])
 def test_flash_attention_kernel_with_large_scores(cuda_device, B, S, T, H, KV, D, causal):
     """q scaled by 8: scores of tens, so the running max moves often and
     alpha = exp(m_old - m_new) rescales the carried output hard."""
@@ -503,11 +510,15 @@ def _shifted(offset, *shape, dtype=torch.float32):
 # (B, S, T, H, KV, D, causal): the heads of chatglm3-6b (32 over 2 kv
 # heads, D = 128), starcoder2-7b (36 over 4) and qwen1.5-4b (20, MHA) at a
 # shorter sequence; a short query, not causal; D = 20 (D % 8 == 4: 8-byte
-# copies); a tiny ragged one; ragged S and T at D = 64.
+# copies); a tiny ragged one; ragged S and T at D = 64; nemotron-4-340b's
+# heads (96 over 8, D = 192); D = 256 with a short query; D = 200 (padded
+# to 256) not causal; D = 132 (padded to 192; 8-byte copies).
 FLASH_LOW_SHAPES = [(2, 256, 256, 32, 2, 128, True), (2, 200, 200, 36, 4, 128, True),
                     (1, 130, 130, 20, 20, 128, True), (2, 100, 300, 8, 2, 32, False),
                     (2, 130, 130, 4, 2, 20, True), (1, 5, 9, 2, 1, 8, True),
-                    (2, 77, 200, 6, 3, 64, True)]
+                    (2, 77, 200, 6, 3, 64, True), (1, 300, 300, 96, 8, 192, True),
+                    (2, 100, 260, 4, 2, 256, True), (1, 77, 200, 6, 3, 200, False),
+                    (2, 90, 130, 4, 1, 132, True)]
 # (dtype, the element-type code the C entry reports, mantissa bits)
 LOW_DTYPES = [(torch.bfloat16, 1, 8), (torch.float16, 2, 11)]
 
@@ -610,9 +621,12 @@ def test_serving_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="4-byte"):  # one bf16 past a 4-byte boundary
         odd = _shifted(1, 1, 8, 2, 16, dtype=torch.bfloat16)
         flash_attention(odd, odd, odd)
-    with pytest.raises(ValueError, match="head dim"):
-        big = _randn(1, 8, 2, 160)
+    with pytest.raises(ValueError, match="head dim"):  # above the 256 tier
+        big = _randn(1, 8, 2, 260)
         flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="head dim"):  # D % 4 != 0
+        odd_d = _randn(1, 8, 2, 198)
+        flash_attention(odd_d, odd_d, odd_d)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
     with pytest.raises(ValueError, match="is on cpu"):  # k and v left on the CPU

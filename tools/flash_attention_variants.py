@@ -13,7 +13,8 @@ change made as text, built with the port's own ``nvcc`` flags into
 point:
 
   as_built      the source as it is;
-  kv64          64-row kv tiles (twice the score registers, fewer barriers);
+  kv64          64-row kv tiles (twice the score registers, fewer barriers;
+                head dims up to 128 only);
   fast_exp      ``__expf`` for ``expf`` (WRONG at the 1e-5 tolerance's
                 scale: the time bounds what the accurate exponent costs);
   no_split      no split arithmetic, one TF32 product (WRONG results: the
@@ -21,6 +22,9 @@ point:
   score_one_sum the scores of a kv tile in one sum from zero at every D,
                 as before the 32-deep slices (at D = 128 farther from
                 fp64 than the fp32 plain path: what the slices cost);
+  pv_group4, pv_group_half
+                above D_pad 128, P V formed 4 column tiles at a time, or
+                half the head (12 at 192, 16 at 256), not 8;
   parent:NAME   with ``--parent DIR`` (repeatable; NAME is the directory's
                 name): ``DIR/flash_attention.cu`` with the headers beside
                 it, an earlier version of the kernel with the same C entry
@@ -33,8 +37,10 @@ queued behind a spin kernel (``tools/lowrank_update_variants.spin_time_ms``),
 and each prints max|out - fp64| / max|fp64| at q/k/v (8, 1024, 12, 64)
 causal (llama-130m's prefill), at the GQA short-query case q (2, 256,
 16, 128), k/v (2, 1024, 4, 128), and in bf16 at chatglm3-6b's prefill, q
-(4, 2048, 32, 128), k/v (4, 2048, 2, 128) (an entry point without the
-dtype argument, fp32 alone, is not timed there).
+(4, 2048, 32, 128), k/v (4, 2048, 2, 128) and at nemotron-4-340b's, q (1,
+4096, 96, 192), k/v (1, 4096, 8, 192) (an entry point without the dtype
+argument, fp32 alone, is not timed in bf16, nor one whose head dim stops
+below D at that D).
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ OUT = ROOT / "build" / "flash_attention_variants"
 
 # (B, S, T, H, KV, D, dtype)
 SHAPES = [(8, 1024, 1024, 12, 12, 64, "float32"), (2, 256, 1024, 16, 4, 128, "float32"),
-          (4, 2048, 2048, 32, 2, 128, "bfloat16")]
+          (4, 2048, 2048, 32, 2, 128, "bfloat16"), (1, 4096, 4096, 96, 8, 192, "bfloat16")]
 
 
 def variants(src: str) -> dict[str, str]:
@@ -59,11 +65,20 @@ def variants(src: str) -> dict[str, str]:
     split = split[:split.index("\n}\n") + 2]
     three = src[src.index("  mma_tf32(acc, alo, bhi, c);"):]
     three = three[:three.index("\n}\n") + 1]
+    # The tiers above D_pad 128 (64-row kv tiles would not fit their shared
+    # memory in fp32: kv64 stops at 128).
+    tiers = src[src.index("  if (a.D <= 128) return launch<EC, 128>"):]
+    tiers = tiers[:tiers.index("\n}\n") + 1]
     out = {
         "as_built": src,
-        "kv64": src.replace("constexpr int BKV = 32;", "constexpr int BKV = 64;"),
+        "kv64": src.replace("constexpr int BKV = 32;", "constexpr int BKV = 64;")
+                   .replace(tiers, "  return launch<EC, 128>(a, variant, stream);\n")
+                   .replace("D > 256 ||", "D > 128 ||"),
         "fast_exp": src.replace("expf(", "__expf("),
         "score_one_sum": src.replace("constexpr int KSL = 4;", "constexpr int KSL = 16;"),
+        "pv_group4": src.replace("int PG = DP <= 128 ? KD : 8;", "int PG = DP <= 128 ? KD : 4;"),
+        "pv_group_half": src.replace("int PG = DP <= 128 ? KD : 8;",
+                                     "int PG = DP <= 128 ? KD : KD / 2;"),
         "no_split": src.replace(split, "__device__ __forceinline__ void split_tf32(float x, "
                                        "uint32_t& hi, uint32_t& lo) {\n  hi = round_tf32(x);\n"
                                        "  lo = 0u;\n}\n")
@@ -152,7 +167,8 @@ def main() -> None:
             return call
 
         calls = {name: raw(fn) for name, fn in fns.items()
-                 if code == 0 or "int dtype" in sources[name]}  # earlier: fp32 alone
+                 if (code == 0 or "int dtype" in sources[name])  # earlier: fp32 alone
+                 and D <= int(re.search(r"D > (\d+) \|\|", sources[name]).group(1))}
         calls["wrapper"] = lambda: flash_attention(q, k, v)
         if S == T:
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
