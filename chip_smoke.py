@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build    — compile the seven CUDA kernels from ``src/repro_torch/
                 kernels/csrc`` with nvcc for sm_90a, all at once;
   3. kernels  — hold each kernel against its plain PyTorch version at the
-                llama-130m shapes of GUM (rank 256, gamma 4) and of GaLore's
-                family stacks, both projection sides, plus one ragged shape;
+                llama-130m shapes of GUM (rank 256, gamma 4; rows 1–5 also at
+                rank 128, phase 4f's, reported beside the principal shapes,
+                from a generator of their own)
+                and of GaLore's family stacks, both projection sides, plus
+                one ragged shape;
                 Newton–Schulz's two kernels also at Muon's full-rank shapes;
                 flash attention at llama-130m's prefill, a GQA short-query,
                 a ragged and a padded-head-dim case, and its 16-bit
@@ -56,6 +59,19 @@ Phases, in order; any failure exits non-zero and prints no result:
                 of 3 steps and a new ``Trainer`` resuming it to 6 equal to
                 them bitwise (losses, parameters, optimizer state), and the
                 checkpoint's save, verify and restore times and size;
+  4f. rank policy — phase 4's GUM under the rank-policy engine: (a) a
+                controller running ``stepwise:0=256,3=128`` over 6 updates
+                of seeded gradients, per leaf and family-stacked, bitwise
+                equal to a fresh rank-128 run from the first update after
+                the drop; (b) the ``Trainer`` with that policy for 6 steps,
+                and 4 steps + a new ``Trainer`` resuming to 6, bitwise equal
+                across the rank change, with exact per-step counts at each
+                rank, the migration's ms and the state's bytes before and
+                after; (c) ``spectral:0.99`` over the ladder (64, 128, 256)
+                for 6 steps: one more row-2 launch per leaf on each refresh
+                (the spectrum probe), the card's probe of one refresh
+                gradient against the CPU's (1e-4), the decided maps, and
+                the probe's own cost from one profiled refresh;
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
                 flash_attention launches) against "xla", then a
                 continuous-batching engine of 8 slots answering 16 requests,
@@ -283,11 +299,24 @@ def galore_families(rank: int = 256) -> list[tuple[int, int, int, str]]:
             for f in build_family_plan(leaves, rank).families]
 
 
-def kernel_cases(torch, gen):
+# Rows 1-5 at rank 128 (phase 4f's rank after its drop), at the principal
+# shapes and the low-rank momenta's Newton-Schulz shape, tagged for the
+# JSON line; drawn from their own generator after the other cases, which
+# keep their inputs.
+RANK128_CASES = dict(lu_shapes=[(12, 768, 128, 2048, "left", True, "r128"),
+                         (4, 768, 128, 2048, "left", False, "r128_project")],
+                     bp_shapes=[(12, 768, 128, 2048, "left", "r128")], epi_shapes=[],
+                     ns_shapes=[(12, 128, 2048, "momenta_r128")])
+
+
+def kernel_cases(torch, gen, lu_shapes=None, bp_shapes=None, epi_shapes=None,
+                 ns_shapes=None):
     """(kernel, label, kernel fn, plain fn, library fn, flops, bytes,
     principal) at the shapes GUM's and GaLore's llama-130m steps give each
     kernel; the principal case of each kernel is the one its JSON row
-    reports."""
+    reports (a string: a tag for a shape reported beside it).  The
+    ``*_shapes`` arguments replace the shapes of lowrank_update,
+    back_project, back_project_epilogue and gram / poly_apply."""
     from repro_torch.kernels import fused_step as fst
     from repro_torch.kernels import lowrank_update as lu
     from repro_torch.kernels import newton_schulz as nsk
@@ -308,18 +337,20 @@ def kernel_cases(torch, gen):
     # 4-byte copies); a left-side projection over m = 2048, the deepest
     # reduction, where one tensor-core accumulator over the whole sum would
     # drift past TOL_GEMM (the kernel's per-slice sums).
-    cases_lu = [(12, 768, 256, 768, "left", True, False),
-                (12, 768, 256, 2048, "left", True, True),
-                (12, 2048, 256, 768, "right", True, False),
-                (4, 768, 256, 768, "left", False, False),
-                (4, 768, 256, 2048, "left", False, False),
-                (4, 2048, 256, 768, "right", False, False),
-                (4, 2048, 256, 768, "left", False, False)]
-    cases_lu += [(L, m, 256, n, side, False, False) for L, m, n, side in galore_families()]
-    cases_lu += [(2, 1000, 96, 1376, "left", True, False),
-                 (2, 1376, 96, 1000, "right", True, False),
-                 (2, 1000, 97, 1375, "right", True, False)]
-    for L, m, r, n, side, with_r, principal in cases_lu:
+    if lu_shapes is None:
+        lu_shapes = [(12, 768, 256, 768, "left", True, False),
+                     (12, 768, 256, 2048, "left", True, True),
+                     (12, 2048, 256, 768, "right", True, False),
+                     (4, 768, 256, 768, "left", False, False),
+                     (4, 768, 256, 2048, "left", False, False),
+                     (4, 2048, 256, 768, "right", False, False),
+                     (4, 2048, 256, 768, "left", False, False)]
+        lu_shapes += [(L, m, 256, n, side, False, False)
+                      for L, m, n, side in galore_families()]
+        lu_shapes += [(2, 1000, 96, 1376, "left", True, False),
+                      (2, 1376, 96, 1000, "right", True, False),
+                      (2, 1000, 97, 1375, "right", True, False)]
+    for L, m, r, n, side, with_r, principal in lu_shapes:
         right = side == "right"
         p, g = randn(L, n if right else m, r), randn(L, m, n)
         out_shape = (L, m, r) if right else (L, r, n)
@@ -349,16 +380,13 @@ def kernel_cases(torch, gen):
     # copies) on both sides, and r = 4 (phase 5's rank: K below one 8-deep
     # mma step, most of the one slice zero-filled).  Labels name the block
     # tile the kernel picks.
-    for L, m, r, n, side, principal in [(12, 768, 256, 768, "left", False),
-                                        (12, 768, 256, 2048, "left", True),
-                                        (4, 768, 256, 2048, "left", False),
-                                        (12, 2048, 256, 768, "right", False),
-                                        (4, 2048, 256, 768, "right", False),
-                                        (2, 1000, 96, 1376, "left", False),
-                                        (2, 1000, 97, 1375, "left", False),
-                                        (2, 1000, 97, 1375, "right", False),
-                                        (4, 768, 4, 2048, "left", False),
-                                        (4, 2048, 4, 768, "right", False)]:
+    if bp_shapes is None:
+        bp_shapes = [(12, 768, 256, 768, "left", False), (12, 768, 256, 2048, "left", True),
+                     (4, 768, 256, 2048, "left", False), (12, 2048, 256, 768, "right", False),
+                     (4, 2048, 256, 768, "right", False), (2, 1000, 96, 1376, "left", False),
+                     (2, 1000, 97, 1375, "left", False), (2, 1000, 97, 1375, "right", False),
+                     (4, 768, 4, 2048, "left", False), (4, 2048, 4, 768, "right", False)]
+    for L, m, r, n, side, principal in bp_shapes:
         p = randn(L, m if side == "left" else n, r)
         s = randn(*((L, r, n) if side == "left" else (L, m, r)))
         a, b = (p, s) if side == "left" else (s, p.mT)  # out = a @ b
@@ -378,18 +406,19 @@ def kernel_cases(torch, gen):
     # alpha, decay = -lr * wd.
     scale, decay = -0.0025, -1e-4
     zero = torch.zeros(1, 1, 1, device="cuda")
-    for L, m, r, n, side, with_w, principal in [
-            (24, 768, 256, 2048, "left", True, True),
-            (24, 768, 256, 2048, "left", False, False),
-            (48, 768, 256, 768, "left", False, False),
-            (12, 2048, 256, 768, "right", True, False),
-            (12, 2048, 256, 768, "right", False, False),
-            (2, 1000, 96, 1376, "left", True, False),
-            (2, 1376, 96, 1000, "right", True, False),
-            (2, 1000, 97, 1375, "left", True, False),
-            (2, 1000, 97, 1375, "right", False, False),
-            (4, 768, 4, 2048, "left", False, False),
-            (4, 2048, 4, 768, "right", True, False)]:
+    if epi_shapes is None:
+        epi_shapes = [(24, 768, 256, 2048, "left", True, True),
+                      (24, 768, 256, 2048, "left", False, False),
+                      (48, 768, 256, 768, "left", False, False),
+                      (12, 2048, 256, 768, "right", True, False),
+                      (12, 2048, 256, 768, "right", False, False),
+                      (2, 1000, 96, 1376, "left", True, False),
+                      (2, 1376, 96, 1000, "right", True, False),
+                      (2, 1000, 97, 1375, "left", True, False),
+                      (2, 1000, 97, 1375, "right", False, False),
+                      (4, 768, 4, 2048, "left", False, False),
+                      (4, 2048, 4, 768, "right", True, False)]
+    for L, m, r, n, side, with_w, principal in epi_shapes:
         p = randn(L, m if side == "left" else n, r)
         s = randn(*((L, r, n) if side == "left" else (L, m, r)))
         w = randn(L, m, n) if with_w else None
@@ -411,11 +440,14 @@ def kernel_cases(torch, gen):
     # symmetric, so the work it needs is one triangle and the diagonal:
     # s(s+1)/2 dot products of length n per member (the kernel computes the
     # tiles of one triangle and mirrors them).  Labels name the block tile
-    # each kernel picks.
-    for L, s, n, principal in [(12, 256, 768, False), (12, 256, 2048, False),
-                               (4, 768, 768, False), (4, 768, 2048, True),
-                               (12, 768, 768, False), (12, 768, 2048, False),
-                               (2, 1000, 1376, False)]:
+    # each kernel picks.  The low-rank momenta's (12, 256, 2048) is tagged
+    # beside RANK128_CASES' (12, 128, 2048): the principal (4, 768, 2048)
+    # does not depend on the rank.
+    if ns_shapes is None:
+        ns_shapes = [(12, 256, 768, False), (12, 256, 2048, "momenta_r256"),
+                     (4, 768, 768, False), (4, 768, 2048, True), (12, 768, 768, False),
+                     (12, 768, 2048, False), (2, 1000, 1376, False)]
+    for L, s, n, principal in ns_shapes:
         x = randn(L, s, n)
         x = x / torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
         bm, bn = nsk.gram_tile(L, s, n)
@@ -561,6 +593,8 @@ def phase_kernels(torch):
     rows = {}
     cases = [case + (TOL_GEMM,) for case in kernel_cases(torch, gen)]
     cases += serving_kernel_cases(torch, gen)
+    gen128 = torch.Generator(device="cuda").manual_seed(128)
+    cases += [case + (TOL_GEMM,) for case in kernel_cases(torch, gen128, **RANK128_CASES)]
     for name, label, kfn, pfn, lfn, flops, nbytes, principal, tol, *tf32 in cases:
         out, want = kfn(), pfn()
         torch.cuda.synchronize()
@@ -655,6 +689,10 @@ def scratch_dir(label: str):
         shutil.rmtree(path, ignore_errors=True)
 
 
+# Each training phase's refresh-step times (ms), by label, for phase 4f.
+REFRESH_MS: dict[str, list[float]] = {}
+
+
 def llama130m_data():
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig
@@ -712,6 +750,7 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     steady = [t for i, t in enumerate(result.step_seconds) if i % period]
     refresh = [t for i, t in enumerate(result.step_seconds) if i % period == 0]
     steady_ms = statistics.median(steady) * 1e3
+    REFRESH_MS[label] = [round(t * 1e3, 3) for t in refresh]
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
           f"steady median {steady_ms:.3f}; refresh steps {[round(t * 1e3, 3) for t in refresh]}; "
@@ -1263,6 +1302,428 @@ def phase_resume(torch) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- phase 4f
+
+# Phase 4's rank 256, then 128 from the first decision (count 3) on; the
+# spectral policy's ladder around it.
+RANK_HI, RANK_LO = GUM_130M["rank"], GUM_130M["rank"] // 2
+POLICY_STEPWISE = f"stepwise:0={RANK_HI},3={RANK_LO}"
+POLICY_SPECTRAL = dict(rank_policy="spectral:0.99",
+                       rank_ladder=(RANK_HI // 4, RANK_HI // 2, RANK_HI))
+
+
+def lowrank_bytes(state) -> int:
+    from repro_torch.core import find_lowrank_states, state_bytes
+
+    return sum(state_bytes(s) for s in find_lowrank_states(state))
+
+
+def seeded_grads(torch, params: dict, step: int) -> dict:
+    """Step ``step``'s gradient at the model's leaf shapes, on the card:
+    the same for every run that asks for that step."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+    return {k: 1e-3 * torch.randn(p.shape, generator=gen, device="cuda")
+            for k, p in params.items()}
+
+
+def svd_is_deterministic(torch) -> bool:
+    """Whether two calls of the card's SVD on one gradient agree bitwise
+    (at llama-130m's largest family, w_in's (12, 768, 2048))."""
+    from repro_torch.core.lowrank_common import compute_projectors
+
+    g = torch.randn(12, 768, 2048, generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda")
+    return bool(torch.equal(compute_projectors("svd", g, 256, "left"),
+                            compute_projectors("svd", g, 256, "left")))
+
+
+def migration_contract(torch, params: dict, fuse: bool) -> None:
+    """Phase 4f (a): GUM at phase 4's settings under ``stepwise:0=256,3=128``
+    driven by a ``RankPolicyController`` over 6 updates of seeded gradients
+    (parameters fixed), beside a fresh rank-128 GUM fed the same gradients:
+    from the first update after the drop (the refresh at count 4) on, the
+    updates must be bitwise equal — or, if the card's SVD is shown not to be
+    deterministic, within 1e-6 relative.  Prints the migration's ms and the
+    state's bytes before and after."""
+    from repro_torch.core import (OptimizerConfig, RankMap, RankPolicyController,
+                                  build_optimizer, resolve_rank_policy, state_bytes)
+
+    label = f"rank policy (a) {'family-stacked' if fuse else 'per leaf'}"
+    cfg = OptimizerConfig(**GUM_130M, rank_policy=POLICY_STEPWISE, fuse_families=fuse)
+    ctrl = RankPolicyController(resolve_rank_policy(cfg),
+                                lambda m: build_optimizer(cfg, rank_map=m),
+                                period=cfg.period, default_rank=cfg.rank)
+    opt = ctrl.transform()
+    state = opt.init(params)
+    fresh = build_optimizer(cfg, rank_map=RankMap(RANK_LO))
+    fresh_state = fresh.init(params)
+    worst, unequal = 0.0, []
+    for step in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_state, changed = ctrl.maybe_update(state, params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if changed:
+            check(step == 3, f"{label}: the map changed before update {step + 1}")
+            print(f"{label}: migration {ctrl.history[-1][1]} before update {step + 1} "
+                  f"{ms:.3f} ms; LowRankState bytes {lowrank_bytes(state)} -> "
+                  f"{lowrank_bytes(new_state)}, whole optimizer state {state_bytes(state)} -> "
+                  f"{state_bytes(new_state)}", flush=True)
+            opt = ctrl.transform()
+        state = new_state
+        grads = seeded_grads(torch, params, step)
+        upd, state = opt.update(grads, state, params)
+        want, fresh_state = fresh.update(grads, fresh_state, params)
+        if step >= 3:
+            for k, w in want.items():
+                if w is not None and not torch.equal(upd[k], w):
+                    unequal.append(f"update {step + 1} {k}")
+                    worst = max(worst, float((upd[k] - w).abs().max() / w.abs().max()))
+        del upd, want, grads
+    check(ctrl.current_map == RankMap(RANK_LO), f"{label}: map {ctrl.current_map}")
+    if unequal:
+        check(not svd_is_deterministic(torch) and worst <= 1e-6,
+              f"{label}: updates after the drop differ from a fresh rank-{RANK_LO} run "
+              f"(worst rel {worst:.3e}): {unequal[:6]}")
+        print(f"{label}: the card's SVD (torch.linalg.svd) is not deterministic; "
+              f"updates 4-6 within {worst:.3e} relative (<= 1e-6) of a fresh rank-{RANK_LO} "
+              f"run", flush=True)
+    else:
+        print(f"{label}: updates 4-6 bitwise equal to a fresh rank-{RANK_LO} GUM run",
+              flush=True)
+
+
+def policy_trainer_class(torch):
+    """``Trainer`` recording each step's dispatch and kernel launches (and
+    the rank the step ran at), and — when ``capture`` names a leaf — that
+    leaf's first gradient on the host."""
+    from repro_torch.core.api import Transform
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+
+    class Recording(Trainer):
+        def __init__(self, *args, dispatched: dict, capture: str | None = None, **kw):
+            self.per_step, self.dispatched = [], dispatched
+            self.capture, self.captured = capture, None
+            super().__init__(*args, **kw)
+
+        def _set_optimizer(self, optimizer):
+            if self.capture is not None:
+                update = optimizer.update
+
+                def capturing(grads, state, params):
+                    if self.captured is None:
+                        self.captured = grads[self.capture].detach().cpu()
+                    return update(grads, state, params)
+
+                optimizer = Transform(optimizer.init, capturing)
+            super()._set_optimizer(optimizer)
+            step_fn = self.step_fn
+
+            def recorded(params, state, batch):
+                d0, l0 = dict(self.dispatched), dict(build.LAUNCHES)
+                out = step_fn(params, state, batch)
+                self.per_step.append((
+                    self.rank_ctrl.current_map,
+                    {k: v - d0.get(k, 0) for k, v in self.dispatched.items()
+                     if v != d0.get(k, 0)},
+                    {k: v - l0.get(k, 0) for k, v in build.LAUNCHES.items() if v != l0[k]}))
+                return out
+
+            self.step_fn = recorded
+
+    return Recording
+
+
+def timed_decisions(torch, trainer, log: list) -> None:
+    """Wrap the trainer's controller so each decision that migrates records
+    its ms (synchronised), the state's bytes before and after, and the peak
+    memory since the last reset (which it resets: the steps before the
+    change and those after each read their own peak)."""
+    from repro_torch.core import state_bytes
+
+    ctrl = trainer.rank_ctrl
+    maybe_update = ctrl.maybe_update
+
+    def timed(opt_state, params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_state, changed = maybe_update(opt_state, params)
+        torch.cuda.synchronize()
+        if changed:
+            log.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "map": ctrl.current_map,
+                        "lowrank_bytes": (lowrank_bytes(opt_state), lowrank_bytes(new_state)),
+                        "state_bytes": (state_bytes(opt_state), state_bytes(new_state)),
+                        "peak_before": peak_gib(torch)})
+            torch.cuda.reset_peak_memory_stats()
+        return new_state, changed
+
+    ctrl.maybe_update = timed
+
+
+def check_step_counts(label: str, trainer, probed: int = 0, first: int = 1) -> None:
+    """Every step's dispatch and launch counts (the trainer's steps
+    ``first``, ``first + 1``, ...): GUM's, plus one projection (row 2) per
+    probed leaf on the refresh steps 1 and 4."""
+    for step, (rank_map, dispatched, launched) in enumerate(trainer.per_step, start=first):
+        want_d, want_l = dict(GUM_DISPATCH), dict(GUM_LAUNCH)
+        if step % 3 == 1:
+            want_d["project"] += probed
+            want_l["lowrank_update"] += probed
+        check(dispatched == want_d and launched == want_l,
+              f"{label} step {step} at {rank_map}: dispatch {dispatched} != {want_d} or "
+              f"launches {launched} != {want_l}")
+    ranks = [str(m) for m, _, _ in trainer.per_step]
+    print(f"{label}: steps {first}-{first + len(ranks) - 1}, dispatch and launches per step "
+          f"equal GUM's at each rank ({ranks})"
+          + (f", plus {probed} projections on the refresh steps" if probed else ""),
+          flush=True)
+
+
+def step_summary(label: str, result) -> None:
+    ms = [round(t * 1e3, 3) for t in result.step_seconds]
+    print(f"{label} step ms: {ms}; steady median at 256 (steps 2, 3) "
+          f"{statistics.median(ms[1:3]):.3f}, after the change (steps 5, 6) "
+          f"{statistics.median(ms[4:6]):.3f}; refresh steps 1, 4: {ms[0]}, {ms[3]}", flush=True)
+
+
+def policy_trainer(torch, params0: dict, dispatched: dict) -> None:
+    """Phase 4f (b): the ``Trainer`` with ``rank_policy=stepwise:0=256,3=128``
+    for 6 steps, then 4 steps and a new ``Trainer`` resuming to 6: bitwise
+    equal (losses, parameters, optimizer state, controller state); exact
+    per-step counts at each rank; step times, the migration's ms, state
+    bytes and the peak memory."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig, RankMap
+    from repro_torch.models import build_model
+
+    cfg, data = llama130m_data()
+    opt_cfg = OptimizerConfig(**GUM_130M, rank_policy=POLICY_STEPWISE)
+    Recording = policy_trainer_class(torch)
+
+    def run(ckpt_dir: str, steps: int, log: list | None = None):
+        trainer = Recording(build_model(cfg, device="cuda"), opt_cfg,
+                            RunConfig(steps=steps, ckpt_every=0, log_every=0, seed=0,
+                                      ckpt_dir=ckpt_dir),
+                            data, device="cuda", params=params0, dispatched=dispatched)
+        if log is not None:
+            timed_decisions(torch, trainer, log)
+        return trainer, trainer.train()
+
+    def tree(trainer):
+        return ({k: p.detach() for k, p in trainer.model.params().items()}, trainer.opt_state)
+
+    with scratch_dir("rank_policy") as root:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        log: list = []
+        full, r_full = run(os.path.join(root, "full"), 6, log)
+        peak = peak_gib(torch)
+        _, r_first = run(os.path.join(root, "split"), 4)
+        resumed, r_second = run(os.path.join(root, "split"), 6)
+    print(f"rank policy (b) trainer {POLICY_STEPWISE}: losses {r_full.losses}; 4 steps "
+          f"{r_first.losses} + resumed from {r_second.resumed_from} {r_second.losses}",
+          flush=True)
+    check(all(math.isfinite(v) for v in r_full.losses) and len(r_full.losses) == 6,
+          f"rank policy (b): losses {r_full.losses}")
+    check(full.rank_ctrl.history == [(0, RankMap(RANK_HI)), (3, RankMap(RANK_LO))],
+          f"rank policy (b): history {full.rank_ctrl.history}")
+    check([m for m, _, _ in full.per_step] == [RankMap(RANK_HI)] * 3 + [RankMap(RANK_LO)] * 3,
+          f"rank policy (b): ranks by step {[m for m, _, _ in full.per_step]}")
+    check_step_counts("rank policy (b)", full)
+    check_step_counts("rank policy (b) resumed", resumed, first=5)
+    diff = bitwise_diff(tree(full), tree(resumed))
+    check(r_second.resumed_from == 4 and r_first.losses + r_second.losses == r_full.losses
+          and not diff and resumed.rank_ctrl.state_dict() == full.rank_ctrl.state_dict(),
+          f"rank policy (b): the resumed run differs: resumed_from {r_second.resumed_from}, "
+          f"losses {r_first.losses + r_second.losses} vs {r_full.losses}; leaves {diff[:8]}; "
+          f"controller {resumed.rank_ctrl.state_dict()} vs {full.rank_ctrl.state_dict()}")
+    print(f"rank policy (b): 4 + 2 resumed steps equal 6 bitwise across the rank change "
+          f"(losses, parameters, {len(flat_state(tree(full)))} (params, state) leaves, "
+          f"controller state)", flush=True)
+    check(len(log) == 1, f"rank policy (b): {len(log)} migrations")
+    ev = log[0]
+    print(f"rank policy (b) migration to {ev['map']}: maybe_update {ev['ms']:.3f} ms; "
+          f"LowRankState bytes {ev['lowrank_bytes'][0]} -> {ev['lowrank_bytes'][1]}; whole "
+          f"optimizer state bytes {ev['state_bytes'][0]} -> {ev['state_bytes'][1]}; "
+          f"max_memory_allocated steps 1-3 {ev['peak_before']:.3f} GiB, steps 4-6 "
+          f"{peak:.3f} GiB, each over {held:.3f} GiB allocated before the trainer (this "
+          f"phase's copy of the initial parameters and what earlier phases still hold)",
+          flush=True)
+    step_summary("rank policy (b)", r_full)
+
+
+def check_probe(torch, trainer, probes_at_decision: dict) -> None:
+    """The card's probe of one refresh gradient (step 1's, of the captured
+    leaf, made with step 1's projector) against the same probe on the CPU:
+    ``sv2`` sum and ``g2`` within 1e-4 relative."""
+    from repro_torch.core.combinators import _spectrum_probe
+    from repro_torch.core.lowrank_common import family_shape
+
+    k = trainer.capture
+    proj, probe = probes_at_decision["proj"], probes_at_decision["probe"]
+    g = trainer.captured
+    fs = family_shape(g, proj.shape[-1])
+    want = _spectrum_probe(proj, g, fs, "auto", 0)
+    errs = {}
+    for key in ("g2", "sv2"):
+        a, b = float(probe[key].sum()), float(want[key].sum())
+        errs[key] = abs(a - b) / abs(b)
+    check(torch.equal(probe["mn"], want["mn"]) and max(errs.values()) <= 1e-4,
+          f"rank policy (c) probe of {k}: card vs cpu {errs}, mn {probe['mn']}")
+    print(f"rank policy (c) probe of {k} {tuple(g.shape)} at step 1 (rank {proj.shape[-1]}): "
+          f"card vs cpu sv2 sum rel {errs['sv2']:.2e}, g2 rel {errs['g2']:.2e} "
+          f"(sv2 sum / g2 = {float(probe['sv2'].sum()) / float(probe['g2']):.4f})", flush=True)
+
+
+def probe_cost(torch, params: dict) -> None:
+    """The spectrum probe alone, as a refresh makes it for llama-130m's 7
+    hidden leaves at rank 256: one profiled run, device time by group (the
+    projection kernel, the Gram's GEMM, ``eigvalsh``'s cuSOLVER kernels),
+    and each part timed alone with CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.combinators import _spectrum_probe
+    from repro_torch.core.lowrank_common import (compute_projectors, default_lowrank_filter,
+                                                 family_shape)
+    from repro_torch.kernels import build, dispatch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    leaves = []
+    for k, p in params.items():
+        if default_lowrank_filter(k, p):
+            fs = family_shape(p, RANK_HI)
+            g = torch.randn(p.shape, generator=gen, device="cuda")
+            leaves.append((fs, g, compute_projectors("svd", g, fs.rank, fs.side)))
+
+    def probe_all():
+        return [_spectrum_probe(p, g, fs, "auto", 0) for fs, g, p in leaves]
+
+    probe_all()
+    torch.cuda.synchronize()
+    before = build.LAUNCHES["lowrank_update"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        probe_all()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = build.LAUNCHES["lowrank_update"] - before
+    groups = {"lowrank_update (row 2)": 0.0, "gram gemm": 0.0, "eigvalsh": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = us if us is not None else ev.self_cuda_time_total
+        low = ev.key.lower()
+        if re.search(GROUPS["lowrank_update"], ev.key):
+            groups["lowrank_update (row 2)"] += us
+        elif any(t in low for t in ("gemm", "cutlass", "xmma", "nvjet")):
+            groups["gram gemm"] += us
+        elif any(t in low for t in ("syev", "eig", "sytrd", "ormtr", "steqr", "stedc",
+                                    "jacobi", "cusolver", "householder")):
+            groups["eigvalsh"] += us
+        else:
+            groups["other"] += us
+    parts = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items())
+    check(launches == len(leaves), f"rank policy probe: {launches} row-2 launches")
+    s = [dispatch.project(p, g, side=fs.side) for fs, g, p in leaves]
+    grams = [x @ x.mT if fs.side == "left" else x.mT @ x for (fs, _, _), x in zip(leaves, s)]
+    proj_ms = sum(time_ms(lambda p=p, g=g, fs=fs: dispatch.project(p, g, side=fs.side), 5)
+                  for fs, g, p in leaves)
+    gram_ms = sum(time_ms(lambda x=x, fs=fs: x @ x.mT if fs.side == "left" else x.mT @ x, 5)
+                  for (fs, _, _), x in zip(leaves, s))
+    eig_ms = sum(time_ms(lambda a=a: torch.linalg.eigvalsh(a), 5) for a in grams)
+    print(f"rank policy probe cost, {len(leaves)} leaves at rank {RANK_HI}, one profiled "
+          f"refresh's probes: "
+          f"{launches} row-2 launches; device ms by group: {parts}; host wall {wall:.3f} ms; "
+          f"alone (events, summed over the leaves): project {proj_ms:.3f}, Gram {gram_ms:.3f}, "
+          f"eigvalsh {eig_ms:.3f} ms", flush=True)
+
+
+def spectral_trainer(torch, params0: dict, dispatched: dict) -> None:
+    """Phase 4f (c): ``rank_policy="spectral:0.99", rank_ladder=(64, 128,
+    256)`` for 6 steps through the ``Trainer``: exact counts (one more
+    projection per probed leaf on the refresh steps), the card's probe of
+    one refresh gradient against the CPU's, the map decided for each
+    family, the refresh steps against phase 4's."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig, find_lowrank_states, gather_probes
+    from repro_torch.models import build_model
+
+    cfg, data = llama130m_data()
+    opt_cfg = OptimizerConfig(**GUM_130M, **POLICY_SPECTRAL)
+    Recording = policy_trainer_class(torch)
+    with scratch_dir("spectral") as ckpt_dir:
+        trainer = Recording(build_model(cfg, device="cuda"), opt_cfg,
+                            RunConfig(steps=6, ckpt_every=0, log_every=0, seed=0,
+                                      ckpt_dir=ckpt_dir),
+                            data, device="cuda", params=params0, dispatched=dispatched,
+                            capture="blocks/attn/wq")
+        at_decision: dict = {}
+        ctrl = trainer.rank_ctrl
+        maybe_update = ctrl.maybe_update
+
+        def snapshot(opt_state, params):
+            low = find_lowrank_states(opt_state)[0]
+            if low.count == 3:  # the first decision: step 1's projector and probe
+                at_decision["proj"] = low.projs[trainer.capture].cpu()
+                at_decision["probe"] = {k: v.cpu()
+                                        for k, v in low.probes[trainer.capture].items()}
+                at_decision["gathered"] = gather_probes(opt_state)
+            return maybe_update(opt_state, params)
+
+        ctrl.maybe_update = snapshot
+        log: list = []
+        timed_decisions(torch, trainer, log)
+        result = trainer.train()
+    print(f"rank policy (c) trainer {POLICY_SPECTRAL}: losses {result.losses}", flush=True)
+    check(all(math.isfinite(v) for v in result.losses) and len(result.losses) == 6,
+          f"rank policy (c): losses {result.losses}")
+    energies = {f"{m}x{n}": round(float(pr["sv2"].sum() / pr["g2"]), 4)
+                for (m, n), pr in at_decision["gathered"].items()}
+    print(f"rank policy (c) decisions: {[(s, str(m)) for s, m in ctrl.history]}; captured "
+          f"energy at rank {RANK_HI} by family (sum sv2 / g2): {energies}", flush=True)
+    for ev in log:
+        print(f"rank policy (c) migration to {ev['map']}: maybe_update (with the probes' "
+              f"gather) {ev['ms']:.3f} ms; LowRankState bytes {ev['lowrank_bytes'][0]} -> "
+              f"{ev['lowrank_bytes'][1]}; whole optimizer state bytes {ev['state_bytes'][0]} "
+              f"-> {ev['state_bytes'][1]}", flush=True)
+    check_step_counts("rank policy (c)", trainer, probed=7)
+    check_probe(torch, trainer, at_decision)
+    ms = [round(t * 1e3, 3) for t in result.step_seconds]
+    print(f"rank policy (c) step ms: {ms}; refresh steps 1, 4: {ms[0]}, {ms[3]} "
+          f"(phase 4's, no probes: {REFRESH_MS.get('slice')}); steady median "
+          f"{statistics.median([ms[1], ms[2], ms[4], ms[5]]):.3f}", flush=True)
+
+
+def phase_rank_policy(torch) -> dict:
+    """Phase 4f: the rank-policy engine at llama-130m (phase 4's GUM).
+    Returns the kernel launches of its runs ((a)'s updates and the
+    trainers of (b) and (c)); the probe-cost timing after is not counted."""
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.models import build_model
+
+    cfg, _ = llama130m_data()
+    init = build_model(cfg, device="cuda")
+    init.init_params(0)
+    params0 = {k: v.detach().clone() for k, v in init.params().items()}
+    del init
+    build.reset_launches()
+    with launch_count.count_launches() as dispatched:
+        for fuse in (False, True):
+            migration_contract(torch, params0, fuse)
+        policy_trainer(torch, params0, dispatched)
+        spectral_trainer(torch, params0, dispatched)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    probe_cost(torch, params0)
+    return launches
+
+
 def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     """Device time of one steady step by kernel group (torch.profiler):
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
@@ -1769,12 +2230,15 @@ def phase_agree_serve(torch):
 # The full-width paths, in order; each returns its kernel launches.
 PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_baselines,
           "accumulate": phase_accumulate, "resume": phase_resume,
+          "rank-policy": phase_rank_policy,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron}
 # An instantiation reported beside its kernel's row, by the phase whose
 # launches are all of it.
 TAGGED = {("flash_attention", "bf16"): "serve-dense",
           ("flash_attention", "bf16_d192"): "serve-nemotron"}
+# Shapes reported beside a row's principal one: rows 1-5 at rank 128.
+RANK_TAGS = ("r128", "r128_project", "momenta_r256", "momenta_r128")
 
 
 def main() -> None:
@@ -1823,6 +2287,7 @@ def main() -> None:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": row["shape"]})
+        kernels[-1].update({tag: row[tag] for tag in RANK_TAGS if tag in row})
         for (kname, tag), phase in TAGGED.items():
             if kname == name:
                 tagged = paths[phase].get(name, 0)

@@ -112,8 +112,9 @@ def _from_numpy(arr: np.ndarray, ref):
     """``arr`` as ``ref``'s kind of leaf: a tensor on its device and of its
     dtype, or a Python scalar of its type."""
     if isinstance(ref, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device=ref.device,
-                                                              dtype=ref.dtype)
+        # (ascontiguousarray makes a 0-d array 1-d: reshape it back)
+        return torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape).to(
+            device=ref.device, dtype=ref.dtype)
     return type(ref)(arr.item())
 
 
@@ -313,7 +314,10 @@ class CheckpointManager:
                 hint = ""
                 if "/projs/" in meta["path"] or "/inner/" in meta["path"]:
                     hint = ("  (a rank-axis mismatch on low-rank optimizer state usually "
-                            "means the checkpoint was written at a different rank)")
+                            "means the checkpoint was written at a different rank / "
+                            "rank-policy state — restore with the saved RankMap, e.g. via "
+                            "the rank_policy extras the Trainer stores, or "
+                            "migrate_opt_state)")
                 raise ValueError(f"{meta['path']}: saved shape {tuple(arr.shape)} != "
                                  f"target {tuple(_shape(ref))}{hint}")
             out.append(_from_numpy(arr, ref))

@@ -130,9 +130,7 @@ def multi_transform(
 
 # Knobs of the JAX package's OptimizerConfig that the port does not run yet,
 # with the value that means "off".
-_NOT_PORTED = {
-    "rank_policy": None, "rank_ladder": (), "shard_state": False, "telemetry": False,
-}
+_NOT_PORTED = {"shard_state": False, "telemetry": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +172,8 @@ class OptimizerConfig:
     # Muon's sqrt(max(1, m/n)) RMS-matching factor.  None = each optimizer's
     # default (muon: on; gum: off, as Algorithm 2).
     use_muon_scale: bool | None = None
+    # None | a spec string ("stepwise:0=256,3000=128", "spectral:0.99", ...)
+    # | a RankPolicy (core/rank_policy.py); the ladder bounds adaptive specs.
     rank_policy: Any = None
     rank_ladder: tuple[int, ...] = ()
     shard_state: bool = False

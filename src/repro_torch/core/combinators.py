@@ -1,6 +1,6 @@
 """Composable optimizer combinators: the JAX package's
-``core/combinators.py`` on PyTorch tensors, less its telemetry, rank-policy
-probes and sharded refresh.
+``core/combinators.py`` on PyTorch tensors, less its telemetry and sharded
+refresh.
 
 atomic gradient transforms
     scale_by_momentum    EMA momentum (SGDM; Property-II compliant)
@@ -60,6 +60,11 @@ scalars into them and ``scale_by_lr`` materializes the tree through the
 fused ``back_project_epilogue`` kernel, one launch per family.  Inners that
 emit :class:`FullUpdate` leaves (``layerwise_unbias``) own their
 back-projection, so the epilogue knob is inert for GUM.
+
+``lowrank(rank=RankMap, rank_policy=..., probe_spectrum=...)``: the rank may
+differ per ``(m, n)`` family (:mod:`repro_torch.core.rank_policy`), and with
+probing on every refresh stores each leaf's (or family's) spectrum probe in
+``LowRankState.probes`` for the rank-policy controller.
 """
 from __future__ import annotations
 
@@ -572,12 +577,39 @@ class LowRankState(NamedTuple):
     projs: dict     # per-leaf projector (*lead, s, r) (None elsewhere); under
                     # family stacking {family index: (L, s, r)}
     inner: PyTree   # the wrapped transform's state (projected space)
+    # Spectrum probes (``probe_spectrum=True``; None otherwise, which is no
+    # checkpoint leaf): per leaf (keyed as ``projs``) a dict {"g2": () total
+    # ||G||_F², "mn": (2,) int32 family shape, "sv2": (r,) squared singular
+    # values of PᵀG summed over blocks}, made at each refresh — in the
+    # reference's sorted key order, so checkpoint paths match its layout.
+    probes: PyTree = None
+
+
+def _spectrum_probe(p, g32, fs: FamilyShape, kernel_impl: str, pad_rank_to: int) -> dict:
+    """Squared singular values of the projected gradient sketch ``PᵀG``
+    (the eigenvalues of its r x r Gram, clamped at 0, summed over stacked
+    blocks, in descending order) and the total gradient energy.  ``PᵀG``
+    goes through the projection kernel (``dispatch.project``, counted); the
+    Gram is a plain product."""
+    s = dispatch.project(p, g32, side=fs.side, impl=kernel_impl, pad_rank_to=pad_rank_to)
+    gram = torch.matmul(s, s.mT) if fs.side == "left" else torch.matmul(s.mT, s)
+    ev = torch.linalg.eigvalsh(gram).clamp_min(0.0)          # (*lead, r)
+    sv2 = torch.sort(ev.reshape(-1, ev.shape[-1]).sum(0), descending=True).values
+    return {"g2": torch.sum(torch.square(g32)),
+            "mn": torch.tensor((fs.m, fs.n), dtype=torch.int32, device=g32.device),
+            "sv2": sv2}
+
+
+def _probe_zeros(fs: FamilyShape, device: torch.device) -> dict:
+    return {"g2": torch.zeros((), dtype=torch.float32, device=device),
+            "mn": torch.tensor((fs.m, fs.n), dtype=torch.int32, device=device),
+            "sv2": torch.zeros((fs.rank,), dtype=torch.float32, device=device)}
 
 
 def lowrank(
     inner: Transform,
     *,
-    rank: int = 128,
+    rank=128,
     period: int = 200,
     projector: str = "svd",
     seed: int = 0,
@@ -589,6 +621,8 @@ def lowrank(
     fuse_families: bool = False,
     fused_epilogue: bool = False,
     noise: Optional[Noise] = None,
+    rank_policy=None,
+    probe_spectrum: bool = False,
 ) -> Transform:
     """Run ``inner`` inside a periodically refreshed low-rank subspace.
 
@@ -617,7 +651,19 @@ def lowrank(
     ``fuse_families=True`` runs the pipeline once per family stack (see the
     module docstring); the inner state is then keyed by family index.
     ``fused_epilogue=True`` returns :class:`PendingBack` leaves in place of
-    back-projected ones, for the chain tail to fold into one fused launch."""
+    back-projected ones, for the chain tail to fold into one fused launch.
+
+    ``rank`` is an int or a per-shape
+    :class:`~repro_torch.core.rank_policy.RankMap`; ``rank_policy`` (a
+    :class:`~repro_torch.core.rank_policy.RankPolicy`) supplies the initial
+    map for an int rank and turns ``probe_spectrum`` on when it
+    ``wants_probes``.  With ``probe_spectrum`` every refresh stores each
+    leaf's (family's) spectrum probe in ``LowRankState.probes`` — the
+    in-update refresh, or under ``external_refresh`` the refresh hook."""
+    if rank_policy is not None:
+        probe_spectrum = probe_spectrum or bool(getattr(rank_policy, "wants_probes", False))
+        if isinstance(rank, int):
+            rank = rank_policy.initial_map(rank)
     wants_params = bool(getattr(inner.update, "wants_params", False))
     inner_refresh_state = getattr(inner.update, "refresh_state", None)
     in_update_refresh = not external_refresh
@@ -637,6 +683,9 @@ def lowrank(
         return PendingBack(p=msg.p, s=o, w=w, fs=msg.fs, kernel_impl=kernel_impl,
                            pad_rank_to=pad_rank_to, **member)
 
+    def _probe(proj, g32, fs: FamilyShape) -> dict:
+        return _spectrum_probe(proj, g32, fs, kernel_impl, pad_rank_to)
+
     def init(params: dict) -> LowRankState:
         projs, tmpls = {}, {}
         for k, p in params.items():
@@ -646,12 +695,17 @@ def lowrank(
             fs = family_shape(p, rank)
             projs[k] = torch.zeros(proj_shape(fs), dtype=torch.float32, device=p.device)
             tmpls[k] = ProjInit(fs, TensorSpec(lowrank_state_shape(fs), p.device))
-        return LowRankState(count=0, projs=projs, inner=inner.init(tmpls))
+        probes = None
+        if probe_spectrum:
+            probes = {k: None if p is None else _probe_zeros(family_shape(p, rank), p.device)
+                      for k, p in params.items()}
+        return LowRankState(count=0, projs=projs, inner=inner.init(tmpls), probes=probes)
 
     def update(updates: dict, state: LowRankState, params: dict):
         count = state.count + 1
         refresh = (count - 1) % period == 0
         msgs, new_projs = {}, {}
+        new_probes = dict(state.probes) if probe_spectrum else None
         for i, (k, p) in enumerate(params.items()):
             g, proj = updates[k], state.projs[k]
             if g is None or p is None:
@@ -663,6 +717,8 @@ def lowrank(
             if refresh and in_update_refresh:
                 proj = compute_projectors(projector, g32, fs.rank, fs.side, key=key,
                                           subspace_iters=subspace_iters, noise=noise)
+                if probe_spectrum:
+                    new_probes[k] = _probe(proj, g32, fs)
             msgs[k] = _msg(proj, g32, fs, refresh, key)
             new_projs[k] = proj
 
@@ -679,13 +735,15 @@ def lowrank(
                 out[k] = _pending(msg, o, params[k])
             else:
                 out[k] = msg.back(o)
-        return out, LowRankState(count=count, projs=new_projs, inner=new_inner)
+        return out, LowRankState(count=count, projs=new_projs, inner=new_inner,
+                                 probes=new_probes)
 
     def refresh(grads: dict, state: LowRankState, params: dict) -> LowRankState:
         count = state.count + 1
         if (count - 1) % period:
             return state
         msgs, new_projs = {}, {}
+        new_probes = dict(state.probes) if probe_spectrum else None
         for i, (k, p) in enumerate(params.items()):
             g, proj = grads[k], state.projs[k]
             if g is None or p is None or proj is None:
@@ -693,12 +751,14 @@ def lowrank(
                 continue
             fs = family_shape(p, rank)
             key = (seed, count, i)
-            new_projs[k] = compute_projectors(projector, g.to(torch.float32), fs.rank,
-                                              fs.side, key=key,
+            g32 = g.to(torch.float32)
+            new_projs[k] = compute_projectors(projector, g32, fs.rank, fs.side, key=key,
                                               subspace_iters=subspace_iters, noise=noise)
+            if probe_spectrum:
+                new_probes[k] = _probe(new_projs[k], g32, fs)
             msgs[k] = RefreshMsg(fs=fs, key=key)
         return LowRankState(count=state.count, projs=new_projs,
-                            inner=_refresh_inner(state, msgs))
+                            inner=_refresh_inner(state, msgs), probes=new_probes)
 
     def _plan(params: dict, grads: Optional[dict] = None):
         paths, leaves = list(params), list(params.values())
@@ -725,7 +785,11 @@ def lowrank(
                                     device=device)
             tmpls[fi] = ProjInit(fam.fs, TensorSpec(lowrank_state_shape(fam.fs), device),
                                  seg=fam.seg)
-        return LowRankState(count=0, projs=projs, inner=inner.init(tmpls))
+        probes = None
+        if probe_spectrum:
+            probes = {fi: _probe_zeros(fam.fs, projs[fi].device)
+                      for fi, fam in enumerate(plan.families)}
+        return LowRankState(count=0, projs=projs, inner=inner.init(tmpls), probes=probes)
 
     def update_fused(updates: dict, state: LowRankState, params: dict):
         count = state.count + 1
@@ -733,6 +797,7 @@ def lowrank(
         paths, leaves, plan = _plan(params, updates)
         g_leaves = _stacked_grads(paths, updates)
         msgs, new_projs, fam_params = {}, {}, {}
+        new_probes = dict(state.probes) if probe_spectrum else None
         for fi, fam in enumerate(plan.families):
             g32 = stack_family(fam, g_leaves)
             proj, keys = state.projs[fi], member_keys(fam, seed, count)
@@ -740,6 +805,8 @@ def lowrank(
                 proj = compute_projectors(projector, g32, fam.fs.rank, fam.fs.side,
                                           key=keys, subspace_iters=subspace_iters,
                                           noise=noise)
+                if probe_spectrum:
+                    new_probes[fi] = _probe(proj, g32, fam.fs)
             msgs[fi] = _msg(proj, g32, fam.fs, refresh, keys, fam.seg)
             new_projs[fi] = proj
             # Stacking the params costs a copy per family per step: only
@@ -764,7 +831,8 @@ def lowrank(
                 parts = unstack_family(fam, msg.back(o))
             for i, part in zip(fam.members, parts):
                 out[paths[i]] = part
-        return out, LowRankState(count=count, projs=new_projs, inner=new_inner)
+        return out, LowRankState(count=count, projs=new_projs, inner=new_inner,
+                                 probes=new_probes)
 
     def refresh_fused(grads: dict, state: LowRankState, params: dict) -> LowRankState:
         count = state.count + 1
@@ -773,14 +841,18 @@ def lowrank(
         paths, _, plan = _plan(params, grads)
         g_leaves = _stacked_grads(paths, grads)
         msgs, new_projs = {}, {}
+        new_probes = dict(state.probes) if probe_spectrum else None
         for fi, fam in enumerate(plan.families):
             keys = member_keys(fam, seed, count)
-            new_projs[fi] = compute_projectors(projector, stack_family(fam, g_leaves),
-                                               fam.fs.rank, fam.fs.side, key=keys,
-                                               subspace_iters=subspace_iters, noise=noise)
+            g32 = stack_family(fam, g_leaves)
+            new_projs[fi] = compute_projectors(projector, g32, fam.fs.rank, fam.fs.side,
+                                               key=keys, subspace_iters=subspace_iters,
+                                               noise=noise)
+            if probe_spectrum:
+                new_probes[fi] = _probe(new_projs[fi], g32, fam.fs)
             msgs[fi] = RefreshMsg(fs=fam.fs, key=keys, seg=fam.seg)
         return LowRankState(count=state.count, projs=new_projs,
-                            inner=_refresh_inner(state, msgs))
+                            inner=_refresh_inner(state, msgs), probes=new_probes)
 
     if fuse_families:
         update_fused.refresh = refresh_fused

@@ -7,6 +7,13 @@ Every name the JAX package's factory builds: ``adamw``, ``sgdm``, ``muon``,
 does not run yet raise in ``OptimizerConfig`` (``core/api.py``), and
 ``audit=True`` raises here: the chain linter (``repro.analysis``) is not
 ported.
+
+``cfg.rank_policy`` / ``cfg.rank_ladder`` (see
+:mod:`repro_torch.core.rank_policy`) make rank a per-family, time-varying
+quantity: the policy supplies the initial ``RankMap`` (and spectrum probing
+for adaptive policies); a live run's ``RankPolicyController`` rebuilds the
+chain at each new assignment through :func:`build_optimizer`'s
+``rank_map``.
 """
 from __future__ import annotations
 
@@ -23,18 +30,35 @@ from repro_torch.core.gum import gum, unbiased_galore_adam
 from repro_torch.core.lisa import lisa
 from repro_torch.core.lowrank_common import Noise
 from repro_torch.core.muon import muon
+from repro_torch.core.rank_policy import RankMap, RankPolicy, as_policy
 
 
-def build_optimizer(cfg: OptimizerConfig, *, audit: bool = False,
-                    sampler: Optional[Sampler] = None,
+def resolve_rank_policy(cfg: OptimizerConfig) -> Optional[RankPolicy]:
+    """``cfg.rank_policy`` (None | spec string | RankPolicy) resolved to a
+    policy object, with ``cfg.rank_ladder`` / ``cfg.rank`` as the ladder
+    bounds for adaptive specs."""
+    ladder = tuple(cfg.rank_ladder or ())
+    return as_policy(
+        cfg.rank_policy, ladder=ladder,
+        r_min=min(ladder) if ladder else 8,
+        r_max=max(ladder) if ladder else max(int(cfg.rank), 8),
+    )
+
+
+def build_optimizer(cfg: OptimizerConfig, rank_map: Optional[RankMap] = None, *,
+                    audit: bool = False, sampler: Optional[Sampler] = None,
                     noise: Optional[Noise] = None) -> Transform:
-    """``sampler`` replaces the block sampler of GUM, unbiased GaLore-Adam
-    and LISA, ``noise`` the projectors' random draws (tests inject the
-    reference's draws through them)."""
+    """``rank_map`` overrides the rank assignment for this build — the
+    ``RankPolicyController``'s re-entry point (``lambda m:
+    build_optimizer(cfg, rank_map=m)``); without it the rank is ``cfg.rank``
+    (or the policy's initial map when one is configured).  ``sampler``
+    replaces the block sampler of GUM, unbiased GaLore-Adam and LISA,
+    ``noise`` the projectors' random draws (tests inject the reference's
+    draws through them)."""
     if audit:
         raise NotImplementedError("build_optimizer(audit=True) needs the chain "
                                   "linter (repro.analysis), which is not ported yet")
-    opt = _build(cfg, sampler, noise)
+    opt = _build(cfg, rank_map, sampler, noise)
     return Transform(_fp32_leaves(opt.init), opt.update)
 
 
@@ -54,12 +78,14 @@ def _fp32_leaves(init):
     return checked
 
 
-def _build(cfg: OptimizerConfig, sampler: Optional[Sampler],
+def _build(cfg: OptimizerConfig, rank_map: Optional[RankMap], sampler: Optional[Sampler],
            noise: Optional[Noise]) -> Transform:
     name = cfg.name.lower()
     fusion = {"fuse_families": cfg.fuse_families, "fused_epilogue": cfg.fused_epilogue}
-    lowrank_kw = {"seed": cfg.seed, "kernel_impl": cfg.kernel_impl,
-                  "pad_rank_to": cfg.pad_rank_to, "noise": noise, **fusion}
+    rank = rank_map if rank_map is not None else cfg.rank
+    lowrank_kw = {"rank": rank, "rank_policy": resolve_rank_policy(cfg), "seed": cfg.seed,
+                  "kernel_impl": cfg.kernel_impl, "pad_rank_to": cfg.pad_rank_to,
+                  "noise": noise, **fusion}
     muon_scale = {} if cfg.use_muon_scale is None else {"use_muon_scale": cfg.use_muon_scale}
     if name == "adamw":
         return adamw(cfg.lr, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
@@ -72,26 +98,26 @@ def _build(cfg: OptimizerConfig, sampler: Optional[Sampler],
     if name in ("galore", "galore_muon"):
         base = {"galore": {"base": "adam"},
                 "galore_muon": {"base": "muon", "beta": cfg.beta, "ns_steps": cfg.ns_steps}}
-        return galore(cfg.lr, rank=cfg.rank, period=cfg.period, projector=cfg.projector,
+        return galore(cfg.lr, period=cfg.period, projector=cfg.projector,
                       weight_decay=cfg.weight_decay, **base[name], **lowrank_kw)
     if name == "golore":
-        return golore(cfg.lr, rank=cfg.rank, period=cfg.period, base=cfg.base, **lowrank_kw)
+        return golore(cfg.lr, period=cfg.period, base=cfg.base, **lowrank_kw)
     if name == "gum":
         return gum(
-            cfg.lr, rank=cfg.rank, gamma=cfg.gamma, period=cfg.period,
+            cfg.lr, gamma=cfg.gamma, period=cfg.period,
             projector=cfg.projector, base=cfg.base, beta=cfg.beta,
             ns_steps=cfg.ns_steps, weight_decay=cfg.weight_decay,
             compensation=cfg.compensation, sampler=sampler, **lowrank_kw, **muon_scale,
         )
     if name == "unbiased_galore_adam":
         return unbiased_galore_adam(
-            cfg.lr, rank=cfg.rank, gamma=cfg.gamma, period=cfg.period,
+            cfg.lr, gamma=cfg.gamma, period=cfg.period,
             projector=cfg.projector, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
             weight_decay=cfg.weight_decay, compensation=cfg.compensation,
             sampler=sampler, **lowrank_kw,
         )
     if name == "fira":
-        return fira(cfg.lr, rank=cfg.rank, period=cfg.period, **lowrank_kw)
+        return fira(cfg.lr, period=cfg.period, **lowrank_kw)
     if name == "lisa":
         return lisa(cfg.lr, gamma=cfg.gamma, period=cfg.period, seed=cfg.seed,
                     sampler=sampler)

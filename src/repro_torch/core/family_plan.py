@@ -50,13 +50,17 @@ class FamilyPlan(NamedTuple):
     n_leaves: int
 
 
-def family_signature(p: torch.Tensor, rank: int) -> tuple:
-    """The grouping key: leaves stack iff their signatures are equal."""
+def family_signature(p: torch.Tensor, rank) -> tuple:
+    """The grouping key: leaves stack iff their signatures are equal.
+    ``rank`` may be an int or a per-shape ``RankMap`` (resolved per leaf by
+    ``family_shape``); the resolved rank is part of the signature, so a rank
+    change re-plans the families — same-(m, n) leaves always share one rank,
+    which keeps the grouping itself stable across rank migrations."""
     fs = family_shape(p, rank)
     return (fs.lead, fs.m, fs.n, fs.side, fs.rank, p.dtype)
 
 
-def build_family_plan(leaves: list, rank: int) -> FamilyPlan:
+def build_family_plan(leaves: list, rank) -> FamilyPlan:
     """Group the non-``None`` leaves of a flat params list into families, in
     order of first occurrence (the same for init and every update, which see
     the same params)."""

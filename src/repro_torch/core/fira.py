@@ -33,7 +33,7 @@ from repro_torch.core.lowrank_common import Noise, default_lowrank_filter
 
 def fira_matrices(
     lr: Schedule,
-    rank: int = 128,
+    rank=128,
     period: int = 200,
     projector: str = "svd",
     b1: float = 0.9,
@@ -47,15 +47,18 @@ def fira_matrices(
     noise: Optional[Noise] = None,
     fuse_families: bool = False,
     fused_epilogue: bool = False,
+    rank_policy=None,
 ) -> Transform:
-    """Fira over matrix leaves only (route others via :func:`fira`)."""
+    """Fira over matrix leaves only (route others via :func:`fira`).
+    ``rank`` is an int or a per-shape ``RankMap``; ``rank_policy`` goes to
+    ``lowrank``."""
     return chain(
         lowrank(
             with_fira_residual(scale_by_adam(b1=b1, b2=b2, eps=eps), limiter=limiter,
                                eps=eps),
             rank=rank, period=period, projector=projector, seed=seed,
             kernel_impl=kernel_impl, pad_rank_to=pad_rank_to, fuse_families=fuse_families,
-            fused_epilogue=fused_epilogue, noise=noise,
+            fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy,
         ),
         scale_by_factor(scale),
         scale_by_lr(lr),
@@ -64,7 +67,7 @@ def fira_matrices(
 
 def fira(
     lr: Schedule,
-    rank: int = 128,
+    rank=128,
     period: int = 200,
     lowrank_filter: Callable[[str, torch.Tensor], bool] = default_lowrank_filter,
     **kw,

@@ -49,7 +49,7 @@ from repro_torch.core.lowrank_common import Noise, default_lowrank_filter
 
 def galore_matrices(
     lr: Schedule,
-    rank: int = 128,
+    rank=128,
     period: int = 200,
     projector: str = "svd",
     base: str = "adam",
@@ -68,8 +68,11 @@ def galore_matrices(
     fuse_families: bool = False,
     fused_epilogue: bool = False,
     noise: Optional[Noise] = None,
+    rank_policy=None,
 ) -> Transform:
-    """GaLore over matrix leaves only (route others via :func:`galore`)."""
+    """GaLore over matrix leaves only (route others via :func:`galore`).
+    ``rank`` is an int or a per-shape ``RankMap``; ``rank_policy`` goes to
+    ``lowrank``."""
     if base == "adam":
         inner = scale_by_adam(b1=b1, b2=b2, eps=eps, scale=scale)
     elif base == "muon":
@@ -83,7 +86,7 @@ def galore_matrices(
                 subspace_iters=subspace_iters, reset_on_refresh=reset_on_update,
                 kernel_impl=kernel_impl, pad_rank_to=pad_rank_to,
                 fuse_families=fuse_families,
-                fused_epilogue=fused_epilogue, noise=noise),
+                fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy),
         add_decayed_weights(weight_decay),
         scale_by_lr(lr),
     )
@@ -91,7 +94,7 @@ def galore_matrices(
 
 def galore(
     lr: Schedule,
-    rank: int = 128,
+    rank=128,
     period: int = 200,
     projector: str = "svd",
     base: str = "adam",
@@ -108,7 +111,7 @@ def galore(
     )
 
 
-def golore(lr: Schedule, rank: int = 128, period: int = 200, base: str = "sgdm",
+def golore(lr: Schedule, rank=128, period: int = 200, base: str = "sgdm",
            **kw) -> Transform:
     """GoLore (He et al., 2024): GaLore with a gradient-independent random
     orthonormal projector — convergent but blind to the gradient's subspace."""

@@ -72,7 +72,7 @@ from repro_torch.kernels import dispatch
 
 def gum_matrices(
     lr: Schedule,
-    rank: int = 128,
+    rank=128,
     gamma: int = 2,
     period: int = 200,
     projector: str = "svd",
@@ -91,12 +91,14 @@ def gum_matrices(
     noise: Optional[Noise] = None,
     fuse_families: bool = False,
     fused_epilogue: bool = False,
+    rank_policy=None,
 ) -> Transform:
     """GUM over matrix leaves (route 1-D/embedding leaves via :func:`gum`).
 
     ``external_refresh=True`` skips the in-update period refresh: the
     projected-space accumulation (:func:`gum_accum_tools`) refreshes against
-    microbatch 0's raw gradient before it projects."""
+    microbatch 0's raw gradient before it projects.  ``rank`` is an int or a
+    per-shape ``RankMap``; ``rank_policy`` goes to ``lowrank``."""
     if base == "muon":
         inner = scale_by_muon(beta=beta, ns_steps=ns_steps, use_muon_scale=use_muon_scale,
                               kernel_impl=kernel_impl)
@@ -111,7 +113,7 @@ def gum_matrices(
         subspace_iters=subspace_iters, reset_on_refresh=True,
         external_refresh=external_refresh, kernel_impl=kernel_impl,
         pad_rank_to=pad_rank_to, fuse_families=fuse_families,
-        fused_epilogue=fused_epilogue, noise=noise,
+        fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy,
     )
     t = chain(lowrank_t, add_decayed_weights(weight_decay), scale_by_lr(lr))
     # For gum_accum_tools: the lowrank stage (its external-refresh hook),
@@ -122,7 +124,7 @@ def gum_matrices(
 
 def gum(
     lr: Schedule,
-    rank: int = 128,
+    rank=128,
     gamma: int = 2,
     period: int = 200,
     projector: str = "svd",
@@ -145,7 +147,7 @@ def gum(
 
 def unbiased_galore_adam(
     lr: Schedule,
-    rank: int = 128,
+    rank=128,
     gamma: int = 2,
     period: int = 200,
     projector: str = "svd",
@@ -164,6 +166,7 @@ def unbiased_galore_adam(
     fuse_families: bool = False,
     fused_epilogue: bool = False,
     lowrank_filter: Callable[[str, torch.Tensor], bool] = default_lowrank_filter,
+    rank_policy=None,
 ) -> Transform:
     """Unbiased GaLore-Adam: ``layerwise_unbias(scale_by_adam)`` inside
     ``lowrank``.  The ``gamma`` sampled blocks per period run Adam on the
@@ -176,7 +179,7 @@ def unbiased_galore_adam(
             rank=rank, period=period, projector=projector, seed=seed,
             subspace_iters=subspace_iters, reset_on_refresh=True, kernel_impl=kernel_impl,
             pad_rank_to=pad_rank_to, fuse_families=fuse_families,
-            fused_epilogue=fused_epilogue, noise=noise,
+            fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy,
         ),
         add_decayed_weights(weight_decay),
         scale_by_lr(lr),

@@ -16,6 +16,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.rank_policy import resolve_rank
+
 
 class FamilyShape(NamedTuple):
     lead: tuple[int, ...]  # leading block dims
@@ -26,11 +28,10 @@ class FamilyShape(NamedTuple):
     rank: int
 
 
-def family_shape(p: torch.Tensor, rank: int) -> FamilyShape:
-    """Geometry of one family at an integer ``rank`` (clipped to min(m, n))."""
-    if not isinstance(rank, int):
-        raise NotImplementedError("per-family rank maps are not ported yet; "
-                                  "pass an int rank")
+def family_shape(p: torch.Tensor, rank) -> FamilyShape:
+    """Geometry of one family.  ``rank`` is an int or a per-shape
+    :class:`~repro_torch.core.rank_policy.RankMap`, resolved for this
+    leaf's ``(m, n)`` before the ``min(rank, m, n)`` clamp."""
     if p.dim() < 2:
         raise ValueError(f"low-rank families need >=2 dims, got {tuple(p.shape)}")
     m, n = int(p.shape[-2]), int(p.shape[-1])
@@ -39,7 +40,8 @@ def family_shape(p: torch.Tensor, rank: int) -> FamilyShape:
     for d in lead:
         L *= d
     side = "left" if m <= n else "right"
-    return FamilyShape(lead=lead, L=L, m=m, n=n, side=side, rank=min(rank, m, n))
+    rank = min(resolve_rank(rank, m, n), m, n)
+    return FamilyShape(lead=lead, L=L, m=m, n=n, side=side, rank=rank)
 
 
 def proj_dim(fs: FamilyShape) -> int:

@@ -1,6 +1,6 @@
 """The training loop over the synthetic stream, with periodic checkpoints
 and exact resume (the port of the JAX package's ``train/trainer.py``; its
-resilience, telemetry, rank policy and mesh are not ported).
+resilience, telemetry and mesh are not ported).
 
 * **resume** (``RunConfig.resume``): from the newest *verified* committed
   checkpoint in ``RunConfig.ckpt_dir`` — a newest step that fails
@@ -9,6 +9,11 @@ resilience, telemetry, rank policy and mesh are not ported).
 * **checkpoints**: parameters and optimizer state every
   ``RunConfig.ckpt_every`` steps and once at the end (unless the periodic
   save just committed that step), keeping ``RunConfig.keep_ckpts``;
+* **rank policy** (``OptimizerConfig.rank_policy``, factory path only): a
+  :class:`~repro_torch.core.rank_policy.RankPolicyController` consulted
+  before each step; a rank change migrates the optimizer state and rebuilds
+  the step, and the controller's state rides in every checkpoint's extras,
+  so resume is exact across the change;
 * the NaN/Inf guard of the step (``update_applied``) and a
   :class:`StepTimeMonitor` of straggling steps.
 """
@@ -24,8 +29,9 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import RunConfig
-from repro_torch.core import OptimizerConfig, build_optimizer
+from repro_torch.core import OptimizerConfig, build_optimizer, resolve_rank_policy
 from repro_torch.core.api import Transform
+from repro_torch.core.rank_policy import RankPolicyController
 from repro_torch.data import DataConfig, build_stream
 from repro_torch.launch.devices import resolve_device
 from repro_torch.launch.steps import make_train_step
@@ -83,7 +89,8 @@ class Trainer:
         ``microbatches`` splits each batch's rows into that many slices
         whose gradients accumulate in fp32 (:func:`make_train_step`).
         ``optimizer`` overrides the ``opt_cfg`` factory path with any
-        :class:`~repro_torch.core.api.Transform`.  ``params`` (``{path:
+        :class:`~repro_torch.core.api.Transform` (and keeps its own rank: a
+        rank policy runs on the factory path only).  ``params`` (``{path:
         tensor}``, e.g. from :func:`repro_torch.convert.params_from_jax`) is
         the initial state; without it the model is initialised from
         ``run_cfg.seed``.  A resumed run takes its parameters and optimizer
@@ -107,13 +114,33 @@ class Trainer:
             self.model.init_params(run_cfg.seed)
         self.ckpt = CheckpointManager(run_cfg.ckpt_dir, keep=run_cfg.keep_ckpts)
         self.monitor = StepTimeMonitor()
-        self.optimizer = optimizer if optimizer is not None else build_optimizer(opt_cfg)
-        self.step_fn = make_train_step(self.model, self.optimizer,
-                                        grad_clip=run_cfg.grad_clip,
-                                        microbatches=microbatches)
+        # Rank policy: rank is a shape of the optimizer state, so a change is
+        # a host-side event between steps (migrate the state, rebuild the
+        # step).  Only on the factory path; a hand-passed optimizer owns its
+        # rank.
+        self.rank_ctrl: Optional[RankPolicyController] = None
+        if optimizer is None:
+            policy = resolve_rank_policy(opt_cfg)
+            if policy is not None:
+                self.rank_ctrl = RankPolicyController(
+                    policy, lambda m: build_optimizer(opt_cfg, rank_map=m),
+                    period=opt_cfg.period, default_rank=opt_cfg.rank)
+                optimizer = self.rank_ctrl.transform()
+        self._set_optimizer(optimizer if optimizer is not None else build_optimizer(opt_cfg))
+
+    def _set_optimizer(self, optimizer: Transform) -> None:
+        self.optimizer = optimizer
+        self.step_fn = make_train_step(self.model, optimizer, grad_clip=self.run.grad_clip,
+                                       microbatches=self.microbatches)
+
+    def _ckpt_extra(self) -> Optional[dict]:
+        if self.rank_ctrl is None:
+            return None
+        return {"rank_policy": self.rank_ctrl.state_dict()}
 
     def _save(self, step: int, params: dict, opt_state) -> None:
-        self.ckpt.save(step, ({k: p.detach() for k, p in params.items()}, opt_state))
+        self.ckpt.save(step, ({k: p.detach() for k, p in params.items()}, opt_state),
+                       extra=self._ckpt_extra())
 
     def _resume_step(self) -> Optional[int]:
         """The step to resume from (None: start afresh)."""
@@ -131,8 +158,15 @@ class Trainer:
         stream = build_stream(self.data_cfg)
         params = self.model.params()
         detached = {k: p.detach() for k, p in params.items()}
-        opt_state = self.optimizer.init(detached)
         start_step = resumed_from = self._resume_step()
+        if resumed_from is not None and self.rank_ctrl is not None:
+            # The controller's state sets the optimizer state's shapes, so it
+            # is rebuilt from the saved extras before the restore template.
+            extra = self.ckpt.read_extra(resumed_from)
+            if "rank_policy" in extra:
+                self.rank_ctrl.load_state_dict(extra["rank_policy"])
+                self._set_optimizer(self.rank_ctrl.transform())
+        opt_state = self.optimizer.init(detached)
         if resumed_from is not None:
             (saved, opt_state), _ = self.ckpt.restore(resumed_from, (detached, opt_state))
             with torch.no_grad():  # in place: the step updates these tensors
@@ -145,7 +179,11 @@ class Trainer:
         losses, seconds, skipped = [], [], 0
         cuda = self.device.type == "cuda"
         for step in range(start_step, steps):
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # the step's time includes a migration
+            if self.rank_ctrl is not None:
+                opt_state, changed = self.rank_ctrl.maybe_update(opt_state, detached)
+                if changed:
+                    self._set_optimizer(self.rank_ctrl.transform())
             tokens = torch.from_numpy(next(stream)).to(self.device)
             opt_state, metrics = self.step_fn(params, opt_state, {"tokens": tokens})
             loss = float(metrics["loss"])

@@ -118,9 +118,7 @@ def test_dispatch_vocabulary_equals_reference():
 
 
 def test_unported_knobs_raise(tmp_path):
-    for knob in (dict(rank_policy="spectral:0.99"),
-                 dict(rank_ladder=(64, 128)), dict(shard_state=True),
-                 dict(telemetry=True)):
+    for knob in (dict(shard_state=True), dict(telemetry=True)):
         with pytest.raises(NotImplementedError):
             OptimizerConfig(**knob)
     from repro_torch.checkpoint import CheckpointManager
@@ -134,6 +132,10 @@ def test_unported_knobs_raise(tmp_path):
         mgr.restore(1, {"a": torch.zeros(2)}, shardings={"a": None})
     with pytest.raises(NotImplementedError):
         CheckpointManager(str(tmp_path), telemetry=object())
+    # ported since: the rank policy and its ladder (each builds a chain)
+    for knob in (dict(rank_policy="spectral:0.99"), dict(rank_ladder=(64, 128)),
+                 dict(rank_policy="spectral:0.99", rank_ladder=(64, 128))):
+        build_optimizer(OptimizerConfig(name="gum", **knob))
     # ported since: rank padding (a negative value is refused)
     OptimizerConfig(pad_rank_to=128)
     with pytest.raises(ValueError):
