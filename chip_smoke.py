@@ -22,7 +22,10 @@ Phases, in order; any failure exits non-zero and prints no result:
                 GQA shape and a ragged bf16 case, each beside SDPA in the
                 same dtype; at head dim 192, nemotron-4-340b's prefill in
                 bf16 and in fp32, and a ragged fp16 case at head dim 200
-                (the 256 tier); the SSD scan at
+                (the 256 tier); bf16 at dbrx-132b's prefill (48 heads over
+                8) and llama4-maverick-400b's (40 over 8); each 16-bit case
+                held to its plain version's fp32 output before that
+                version's rounding (TOL_FLASH_16); the SSD scan at
                 mamba2-370m's prefill, with a ragged last chunk at the same
                 widths and a ragged fp32 case; time kernel, plain version
                 and one PyTorch call computing the same function where
@@ -96,20 +99,43 @@ Phases, in order; any failure exits non-zero and prints no result:
                 head-dim-192 instantiation (one launch a layer) against
                 "xla" in fp32 and in bf16, then an engine of 4 slots and 4
                 requests, one checked against direct decode;
+ 10. serve    — dbrx-132b at full width (d 6144, 48 heads over 8, head dim
+                128, 16 experts of d_ff 10752, top-4, vocab 100352), depth
+                cut to 2 of 40 layers (7.751B parameters stored in fp32,
+                31.0 GB), bf16 activations: prefill 4 x 2048 through flash
+                attention's bf16 instantiation (one launch a layer)
+                against "xla" in fp32 and in bf16, every compared prefill
+                on the fp32 "xla" prefill's routing (each route's own
+                flips printed), a second prefill bitwise equal, then an
+                engine of 4 slots and 4 requests, one checked against
+                direct decode, the MoE layer bitwise equal across two
+                calls and a 1-slot engine equal to direct decode at batch 1;
+ 11. serve    — llama4-maverick-400b at full width (d 5120, 40 heads over 8,
+                128 experts of d_ff 8192, top-1, a shared expert, dense
+                d_ff 16384, vocab 202048), depth cut to 2 of 48 layers (one
+                dense block and one MoE block; 18.679B parameters stored in
+                bf16, 37.4 GB), as phase 10; its fp32 comparison runs on
+                the bf16 parameters, and its bf16 distance is printed
+                without a rule (no fp32-stored reference fits);
   5. agree    — the same trainer at the llama-60m smoke size on the card and
                 on the CPU (plain versions) must give the same losses, for
                 GUM, GaLore-Muon with the fused epilogue and weight decay,
                 family-stacked GUM and phase 4c's optimizers and LISA; and
                 the prefill logits of the smoke models (llama-60m,
                 mamba2-370m, the three dense variants, nemotron-4-340b and
-                its head-dim-192 variant) at attn_impl="pallas".
+                its head-dim-192 variant, dbrx-132b and llama4-maverick-400b)
+                at attn_impl="pallas"; and a 3-step GUM trainer on the moe
+                SMOKE models (4-D expert leaves through kernel rows 1–5) with
+                exact per-step dispatch and launch counts, the card on the
+                CPU's routing.
 
 The card's ``nvidia-smi`` name and power limit are printed first and again
 third from the end; the line before the last is a JSON object describing
 every kernel (launches summed over the full-width paths, each read from
 counts set to 0 just before it, error, times, bound; flash attention's
-bf16 instantiation beside it under "bf16", with phase 8's launches, and its
-bf16 head-dim-192 one under "bf16_d192", with phase 9's), and
+bf16 instantiation beside it under "bf16", with phase 8's launches, its
+bf16 head-dim-192 one under "bf16_d192", with phase 9's, and its bf16 one
+at dbrx-132b's prefill under "bf16_moe", with phases 10 and 11's), and
 the last line is
 ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 3 (for iterating on a kernel) and
@@ -174,11 +200,24 @@ TOL_NS = 1e-4
 TOL_FLASH = 1e-5
 TOL_SSD = 1e-4
 # Flash attention on bf16 / fp16 q, k, v: fp32 inside as in fp32, then one
-# rounding of the output to the element type: 2^-8 of the largest output in
-# bf16, 2^-11 in fp16.  Its bound counts 16-bit products at PEAK_BF16_FLOPS,
+# rounding of the output to the element type.  The kernel's output is held
+# to the plain version's fp32 output *before* that rounding (the plain
+# version on the 16-bit inputs, computed in fp32 and not rounded): one
+# rounding apart.  Rounding to nearest moves a value x in [2^e, 2^(e+1)) by
+# at most half a step, 2^(e-8) in bf16 (8 significand bits), and the largest
+# such move relative to x, at x = 2^e + 2^(e-8), is 2^-8 (1 - 2^-8); with
+# the fp32 difference of the two orders of summation (TOL_FLASH, 1e-5,
+# below the 2^-16 = 1.5e-5 of slack) the sum stays under 2^-8 of the largest
+# output.  fp16 the same with 11 bits: 2^-11 (1 - 2^-11) + 1e-5 is not under
+# 2^-11 (its slack is 2^-22), so its bound is 2^-11 + TOL_FLASH.  Two
+# *rounded* outputs could differ by a whole step where their fp32 values
+# straddle a rounding boundary (2^-7 of an output in the top binade in
+# bf16), which a bound of 2^-8 between them did not allow for; against the
+# unrounded output no choice of inputs or of generator order can cross it.
+# The bound of the 16-bit kernels counts 16-bit products at PEAK_BF16_FLOPS,
 # per flop over the two halves (q kᵀ one, P·V one per part of P): bf16
 # (1 + 3) / 2, fp16 (1 + 2) / 2.
-TOL_FLASH_16 = {"torch.bfloat16": 2.0 ** -8, "torch.float16": 2.0 ** -11}
+TOL_FLASH_16 = {"torch.bfloat16": 2.0 ** -8, "torch.float16": 2.0 ** -11 + TOL_FLASH}
 FLASH_16_PRODUCTS = {"torch.bfloat16": 2.0, "torch.float16": 1.5}
 
 # kernel -> (source, the TPU kernel it replaces, the shared headers it is
@@ -491,6 +530,11 @@ def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int,
     return fp32_ops + x_ops, 3 * fp32_ops + (2 if x_bf16 else 3) * x_ops
 
 
+# A 16-bit case's plain version (by id) -> the same plain version's fp32
+# output before its rounding, which the kernel is held to (TOL_FLASH_16).
+UNROUNDED: dict = {}
+
+
 def serving_kernel_cases(torch, gen):
     """Cases of the serving path's two kernels, in kernel_cases' form plus a
     tolerance: flash attention at llama-130m's prefill, a GQA short-query
@@ -536,14 +580,20 @@ def serving_kernel_cases(torch, gen):
     # head-dim-192 tier at nemotron-4-340b's prefill (phase 9; the JSON row's
     # "bf16_d192" entry), the same in fp32 (phase 9's fp32 comparison
     # prefill runs it), and a ragged fp16 one at D = 200, padded to the 256
-    # tier.  SDPA in the same dtype (in 16 bits it rounds P to it, so its
-    # numbers are not the kernel's) with enable_gqa beside each.
+    # tier; then the moe family's prefills (phases 10, 11): dbrx-132b's
+    # (48 heads over 8, group 6; the JSON row's "bf16_moe" entry) and
+    # llama4-maverick-400b's (40 over 8, group 5).  SDPA in the same dtype
+    # (in 16 bits it rounds P to it, so its numbers are not the kernel's)
+    # with enable_gqa beside each.  A 16-bit case's plain version is timed
+    # as called and compared before its output's rounding (TOL_FLASH_16).
     for B, S, H, KV, D, dtype, tag in [(4, 2048, 32, 2, 128, torch.bfloat16, "bf16"),
                                        (2, 1024, 36, 4, 128, torch.float16, False),
                                        (2, 1000, 20, 20, 128, torch.bfloat16, False),
                                        (1, 4096, 96, 8, 192, torch.bfloat16, "bf16_d192"),
                                        (1, 4096, 96, 8, 192, torch.float32, False),
-                                       (2, 1000, 16, 4, 200, torch.float16, False)]:
+                                       (2, 1000, 16, 4, 200, torch.float16, False),
+                                       (4, 2048, 48, 8, 128, torch.bfloat16, "bf16_moe"),
+                                       (4, 2048, 40, 8, 128, torch.bfloat16, False)]:
         q, k, v = (randn(*shape).to(dtype) for shape in
                    ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -558,6 +608,9 @@ def serving_kernel_cases(torch, gen):
                       flops, q.element_size() * (2 * B * S * H * D + 2 * B * S * KV * D), tag,
                       *((TOL_FLASH_16[str(dtype)], 0.0, FLASH_16_PRODUCTS[str(dtype)] * flops)
                         if low else (TOL_FLASH,))))
+        if low:  # held to the plain version's output before its rounding
+            UNROUNDED[id(cases[-1][3])] = (lambda q=q, k=k, v=v: ref.flash_attention_ref(
+                q.float(), k.float(), v.float()))
 
     for B, S, H, P, N, chunk, xdtype, principal in [
             (4, 4096, 32, 64, 128, 128, torch.bfloat16, True),
@@ -596,7 +649,7 @@ def phase_kernels(torch):
     gen128 = torch.Generator(device="cuda").manual_seed(128)
     cases += [case + (TOL_GEMM,) for case in kernel_cases(torch, gen128, **RANK128_CASES)]
     for name, label, kfn, pfn, lfn, flops, nbytes, principal, tol, *tf32 in cases:
-        out, want = kfn(), pfn()
+        out, want = kfn(), UNROUNDED.get(id(pfn), pfn)()
         torch.cuda.synchronize()
         abs_err, rel = rel_err(out, want)
         check(rel <= tol, f"{name} {label}: rel err {rel:.3e} > {tol}")
@@ -1811,6 +1864,16 @@ def prompt_tokens(torch, vocab: int, batch: int, seq: int):
     return torch.randint(0, vocab, (batch, seq), generator=gen, device="cuda")
 
 
+def cache_leaves(cache, prefix: str = ""):
+    """(path, tensor) of a decode cache, flat or nested (the moe family's
+    grouped {"dense": {"k", "v"}, "moe": {"k", "v"}})."""
+    for key, val in (cache or {}).items():
+        if isinstance(val, dict):
+            yield from cache_leaves(val, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", val
+
+
 def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
                 tol: float, direct_batch: int, *, slots: int = 8, requests: int = 16,
                 checked: int = 2, changes: dict | None = None, reference=None) -> dict:
@@ -1830,7 +1893,11 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     equal the direct greedy decode of that request alone
     (``greedy_decode(batch=direct_batch)``).  Prints the prefill and engine
     times, tokens/s and peak memory, profiles one prefill and one decode
-    step, and returns the kernel launches of the prefill and engine run."""
+    step, and returns the kernel launches of the prefill and engine run.
+    A moe model's prefill is recorded, its comparisons replay the fp32
+    "xla" prefill's routing (:func:`check_pinned_prefill`), its MoE layer
+    and prefill must repeat bitwise, and a 1-slot engine must equal the
+    direct decode at batch 1 (:func:`check_moe_repeats`)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1838,10 +1905,11 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import DTYPES
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
     from repro_torch.serve.engine import ServeEngine, greedy_decode
 
     cfg = get_config(arch).replace(**(changes or {}))
+    routed = cfg.family == "moe"
     model = build_model(cfg.replace(attn_impl="pallas"), device="cuda")
     model.init_params(0)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1855,7 +1923,8 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     # The path: one prefill, then the engine; counts set to 0 just before.
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    logits, cache = prefill({"tokens": tokens})
+    with moe.record_routing() as path_routing:  # no MoE call: records nothing
+        logits, cache = prefill({"tokens": tokens})
     torch.cuda.synchronize()
     prefill_launches = {k: v for k, v in build.LAUNCHES.items() if v}
     prefill_variants = dict(build.VARIANTS[kernel])
@@ -1880,30 +1949,38 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     # The prefill against attn_impl="xla" on the card.
     check(bool(torch.isfinite(logits.float()).all()), f"{label}: non-finite prefill logits")
     check(tuple(logits.shape) == (batch, seq, cfg.vocab), f"{label}: logits {tuple(logits.shape)}")
-    with with_config(model, attn_impl="xla"):
-        want, want_cache = prefill({"tokens": tokens})
-    _, rel = rel_err(logits.float(), want.float())
-    errs = {"logits": rel}
-    for key in (cache or {}):
-        errs[key] = rel_err(cache[key].float(), want_cache[key].float())[1]
     print(f"{label} {arch} ({cfg.n_layers} layers, {n_params / 1e6:.1f}M params stored in "
           f"{cfg.param_dtype}, {cfg.dtype}) prefill {batch} x {seq}: "
-          f"{prefill_launches} launches, instantiations {prefill_variants}; pallas vs xla "
-          f"max rel {errs}", flush=True)
-    del cache, want_cache
-    if cfg.dtype == "float32":
-        check(all(e <= tol for e in errs.values()), f"{label}: pallas vs xla {errs} > {tol}")
+          f"{prefill_launches} launches, instantiations {prefill_variants}", flush=True)
+    if routed:
+        del cache
+        check_pinned_prefill(torch, label, cfg, model, tokens, path_routing, tol)
     else:
-        check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol,
-                                    reference)
-    del want
+        with with_config(model, attn_impl="xla"):
+            want, want_cache = prefill({"tokens": tokens})
+        _, rel = rel_err(logits.float(), want.float())
+        errs = {"logits": rel}
+        for key, t in cache_leaves(cache):
+            errs[key] = rel_err(t.float(), dict(cache_leaves(want_cache))[key].float())[1]
+        print(f"{label} pallas vs xla max rel {errs}", flush=True)
+        del cache, want_cache
+        if cfg.dtype == "float32":
+            check(all(e <= tol for e in errs.values()), f"{label}: pallas vs xla {errs} > {tol}")
+        else:
+            check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol,
+                                        reference)
+        del want
 
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        prefill({"tokens": tokens})
+        again, _ = prefill({"tokens": tokens})
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        if routed:
+            check(bool(torch.equal(again, logits)), f"{label}: a second prefill's logits "
+                  "differ from the first's")
+        del again
     ms = statistics.median(walls)
     print(f"{label} prefill ms {[round(w, 3) for w in walls]}, median {ms:.3f}; "
           f"prefill tokens/s {batch * seq / (ms / 1e3):.0f}; "
@@ -1949,6 +2026,8 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
               f"{req.reused_slot}) {req.output} != direct decode {direct}")
         print(f"{label} request {req.uid} (slot {req.slot}, reused slot {req.reused_slot}, "
               f"prompt {len(req.prompt)}) equals direct decode: {req.output[:8]}...", flush=True)
+    if routed:
+        check_moe_repeats(torch, label, model, reqs[0].prompt)
     build.reset_launches()
     return launches
 
@@ -2010,6 +2089,114 @@ def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, 
           f"{label}: {cfg.dtype} pallas vs xla {kernel_vs_plain:.3e} exceeds the plain "
           f"path's own distance from fp32 {plain_vs_fp32:.3e}")
     del fp32
+
+
+def check_pinned_prefill(torch, label, cfg, model, tokens, path_routing, tol) -> None:
+    """A moe prefill through the kernels against the plain (xla) one, on one
+    routing.  A difference of 1e-6 in a hidden state can move a token to
+    another expert or out of capacity, which moves its logits (and, through
+    capacity, other tokens') by O(1), so every compared prefill replays the
+    routing of the fp32 "xla" prefill (``models.moe.replay_routing``; the
+    weights still come from each prefill's own probabilities), and each
+    route's own, unpinned routing is reported beside it as flips: kept
+    (token, expert) pairs per MoE layer that the fp32 "xla" prefill does
+    not keep.  Then the rules of the dense phases hold: fp32 "pallas" vs
+    "xla" (logits and KV cache) within ``tol``, and, on fp32-stored
+    parameters, :func:`check_low_precision_prefill`'s bf16 rule against the
+    pinned fp32 "xla" logits.  On bf16-stored parameters no fp32-stored
+    reference of the same draws fits beside them on one card (maverick's
+    would take 74.7 GB), so the bf16 distance is printed without a rule.
+    The fp32 prefills' logits and caches wait on the host, and the
+    allocator's cache is emptied before each prefill: an fp32 prefill on
+    bf16-stored experts casts one 21.5 GB stack at a time, and a tensor
+    held on the card across prefills can land in a freed cast's block and
+    keep the rest of that block from the next cast."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe
+
+    make = make_prefill_step(model)
+    batch = {"tokens": tokens}
+
+    def prefill(on_host: bool = False):
+        torch.cuda.empty_cache()
+        logits, cache = make(batch)
+        if on_host:
+            return logits.cpu(), {k: t.cpu() for k, t in cache_leaves(cache)}
+        return logits
+
+    with with_config(model, attn_impl="xla", dtype="float32"), moe.record_routing() as pin:
+        ref32, ref_cache = prefill(on_host=True)
+    flips = {f"pallas {cfg.dtype} (the path)": moe.flips(pin, path_routing)}
+    for impl, dtype in (("pallas", "float32"), ("xla", cfg.dtype)):
+        with with_config(model, attn_impl=impl, dtype=dtype), moe.record_routing() as own:
+            prefill()
+        flips[f"{impl} {dtype}"] = moe.flips(pin, own)
+    with with_config(model, dtype="float32"), moe.replay_routing(pin):
+        got32, got_cache = prefill(on_host=True)
+    errs = {"logits": rel_err(got32, ref32)[1]}
+    errs |= {key: rel_err(t, ref_cache[key])[1] for key, t in got_cache.items()}
+    del got32, got_cache, ref_cache
+    with moe.replay_routing(pin):
+        logits = prefill()
+    with with_config(model, attn_impl="xla"), moe.replay_routing(pin):
+        want = prefill()
+    ref32 = ref32.to(logits.device)
+    kernel_vs_plain = fro_rel(logits, want)
+    plain_vs_fp32 = fro_rel(want, ref32)
+    print(f"{label} routing flips per MoE layer against the fp32 xla prefill's: {flips}",
+          flush=True)
+    print(f"{label} pinned to that routing: fp32 pallas vs xla max rel {errs} (tol {tol}); "
+          f"{cfg.dtype}: pallas vs xla {kernel_vs_plain:.3e}, xla vs fp32 {plain_vs_fp32:.3e}, "
+          f"pallas vs fp32 {fro_rel(logits, ref32):.3e} (Frobenius rel)", flush=True)
+    check(all(e <= tol for e in errs.values()), f"{label}: fp32 pallas vs xla {errs} > {tol}")
+    if cfg.param_dtype == "float32":
+        check(kernel_vs_plain <= plain_vs_fp32,
+              f"{label}: {cfg.dtype} pallas vs xla {kernel_vs_plain:.3e} exceeds the plain "
+              f"path's own distance from fp32 {plain_vs_fp32:.3e}")
+    else:
+        print(f"{label}: parameters stored in {cfg.param_dtype}; no fp32-stored reference "
+              f"fits beside them, so the {cfg.dtype} distance has no rule here", flush=True)
+    del logits, want, ref32
+
+
+def check_moe_repeats(torch, label, model, prompt) -> None:
+    """The MoE layer of layer 0 (its first MoE layer) gives the same bits
+    on two calls at the prefill's shape (4 x 2048 tokens of seeded x in the
+    activation dtype); then a 1-slot engine answers one request (``prompt``,
+    32 new tokens) equal to the direct greedy decode at batch 1.  The
+    4-slot engine above routes each slot alone (``rows_apart``), as the
+    reference's engine does, so its requests equal the direct decode too."""
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import ServeEngine, greedy_decode
+
+    cfg = model.cfg
+    p = {k: v.detach()[0] for k, v in model.moe_blocks.moe.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(4, 2048, cfg.d_model, generator=gen, device="cuda").to(model.dtype)
+    with torch.no_grad():
+        out, aux = moe.apply_moe(p, x, cfg)
+        again, again_aux = moe.apply_moe(p, x, cfg)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: moe.apply_moe(p, x, cfg), iters=5, warmup=1)
+    check(bool(torch.equal(out, again) and torch.equal(aux, again_aux)),
+          f"{label}: two calls of the MoE layer differ")
+    print(f"{label} MoE layer on x (4, 2048, {cfg.d_model}) {cfg.dtype}: two calls bitwise "
+          f"equal; {ms:.3f} ms a call (capacity {moe.capacity(cfg, 4 * 2048)} of "
+          f"{4 * 2048} tokens an expert)", flush=True)
+    del x, out, again
+    engine = ServeEngine(model, slots=1, max_seq=1024)
+    req = engine.submit(prompt, max_new_tokens=32)
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    direct = greedy_decode(model, prompt, 32, 1024, batch=1)
+    check(req.output == direct, f"{label}: 1-slot engine {req.output} != direct decode "
+          f"{direct}")
+    print(f"{label} 1-slot engine: prompt {len(prompt)}, 32 new tokens in "
+          f"{len(engine.tick_seconds)} ticks, {engine_s:.3f} s, median tick "
+          f"{statistics.median(engine.tick_seconds) * 1e3:.3f} ms; equals direct decode at "
+          f"batch 1: {req.output[:8]}...", flush=True)
 
 
 def phase_serve_llama(torch) -> dict:
@@ -2109,6 +2296,49 @@ def phase_serve_nemotron(torch) -> dict:
     return launches
 
 
+# Phases 10, 11: the moe family at full width, its depth cut to MOE_LAYERS
+# layers.  dbrx-132b (40 layers): 7.751B parameters stored in fp32 (31.0 GB),
+# bf16 activations, as phase 8.  llama4-maverick-400b (48 layers; one group
+# of a dense block and an MoE block): 18.679B parameters stored in bf16
+# (37.4 GB; fp32 would take 74.7 GB before any activation).  Its fp32
+# comparison prefill casts each (128, 5120, 8192) expert stack to fp32 at its
+# use (21.5 GB), one stack at a time.
+MOE_LAYERS = 2
+
+
+def phase_serve_moe(torch, label: str, arch: str, changes: dict) -> dict:
+    """Serve ``arch`` at full width with MOE_LAYERS layers: prefill 4 x 2048
+    through flash attention's bf16 instantiation (one launch a layer), held
+    to "xla" on the fp32 "xla" prefill's routing (:func:`check_pinned_prefill`),
+    a 4-slot engine answering 4 requests, one checked against direct decode
+    in its slot's row, the MoE layer and the prefill repeated bitwise, and a
+    1-slot engine against direct decode at batch 1."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    print(f"{label} on {smi_line()}: depth cut from {cfg.n_layers} to {MOE_LAYERS} layers, "
+          f"{changes}", flush=True)
+    launches = phase_serve(torch, label, arch, 4, 2048, "flash_attention", 1e-4,
+                           direct_batch=4, slots=4, requests=4, checked=1,
+                           changes={"n_layers": MOE_LAYERS, **changes})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_dbrx(torch) -> dict:
+    """Phase 10: dbrx-132b (d 6144, 48 heads over 8, head dim 128, 16
+    experts of d_ff 10752, top-4, vocab 100352, untied), fp32 parameters."""
+    return phase_serve_moe(torch, "serve-dbrx", "dbrx-132b", {})
+
+
+def phase_serve_maverick(torch) -> dict:
+    """Phase 11: llama4-maverick-400b (d 5120, 40 heads over 8, 128 experts
+    of d_ff 8192, top-1, one shared expert, dense d_ff 16384, vocab 202048),
+    bf16 parameters."""
+    return phase_serve_moe(torch, "serve-maverick", "llama4-maverick-400b-a17b",
+                           {"param_dtype": "bfloat16"})
+
+
 # --------------------------------------------------------------------- phase 5
 
 
@@ -2185,21 +2415,98 @@ def phase_agree(torch):
               f"{worst:.2e} > 1e-4")
 
 
+MOE_ARCHS = ("dbrx-132b", "llama4-maverick-400b-a17b")
+
+
+def gum_counts(n: int) -> tuple[dict, dict]:
+    """GUM's dispatches and kernel launches a step over ``n`` low-rank
+    leaves, whatever their lead dims (each leaf is one dispatch, its lead
+    flattened into the kernels' batch): per leaf one lowrank_update and one
+    project (both kernel row 1-2's lowrank_update), two back_projects and
+    two newton_schulz (5 gram and 5 poly_apply launches each)."""
+    return ({"lowrank_update": n, "project": n, "back_project": 2 * n, "newton_schulz": 2 * n},
+            {"lowrank_update": 2 * n, "back_project": 2 * n, "gram": 10 * n,
+             "poly_apply": 10 * n})
+
+
+def phase_agree_moe(torch):
+    """The moe family's SMOKE models (dbrx-132b: 4-D expert leaves (L, E,
+    d, f); llama4-maverick-400b: those and the grouped (G, per, d, f) dense
+    leaves) through a 3-step GUM ``Trainer`` on the card and on the CPU, as
+    :func:`phase_agree`: the same parameters and data, the losses within
+    1e-4.  The card's run replays the CPU run's routing (every MoE call of
+    the 3 steps; ``models.moe.replay_routing``), so a token near a routing
+    tie cannot move the losses by O(1); an unpinned card run is reported
+    beside it (flips per MoE call and its losses).  The card's per-step
+    dispatch and kernel launch counts are exact: :func:`gum_counts` over the
+    leaves ``default_lowrank_filter`` sends to GUM (7 for dbrx, 17 for
+    maverick); the CPU dispatches the same and launches nothing."""
+    from repro_torch.configs import RunConfig, get_smoke
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.core.lowrank_common import default_lowrank_filter
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.models import build_model, moe
+    from repro_torch.train import Trainer
+
+    opt_cfg = OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2)
+    steps = 3
+    for arch in MOE_ARCHS:
+        cfg = get_smoke(arch)
+        model = build_model(cfg, device="cpu")
+        model.init_params(0)
+        params = {k: v.detach() for k, v in model.params().items()}
+        n = sum(default_lowrank_filter(k, p) for k, p in params.items())
+        want_d, want_l = gum_counts(n)
+
+        def run(device, routing):
+            before = dict(build.LAUNCHES)
+            with scratch_dir("agree-moe") as ckpt_dir, \
+                    launch_count.count_launches() as dispatched, routing as log:
+                result = Trainer(build_model(cfg, device=device), opt_cfg,
+                                 RunConfig(steps=steps, log_every=0, seed=0, ckpt_dir=ckpt_dir),
+                                 DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0),
+                                 device=device, params=params).train()
+            torch.cuda.synchronize()
+            launched = {k: (v - before[k]) / steps for k, v in build.LAUNCHES.items()
+                        if v != before[k]}
+            return result.losses, {k: v / steps for k, v in dispatched.items()}, launched, log
+
+        cpu, cpu_d, cpu_l, cpu_log = run("cpu", moe.record_routing())
+        free, _, _, free_log = run("cuda", moe.record_routing())
+        card, card_d, card_l, _ = run("cuda", moe.replay_routing(cpu_log))
+        check(cpu_d == want_d and cpu_l == {}, f"agree {arch} gum on the cpu: dispatch "
+              f"{cpu_d} != {want_d} or launches {cpu_l}")
+        check(card_d == want_d and card_l == want_l, f"agree {arch} gum on the card: dispatch "
+              f"{card_d} != {want_d} or launches {card_l} != {want_l}")
+        worst = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        free_worst = max(abs(a - b) / abs(b) for a, b in zip(free, cpu))
+        print(f"agree {arch} smoke gum ({n} low-rank leaves; dispatch per step {want_d}, "
+              f"launches per step {want_l}): cuda {card} cpu {cpu} max rel {worst:.2e} on the "
+              f"cpu's routing; unpinned cuda {free} max rel {free_worst:.2e}, flips per MoE "
+              f"call {moe.flips(cpu_log, free_log)}", flush=True)
+        check(len(card) == steps and worst <= 1e-4, f"agree {arch} gum: cuda and cpu losses "
+              f"differ by {worst:.2e} > 1e-4")
+
+
 def phase_agree_serve(torch):
     """The prefill of llama-60m SMOKE, mamba2-370m SMOKE, the three dense
     variants' SMOKE (fp32; chatglm3-6b's 2-D RoPE, qwen1.5-4b's MHA and qkv
     biases, starcoder2-7b's layernorm, GELU and mlp biases, a ragged
     sequence) and nemotron-4-340b's SMOKE (squared ReLU, untied head) and
-    its head-dim-192 variant at attn_impl="pallas" on the card (the
+    its head-dim-192 variant, and the moe family's SMOKE (dbrx-132b,
+    llama4-maverick-400b) at attn_impl="pallas" on the card (the
     kernels, D = 16 and 192; chunk 16, N 16, P 16, a ragged last chunk) and
     on the CPU (their plain versions), same parameters: logits within 1e-4
-    relative (fp32 sums in another order through two or three layers)."""
+    relative (fp32 sums in another order through two or three layers).  A
+    moe prefill on the card replays the CPU's routing (its own flips
+    printed beside)."""
     import numpy as np
 
     from repro_torch.configs import get_smoke
     from repro_torch.kernels import build
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
 
     for arch, changes, kernel, seq in [("llama-60m", {}, "flash_attention", 64),
                                        ("mamba2-370m", {}, "ssd_scan", 60),
@@ -2208,7 +2515,9 @@ def phase_agree_serve(torch):
                                        ("starcoder2-7b", {}, "flash_attention", 60),
                                        ("nemotron-4-340b", {}, "flash_attention", 64),
                                        ("nemotron-4-340b", {"head_dim": 192},
-                                        "flash_attention", 60)]:
+                                        "flash_attention", 60),
+                                       *((name, {}, "flash_attention", 64)
+                                         for name in MOE_ARCHS)]:
         cfg = get_smoke(arch).replace(attn_impl="pallas", **changes)
         cpu = build_model(cfg, device="cpu")
         cpu.init_params(0)
@@ -2216,14 +2525,21 @@ def phase_agree_serve(torch):
         card.load_params({k: v.detach() for k, v in cpu.params().items()})
         tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, seq)))
         before = build.LAUNCHES[kernel]
-        got, _ = make_prefill_step(card)({"tokens": tokens.to("cuda")})
+        with moe.record_routing() as card_log:
+            got, _ = make_prefill_step(card)({"tokens": tokens.to("cuda")})
         torch.cuda.synchronize()
         check(build.LAUNCHES[kernel] == before + cfg.n_layers,
               f"agree prefill {arch}: {kernel} launches {before} -> {build.LAUNCHES[kernel]}")
-        want, _ = make_prefill_step(cpu)({"tokens": tokens})
+        with moe.record_routing() as cpu_log:
+            want, _ = make_prefill_step(cpu)({"tokens": tokens})
+        routed = ""
+        if cpu_log.calls:
+            routed = f" on the cpu's routing (unpinned flips {moe.flips(cpu_log, card_log)})"
+            with moe.replay_routing(cpu_log):
+                got, _ = make_prefill_step(card)({"tokens": tokens.to("cuda")})
         _, rel = rel_err(got.cpu(), want)
         print(f"agree {arch} smoke{f' {changes}' if changes else ''} prefill at "
-              f"attn_impl=pallas: cuda vs cpu max rel {rel:.2e}", flush=True)
+              f"attn_impl=pallas: cuda vs cpu max rel {rel:.2e}{routed}", flush=True)
         check(rel <= 1e-4, f"agree prefill {arch}: {rel:.2e} > 1e-4")
 
 
@@ -2232,11 +2548,13 @@ PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_basel
           "accumulate": phase_accumulate, "resume": phase_resume,
           "rank-policy": phase_rank_policy,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
-          "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron}
-# An instantiation reported beside its kernel's row, by the phase whose
+          "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
+          "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick}
+# An instantiation reported beside its kernel's row, by the phases whose
 # launches are all of it.
-TAGGED = {("flash_attention", "bf16"): "serve-dense",
-          ("flash_attention", "bf16_d192"): "serve-nemotron"}
+TAGGED = {("flash_attention", "bf16"): ("serve-dense",),
+          ("flash_attention", "bf16_d192"): ("serve-nemotron",),
+          ("flash_attention", "bf16_moe"): ("serve-dbrx", "serve-maverick")}
 # Shapes reported beside a row's principal one: rows 1-5 at rank 128.
 RANK_TAGS = ("r128", "r128_project", "momenta_r256", "momenta_r128")
 
@@ -2274,6 +2592,7 @@ def main() -> None:
     paths = {name: fn(torch) for name, fn in PHASES.items()}
     launches = {k: sum(path.get(k, 0) for path in paths.values()) for k in rows}
     phase_agree(torch)
+    phase_agree_moe(torch)
     phase_agree_serve(torch)
 
     kernels = []
@@ -2288,9 +2607,9 @@ def main() -> None:
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": row["shape"]})
         kernels[-1].update({tag: row[tag] for tag in RANK_TAGS if tag in row})
-        for (kname, tag), phase in TAGGED.items():
+        for (kname, tag), phases in TAGGED.items():
             if kname == name:
-                tagged = paths[phase].get(name, 0)
+                tagged = sum(paths[phase].get(name, 0) for phase in phases)
                 check(tagged > 0, f"kernel {name} ({tag}) never launched on the path")
                 kernels[-1][tag] = row[tag] | {"launches": tagged}
     print(smi, flush=True)

@@ -1,14 +1,16 @@
 """Architecture registry: id -> (full config, smoke config).
 
 The paper's dense LLaMA configs, the dense variants (chatglm3-6b,
-qwen1.5-4b, starcoder2-7b, nemotron-4-340b) and mamba2-370m (the ssm family)
-are ported; the other architectures of the JAX package's registry come with
+qwen1.5-4b, starcoder2-7b, nemotron-4-340b), mamba2-370m (the ssm family)
+and the moe family (dbrx-132b, llama4-maverick-400b-a17b) are ported; the other architectures of the JAX package's registry come with
 their model families.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (
     chatglm3_6b,
+    dbrx_132b,
+    llama4_maverick_400b,
     llama_paper,
     mamba2_370m,
     nemotron_4_340b,
@@ -26,6 +28,8 @@ _ARCHS = {
     "starcoder2-7b": (starcoder2_7b.CONFIG, starcoder2_7b.SMOKE),
     "nemotron-4-340b": (nemotron_4_340b.CONFIG, nemotron_4_340b.SMOKE),
     "mamba2-370m": (mamba2_370m.CONFIG, mamba2_370m.SMOKE),
+    "dbrx-132b": (dbrx_132b.CONFIG, dbrx_132b.SMOKE),
+    "llama4-maverick-400b-a17b": (llama4_maverick_400b.CONFIG, llama4_maverick_400b.SMOKE),
 }
 ARCHS = tuple(_ARCHS)
 

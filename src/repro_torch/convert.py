@@ -3,7 +3,9 @@ as numpy arrays.
 
 The JAX reference keeps parameters as a nested dict pytree; the port keeps a
 flat ``{path: tensor}`` dict with ``/``-joined paths in the same leaf order.
-Decode caches are flat in both (``{"k", "v"}`` or ``{"conv", "ssm"}``).
+Decode caches keep the reference's nesting in both: flat ``{"k", "v"}`` or
+``{"conv", "ssm"}``, and the moe family's grouped ``{"dense": {"k", "v"},
+"moe": {"k", "v"}}``.
 Nothing here imports JAX: pass ``jax.device_get(tree)`` (or any nested
 dict of array-likes) in, and get nested numpy dicts out.  bfloat16 arrays
 (numpy's ``ml_dtypes`` bfloat16) become ``torch.bfloat16`` tensors.
@@ -43,11 +45,11 @@ def params_from_jax(tree: Any, device: Optional[str | torch.device] = "cpu"
     return {k: _tensor(flat[k], device) for k in sort_paths(flat)}
 
 
-def cache_from_jax(cache: dict, device: Optional[str | torch.device] = "cpu"
-                   ) -> dict[str, torch.Tensor]:
+def cache_from_jax(cache: dict, device: Optional[str | torch.device] = "cpu") -> dict:
     """A reference decode cache (``init_cache`` / ``decode_step``'s) -> the
-    port's, same keys, shapes and dtypes."""
-    return params_from_jax(cache, device)
+    port's: the same nested keys, shapes and dtypes."""
+    return {k: cache_from_jax(v, device) if isinstance(v, dict) else _tensor(v, device)
+            for k, v in cache.items()}
 
 
 def params_to_numpy(params: dict[str, torch.Tensor]) -> dict:

@@ -15,13 +15,19 @@ from repro_torch.models.transformer import Transformer, chunked_lm_loss, lm_loss
 def _loss_from_batch(model: Transformer, batch: dict) -> torch.Tensor:
     """The next-token loss of one batch: through :func:`chunked_lm_loss`
     when ``cfg.logit_chunk > 0`` (no ``(B, S, V)`` logits are held), else
-    :func:`lm_loss` on the full logits."""
+    :func:`lm_loss` on the full logits; a family with an aux loss (moe)
+    adds it, as the reference's loss does."""
     tokens = batch["tokens"]
     chunk = model.cfg.logit_chunk
+    aux = None
+    if getattr(model, "has_aux", False):
+        out, aux = model(tokens, return_hidden=chunk > 0, return_aux=True)
+    else:
+        out = model(tokens, return_hidden=chunk > 0)
     if chunk > 0:
-        return chunked_lm_loss(model(tokens, return_hidden=True), tokens, chunk,
-                               model.embed.embed, getattr(model.embed, "lm_head", None))
-    return lm_loss(model(tokens), tokens)
+        return chunked_lm_loss(out, tokens, chunk, model.embed.embed,
+                               getattr(model.embed, "lm_head", None), aux=aux)
+    return lm_loss(out, tokens, aux)
 
 
 def split_microbatches(batch: dict, microbatches: int) -> list[dict]:
@@ -166,12 +172,17 @@ def make_prefill_step(model) -> Callable:
     return prefill_step
 
 
-def make_serve_step(model) -> Callable:
+def make_serve_step(model, *, rows_apart: bool = False) -> Callable:
     """``(cache, tokens (B, 1), pos) -> (logits, cache)``: one decode step,
-    ``pos`` an int or one position per row; the cache is updated in place."""
+    ``pos`` an int or one position per row; the cache is updated in place.
+    ``rows_apart`` decodes every row as if alone, as the reference's engine
+    does (it vmaps a batch-1 decode over the slots): only the moe family's
+    rows interact (through expert capacity), and they then route one row
+    a dispatch group."""
+    kwargs = {"rows_apart": True} if rows_apart and model.cfg.family == "moe" else {}
 
     @torch.no_grad()
     def serve_step(cache: dict, tokens: torch.Tensor, pos):
-        return model.decode_step(cache, tokens, pos)
+        return model.decode_step(cache, tokens, pos, **kwargs)
 
     return serve_step

@@ -1,7 +1,8 @@
 """Model assembly for the ported families (the JAX package's
 ``models/transformer.py``): the dense decoder (the paper's LLaMA and the
-dense variants: chatglm3-6b, qwen1.5-4b, starcoder2-7b) and the Mamba-2
-(ssm) model, each an ``nn.Module``.
+dense variants: chatglm3-6b, qwen1.5-4b, starcoder2-7b), the Mamba-2
+(ssm) model and the moe family (dbrx-132b, llama4-maverick-400b), each an
+``nn.Module``.
 
 Parameters are **layer-stacked** under the reference's paths, so the
 optimizer sees the same leaves.  Dense::
@@ -28,19 +29,40 @@ ssm (Mamba-2)::
     embed/{embed, lm_head}
     final_norm/norm_scale          (d,)
 
+moe, ``moe_every == 1`` (dbrx-132b): the dense tree's ``blocks/{attn, ln1,
+ln2}`` with ``blocks/moe`` in place of ``blocks/mlp``::
+
+    blocks/moe/router              (L, d, E)
+    blocks/moe/experts_{w_in, w_gate}  (L, E, d, f)   f = moe_dff
+    blocks/moe/experts_w_out       (L, E, f, d)
+    blocks/moe/shared_{w_in, w_gate}   (L, d, f * n_shared)   with shared experts
+    blocks/moe/shared_w_out        (L, f * n_shared, d)
+
+moe, ``moe_every > 1`` (llama4-maverick-400b): G = L / moe_every groups,
+each ``per = moe_every - 1`` dense blocks and one MoE block::
+
+    blocks/dense/{attn, ln1, ln2, mlp}/...   (G, per, ...)  as the dense tree
+    blocks/moe/{attn, ln1, ln2}/...          (G, ...)
+    blocks/moe/moe/...                       (G, ...)       as above
+
 GUM samples gamma of the L blocks of each stacked leaf, so one module per
 layer would change what a block is.  ``forward`` loops over the layers.
 Under ``cfg.remat``, when autograd records, each layer runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``):
 ``remat_policy="dots"`` keeps the un-batched products, any other policy
 keeps nothing, and backward recomputes the rest.
-Parameters are fp32, or, for the dense family under
+Parameters are fp32, or, for the dense and moe families under
 ``cfg.param_dtype="bfloat16"``, stored as the reference stores them: every
-leaf with two or more dims in bf16 (the layer-stacked norms and biases
-included), the ``(d,)`` leaves of ``final_norm`` in fp32.  Both families
+leaf with two or more dims in bf16 (the layer-stacked norms and biases and
+the router included), the ``(d,)`` leaves of ``final_norm`` in fp32.  All
+families
 compute in ``cfg.dtype`` (bf16 for every full-size config but the paper's
 LLaMA), casting each weight at its use, as the reference does (a no-op on a
 bf16 leaf in bf16, an up-cast when a bf16-stored model runs in fp32).
+
+The moe family's ``forward(return_aux=True)`` also returns the MoE layers'
+summed load-balancing loss, which :func:`lm_loss` and
+:func:`chunked_lm_loss` add at 0.01.
 
 Serving: ``forward(tokens, return_cache=True)`` (prefill), ``init_cache``,
 ``decode_step(cache, tokens, pos)`` with one position per batch row, and
@@ -64,7 +86,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import sort_paths
 from repro_torch.kernels import ops
 from repro_torch.launch.devices import resolve_device
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe
 from repro_torch.models.attention import decode_self_attention, self_attention
 from repro_torch.models.layers import apply_mlp, apply_norm, trunc_normal_, unembed
 
@@ -172,6 +194,37 @@ class _LM(nn.Module):
         bias = {"norm_bias": self._empty(*lead, d)} if self.cfg.norm == "layernorm" else {}
         return _group(norm_scale=self._empty(*lead, d), **bias)
 
+    def _attn_group(self, *lead: int) -> nn.Module:
+        """One attention's parameters, allocated: ``wq``, ``wk``, ``wv``,
+        ``wo`` (lead + matrix) and, under ``qkv_bias``, the biases."""
+        cfg, empty = self.cfg, self._empty
+        d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.hd
+        bias = ({"bias_q": empty(*lead, H * hd), "bias_k": empty(*lead, KV * hd),
+                 "bias_v": empty(*lead, KV * hd)} if cfg.qkv_bias else {})
+        return _group(wq=empty(*lead, d, H * hd), wk=empty(*lead, d, KV * hd),
+                      wv=empty(*lead, d, KV * hd), wo=empty(*lead, H * hd, d), **bias)
+
+    def _mlp_group(self, *lead: int) -> nn.Module:
+        """One MLP's parameters, allocated: ``w_in``, ``w_gate`` (gated acts),
+        ``w_out`` and, under ``mlp_bias``, the biases."""
+        cfg, empty = self.cfg, self._empty
+        d, ff = cfg.d_model, cfg.d_ff
+        gate = {"w_gate": empty(*lead, d, ff)} if cfg.act in ("swiglu", "geglu") else {}
+        bias = {"bias_in": empty(*lead, ff), "bias_out": empty(*lead, d)} if cfg.mlp_bias else {}
+        return _group(w_in=empty(*lead, d, ff), **gate, w_out=empty(*lead, ff, d), **bias)
+
+    def _check_dense_parts(self, cfg: ModelConfig) -> None:
+        """Raise for what the attention / MLP blocks do not port."""
+        if (cfg.act not in Transformer.ACTS or cfg.norm not in ("rmsnorm", "layernorm")
+                or cfg.rope not in ("rope", "rope2d", "none") or cfg.frontend != "none"):
+            raise NotImplementedError(f"{cfg.name}: act {cfg.act!r}, norm {cfg.norm!r}, rope "
+                                      f"{cfg.rope!r}, frontend {cfg.frontend!r} is not ported")
+        if cfg.dtype not in ("float32", "bfloat16") or cfg.param_dtype not in ("float32",
+                                                                              "bfloat16"):
+            raise NotImplementedError(f"the {cfg.family} family takes fp32 or bf16 parameters "
+                                      "and fp32 or bf16 activations")
+        ops.check_impl(cfg.attn_impl)
+
     def _init_norms(self, *groups: nn.Module) -> None:
         with torch.no_grad():
             for norm in groups:
@@ -199,32 +252,16 @@ class Transformer(_LM):
         super().__init__()
         if cfg.family != "dense":
             raise NotImplementedError(f"model family {cfg.family!r} is not a dense model")
-        if (cfg.act not in self.ACTS or cfg.norm not in ("rmsnorm", "layernorm")
-                or cfg.rope not in ("rope", "rope2d", "none") or cfg.frontend != "none"):
-            raise NotImplementedError(f"{cfg.name}: act {cfg.act!r}, norm {cfg.norm!r}, rope "
-                                      f"{cfg.rope!r}, frontend {cfg.frontend!r} is not ported")
-        if cfg.dtype not in ("float32", "bfloat16") or cfg.param_dtype not in ("float32",
-                                                                              "bfloat16"):
-            raise NotImplementedError("the dense family takes fp32 or bf16 parameters and "
-                                      "fp32 or bf16 activations")
-        ops.check_impl(cfg.attn_impl)
+        self._check_dense_parts(cfg)
         self.cfg, self._device = cfg, device
-        L, d, H, KV, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads,
-                               cfg.hd, cfg.d_ff)
-        empty = self._empty
-        head = {} if cfg.tie_embeddings else {"lm_head": empty(d, cfg.vocab)}
-        self.embed = _group(embed=empty(cfg.vocab, d), **head)
+        L, d = cfg.n_layers, cfg.d_model
+        head = {} if cfg.tie_embeddings else {"lm_head": self._empty(d, cfg.vocab)}
+        self.embed = _group(embed=self._empty(cfg.vocab, d), **head)
         self.blocks = nn.Module()
-        qkv_bias = ({"bias_q": empty(L, H * hd), "bias_k": empty(L, KV * hd),
-                     "bias_v": empty(L, KV * hd)} if cfg.qkv_bias else {})
-        self.blocks.attn = _group(wq=empty(L, d, H * hd), wk=empty(L, d, KV * hd),
-                                  wv=empty(L, d, KV * hd), wo=empty(L, H * hd, d), **qkv_bias)
+        self.blocks.attn = self._attn_group(L)
         self.blocks.ln1 = self._norm_group(L)
         self.blocks.ln2 = self._norm_group(L)
-        gate = {"w_gate": empty(L, d, ff)} if cfg.act in ("swiglu", "geglu") else {}
-        mlp_bias = {"bias_in": empty(L, ff), "bias_out": empty(L, d)} if cfg.mlp_bias else {}
-        self.blocks.mlp = _group(w_in=empty(L, d, ff), **gate, w_out=empty(L, ff, d),
-                                 **mlp_bias)
+        self.blocks.mlp = self._mlp_group(L)
         self.final_norm = self._norm_group()
 
     def init_params(self, seed: int) -> None:
@@ -400,14 +437,231 @@ class Mamba2(_LM):
         cache["ssm"][:, slot] = 0
 
 
-def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *, shift: bool = True) -> torch.Tensor:
-    """Mean next-token cross-entropy."""
+class MoETransformer(_LM):
+    """The moe family (dbrx-132b, llama4-maverick-400b): pre-norm blocks of
+    GQA self-attention and a capacity-routed MoE FFN (:mod:`models.moe`).
+    ``moe_every == 1``: every block is attention + MoE, stacked over L.
+    ``moe_every > 1``: G = L / moe_every groups of ``per = moe_every - 1``
+    dense blocks and one MoE block, stacked (G, per) and (G,).  The
+    forward's aux is the Switch load-balancing loss summed over the MoE
+    layers (``return_aux``), which :func:`lm_loss` adds at 0.01.  Dense
+    blocks are the dense family's; fp32 or bf16 parameters, activations in
+    ``cfg.dtype``."""
+
+    has_aux = True
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        if cfg.family != "moe":
+            raise NotImplementedError(f"model family {cfg.family!r} is not a moe model")
+        self._check_dense_parts(cfg)
+        if not (0 < cfg.top_k <= cfg.n_experts) or cfg.moe_every < 1 or (
+                cfg.n_layers % cfg.moe_every):
+            raise ValueError(f"{cfg.name}: top_k {cfg.top_k} of {cfg.n_experts} experts, "
+                             f"moe_every {cfg.moe_every} over {cfg.n_layers} layers")
+        self.cfg, self._device = cfg, device
+        L, d = cfg.n_layers, cfg.d_model
+        head = {} if cfg.tie_embeddings else {"lm_head": self._empty(d, cfg.vocab)}
+        self.embed = _group(embed=self._empty(cfg.vocab, d), **head)
+        self.blocks = nn.Module()
+        if cfg.moe_every == 1:
+            self._moe_groups(self.blocks, L)
+        else:
+            G, per = L // cfg.moe_every, cfg.moe_every - 1
+            dense = self.blocks.dense = nn.Module()
+            dense.attn, dense.mlp = self._attn_group(G, per), self._mlp_group(G, per)
+            dense.ln1, dense.ln2 = self._norm_group(G, per), self._norm_group(G, per)
+            self.blocks.moe = nn.Module()
+            self._moe_groups(self.blocks.moe, G)
+        self.final_norm = self._norm_group()
+
+    def _moe_groups(self, blocks: nn.Module, *lead: int) -> None:
+        blocks.attn = self._attn_group(*lead)
+        blocks.ln1 = self._norm_group(*lead)
+        blocks.ln2 = self._norm_group(*lead)
+        blocks.moe = _group(**{name: self._empty(*lead, *shape)
+                               for name, shape in moe.param_shapes(self.cfg).items()})
+
+    @property
+    def moe_blocks(self) -> nn.Module:
+        """The module of the MoE blocks' stacks (``attn``, ``ln1``, ``ln2``,
+        ``moe``)."""
+        return self.blocks if self.cfg.moe_every == 1 else self.blocks.moe
+
+    def init_params(self, seed: int) -> None:
+        """Initialise from ``seed``: the reference's distributions and
+        scales, not its draws (see :meth:`Transformer.init_params`)."""
+        cfg = self.cfg
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._init_embed(gen)
+        attns = [self.moe_blocks.attn]
+        norms = [self.moe_blocks.ln1, self.moe_blocks.ln2, self.final_norm]
+        if cfg.moe_every > 1:
+            dense = self.blocks.dense
+            attns.append(dense.attn)
+            norms += [dense.ln1, dense.ln2]
+            for w in (dense.mlp.w_in, getattr(dense.mlp, "w_gate", None)):
+                if w is not None:
+                    trunc_normal_(w, cfg.d_model ** -0.5, gen)
+            trunc_normal_(dense.mlp.w_out, cfg.d_ff ** -0.5, gen)
+        for attn in attns:
+            for w in (attn.wq, attn.wk, attn.wv):
+                trunc_normal_(w, cfg.d_model ** -0.5, gen)
+            trunc_normal_(attn.wo, (cfg.n_heads * cfg.hd) ** -0.5, gen)
+        moe.init_moe(_at(self.moe_blocks.moe), cfg, gen)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.split(".")[-1].startswith("bias_"):
+                    p.zero_()
+        self._init_norms(*norms)
+
+    @staticmethod
+    def _block(blocks: nn.Module, i) -> dict[str, dict[str, torch.Tensor]]:
+        """Block ``i`` (an int or a (group, j) pair) of ``blocks``' stacks."""
+        return {name: _at(group, i) for name, group in blocks.named_children()}
+
+    def _attend(self, x, p, positions, causal):
+        h, (k, v) = self_attention(apply_norm(x, p["ln1"], self.cfg), p["attn"], self.cfg,
+                                   positions, causal)
+        return x + h, k, v
+
+    def _dense_block(self, x, p, positions, causal):
+        x, k, v = self._attend(x, p, positions, causal)
+        return x + apply_mlp(apply_norm(x, p["ln2"], self.cfg), p["mlp"], self.cfg.act), k, v
+
+    def _moe_block(self, x, p, positions, causal):
+        x, k, v = self._attend(x, p, positions, causal)
+        m, aux = moe.apply_moe(p["moe"], apply_norm(x, p["ln2"], self.cfg), self.cfg)
+        return x + m, k, v, aux
+
+    def forward(self, tokens: torch.Tensor, return_cache: bool = False,
+                return_hidden: bool = False, return_aux: bool = False):
+        """tokens (B, S) -> logits (B, S, vocab) in the activation dtype
+        (the final-normed hidden states under ``return_hidden``); with
+        ``return_cache`` -> (logits, cache) in :meth:`init_cache`'s layout;
+        with ``return_aux`` the fp32 aux loss summed over the MoE layers
+        comes last.  Under ``cfg.remat`` each layer (``moe_every == 1``) or
+        each group of blocks runs checkpointed, the aux among its outputs."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        causal = cfg.causal and not cfg.encoder_only
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        kvs = []
+        if cfg.moe_every == 1:
+            def layer(x: torch.Tensor, l: int):
+                return self._moe_block(x, self._block(self.blocks, l), positions, causal)
+
+            layer = _remat(layer, cfg)
+            for l in range(cfg.n_layers):
+                x, k, v, a = layer(x, l)
+                aux = aux + a
+                if return_cache:
+                    kvs.append((k, v))
+            cache = ({"k": torch.stack([k for k, _ in kvs]),
+                      "v": torch.stack([v for _, v in kvs])} if return_cache else None)
+        else:
+            per = cfg.moe_every - 1
+
+            def group(x: torch.Tensor, g: int):
+                dense = [None] * per
+                for j in range(per):
+                    x, *dense[j] = self._dense_block(x, self._block(self.blocks.dense, (g, j)),
+                                                     positions, causal)
+                x, k, v, a = self._moe_block(x, self._block(self.blocks.moe, g), positions,
+                                             causal)
+                return (x, torch.stack([kd for kd, _ in dense]),
+                        torch.stack([vd for _, vd in dense]), k, v, a)
+
+            group = _remat(group, cfg)
+            for g in range(cfg.n_layers // cfg.moe_every):
+                x, kd, vd, k, v, a = group(x, g)
+                aux = aux + a
+                if return_cache:
+                    kvs.append((kd, vd, k, v))
+            cache = ({"dense": {"k": torch.stack([c[0] for c in kvs]),
+                                "v": torch.stack([c[1] for c in kvs])},
+                      "moe": {"k": torch.stack([c[2] for c in kvs]),
+                              "v": torch.stack([c[3] for c in kvs])}}
+                     if return_cache else None)
+        out = (self._final(x) if return_hidden else self._head(x),)
+        if return_cache:
+            out += (cache,)
+        if return_aux:
+            out += (aux,)
+        return out if len(out) > 1 else out[0]
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+        """Zero KV cache on the model's device, in ``dtype`` (default the
+        activation dtype): {"k", "v": (L, batch, max_seq, KV, hd)} for
+        ``moe_every == 1``, else the reference's grouped layout {"dense":
+        {"k", "v": (G, per, batch, max_seq, KV, hd)}, "moe": {"k", "v": (G,
+        batch, max_seq, KV, hd)}}."""
+        cfg = self.cfg
+        dtype = dtype or self.dtype
+
+        def kv(*lead):
+            shape = lead + (batch, max_seq, cfg.kv_heads, cfg.hd)
+            return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                    "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+        if cfg.moe_every == 1:
+            return kv(cfg.n_layers)
+        G = cfg.n_layers // cfg.moe_every
+        return {"dense": kv(G, cfg.moe_every - 1), "moe": kv(G)}
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos, *,
+                    rows_apart: bool = False):
+        """One token per row: tokens (B, 1), pos an int or (B,) -> (logits
+        (B, 1, vocab), cache), the cache updated in place.  The B tokens
+        route as one batch under ``cfg.moe_groups``, as the reference's
+        ``decode_step`` routes them, so capacity couples the rows; with
+        ``rows_apart`` each row routes alone (one dispatch group a row), as
+        in the reference's engine, which decodes each slot at batch 1."""
+        cfg = self.cfg
+        pos = _positions(pos, tokens.shape[0], tokens.device)
+        groups = tokens.shape[0] if rows_apart else None
+        x = self._embed(tokens)
+
+        def attend(x, p, kc, vc):
+            return x + decode_self_attention(apply_norm(x, p["ln1"], cfg), p["attn"], cfg,
+                                             kc, vc, pos)
+
+        def moe_block(x, p, kc, vc):
+            x = attend(x, p, kc, vc)
+            return x + moe.apply_moe(p["moe"], apply_norm(x, p["ln2"], cfg), cfg,
+                                     groups=groups)[0]
+
+        if cfg.moe_every == 1:
+            for l in range(cfg.n_layers):
+                x = moe_block(x, self._block(self.blocks, l), cache["k"][l], cache["v"][l])
+        else:
+            dense, moe_cache = cache["dense"], cache["moe"]
+            for g in range(cfg.n_layers // cfg.moe_every):
+                for j in range(cfg.moe_every - 1):
+                    p = self._block(self.blocks.dense, (g, j))
+                    x = attend(x, p, dense["k"][g, j], dense["v"][g, j])
+                    x = x + apply_mlp(apply_norm(x, p["ln2"], cfg), p["mlp"], cfg.act)
+                x = moe_block(x, self._block(self.blocks.moe, g), moe_cache["k"][g],
+                              moe_cache["v"][g])
+        return self._head(x), cache
+
+    def reset_slot(self, cache: dict, slot: int) -> None:
+        """Nothing to reset (see :meth:`Transformer.reset_slot`)."""
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor, aux: Optional[torch.Tensor] = None,
+            *, shift: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy, plus 0.01·aux (the MoE load-balancing
+    loss) when there is one."""
     if shift:
         logits, targets = logits[:, :-1], targets[:, 1:]
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return torch.mean(lse - gold)
+    ce = torch.mean(lse - gold)
+    return ce if aux is None else ce + 0.01 * aux
 
 
 class _ChunkCrossEntropy(torch.autograd.Function):
@@ -443,14 +697,15 @@ class _ChunkCrossEntropy(torch.autograd.Function):
 
 def chunked_lm_loss(hidden: torch.Tensor, targets: torch.Tensor, chunk: int,
                     embed: torch.Tensor, lm_head: Optional[torch.Tensor] = None, *,
-                    shift: bool = True) -> torch.Tensor:
+                    shift: bool = True, aux: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy with the logits made ``chunk`` positions
     at a time, never as the full ``(B, S, V)`` tensor (the reference's
     ``chunked_lm_loss``, ``cfg.logit_chunk``): ``hidden`` is the
     final-normed ``(B, S, d)`` (``forward(return_hidden=True)``), the head
     the tied ``embed`` (vocab, d) or the untied ``lm_head`` (d, vocab).  The
     last chunk is zero-padded and masked out; backward recomputes each
-    chunk's logits."""
+    chunk's logits.  ``aux`` (the MoE load-balancing loss) adds at 0.01, as
+    in :func:`lm_loss`."""
     if shift:
         hidden, targets = hidden[:, :-1], targets[:, 1:]
     B, S, _ = hidden.shape
@@ -467,19 +722,23 @@ def chunked_lm_loss(hidden: torch.Tensor, targets: torch.Tensor, chunk: int,
         part = slice(c0, c0 + chunk)
         total = total + _ChunkCrossEntropy.apply(hidden[:, part], w, targets[:, part],
                                                  valid[:, part])
-    return total / (B * S)
+    ce = total / (B * S)
+    return ce if aux is None else ce + 0.01 * aux
 
 
-FAMILIES = {"dense": Transformer, "ssm": Mamba2}
+FAMILIES = {"dense": Transformer, "ssm": Mamba2, "moe": MoETransformer}
+# The reference's families the port does not build yet.
+NOT_PORTED = ("hybrid", "vlm", "audio")
 
 
 def build_model(cfg: ModelConfig, *,
-                device: Optional[str | torch.device] = None) -> Transformer | Mamba2:
+                device: Optional[str | torch.device] = None) -> _LM:
     """The model for ``cfg`` (by ``cfg.family``) on ``device`` (default: the
     CUDA device; raises when there is none — pass ``device="cpu"`` for the
     CPU), with its parameters allocated but not initialised (see
-    ``init_params``).  Families not yet ported raise."""
+    ``init_params``).  Families not yet ported (``NOT_PORTED``) raise."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"model family {cfg.family!r} is not ported yet; "
-                                  f"ported: {sorted(FAMILIES)}")
+        raise NotImplementedError(f"model family {cfg.family!r} is not ported yet (not yet "
+                                  f"ported: {', '.join(NOT_PORTED)}); ported: "
+                                  f"{sorted(FAMILIES)}")
     return FAMILIES[cfg.family](cfg, resolve_device(device))

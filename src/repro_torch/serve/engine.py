@@ -12,7 +12,10 @@
     or when its slot reaches ``max_seq - 1``.
 
 The reference vmaps a B = 1 decode over the slots; here the model's
-``decode_step`` takes a (B,) position vector and runs them as one batch.
+``decode_step`` takes a (B,) position vector and runs them as one batch,
+with ``rows_apart``: a moe model routes each slot as its own dispatch group,
+so expert capacity never couples two slots (or a slot and an idle one), as
+under the reference's vmap.
 One difference, on purpose: when a request takes a slot the engine zeroes
 that slot's recurrent state (``model.reset_slot``: the mamba conv window
 and SSD state).  The reference resets only the slot's position, so a
@@ -76,7 +79,7 @@ class ServeEngine:
         self.finished: list[Request] = []
         self.tick_seconds: list[float] = []
         self._uid = 0
-        self._step = make_serve_step(model)
+        self._step = make_serve_step(model, rows_apart=True)
 
     # ------------------------------------------------------------ API
 
@@ -152,8 +155,9 @@ def greedy_decode(model, prompt: list[int], n_new: int, max_seq: int, *,
     """Direct greedy decode of one request, token by token through the
     decode step, with no scheduler: the request in row ``row`` of a fresh
     ``batch``-row cache, the other rows idle (pad token 0 at position 0, as
-    the engine's idle slots).  ``batch=1`` is the single-request decode."""
-    step = make_serve_step(model)
+    the engine's idle slots; a moe model routes each row alone, as the
+    engine does).  ``batch=1`` is the single-request decode."""
+    step = make_serve_step(model, rows_apart=True)
     cache = model.init_cache(batch=batch, max_seq=max_seq, dtype=torch.float32)
     tokens = torch.zeros((batch, 1), dtype=torch.int64, device=model.device)
     pos = torch.zeros(batch, dtype=torch.int64, device=model.device)
