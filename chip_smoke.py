@@ -23,11 +23,17 @@ Phases, in order; any failure exits non-zero and prints no result:
                 same dtype; at head dim 192, nemotron-4-340b's prefill in
                 bf16 and in fp32, and a ragged fp16 case at head dim 200
                 (the 256 tier); bf16 at dbrx-132b's prefill (48 heads over
-                8) and llama4-maverick-400b's (40 over 8); each 16-bit case
+                8) and llama4-maverick-400b's (40 over 8); bf16 at the last
+                families' inputs: zamba2-1.2b's shared block (32 heads of
+                64), llama-3.2-vision-11b's self-attention (32 over 8),
+                its cross-attention (unmasked over 1601 image tokens) and
+                its decode's (one query over them), hubert-xlarge's (16
+                heads of 80, unmasked); each 16-bit case
                 held to its plain version's fp32 output before that
                 version's rounding (TOL_FLASH_16); the SSD scan at
                 mamba2-370m's prefill, with a ragged last chunk at the same
-                widths and a ragged fp32 case; time kernel, plain version
+                widths, a ragged fp32 case and zamba2-1.2b's prefill (64
+                heads, N 64, chunk 64); time kernel, plain version
                 and one PyTorch call computing the same function where
                 there is one, and compute the bound (over TF32's peak, the
                 products counted as the kernels' 3xTF32 executes them,
@@ -87,9 +93,11 @@ Phases, in order; any failure exits non-zero and prints no result:
                 layers), starcoder2-7b (32) and qwen1.5-4b (40), each a
                 prefill 4 x 2048 through the bf16 instantiation of flash
                 attention (one launch a layer) against "xla" in fp32 and in
-                bf16 on the same parameters, then an engine: chatglm3-6b 8
-                slots and 16 requests, two checked against direct decode;
-                the others 4 slots and 4 requests, one checked;
+                bf16 on the same parameters, then an engine of 4 slots and
+                4 requests, one checked against direct decode (chatglm3-6b's
+                8 slots and 16 requests of earlier runs were cut to keep
+                the run under 1000 s: phases 6, 7 and 12 keep reused slots
+                checked);
   9. serve    — nemotron-4-340b at full width (d 18432, 96 heads over 8,
                 head dim 192, d_ff 73728, vocab 256000), depth cut to 2
                 layers, parameters stored in bf16 (``param_dtype``) and bf16
@@ -117,14 +125,39 @@ Phases, in order; any failure exits non-zero and prints no result:
                 bf16, 37.4 GB), as phase 10; its fp32 comparison runs on
                 the bf16 parameters, and its bf16 distance is printed
                 without a rule (no fp32-stored reference fits);
+ 12. serve    — zamba2-1.2b (hybrid) at full width and depth (38 Mamba-2
+                layers, d 2048; one shared attention-and-MLP block of 32
+                heads of 64 after every 6th layer, 7 times), fp32
+                parameters, bf16 activations: prefill 4 x 4096 (38 ssd_scan
+                and 7 flash_attention launches) against "xla" in fp32 and
+                in bf16, then phase 7's engine run;
+ 13. serve    — llama-3.2-vision-11b (vlm) at full width (d 4096, 32 heads
+                over 8, d_ff 14336, vocab 128256), depth cut to 10 of 40
+                layers (two groups of 5 self blocks and a gated
+                cross-attention block), fp32 parameters, bf16 activations,
+                seeded nonzero gates: prefill 4 x 2048 with images (4, 1601,
+                4096) (10 causal and 2 unmasked flash_attention launches)
+                against "xla" in fp32 and in bf16, fp32 decode from the
+                prefill's cache against the forward, then an engine of 4
+                slots and 4 requests whose every tick launches
+                flash_attention once a group, one checked against direct
+                decode;
+ 14. serve    — hubert-xlarge (audio, encoder-only) at full width and depth
+                (48 layers, d 1280, 16 heads of 80), fp32 parameters, bf16
+                activations: a forward of 4 x 4096 frames (48 unmasked
+                flash_attention launches at D = 80, the 128 tier) against
+                "xla" in fp32 and in bf16; no engine;
   5. agree    — the same trainer at the llama-60m smoke size on the card and
                 on the CPU (plain versions) must give the same losses, for
                 GUM, GaLore-Muon with the fused epilogue and weight decay,
                 family-stacked GUM and phase 4c's optimizers and LISA; and
                 the prefill logits of the smoke models (llama-60m,
                 mamba2-370m, the three dense variants, nemotron-4-340b and
-                its head-dim-192 variant, dbrx-132b and llama4-maverick-400b)
-                at attn_impl="pallas"; and a 3-step GUM trainer on the moe
+                its head-dim-192 variant, dbrx-132b, llama4-maverick-400b,
+                zamba2-1.2b, llama-3.2-vision-11b with images and
+                hubert-xlarge with frames) at attn_impl="pallas", each
+                kernel launched as often as the family's layout says; and
+                a 3-step GUM trainer on the moe
                 SMOKE models (4-D expert leaves through kernel rows 1–5) with
                 exact per-step dispatch and launch counts, the card on the
                 CPU's routing.
@@ -135,7 +168,10 @@ every kernel (launches summed over the full-width paths, each read from
 counts set to 0 just before it, error, times, bound; flash attention's
 bf16 instantiation beside it under "bf16", with phase 8's launches, its
 bf16 head-dim-192 one under "bf16_d192", with phase 9's, and its bf16 one
-at dbrx-132b's prefill under "bf16_moe", with phases 10 and 11's), and
+at dbrx-132b's prefill under "bf16_moe", with phases 10 and 11's; the
+last families' inputs under "zamba2" (the SSD scan's), "bf16_zamba2",
+"bf16_vision_self", "bf16_vision_cross", "bf16_vision_decode" and
+"bf16_hubert", each with the launches of it in phase 12, 13 or 14), and
 the last line is
 ``{"ok": true, "device": {...}}``.
 ``--kernels-only`` stops after phase 3 (for iterating on a kernel) and
@@ -145,6 +181,7 @@ writes its checkpoints under its own temporary directory and removes it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -546,7 +583,10 @@ def serving_kernel_cases(torch, gen):
     tagged "bf16_d192", and in fp32; fp16 at D = 200); the SSD scan at
     mamba2-370m's prefill (bf16 x), the same widths with a ragged last chunk
     (the kernel splits P = 64 over two blocks, and the last chunk of the
-    last batch row ends inside its slices), and a ragged fp32 one."""
+    last batch row ends inside its slices), a ragged fp32 one, and
+    zamba2-1.2b's prefill (64 heads, N 64, chunk 64; tagged "zamba2").  The
+    last families' flash attention inputs are tagged as their phases'
+    launches (TAGGED)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -582,40 +622,58 @@ def serving_kernel_cases(torch, gen):
     # prefill runs it), and a ragged fp16 one at D = 200, padded to the 256
     # tier; then the moe family's prefills (phases 10, 11): dbrx-132b's
     # (48 heads over 8, group 6; the JSON row's "bf16_moe" entry) and
-    # llama4-maverick-400b's (40 over 8, group 5).  SDPA in the same dtype
-    # (in 16 bits it rounds P to it, so its numbers are not the kernel's)
-    # with enable_gqa beside each.  A 16-bit case's plain version is timed
-    # as called and compared before its output's rounding (TOL_FLASH_16).
-    for B, S, H, KV, D, dtype, tag in [(4, 2048, 32, 2, 128, torch.bfloat16, "bf16"),
-                                       (2, 1024, 36, 4, 128, torch.float16, False),
-                                       (2, 1000, 20, 20, 128, torch.bfloat16, False),
-                                       (1, 4096, 96, 8, 192, torch.bfloat16, "bf16_d192"),
-                                       (1, 4096, 96, 8, 192, torch.float32, False),
-                                       (2, 1000, 16, 4, 200, torch.float16, False),
-                                       (4, 2048, 48, 8, 128, torch.bfloat16, "bf16_moe"),
-                                       (4, 2048, 40, 8, 128, torch.bfloat16, False)]:
+    # llama4-maverick-400b's (40 over 8, group 5); then the last families'
+    # (phases 12–14): zamba2-1.2b's shared block (32 heads of 64, MHA;
+    # "bf16_zamba2"), llama-3.2-vision-11b's self-attention (32 over 8,
+    # "bf16_vision_self"), its cross-attention over the 1601 image tokens
+    # (unmasked, S != T, "bf16_vision_cross") and its decode's (one query a
+    # slot, "bf16_vision_decode"), and hubert-xlarge's (16 heads of 80,
+    # padded to 128, unmasked, "bf16_hubert"; its work counted at D = 80).
+    # SDPA in the same dtype (in 16 bits it rounds P to it, so its numbers
+    # are not the kernel's) with enable_gqa beside each.  A 16-bit case's
+    # plain version is timed as called and compared before its output's
+    # rounding (TOL_FLASH_16).
+    bf16, fp16 = torch.bfloat16, torch.float16
+    for B, S, T, H, KV, D, causal, dtype, tag in [
+            (4, 2048, 2048, 32, 2, 128, True, bf16, "bf16"),
+            (2, 1024, 1024, 36, 4, 128, True, fp16, False),
+            (2, 1000, 1000, 20, 20, 128, True, bf16, False),
+            (1, 4096, 4096, 96, 8, 192, True, bf16, "bf16_d192"),
+            (1, 4096, 4096, 96, 8, 192, True, torch.float32, False),
+            (2, 1000, 1000, 16, 4, 200, True, fp16, False),
+            (4, 2048, 2048, 48, 8, 128, True, bf16, "bf16_moe"),
+            (4, 2048, 2048, 40, 8, 128, True, bf16, False),
+            (4, 4096, 4096, 32, 32, 64, True, bf16, "bf16_zamba2"),
+            (4, 2048, 2048, 32, 8, 128, True, bf16, "bf16_vision_self"),
+            (4, 2048, 1601, 32, 8, 128, False, bf16, "bf16_vision_cross"),
+            (4, 1, 1601, 32, 8, 128, False, bf16, "bf16_vision_decode"),
+            (4, 4096, 4096, 16, 16, 80, False, bf16, "bf16_hubert")]:
         q, k, v = (randn(*shape).to(dtype) for shape in
-                   ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+                   ((B, S, H, D), (B, T, KV, D), (B, T, KV, D)))
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        flops = 4.0 * D * causal_pairs(S, S, True) * B * H
+        flops = 4.0 * D * causal_pairs(S, T, causal) * B * H
         low = dtype != torch.float32
         cases.append(("flash_attention",
-                      f"q{(B, S, H, D)} kv{(B, S, KV, D)} causal {str(dtype)[6:]}",
-                      (lambda q=q, k=k, v=v: flash_attention(q, k, v)),
-                      (lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v)),
-                      (lambda qt=qt, kt=kt, vt=vt, gqa=KV != H: F.scaled_dot_product_attention(
-                          qt, kt, vt, is_causal=True, enable_gqa=gqa)),
-                      flops, q.element_size() * (2 * B * S * H * D + 2 * B * S * KV * D), tag,
+                      f"q{(B, S, H, D)} kv{(B, T, KV, D)} {'causal' if causal else 'full'} "
+                      f"{str(dtype)[6:]}",
+                      (lambda q=q, k=k, v=v, c=causal: flash_attention(q, k, v, causal=c)),
+                      (lambda q=q, k=k, v=v, c=causal: ref.flash_attention_ref(q, k, v,
+                                                                               causal=c)),
+                      (lambda qt=qt, kt=kt, vt=vt, c=causal, gqa=KV != H:
+                       F.scaled_dot_product_attention(qt, kt, vt, is_causal=c, enable_gqa=gqa)),
+                      flops, q.element_size() * (2 * B * S * H * D + 2 * B * T * KV * D), tag,
                       *((TOL_FLASH_16[str(dtype)], 0.0, FLASH_16_PRODUCTS[str(dtype)] * flops)
                         if low else (TOL_FLASH,))))
         if low:  # held to the plain version's output before its rounding
-            UNROUNDED[id(cases[-1][3])] = (lambda q=q, k=k, v=v: ref.flash_attention_ref(
-                q.float(), k.float(), v.float()))
+            UNROUNDED[id(cases[-1][3])] = (lambda q=q, k=k, v=v, c=causal:
+                                           ref.flash_attention_ref(q.float(), k.float(),
+                                                                   v.float(), causal=c))
 
     for B, S, H, P, N, chunk, xdtype, principal in [
             (4, 4096, 32, 64, 128, 128, torch.bfloat16, True),
             (4, 4000, 32, 64, 128, 128, torch.bfloat16, False),
-            (2, 4000, 32, 64, 128, 64, torch.float32, False)]:
+            (2, 4000, 32, 64, 128, 64, torch.float32, False),
+            (4, 4096, 64, 64, 64, 64, torch.bfloat16, "zamba2")]:
         x = randn(B, S, H, P).to(xdtype)
         dt = F.softplus(randn(B, S, H) - 1.0)
         a = -torch.exp(torch.linspace(0.0, math.log(16.0), H, device="cuda"))
@@ -726,6 +784,7 @@ def phase_kernels(torch):
               f"ms {ms:.3f}  plain {plain_ms:.3f}", flush=True)
     torch.cuda.synchronize()
     build.reset_launches()  # comparison launches do not count
+    UNROUNDED.clear()  # its closures hold this phase's inputs on the card
     return rows
 
 
@@ -1638,8 +1697,6 @@ def probe_cost(torch, params: dict) -> None:
     projection kernel, the Gram's GEMM, ``eigvalsh``'s cuSOLVER kernels),
     and each part timed alone with CUDA events."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.combinators import _spectrum_probe
     from repro_torch.core.lowrank_common import (compute_projectors, default_lowrank_filter,
                                                  family_shape)
@@ -1659,7 +1716,7 @@ def probe_cost(torch, params: dict) -> None:
     probe_all()
     torch.cuda.synchronize()
     before = build.LAUNCHES["lowrank_update"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         probe_all()
         torch.cuda.synchronize()
@@ -1782,8 +1839,6 @@ def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
     is profiled.  Its idle share is 1 − busy / that step's own wall time
     (host clock, ending in a synchronise, profiler on)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.data import build_stream
 
     stream = build_stream(trainer.data_cfg).resume(done)
@@ -1796,11 +1851,30 @@ def profile_steady_step(torch, label: str, trainer, done: int) -> None:
         return state
 
     state = step(state)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         step(state)
         step_ms = (time.perf_counter() - t0) * 1e3
     print_groups(f"{label} profiled steady step (step {done + 2})", prof, step_ms)
+
+
+# Idle host time at each end of a profiled window, so that a kernel's device
+# timestamps fall inside the profiler's capture window however the device's
+# clock stands against the host's: a short window (one decode step) otherwise
+# may keep none of its kernels.
+PROFILE_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def profiled():
+    """``torch.profiler.profile`` of the host and the card over the block,
+    padded at both ends by PROFILE_PAD_S."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        time.sleep(PROFILE_PAD_S)
 
 
 # Profiler group of each port kernel: its __global__ functions by name.
@@ -1832,6 +1906,8 @@ def print_groups(label: str, prof, wall_ms: float) -> None:
             groups["other"] += us
             other[name] = other.get(name, 0.0) + us
     busy_ms = sum(groups.values()) / 1e3
+    check(busy_ms > 0, f"{label}: the profiled window recorded no device time "
+          f"({len(prof.events())} host events)")
     parts = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in groups.items() if v)
     top = "; ".join(f"{v / 1e3:.3f} {k[:60]}" for k, v in
                     sorted(other.items(), key=lambda kv: -kv[1])[:4])
@@ -1874,33 +1950,83 @@ def cache_leaves(cache, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
-def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
-                tol: float, direct_batch: int, *, slots: int = 8, requests: int = 16,
-                checked: int = 2, changes: dict | None = None, reference=None) -> dict:
+def expected_launches(cfg) -> dict:
+    """The kernel launches of one prefill at attn_impl="pallas", by the
+    family's layout: one SSD scan a Mamba layer (ssm, hybrid), one flash
+    attention a self-attention (every layer of the attention families; the
+    hybrid's shared block after every ``shared_attn_every``-th layer) and a
+    cross-attention (the vlm's, one a group)."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"ssd_scan": L}
+    if cfg.family == "hybrid":
+        return {"ssd_scan": L, "flash_attention": -(-L // cfg.shared_attn_every)}
+    if cfg.family == "vlm":
+        return {"flash_attention": L + L // cfg.cross_attn_every}
+    return {"flash_attention": L}
+
+
+def serve_batch(torch, cfg, batch: int, seq: int) -> dict:
+    """A serving phase's seeded prefill batch: the prompt tokens, the stub
+    image embeddings (B, n_image_tokens, d) x 0.02 for the vlm, or in their
+    place the stub frame embeddings (B, S, d) x 0.02 for the audio front
+    end (as the reference's smoke test makes them)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if cfg.frontend == "frames":
+        return {"frames": 0.02 * torch.randn(batch, seq, cfg.d_model, generator=gen,
+                                             device="cuda")}
+    out = {"tokens": prompt_tokens(torch, cfg.vocab, batch, seq)}
+    if cfg.family == "vlm":
+        out["images"] = 0.02 * torch.randn(batch, cfg.n_image_tokens, cfg.d_model,
+                                           generator=gen, device="cuda")
+    return out
+
+
+def set_vlm_gates(torch, model) -> list[float]:
+    """Seeded nonzero gates (|value| in [0.3, 1.1], either sign) in place of
+    the init's zeros, with which every cross block would be the identity
+    and no check could see a wrong cross-attention."""
+    gen = torch.Generator().manual_seed(2)
+    cross = model.blocks.cross
+    with torch.no_grad():
+        for gate in (cross.gate_attn, cross.gate_mlp):
+            mag = 0.3 + 0.8 * torch.rand(gate.shape, generator=gen)
+            sign = torch.where(torch.rand(gate.shape, generator=gen) < 0.5, -1.0, 1.0)
+            gate.copy_(mag * sign)
+    return [round(g, 4) for g in torch.cat([cross.gate_attn, cross.gate_mlp]).tolist()]
+
+
+def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
+                direct_batch: int, *, slots: int = 8, requests: int = 16, checked: int = 2,
+                changes: dict | None = None, reference=None,
+                per_tick: dict | None = None) -> dict:
     """Serve ``arch`` (its config with ``changes``: a depth cut, the
     parameter storage) at full width on the card, through the port's entry
     points: ``make_prefill_step`` at ``attn_impl="pallas"`` on ``batch`` x
-    ``seq`` seeded prompts (exactly one ``kernel`` launch per layer, all of
-    the instantiation for the model's activation dtype and, for flash
-    attention, head dim; logits, and the KV
-    cache where the family has one, against the same prefill at
+    ``seq`` seeded prompts (:func:`serve_batch`: tokens, with images for the
+    vlm, frames for audio), with exactly :func:`expected_launches` kernel
+    launches, flash attention's all of the instantiation for the model's
+    activation dtype and head dim; logits,
+    and the cache where the family has one, against the same prefill at
     ``attn_impl="xla"`` on the same parameters: rel <= ``tol`` in fp32, and
     in bf16 as :func:`check_low_precision_prefill` says, against
-    ``reference`` where one is given), then a
+    ``reference`` where one is given), then, where the family decodes, a
     ``ServeEngine`` of ``slots`` slots answering ``requests`` seeded
-    requests (prompts of 16–256 tokens, 32 new tokens each), ``checked``
-    of which — the second in a reused slot where slots are reused — must
-    equal the direct greedy decode of that request alone
+    requests (prompts of 16–256 tokens, 32 new tokens each) with exactly
+    ``per_tick`` kernel launches a tick (default none), ``checked`` of which
+    — the second in a reused slot where slots are reused — must equal the
+    direct greedy decode of that request alone
     (``greedy_decode(batch=direct_batch)``).  Prints the prefill and engine
-    times, tokens/s and peak memory, profiles one prefill and one decode
-    step, and returns the kernel launches of the prefill and engine run.
+    times, tokens/s (frames/s) and peak memory, profiles one prefill and
+    one decode step, and returns the kernel launches of the prefill and
+    engine run; their integer arguments go to ``PHASE_CALLS[label]``.
     A moe model's prefill is recorded, its comparisons replay the fp32
     "xla" prefill's routing (:func:`check_pinned_prefill`), its MoE layer
     and prefill must repeat bitwise, and a 1-slot engine must equal the
-    direct decode at batch 1 (:func:`check_moe_repeats`)."""
+    direct decode at batch 1 (:func:`check_moe_repeats`).  A vlm model gets
+    nonzero gates (:func:`set_vlm_gates`), and its decode from the
+    prefill's cache is held to the forward (:func:`check_vlm_decode`)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import DTYPES
@@ -1909,42 +2035,56 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     from repro_torch.serve.engine import ServeEngine, greedy_decode
 
     cfg = get_config(arch).replace(**(changes or {}))
-    routed = cfg.family == "moe"
+    routed, decodes = cfg.family == "moe", cfg.has_decode
+    per_prefill = expected_launches(cfg)
     model = build_model(cfg.replace(attn_impl="pallas"), device="cuda")
     model.init_params(0)
+    if cfg.family == "vlm":
+        print(f"{label} gates (attn, then mlp) set to {set_vlm_gates(torch, model)}",
+              flush=True)
     n_params = sum(p.numel() for p in model.parameters())
-    tokens = prompt_tokens(torch, cfg.vocab, batch, seq)
+    inputs = serve_batch(torch, cfg, batch, seq)
     prefill = make_prefill_step(model)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
-               for n in rng.integers(16, 257, requests)]
+               for n in rng.integers(16, 257, requests if decodes else 0)]
+    gc.collect()  # an earlier phase's cycles would otherwise count in this peak
     torch.cuda.synchronize()
 
     # The path: one prefill, then the engine; counts set to 0 just before.
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
     with moe.record_routing() as path_routing:  # no MoE call: records nothing
-        logits, cache = prefill({"tokens": tokens})
+        logits, cache = prefill(inputs)
     torch.cuda.synchronize()
     prefill_launches = {k: v for k, v in build.LAUNCHES.items() if v}
-    prefill_variants = dict(build.VARIANTS[kernel])
+    prefill_variants = {k: dict(build.VARIANTS[k]) for k in per_prefill}
     prefill_peak = torch.cuda.max_memory_allocated() / 2**30
-    check(prefill_launches == {kernel: cfg.n_layers},
-          f"{label}: prefill kernel launches {prefill_launches} != {{{kernel!r}: {cfg.n_layers}}}")
-    if kernel == "flash_attention":  # every launch the activation dtype's instantiation
+    check(prefill_launches == per_prefill,
+          f"{label}: prefill kernel launches {prefill_launches} != {per_prefill}")
+    if "flash_attention" in per_prefill:  # every launch the dtype's, D's instantiation
         code, tier = DTYPES[model.dtype], next(dp for dp in FLASH_TIERS if cfg.hd <= dp)
-        check(all(key[:2] == (code, tier) for key in prefill_variants),
+        check(all(key[:2] == (code, tier) for key in prefill_variants["flash_attention"]),
               f"{label}: flash_attention instantiations {prefill_variants}, "
               f"expected element type {code} ({cfg.dtype}) and head dim {tier}")
-    torch.cuda.reset_peak_memory_stats()
-    engine = ServeEngine(model, slots=slots, max_seq=1024)
-    reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
-    t0 = time.perf_counter()
-    engine.run()
-    torch.cuda.synchronize()
-    engine_s = time.perf_counter() - t0
-    engine_peak = torch.cuda.max_memory_allocated() / 2**30
+    engine = reqs = None
+    if decodes:
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, slots=slots, max_seq=1024)
+        reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        engine_peak = torch.cuda.max_memory_allocated() / 2**30
+        ticks = engine.tick_seconds
+        engine_launches = {k: v - prefill_launches.get(k, 0) for k, v in build.LAUNCHES.items()
+                           if v != prefill_launches.get(k, 0)}
+        want_ticks = {k: n * len(ticks) for k, n in (per_tick or {}).items()}
+        check(engine_launches == want_ticks, f"{label}: engine kernel launches "
+              f"{engine_launches} over {len(ticks)} ticks != {want_ticks}")
     launches = dict(build.LAUNCHES)
+    PHASE_CALLS[label] = {k: dict(v) for k, v in build.CALLS.items()}
 
     # The prefill against attn_impl="xla" on the card.
     check(bool(torch.isfinite(logits.float()).all()), f"{label}: non-finite prefill logits")
@@ -1954,10 +2094,10 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
           f"{prefill_launches} launches, instantiations {prefill_variants}", flush=True)
     if routed:
         del cache
-        check_pinned_prefill(torch, label, cfg, model, tokens, path_routing, tol)
+        check_pinned_prefill(torch, label, cfg, model, inputs["tokens"], path_routing, tol)
     else:
         with with_config(model, attn_impl="xla"):
-            want, want_cache = prefill({"tokens": tokens})
+            want, want_cache = prefill(inputs)
         _, rel = rel_err(logits.float(), want.float())
         errs = {"logits": rel}
         for key, t in cache_leaves(cache):
@@ -1967,14 +2107,14 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
         if cfg.dtype == "float32":
             check(all(e <= tol for e in errs.values()), f"{label}: pallas vs xla {errs} > {tol}")
         else:
-            check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol,
+            check_low_precision_prefill(torch, label, cfg, model, inputs, logits, want, tol,
                                         reference)
         del want
 
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        again, _ = prefill({"tokens": tokens})
+        again, _ = prefill(inputs)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         if routed:
@@ -1982,16 +2122,23 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
                   "differ from the first's")
         del again
     ms = statistics.median(walls)
+    unit = "frames" if cfg.frontend == "frames" else "tokens"
     print(f"{label} prefill ms {[round(w, 3) for w in walls]}, median {ms:.3f}; "
-          f"prefill tokens/s {batch * seq / (ms / 1e3):.0f}; "
+          f"prefill {unit}/s {batch * seq / (ms / 1e3):.0f}; "
           f"peak memory {prefill_peak:.3f} GiB", flush=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
-        prefill({"tokens": tokens})
+        prefill(inputs)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     print_groups(f"{label} profiled prefill", prof, wall)
     del logits
+    if cfg.family == "vlm":
+        check_vlm_decode(torch, label, model, inputs)
+    if not decodes:
+        print(f"{label}: {cfg.name} is encoder-only, so no engine runs", flush=True)
+        build.reset_launches()
+        return launches
 
     # The engine: every request done, `checked` of them equal to direct decode.
     check(len(engine.finished) == requests and all(len(r.output) == 32 for r in reqs),
@@ -1999,12 +2146,12 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     reused = [r for r in reqs if r.reused_slot]
     check(len(reused) >= 1 or requests <= slots, f"{label}: no slot was reused")
     generated = sum(len(r.output) for r in reqs)
-    ticks = engine.tick_seconds
     print(f"{label} engine: {requests} requests (prompts {min(map(len, prompts))}–"
           f"{max(map(len, prompts))} tokens, 32 new each) on {slots} slots, "
           f"{len(reused)} in reused slots: {len(ticks)} ticks in {engine_s:.3f} s, median tick "
           f"{statistics.median(ticks) * 1e3:.3f} ms, generated tokens/s "
-          f"{generated / engine_s:.1f}, peak memory {engine_peak:.3f} GiB", flush=True)
+          f"{generated / engine_s:.1f}, peak memory {engine_peak:.3f} GiB, kernel launches "
+          f"{engine_launches}", flush=True)
     # One tick's decode step under the profiler: every row busy, at spread
     # positions.
     step = make_serve_step(model)
@@ -2012,7 +2159,7 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     step_pos = torch.arange(slots, device="cuda") * 64
     step(engine.cache, step_tokens, step_pos)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         step(engine.cache, step_tokens, step_pos)
         torch.cuda.synchronize()
@@ -2032,17 +2179,51 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, kernel: str,
     return launches
 
 
+def check_vlm_decode(torch, label, model, inputs, prompt: int = 60, steps: int = 4) -> None:
+    """The reference's own vlm check, at full width: decode from a prefill's
+    cache reproduces the forward.  In fp32 at "pallas" (the kernels; the
+    cross blocks at S = 1 over the image K/V the prefill made), row 0 of the
+    batch: prefill ``prompt`` tokens with their cache, grow the self KV by
+    ``steps`` positions, decode the next ``steps`` tokens, and hold their
+    logits to the forward of all ``prompt + steps`` tokens at those
+    positions: 1e-4 of the largest (fp32 sums in another order)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    tokens, images = inputs["tokens"][:1, :prompt + steps], inputs["images"][:1]
+    with with_config(model, dtype="float32"):
+        prefill = make_prefill_step(model)
+        full, _ = prefill({"tokens": tokens, "images": images})
+        _, cache = prefill({"tokens": tokens[:, :prompt], "images": images})
+        for key in ("k", "v"):  # (G, per, B, S, KV, hd): room for `steps` more
+            cache["self"][key] = torch.nn.functional.pad(cache["self"][key],
+                                                         (0, 0, 0, 0, 0, steps))
+        step = make_serve_step(model)
+        got = []
+        for i in range(prompt, prompt + steps):
+            logits, cache = step(cache, tokens[:, i:i + 1], i)
+            got.append(logits[:, 0])
+    abs_err, rel = rel_err(torch.stack(got, 1), full[:, prompt:])
+    print(f"{label} fp32 decode of {steps} tokens from a {prompt}-token prefill's cache vs "
+          f"the forward: max abs {abs_err:.3e}, rel {rel:.3e} (tol 1e-4)", flush=True)
+    check(rel <= 1e-4, f"{label}: decode from the prefill's cache vs forward {rel:.3e} > 1e-4")
+
+
 def fro_rel(a, b) -> float:
-    """||a - b|| / ||b|| over every element (Frobenius), summed in fp64."""
+    """||a - b|| / ||b|| over every element (Frobenius): the difference in
+    fp32, the squares summed in fp64, a slice of 2^26 elements at a time
+    (an fp64 copy of a whole moe prefill's logits would take 12.3 GiB)."""
     import torch
 
-    def norm(x):
-        return torch.linalg.vector_norm(x.float().flatten(), dtype=torch.float64)
+    a, b = a.flatten(), b.flatten()
+    num = den = 0.0
+    for i in range(0, a.numel(), 2 ** 26):
+        x, y = a[i:i + 2 ** 26].float(), b[i:i + 2 ** 26].float()
+        num += float(torch.sum(torch.square((x - y).double())))
+        den += float(torch.sum(torch.square(y.double())))
+    return math.sqrt(num / den)
 
-    return float(norm(a.float() - b.float()) / norm(b))
 
-
-def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, tol,
+def check_low_precision_prefill(torch, label, cfg, model, inputs, logits, want, tol,
                                 reference=None) -> None:
     """A bf16 prefill through the kernels against the plain (xla) one.
     Both round every op to bf16 (2^-8 relative) but sum in fp32 in another
@@ -2054,7 +2235,8 @@ def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, 
     scale: the same prefill in fp32 through both paths must agree within
     ``tol`` (1e-4), and in bf16 the kernel path must lie no farther from
     the plain bf16 path, in Frobenius norm, than the plain bf16 path lies
-    from the fp32 result.  Every prefill runs on ``model``'s parameters.
+    from the fp32 result.  Every prefill runs on ``model``'s parameters and
+    the batch ``inputs``.
     The fp32 result is the same prefill in fp32 on them where they are
     stored in fp32; where they are stored in bf16 (``param_dtype``) it is
     ``reference``, the fp32 logits of the same draws stored in fp32: a bf16
@@ -2067,7 +2249,7 @@ def check_low_precision_prefill(torch, label, cfg, model, tokens, logits, want, 
     prefill = make_prefill_step(model)
     for impl in ("pallas", "xla"):
         with with_config(model, attn_impl=impl, dtype="float32"):
-            fp32[impl] = prefill({"tokens": tokens})[0]
+            fp32[impl] = prefill(inputs)[0]
     _, rel32 = rel_err(fp32["pallas"], fp32["xla"])
     if cfg.param_dtype == "float32":
         reference = fp32["xla"]
@@ -2203,8 +2385,7 @@ def phase_serve_llama(torch) -> dict:
     """llama-130m (fp32): prefill 8 x 1024 through flash attention.  The
     direct decode is the single-request one (batch 1): fp32 GEMMs of one
     row and of eight round alike to far below the logits' gaps."""
-    return phase_serve(torch, "serve-llama", "llama-130m", 8, 1024, "flash_attention",
-                       1e-4, direct_batch=1)
+    return phase_serve(torch, "serve-llama", "llama-130m", 8, 1024, 1e-4, direct_batch=1)
 
 
 def phase_serve_mamba(torch) -> dict:
@@ -2215,8 +2396,7 @@ def phase_serve_mamba(torch) -> dict:
     rows idle, as the engine's): bf16 GEMMs of another batch size pick
     other cuBLAS kernels, which round differently and move near-tied bf16
     logits."""
-    return phase_serve(torch, "serve-mamba", "mamba2-370m", 4, 4096, "ssd_scan",
-                       1e-4, direct_batch=8)
+    return phase_serve(torch, "serve-mamba", "mamba2-370m", 4, 4096, 1e-4, direct_batch=8)
 
 
 # The head dims flash attention pads D to (its instantiations).
@@ -2238,7 +2418,7 @@ def phase_serve_dense(torch) -> dict:
     print(f"serve-dense on {smi_line()}", flush=True)
     launches: dict = {}
     for arch, (slots, requests, checked) in DENSE_VARIANTS.items():
-        got = phase_serve(torch, f"serve-{arch}", arch, 4, 2048, "flash_attention", 1e-4,
+        got = phase_serve(torch, f"serve-{arch}", arch, 4, 2048, 1e-4,
                           direct_batch=slots, slots=slots, requests=requests, checked=checked)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
@@ -2287,10 +2467,9 @@ def phase_serve_nemotron(torch) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     del model
     torch.cuda.empty_cache()
-    launches = phase_serve(torch, "serve-nemotron", "nemotron-4-340b", 1, 4096,
-                           "flash_attention", 1e-4, direct_batch=4, slots=4, requests=4,
-                           checked=1, changes={"n_layers": NEMOTRON_LAYERS,
-                                               "param_dtype": "bfloat16"},
+    launches = phase_serve(torch, "serve-nemotron", "nemotron-4-340b", 1, 4096, 1e-4,
+                           direct_batch=4, slots=4, requests=4, checked=1,
+                           changes={"n_layers": NEMOTRON_LAYERS, "param_dtype": "bfloat16"},
                            reference=reference)
     torch.cuda.empty_cache()
     return launches
@@ -2318,7 +2497,7 @@ def phase_serve_moe(torch, label: str, arch: str, changes: dict) -> dict:
     cfg = get_config(arch)
     print(f"{label} on {smi_line()}: depth cut from {cfg.n_layers} to {MOE_LAYERS} layers, "
           f"{changes}", flush=True)
-    launches = phase_serve(torch, label, arch, 4, 2048, "flash_attention", 1e-4,
+    launches = phase_serve(torch, label, arch, 4, 2048, 1e-4,
                            direct_batch=4, slots=4, requests=4, checked=1,
                            changes={"n_layers": MOE_LAYERS, **changes})
     torch.cuda.empty_cache()
@@ -2337,6 +2516,80 @@ def phase_serve_maverick(torch) -> dict:
     bf16 parameters."""
     return phase_serve_moe(torch, "serve-maverick", "llama4-maverick-400b-a17b",
                            {"param_dtype": "bfloat16"})
+
+
+# The integer arguments of each serving phase's kernel launches (prefill and
+# engine run), by phase label: build.CALLS, read by the kernels line's tags.
+PHASE_CALLS: dict[str, dict] = {}
+
+
+def phase_serve_zamba2(torch) -> dict:
+    """Phase 12: zamba2-1.2b (hybrid: 38 Mamba-2 layers, d 2048, 64 SSD heads
+    of 64, N 64, chunk 64; one shared block of 32 heads of 64 (MHA), d_ff
+    8192, run after layers 0, 6, ..., 36), all 38 layers, fp32 parameters,
+    bf16 activations: prefill 4 x 4096 through the SSD scan (38 launches)
+    and flash attention's bf16 instantiation at D = 64 (7), held to "xla" as
+    :func:`check_low_precision_prefill` says, then phase 7's engine (8
+    slots, 16 requests; the decode runs no kernel), a reused slot checked
+    against direct decode in its slot's row of an 8-row cache."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2-1.2b")
+    apps = -(-cfg.n_layers // cfg.shared_attn_every)
+    print(f"serve-zamba2 on {smi_line()}: {cfg.n_layers} layers, the shared block "
+          f"{apps} times", flush=True)
+    launches = phase_serve(torch, "serve-zamba2", "zamba2-1.2b", 4, 4096, 1e-4,
+                           direct_batch=8)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# Phase 13: llama-3.2-vision-11b at full width, its depth cut from 40 layers
+# (8 groups of 5 self-attention blocks and a cross-attention block) to
+# VISION_LAYERS (2 groups: 10 self blocks, 2 cross blocks; 3668.0M fp32
+# parameters, 14.7 GB).
+VISION_LAYERS = 10
+
+
+def phase_serve_vision(torch) -> dict:
+    """Phase 13: llama-3.2-vision-11b (d 4096, 32 heads over 8, head dim 128,
+    d_ff 14336, vocab 128256, a gated cross-attention block after every 5
+    self blocks over 1601 image tokens), VISION_LAYERS layers, fp32
+    parameters, bf16 activations, seeded nonzero gates: prefill 4 x 2048
+    with images (4, 1601, 4096) through flash attention's bf16
+    instantiation, causal over the tokens (10 launches) and unmasked over
+    the image tokens (2), held to "xla" as
+    :func:`check_low_precision_prefill` says; fp32 decode from the prefill's
+    cache against the forward; then an engine of 4 slots and 4 requests
+    (every tick launches the kernel once a group: one query over the image
+    K/V, which the engine, as the reference's, leaves zero), one checked
+    against direct decode in its slot's row of a 4-row cache."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama-3.2-vision-11b")
+    groups = VISION_LAYERS // cfg.cross_attn_every
+    print(f"serve-vision on {smi_line()}: depth cut from {cfg.n_layers} to {VISION_LAYERS} "
+          f"layers ({groups} groups)", flush=True)
+    launches = phase_serve(torch, "serve-vision", "llama-3.2-vision-11b", 4, 2048, 1e-4,
+                           direct_batch=4, slots=4, requests=4, checked=1,
+                           changes={"n_layers": VISION_LAYERS},
+                           per_tick={"flash_attention": groups})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_hubert(torch) -> dict:
+    """Phase 14: hubert-xlarge (encoder-only, d 1280, 16 heads of 80, d_ff
+    5120, LayerNorm, GELU, no RoPE, vocab 504), all 48 layers, fp32
+    parameters, bf16 activations: an encoder forward of 4 x 4096 seeded
+    frames x 0.02 through ``make_prefill_step``, flash attention's bf16
+    instantiation unmasked at D = 80 (padded to 128; 48 launches), held to
+    "xla" as :func:`check_low_precision_prefill` says.  No engine."""
+    print(f"serve-hubert on {smi_line()}", flush=True)
+    launches = phase_serve(torch, "serve-hubert", "hubert-xlarge", 4, 4096, 1e-4,
+                           direct_batch=1)
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------- phase 5
@@ -2494,13 +2747,17 @@ def phase_agree_serve(torch):
     variants' SMOKE (fp32; chatglm3-6b's 2-D RoPE, qwen1.5-4b's MHA and qkv
     biases, starcoder2-7b's layernorm, GELU and mlp biases, a ragged
     sequence) and nemotron-4-340b's SMOKE (squared ReLU, untied head) and
-    its head-dim-192 variant, and the moe family's SMOKE (dbrx-132b,
-    llama4-maverick-400b) at attn_impl="pallas" on the card (the
-    kernels, D = 16 and 192; chunk 16, N 16, P 16, a ragged last chunk) and
-    on the CPU (their plain versions), same parameters: logits within 1e-4
-    relative (fp32 sums in another order through two or three layers).  A
-    moe prefill on the card replays the CPU's routing (its own flips
-    printed beside)."""
+    its head-dim-192 variant, the moe family's SMOKE (dbrx-132b,
+    llama4-maverick-400b), and the last families' SMOKE: zamba2-1.2b (the
+    SSD scan and the shared block's attention), llama-3.2-vision-11b (with
+    images and seeded nonzero gates: the cross-attention unmasked over 16
+    image tokens) and hubert-xlarge (frames, unmasked), at
+    attn_impl="pallas" on the card (the kernels, D = 16 and 192; chunk 16,
+    N 16, P 16, a ragged last chunk) and on the CPU (their plain versions),
+    same parameters and inputs: logits within 1e-4 relative (fp32 sums in
+    another order through two or three layers), each kernel launched as
+    often as the family's layout says.  A moe prefill on the card replays
+    the CPU's routing (its own flips printed beside)."""
     import numpy as np
 
     from repro_torch.configs import get_smoke
@@ -2508,35 +2765,43 @@ def phase_agree_serve(torch):
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import build_model, moe
 
-    for arch, changes, kernel, seq in [("llama-60m", {}, "flash_attention", 64),
-                                       ("mamba2-370m", {}, "ssd_scan", 60),
-                                       ("chatglm3-6b", {}, "flash_attention", 64),
-                                       ("qwen1.5-4b", {}, "flash_attention", 64),
-                                       ("starcoder2-7b", {}, "flash_attention", 60),
-                                       ("nemotron-4-340b", {}, "flash_attention", 64),
-                                       ("nemotron-4-340b", {"head_dim": 192},
-                                        "flash_attention", 60),
-                                       *((name, {}, "flash_attention", 64)
-                                         for name in MOE_ARCHS)]:
+    for arch, changes, seq in [("llama-60m", {}, 64), ("mamba2-370m", {}, 60),
+                               ("chatglm3-6b", {}, 64), ("qwen1.5-4b", {}, 64),
+                               ("starcoder2-7b", {}, 60), ("nemotron-4-340b", {}, 64),
+                               ("nemotron-4-340b", {"head_dim": 192}, 60),
+                               *((name, {}, 64) for name in MOE_ARCHS),
+                               ("zamba2-1.2b", {}, 60), ("llama-3.2-vision-11b", {}, 64),
+                               ("hubert-xlarge", {}, 60)]:
         cfg = get_smoke(arch).replace(attn_impl="pallas", **changes)
         cpu = build_model(cfg, device="cpu")
         cpu.init_params(0)
+        if cfg.family == "vlm":
+            set_vlm_gates(torch, cpu)
         card = build_model(cfg, device="cuda")
         card.load_params({k: v.detach() for k, v in cpu.params().items()})
-        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, seq)))
-        before = build.LAUNCHES[kernel]
+        rng = np.random.default_rng(0)
+        inputs = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, seq)))}
+        if cfg.family == "vlm":
+            inputs["images"] = torch.from_numpy(
+                0.02 * rng.standard_normal((2, cfg.n_image_tokens, cfg.d_model))).float()
+        if cfg.frontend == "frames":
+            inputs = {"frames": torch.from_numpy(
+                0.02 * rng.standard_normal((2, seq, cfg.d_model))).float()}
+        on_card = {k: v.to("cuda") for k, v in inputs.items()}
+        build.reset_launches()
         with moe.record_routing() as card_log:
-            got, _ = make_prefill_step(card)({"tokens": tokens.to("cuda")})
+            got, _ = make_prefill_step(card)(on_card)
         torch.cuda.synchronize()
-        check(build.LAUNCHES[kernel] == before + cfg.n_layers,
-              f"agree prefill {arch}: {kernel} launches {before} -> {build.LAUNCHES[kernel]}")
+        ran = {k: v for k, v in build.LAUNCHES.items() if v}
+        check(ran == expected_launches(cfg),
+              f"agree prefill {arch}: kernel launches {ran} != {expected_launches(cfg)}")
         with moe.record_routing() as cpu_log:
-            want, _ = make_prefill_step(cpu)({"tokens": tokens})
+            want, _ = make_prefill_step(cpu)(inputs)
         routed = ""
         if cpu_log.calls:
             routed = f" on the cpu's routing (unpinned flips {moe.flips(cpu_log, card_log)})"
             with moe.replay_routing(cpu_log):
-                got, _ = make_prefill_step(card)({"tokens": tokens.to("cuda")})
+                got, _ = make_prefill_step(card)(on_card)
         _, rel = rel_err(got.cpu(), want)
         print(f"agree {arch} smoke{f' {changes}' if changes else ''} prefill at "
               f"attn_impl=pallas: cuda vs cpu max rel {rel:.2e}{routed}", flush=True)
@@ -2549,12 +2814,31 @@ PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_basel
           "rank-policy": phase_rank_policy,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
-          "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick}
-# An instantiation reported beside its kernel's row, by the phases whose
-# launches are all of it.
-TAGGED = {("flash_attention", "bf16"): ("serve-dense",),
-          ("flash_attention", "bf16_d192"): ("serve-nemotron",),
-          ("flash_attention", "bf16_moe"): ("serve-dbrx", "serve-maverick")}
+          "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick,
+          "serve-zamba2": phase_serve_zamba2, "serve-vision": phase_serve_vision,
+          "serve-hubert": phase_serve_hubert}
+
+
+def every_launch(key: tuple) -> bool:
+    return True
+
+
+# An instantiation or input reported beside its kernel's row: the serving
+# phases (their labels) whose launches of the kernel it counts, and which of
+# those launches, a test on each launch's integer arguments (build.CALLS;
+# flash_attention's (B, S, T, H, KV, D, causal, element type)).
+TAGGED = {("flash_attention", "bf16"): (tuple(f"serve-{a}" for a in DENSE_VARIANTS),
+                                        every_launch),
+          ("flash_attention", "bf16_d192"): (("serve-nemotron",), every_launch),
+          ("flash_attention", "bf16_moe"): (("serve-dbrx", "serve-maverick"), every_launch),
+          ("ssd_scan", "zamba2"): (("serve-zamba2",), every_launch),
+          ("flash_attention", "bf16_zamba2"): (("serve-zamba2",), every_launch),
+          ("flash_attention", "bf16_vision_self"): (("serve-vision",), lambda key: key[6]),
+          ("flash_attention", "bf16_vision_cross"): (("serve-vision",),
+                                                     lambda key: not key[6] and key[1] > 1),
+          ("flash_attention", "bf16_vision_decode"): (("serve-vision",),
+                                                      lambda key: not key[6] and key[1] == 1),
+          ("flash_attention", "bf16_hubert"): (("serve-hubert",), every_launch)}
 # Shapes reported beside a row's principal one: rows 1-5 at rank 128.
 RANK_TAGS = ("r128", "r128_project", "momenta_r256", "momenta_r128")
 
@@ -2607,9 +2891,10 @@ def main() -> None:
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": row["shape"]})
         kernels[-1].update({tag: row[tag] for tag in RANK_TAGS if tag in row})
-        for (kname, tag), phases in TAGGED.items():
+        for (kname, tag), (labels, counts) in TAGGED.items():
             if kname == name:
-                tagged = sum(paths[phase].get(name, 0) for phase in phases)
+                tagged = sum(n for label in labels
+                             for key, n in PHASE_CALLS[label][name].items() if counts(key))
                 check(tagged > 0, f"kernel {name} ({tag}) never launched on the path")
                 kernels[-1][tag] = row[tag] | {"launches": tagged}
     print(smi, flush=True)

@@ -1,5 +1,5 @@
 """Model and run configuration dataclasses (a copy of the JAX package's
-``configs/base.py``; the port reads the dense-family and ssm fields)."""
+``configs/base.py`` without its shape table)."""
 from __future__ import annotations
 
 import dataclasses

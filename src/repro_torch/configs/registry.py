@@ -1,21 +1,25 @@
 """Architecture registry: id -> (full config, smoke config).
 
-The paper's dense LLaMA configs, the dense variants (chatglm3-6b,
-qwen1.5-4b, starcoder2-7b, nemotron-4-340b), mamba2-370m (the ssm family)
-and the moe family (dbrx-132b, llama4-maverick-400b-a17b) are ported; the other architectures of the JAX package's registry come with
-their model families.
+Every architecture of the JAX package's registry, under its id: the paper's
+dense LLaMA configs, the dense variants (chatglm3-6b, qwen1.5-4b,
+starcoder2-7b, nemotron-4-340b), mamba2-370m (ssm), the moe family
+(dbrx-132b, llama4-maverick-400b-a17b), zamba2-1.2b (hybrid),
+llama-3.2-vision-11b (vlm) and hubert-xlarge (audio).
 """
 from __future__ import annotations
 
 from repro_torch.configs import (
     chatglm3_6b,
     dbrx_132b,
+    hubert_xlarge,
     llama4_maverick_400b,
+    llama_3_2_vision_11b,
     llama_paper,
     mamba2_370m,
     nemotron_4_340b,
     qwen1_5_4b,
     starcoder2_7b,
+    zamba2_1_2b,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -30,13 +34,16 @@ _ARCHS = {
     "mamba2-370m": (mamba2_370m.CONFIG, mamba2_370m.SMOKE),
     "dbrx-132b": (dbrx_132b.CONFIG, dbrx_132b.SMOKE),
     "llama4-maverick-400b-a17b": (llama4_maverick_400b.CONFIG, llama4_maverick_400b.SMOKE),
+    "zamba2-1.2b": (zamba2_1_2b.CONFIG, zamba2_1_2b.SMOKE),
+    "llama-3.2-vision-11b": (llama_3_2_vision_11b.CONFIG, llama_3_2_vision_11b.SMOKE),
+    "hubert-xlarge": (hubert_xlarge.CONFIG, hubert_xlarge.SMOKE),
 }
 ARCHS = tuple(_ARCHS)
 
 
 def _known(arch: str) -> None:
     if arch not in _ARCHS:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; ported: {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
 
 
 def get_config(arch: str) -> ModelConfig:

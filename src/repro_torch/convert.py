@@ -4,8 +4,9 @@ as numpy arrays.
 The JAX reference keeps parameters as a nested dict pytree; the port keeps a
 flat ``{path: tensor}`` dict with ``/``-joined paths in the same leaf order.
 Decode caches keep the reference's nesting in both: flat ``{"k", "v"}`` or
-``{"conv", "ssm"}``, and the moe family's grouped ``{"dense": {"k", "v"},
-"moe": {"k", "v"}}``.
+``{"conv", "ssm"}``, the moe family's grouped ``{"dense": {"k", "v"},
+"moe": {"k", "v"}}``, the hybrid's ``{"mamba": {"conv", "ssm"}, "attn":
+{"k", "v"}}`` and the vlm's ``{"self": {"k", "v"}, "xk", "xv"}``.
 Nothing here imports JAX: pass ``jax.device_get(tree)`` (or any nested
 dict of array-likes) in, and get nested numpy dicts out.  bfloat16 arrays
 (numpy's ``ml_dtypes`` bfloat16) become ``torch.bfloat16`` tensors.
@@ -38,8 +39,10 @@ def _tensor(arr: Any, device) -> torch.Tensor:
 def params_from_jax(tree: Any, device: Optional[str | torch.device] = "cpu"
                     ) -> dict[str, torch.Tensor]:
     """Nested dict of arrays -> ``{path: tensor}`` on ``device`` (the
-    parameter tree of every ported family: the mamba blocks and an untied
-    ``embed/lm_head`` carry across like the rest)."""
+    parameter tree of every family: the hybrid's unstacked ``shared/...``,
+    the vlm's ``blocks/self|cross/...`` with its (G,) gates, the audio
+    front end's ``embed/{frame_proj, pos_embed, lm_head}`` carry across like
+    the rest)."""
     flat: dict = {}
     _flatten(tree, "", flat)
     return {k: _tensor(flat[k], device) for k in sort_paths(flat)}

@@ -13,9 +13,10 @@ of the package on a machine without ``nvcc``.
 pointer as ``c_void_p``, launches on the operands' device and that device's
 current PyTorch stream, raises when
 the C entry point returns a non-zero ``cudaGetLastError()`` code, and only
-then adds one to that kernel's count in :data:`LAUNCHES` and to the count of
+then adds one to that kernel's count in :data:`LAUNCHES`, to the count of
 the template instantiation it ran in :data:`VARIANTS` (each C entry point
-reports it through its ``int* variant`` out-argument).
+reports it through its ``int* variant`` out-argument) and to the count of
+its integer arguments in :data:`CALLS`.
 """
 from __future__ import annotations
 
@@ -55,6 +56,10 @@ LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 # the kernel's template order, bools as 0 / 1 (e.g. back_project (64, 64,
 # 1, 1): a 64 x 64 tile, P read K-major on the right side, 16-byte copies).
 VARIANTS: dict[str, dict[tuple[int, ...], int]] = {name: {} for name in KERNELS}
+# Launches per kernel and integer arguments since the last reset_launches():
+# {name: {the C entry's int arguments in order: launches}}, e.g.
+# flash_attention (B, S, T, H, KV, D, causal, element type).
+CALLS: dict[str, dict[tuple[int, ...], int]] = {name: {} for name in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -63,6 +68,7 @@ def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
         VARIANTS[name] = {}
+        CALLS[name] = {}
 
 
 def _nvcc() -> str:
@@ -155,6 +161,8 @@ def launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
     key = tuple(v for v in variant if v != -1)
     VARIANTS[name][key] = VARIANTS[name].get(key, 0) + 1
+    ints = tuple(a for a, kind in zip(args, SIGNATURES[name]) if kind is _I)
+    CALLS[name][ints] = CALLS[name].get(ints, 0) + 1
 
 
 def check_operands(device: torch.device, *, ndim: int = 3, dtype_error=TypeError,

@@ -12,27 +12,42 @@ from repro_torch.core.api import Transform, clip_by_global_norm, global_norm
 from repro_torch.models.transformer import Transformer, chunked_lm_loss, lm_loss
 
 
+def _model_inputs(model, batch: dict) -> tuple[Optional[torch.Tensor], dict]:
+    """The forward's inputs from a batch: the tokens, or under the frames
+    front end (audio) ``frames=``; ``images=`` (vlm) where the batch has
+    them."""
+    kwargs = {"images": batch["images"]} if "images" in batch else {}
+    if model.cfg.frontend == "frames":
+        return None, kwargs | {"frames": batch["frames"]}
+    return batch["tokens"], kwargs
+
+
 def _loss_from_batch(model: Transformer, batch: dict) -> torch.Tensor:
-    """The next-token loss of one batch: through :func:`chunked_lm_loss`
-    when ``cfg.logit_chunk > 0`` (no ``(B, S, V)`` logits are held), else
-    :func:`lm_loss` on the full logits; a family with an aux loss (moe)
-    adds it, as the reference's loss does."""
-    tokens = batch["tokens"]
+    """The loss of one batch, as the reference's: next-token cross-entropy
+    on the tokens, or under the frames front end (audio) cross-entropy on
+    ``batch["targets"]`` position by position (no shift); through
+    :func:`chunked_lm_loss` when ``cfg.logit_chunk > 0`` (no ``(B, S, V)``
+    logits are held), else :func:`lm_loss` on the full logits; a family
+    with an aux loss (moe) adds it."""
+    inputs, kwargs = _model_inputs(model, batch)
+    frames = "frames" in kwargs
+    targets = batch["targets"] if frames else inputs
     chunk = model.cfg.logit_chunk
     aux = None
     if getattr(model, "has_aux", False):
-        out, aux = model(tokens, return_hidden=chunk > 0, return_aux=True)
+        out, aux = model(inputs, return_hidden=chunk > 0, return_aux=True, **kwargs)
     else:
-        out = model(tokens, return_hidden=chunk > 0)
+        out = model(inputs, return_hidden=chunk > 0, **kwargs)
     if chunk > 0:
-        return chunked_lm_loss(out, tokens, chunk, model.embed.embed,
-                               getattr(model.embed, "lm_head", None), aux=aux)
-    return lm_loss(out, tokens, aux)
+        return chunked_lm_loss(out, targets, chunk, getattr(model.embed, "embed", None),
+                               getattr(model.embed, "lm_head", None), shift=not frames, aux=aux)
+    return lm_loss(out, targets, aux, shift=not frames)
 
 
 def split_microbatches(batch: dict, microbatches: int) -> list[dict]:
-    """The batch's rows in ``microbatches`` equal, consecutive slices."""
-    rows = batch["tokens"].shape[0]
+    """The batch's rows in ``microbatches`` equal, consecutive slices (of
+    every entry: tokens, frames and targets, images)."""
+    rows = next(iter(batch.values())).shape[0]
     if rows % microbatches:
         raise ValueError(f"batch of {rows} rows does not split into {microbatches} "
                          "equal microbatches")
@@ -159,15 +174,19 @@ def _make_lowrank_accum_step(model: Transformer, tools, grad_clip: float,
 
 def make_prefill_step(model) -> Callable:
     """``batch -> (logits, cache)``: the forward pass of an inference
-    prefill, with the populated KV cache for the attention families and None
-    for the ssm family (whose prefill builds no decode cache, as in the
-    reference).  Runs without autograd, so the forward-only kernels run."""
+    prefill on ``batch["tokens"]`` (``"frames"`` for audio, with
+    ``"images"`` for vlm), with the populated cache for the dense, moe and
+    vlm families and None for the others (the ssm and hybrid prefill builds
+    no decode cache, and audio has no decode, as in the reference).  Runs
+    without autograd, so the forward-only kernels run."""
     want_cache = model.cfg.family in ("dense", "moe", "vlm")
 
     @torch.no_grad()
     def prefill_step(batch: dict):
-        logits, cache = model(batch["tokens"], return_cache=True)
-        return logits, (cache if want_cache else None)
+        inputs, kwargs = _model_inputs(model, batch)
+        if want_cache:
+            return model(inputs, return_cache=True, **kwargs)
+        return model(inputs, **kwargs), None
 
     return prefill_step
 

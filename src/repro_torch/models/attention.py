@@ -1,7 +1,8 @@
-"""GQA self-attention and its one-token decode (the self-attention half of
-the JAX package's ``models/attention.py``), on one layer's weights ``p``:
-``wq``, ``wk``, ``wv``, ``wo`` and, under ``cfg.qkv_bias``, ``bias_q``,
-``bias_k``, ``bias_v``, each cast to the activations' dtype at its use."""
+"""GQA self-attention, its one-token decode and cross-attention (the JAX
+package's ``models/attention.py``), on one layer's weights ``p``: ``wq``,
+``wk``, ``wv``, ``wo`` and, under ``cfg.qkv_bias``, ``bias_q``, ``bias_k``,
+``bias_v`` (self-attention only: cross-attention reads no bias, as in the
+reference), each cast to the activations' dtype at its use."""
 from __future__ import annotations
 
 import torch
@@ -51,3 +52,23 @@ def decode_self_attention(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: Mode
     vcache[rows, pos] = v[:, 0].to(vcache.dtype)
     o = ops.decode_attention(q, kcache, vcache, pos)
     return o.reshape(x.shape[:-1] + (cfg.n_heads * cfg.hd,)) @ p["wo"].to(x.dtype)
+
+
+def cross_attention(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: ModelConfig,
+                    xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) attends over precomputed image K/V (B, T_img, KV, hd),
+    no RoPE and no mask (Llama-3.2-Vision): ``ops.attention`` with
+    ``causal=False`` at ``cfg.attn_impl``, so S != T (and S = 1 in decode)."""
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(x.shape[:-1] + (H, hd))
+    o = ops.attention(q, xk.to(x.dtype), xv.to(x.dtype), causal=False, impl=cfg.attn_impl)
+    return o.reshape(x.shape[:-1] + (H * hd,)) @ p["wo"].to(x.dtype)
+
+
+def encode_cross_kv(p: dict[str, torch.Tensor], img: torch.Tensor, cfg: ModelConfig):
+    """The K/V projections of the image embeddings img (B, T_img, D), each
+    (B, T_img, KV, hd) in img's dtype."""
+    KV, hd = cfg.kv_heads, cfg.hd
+    k = (img @ p["wk"].to(img.dtype)).reshape(img.shape[:-1] + (KV, hd))
+    v = (img @ p["wv"].to(img.dtype)).reshape(img.shape[:-1] + (KV, hd))
+    return k, v

@@ -1,8 +1,10 @@
-"""Model assembly for the ported families (the JAX package's
-``models/transformer.py``): the dense decoder (the paper's LLaMA and the
-dense variants: chatglm3-6b, qwen1.5-4b, starcoder2-7b), the Mamba-2
-(ssm) model and the moe family (dbrx-132b, llama4-maverick-400b), each an
-``nn.Module``.
+"""Model assembly for every family of the JAX package's
+``models/transformer.py``, each an ``nn.Module``: the dense decoder (the
+paper's LLaMA and the dense variants: chatglm3-6b, qwen1.5-4b,
+starcoder2-7b, nemotron-4-340b) and the audio encoder (hubert-xlarge) in
+:class:`Transformer`, the Mamba-2 (ssm) model, the hybrid (zamba2-1.2b),
+the moe family (dbrx-132b, llama4-maverick-400b) and the vlm
+(llama-3.2-vision-11b).
 
 Parameters are **layer-stacked** under the reference's paths, so the
 optimizer sees the same leaves.  Dense::
@@ -21,6 +23,13 @@ optimizer sees the same leaves.  Dense::
     final_norm/norm_scale          (d,)
     final_norm/norm_bias           (d,)            layernorm only
 
+audio (``frontend="frames"``): the dense blocks, encoder-only (no mask, no
+decode), and the frames front end in place of the token embedding::
+
+    embed/frame_proj               (d, d)          frames (B, S, d) @ it
+    embed/pos_embed                (max_seq, d)    learned positions, added
+    embed/lm_head                  (d, vocab)
+
 ssm (Mamba-2)::
 
     blocks/ln1/norm_scale          (L, d)
@@ -28,6 +37,11 @@ ssm (Mamba-2)::
                   ssm_in, ssm_out} (L, ...)   see models/mamba2.py
     embed/{embed, lm_head}
     final_norm/norm_scale          (d,)
+
+hybrid (zamba2-1.2b): the ssm tree and one dense block, **not** stacked,
+applied after Mamba layer l when ``l % shared_attn_every == 0``::
+
+    shared/{attn, ln1, ln2, mlp}/...   as one layer of the dense tree
 
 moe, ``moe_every == 1`` (dbrx-132b): the dense tree's ``blocks/{attn, ln1,
 ln2}`` with ``blocks/moe`` in place of ``blocks/mlp``::
@@ -45,29 +59,41 @@ each ``per = moe_every - 1`` dense blocks and one MoE block::
     blocks/moe/{attn, ln1, ln2}/...          (G, ...)
     blocks/moe/moe/...                       (G, ...)       as above
 
+vlm (llama-3.2-vision-11b): G = L / cross_attn_every groups, each ``per =
+cross_attn_every`` dense blocks and one gated cross-attention block, whose
+K/V come from the images (B, n_image_tokens, d)::
+
+    blocks/self/{attn, ln1, ln2, mlp}/...    (G, per, ...)  as the dense tree
+    blocks/cross/{ln, ln_mlp}/...            (G, d)
+    blocks/cross/xattn/{wq, wk, wv, wo}      (G, ...)       as attn
+    blocks/cross/mlp/...                     (G, ...)       as the dense mlp
+    blocks/cross/{gate_attn, gate_mlp}       (G,)           zero at init
+
 GUM samples gamma of the L blocks of each stacked leaf, so one module per
 layer would change what a block is.  ``forward`` loops over the layers.
-Under ``cfg.remat``, when autograd records, each layer runs under
+Under ``cfg.remat``, when autograd records, each layer (or group) runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``):
 ``remat_policy="dots"`` keeps the un-batched products, any other policy
 keeps nothing, and backward recomputes the rest.
-Parameters are fp32, or, for the dense and moe families under
+Parameters are fp32, or, for the dense, audio, moe and vlm families under
 ``cfg.param_dtype="bfloat16"``, stored as the reference stores them: every
 leaf with two or more dims in bf16 (the layer-stacked norms and biases and
-the router included), the ``(d,)`` leaves of ``final_norm`` in fp32.  All
-families
+the router included), the ``(d,)`` leaves of ``final_norm`` and the vlm
+gates in fp32.  All families
 compute in ``cfg.dtype`` (bf16 for every full-size config but the paper's
 LLaMA), casting each weight at its use, as the reference does (a no-op on a
 bf16 leaf in bf16, an up-cast when a bf16-stored model runs in fp32).
 
 The moe family's ``forward(return_aux=True)`` also returns the MoE layers'
 summed load-balancing loss, which :func:`lm_loss` and
-:func:`chunked_lm_loss` add at 0.01.
+:func:`chunked_lm_loss` add at 0.01.  The audio family's forward takes
+``frames=`` in place of tokens, the vlm's ``images=`` beside them.
 
 Serving: ``forward(tokens, return_cache=True)`` (prefill), ``init_cache``,
 ``decode_step(cache, tokens, pos)`` with one position per batch row, and
 ``reset_slot`` (zero one row's recurrent state).  ``decode_step`` updates
 the cache **in place** and returns it; the reference returns a new one.
+The audio family is encoder-only: ``init_cache`` and ``decode_step`` raise.
 """
 from __future__ import annotations
 
@@ -87,7 +113,12 @@ from repro_torch.core.api import sort_paths
 from repro_torch.kernels import ops
 from repro_torch.launch.devices import resolve_device
 from repro_torch.models import mamba2, moe
-from repro_torch.models.attention import decode_self_attention, self_attention
+from repro_torch.models.attention import (
+    cross_attention,
+    decode_self_attention,
+    encode_cross_kv,
+    self_attention,
+)
 from repro_torch.models.layers import apply_mlp, apply_norm, trunc_normal_, unembed
 
 
@@ -135,8 +166,8 @@ def _positions(pos, batch: int, device: torch.device) -> torch.Tensor:
 
 
 class _LM(nn.Module):
-    """What both families share: parameter paths, loading, the embedding and
-    the head."""
+    """What every family shares: parameter paths, loading, the embedding,
+    the dense block and the head."""
 
     cfg: ModelConfig
 
@@ -147,6 +178,11 @@ class _LM(nn.Module):
         return torch.empty(shape, dtype=dtype, device=self._device)
 
     def _init_embed(self, gen: torch.Generator) -> None:
+        if self.cfg.frontend == "frames":
+            trunc_normal_(self.embed.frame_proj, self.cfg.d_model ** -0.5, gen)
+            trunc_normal_(self.embed.pos_embed, 0.02, gen)
+            trunc_normal_(self.embed.lm_head, 0.02, gen)
+            return
         trunc_normal_(self.embed.embed, 0.02, gen)
         if not self.cfg.tie_embeddings:
             trunc_normal_(self.embed.lm_head, 0.02, gen)
@@ -154,7 +190,7 @@ class _LM(nn.Module):
     @property
     def device(self) -> torch.device:
         """The parameters' device."""
-        return self.embed.embed.device
+        return self.final_norm.norm_scale.device
 
     @property
     def dtype(self) -> torch.dtype:
@@ -213,10 +249,10 @@ class _LM(nn.Module):
         bias = {"bias_in": empty(*lead, ff), "bias_out": empty(*lead, d)} if cfg.mlp_bias else {}
         return _group(w_in=empty(*lead, d, ff), **gate, w_out=empty(*lead, ff, d), **bias)
 
-    def _check_dense_parts(self, cfg: ModelConfig) -> None:
+    def _check_dense_parts(self, cfg: ModelConfig, frontends=("none",)) -> None:
         """Raise for what the attention / MLP blocks do not port."""
         if (cfg.act not in Transformer.ACTS or cfg.norm not in ("rmsnorm", "layernorm")
-                or cfg.rope not in ("rope", "rope2d", "none") or cfg.frontend != "none"):
+                or cfg.rope not in ("rope", "rope2d", "none") or cfg.frontend not in frontends):
             raise NotImplementedError(f"{cfg.name}: act {cfg.act!r}, norm {cfg.norm!r}, rope "
                                       f"{cfg.rope!r}, frontend {cfg.frontend!r} is not ported")
         if cfg.dtype not in ("float32", "bfloat16") or cfg.param_dtype not in ("float32",
@@ -233,7 +269,48 @@ class _LM(nn.Module):
                     norm.norm_bias.zero_()
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return unembed(self._final(x), self.embed.embed, getattr(self.embed, "lm_head", None))
+        return unembed(self._final(x), getattr(self.embed, "embed", None),
+                       getattr(self.embed, "lm_head", None))
+
+    def _init_dense_parts(self, gen: torch.Generator, attns=(), mlps=()) -> None:
+        """Initialise attention and MLP groups (any lead dims) from ``gen``:
+        truncated normals at the reference's scales, biases zero."""
+        cfg = self.cfg
+        for attn in attns:
+            for w in (attn.wq, attn.wk, attn.wv):
+                trunc_normal_(w, cfg.d_model ** -0.5, gen)
+            trunc_normal_(attn.wo, (cfg.n_heads * cfg.hd) ** -0.5, gen)
+        for mlp in mlps:
+            for w in (mlp.w_in, getattr(mlp, "w_gate", None)):
+                if w is not None:
+                    trunc_normal_(w, cfg.d_model ** -0.5, gen)
+            trunc_normal_(mlp.w_out, cfg.d_ff ** -0.5, gen)
+        with torch.no_grad():
+            for group in (*attns, *mlps):
+                for name, p in group.named_parameters():
+                    if name.startswith("bias_"):
+                        p.zero_()
+
+    @staticmethod
+    def _block(blocks: nn.Module, i) -> dict[str, dict[str, torch.Tensor]]:
+        """Block ``i`` (an int, a (group, j) pair, or None for an unstacked
+        block) of ``blocks``' stacks."""
+        return {name: _at(group, i) for name, group in blocks.named_children()}
+
+    def _attend(self, x, p, positions, causal):
+        h, (k, v) = self_attention(apply_norm(x, p["ln1"], self.cfg), p["attn"], self.cfg,
+                                   positions, causal)
+        return x + h, k, v
+
+    def _dense_block(self, x, p, positions, causal):
+        x, k, v = self._attend(x, p, positions, causal)
+        return x + apply_mlp(apply_norm(x, p["ln2"], self.cfg), p["mlp"], self.cfg.act), k, v
+
+    def _decode_dense_block(self, x, p, kc, vc, pos):
+        """One token of a dense block over its KV cache rows (in place)."""
+        cfg = self.cfg
+        x = x + decode_self_attention(apply_norm(x, p["ln1"], cfg), p["attn"], cfg, kc, vc, pos)
+        return x + apply_mlp(apply_norm(x, p["ln2"], cfg), p["mlp"], cfg.act)
 
 
 class Transformer(_LM):
@@ -241,7 +318,10 @@ class Transformer(_LM):
     or untied head.  ``act`` swiglu / geglu / gelu / relu2, ``norm``
     rmsnorm / layernorm, ``qkv_bias``, ``mlp_bias``, ``rope`` rope (any
     ``rope_fraction``) / rope2d / none; fp32 or bf16 parameters
-    (``param_dtype``), activations in ``cfg.dtype`` (fp32 or bf16)."""
+    (``param_dtype``), activations in ``cfg.dtype`` (fp32 or bf16).  The
+    audio family (hubert-xlarge) is the same blocks behind the frames front
+    end (``frontend="frames"``), unmasked under ``encoder_only``, with no
+    decode."""
 
     ACTS = ("swiglu", "geglu", "gelu", "relu2")
 
@@ -250,13 +330,18 @@ class Transformer(_LM):
         with :meth:`init_params` or :meth:`load_params` (``Trainer`` does
         one of the two)."""
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(f"model family {cfg.family!r} is not a dense model")
-        self._check_dense_parts(cfg)
+        if cfg.family not in ("dense", "audio"):
+            raise NotImplementedError(f"model family {cfg.family!r} is not a dense or audio "
+                                      "model")
+        self._check_dense_parts(cfg, frontends=("none", "frames"))
         self.cfg, self._device = cfg, device
         L, d = cfg.n_layers, cfg.d_model
-        head = {} if cfg.tie_embeddings else {"lm_head": self._empty(d, cfg.vocab)}
-        self.embed = _group(embed=self._empty(cfg.vocab, d), **head)
+        if cfg.frontend == "frames":
+            self.embed = _group(frame_proj=self._empty(d, d), pos_embed=self._empty(cfg.max_seq, d),
+                                lm_head=self._empty(d, cfg.vocab))
+        else:
+            head = {} if cfg.tie_embeddings else {"lm_head": self._empty(d, cfg.vocab)}
+            self.embed = _group(embed=self._empty(cfg.vocab, d), **head)
         self.blocks = nn.Module()
         self.blocks.attn = self._attn_group(L)
         self.blocks.ln1 = self._norm_group(L)
@@ -293,24 +378,39 @@ class Transformer(_LM):
         return {"attn": _at(b.attn, l), "ln1": _at(b.ln1, l), "ln2": _at(b.ln2, l),
                 "mlp": _at(b.mlp, l)}
 
-    def forward(self, tokens: torch.Tensor, return_cache: bool = False,
-                return_hidden: bool = False):
-        """tokens (B, S) int -> logits (B, S, vocab) in the activation
-        dtype; with ``return_cache`` -> (logits, {"k", "v": (L, B, S, KV,
-        hd)}); with ``return_hidden`` the final-normed hidden states (B, S,
-        d) in place of the logits (:func:`chunked_lm_loss` unembeds them)."""
+    def _input(self, tokens: Optional[torch.Tensor],
+               frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The first layer's input in the activation dtype: the token
+        embedding, or under the frames front end ``frames @ frame_proj``
+        plus the learned positions (the reference's ``_embed_input``)."""
+        if self.cfg.frontend != "frames":
+            return self._embed(tokens)
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} takes frames (B, S, d_model), not tokens")
+        dtype = self.dtype
+        x = frames.to(dtype) @ self.embed.frame_proj.to(dtype)
+        return x + self.embed.pos_embed[:x.shape[1]].to(dtype)[None]
+
+    def _require_decode(self) -> None:
+        if not self.cfg.has_decode:
+            raise ValueError(f"{self.cfg.name} ({self.cfg.family}) is encoder-only: it has "
+                             "no decode cache, decode step or engine")
+
+    def forward(self, tokens: Optional[torch.Tensor] = None, return_cache: bool = False,
+                return_hidden: bool = False, *, frames: Optional[torch.Tensor] = None):
+        """tokens (B, S) int (or, audio, ``frames`` (B, S, d)) -> logits
+        (B, S, vocab) in the activation dtype; with ``return_cache`` ->
+        (logits, {"k", "v": (L, B, S, KV, hd)}); with ``return_hidden`` the
+        final-normed hidden states (B, S, d) in place of the logits
+        (:func:`chunked_lm_loss` unembeds them)."""
         cfg = self.cfg
-        x = self._embed(tokens)
-        S = tokens.shape[1]
-        positions = torch.arange(S, device=tokens.device)[None, :]
+        x = self._input(tokens, frames)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)[None, :]
         causal = cfg.causal and not cfg.encoder_only
 
         def layer(x: torch.Tensor, l: int):
-            p = self._layer(l)
-            h, (k, v) = self_attention(apply_norm(x, p["ln1"], cfg), p["attn"], cfg,
-                                       positions, causal)
-            x = x + h
-            return x + apply_mlp(apply_norm(x, p["ln2"], cfg), p["mlp"], cfg.act), k, v
+            return self._dense_block(x, self._layer(l), positions, causal)
 
         layer = _remat(layer, cfg)
         ks, vs = [], []
@@ -328,6 +428,7 @@ class Transformer(_LM):
                    dtype: Optional[torch.dtype] = None) -> dict[str, torch.Tensor]:
         """Zero KV cache {"k", "v": (L, batch, max_seq, KV, hd)} on the
         model's device, in ``dtype`` (default the activation dtype)."""
+        self._require_decode()
         cfg = self.cfg
         shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.hd)
         dtype = dtype or self.dtype
@@ -337,14 +438,11 @@ class Transformer(_LM):
     def decode_step(self, cache: dict, tokens: torch.Tensor, pos):
         """One token per row: tokens (B, 1), pos an int or (B,) -> (logits
         (B, 1, vocab), cache), row b at position pos[b]."""
-        cfg = self.cfg
+        self._require_decode()
         pos = _positions(pos, tokens.shape[0], tokens.device)
         x = self._embed(tokens)
-        for l in range(cfg.n_layers):
-            p = self._layer(l)
-            x = x + decode_self_attention(apply_norm(x, p["ln1"], cfg), p["attn"], cfg,
-                                          cache["k"][l], cache["v"][l], pos)
-            x = x + apply_mlp(apply_norm(x, p["ln2"], cfg), p["mlp"], cfg.act)
+        for l in range(self.cfg.n_layers):
+            x = self._decode_dense_block(x, self._layer(l), cache["k"][l], cache["v"][l], pos)
         return self._head(x), cache
 
     def reset_slot(self, cache: dict, slot: int) -> None:
@@ -352,20 +450,18 @@ class Transformer(_LM):
         (kv_len = pos + 1) and rewritten before they are read."""
 
 
-class Mamba2(_LM):
-    """Attention-free Mamba-2 (SSD) model: pre-norm Mamba blocks, untied or
-    tied head; fp32 parameters, activations in ``cfg.dtype``."""
+class _MambaStack(_LM):
+    """The Mamba-2 layer stack that the ssm and hybrid families share:
+    pre-norm Mamba blocks, the embedding, the final norm, their init, one
+    layer's forward and decode, and the recurrent decode state."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device):
-        super().__init__()
-        if cfg.family != "ssm":
-            raise NotImplementedError(f"model family {cfg.family!r} is not an ssm model")
+    def _build_stack(self, cfg: ModelConfig, device: torch.device) -> None:
         if cfg.ssm_ngroups != 1 or cfg.norm != "rmsnorm" or cfg.frontend != "none":
             raise NotImplementedError(f"{cfg.name}: only ngroups=1 with RMSNorm and a "
                                       "token embedding is ported")
         if cfg.param_dtype != "float32" or cfg.dtype not in ("float32", "bfloat16"):
-            raise NotImplementedError("the ssm family takes fp32 parameters and fp32 or "
-                                      "bf16 activations")
+            raise NotImplementedError(f"the {cfg.family} family takes fp32 parameters and "
+                                      "fp32 or bf16 activations")
         ops.check_impl(cfg.attn_impl)
         self.cfg, self._device = cfg, device
         L, d = cfg.n_layers, cfg.d_model
@@ -390,17 +486,52 @@ class Mamba2(_LM):
         """Layer ``l``'s block parameters by name (None: the whole stacks)."""
         return _at(self.blocks.mamba, l)
 
+    def _mamba_layer(self, x: torch.Tensor, l: int) -> torch.Tensor:
+        h = apply_norm(x, _at(self.blocks.ln1, l), self.cfg)
+        return x + mamba2.apply_mamba_block(self._layer(l), h, self.cfg)
+
+    def _decode_mamba(self, x: torch.Tensor, l: int, cache: dict) -> torch.Tensor:
+        """One token of Mamba layer ``l`` over its state in ``cache`` (the
+        {"conv", "ssm"} stacks, updated in place)."""
+        h = apply_norm(x, _at(self.blocks.ln1, l), self.cfg)
+        o, conv, ssm = mamba2.decode_mamba_block(self._layer(l), h, cache["conv"][l],
+                                                 cache["ssm"][l], self.cfg)
+        cache["conv"][l] = conv
+        cache["ssm"][l] = ssm
+        return x + o
+
+    def _mamba_cache(self, batch: int, dtype: Optional[torch.dtype]) -> dict:
+        """Zero recurrent state {"conv": (L, batch, W - 1, conv_dim) in
+        ``dtype`` (default the activation dtype), "ssm": (L, batch, H, N, P)
+        fp32}."""
+        return mamba2.init_mamba_cache(self.cfg, batch, dtype or self.dtype, self.device,
+                                       layers=self.cfg.n_layers)
+
+    @staticmethod
+    def _reset_mamba(cache: dict, slot: int) -> None:
+        """Zero row ``slot`` of the conv window and the SSD state, so a new
+        request there starts from the empty state."""
+        cache["conv"][:, slot] = 0
+        cache["ssm"][:, slot] = 0
+
+
+class Mamba2(_MambaStack):
+    """Attention-free Mamba-2 (SSD) model: pre-norm Mamba blocks, untied or
+    tied head; fp32 parameters, activations in ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        if cfg.family != "ssm":
+            raise NotImplementedError(f"model family {cfg.family!r} is not an ssm model")
+        self._build_stack(cfg, device)
+
     def forward(self, tokens: torch.Tensor, return_cache: bool = False,
                 return_hidden: bool = False):
         """tokens (B, S) -> logits (B, S, vocab) in the activation dtype;
         with ``return_cache`` -> (logits, None): as in the reference, the
         ssm prefill builds no decode cache; with ``return_hidden`` the
         final-normed hidden states in place of the logits."""
-        def layer(x: torch.Tensor, l: int) -> torch.Tensor:
-            h = apply_norm(x, _at(self.blocks.ln1, l), self.cfg)
-            return x + mamba2.apply_mamba_block(self._layer(l), h, self.cfg)
-
-        layer = _remat(layer, self.cfg)
+        layer = _remat(self._mamba_layer, self.cfg)
         x = self._embed(tokens)
         for l in range(self.cfg.n_layers):
             x = layer(x, l)
@@ -409,12 +540,10 @@ class Mamba2(_LM):
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> dict[str, torch.Tensor]:
-        """Zero recurrent state {"conv": (L, batch, W - 1, conv_dim) in
-        ``dtype`` (default the activation dtype), "ssm": (L, batch, H, N, P)
-        fp32}; ``max_seq`` does not bound it."""
+        """Zero recurrent state (:meth:`_mamba_cache`); ``max_seq`` does not
+        bound it."""
         del max_seq
-        return mamba2.init_mamba_cache(self.cfg, batch, dtype or self.dtype, self.device,
-                                       layers=self.cfg.n_layers)
+        return self._mamba_cache(batch, dtype)
 
     def decode_step(self, cache: dict, tokens: torch.Tensor, pos):
         """One token per row: tokens (B, 1) -> (logits (B, 1, vocab), cache).
@@ -422,19 +551,102 @@ class Mamba2(_LM):
         del pos
         x = self._embed(tokens)
         for l in range(self.cfg.n_layers):
-            h = apply_norm(x, _at(self.blocks.ln1, l), self.cfg)
-            o, conv, ssm = mamba2.decode_mamba_block(self._layer(l), h, cache["conv"][l],
-                                                     cache["ssm"][l], self.cfg)
-            cache["conv"][l] = conv
-            cache["ssm"][l] = ssm
-            x = x + o
+            x = self._decode_mamba(x, l, cache)
         return self._head(x), cache
 
     def reset_slot(self, cache: dict, slot: int) -> None:
-        """Zero row ``slot`` of the conv window and the SSD state, so a new
-        request there starts from the empty state."""
-        cache["conv"][:, slot] = 0
-        cache["ssm"][:, slot] = 0
+        """Zero row ``slot``'s state (:meth:`_reset_mamba`)."""
+        self._reset_mamba(cache, slot)
+
+
+class Hybrid(_MambaStack):
+    """The hybrid family (zamba2-1.2b, Zamba-2): the Mamba-2 model's layer
+    stack plus one shared dense block (GQA self-attention and an MLP, one
+    copy, not stacked) run after Mamba layer l when ``l %
+    shared_attn_every == 0``.  As in the reference, the prefill builds no
+    decode cache; the decode cache holds the Mamba state and one KV slot a
+    shared-block application.  fp32 parameters, activations in
+    ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        if cfg.family != "hybrid":
+            raise NotImplementedError(f"model family {cfg.family!r} is not a hybrid model")
+        self._check_dense_parts(cfg)
+        if cfg.shared_attn_every < 1:
+            raise ValueError(f"{cfg.name}: shared_attn_every must be >= 1, got "
+                             f"{cfg.shared_attn_every}")
+        self._build_stack(cfg, device)
+        self.shared = nn.Module()
+        self.shared.attn = self._attn_group()
+        self.shared.ln1, self.shared.ln2 = self._norm_group(), self._norm_group()
+        self.shared.mlp = self._mlp_group()
+
+    @property
+    def applications(self) -> int:
+        """How many times a forward runs the shared block."""
+        return -(-self.cfg.n_layers // self.cfg.shared_attn_every)
+
+    def init_params(self, seed: int) -> None:
+        """Initialise from ``seed``: the ssm stack as :class:`Mamba2`, then
+        the shared block at the dense block's scales."""
+        super().init_params(seed)
+        gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self._init_dense_parts(gen, (self.shared.attn,), (self.shared.mlp,))
+        self._init_norms(self.shared.ln1, self.shared.ln2)
+
+    def forward(self, tokens: torch.Tensor, return_cache: bool = False,
+                return_hidden: bool = False):
+        """tokens (B, S) -> logits (B, S, vocab) in the activation dtype;
+        with ``return_cache`` -> (logits, None), as :meth:`Mamba2.forward`;
+        with ``return_hidden`` the final-normed hidden states."""
+        cfg = self.cfg
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        causal = cfg.causal and not cfg.encoder_only
+
+        def layer(x: torch.Tensor, l: int) -> torch.Tensor:
+            x = self._mamba_layer(x, l)
+            if l % cfg.shared_attn_every:
+                return x
+            return self._dense_block(x, self._block(self.shared, None), positions, causal)[0]
+
+        layer = _remat(layer, cfg)
+        x = self._embed(tokens)
+        for l in range(cfg.n_layers):
+            x = layer(x, l)
+        logits = self._final(x) if return_hidden else self._head(x)
+        return (logits, None) if return_cache else logits
+
+    def init_cache(self, batch: int, max_seq: int, dtype: Optional[torch.dtype] = None) -> dict:
+        """Zero decode cache on the model's device: {"mamba": the Mamba
+        state (:meth:`_mamba_cache`), "attn": {"k", "v": (n_apps, batch,
+        max_seq, KV, hd)}}, one KV slot a shared-block application, in
+        ``dtype`` (default the activation dtype; the SSD state stays fp32)."""
+        cfg, dtype = self.cfg, dtype or self.dtype
+        shape = (self.applications, batch, max_seq, cfg.kv_heads, cfg.hd)
+        return {"mamba": self._mamba_cache(batch, dtype),
+                "attn": {"k": torch.zeros(shape, dtype=dtype, device=self.device),
+                         "v": torch.zeros(shape, dtype=dtype, device=self.device)}}
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos):
+        """One token per row: tokens (B, 1), pos an int or (B,) -> (logits
+        (B, 1, vocab), cache), the cache updated in place: the shared block
+        at layer l reads and writes KV slot ``l // shared_attn_every``."""
+        every = self.cfg.shared_attn_every
+        pos = _positions(pos, tokens.shape[0], tokens.device)
+        shared = self._block(self.shared, None)
+        kc, vc = cache["attn"]["k"], cache["attn"]["v"]
+        x = self._embed(tokens)
+        for l in range(self.cfg.n_layers):
+            x = self._decode_mamba(x, l, cache["mamba"])
+            if l % every == 0:
+                x = self._decode_dense_block(x, shared, kc[l // every], vc[l // every], pos)
+        return self._head(x), cache
+
+    def reset_slot(self, cache: dict, slot: int) -> None:
+        """Zero row ``slot``'s Mamba state (:meth:`_reset_mamba`); the KV
+        rows need none (see :meth:`Transformer.reset_slot`)."""
+        self._reset_mamba(cache["mamba"], slot)
 
 
 class MoETransformer(_LM):
@@ -514,20 +726,6 @@ class MoETransformer(_LM):
                 if name.split(".")[-1].startswith("bias_"):
                     p.zero_()
         self._init_norms(*norms)
-
-    @staticmethod
-    def _block(blocks: nn.Module, i) -> dict[str, dict[str, torch.Tensor]]:
-        """Block ``i`` (an int or a (group, j) pair) of ``blocks``' stacks."""
-        return {name: _at(group, i) for name, group in blocks.named_children()}
-
-    def _attend(self, x, p, positions, causal):
-        h, (k, v) = self_attention(apply_norm(x, p["ln1"], self.cfg), p["attn"], self.cfg,
-                                   positions, causal)
-        return x + h, k, v
-
-    def _dense_block(self, x, p, positions, causal):
-        x, k, v = self._attend(x, p, positions, causal)
-        return x + apply_mlp(apply_norm(x, p["ln2"], self.cfg), p["mlp"], self.cfg.act), k, v
 
     def _moe_block(self, x, p, positions, causal):
         x, k, v = self._attend(x, p, positions, causal)
@@ -651,6 +849,150 @@ class MoETransformer(_LM):
         """Nothing to reset (see :meth:`Transformer.reset_slot`)."""
 
 
+class VisionLM(_LM):
+    """The vlm family (llama-3.2-vision-11b): G = L / cross_attn_every
+    groups, each ``per = cross_attn_every`` dense blocks (stacked (G, per))
+    and one gated cross-attention block (stacked (G,)): x attends, unmasked
+    and without RoPE, over K/V projected from the images (the stub patch
+    embeddings, (B, n_image_tokens, d)), and tanh(gate_attn),
+    tanh(gate_mlp) scale the two residual branches (both gates are zero at
+    init, so each cross block starts as the identity).  The prefill cache
+    holds the self-attention KV and each group's image K/V; decode runs the
+    cross blocks on that cached K/V.  fp32 or bf16 parameters, activations
+    in ``cfg.dtype``."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        super().__init__()
+        if cfg.family != "vlm":
+            raise NotImplementedError(f"model family {cfg.family!r} is not a vlm model")
+        self._check_dense_parts(cfg)
+        every = cfg.cross_attn_every
+        if every < 1 or cfg.n_layers % every or cfg.n_image_tokens < 1:
+            raise ValueError(f"{cfg.name}: cross_attn_every {every} over {cfg.n_layers} "
+                             f"layers, {cfg.n_image_tokens} image tokens")
+        self.cfg, self._device = cfg, device
+        G, d = cfg.n_layers // every, cfg.d_model
+        head = {} if cfg.tie_embeddings else {"lm_head": self._empty(d, cfg.vocab)}
+        self.embed = _group(embed=self._empty(cfg.vocab, d), **head)
+        self.blocks = nn.Module()
+        own = nn.Module()  # blocks/self
+        own.attn, own.mlp = self._attn_group(G, every), self._mlp_group(G, every)
+        own.ln1, own.ln2 = self._norm_group(G, every), self._norm_group(G, every)
+        self.blocks.add_module("self", own)
+        cross = self.blocks.cross = nn.Module()
+        cross.xattn, cross.mlp = self._attn_group(G), self._mlp_group(G)
+        cross.ln, cross.ln_mlp = self._norm_group(G), self._norm_group(G)
+        cross.register_parameter("gate_attn", nn.Parameter(self._empty(G)))
+        cross.register_parameter("gate_mlp", nn.Parameter(self._empty(G)))
+        self.final_norm = self._norm_group()
+
+    @property
+    def groups(self) -> int:
+        return self.cfg.n_layers // self.cfg.cross_attn_every
+
+    def init_params(self, seed: int) -> None:
+        """Initialise from ``seed``: the reference's distributions and
+        scales, not its draws (see :meth:`Transformer.init_params`); the
+        gates zero, as the reference's."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        own, cross = self.blocks.get_submodule("self"), self.blocks.cross
+        self._init_embed(gen)
+        self._init_dense_parts(gen, (own.attn, cross.xattn), (own.mlp, cross.mlp))
+        with torch.no_grad():
+            cross.gate_attn.zero_()
+            cross.gate_mlp.zero_()
+        self._init_norms(own.ln1, own.ln2, cross.ln, cross.ln_mlp, self.final_norm)
+
+    def _cross(self, g: int) -> dict:
+        """Group ``g``'s cross block: its groups' tensors and the two gates."""
+        cross = self.blocks.cross
+        return {name: _at(group, g) for name, group in cross.named_children()} | {
+            "gate_attn": cross.gate_attn[g], "gate_mlp": cross.gate_mlp[g]}
+
+    def _cross_block(self, x, p, xk, xv):
+        cfg = self.cfg
+        h = cross_attention(apply_norm(x, p["ln"], cfg), p["xattn"], cfg, xk, xv)
+        x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * h
+        m = apply_mlp(apply_norm(x, p["ln_mlp"], cfg), p["mlp"], cfg.act)
+        return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * m
+
+    def forward(self, tokens: torch.Tensor, return_cache: bool = False,
+                return_hidden: bool = False, *, images: Optional[torch.Tensor] = None):
+        """tokens (B, S) and ``images`` (B, n_image_tokens, d) -> logits (B,
+        S, vocab) in the activation dtype (the final-normed hidden states
+        under ``return_hidden``); with ``return_cache`` -> (logits,
+        :meth:`init_cache`'s layout filled: the self KV (G, per, B, S, KV,
+        hd) and each group's image K/V "xk", "xv" (G, B, n_image_tokens, KV,
+        hd)).  Under ``cfg.remat`` each group runs checkpointed."""
+        if images is None:
+            raise ValueError(f"{self.cfg.name} takes images (B, n_image_tokens, d_model) "
+                             "beside the tokens")
+        cfg = self.cfg
+        x = self._embed(tokens)
+        img = images.to(x.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        causal = cfg.causal and not cfg.encoder_only
+        own = self.blocks.get_submodule("self")
+
+        def group(x: torch.Tensor, g: int):
+            kv = []
+            for j in range(cfg.cross_attn_every):
+                x, k, v = self._dense_block(x, self._block(own, (g, j)), positions, causal)
+                kv.append((k, v))
+            p = self._cross(g)
+            xk, xv = encode_cross_kv(p["xattn"], img, cfg)
+            x = self._cross_block(x, p, xk, xv)
+            return (x, torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]),
+                    xk, xv)
+
+        group = _remat(group, cfg)
+        caches = []
+        for g in range(self.groups):
+            x, *kv = group(x, g)
+            if return_cache:
+                caches.append(kv)
+        logits = self._final(x) if return_hidden else self._head(x)
+        if not return_cache:
+            return logits
+        ks, vs, xks, xvs = (torch.stack(parts) for parts in zip(*caches))
+        return logits, {"self": {"k": ks, "v": vs}, "xk": xks, "xv": xvs}
+
+    def init_cache(self, batch: int, max_seq: int,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+        """Zero decode cache on the model's device, in ``dtype`` (default
+        the activation dtype): {"self": {"k", "v": (G, per, batch, max_seq,
+        KV, hd)}, "xk", "xv": (G, batch, n_image_tokens, KV, hd)}.  The image
+        K/V stay zero until a prefill's are copied in (the engine never
+        does, as the reference's: its vlm decode is text-only)."""
+        cfg, dtype = self.cfg, dtype or self.dtype
+
+        def zeros(*lead):
+            return torch.zeros(lead + (cfg.kv_heads, cfg.hd), dtype=dtype, device=self.device)
+
+        G = self.groups
+        return {"self": {"k": zeros(G, cfg.cross_attn_every, batch, max_seq),
+                         "v": zeros(G, cfg.cross_attn_every, batch, max_seq)},
+                "xk": zeros(G, batch, cfg.n_image_tokens),
+                "xv": zeros(G, batch, cfg.n_image_tokens)}
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor, pos):
+        """One token per row: tokens (B, 1), pos an int or (B,) -> (logits
+        (B, 1, vocab), cache), the self KV updated in place; each cross block
+        attends over the cached image K/V (``ops.attention`` at S = 1)."""
+        pos = _positions(pos, tokens.shape[0], tokens.device)
+        own, kc, vc = self.blocks.get_submodule("self"), cache["self"]["k"], cache["self"]["v"]
+        x = self._embed(tokens)
+        for g in range(self.groups):
+            for j in range(self.cfg.cross_attn_every):
+                x = self._decode_dense_block(x, self._block(own, (g, j)), kc[g, j], vc[g, j],
+                                             pos)
+            x = self._cross_block(x, self._cross(g), cache["xk"][g], cache["xv"][g])
+        return self._head(x), cache
+
+    def reset_slot(self, cache: dict, slot: int) -> None:
+        """Nothing to reset (see :meth:`Transformer.reset_slot`)."""
+
+
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, aux: Optional[torch.Tensor] = None,
             *, shift: bool = True) -> torch.Tensor:
     """Mean next-token cross-entropy, plus 0.01·aux (the MoE load-balancing
@@ -726,9 +1068,8 @@ def chunked_lm_loss(hidden: torch.Tensor, targets: torch.Tensor, chunk: int,
     return ce if aux is None else ce + 0.01 * aux
 
 
-FAMILIES = {"dense": Transformer, "ssm": Mamba2, "moe": MoETransformer}
-# The reference's families the port does not build yet.
-NOT_PORTED = ("hybrid", "vlm", "audio")
+FAMILIES = {"dense": Transformer, "audio": Transformer, "ssm": Mamba2, "hybrid": Hybrid,
+            "moe": MoETransformer, "vlm": VisionLM}
 
 
 def build_model(cfg: ModelConfig, *,
@@ -736,9 +1077,7 @@ def build_model(cfg: ModelConfig, *,
     """The model for ``cfg`` (by ``cfg.family``) on ``device`` (default: the
     CUDA device; raises when there is none — pass ``device="cpu"`` for the
     CPU), with its parameters allocated but not initialised (see
-    ``init_params``).  Families not yet ported (``NOT_PORTED``) raise."""
+    ``init_params``).  An unknown family raises ``ValueError``."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"model family {cfg.family!r} is not ported yet (not yet "
-                                  f"ported: {', '.join(NOT_PORTED)}); ported: "
-                                  f"{sorted(FAMILIES)}")
+        raise ValueError(f"unknown family {cfg.family!r}; known: {sorted(FAMILIES)}")
     return FAMILIES[cfg.family](cfg, resolve_device(device))

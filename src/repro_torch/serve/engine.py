@@ -21,6 +21,10 @@ that slot's recurrent state (``model.reset_slot``: the mamba conv window
 and SSD state).  The reference resets only the slot's position, so a
 mamba request in a reused slot starts from its predecessor's state; an
 attention cache needs no reset, since rows past the position are masked.
+The engine serves every family that decodes (the audio family is
+encoder-only: its ``init_cache`` raises).  A vlm's image K/V stay
+``init_cache``'s zeros, as in the reference's engine, so its tokens are
+text-only: the cross blocks attend over zero keys and values.
 
 The engine runs on the model's device; the model holds its parameters.
 """

@@ -520,14 +520,21 @@ def _shifted(offset, *shape, dtype=torch.float32):
 # heads (96 over 8, D = 192); D = 256 with a short query; D = 200 (padded
 # to 256) not causal; D = 132 (padded to 192; 8-byte copies); the heads of
 # dbrx-132b (48 over 8, group 6) and llama4-maverick-400b (40 over 8, group
-# 5) at D = 128.
+# 5) at D = 128; the last families' inputs at a shorter sequence:
+# zamba2-1.2b's shared block (32 heads of 64, MHA), llama-3.2-vision-11b's
+# self-attention (32 over 8), its cross-attention (not causal, S != T, the
+# image tokens ragged against the kv tile) and its decode's (one query over
+# the image tokens), hubert-xlarge's (16 heads of 80, padded to 128, not
+# causal).
 FLASH_LOW_SHAPES = [(2, 256, 256, 32, 2, 128, True), (2, 200, 200, 36, 4, 128, True),
                     (1, 130, 130, 20, 20, 128, True), (2, 100, 300, 8, 2, 32, False),
                     (2, 130, 130, 4, 2, 20, True), (1, 5, 9, 2, 1, 8, True),
                     (2, 77, 200, 6, 3, 64, True), (1, 300, 300, 96, 8, 192, True),
                     (2, 100, 260, 4, 2, 256, True), (1, 77, 200, 6, 3, 200, False),
                     (2, 90, 130, 4, 1, 132, True), (2, 256, 256, 48, 8, 128, True),
-                    (2, 200, 200, 40, 8, 128, True)]
+                    (2, 200, 200, 40, 8, 128, True), (2, 256, 256, 32, 32, 64, True),
+                    (2, 256, 256, 32, 8, 128, True), (2, 256, 201, 32, 8, 128, False),
+                    (4, 1, 201, 32, 8, 128, False), (2, 256, 256, 16, 16, 80, False)]
 # (dtype, the element-type code the C entry reports, the bound against the
 # unrounded plain output relative to its largest entry)
 LOW_DTYPES = [(torch.bfloat16, 1, 2.0 ** -8), (torch.float16, 2, 2.0 ** -11 + 1e-5)]
@@ -584,7 +591,8 @@ def test_flash_attention_16bit_kernel_with_unaligned_operands(cuda_device, dtype
 # copy (and odd P no 8-byte store of y); fp32 x at chunk 128; the 64-column
 # blocks with P = 40 and 24 (the second warp column partial or empty) and
 # with fp32 x at chunk 128; a ragged last chunk in the last batch row in
-# most.
+# most; zamba2-1.2b's widths (64 heads of P = 64, N = 64, chunk 64) at a
+# ragged shorter sequence.
 SSD_SHAPES = [(4, 4096, 32, 64, 128, 128, True), (2, 4000, 32, 64, 128, 64, False),
               (2, 60, 8, 16, 16, 16, False), (1, 7, 2, 8, 4, 16, True),
               (2, 300, 4, 24, 64, 64, True), (2, 300, 4, 40, 64, 64, False),
@@ -593,7 +601,7 @@ SSD_SHAPES = [(4, 4096, 32, 64, 128, 128, True), (2, 4000, 32, 64, 128, 64, Fals
               (2, 130, 3, 20, 24, 32, True), (1, 100, 2, 17, 16, 32, False),
               (3, 1000, 4, 64, 128, 128, True), (2, 520, 8, 64, 128, 128, False),
               (1, 200, 68, 40, 64, 64, False), (2, 130, 40, 24, 20, 32, True),
-              (1, 300, 70, 64, 128, 128, False)]
+              (1, 300, 70, 64, 128, 128, False), (2, 300, 64, 64, 64, 64, True)]
 
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk,bf16", SSD_SHAPES)

@@ -81,3 +81,30 @@ def _check_logits_loss_and_grads(jmodel, jparams, model, tokens):
     jflat = {"/".join(str(k.key) for k in kp): v for kp, v in flat.items()}
     for (path, _), g in zip(params.items(), grads):
         _close(g, jflat[path], path)
+
+
+def test_registry_holds_every_reference_arch():
+    from repro.configs import ARCHS as J_ARCHS
+    from repro_torch.configs import ARCHS
+
+    assert set(ARCHS) == set(J_ARCHS)
+
+
+@pytest.mark.parametrize("arch", ["llama-60m", "chatglm3-6b", "qwen1.5-4b", "starcoder2-7b",
+                                  "nemotron-4-340b", "mamba2-370m", "zamba2-1.2b",
+                                  "dbrx-132b", "llama4-maverick-400b-a17b",
+                                  "llama-3.2-vision-11b", "hubert-xlarge"])
+def test_every_family_builds_the_reference_tree(arch):
+    """``build_model`` builds each arch's SMOKE config (every family) on the
+    CPU with the reference's paths, shapes and dtypes in its leaf order
+    (the reference's tree from ``jax.eval_shape``: nothing is drawn), and
+    ``init_params`` gives finite values."""
+    jtree = jax.eval_shape(j_build_model(j_get_smoke(arch)).init, jax.random.PRNGKey(0))
+    want = {"/".join(str(k.key) for k in kp): (tuple(v.shape), str(v.dtype)) for kp, v in
+            jax.tree_util.tree_flatten_with_path(jtree)[0]}
+    model = build_model(get_smoke(arch), device="cpu")
+    got = {k: (tuple(p.shape), str(p.dtype)[6:]) for k, p in model.params().items()}
+    assert list(got) == list(want)
+    assert got == want
+    model.init_params(0)
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())

@@ -29,7 +29,7 @@ configs, with the reference's own initial parameters (``params_from_jax``):
 * a 3-step GUM ``Trainer`` run per arch (the 4-D expert leaves and the
   grouped dense leaves go through GUM's block sampling and the lead
   flattening) against the reference's, its sampled blocks injected;
-* the families still unported raise.
+* an unknown family raises ``ValueError``.
 
 fp32 tolerance: rtol 1e-4 with atol 1e-4 of each tensor's largest entry, as
 ``tests/test_torch_dense_variants.py`` (fp32 sums in another order through
@@ -457,7 +457,6 @@ def test_gum_trainer_tracks_reference(arch, tmp_path):
     assert result.skipped_nonfinite == 0
 
 
-@pytest.mark.parametrize("family", ["hybrid", "vlm", "audio"])
-def test_unported_families_raise(family):
-    with pytest.raises(NotImplementedError, match="hybrid, vlm, audio"):
-        build_model(ModelConfig(name="x", family=family), device="cpu")
+def test_unknown_family_raises():
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        build_model(ModelConfig(name="x", family="rnn"), device="cpu")
