@@ -64,10 +64,16 @@ Phases, in order; any failure exits non-zero and prints no result:
                 step; the chunked loss (``logit_chunk`` 1024 and 256) against
                 the unchunked one, with a lower peak; rows 2–3 at rank 96
                 with ``pad_rank_to`` 0 and 128, equal outputs;
-  4e. resume  — two uninterrupted 6-step GUM runs equal bitwise, then a run
-                of 3 steps and a new ``Trainer`` resuming it to 6 equal to
-                them bitwise (losses, parameters, optimizer state), and the
-                checkpoint's save, verify and restore times and size;
+  4e. resume  — two uninterrupted 6-step GUM runs equal bitwise, the second
+                with its step-6 checkpoint bit-flipped (``ckpt_bitflip@6``)
+                and a third ``Trainer`` on its directory falling back to
+                step 3 and reaching the same bits; a child process of the
+                training CLI (``python -m repro_torch.launch.train``, phase
+                4's settings, a checkpoint every step) killed mid-save by
+                ``kill_save@6#2`` (exit -9, step 5 the newest verified, a
+                ``.tmp`` directory left) and a ``Trainer`` resuming it to 6
+                equal to them bitwise (losses, parameters, optimizer state);
+                then the checkpoint's save, verify and restore times and size;
   4f. rank policy — phase 4's GUM under the rank-policy engine: (a) a
                 controller running ``stepwise:0=256,3=128`` over 6 updates
                 of seeded gradients, per leaf and family-stacked, bitwise
@@ -81,23 +87,39 @@ Phases, in order; any failure exits non-zero and prints no result:
                 (the spectrum probe), the card's probe of one refresh
                 gradient against the CPU's (1e-4), the decided maps, and
                 the probe's own cost from one profiled refresh;
+  4g. resilience — the health monitor and recovery ladder at llama-130m full
+                width (phase 4's data, the straggler detector off): (a) GUM,
+                period 8, 14 steps, ``ring=2,snapshot_every=4``,
+                ``grad_nan@5;grad_spike@10*1e9``: exactly a skip at 5 and a
+                rollback at 10 to the snapshot of step 8, every loss finite,
+                phase 4's dispatch and launch counts per applied step; the
+                steady median with resilience on beside phase 4's, the
+                snapshot's ms (device to host) and the rollback's (host to
+                device into the live parameters, bitwise), and the extra
+                metrics' device ms in one profiled step; (b) GaLore (phase
+                4b's, period 8), 10 steps, ``refresh_zero@6``: a dead
+                subspace forces a refresh at step 6 or 7, the next step
+                recomputes the projectors, and the last loss is below the
+                first;
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
                 flash_attention launches) against "xla", then a
                 continuous-batching engine of 8 slots answering 16 requests,
                 two of them checked against direct decode;
   7. serve    — mamba2-370m (bf16): prefill 4 x 4096 (48 ssd_scan launches)
-                against "xla" in fp32 and in bf16, then the same engine run,
-                a request in a reused slot checked against direct decode;
+                against "xla" in fp32 and in bf16, then an engine of 4 slots
+                and 4 requests, one checked against direct decode (cut from
+                8 / 16 to keep the run under 1000 s; phase 12 checks a
+                reused Mamba slot);
   8. serve    — the dense variants as published, bf16 activations and fp32
                 parameters, one at a time on the card: chatglm3-6b (28
                 layers), starcoder2-7b (32) and qwen1.5-4b (40), each a
                 prefill 4 x 2048 through the bf16 instantiation of flash
                 attention (one launch a layer) against "xla" in fp32 and in
-                bf16 on the same parameters, then an engine of 4 slots and
-                4 requests, one checked against direct decode (chatglm3-6b's
-                8 slots and 16 requests of earlier runs were cut to keep
-                the run under 1000 s: phases 6, 7 and 12 keep reused slots
-                checked);
+                bf16 on the same parameters, then an engine: chatglm3-6b's
+                of 8 slots answering 16 requests, two of them checked
+                against direct decode, one in a reused slot; starcoder2-7b's
+                and qwen1.5-4b's of 4 slots and 4 requests, one checked
+                (``DENSE_VARIANTS``);
   9. serve    — nemotron-4-340b at full width (d 18432, 96 heads over 8,
                 head dim 192, d_ff 73728, vocab 256000), depth cut to 2
                 layers, parameters stored in bf16 (``param_dtype``) and bf16
@@ -125,12 +147,15 @@ Phases, in order; any failure exits non-zero and prints no result:
                 bf16, 37.4 GB), as phase 10; its fp32 comparison runs on
                 the bf16 parameters, and its bf16 distance is printed
                 without a rule (no fp32-stored reference fits);
- 12. serve    — zamba2-1.2b (hybrid) at full width and depth (38 Mamba-2
-                layers, d 2048; one shared attention-and-MLP block of 32
-                heads of 64 after every 6th layer, 7 times), fp32
-                parameters, bf16 activations: prefill 4 x 4096 (38 ssd_scan
-                and 7 flash_attention launches) against "xla" in fp32 and
-                in bf16, then phase 7's engine run;
+ 12. serve    — zamba2-1.2b (hybrid) at full width (d 2048; one shared
+                attention-and-MLP block of 32 heads of 64 after every 6th
+                layer), depth cut from 38 to 19 Mamba-2 layers (the shared
+                block 4 times) to keep the run under 1000 s, fp32
+                parameters, bf16 activations: prefill 4 x 4096 (19 ssd_scan
+                and 4 flash_attention launches) against "xla" in fp32 and
+                in bf16, then an engine of 8 slots answering 16 requests,
+                one of two checked in a reused slot (the card's check that
+                a reused slot starts from an empty Mamba state);
  13. serve    — llama-3.2-vision-11b (vlm) at full width (d 4096, 32 heads
                 over 8, d_ff 14336, vocab 128256), depth cut to 10 of 40
                 layers (two groups of 5 self blocks and a gated
@@ -801,8 +826,10 @@ def scratch_dir(label: str):
         shutil.rmtree(path, ignore_errors=True)
 
 
-# Each training phase's refresh-step times (ms), by label, for phase 4f.
+# Each training phase's refresh-step times (ms), by label, for phase 4f, and
+# its steady median (ms), for phase 4g.
 REFRESH_MS: dict[str, list[float]] = {}
+STEADY_MS: dict[str, float] = {}
 
 
 def llama130m_data():
@@ -863,6 +890,7 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     refresh = [t for i, t in enumerate(result.step_seconds) if i % period == 0]
     steady_ms = statistics.median(steady) * 1e3
     REFRESH_MS[label] = [round(t * 1e3, 3) for t in refresh]
+    STEADY_MS[label] = steady_ms
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
           f"steady median {steady_ms:.3f}; refresh steps {[round(t * 1e3, 3) for t in refresh]}; "
@@ -1335,11 +1363,17 @@ def bitwise_diff(a, b) -> list[str]:
 def phase_resume(torch) -> dict:
     """Phase 4e: exact resume at llama-130m (phase 4's GUM, checkpoints
     every 3 steps; step 4 is a refresh).  Two uninterrupted 6-step runs
-    from the same parameters must agree bitwise; then a 3-step run and a
-    new ``Trainer`` resuming it to 6 must equal them bitwise (losses,
-    parameters, every optimizer-state leaf) with ``resumed_from == 3``.
-    Then the checkpoint alone: save, verify and restore times and its
-    bytes on disk.  Returns the kernel launches of the four runs."""
+    from the same parameters must agree bitwise, the second with its step-6
+    checkpoint bit-flipped (``inject="ckpt_bitflip@6"``); a third
+    ``Trainer`` on that directory falls back to step 3 and must reach the
+    same bits.  Then a child process of the training CLI (``python -m
+    repro_torch.launch.train``, phase 4's settings, a checkpoint every step)
+    is killed mid-save by ``kill_save@6#2``: it must leave step 5 as the
+    newest verified checkpoint and a ``.tmp`` directory, and a ``Trainer``
+    resuming it to 6 must equal the uninterrupted runs bitwise (losses,
+    parameters, every optimizer-state leaf).  Then the checkpoint alone:
+    save, verify and restore times and its bytes on disk.  Returns the
+    kernel launches of the trainers in this process."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import RunConfig
     from repro_torch.core import OptimizerConfig
@@ -1353,11 +1387,11 @@ def phase_resume(torch) -> dict:
     params0 = {k: v.detach().clone() for k, v in init.params().items()}
     del init
 
-    def run(ckpt_dir: str, steps: int, keep: bool = False):
+    def run(ckpt_dir: str, steps: int, keep: bool = False, **kw):
         trainer = Trainer(build_model(cfg, device="cuda"), OptimizerConfig(**GUM_130M),
                           RunConfig(steps=steps, ckpt_every=3, log_every=0, seed=0,
                                     ckpt_dir=ckpt_dir),
-                          data, device="cuda", params=params0)
+                          data, device="cuda", params=params0, **kw)
         result = trainer.train()
         if not keep:  # about 1 GB a checkpoint
             shutil.rmtree(ckpt_dir)
@@ -1366,28 +1400,55 @@ def phase_resume(torch) -> dict:
     def tree(trainer):
         return ({k: p.detach() for k, p in trainer.model.params().items()}, trainer.opt_state)
 
+    def same(label: str, trainer, result, losses) -> None:
+        diff = bitwise_diff(tree(a1), tree(trainer))
+        check(result.losses == losses and not diff,
+              f"resume: {label} differs: losses {result.losses} vs {losses}; "
+              f"leaves {diff[:8]}")
+
     with scratch_dir("resume") as root:
         build.reset_launches()
         a1, ra1 = run(os.path.join(root, "a1"), 6)
-        a2, ra2 = run(os.path.join(root, "a2"), 6)
-        _, rb1 = run(os.path.join(root, "b"), 3, keep=True)
-        b2, rb2 = run(os.path.join(root, "b"), 6)
+        flipped = os.path.join(root, "a2")
+        a2, ra2 = run(flipped, 6, keep=True, inject="ckpt_bitflip@6")
+        check(ra2.fault_log == [(6, "ckpt_bitflip")], f"resume: fault log {ra2.fault_log}")
+        same("the second uninterrupted run", a2, ra2, ra1.losses)
+        del a2
+        fell, rfell = run(flipped, 6)
+        check(rfell.resumed_from == 3,
+              f"resume: the bit-flipped directory resumed from {rfell.resumed_from}, not 3")
+        same("the run resumed past the bit-flipped checkpoint", fell, rfell, ra1.losses[3:])
+        del fell
+
+        killed = os.path.join(root, "cli")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama-130m",
+             "--steps", "6", "--batch", "8", "--seq", "1024", "--lr", "5e-3", "--rank", "256",
+             "--gamma", "4", "--period", "3", "--inject", "kill_save@6#2", "--ckpt-dir", killed],
+            capture_output=True, text=True, cwd=ROOT, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == -9, f"resume: the CLI child exited {proc.returncode}, not -9 "
+              f"(SIGKILL mid-save): {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        mgr = CheckpointManager(killed)
+        check(mgr.latest_verified_step() == 5,
+              f"resume: newest verified step after the kill {mgr.latest_verified_step()}, not 5")
+        check(any(n.endswith(".tmp") for n in os.listdir(killed)),
+              f"resume: the killed save left no .tmp directory: {os.listdir(killed)}")
+        b2, rb2 = run(killed, 6)
+        check(rb2.resumed_from == 5, f"resume: resumed_from {rb2.resumed_from} != 5")
+        same("the run resumed after the CLI's kill", b2, rb2, ra1.losses[5:])
+        del b2
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
-        print(f"resume llama-130m gum: uninterrupted {ra1.losses} and {ra2.losses}; "
-              f"3 steps {rb1.losses} + resumed from {rb2.resumed_from} {rb2.losses}", flush=True)
-        rerun = bitwise_diff(tree(a1), tree(a2))
-        check(ra1.losses == ra2.losses and not rerun,
-              f"resume: two uninterrupted runs differ: losses {ra1.losses} vs {ra2.losses}; "
-              f"leaves {rerun[:8]}")
-        resumed = bitwise_diff(tree(a1), tree(b2))
-        check(rb2.resumed_from == 3, f"resume: resumed_from {rb2.resumed_from} != 3")
-        check(rb1.losses + rb2.losses == ra1.losses and not resumed,
-              f"resume: the resumed run differs: losses {rb1.losses + rb2.losses} vs "
-              f"{ra1.losses}; leaves {resumed[:8]}")
         n_leaves = len(flat_state(tree(a1)))
-        print(f"resume: two uninterrupted runs equal bitwise, and 3 + 3 resumed steps equal "
-              f"6 bitwise: losses, parameters and {n_leaves} (params, state) leaves", flush=True)
+        print(f"resume llama-130m gum: uninterrupted {ra1.losses} and {ra2.losses} (its step-6 "
+              f"checkpoint bit-flipped); resumed from {rfell.resumed_from} past it "
+              f"{rfell.losses}; the CLI child killed mid-save of step 6 after {cli_s:.1f} s "
+              f"(exit {proc.returncode}), resumed from {rb2.resumed_from} {rb2.losses}; all "
+              f"equal bitwise: losses, parameters and {n_leaves} (params, state) leaves",
+              flush=True)
 
         mgr = CheckpointManager(os.path.join(root, "timing"))
         t0 = time.perf_counter()
@@ -1832,6 +1893,209 @@ def phase_rank_policy(torch) -> dict:
     launches = dict(build.LAUNCHES)
     probe_cost(torch, params0)
     return launches
+
+
+# --------------------------------------------------------------------- phase 4g
+
+# Phase 4's GUM and phase 4b's GaLore at period 8, so that a fault lands
+# between two scheduled refreshes.
+RESILIENT_GUM = dict(GUM_130M, period=8)
+RESILIENT_GALORE = dict(name="galore", lr=1e-2, rank=256, period=8, weight_decay=0.0,
+                        fuse_families=True, fused_epilogue=True)
+GALORE_DISPATCH = {"project": 3, "back_project_epilogue": 3}
+GALORE_LAUNCH = {"lowrank_update": 3, "back_project_epilogue": 3}
+
+
+def logged_steps(trainer, period: int) -> list:
+    """Wrap ``trainer.step_fn`` to log each executed step: (whether it
+    refreshed the projectors — the low-rank count at entry on a period
+    boundary —, whether its update applied, whether a fault was armed)."""
+    from repro_torch.core import find_lowrank_states
+
+    log, inner = [], trainer.step_fn
+
+    def step_fn(params, opt_state, batch, *fault):
+        refresh = find_lowrank_states(opt_state)[0].count % period == 0
+        opt_state, metrics = inner(params, opt_state, batch, *fault)
+        log.append((refresh, bool(metrics["update_applied"]), bool(fault and fault[0]["mode"])))
+        return opt_state, metrics
+
+    trainer.step_fn = step_fn
+    return log
+
+
+def resilient_run(torch, label: str, opt: dict, steps: int, want_dispatch: dict,
+                  want_launch: dict, **kw):
+    """Train llama-130m (phase 4's data, parameters from seed 0) for
+    ``steps`` with resilience on; assert finite losses, ``final_step`` and
+    the dispatch and launch counts of each applied step (a skipped step
+    runs no update); return the trainer, its result, the step log and the
+    launches."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    cfg, data = llama130m_data()
+    with scratch_dir(label.replace(" ", "_")) as ckpt_dir:
+        trainer = Trainer(build_model(cfg, device="cuda"), OptimizerConfig(**opt),
+                          RunConfig(steps=steps, log_every=1, seed=0, ckpt_dir=ckpt_dir),
+                          data, device="cuda", **kw)
+        # A refresh step (about 4 s against a 0.31 s steady one) is flagged
+        # as a straggler once ten steps are timed, and a straggler warning
+        # drops that step's snapshot (the reference's rule), which would move
+        # the rollback's target: the asserted trace needs the detector off.
+        trainer.monitor.z = float("inf")
+        log = logged_steps(trainer, opt["period"])
+        build.reset_launches()
+        with launch_count.count_launches() as dispatched:
+            result = trainer.train()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+    print(f"{label}: losses {result.losses}; fault log {result.fault_log}; recovery trace "
+          f"{result.recovery_trace}; counts {result.recovery_counts}; health events "
+          f"{[(e['step'], e['kind']) for e in result.health_events]}", flush=True)
+    check(result.final_step == steps and all(math.isfinite(v) for v in result.losses),
+          f"{label}: final step {result.final_step}, losses {result.losses}")
+    applied = sum(a for _, a, _ in log)
+    per_step = {k: v / applied for k, v in dispatched.items()}
+    check(per_step == want_dispatch,
+          f"{label}: dispatch counts per applied step {per_step} != {want_dispatch}")
+    per_step = {k: v / applied for k, v in launches.items() if v}
+    check(per_step == want_launch,
+          f"{label}: kernel launches per applied step {per_step} != {want_launch}")
+    print(f"{label}: {len(log)} executed steps, {applied} applied; dispatch per applied step "
+          f"{want_dispatch}; kernel launches per applied step {want_launch}", flush=True)
+    return trainer, result, log, launches
+
+
+def snapshot_round_trip(torch, trainer) -> None:
+    """The snapshot of the trained GUM state (device to host) and its
+    restore into the live parameters (host to device), each timed three
+    times, and the round trip held bitwise."""
+    from repro_torch.resilience import SnapshotRing
+    from repro_torch.train.trainer import _copy_into
+
+    params = trainer.model.params()
+    detached = {k: p.detach() for k, p in params.items()}
+    want = ({k: v.clone() for k, v in detached.items()}, trainer.opt_state)
+    nbytes = sum(x.numel() * x.element_size() for _, x in flat_state(want)
+                 if isinstance(x, torch.Tensor))
+    ring, add_ms, restore_ms = SnapshotRing(2), [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring.add(14, detached, trainer.opt_state)
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved, state = ring.restore(ring.latest(), "cuda")
+        _copy_into(params, saved)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+        del saved
+    diff = bitwise_diff(({k: p.detach() for k, p in params.items()}, state), want)
+    check(not diff, f"resilience snapshot: the restored state differs: {diff[:8]}")
+    print(f"resilience snapshot of llama-130m GUM (params and state, {nbytes} bytes): "
+          f"device to host {[round(t, 1) for t in add_ms]} ms (median "
+          f"{statistics.median(add_ms):.1f}), host to device into the live parameters "
+          f"{[round(t, 1) for t in restore_ms]} ms (median {statistics.median(restore_ms):.1f}); "
+          f"round trip bitwise", flush=True)
+
+
+def extra_metrics_cost(torch, trainer, done: int) -> None:
+    """Device time of the update-norm pass (``extra_metrics``, the
+    profiler's range in ``launch/steps.py``) in one profiled steady step,
+    beside the step's busy time."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.data import build_stream
+
+    stream = build_stream(trainer.data_cfg).resume(done)
+    params, state = trainer.model.params(), trainer.opt_state
+    state, _ = trainer.step_fn(params, state, {"tokens": torch.from_numpy(next(stream)).cuda()})
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        trainer.step_fn(params, state, {"tokens": torch.from_numpy(next(stream)).cuda()})
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    def device_us(ev, key: str) -> float:
+        us = getattr(ev, key.replace("cuda", "device"), None)
+        return us if us is not None else getattr(ev, key)
+
+    events = prof.key_averages()
+    ranges = [ev for ev in events if ev.key == "extra_metrics"]
+    check(ranges, "resilience: the profiled step recorded no extra_metrics range")
+    dev = sum(device_us(ev, "cuda_time_total") for ev in ranges)
+    busy = sum(device_us(ev, "self_cuda_time_total") for ev in events
+               if ev.device_type == DeviceType.CUDA)
+    check(busy > 0, "resilience: the profiled step recorded no device time")
+    got = f"{dev / 1e3:.3f} device ms" if dev > 0 else \
+        "no device time attributed to the range (not measured)"
+    print(f"resilience extra metrics in one profiled steady step (step {done + 2}): "
+          f"{ranges[0].count} update-norm ranges, {got}, of the step's {busy / 1e3:.3f} busy ms "
+          f"({step_ms:.3f} wall ms)", flush=True)
+
+
+def phase_resilience(torch) -> dict:
+    """Phase 4g: the resilience loop at llama-130m full width.  (a) GUM,
+    period 8, 14 steps, ``ring=2,snapshot_every=4``, ``grad_nan@5`` and
+    ``grad_spike@10*1e9``: exactly a skip at 5 and a rollback at 10 to the
+    snapshot of step 8; the steady median beside phase 4's, the snapshot's
+    and the rollback's ms, the extra metrics' device ms.  (b) GaLore
+    (phase 4b's, period 8), 10 steps, ``refresh_zero@6``: the dead subspace
+    forces a refresh that the next step runs.  Returns the launches of the
+    two runs."""
+    from repro_torch.core import find_lowrank_states
+
+    gum_steps, galore_steps = 14, 10
+    trainer, result, log, launches = resilient_run(
+        torch, "resilience gum", RESILIENT_GUM, gum_steps, GUM_DISPATCH, GUM_LAUNCH,
+        resilience="ring=2,snapshot_every=4", inject="grad_nan@5;grad_spike@10*1e9")
+    check(result.fault_log == [(5, "grad_nan"), (10, "grad_spike")],
+          f"resilience gum: fault log {result.fault_log}")
+    want = [{"step": 5, "event": "nonfinite", "action": "skip", "target": None},
+            {"step": 10, "event": "grad_spike", "action": "rollback", "target": 8}]
+    check(result.recovery_trace == want, f"resilience gum: trace {result.recovery_trace}")
+    check(result.recovery_counts == {"skip": 1, "refresh": 0, "rollback": 1, "restore": 0},
+          f"resilience gum: counts {result.recovery_counts}")
+    check(len(result.losses) == gum_steps - 1, f"resilience gum: {len(result.losses)} losses")
+    steady = [t for (refresh, applied, fault), t in zip(log, result.step_seconds)
+              if applied and not refresh and not fault]
+    refresh = [round(t * 1e3, 3) for (r, _, _), t in zip(log, result.step_seconds) if r]
+    steady_ms = statistics.median(steady) * 1e3
+    print(f"resilience gum step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
+          f"steady median with resilience on {steady_ms:.3f} ({len(steady)} steps) against "
+          f"phase 4's {STEADY_MS['slice']:.3f} ({steady_ms / STEADY_MS['slice'] - 1:+.2%}); "
+          f"refresh steps {refresh}", flush=True)
+    snapshot_round_trip(torch, trainer)
+    extra_metrics_cost(torch, trainer, gum_steps)
+    del trainer
+
+    trainer, result, log, got = resilient_run(
+        torch, "resilience galore", RESILIENT_GALORE, galore_steps, GALORE_DISPATCH,
+        GALORE_LAUNCH, resilience="", inject="refresh_zero@6")
+    check(result.fault_log == [(6, "refresh_zero")], f"resilience galore: {result.fault_log}")
+    forced = [t for t in result.recovery_trace
+              if t["event"] == "dead_subspace" and t["action"] == "refresh"]
+    check(len(forced) == 1 and forced[0]["step"] in (6, 7) and
+          len(result.recovery_trace) == 1, f"resilience galore: trace {result.recovery_trace}")
+    at = forced[0]["step"] + 1  # the executed step after the forced refresh (no replays)
+    check(log[at][0], f"resilience galore: step {at} did not recompute the projectors "
+          f"(refresh flags {[r for r, _, _ in log]})")
+    projs = [p for st in find_lowrank_states(trainer.opt_state) for p in st.projs.values()
+             if p is not None]
+    check(all(float(p.abs().max()) > 0 for p in projs),
+          "resilience galore: a projector is still zero after the forced refresh")
+    check(result.losses[-1] < result.losses[0],
+          f"resilience galore: last loss {result.losses[-1]} >= first {result.losses[0]}")
+    print(f"resilience galore step ms: {[round(t * 1e3, 3) for t in result.step_seconds]}; "
+          f"refresh flags {[int(r) for r, _, _ in log]}; the forced refresh ran at step {at}",
+          flush=True)
+    return {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
 
 
 def profile_steady_step(torch, label: str, trainer, done: int) -> None:
@@ -2391,12 +2655,15 @@ def phase_serve_llama(torch) -> dict:
 def phase_serve_mamba(torch) -> dict:
     """mamba2-370m (bf16 activations, fp32 parameters): prefill 4 x 4096
     through the SSD scan, held to the plain path as
-    :func:`check_low_precision_prefill` says (fp32 within 1e-4).  The direct decode
-    runs the request alone in its slot's row of an 8-row cache (the other
-    rows idle, as the engine's): bf16 GEMMs of another batch size pick
-    other cuBLAS kernels, which round differently and move near-tied bf16
-    logits."""
-    return phase_serve(torch, "serve-mamba", "mamba2-370m", 4, 4096, 1e-4, direct_batch=8)
+    :func:`check_low_precision_prefill` says (fp32 within 1e-4), then an
+    engine of 4 slots and 4 requests, one checked (cut from 8 / 16 to keep
+    the run under 1000 s; phase 12's engine checks a reused Mamba slot).
+    The direct decode runs the request alone in its slot's row of a 4-row
+    cache (the other rows idle, as the engine's): bf16 GEMMs of another
+    batch size pick other cuBLAS kernels, which round differently and move
+    near-tied bf16 logits."""
+    return phase_serve(torch, "serve-mamba", "mamba2-370m", 4, 4096, 1e-4, direct_batch=4,
+                       slots=4, requests=4, checked=1)
 
 
 # The head dims flash attention pads D to (its instantiations).
@@ -2523,23 +2790,29 @@ def phase_serve_maverick(torch) -> dict:
 PHASE_CALLS: dict[str, dict] = {}
 
 
+# Phase 12's depth: zamba2-1.2b's 38 layers cut to 19 to keep the whole run
+# under 1000 s.
+ZAMBA2_LAYERS = 19
+
+
 def phase_serve_zamba2(torch) -> dict:
     """Phase 12: zamba2-1.2b (hybrid: 38 Mamba-2 layers, d 2048, 64 SSD heads
     of 64, N 64, chunk 64; one shared block of 32 heads of 64 (MHA), d_ff
-    8192, run after layers 0, 6, ..., 36), all 38 layers, fp32 parameters,
-    bf16 activations: prefill 4 x 4096 through the SSD scan (38 launches)
-    and flash attention's bf16 instantiation at D = 64 (7), held to "xla" as
-    :func:`check_low_precision_prefill` says, then phase 7's engine (8
-    slots, 16 requests; the decode runs no kernel), a reused slot checked
-    against direct decode in its slot's row of an 8-row cache."""
+    8192, run after layers 0, 6, 12, ...), depth cut to ZAMBA2_LAYERS, fp32
+    parameters, bf16 activations: prefill 4 x 4096 through the SSD scan (one
+    launch a layer) and flash attention's bf16 instantiation at D = 64 (one
+    a shared-block application), held to "xla" as
+    :func:`check_low_precision_prefill` says, then an engine of 8 slots and
+    16 requests (the decode runs no kernel), a reused slot checked against
+    direct decode in its slot's row of an 8-row cache."""
     from repro_torch.configs import get_config
 
     cfg = get_config("zamba2-1.2b")
-    apps = -(-cfg.n_layers // cfg.shared_attn_every)
-    print(f"serve-zamba2 on {smi_line()}: {cfg.n_layers} layers, the shared block "
-          f"{apps} times", flush=True)
+    apps = -(-ZAMBA2_LAYERS // cfg.shared_attn_every)
+    print(f"serve-zamba2 on {smi_line()}: depth cut from {cfg.n_layers} to {ZAMBA2_LAYERS} "
+          f"layers, the shared block {apps} times", flush=True)
     launches = phase_serve(torch, "serve-zamba2", "zamba2-1.2b", 4, 4096, 1e-4,
-                           direct_batch=8)
+                           direct_batch=8, changes={"n_layers": ZAMBA2_LAYERS})
     torch.cuda.empty_cache()
     return launches
 
@@ -2811,7 +3084,7 @@ def phase_agree_serve(torch):
 # The full-width paths, in order; each returns its kernel launches.
 PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_baselines,
           "accumulate": phase_accumulate, "resume": phase_resume,
-          "rank-policy": phase_rank_policy,
+          "rank-policy": phase_rank_policy, "resilience": phase_resilience,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
           "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick,

@@ -77,8 +77,11 @@ def global_norm(tree: PyTree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
-    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-12), max=1.0)
+def clip_by_global_norm(grads: dict, max_norm: float, norm=None) -> dict:
+    """``grads`` scaled to a global norm of at most ``max_norm``; ``norm``
+    is their global norm when the caller has it already (the same bits)."""
+    norm = global_norm(grads) if norm is None else norm
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     return tree_map(lambda g: None if g is None else g * scale.to(g.dtype), grads)
 
 

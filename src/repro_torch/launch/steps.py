@@ -7,8 +7,10 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.api import Transform, clip_by_global_norm, global_norm
+from repro_torch.core.lowrank_common import default_lowrank_filter
 from repro_torch.models.transformer import Transformer, chunked_lm_loss, lm_loss
 
 
@@ -81,28 +83,74 @@ def loss_and_grads(model: Transformer, params: dict, batch: dict,
     return loss / microbatches, {k: g / microbatches for k, g in grads.items()}
 
 
+def _apply_in_place(params: dict, updates: dict, lowrank_paths: Optional[set]):
+    """``p += u`` for every leaf with an update; with ``lowrank_paths`` also
+    the norm of the applied change, (p + u) - p, over all leaves and over
+    those paths: one pass over each leaf's change, the two norms from the
+    same per-leaf sums."""
+    total, lowrank = [], []
+    for k, p in params.items():
+        u = updates[k]
+        if u is None:
+            continue
+        if lowrank_paths is None:
+            p.add_(u.to(p.dtype))
+            continue
+        new = p + u.to(p.dtype)
+        with record_function("extra_metrics"):  # the profiler's name for this pass
+            sq = torch.sum(torch.square((new - p).to(torch.float32)))
+        p.copy_(new)
+        total.append(sq)
+        if k in lowrank_paths:
+            lowrank.append(sq)
+    if lowrank_paths is None:
+        return None
+    zero = torch.zeros((), device=next(iter(params.values())).device)
+    return torch.sqrt(sum(total, zero)), torch.sqrt(sum(lowrank, zero))
+
+
+def _lowrank_paths(params: dict) -> set:
+    """The paths that ``default_lowrank_filter`` routes to the low-rank
+    stage (the dead-subspace detector's leaves)."""
+    return {k for k, p in params.items() if default_lowrank_filter(k, p)}
+
+
 def _guarded_update(transform: Transform, params: dict, opt_state, grads: dict,
-                    loss: torch.Tensor, grad_clip: float):
-    """Clip, then apply ``transform``'s update in place unless the loss or
-    the (clipped) gradient norm is not finite."""
+                    loss: torch.Tensor, grad_clip: float, fault_gate=None,
+                    fault: Optional[dict] = None, lowrank_paths: Optional[set] = None):
+    """Corrupt the raw gradients through ``fault_gate`` (when given), clip,
+    then apply ``transform``'s update in place unless the loss or the
+    (clipped) gradient norm is not finite.  ``lowrank_paths`` (extra
+    metrics on) adds ``grad_norm_raw``, ``update_norm`` and
+    ``update_norm_lowrank``; the raw norm is the clip's own, so the clipped
+    gradients are the bits of :func:`clip_by_global_norm`'s."""
+    if fault_gate is not None and fault is not None:
+        grads = fault_gate.apply(grads, fault)
+    extra = lowrank_paths is not None
+    gnorm_raw = global_norm(grads) if extra else None
     if grad_clip > 0:
-        grads = clip_by_global_norm(grads, grad_clip)
-    gnorm = global_norm(grads)
+        grads = clip_by_global_norm(grads, grad_clip, norm=gnorm_raw)
+    gnorm = gnorm_raw if extra and grad_clip <= 0 else global_norm(grads)
     finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+    norms = None
     if finite:
         with torch.no_grad():
             updates, opt_state = transform.update(
                 grads, opt_state, {k: p.detach() for k, p in params.items()})
-            for k, p in params.items():
-                if updates[k] is not None:
-                    p.add_(updates[k].to(p.dtype))
+            norms = _apply_in_place(params, updates, lowrank_paths)
     metrics = {"loss": loss.detach(), "grad_norm": gnorm, "update_applied": finite}
+    if extra:
+        # a skipped step changes nothing: both update norms are 0
+        zero = torch.zeros((), device=gnorm.device)
+        metrics["grad_norm_raw"] = gnorm_raw
+        metrics["update_norm"], metrics["update_norm_lowrank"] = norms or (zero, zero)
     return opt_state, metrics
 
 
 def make_train_step(model: Transformer, optimizer: Transform, *,
                     grad_clip: float = 0.0, microbatches: int = 1,
-                    lowrank_accum=None) -> Callable:
+                    lowrank_accum=None, fault_gate=None,
+                    extra_metrics: bool = False) -> Callable:
     """``(params, opt_state, batch) -> (opt_state, metrics)``.
 
     ``params`` is ``model.params()``, updated **in place** (``p += u`` under
@@ -121,15 +169,34 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
     finite the step applies no update and returns the old optimizer state
     (``update_applied=False``) — the outcome of the reference's in-jit
     guard, decided on the host from one synchronising read per step.
+
+    ``fault_gate`` (a :class:`repro_torch.resilience.FaultGate`): the step
+    takes a fourth argument ``fault = {"mode", "scale"}`` and corrupts the
+    raw gradients (after accumulation, before the clip); mode 0, or no
+    ``fault``, leaves them as they are.  Not wired into the projected-space
+    accumulator (``NotImplementedError``, as in the reference).
+
+    ``extra_metrics=True`` adds the health monitor's signals (not on the
+    projected-space accumulator's step, as in the reference):
+    ``grad_norm_raw`` (pre-clip, reused as the clip's own norm),
+    ``update_norm`` (global norm of the applied parameter change) and
+    ``update_norm_lowrank`` (the same norm over the leaves
+    ``default_lowrank_filter`` routes to the low-rank stage: the
+    dead-subspace detector's signal).
     """
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if lowrank_accum is not None and microbatches > 1:
+        if fault_gate is not None:
+            raise NotImplementedError("fault injection is not wired into the projected-space "
+                                      "accumulation step")
         return _make_lowrank_accum_step(model, lowrank_accum, grad_clip, microbatches)
+    lowrank_paths = _lowrank_paths(model.params()) if extra_metrics else None
 
-    def train_step(params: dict, opt_state, batch: dict):
+    def train_step(params: dict, opt_state, batch: dict, fault: Optional[dict] = None):
         loss, grads = loss_and_grads(model, params, batch, microbatches)
-        return _guarded_update(optimizer, params, opt_state, grads, loss, grad_clip)
+        return _guarded_update(optimizer, params, opt_state, grads, loss, grad_clip,
+                               fault_gate, fault, lowrank_paths)
 
     return train_step
 

@@ -1,0 +1,130 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch llama-130m ...``
+
+The port of the JAX package's ``launch/train.py``: the same flags, the same
+``Trainer`` wiring (resilience, fault injection, rank policy) and the same
+two closing lines.  It runs on the CUDA device unless ``--device cpu`` is
+given, and raises where there is no GPU.  The flags of subsystems not yet
+ported (the mesh and sharded state, telemetry and profiling, the static
+audit) raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+# Flags of subsystems the port does not run yet: (flag, ROADMAP queue 1
+# item, the value that means "off").
+_NOT_PORTED = {"mesh": ("--mesh", 5, ""), "shard_state": ("--shard-state", 5, False),
+               "telemetry": ("--telemetry", 4, None), "events_out": ("--events-out", 4, None),
+               "profile_steps": ("--profile-steps", 4, None), "audit": ("--audit", 6, False)}
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; cuda (the default) raises where there is no GPU")
+    ap.add_argument("--opt", default="gum")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--rank", type=int, default=128)
+    ap.add_argument("--gamma", type=int, default=2)
+    ap.add_argument("--period", type=int, default=200)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--kernel-impl", default="auto", choices=["auto", "torch", "cuda"],
+                    help="optimizer hot-loop implementation (OptimizerConfig.kernel_impl): "
+                         "auto = the CUDA kernels on CUDA tensors, the plain PyTorch "
+                         "versions on CPU tensors")
+    ap.add_argument("--pad-rank-to", type=int, default=0,
+                    help="rank padding of the low-rank kernels (e.g. 128)")
+    ap.add_argument("--fuse-families", action="store_true",
+                    help="family-stacked optimizer execution: one batched launch per shape "
+                         "family instead of one per parameter leaf")
+    ap.add_argument("--shard-state", action="store_true",
+                    help="not ported (ROADMAP queue 1 item 5)")
+    ap.add_argument("--fused-epilogue", action="store_true",
+                    help="fold chain-tail epilogues (-lr, weight decay) into the "
+                         "back-projection (back_project_epilogue kernel; galore family)")
+    ap.add_argument("--rank-policy", default=None,
+                    help="time-varying / per-family rank: 'fixed:64', "
+                         "'stepwise:0=128,500=64', 'family:512x512=32,...', "
+                         "'spectral[:target_energy]'")
+    ap.add_argument("--rank-ladder", default="",
+                    help="comma-separated ranks an adaptive policy may emit, e.g. 32,64,128")
+    ap.add_argument("--mesh", default="", metavar="AXIS=N",
+                    help="not ported (ROADMAP queue 1 item 5)")
+    ap.add_argument("--resilience", nargs="?", const="", default=None, metavar="SPEC",
+                    help="turn on the health monitor + recovery ladder: bare flag = "
+                         "defaults, or a knob spec like 'ring=3,snapshot_every=5,spike_z=4' "
+                         "(any ResilienceConfig field)")
+    ap.add_argument("--inject", default=None, metavar="PLAN",
+                    help="deterministic fault injection: 'kind@step[*scale][#arg];...' "
+                         "e.g. 'grad_nan@5;grad_spike@9*1e6;refresh_zero@13;"
+                         "ckpt_bitflip@20;kill_save@40#3'")
+    ap.add_argument("--inject-seed", type=int, default=0,
+                    help="seed for the fault plan's corruption RNG (bit positions etc.)")
+    ap.add_argument("--telemetry", nargs="?", const="", default=None, metavar="SPEC",
+                    help="not ported (ROADMAP queue 1 item 4)")
+    ap.add_argument("--events-out", default=None, metavar="PATH",
+                    help="not ported (ROADMAP queue 1 item 4)")
+    ap.add_argument("--profile-steps", default=None, metavar="A:B",
+                    help="not ported (ROADMAP queue 1 item 4)")
+    ap.add_argument("--audit", action="store_true",
+                    help="not ported (ROADMAP queue 1 item 6)")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = parser().parse_args(argv)
+    for field, (flag, item, off) in _NOT_PORTED.items():
+        if getattr(args, field) != off:
+            raise NotImplementedError(f"{flag} is not ported to the PyTorch package yet "
+                                      f"(ROADMAP queue 1 item {item})")
+
+    from repro_torch.configs import RunConfig, get_config, get_smoke
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.resilience import FaultPlan
+    from repro_torch.train import Trainer
+
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg, device=args.device)
+    opt_cfg = OptimizerConfig(
+        name=args.opt, lr=args.lr, rank=args.rank, gamma=args.gamma,
+        period=args.period, kernel_impl=args.kernel_impl,
+        pad_rank_to=args.pad_rank_to, fuse_families=args.fuse_families,
+        fused_epilogue=args.fused_epilogue, rank_policy=args.rank_policy,
+        rank_ladder=tuple(int(r) for r in args.rank_ladder.split(",") if r),
+    )
+    run_cfg = RunConfig(
+        steps=args.steps, ckpt_dir=args.ckpt_dir, resume=not args.no_resume,
+        ckpt_every=max(args.steps // 4, 1), log_every=10,
+    )
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
+    inject = FaultPlan.parse(args.inject, seed=args.inject_seed) if args.inject else None
+
+    trainer = Trainer(model, opt_cfg, run_cfg, data_cfg, device=args.device,
+                      microbatches=args.microbatches, resilience=args.resilience,
+                      inject=inject)
+    result = trainer.train()
+    print(
+        f"done: step={result.final_step} "
+        f"first_loss={result.losses[0]:.4f} last_loss={result.losses[-1]:.4f} "
+        f"skipped={result.skipped_nonfinite} stragglers={len(result.straggler_steps)}"
+        + (f" resumed_from={result.resumed_from}" if result.resumed_from else "")
+    )
+    if result.recovery_counts:
+        fired = {k: v for k, v in result.recovery_counts.items() if v}
+        print(f"resilience: recoveries={fired or '{}'} "
+              f"health_events={len(result.health_events)} "
+              f"faults_fired={len(result.fault_log)}")
+
+
+if __name__ == "__main__":
+    main()

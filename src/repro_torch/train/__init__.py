@@ -1,3 +1,3 @@
-from repro_torch.train.trainer import Trainer, TrainResult
+from repro_torch.train.trainer import StepTimeMonitor, Trainer, TrainResult
 
-__all__ = ["Trainer", "TrainResult"]
+__all__ = ["StepTimeMonitor", "Trainer", "TrainResult"]

@@ -1,6 +1,6 @@
-"""The training loop over the synthetic stream, with periodic checkpoints
-and exact resume (the port of the JAX package's ``train/trainer.py``; its
-resilience, telemetry and mesh are not ported).
+"""The training loop over the synthetic stream, with periodic checkpoints,
+exact resume and the resilience subsystem (the port of the JAX package's
+``train/trainer.py``; its telemetry and mesh are not ported).
 
 * **resume** (``RunConfig.resume``): from the newest *verified* committed
   checkpoint in ``RunConfig.ckpt_dir`` — a newest step that fails
@@ -14,8 +14,21 @@ resilience, telemetry and mesh are not ported).
   before each step; a rank change migrates the optimizer state and rebuilds
   the step, and the controller's state rides in every checkpoint's extras,
   so resume is exact across the change;
-* the NaN/Inf guard of the step (``update_applied``) and a
-  :class:`StepTimeMonitor` of straggling steps.
+* **health monitor and recovery ladder** (``resilience=``): windowed
+  detectors over the step's loss, raw gradient norm and low-rank update
+  norm, with the straggler :class:`StepTimeMonitor`, feed the
+  :class:`~repro_torch.resilience.RecoveryController`: skip → forced
+  off-cycle projector refresh → rollback to an in-memory snapshot ring
+  (parameters, optimizer state, rank-policy extras) → restore of the last
+  verified checkpoint; every event lands in :class:`TrainResult`;
+* **fault injection** (``inject=``): a seeded
+  :class:`~repro_torch.resilience.FaultPlan` arms gradient corruption,
+  projector sabotage, checkpoint corruption and mid-save kills;
+* the NaN/Inf guard of the step (``update_applied``).
+
+Console lines take the reference's rendered form, ``step {step:6d}
+{detail}`` (bare ``detail`` where an event has no step), with its detail
+strings.
 """
 from __future__ import annotations
 
@@ -36,6 +49,16 @@ from repro_torch.data import DataConfig, build_stream
 from repro_torch.launch.devices import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.transformer import Transformer
+from repro_torch.resilience import (
+    FaultGate,
+    FaultPlan,
+    HealthMonitor,
+    RecoveryController,
+    ResilienceConfig,
+    SnapshotRing,
+    force_refresh,
+    poison_projectors,
+)
 
 
 class StepTimeMonitor:
@@ -62,13 +85,24 @@ class StepTimeMonitor:
 @dataclasses.dataclass
 class TrainResult:
     final_step: int
-    losses: list[float]            # the applied steps of this run, in order
+    losses: list[float]            # by step; replayed steps replace rolled-back ones
     skipped_nonfinite: int
     straggler_steps: list[tuple[int, float]]
     resumed_from: Optional[int]
-    # Host wall time of each step of this run, ending in a device
-    # synchronise (checkpoint saves excluded).
+    # Host wall time of each executed step of this run (replays included),
+    # ending in a device synchronise (snapshots and checkpoint saves excluded).
     step_seconds: list[float]
+    # Resilience accounting (empty when the subsystem is off):
+    health_events: list = dataclasses.field(default_factory=list)
+    recovery_counts: dict = dataclasses.field(default_factory=dict)
+    recovery_trace: list = dataclasses.field(default_factory=list)
+    fault_log: list = dataclasses.field(default_factory=list)
+    # The run log's path; None (telemetry is not ported).
+    events_path: Optional[str] = None
+
+
+# The step's metrics the trainer reads on the host, in one copy.
+_SCALARS = ("loss", "grad_norm", "grad_norm_raw", "update_norm", "update_norm_lowrank")
 
 
 class Trainer:
@@ -83,6 +117,8 @@ class Trainer:
         device: Optional[str | torch.device] = None,
         optimizer: Optional[Transform] = None,
         params: Optional[dict[str, torch.Tensor]] = None,
+        resilience=None,
+        inject=None,
     ):
         """``device`` defaults to the CUDA device and raises when there is
         none (pass ``device="cpu"`` for the CPU); the model moves there.
@@ -97,7 +133,13 @@ class Trainer:
         state from the checkpoint instead.  A model whose parameters are
         stored below fp32 (``ModelConfig.param_dtype``) raises: the
         reference trains such leaves with fp32 optimizer states, which the
-        port does not yet."""
+        port does not yet.
+
+        ``resilience`` turns on the health monitor and the recovery ladder:
+        True or "" for defaults, a spec string ("ring=3,snapshot_every=5"),
+        or a :class:`~repro_torch.resilience.ResilienceConfig`.  ``inject``
+        arms fault injection: a :class:`~repro_torch.resilience.FaultPlan`
+        or its spec string ("grad_nan@5;refresh_zero@13;kill_save@20#3")."""
         if model.cfg.param_dtype != "float32":
             raise NotImplementedError(
                 f"training a model with ModelConfig.param_dtype={model.cfg.param_dtype!r} is "
@@ -114,6 +156,18 @@ class Trainer:
             self.model.init_params(run_cfg.seed)
         self.ckpt = CheckpointManager(run_cfg.ckpt_dir, keep=run_cfg.keep_ckpts)
         self.monitor = StepTimeMonitor()
+
+        if resilience is None or resilience is False:
+            self.resilience = None
+            self.health = None
+        else:
+            self.resilience = ResilienceConfig.parse(resilience)
+            self.health = HealthMonitor(self.resilience, step_monitor=self.monitor)
+        self.fault_plan = FaultPlan.parse(inject) if isinstance(inject, str) else inject
+        self._fault_gate = self.fault_plan.gate() if self.fault_plan is not None else None
+        self.recovery: Optional[RecoveryController] = None  # built per train() run
+        self._has_probes: Optional[bool] = None
+
         # Rank policy: rank is a shape of the optimizer state, so a change is
         # a host-side event between steps (migrate the state, rebuild the
         # step).  Only on the factory path; a hand-passed optimizer owns its
@@ -131,7 +185,14 @@ class Trainer:
     def _set_optimizer(self, optimizer: Transform) -> None:
         self.optimizer = optimizer
         self.step_fn = make_train_step(self.model, optimizer, grad_clip=self.run.grad_clip,
-                                       microbatches=self.microbatches)
+                                       microbatches=self.microbatches,
+                                       fault_gate=self._fault_gate,
+                                       extra_metrics=self.resilience is not None)
+
+    @staticmethod
+    def _event(detail: str, step: Optional[int] = None) -> None:
+        """One console line, in the reference's rendered form."""
+        print(detail if step is None else f"step {step:6d} {detail}", flush=True)
 
     def _ckpt_extra(self) -> Optional[dict]:
         if self.rank_ctrl is None:
@@ -139,8 +200,15 @@ class Trainer:
         return {"rank_policy": self.rank_ctrl.state_dict()}
 
     def _save(self, step: int, params: dict, opt_state) -> None:
+        """Checkpoint save with the fault plan's kill hook and post-commit
+        corruption events attached (no-ops without a plan)."""
+        plan = self.fault_plan
+        observer = plan.save_observer(step) if plan is not None else None
         self.ckpt.save(step, ({k: p.detach() for k, p in params.items()}, opt_state),
-                       extra=self._ckpt_extra())
+                       extra=self._ckpt_extra(), observer=observer)
+        if plan is not None:
+            for ev in plan.apply_ckpt_events(self.ckpt.dir, step):
+                self._event(f"fault-injection: {ev.kind} on the step-{step} checkpoint", step)
 
     def _resume_step(self) -> Optional[int]:
         """The step to resume from (None: start afresh)."""
@@ -149,62 +217,170 @@ class Trainer:
         latest = self.ckpt.latest_verified_step()
         newest = self.ckpt.latest_step()
         if newest is not None and newest != latest:
-            print(f"checkpoint: newest committed step {newest} failed verification — "
-                  f"resuming from last verified {latest}", flush=True)
+            self._event(f"checkpoint: newest committed step {newest} failed verification — "
+                        f"resuming from last verified {latest}")
         return latest
+
+    def _load_checkpoint(self, step: int, params: dict):
+        """Restore the checkpoint of ``step`` into the live ``params`` (in
+        place: the step updates these tensors) and return its optimizer
+        state, rebuilding the rank-policy controller (and so the state
+        template's shapes) from the saved extras first."""
+        if self.rank_ctrl is not None:
+            extra = self.ckpt.read_extra(step)
+            if "rank_policy" in extra:
+                self.rank_ctrl.load_state_dict(extra["rank_policy"])
+                self._set_optimizer(self.rank_ctrl.transform())
+        detached = {k: p.detach() for k, p in params.items()}
+        (saved, opt_state), _ = self.ckpt.restore(step, (detached, self.optimizer.init(detached)))
+        _copy_into(params, saved)
+        return opt_state
+
+    def _gather_probes(self, opt_state, step: int) -> Optional[dict]:
+        """Spectrum probes for the health monitor's captured-energy floor —
+        gathered only on refresh-cadence steps and only when the optimizer
+        stores probes."""
+        if (self.resilience is None or not self.resilience.probe_health
+                or self.opt_cfg.period <= 0 or step % self.opt_cfg.period != 0):
+            return None
+        from repro_torch.core import find_lowrank_states, gather_probes
+
+        if self._has_probes is None:
+            self._has_probes = any(st.probes is not None
+                                   for st in find_lowrank_states(opt_state))
+        return gather_probes(opt_state) if self._has_probes else None
 
     def train(self, steps: Optional[int] = None) -> TrainResult:
         steps = steps or self.run.steps
         stream = build_stream(self.data_cfg)
+        res, plan, health = self.resilience, self.fault_plan, self.health
+        ring = SnapshotRing(res.ring) if res is not None else None
+        recov = RecoveryController(res) if res is not None else None
+        self.recovery = recov
         params = self.model.params()
         detached = {k: p.detach() for k, p in params.items()}
         start_step = resumed_from = self._resume_step()
-        if resumed_from is not None and self.rank_ctrl is not None:
-            # The controller's state sets the optimizer state's shapes, so it
-            # is rebuilt from the saved extras before the restore template.
-            extra = self.ckpt.read_extra(resumed_from)
-            if "rank_policy" in extra:
-                self.rank_ctrl.load_state_dict(extra["rank_policy"])
-                self._set_optimizer(self.rank_ctrl.transform())
-        opt_state = self.optimizer.init(detached)
         if resumed_from is not None:
-            (saved, opt_state), _ = self.ckpt.restore(resumed_from, (detached, opt_state))
-            with torch.no_grad():  # in place: the step updates these tensors
-                for k, p in params.items():
-                    p.copy_(saved[k])
+            opt_state = self._load_checkpoint(resumed_from, params)
             stream.resume(resumed_from)  # exact skip-ahead
         else:
             start_step = 0
+            opt_state = self.optimizer.init(detached)
 
-        losses, seconds, skipped = [], [], 0
+        loss_by_step: dict[int, float] = {}
+        seconds, skipped = [], 0
         cuda = self.device.type == "cuda"
-        for step in range(start_step, steps):
+        step = start_step
+        while step < steps:
             t0 = time.perf_counter()  # the step's time includes a migration
             if self.rank_ctrl is not None:
                 opt_state, changed = self.rank_ctrl.maybe_update(opt_state, detached)
                 if changed:
                     self._set_optimizer(self.rank_ctrl.transform())
-            tokens = torch.from_numpy(next(stream)).to(self.device)
-            opt_state, metrics = self.step_fn(params, opt_state, {"tokens": tokens})
-            loss = float(metrics["loss"])
+                    self._event(f"rank-policy -> {self.rank_ctrl.current_map}", step)
+            if plan is not None:
+                for ev in plan.state_events(step):
+                    opt_state = poison_projectors(opt_state, ev.kind)
+                    self._event(f"fault-injection: {ev.kind}", step)
+            batch = {"tokens": torch.from_numpy(next(stream)).to(self.device)}
+            if self._fault_gate is not None:
+                ev = plan.grad_event(step)
+                if ev is not None:
+                    self._event(f"fault-injection: {ev.kind}", step)
+                fault = FaultGate.armed(ev) if ev is not None else FaultGate.disarmed()
+                opt_state, metrics = self.step_fn(params, opt_state, batch, fault)
+            else:
+                opt_state, metrics = self.step_fn(params, opt_state, batch)
+            names = [n for n in _SCALARS if n in metrics]
+            scalars = dict(zip(names, torch.stack(
+                [metrics[n].to(torch.float32) for n in names]).tolist()))
             if cuda:
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
             seconds.append(dt)
-            self.monitor.record(step, dt)
-            if metrics["update_applied"]:
-                losses.append(loss)
+            loss, applied = scalars["loss"], metrics["update_applied"]
+            if applied:
+                loss_by_step[step] = loss
             else:
                 skipped += 1
+
+            report = None
+            if health is not None:
+                report = health.observe(
+                    step, loss=loss, applied=applied,
+                    grad_norm=scalars.get("grad_norm_raw", scalars["grad_norm"]),
+                    # the low-rank leaves' norm: embeddings and norms keep
+                    # updating through a dead subspace and would mask it
+                    update_norm=scalars.get("update_norm_lowrank"),
+                    dt=dt, probes=self._gather_probes(opt_state, step))
+                for e in report.events:
+                    self._event(f"health[{e.severity}] {e.kind}: {e.detail}", step)
+                action = recov.decide(report)
+                if action.kind == "refresh":
+                    opt_state = force_refresh(opt_state, self.opt_cfg.period)
+                    recov.record(action, target=step + 1)
+                    health.reset()
+                    self._event("recovery: forced off-cycle projector refresh", step)
+                elif action.kind in ("rollback", "restore"):
+                    target, kind = None, action.kind
+                    if action.kind == "rollback":
+                        snap = ring.pop_latest()
+                        if snap is not None:
+                            if (self.rank_ctrl is not None and snap.extra
+                                    and "rank_policy" in snap.extra):
+                                self.rank_ctrl.load_state_dict(snap.extra["rank_policy"])
+                                self._set_optimizer(self.rank_ctrl.transform())
+                            saved, opt_state = ring.restore(snap, self.device)
+                            _copy_into(params, saved)
+                            target = snap.step
+                    if target is None:
+                        # no snapshot (or the restore rung): the last
+                        # verified durable checkpoint
+                        ck = self.ckpt.latest_verified_step()
+                        if ck is not None:
+                            opt_state = self._load_checkpoint(ck, params)
+                            target, kind = ck, "restore"
+                    recov.record(dataclasses.replace(action, kind=kind)
+                                 if kind != action.kind else action, target=target)
+                    if target is not None:
+                        self._event(f"recovery: {kind} -> step {target}", step)
+                        stream.resume(target)
+                        loss_by_step = {k: v for k, v in loss_by_step.items() if k < target}
+                        step = target
+                        health.reset()
+                        continue
+                    self._event(f"recovery: {action.kind} requested but nothing restorable "
+                                f"— continuing", step)
+            else:
+                self.monitor.record(step, dt)
+
+            if (res is not None and res.snapshot_every
+                    and (step + 1) % res.snapshot_every == 0 and report.status == "ok"):
+                ring.add(step + 1, detached, opt_state, extra=self._ckpt_extra())
             if self.run.ckpt_every and (step + 1) % self.run.ckpt_every == 0:
                 self._save(step + 1, params, opt_state)
             if self.run.log_every and (step + 1) % self.run.log_every == 0:
-                print(f"[step {step + 1}] loss {loss:.4f}", flush=True)
-        # The final save, unless the loop's periodic save committed this step.
+                self._event(f"loss {loss:.4f}", step + 1)
+            step += 1
+        # The final save, unless the loop's periodic save committed this step
+        # (a duplicate would also clobber injected post-commit corruption).
         if not (self.run.ckpt_every and steps % self.run.ckpt_every == 0
                 and steps > start_step):
             self._save(steps, params, opt_state)
         self.opt_state = opt_state
-        return TrainResult(final_step=steps, losses=losses, skipped_nonfinite=skipped,
-                           straggler_steps=self.monitor.flagged, resumed_from=resumed_from,
-                           step_seconds=seconds)
+        return TrainResult(
+            final_step=steps, losses=[v for _, v in sorted(loss_by_step.items())],
+            skipped_nonfinite=skipped, straggler_steps=self.monitor.flagged,
+            resumed_from=resumed_from, step_seconds=seconds,
+            health_events=[e.to_json() for e in health.events] if health is not None else [],
+            recovery_counts=dict(recov.counts) if recov is not None else {},
+            recovery_trace=list(recov.trace) if recov is not None else [],
+            fault_log=list(plan.log) if plan is not None else [])
+
+
+def _copy_into(params: dict, src: dict) -> None:
+    """Write ``src``'s values into the live parameters (the step updates
+    these tensors in place, so they are never rebound)."""
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(src[k])

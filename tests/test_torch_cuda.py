@@ -840,3 +840,35 @@ def test_moe_layer_matches_cpu_and_repeats_bitwise(cuda_device, arch, dtype, tie
         fp32, _ = moe.apply_moe(p, x.float(), cfg)
     assert pinned.dtype == torch.bfloat16
     assert _fro(pinned.cpu(), want) <= _fro(want, fp32)
+
+
+def test_snapshot_round_trips_cuda_state_bitwise(cuda_device):
+    """A ``SnapshotRing`` snapshot of a GUM state on the card (after one
+    refresh step: projectors, momenta, the int step count) comes back to the
+    card bitwise, and a restored tree aliases neither the live tensors (the
+    step updates those in place) nor the ring's host copy."""
+    from repro_torch.checkpoint.manager import flatten_with_paths
+    from repro_torch.core import OptimizerConfig, build_optimizer
+    from repro_torch.resilience import SnapshotRing
+
+    params = {"blocks/attn/wq": _randn(2, 64, 96), "embed/embedding": _randn(256, 64)}
+    opt = build_optimizer(OptimizerConfig(name="gum", rank=8, gamma=1, period=3))
+    state = opt.init(params)
+    _, state = opt.update({k: _randn(*p.shape) for k, p in params.items()}, state, params)
+    want = [(path, x.clone() if torch.is_tensor(x) else x)
+            for path, x in flatten_with_paths((params, state))]
+    ring = SnapshotRing(2)
+    ring.add(1, params, state)
+    for x in (params["blocks/attn/wq"], params["embed/embedding"]):
+        x.add_(1.0)
+    got = ring.restore(ring.latest(), cuda_device)
+    flat = flatten_with_paths(got)
+    assert [p for p, _ in flat] == [p for p, _ in want]
+    for (path, x), (_, y) in zip(flat, want):
+        if torch.is_tensor(y):
+            assert x.device.type == "cuda" and torch.equal(x, y), path
+        else:
+            assert x == y, path
+    got[0]["blocks/attn/wq"].zero_()
+    again = ring.restore(ring.latest(), cuda_device)
+    assert torch.equal(again[0]["blocks/attn/wq"], want[0][1])
