@@ -69,10 +69,14 @@ Phases, in order; any failure exits non-zero and prints no result:
                 and a third ``Trainer`` on its directory falling back to
                 step 3 and reaching the same bits; a child process of the
                 training CLI (``python -m repro_torch.launch.train``, phase
-                4's settings, a checkpoint every step) killed mid-save by
-                ``kill_save@6#2`` (exit -9, step 5 the newest verified, a
-                ``.tmp`` directory left) and a ``Trainer`` resuming it to 6
-                equal to them bitwise (losses, parameters, optimizer state);
+                4's settings, a checkpoint every step, ``--telemetry
+                --profile-steps 4:5``) killed mid-save by ``kill_save@6#2``
+                (exit -9, step 5 the newest verified, a ``.tmp`` directory
+                left, its run log holding every record up to the kill and
+                no counters, its trace rows 1–5 inside ``step 4``) and a
+                ``Trainer`` resuming it to 6 (with the telemetry probes)
+                equal to them bitwise (losses, parameters, every optimizer
+                state leaf but the probes);
                 then the checkpoint's save, verify and restore times and size;
   4f. rank policy — phase 4's GUM under the rank-policy engine: (a) a
                 controller running ``stepwise:0=256,3=128`` over 6 updates
@@ -101,6 +105,17 @@ Phases, in order; any failure exits non-zero and prints no result:
                 subspace forces a refresh at step 6 or 7, the next step
                 recomputes the projectors, and the last loss is below the
                 first;
+  4h. telemetry — phase 4's run with ``OptimizerConfig(telemetry=True)``,
+                ``Trainer(telemetry="stdout=0", profile_steps="4:6")``: the
+                losses bitwise phase 4's; GUM's counts each step plus 7
+                row-2 launches (the spectrum probe) on each refresh; the
+                run log (loss and grad_norm each step, step spans tagged
+                refresh / steady, rank / energy / drift / bias per family on
+                the refresh steps, the gamma slots, counters that agree);
+                ``python -m repro_torch.telemetry.report`` in a child; the
+                profiler's Chrome trace holding rows 1–5's kernels (their
+                ``__global__`` names read from csrc/) inside the ``step 4``
+                and ``step 5`` annotations; the step times beside phase 4's;
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
                 flash_attention launches) against "xla", then a
                 continuous-batching engine of 8 slots answering 16 requests,
@@ -116,7 +131,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                 prefill 4 x 2048 through the bf16 instantiation of flash
                 attention (one launch a layer) against "xla" in fp32 and in
                 bf16 on the same parameters, then an engine: chatglm3-6b's
-                of 8 slots answering 16 requests, two of them checked
+                of 8 slots answering 9 requests (cut from 16 to make room
+                for phase 4h: 252 ticks, not 450), two of them checked
                 against direct decode, one in a reused slot; starcoder2-7b's
                 and qwen1.5-4b's of 4 slots and 4 requests, one checked
                 (``DENSE_VARIANTS``);
@@ -153,9 +169,10 @@ Phases, in order; any failure exits non-zero and prints no result:
                 block 4 times) to keep the run under 1000 s, fp32
                 parameters, bf16 activations: prefill 4 x 4096 (19 ssd_scan
                 and 4 flash_attention launches) against "xla" in fp32 and
-                in bf16, then an engine of 8 slots answering 16 requests,
-                one of two checked in a reused slot (the card's check that
-                a reused slot starts from an empty Mamba state);
+                in bf16, then an engine of 8 slots answering 9 requests (cut
+                from 16 to make room for phase 4h), one of two checked in
+                a reused slot (the card's check that a reused slot starts
+                from an empty Mamba state);
  13. serve    — llama-3.2-vision-11b (vlm) at full width (d 4096, 32 heads
                 over 8, d_ff 14336, vocab 128256), depth cut to 10 of 40
                 layers (two groups of 5 self blocks and a gated
@@ -205,6 +222,7 @@ writes its checkpoints under its own temporary directory and removes it.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -826,10 +844,12 @@ def scratch_dir(label: str):
         shutil.rmtree(path, ignore_errors=True)
 
 
-# Each training phase's refresh-step times (ms), by label, for phase 4f, and
-# its steady median (ms), for phase 4g.
+# Each training phase's refresh-step times (ms), by label, for phases 4f and
+# 4h, its steady median (ms), for phases 4g and 4h, and its losses, for
+# phase 4h.
 REFRESH_MS: dict[str, list[float]] = {}
 STEADY_MS: dict[str, float] = {}
+LOSSES: dict[str, list[float]] = {}
 
 
 def llama130m_data():
@@ -891,6 +911,7 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     steady_ms = statistics.median(steady) * 1e3
     REFRESH_MS[label] = [round(t * 1e3, 3) for t in refresh]
     STEADY_MS[label] = steady_ms
+    LOSSES[label] = losses
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
           f"steady median {steady_ms:.3f}; refresh steps {[round(t * 1e3, 3) for t in refresh]}; "
@@ -1342,13 +1363,16 @@ def flat_state(tree) -> list:
     return flatten_with_paths(tree)
 
 
-def bitwise_diff(a, b) -> list[str]:
+def bitwise_diff(a, b, drop: str | None = None) -> list[str]:
     """The leaves of two (params, state) trees that are not bitwise equal,
-    each with its max abs difference."""
+    each with its max abs difference; leaves whose path holds ``drop`` are
+    left out of both."""
     import torch
 
     out = []
     fa, fb = flat_state(a), flat_state(b)
+    if drop is not None:
+        fa, fb = ([(p, x) for p, x in f if drop not in p] for f in (fa, fb))
     if [p for p, _ in fa] != [p for p, _ in fb]:
         return ["the trees differ in structure"]
     for (path, x), (_, y) in zip(fa, fb):
@@ -1387,8 +1411,9 @@ def phase_resume(torch) -> dict:
     params0 = {k: v.detach().clone() for k, v in init.params().items()}
     del init
 
-    def run(ckpt_dir: str, steps: int, keep: bool = False, **kw):
-        trainer = Trainer(build_model(cfg, device="cuda"), OptimizerConfig(**GUM_130M),
+    def run(ckpt_dir: str, steps: int, keep: bool = False, telemetry: bool = False, **kw):
+        trainer = Trainer(build_model(cfg, device="cuda"),
+                          OptimizerConfig(**GUM_130M, telemetry=telemetry),
                           RunConfig(steps=steps, ckpt_every=3, log_every=0, seed=0,
                                     ckpt_dir=ckpt_dir),
                           data, device="cuda", params=params0, **kw)
@@ -1400,8 +1425,8 @@ def phase_resume(torch) -> dict:
     def tree(trainer):
         return ({k: p.detach() for k, p in trainer.model.params().items()}, trainer.opt_state)
 
-    def same(label: str, trainer, result, losses) -> None:
-        diff = bitwise_diff(tree(a1), tree(trainer))
+    def same(label: str, trainer, result, losses, drop: str | None = None) -> None:
+        diff = bitwise_diff(tree(a1), tree(trainer), drop)
         check(result.losses == losses and not diff,
               f"resume: {label} differs: losses {result.losses} vs {losses}; "
               f"leaves {diff[:8]}")
@@ -1425,7 +1450,8 @@ def phase_resume(torch) -> dict:
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama-130m",
              "--steps", "6", "--batch", "8", "--seq", "1024", "--lr", "5e-3", "--rank", "256",
-             "--gamma", "4", "--period", "3", "--inject", "kill_save@6#2", "--ckpt-dir", killed],
+             "--gamma", "4", "--period", "3", "--inject", "kill_save@6#2", "--ckpt-dir", killed,
+             "--telemetry", "--profile-steps", "4:5"],
             capture_output=True, text=True, cwd=ROOT, timeout=600,
             env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
         cli_s = time.perf_counter() - t0
@@ -1436,9 +1462,13 @@ def phase_resume(torch) -> dict:
               f"resume: newest verified step after the kill {mgr.latest_verified_step()}, not 5")
         check(any(n.endswith(".tmp") for n in os.listdir(killed)),
               f"resume: the killed save left no .tmp directory: {os.listdir(killed)}")
-        b2, rb2 = run(killed, 6)
+        killed_run_log(killed, proc.stdout)
+        # The child's optimizer state holds the telemetry probes: the resumed
+        # run builds them too, and is held to the run without them leaf by
+        # leaf, the probes left out.
+        b2, rb2 = run(killed, 6, telemetry=True)
         check(rb2.resumed_from == 5, f"resume: resumed_from {rb2.resumed_from} != 5")
-        same("the run resumed after the CLI's kill", b2, rb2, ra1.losses[5:])
+        same("the run resumed after the CLI's kill", b2, rb2, ra1.losses[5:], drop="/probes/")
         del b2
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
@@ -1473,6 +1503,34 @@ def phase_resume(torch) -> dict:
               f"save {save_ms:.1f} ms, verify {verify_ms:.1f} ms, restore to the card "
               f"{restore_ms:.1f} ms (with its verify)", flush=True)
     return launches
+
+
+def killed_run_log(ckpt_dir: str, stdout: str) -> None:
+    """Phase 4e's CLI child ran with ``--telemetry --profile-steps 4:5`` and
+    was killed in its last save: its events.jsonl holds every record up to
+    the kill (a schema-1 header, the loss of each of the 6 steps, the
+    window's start at step 4 and stop at 5) and no closing counters; its
+    trace holds rows 1-5 inside the ``step 4`` annotation; the closing
+    ``done:`` and ``telemetry:`` lines, printed after ``train()``, are
+    absent, since the process died in it."""
+    from repro_torch.telemetry import SCHEMA_VERSION
+    from repro_torch.telemetry.bus import read_jsonl
+
+    path = os.path.join(ckpt_dir, "events.jsonl")
+    recs = read_jsonl(path)
+    profile = [(r["step"], r["detail"]) for r in recs if r.get("name") == "profile"]
+    check(recs[0]["kind"] == "header" and recs[0]["schema"] == SCHEMA_VERSION
+          and [r["step"] for r in recs if r.get("name") == "loss"] == list(range(1, 7))
+          and [s for s, _ in profile] == [4, 5]
+          and not any(r["kind"] == "counters" for r in recs),
+          f"resume: the killed CLI child's run log {path}: {len(recs)} records, profile "
+          f"events {profile}")
+    check(not re.search(r"^(done|telemetry): ", stdout, re.M),
+          f"resume: the killed CLI child printed its closing lines: {stdout[-2000:]}")
+    (trace,) = os.listdir(os.path.join(ckpt_dir, "profile"))
+    trace_kernels("resume CLI child", os.path.join(ckpt_dir, "profile", trace), ["step 4"])
+    print(f"resume CLI child's run log: {len(recs)} records up to the kill, "
+          f"{os.path.getsize(path)} bytes, no counters; profile events {profile}", flush=True)
 
 
 # --------------------------------------------------------------------- phase 4f
@@ -1569,7 +1627,8 @@ def migration_contract(torch, params: dict, fuse: bool) -> None:
 
 def policy_trainer_class(torch):
     """``Trainer`` recording each step's dispatch and kernel launches (and
-    the rank the step ran at), and — when ``capture`` names a leaf — that
+    the rank the step ran at: its controller's map, or the configured rank
+    without a rank policy), and — when ``capture`` names a leaf — that
     leaf's first gradient on the host."""
     from repro_torch.core.api import Transform
     from repro_torch.kernels import build
@@ -1598,7 +1657,8 @@ def policy_trainer_class(torch):
                 d0, l0 = dict(self.dispatched), dict(build.LAUNCHES)
                 out = step_fn(params, state, batch)
                 self.per_step.append((
-                    self.rank_ctrl.current_map,
+                    self.rank_ctrl.current_map if self.rank_ctrl is not None
+                    else f"rank {self.opt_cfg.rank}",
                     {k: v - d0.get(k, 0) for k, v in self.dispatched.items()
                      if v != d0.get(k, 0)},
                     {k: v - l0.get(k, 0) for k, v in build.LAUNCHES.items() if v != l0[k]}))
@@ -2096,6 +2156,188 @@ def phase_resilience(torch) -> dict:
           f"refresh flags {[int(r) for r, _, _ in log]}; the forced refresh ran at step {at}",
           flush=True)
     return {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
+
+
+# --------------------------------------------------------------------- phase 4h
+
+# Rows 1-5 on GUM's path: row 2 (the projection) is lowrank_update.cu's kernel
+# without R, so four __global__ functions.
+GUM_KERNELS = ("lowrank_update", "back_project", "gram", "poly_apply")
+# llama-130m's hidden matrices by (m, n) family: wq, wk, wv, wo; w_gate,
+# w_up; w_down.
+LLAMA130M_FAMILIES = ("768x768", "768x2048", "2048x768")
+LLAMA130M_LEAVES = 7
+
+
+def csrc_symbols(kernels) -> dict[str, str]:
+    """Each kernel's ``__global__`` function name, read from its source."""
+    out = {}
+    for name in kernels:
+        text = (ROOT / KERNEL_META[name][0]).read_text()
+        found = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                               r"(\w+)\s*\(", text))
+        check(len(found) == 1, f"{KERNEL_META[name][0]}: __global__ functions {found}")
+        out[name] = found.pop()
+    return out
+
+
+def trace_kernels(label: str, path: str, marks: list[str]) -> dict:
+    """Load a Chrome trace of the trainer's profiler window and count, in
+    each ``step N`` annotation of ``marks``, the device kernels of rows 1-5
+    (by the ``__global__`` names in csrc/) launched inside it: a kernel
+    belongs to the annotation that holds its launch call (its
+    ``correlation``), or its own start where the trace has no launch call.
+    Fails unless every mark is there and holds every one of the kernels.
+    Returns {mark: {kernel: launches}}."""
+    symbols = csrc_symbols(GUM_KERNELS)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name", "").startswith("step ")}
+    check(sorted(spans) == sorted(marks), f"{label}: trace annotations {sorted(spans)} != "
+          f"{marks}")
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    counts = {mark: dict.fromkeys(GUM_KERNELS, 0) for mark in marks}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_launch = 0
+    for e in kernels:
+        corr = e.get("args", {}).get("correlation")
+        ts = launched_at.get(corr, e["ts"])
+        by_launch += corr in launched_at
+        name = next((k for k, sym in symbols.items()
+                     if re.search(rf"(^|\W){sym}(\W|$)", e["name"])), None)
+        for mark, (a, b) in spans.items():
+            if name is not None and a <= ts <= b:
+                counts[mark][name] += 1
+    for mark in marks:
+        missing = [symbols[k] for k, n in counts[mark].items() if not n]
+        check(not missing, f"{label}: no {missing} kernel inside the {mark!r} annotation of "
+              f"{path} ({len(kernels)} device kernels in the trace)")
+    print(f"{label} trace {os.path.getsize(path)} bytes, {len(events)} events, "
+          f"{len(kernels)} device kernels ({by_launch} placed by their launch call); rows 1-5 "
+          f"inside each annotation by __global__ name {symbols}: {counts} (a step launches "
+          f"{GUM_LAUNCH})", flush=True)
+    return counts
+
+
+def check_run_log(label: str, path: str, steps: int, result, trainer) -> list:
+    """Phase 4h's events.jsonl: a schema-1 header first and the counters
+    last; loss and grad_norm at every step (the result's losses, bitwise);
+    ``step`` spans tagged refresh on the refresh steps, steady elsewhere;
+    rank, energy, drift and bias once per family on each refresh step
+    (drift 1 at the first refresh, against the zero projector, and in
+    [0, 1] after; energy and bias in [0, 1]); a ``gamma_slots`` event on
+    each refresh step with gamma slots for each low-rank leaf; counters
+    that agree with the records.  Returns the records."""
+    from repro_torch.telemetry import SCHEMA_VERSION
+    from repro_torch.telemetry.bus import read_jsonl
+
+    recs = read_jsonl(path)
+    period, gamma = trainer.opt_cfg.period, trainer.opt_cfg.gamma
+    refreshes = [s for s in range(1, steps + 1) if (s - 1) % period == 0]
+    check(recs[0]["kind"] == "header" and recs[0]["schema"] == SCHEMA_VERSION
+          and recs[-1]["kind"] == "counters",
+          f"{label}: the log opens with {recs[0]} and ends with {recs[-1]['kind']}")
+
+    def named(kind, name):
+        return [r for r in recs if r["kind"] == kind and r["name"] == name]
+
+    losses = named("metric", "loss")
+    check([r["step"] for r in losses] == list(range(1, steps + 1))
+          and [r["value"] for r in losses] == result.losses,
+          f"{label}: loss metrics {[(r['step'], r['value']) for r in losses]} != "
+          f"{result.losses}")
+    check([r["step"] for r in named("metric", "grad_norm")] == list(range(1, steps + 1)),
+          f"{label}: grad_norm metrics at {[r['step'] for r in named('metric', 'grad_norm')]}")
+    tags = {r["step"]: r["tags"]["kind"] for r in named("span", "step")}
+    want = {s: "refresh" if s in refreshes else "steady" for s in range(1, steps + 1)}
+    check(tags == want, f"{label}: step spans {tags} != {want}")
+    for metric in ("rank", "energy", "drift", "bias"):
+        got = sorted((r["step"], r["tags"]["family"]) for r in named("metric", metric))
+        want = sorted((s, f) for s in refreshes for f in LLAMA130M_FAMILIES)
+        check(got == want, f"{label}: {metric} metrics at {got} != {want}")
+    for r in named("metric", "rank"):
+        check(r["value"] == trainer.opt_cfg.rank, f"{label}: {r}")
+    for r in named("metric", "energy") + named("metric", "bias"):
+        check(0.0 <= r["value"] <= 1.0, f"{label}: {r} outside [0, 1]")
+    for r in named("metric", "drift"):
+        ok = r["value"] == 1.0 if r["step"] == refreshes[0] else 0.0 <= r["value"] <= 1.0
+        check(ok, f"{label}: {r}: the first refresh's drift must read 1, later ones [0, 1]")
+    slots = named("event", "gamma_slots")
+    check([r["step"] for r in slots] == refreshes
+          and all(len(r["data"]["leaves"]) == LLAMA130M_LEAVES
+                  and all(len(leaf["slots"]) == gamma for leaf in r["data"]["leaves"])
+                  for r in slots),
+          f"{label}: gamma_slots events {[(r['step'], r['data']) for r in slots]}")
+    counts, spans = recs[-1]["counts"], recs[-1]["spans"]
+    events = collections.Counter(f"event.{r['name']}" for r in recs if r["kind"] == "event")
+    span_n = collections.Counter(r["name"] for r in recs if r["kind"] == "span")
+    check(counts == dict(events) and {k: v["count"] for k, v in spans.items()} == dict(span_n),
+          f"{label}: counters {counts} {spans} disagree with the records {dict(events)} "
+          f"{dict(span_n)}")
+    return recs
+
+
+def phase_telemetry(torch) -> dict:
+    """Phase 4h: telemetry at llama-130m — phase 4's exact run (GUM, lr
+    5e-3, rank 256, gamma 4, period 3, 6 steps, batch 8 x 1024, seed 0, its
+    checkpoints) with ``OptimizerConfig(telemetry=True)`` and
+    ``Trainer(telemetry="stdout=0", profile_steps="4:6")``: the losses
+    bitwise phase 4's; each step's dispatch and launch counts GUM's, plus
+    one projection (row 2) per leaf on the refresh steps (the spectrum
+    probe; the drift and bias products are plain and uncounted); the run log
+    as :func:`check_run_log` says; the report CLI in a child process; the
+    profiler's Chrome trace holding rows 1-5's kernels inside the ``step 4``
+    and ``step 5`` annotations.  Prints the step times beside phase 4's and
+    the sizes of the log and the trace.  Returns the kernel launches."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.models import build_model
+
+    steps, label = 6, "telemetry"
+    cfg, data = llama130m_data()
+    with scratch_dir(label) as ckpt_dir:
+        build.reset_launches()
+        with launch_count.count_launches() as dispatched:
+            trainer = policy_trainer_class(torch)(
+                build_model(cfg, device="cuda"), OptimizerConfig(**GUM_130M, telemetry=True),
+                RunConfig(steps=steps, log_every=1, seed=0, ckpt_dir=ckpt_dir), data,
+                device="cuda", telemetry="stdout=0", profile_steps="4:6",
+                dispatched=dispatched)
+            result = trainer.train()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        print(f"{label} llama-130m gum r=256 gamma=4 period=3 with telemetry: losses "
+              f"{result.losses}; phase 4's {LOSSES['slice']}", flush=True)
+        check(result.losses == LOSSES["slice"],
+              f"{label}: losses {result.losses} are not bitwise phase 4's {LOSSES['slice']}")
+        check_step_counts(label, trainer, probed=LLAMA130M_LEAVES)
+
+        recs = check_run_log(label, result.events_path, steps, result, trainer)
+        fam = {(r["name"], r["step"], r["tags"]["family"]): round(r["value"], 6) for r in recs
+               if r["kind"] == "metric" and "tags" in r and r["name"] != "rank"}
+        print(f"{label} run log {result.events_path}: {os.path.getsize(result.events_path)} "
+              f"bytes, {len(recs)} records; family metrics {fam}", flush=True)
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.telemetry.report", ckpt_dir],
+                              capture_output=True, text=True, cwd=ROOT, timeout=120,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        print(f"{label} report (python -m repro_torch.telemetry.report, exit "
+              f"{proc.returncode}):\n{proc.stdout}{proc.stderr}", flush=True)
+        check(proc.returncode == 0, f"{label}: the report CLI exited {proc.returncode}")
+        check(trainer.trace_path is not None
+              and os.path.dirname(trainer.trace_path) == os.path.join(ckpt_dir, "profile"),
+              f"{label}: trace {trainer.trace_path} not under {ckpt_dir}/profile")
+        trace_kernels(label, trainer.trace_path, ["step 4", "step 5"])
+
+    ms = [round(t * 1e3, 3) for t in result.step_seconds]
+    plain = statistics.median(ms[1:3])
+    print(f"{label} step ms: {ms}; steady median unprofiled (steps 2, 3) {plain:.3f}, "
+          f"profiled (steps 5, 6) {statistics.median(ms[4:6]):.3f}, phase 4's steady median "
+          f"{STEADY_MS['slice']:.3f} ({plain / STEADY_MS['slice'] - 1:+.2%}); refresh steps "
+          f"1, 4: {ms[0]}, {ms[3]}, phase 4's {REFRESH_MS['slice']}", flush=True)
+    return launches
 
 
 def profile_steady_step(torch, label: str, trainer, done: int) -> None:
@@ -2670,7 +2912,7 @@ def phase_serve_mamba(torch) -> dict:
 FLASH_TIERS = (16, 32, 64, 128, 192, 256)
 # Phase 8: the dense variants as published (bf16 activations, fp32
 # parameters), (slots, requests, direct decodes checked) of each engine run.
-DENSE_VARIANTS = {"chatglm3-6b": (8, 16, 2), "starcoder2-7b": (4, 4, 1),
+DENSE_VARIANTS = {"chatglm3-6b": (8, 9, 2), "starcoder2-7b": (4, 4, 1),
                   "qwen1.5-4b": (4, 4, 1)}
 
 
@@ -2793,6 +3035,9 @@ PHASE_CALLS: dict[str, dict] = {}
 # Phase 12's depth: zamba2-1.2b's 38 layers cut to 19 to keep the whole run
 # under 1000 s.
 ZAMBA2_LAYERS = 19
+# Its engine's requests on 8 slots, cut from 16 to make room for phase 4h:
+# the ninth takes a reused slot (252 ticks, not 450).
+ZAMBA2_REQUESTS = 9
 
 
 def phase_serve_zamba2(torch) -> dict:
@@ -2803,8 +3048,8 @@ def phase_serve_zamba2(torch) -> dict:
     launch a layer) and flash attention's bf16 instantiation at D = 64 (one
     a shared-block application), held to "xla" as
     :func:`check_low_precision_prefill` says, then an engine of 8 slots and
-    16 requests (the decode runs no kernel), a reused slot checked against
-    direct decode in its slot's row of an 8-row cache."""
+    ZAMBA2_REQUESTS requests (the decode runs no kernel), a reused slot
+    checked against direct decode in its slot's row of an 8-row cache."""
     from repro_torch.configs import get_config
 
     cfg = get_config("zamba2-1.2b")
@@ -2812,7 +3057,8 @@ def phase_serve_zamba2(torch) -> dict:
     print(f"serve-zamba2 on {smi_line()}: depth cut from {cfg.n_layers} to {ZAMBA2_LAYERS} "
           f"layers, the shared block {apps} times", flush=True)
     launches = phase_serve(torch, "serve-zamba2", "zamba2-1.2b", 4, 4096, 1e-4,
-                           direct_batch=8, changes={"n_layers": ZAMBA2_LAYERS})
+                           direct_batch=8, requests=ZAMBA2_REQUESTS,
+                           changes={"n_layers": ZAMBA2_LAYERS})
     torch.cuda.empty_cache()
     return launches
 
@@ -3085,6 +3331,7 @@ def phase_agree_serve(torch):
 PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_baselines,
           "accumulate": phase_accumulate, "resume": phase_resume,
           "rank-policy": phase_rank_policy, "resilience": phase_resilience,
+          "telemetry": phase_telemetry,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
           "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick,
@@ -3141,16 +3388,24 @@ def main() -> None:
             print(f"ptxas {name}: {entry}: {regs} registers, {spills} bytes spill stores",
                   flush=True)
 
+    t0 = time.perf_counter()
     rows = phase_kernels(torch)
+    print(f"kernels phase: {time.perf_counter() - t0:.1f} s", flush=True)
     if kernels_only:
         print("kernels-only: phase 3 passed; the path did not run, so no result is printed",
               flush=True)
         return
-    paths = {name: fn(torch) for name, fn in PHASES.items()}
+    paths, seconds = {}, {}
+    for name, fn in PHASES.items():
+        t0 = time.perf_counter()
+        paths[name] = fn(torch)
+        seconds[name] = round(time.perf_counter() - t0, 1)
     launches = {k: sum(path.get(k, 0) for path in paths.values()) for k in rows}
-    phase_agree(torch)
-    phase_agree_moe(torch)
-    phase_agree_serve(torch)
+    for fn in (phase_agree, phase_agree_moe, phase_agree_serve):
+        t0 = time.perf_counter()
+        fn(torch)
+        seconds[fn.__name__] = round(time.perf_counter() - t0, 1)
+    print(f"seconds by phase: {seconds}", flush=True)
 
     kernels = []
     for name, (source, replaces, headers) in KERNEL_META.items():

@@ -31,9 +31,11 @@ port's ``{path: tensor}`` trees are already in the reference's leaf order).
 and gives an int leaf back as a Python ``int``.
 
 ``save(..., observer=...)`` calls ``observer(leaf_index, total)`` after each
-leaf is written (fault-injection kill hooks, progress).  Not ported: the
-telemetry bus (``telemetry=`` raises; problems print, as the reference does
-without a bus) and re-sharding on restore (``shardings=`` raises).
+leaf is written (fault-injection kill hooks, progress).  With a telemetry
+bus (``telemetry=``, a :class:`repro_torch.telemetry.Telemetry`) each save,
+GC and corrupt-skip is a ``checkpoint`` event, as in the reference; without
+one only problems print.  Not ported: re-sharding on restore
+(``shardings=`` raises).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ import json
 import os
 import re
 import shutil
+import time
 import zlib
 from typing import Any, Callable, Optional
 
@@ -129,18 +132,19 @@ def _crc(arr: np.ndarray) -> int:
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, checksums: bool = True,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError("CheckpointManager(telemetry=...): the telemetry "
-                                      "bus is not ported yet")
         self.dir = directory
         self.keep = keep
         self.checksums = checksums   # False skips CRC computation on save
+        # Optional telemetry bus: save / GC / corrupt-skip become structured
+        # "checkpoint" events instead of bare prints.
+        self.telemetry = telemetry
         os.makedirs(directory, exist_ok=True)
 
-    @staticmethod
-    def _event(detail: str, severity: str = "info") -> None:
-        # without a telemetry bus only problems print, as in the reference
-        if severity not in ("info", "debug"):
+    def _event(self, detail: str, *, step=None, severity: str = "info", **data) -> None:
+        if self.telemetry is not None:
+            self.telemetry.event("checkpoint", detail, step=step, severity=severity, **data)
+        elif severity not in ("info", "debug"):
+            # without a bus only problems print, as in the reference
             print(detail, flush=True)
 
     # ------------------------------------------------------------- paths
@@ -168,6 +172,7 @@ class CheckpointManager:
 
         ``observer(leaf_index, total)`` fires after each leaf's file is
         written."""
+        t0 = time.time()
         final = self._step_dir(step)
         tmp = final + ".tmp"
         if os.path.exists(tmp):
@@ -193,6 +198,9 @@ class CheckpointManager:
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)  # atomic commit
+        self._event(f"checkpoint: saved step {step} ({len(flat)} leaves, "
+                    f"{(time.time() - t0) * 1e3:.0f} ms)", step=step, severity="debug",
+                    action="save", leaves=len(flat))
         self._gc()
         return final
 
@@ -206,6 +214,7 @@ class CheckpointManager:
             doomed = [s for s in doomed if s != protect]
         for s in doomed:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
+            self._event(f"checkpoint: gc step {s}", severity="debug", action="gc", gc_step=s)
         # stale tmp dirs of crashed writers
         for name in os.listdir(self.dir):
             if name.endswith(".tmp"):
@@ -339,5 +348,6 @@ class CheckpointManager:
                 tree, extra = self.restore(step, like, shardings=shardings, verify=True)
                 return step, tree, extra
             except CheckpointCorruptionError as e:
-                self._event(f"checkpoint: skipping corrupt step {step} ({e})", "warn")
+                self._event(f"checkpoint: skipping corrupt step {step} ({e})",
+                            severity="warn", action="corrupt_skip", corrupt_step=step)
         return None

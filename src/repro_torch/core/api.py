@@ -133,7 +133,7 @@ def multi_transform(
 
 # Knobs of the JAX package's OptimizerConfig that the port does not run yet,
 # with the value that means "off".
-_NOT_PORTED = {"shard_state": False, "telemetry": False}
+_NOT_PORTED = {"shard_state": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +180,9 @@ class OptimizerConfig:
     rank_policy: Any = None
     rank_ladder: tuple[int, ...] = ()
     shard_state: bool = False
+    # Store the projector drift and a sampled bias residual in the spectrum
+    # probes of every lowrank stage (repro_torch.telemetry reads them); the
+    # parameter trajectory is bitwise that of telemetry off.
     telemetry: bool = False
 
     def __post_init__(self):

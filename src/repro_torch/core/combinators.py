@@ -1,6 +1,5 @@
 """Composable optimizer combinators: the JAX package's
-``core/combinators.py`` on PyTorch tensors, less its telemetry and sharded
-refresh.
+``core/combinators.py`` on PyTorch tensors, less its sharded refresh.
 
 atomic gradient transforms
     scale_by_momentum    EMA momentum (SGDM; Property-II compliant)
@@ -65,9 +64,13 @@ back-projection, so the epilogue knob is inert for GUM.
 differ per ``(m, n)`` family (:mod:`repro_torch.core.rank_policy`), and with
 probing on every refresh stores each leaf's (or family's) spectrum probe in
 ``LowRankState.probes`` for the rank-policy controller.
+``lowrank(telemetry=True)`` adds to those probes the projector drift at
+each refresh and a bias residual sampled each step, which
+:mod:`repro_torch.telemetry.instrument` reads; the update never reads them.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -97,6 +100,7 @@ from repro_torch.core.lowrank_common import (
     gather_blocks,
     lowrank_state_shape,
     proj_shape,
+    project,
     scatter_blocks,
 )
 from repro_torch.core.newton_schulz import muon_scale
@@ -600,10 +604,38 @@ def _spectrum_probe(p, g32, fs: FamilyShape, kernel_impl: str, pad_rank_to: int)
             "sv2": sv2}
 
 
-def _probe_zeros(fs: FamilyShape, device: torch.device) -> dict:
-    return {"g2": torch.zeros((), dtype=torch.float32, device=device),
-            "mn": torch.tensor((fs.m, fs.n), dtype=torch.int32, device=device),
-            "sv2": torch.zeros((fs.rank,), dtype=torch.float32, device=device)}
+def _probe_zeros(fs: FamilyShape, device: torch.device, telemetry: bool = False) -> dict:
+    pr = {"g2": torch.zeros((), dtype=torch.float32, device=device),
+          "mn": torch.tensor((fs.m, fs.n), dtype=torch.int32, device=device),
+          "sv2": torch.zeros((fs.rank,), dtype=torch.float32, device=device)}
+    if telemetry:
+        pr["bias"] = torch.zeros((), dtype=torch.float32, device=device)
+        pr["bias_step"] = torch.zeros((), dtype=torch.int32, device=device)
+        pr["drift"] = torch.zeros((), dtype=torch.float32, device=device)
+    return dict(sorted(pr.items()))
+
+
+def _subspace_drift(p_old: torch.Tensor, p_new: torch.Tensor) -> torch.Tensor:
+    """How far the refreshed subspace moved: ``1 − mean squared overlap``
+    of the two orthonormal projector stacks through the r×r cross-Gram
+    ``P_oldᵀ P_new`` (0 = the same span, 1 = orthogonal), clipped to
+    [0, 1].  A plain product, not dispatched and not counted.  The first
+    refresh compares against the zero-initialised projector and reads 1."""
+    r = p_new.shape[-1]
+    blocks = math.prod(p_new.shape[:-2])
+    gram = torch.matmul(p_old.to(torch.float32).mT, p_new.to(torch.float32))
+    overlap = torch.sum(torch.square(gram)) / (r * blocks)
+    return torch.clamp(1.0 - overlap, 0.0, 1.0)
+
+
+def _bias_residual(p: torch.Tensor, g32: torch.Tensor, side: str) -> torch.Tensor:
+    """The fraction of this step's gradient energy outside the current
+    subspace, ``1 − ‖PᵀG‖²/‖G‖²``, clipped to [0, 1].  A plain product, not
+    dispatched and not counted."""
+    s = project(p, g32, side)
+    g2 = torch.sum(torch.square(g32))
+    return torch.clamp(1.0 - torch.sum(torch.square(s)) / torch.clamp_min(g2, 1e-30),
+                       0.0, 1.0)
 
 
 def lowrank(
@@ -623,6 +655,7 @@ def lowrank(
     noise: Optional[Noise] = None,
     rank_policy=None,
     probe_spectrum: bool = False,
+    telemetry: bool = False,
 ) -> Transform:
     """Run ``inner`` inside a periodically refreshed low-rank subspace.
 
@@ -659,7 +692,18 @@ def lowrank(
     map for an int rank and turns ``probe_spectrum`` on when it
     ``wants_probes``.  With ``probe_spectrum`` every refresh stores each
     leaf's (family's) spectrum probe in ``LowRankState.probes`` — the
-    in-update refresh, or under ``external_refresh`` the refresh hook."""
+    in-update refresh, or under ``external_refresh`` the refresh hook.
+
+    ``telemetry=True`` (implies ``probe_spectrum``) also stores, in the same
+    probe dicts, the projector drift since the previous refresh (at each
+    refresh, the hook's too) and a bias residual measured each step on one
+    leaf (family) picked round-robin, ``(count - 1) % sites``, with the step
+    it was taken at (the in-update path only).  The update never reads
+    these fields, so the parameter trajectory is bitwise that of
+    ``telemetry=False``; their products are plain PyTorch, not dispatched
+    and not counted."""
+    if telemetry:
+        probe_spectrum = True
     if rank_policy is not None:
         probe_spectrum = probe_spectrum or bool(getattr(rank_policy, "wants_probes", False))
         if isinstance(rank, int):
@@ -683,8 +727,27 @@ def lowrank(
         return PendingBack(p=msg.p, s=o, w=w, fs=msg.fs, kernel_impl=kernel_impl,
                            pad_rank_to=pad_rank_to, **member)
 
-    def _probe(proj, g32, fs: FamilyShape) -> dict:
-        return _spectrum_probe(proj, g32, fs, kernel_impl, pad_rank_to)
+    def _probe_fresh(p_new, p_old, g32, fs: FamilyShape, old: dict) -> dict:
+        """A refresh's probe: the spectrum sketch, plus (telemetry) the
+        drift against the outgoing projector and the carried bias fields."""
+        pr = _spectrum_probe(p_new, g32, fs, kernel_impl, pad_rank_to)
+        if telemetry:
+            pr |= {"bias": old["bias"], "bias_step": old["bias_step"],
+                   "drift": _subspace_drift(p_old, p_new)}
+        return dict(sorted(pr.items()))
+
+    def _sample_bias(count: int, sites: list, probes: dict) -> None:
+        """Round-robin bias sampling: ``sites`` lists (probe key, projector,
+        gradient, side); the site of ``(count - 1) % len(sites)`` has its
+        residual measured and written into a new probe dict of ``probes``."""
+        if not sites:
+            return
+        k, p, g32, side = sites[(count - 1) % len(sites)]
+        # torch.full, not torch.tensor: a fill launches with the step, where a
+        # host-to-device copy would wait for the queued work of the step
+        probes[k] = probes[k] | {
+            "bias": _bias_residual(p, g32, side),
+            "bias_step": torch.full((), count, dtype=torch.int32, device=g32.device)}
 
     def init(params: dict) -> LowRankState:
         projs, tmpls = {}, {}
@@ -697,14 +760,15 @@ def lowrank(
             tmpls[k] = ProjInit(fs, TensorSpec(lowrank_state_shape(fs), p.device))
         probes = None
         if probe_spectrum:
-            probes = {k: None if p is None else _probe_zeros(family_shape(p, rank), p.device)
+            probes = {k: None if p is None
+                      else _probe_zeros(family_shape(p, rank), p.device, telemetry)
                       for k, p in params.items()}
         return LowRankState(count=0, projs=projs, inner=inner.init(tmpls), probes=probes)
 
     def update(updates: dict, state: LowRankState, params: dict):
         count = state.count + 1
         refresh = (count - 1) % period == 0
-        msgs, new_projs = {}, {}
+        msgs, new_projs, sites = {}, {}, []
         new_probes = dict(state.probes) if probe_spectrum else None
         for i, (k, p) in enumerate(params.items()):
             g, proj = updates[k], state.projs[k]
@@ -718,9 +782,13 @@ def lowrank(
                 proj = compute_projectors(projector, g32, fs.rank, fs.side, key=key,
                                           subspace_iters=subspace_iters, noise=noise)
                 if probe_spectrum:
-                    new_probes[k] = _probe(proj, g32, fs)
+                    new_probes[k] = _probe_fresh(proj, state.projs[k], g32, fs,
+                                                 state.probes[k])
+            if telemetry and in_update_refresh:
+                sites.append((k, proj, g32, fs.side))
             msgs[k] = _msg(proj, g32, fs, refresh, key)
             new_projs[k] = proj
+        _sample_bias(count, sites, new_probes)
 
         inner_out, new_inner = inner.update(msgs, state.inner, params)
 
@@ -755,7 +823,7 @@ def lowrank(
             new_projs[k] = compute_projectors(projector, g32, fs.rank, fs.side, key=key,
                                               subspace_iters=subspace_iters, noise=noise)
             if probe_spectrum:
-                new_probes[k] = _probe(new_projs[k], g32, fs)
+                new_probes[k] = _probe_fresh(new_projs[k], proj, g32, fs, state.probes[k])
             msgs[k] = RefreshMsg(fs=fs, key=key)
         return LowRankState(count=state.count, projs=new_projs,
                             inner=_refresh_inner(state, msgs), probes=new_probes)
@@ -787,7 +855,7 @@ def lowrank(
                                  seg=fam.seg)
         probes = None
         if probe_spectrum:
-            probes = {fi: _probe_zeros(fam.fs, projs[fi].device)
+            probes = {fi: _probe_zeros(fam.fs, projs[fi].device, telemetry)
                       for fi, fam in enumerate(plan.families)}
         return LowRankState(count=0, projs=projs, inner=inner.init(tmpls), probes=probes)
 
@@ -806,12 +874,16 @@ def lowrank(
                                           key=keys, subspace_iters=subspace_iters,
                                           noise=noise)
                 if probe_spectrum:
-                    new_probes[fi] = _probe(proj, g32, fam.fs)
+                    new_probes[fi] = _probe_fresh(proj, state.projs[fi], g32, fam.fs,
+                                                  state.probes[fi])
             msgs[fi] = _msg(proj, g32, fam.fs, refresh, keys, fam.seg)
             new_projs[fi] = proj
             # Stacking the params costs a copy per family per step: only
             # for an inner that reads them (layerwise_unbias).
             fam_params[fi] = stack_family(fam, leaves) if wants_params else None
+        if telemetry and in_update_refresh:
+            _sample_bias(count, [(fi, m.p, m.g, m.fs.side) for fi, m in msgs.items()],
+                         new_probes)
 
         inner_out, new_inner = inner.update(msgs, state.inner, fam_params)
 
@@ -849,7 +921,8 @@ def lowrank(
                                                key=keys, subspace_iters=subspace_iters,
                                                noise=noise)
             if probe_spectrum:
-                new_probes[fi] = _probe(new_projs[fi], g32, fam.fs)
+                new_probes[fi] = _probe_fresh(new_projs[fi], state.projs[fi], g32, fam.fs,
+                                              state.probes[fi])
             msgs[fi] = RefreshMsg(fs=fam.fs, key=keys, seg=fam.seg)
         return LowRankState(count=state.count, projs=new_projs,
                             inner=_refresh_inner(state, msgs), probes=new_probes)

@@ -81,7 +81,8 @@ def _fp32_leaves(init):
 def _build(cfg: OptimizerConfig, rank_map: Optional[RankMap], sampler: Optional[Sampler],
            noise: Optional[Noise]) -> Transform:
     name = cfg.name.lower()
-    fusion = {"fuse_families": cfg.fuse_families, "fused_epilogue": cfg.fused_epilogue}
+    fusion = {"fuse_families": cfg.fuse_families, "fused_epilogue": cfg.fused_epilogue,
+              "telemetry": cfg.telemetry}
     rank = rank_map if rank_map is not None else cfg.rank
     lowrank_kw = {"rank": rank, "rank_policy": resolve_rank_policy(cfg), "seed": cfg.seed,
                   "kernel_impl": cfg.kernel_impl, "pad_rank_to": cfg.pad_rank_to,

@@ -48,6 +48,7 @@ def fira_matrices(
     fuse_families: bool = False,
     fused_epilogue: bool = False,
     rank_policy=None,
+    telemetry: bool = False,
 ) -> Transform:
     """Fira over matrix leaves only (route others via :func:`fira`).
     ``rank`` is an int or a per-shape ``RankMap``; ``rank_policy`` goes to
@@ -59,6 +60,7 @@ def fira_matrices(
             rank=rank, period=period, projector=projector, seed=seed,
             kernel_impl=kernel_impl, pad_rank_to=pad_rank_to, fuse_families=fuse_families,
             fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy,
+            telemetry=telemetry,
         ),
         scale_by_factor(scale),
         scale_by_lr(lr),

@@ -69,6 +69,7 @@ def galore_matrices(
     fused_epilogue: bool = False,
     noise: Optional[Noise] = None,
     rank_policy=None,
+    telemetry: bool = False,
 ) -> Transform:
     """GaLore over matrix leaves only (route others via :func:`galore`).
     ``rank`` is an int or a per-shape ``RankMap``; ``rank_policy`` goes to
@@ -86,7 +87,8 @@ def galore_matrices(
                 subspace_iters=subspace_iters, reset_on_refresh=reset_on_update,
                 kernel_impl=kernel_impl, pad_rank_to=pad_rank_to,
                 fuse_families=fuse_families,
-                fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy),
+                fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy,
+                telemetry=telemetry),
         add_decayed_weights(weight_decay),
         scale_by_lr(lr),
     )

@@ -92,6 +92,7 @@ def gum_matrices(
     fuse_families: bool = False,
     fused_epilogue: bool = False,
     rank_policy=None,
+    telemetry: bool = False,
 ) -> Transform:
     """GUM over matrix leaves (route 1-D/embedding leaves via :func:`gum`).
 
@@ -114,6 +115,7 @@ def gum_matrices(
         external_refresh=external_refresh, kernel_impl=kernel_impl,
         pad_rank_to=pad_rank_to, fuse_families=fuse_families,
         fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy,
+        telemetry=telemetry,
     )
     t = chain(lowrank_t, add_decayed_weights(weight_decay), scale_by_lr(lr))
     # For gum_accum_tools: the lowrank stage (its external-refresh hook),
@@ -167,6 +169,7 @@ def unbiased_galore_adam(
     fused_epilogue: bool = False,
     lowrank_filter: Callable[[str, torch.Tensor], bool] = default_lowrank_filter,
     rank_policy=None,
+    telemetry: bool = False,
 ) -> Transform:
     """Unbiased GaLore-Adam: ``layerwise_unbias(scale_by_adam)`` inside
     ``lowrank``.  The ``gamma`` sampled blocks per period run Adam on the
@@ -180,6 +183,7 @@ def unbiased_galore_adam(
             subspace_iters=subspace_iters, reset_on_refresh=True, kernel_impl=kernel_impl,
             pad_rank_to=pad_rank_to, fuse_families=fuse_families,
             fused_epilogue=fused_epilogue, noise=noise, rank_policy=rank_policy,
+            telemetry=telemetry,
         ),
         add_decayed_weights(weight_decay),
         scale_by_lr(lr),

@@ -1,10 +1,10 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch llama-130m ...``
 
 The port of the JAX package's ``launch/train.py``: the same flags, the same
-``Trainer`` wiring (resilience, fault injection, rank policy) and the same
-two closing lines.  It runs on the CUDA device unless ``--device cpu`` is
-given, and raises where there is no GPU.  The flags of subsystems not yet
-ported (the mesh and sharded state, telemetry and profiling, the static
+``Trainer`` wiring (resilience, fault injection, rank policy, telemetry and
+the profiler window) and the same closing lines.  It runs on the CUDA device
+unless ``--device cpu`` is given, and raises where there is no GPU.  The
+flags of subsystems not yet ported (the mesh and sharded state, the static
 audit) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -15,8 +15,7 @@ from typing import Optional, Sequence
 # Flags of subsystems the port does not run yet: (flag, ROADMAP queue 1
 # item, the value that means "off").
 _NOT_PORTED = {"mesh": ("--mesh", 5, ""), "shard_state": ("--shard-state", 5, False),
-               "telemetry": ("--telemetry", 4, None), "events_out": ("--events-out", 4, None),
-               "profile_steps": ("--profile-steps", 4, None), "audit": ("--audit", 6, False)}
+               "audit": ("--audit", 6, False)}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -69,11 +68,18 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--inject-seed", type=int, default=0,
                     help="seed for the fault plan's corruption RNG (bit positions etc.)")
     ap.add_argument("--telemetry", nargs="?", const="", default=None, metavar="SPEC",
-                    help="not ported (ROADMAP queue 1 item 4)")
+                    help="turn on the telemetry run log (repro_torch.telemetry): bare flag "
+                         "= defaults, or a knob spec like 'every=10,stdout=0,memory=256' "
+                         "(any TelemetryConfig field).  One run writes one schema-versioned "
+                         "events.jsonl (step metrics, health/recovery/fault/rank-policy/"
+                         "checkpoint events, timing spans) plus the in-step subspace "
+                         "metrics (captured energy, projector drift, sampled bias "
+                         "residual); summarize with python -m repro_torch.telemetry.report")
     ap.add_argument("--events-out", default=None, metavar="PATH",
-                    help="not ported (ROADMAP queue 1 item 4)")
+                    help="events.jsonl path override (default <ckpt-dir>/events.jsonl)")
     ap.add_argument("--profile-steps", default=None, metavar="A:B",
-                    help="not ported (ROADMAP queue 1 item 4)")
+                    help="torch.profiler window over steps [A, B), a Chrome trace written "
+                         "under <ckpt-dir>/profile")
     ap.add_argument("--audit", action="store_true",
                     help="not ported (ROADMAP queue 1 item 6)")
     return ap
@@ -101,6 +107,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         pad_rank_to=args.pad_rank_to, fuse_families=args.fuse_families,
         fused_epilogue=args.fused_epilogue, rank_policy=args.rank_policy,
         rank_ladder=tuple(int(r) for r in args.rank_ladder.split(",") if r),
+        telemetry=args.telemetry is not None,
     )
     run_cfg = RunConfig(
         steps=args.steps, ckpt_dir=args.ckpt_dir, resume=not args.no_resume,
@@ -111,7 +118,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     trainer = Trainer(model, opt_cfg, run_cfg, data_cfg, device=args.device,
                       microbatches=args.microbatches, resilience=args.resilience,
-                      inject=inject)
+                      inject=inject, telemetry=args.telemetry, events_out=args.events_out,
+                      profile_steps=args.profile_steps)
     result = trainer.train()
     print(
         f"done: step={result.final_step} "
@@ -124,6 +132,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"resilience: recoveries={fired or '{}'} "
               f"health_events={len(result.health_events)} "
               f"faults_fired={len(result.fault_log)}")
+    if result.events_path:
+        # train() already emitted the closing counters record.
+        print(f"telemetry: {result.events_path} "
+              f"(python -m repro_torch.telemetry.report {args.ckpt_dir})")
 
 
 if __name__ == "__main__":

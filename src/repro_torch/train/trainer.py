@@ -1,6 +1,6 @@
 """The training loop over the synthetic stream, with periodic checkpoints,
-exact resume and the resilience subsystem (the port of the JAX package's
-``train/trainer.py``; its telemetry and mesh are not ported).
+exact resume, the resilience subsystem and telemetry (the port of the JAX
+package's ``train/trainer.py``; its mesh is not ported).
 
 * **resume** (``RunConfig.resume``): from the newest *verified* committed
   checkpoint in ``RunConfig.ckpt_dir`` — a newest step that fails
@@ -24,16 +24,30 @@ exact resume and the resilience subsystem (the port of the JAX package's
 * **fault injection** (``inject=``): a seeded
   :class:`~repro_torch.resilience.FaultPlan` arms gradient corruption,
   projector sabotage, checkpoint corruption and mid-save kills;
+* **telemetry** (``telemetry=``, ``events_out=``): one schema-versioned
+  ``events.jsonl`` per run — ``loss`` and ``grad_norm`` every ``every``
+  steps, per-family ``rank`` / ``energy`` / ``drift`` / ``bias`` at each
+  refresh step (with ``OptimizerConfig.telemetry``), the ``gamma_slots``
+  distribution, every event, the ``step`` (tagged refresh / steady),
+  ``rank_migration`` and ``ckpt_save`` spans, and the closing counters;
+* a **profiler window** (``profile_steps="A:B"``): ``torch.profiler`` over
+  steps [A, B), each step marked ``step N``, exported as a Chrome trace
+  under ``<ckpt_dir>/profile/``;
 * the NaN/Inf guard of the step (``update_applied``).
 
-Console lines take the reference's rendered form, ``step {step:6d}
-{detail}`` (bare ``detail`` where an event has no step), with its detail
-strings.
+Every console line is an event on the telemetry bus, which always exists:
+with telemetry off it carries only the stdout sink, which renders an event
+as the reference does, ``step {step:6d} {detail}`` (bare ``detail`` where
+it has no step), with the reference's names, severities and details.  The
+reference's ``audit`` and ``launch_crosscheck`` events are not emitted:
+they come from its static audit (the ``analysis`` package), not ported.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import os
 import statistics
 import time
 from typing import Optional
@@ -58,6 +72,15 @@ from repro_torch.resilience import (
     SnapshotRing,
     force_refresh,
     poison_projectors,
+)
+from repro_torch.telemetry import (
+    GammaSlotTracker,
+    JsonlSink,
+    MemorySink,
+    StdoutSink,
+    Telemetry,
+    TelemetryConfig,
+    lowrank_family_metrics,
 )
 
 
@@ -97,7 +120,7 @@ class TrainResult:
     recovery_counts: dict = dataclasses.field(default_factory=dict)
     recovery_trace: list = dataclasses.field(default_factory=list)
     fault_log: list = dataclasses.field(default_factory=list)
-    # The run log's path; None (telemetry is not ported).
+    # Path of the run's events.jsonl (None when telemetry is off).
     events_path: Optional[str] = None
 
 
@@ -119,6 +142,9 @@ class Trainer:
         params: Optional[dict[str, torch.Tensor]] = None,
         resilience=None,
         inject=None,
+        telemetry=None,
+        events_out: Optional[str] = None,
+        profile_steps: Optional[str] = None,
     ):
         """``device`` defaults to the CUDA device and raises when there is
         none (pass ``device="cpu"`` for the CPU); the model moves there.
@@ -139,7 +165,19 @@ class Trainer:
         True or "" for defaults, a spec string ("ring=3,snapshot_every=5"),
         or a :class:`~repro_torch.resilience.ResilienceConfig`.  ``inject``
         arms fault injection: a :class:`~repro_torch.resilience.FaultPlan`
-        or its spec string ("grad_nan@5;refresh_zero@13;kill_save@20#3")."""
+        or its spec string ("grad_nan@5;refresh_zero@13;kill_save@20#3").
+
+        ``telemetry`` turns on the run log: True or "" for defaults, a spec
+        string ("every=10,stdout=0,memory=256"), or a
+        :class:`~repro_torch.telemetry.TelemetryConfig`.  The run then
+        writes ``events.jsonl`` (at ``events_out``, else the config's
+        ``events``, else ``<ckpt_dir>/events.jsonl``); the console is the
+        same bus's stdout sink either way.  The per-family subspace metrics
+        need ``OptimizerConfig(telemetry=True)`` too.
+
+        ``profile_steps="A:B"`` runs ``torch.profiler`` (the CPU, and the
+        card when the device is CUDA) over steps [A, B) and writes a Chrome
+        trace under ``<ckpt_dir>/profile/``."""
         if model.cfg.param_dtype != "float32":
             raise NotImplementedError(
                 f"training a model with ModelConfig.param_dtype={model.cfg.param_dtype!r} is "
@@ -154,7 +192,39 @@ class Trainer:
             self.model.load_params(params)
         else:
             self.model.init_params(run_cfg.seed)
-        self.ckpt = CheckpointManager(run_cfg.ckpt_dir, keep=run_cfg.keep_ckpts)
+
+        # The bus always exists: with telemetry off it carries only the
+        # stdout sink (the console lines); telemetry adds the JSONL sink, so
+        # the console and events.jsonl are two sinks of one record stream.
+        self.tele_cfg = TelemetryConfig.parse(telemetry)
+        self.events_path: Optional[str] = None
+        sinks = []
+        if self.tele_cfg is None or self.tele_cfg.stdout:
+            sinks.append(StdoutSink())
+        self.memory_sink: Optional[MemorySink] = None
+        if self.tele_cfg is not None:
+            path = (events_out or self.tele_cfg.events
+                    or os.path.join(run_cfg.ckpt_dir, "events.jsonl"))
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            sinks.append(JsonlSink(path))
+            self.events_path = path
+            if self.tele_cfg.memory:
+                self.memory_sink = MemorySink(self.tele_cfg.memory)
+                sinks.append(self.memory_sink)
+        self.tele = Telemetry(sinks, run={
+            "optimizer": opt_cfg.name, "rank": str(opt_cfg.rank),
+            "period": opt_cfg.period, "seed": run_cfg.seed,
+            "steps": run_cfg.steps, "telemetry": self.tele_cfg is not None,
+        })
+        self._profile_window: Optional[tuple[int, int]] = None
+        self._profiler = None
+        self.trace_path: Optional[str] = None  # the profiler window's Chrome trace
+        if profile_steps:
+            a, _, b = str(profile_steps).partition(":")
+            self._profile_window = (int(a), int(b))
+
+        self.ckpt = CheckpointManager(run_cfg.ckpt_dir, keep=run_cfg.keep_ckpts,
+                                      telemetry=self.tele)
         self.monitor = StepTimeMonitor()
 
         if resilience is None or resilience is False:
@@ -189,10 +259,50 @@ class Trainer:
                                        fault_gate=self._fault_gate,
                                        extra_metrics=self.resilience is not None)
 
-    @staticmethod
-    def _event(detail: str, step: Optional[int] = None) -> None:
-        """One console line, in the reference's rendered form."""
-        print(detail if step is None else f"step {step:6d} {detail}", flush=True)
+    def _profile(self, step: int) -> None:
+        """The profiler window: start before step A, stop before step B
+        (``profile_steps="A:B"``), writing the Chrome trace."""
+        a, b = self._profile_window
+        if step == a and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=activities)
+            self._profiler.start()
+            self.tele.event("profile", f"profiler: trace started -> {self._trace_dir()}",
+                            step=step)
+        elif step == b and self._profiler is not None:
+            self._export_profile()
+            self.tele.event("profile", "profiler: trace stopped", step=step)
+            self._profile_window = None
+
+    def _stop_profile(self) -> None:
+        """Close a window still open at the run's end (B past the last step)."""
+        if self._profiler is None:
+            return
+        self._export_profile()
+        self.tele.event("profile", "profiler: trace stopped at run end")
+
+    def _trace_dir(self) -> str:
+        return os.path.join(self.run.ckpt_dir, "profile")
+
+    def _export_profile(self) -> None:
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        os.makedirs(self._trace_dir(), exist_ok=True)
+        a, b = self._profile_window
+        self.trace_path = os.path.join(self._trace_dir(), f"steps_{a}_{b}.pt.trace.json")
+        prof.export_chrome_trace(self.trace_path)
+
+    def _step_mark(self, step: int):
+        """The step's range in the profiler's trace, while its window is open."""
+        if self._profiler is None:
+            return contextlib.nullcontext()
+        from torch.profiler import record_function
+
+        return record_function(f"step {step}")
 
     def _ckpt_extra(self) -> Optional[dict]:
         if self.rank_ctrl is None:
@@ -208,7 +318,8 @@ class Trainer:
                        extra=self._ckpt_extra(), observer=observer)
         if plan is not None:
             for ev in plan.apply_ckpt_events(self.ckpt.dir, step):
-                self._event(f"fault-injection: {ev.kind} on the step-{step} checkpoint", step)
+                self.tele.event("fault", f"fault-injection: {ev.kind} on the step-{step} "
+                                "checkpoint", step=step, severity="warn", kind=ev.kind)
 
     def _resume_step(self) -> Optional[int]:
         """The step to resume from (None: start afresh)."""
@@ -217,8 +328,9 @@ class Trainer:
         latest = self.ckpt.latest_verified_step()
         newest = self.ckpt.latest_step()
         if newest is not None and newest != latest:
-            self._event(f"checkpoint: newest committed step {newest} failed verification — "
-                        f"resuming from last verified {latest}")
+            self.tele.event("checkpoint", f"checkpoint: newest committed step {newest} failed "
+                            f"verification — resuming from last verified {latest}",
+                            severity="warn", action="resume_fallback")
         return latest
 
     def _load_checkpoint(self, step: int, params: dict):
@@ -270,103 +382,130 @@ class Trainer:
         loss_by_step: dict[int, float] = {}
         seconds, skipped = [], 0
         cuda = self.device.type == "cuda"
+        tele, tcfg = self.tele, self.tele_cfg
+        gamma_tracker = GammaSlotTracker() if tcfg is not None else None
         step = start_step
         while step < steps:
-            t0 = time.perf_counter()  # the step's time includes a migration
-            if self.rank_ctrl is not None:
-                opt_state, changed = self.rank_ctrl.maybe_update(opt_state, detached)
-                if changed:
-                    self._set_optimizer(self.rank_ctrl.transform())
-                    self._event(f"rank-policy -> {self.rank_ctrl.current_map}", step)
-            if plan is not None:
-                for ev in plan.state_events(step):
-                    opt_state = poison_projectors(opt_state, ev.kind)
-                    self._event(f"fault-injection: {ev.kind}", step)
-            batch = {"tokens": torch.from_numpy(next(stream)).to(self.device)}
-            if self._fault_gate is not None:
-                ev = plan.grad_event(step)
-                if ev is not None:
-                    self._event(f"fault-injection: {ev.kind}", step)
-                fault = FaultGate.armed(ev) if ev is not None else FaultGate.disarmed()
-                opt_state, metrics = self.step_fn(params, opt_state, batch, fault)
-            else:
-                opt_state, metrics = self.step_fn(params, opt_state, batch)
-            names = [n for n in _SCALARS if n in metrics]
-            scalars = dict(zip(names, torch.stack(
-                [metrics[n].to(torch.float32) for n in names]).tolist()))
-            if cuda:
-                torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
-            seconds.append(dt)
-            loss, applied = scalars["loss"], metrics["update_applied"]
-            if applied:
-                loss_by_step[step] = loss
-            else:
-                skipped += 1
+            if self._profile_window is not None:
+                self._profile(step)
+            with self._step_mark(step):
+                t0 = time.perf_counter()  # the step's time includes a migration
+                if self.rank_ctrl is not None:
+                    opt_state, changed = self.rank_ctrl.maybe_update(opt_state, detached)
+                    if changed:
+                        self._set_optimizer(self.rank_ctrl.transform())
+                        tele.record_span("rank_migration", time.perf_counter() - t0, step=step)
+                        tele.event("rank_policy", f"rank-policy -> {self.rank_ctrl.current_map}",
+                                   step=step, map=str(self.rank_ctrl.current_map))
+                if plan is not None:
+                    for ev in plan.state_events(step):
+                        opt_state = poison_projectors(opt_state, ev.kind)
+                        tele.event("fault", f"fault-injection: {ev.kind}", step=step,
+                                   severity="warn", kind=ev.kind)
+                batch = {"tokens": torch.from_numpy(next(stream)).to(self.device)}
+                if self._fault_gate is not None:
+                    ev = plan.grad_event(step)
+                    if ev is not None:
+                        tele.event("fault", f"fault-injection: {ev.kind}", step=step,
+                                   severity="warn", kind=ev.kind)
+                    fault = FaultGate.armed(ev) if ev is not None else FaultGate.disarmed()
+                    opt_state, metrics = self.step_fn(params, opt_state, batch, fault)
+                else:
+                    opt_state, metrics = self.step_fn(params, opt_state, batch)
+                names = [n for n in _SCALARS if n in metrics]
+                scalars = dict(zip(names, torch.stack(
+                    [metrics[n].to(torch.float32) for n in names]).tolist()))
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                dt = time.perf_counter() - t0
+                seconds.append(dt)
+                loss, applied = scalars["loss"], metrics["update_applied"]
+                if applied:
+                    loss_by_step[step] = loss
+                else:
+                    skipped += 1
+                refresh_step = self.opt_cfg.period > 0 and step % self.opt_cfg.period == 0
+                tele.record_span("step", dt, step=step + 1,
+                                 kind="refresh" if refresh_step else "steady")
+                if tcfg is not None and (step + 1) % tcfg.every == 0:
+                    tele.metric(step + 1, "loss", loss)
+                    tele.metric(step + 1, "grad_norm", scalars["grad_norm"])
+                if tcfg is not None and refresh_step:
+                    self._family_metrics(step + 1, opt_state, gamma_tracker)
 
-            report = None
-            if health is not None:
-                report = health.observe(
-                    step, loss=loss, applied=applied,
-                    grad_norm=scalars.get("grad_norm_raw", scalars["grad_norm"]),
-                    # the low-rank leaves' norm: embeddings and norms keep
-                    # updating through a dead subspace and would mask it
-                    update_norm=scalars.get("update_norm_lowrank"),
-                    dt=dt, probes=self._gather_probes(opt_state, step))
-                for e in report.events:
-                    self._event(f"health[{e.severity}] {e.kind}: {e.detail}", step)
-                action = recov.decide(report)
-                if action.kind == "refresh":
-                    opt_state = force_refresh(opt_state, self.opt_cfg.period)
-                    recov.record(action, target=step + 1)
-                    health.reset()
-                    self._event("recovery: forced off-cycle projector refresh", step)
-                elif action.kind in ("rollback", "restore"):
-                    target, kind = None, action.kind
-                    if action.kind == "rollback":
-                        snap = ring.pop_latest()
-                        if snap is not None:
-                            if (self.rank_ctrl is not None and snap.extra
-                                    and "rank_policy" in snap.extra):
-                                self.rank_ctrl.load_state_dict(snap.extra["rank_policy"])
-                                self._set_optimizer(self.rank_ctrl.transform())
-                            saved, opt_state = ring.restore(snap, self.device)
-                            _copy_into(params, saved)
-                            target = snap.step
-                    if target is None:
-                        # no snapshot (or the restore rung): the last
-                        # verified durable checkpoint
-                        ck = self.ckpt.latest_verified_step()
-                        if ck is not None:
-                            opt_state = self._load_checkpoint(ck, params)
-                            target, kind = ck, "restore"
-                    recov.record(dataclasses.replace(action, kind=kind)
-                                 if kind != action.kind else action, target=target)
-                    if target is not None:
-                        self._event(f"recovery: {kind} -> step {target}", step)
-                        stream.resume(target)
-                        loss_by_step = {k: v for k, v in loss_by_step.items() if k < target}
-                        step = target
+                report = None
+                if health is not None:
+                    report = health.observe(
+                        step, loss=loss, applied=applied,
+                        grad_norm=scalars.get("grad_norm_raw", scalars["grad_norm"]),
+                        # the low-rank leaves' norm: embeddings and norms keep
+                        # updating through a dead subspace and would mask it
+                        update_norm=scalars.get("update_norm_lowrank"),
+                        dt=dt, probes=self._gather_probes(opt_state, step))
+                    for e in report.events:
+                        tele.event("health", f"health[{e.severity}] {e.kind}: {e.detail}",
+                                   step=step, severity=e.severity, kind=e.kind)
+                    action = recov.decide(report)
+                    if action.kind == "refresh":
+                        opt_state = force_refresh(opt_state, self.opt_cfg.period)
+                        recov.record(action, target=step + 1)
                         health.reset()
-                        continue
-                    self._event(f"recovery: {action.kind} requested but nothing restorable "
-                                f"— continuing", step)
-            else:
-                self.monitor.record(step, dt)
+                        tele.event("recovery", "recovery: forced off-cycle projector refresh",
+                                   step=step, severity="warn", action="refresh")
+                    elif action.kind in ("rollback", "restore"):
+                        target, kind = None, action.kind
+                        if action.kind == "rollback":
+                            snap = ring.pop_latest()
+                            if snap is not None:
+                                if (self.rank_ctrl is not None and snap.extra
+                                        and "rank_policy" in snap.extra):
+                                    self.rank_ctrl.load_state_dict(snap.extra["rank_policy"])
+                                    self._set_optimizer(self.rank_ctrl.transform())
+                                saved, opt_state = ring.restore(snap, self.device)
+                                _copy_into(params, saved)
+                                target = snap.step
+                        if target is None:
+                            # no snapshot (or the restore rung): the last
+                            # verified durable checkpoint
+                            ck = self.ckpt.latest_verified_step()
+                            if ck is not None:
+                                opt_state = self._load_checkpoint(ck, params)
+                                target, kind = ck, "restore"
+                        recov.record(dataclasses.replace(action, kind=kind)
+                                     if kind != action.kind else action, target=target)
+                        if target is not None:
+                            tele.event("recovery", f"recovery: {kind} -> step {target}",
+                                       step=step, severity="warn", action=kind, target=target)
+                            stream.resume(target)
+                            loss_by_step = {k: v for k, v in loss_by_step.items()
+                                            if k < target}
+                            step = target
+                            health.reset()
+                            continue
+                        tele.event("recovery", f"recovery: {action.kind} requested but "
+                                   f"nothing restorable — continuing", step=step,
+                                   severity="warn", action=action.kind)
+                else:
+                    self.monitor.record(step, dt)
 
-            if (res is not None and res.snapshot_every
-                    and (step + 1) % res.snapshot_every == 0 and report.status == "ok"):
-                ring.add(step + 1, detached, opt_state, extra=self._ckpt_extra())
-            if self.run.ckpt_every and (step + 1) % self.run.ckpt_every == 0:
-                self._save(step + 1, params, opt_state)
-            if self.run.log_every and (step + 1) % self.run.log_every == 0:
-                self._event(f"loss {loss:.4f}", step + 1)
-            step += 1
+                if (res is not None and res.snapshot_every
+                        and (step + 1) % res.snapshot_every == 0 and report.status == "ok"):
+                    ring.add(step + 1, detached, opt_state, extra=self._ckpt_extra())
+                if self.run.ckpt_every and (step + 1) % self.run.ckpt_every == 0:
+                    with tele.span("ckpt_save", step=step + 1):
+                        self._save(step + 1, params, opt_state)
+                if self.run.log_every and (step + 1) % self.run.log_every == 0:
+                    tele.event("log", f"loss {loss:.4f}", step=step + 1)
+                step += 1
         # The final save, unless the loop's periodic save committed this step
         # (a duplicate would also clobber injected post-commit corruption).
         if not (self.run.ckpt_every and steps % self.run.ckpt_every == 0
                 and steps > start_step):
-            self._save(steps, params, opt_state)
+            with tele.span("ckpt_save", step=steps):
+                self._save(steps, params, opt_state)
+        self._stop_profile()
+        if tcfg is not None:
+            tele.emit_counters(steps)
         self.opt_state = opt_state
         return TrainResult(
             final_step=steps, losses=[v for _, v in sorted(loss_by_step.items())],
@@ -375,7 +514,23 @@ class Trainer:
             health_events=[e.to_json() for e in health.events] if health is not None else [],
             recovery_counts=dict(recov.counts) if recov is not None else {},
             recovery_trace=list(recov.trace) if recov is not None else [],
-            fault_log=list(plan.log) if plan is not None else [])
+            fault_log=list(plan.log) if plan is not None else [],
+            events_path=self.events_path)
+
+    def _family_metrics(self, step: int, opt_state, gamma_tracker: GammaSlotTracker) -> None:
+        """A refresh step's subspace metrics: rank, captured energy, drift
+        and the last sampled bias per shape family, and the gamma slots."""
+        for rec in lowrank_family_metrics(opt_state):
+            fam = rec["family"]
+            self.tele.metric(step, "rank", rec["rank"], family=fam)
+            self.tele.metric(step, "energy", rec["energy"], family=fam)
+            for k in ("drift", "bias"):
+                if k in rec:
+                    self.tele.metric(step, k, rec[k], family=fam)
+        slots = gamma_tracker.observe(opt_state)
+        if slots:
+            self.tele.event("gamma_slots", f"gamma-slots: {len(slots)} leaves tracked",
+                            step=step, leaves=slots)
 
 
 def _copy_into(params: dict, src: dict) -> None:

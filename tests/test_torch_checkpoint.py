@@ -218,8 +218,19 @@ def test_multi_shard_leaves_concatenate_along_axis_0(tmp_path):
 
 
 def test_unported_arguments_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        CheckpointManager(str(tmp_path), telemetry=object())
+    # ported since: the telemetry bus (save and GC become checkpoint events)
+    from repro_torch.telemetry import MemorySink, Telemetry
+
+    ring = MemorySink()
+    with_bus = CheckpointManager(str(tmp_path / "bus"), keep=1, telemetry=Telemetry([ring]))
+    with_bus.save(1, _tree(1))
+    with_bus.save(2, _tree(2))
+    n = len(flatten_with_paths(_tree(1)))
+    assert [(r["detail"].split(" (")[0], r["severity"], r["data"]) for r in ring.records
+            if r["kind"] == "event"] == [
+        ("checkpoint: saved step 1", "debug", {"action": "save", "leaves": n}),
+        ("checkpoint: saved step 2", "debug", {"action": "save", "leaves": n}),
+        ("checkpoint: gc step 1", "debug", {"action": "gc", "gc_step": 1})]
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, _tree(1))
     with pytest.raises(NotImplementedError):

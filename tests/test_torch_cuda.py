@@ -872,3 +872,43 @@ def test_snapshot_round_trips_cuda_state_bitwise(cuda_device):
     got[0]["blocks/attn/wq"].zero_()
     again = ring.restore(ring.latest(), cuda_device)
     assert torch.equal(again[0]["blocks/attn/wq"], want[0][1])
+
+
+def test_telemetry_update_is_bitwise_and_probes_match_the_cpu(cuda_device):
+    """One GUM update (a refresh) with ``OptimizerConfig(telemetry=True)`` on
+    the card: bitwise the update with it off; its family metrics (energy,
+    drift, the sampled bias) within 1e-5 of the same update's on the CPU;
+    and the spectrum probe's extra row-2 launch per leaf is in
+    ``build.VARIANTS``."""
+    from repro_torch.core import OptimizerConfig, build_optimizer
+    from repro_torch.telemetry import lowrank_family_metrics
+
+    params = {"blocks/attn/wq": _randn(2, 64, 96), "blocks/mlp/w_down": _randn(2, 160, 64)}
+    grads = {k: _randn(*p.shape) for k, p in params.items()}
+
+    def update(telemetry, device):
+        opt = build_optimizer(OptimizerConfig(name="gum", rank=8, gamma=1, period=3,
+                                              telemetry=telemetry))
+        p = {k: v.to(device) for k, v in params.items()}
+        before = _variants()
+        u, state = opt.update({k: v.to(device) for k, v in grads.items()}, opt.init(p), p)
+        torch.cuda.synchronize()
+        return u, state, _variants_since(before)
+
+    off, _, ran_off = update(False, "cuda")
+    on, state, ran_on = update(True, "cuda")
+    for k in off:
+        assert torch.equal(off[k], on[k]), k
+    extra = {key: n - ran_off["lowrank_update"].get(key, 0)
+             for key, n in ran_on["lowrank_update"].items()}
+    assert sum(extra.values()) == len(params)  # one probe projection a leaf
+    assert {k: v for k, v in ran_on.items() if k != "lowrank_update"} == \
+        {k: v for k, v in ran_off.items() if k != "lowrank_update"}
+    got = lowrank_family_metrics(state)
+    _, cpu_state, _ = update(True, "cpu")
+    want = lowrank_family_metrics(cpu_state)
+    assert [r["family"] for r in got] == [r["family"] for r in want] == ["64x96", "160x64"]
+    for g, w in zip(got, want):
+        assert (g["rank"], g["bias_step"]) == (w["rank"], w["bias_step"])
+        for k in ("energy", "drift", "bias"):
+            assert abs(g[k] - w[k]) <= 1e-5, (g["family"], k, g[k], w[k])

@@ -118,11 +118,11 @@ def test_dispatch_vocabulary_equals_reference():
 
 
 def test_unported_knobs_raise(tmp_path):
-    for knob in (dict(shard_state=True), dict(telemetry=True)):
-        with pytest.raises(NotImplementedError):
-            OptimizerConfig(**knob)
+    with pytest.raises(NotImplementedError):
+        OptimizerConfig(shard_state=True)
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import build_optimizer
+    from repro_torch.telemetry import MemorySink, Telemetry
 
     with pytest.raises(NotImplementedError):
         build_optimizer(OptimizerConfig(name="gum"), audit=True)
@@ -130,8 +130,11 @@ def test_unported_knobs_raise(tmp_path):
     mgr.save(1, {"a": torch.zeros(2)})
     with pytest.raises(NotImplementedError):
         mgr.restore(1, {"a": torch.zeros(2)}, shardings={"a": None})
-    with pytest.raises(NotImplementedError):
-        CheckpointManager(str(tmp_path), telemetry=object())
+    # ported since: the telemetry knob (it builds a chain) and the manager's bus
+    build_optimizer(OptimizerConfig(name="gum", telemetry=True))
+    ring = MemorySink()
+    CheckpointManager(str(tmp_path), telemetry=Telemetry([ring])).save(2, {"a": torch.zeros(2)})
+    assert [r["data"]["action"] for r in ring.records if r["kind"] == "event"] == ["save"]
     # ported since: the rank policy and its ladder (each builds a chain)
     for knob in (dict(rank_policy="spectral:0.99"), dict(rank_ladder=(64, 128)),
                  dict(rank_policy="spectral:0.99", rank_ladder=(64, 128))):

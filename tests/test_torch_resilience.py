@@ -646,11 +646,28 @@ def test_cli_prints_the_reference_recoveries(tmp_path, monkeypatch, capsys):
                                    ["--telemetry", "every=2"], ["--events-out", "e.jsonl"],
                                    ["--profile-steps", "1:2"], ["--audit"]],
                          ids=lambda f: f[0])
-def test_cli_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item [456]"):
-        cli.main(["--device", "cpu", "--arch", "llama-60m", "--smoke", "--steps", "1",
-                  "--ckpt-dir", str(tmp_path), *flags])
-    assert not os.listdir(tmp_path)
+def test_cli_unported_flags_raise(tmp_path, flags, capsys):
+    args = ["--device", "cpu", "--arch", "llama-60m", "--smoke", "--steps", "1",
+            "--ckpt-dir", str(tmp_path), *flags]
+    if flags[0] in ("--mesh", "--shard-state", "--audit"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item [456]"):
+            cli.main(args)
+        assert not os.listdir(tmp_path)
+        return
+    # ported since: telemetry, its events path and the profiler window run
+    cli.main([*args, "--steps", "2", "--batch", "2", "--seq", "32", "--rank", "4"])
+    out = capsys.readouterr().out
+    if flags[0] == "--profile-steps":  # the window alone writes a trace, no run log
+        assert "profiler: trace started" in out and "telemetry:" not in out
+        assert os.listdir(tmp_path / "profile")
+        return
+    events = tmp_path / flags[1] if flags[0] == "--events-out" else tmp_path / "events.jsonl"
+    if flags[0] == "--events-out":  # the path takes effect with --telemetry only
+        assert not events.exists() and "telemetry:" not in out
+        return
+    assert f"telemetry: {events} (python -m repro_torch.telemetry.report {tmp_path})" in out
+    kinds = [json.loads(line)["kind"] for line in events.read_text().splitlines()]
+    assert kinds[0] == "header" and kinds[-1] == "counters"
 
 
 def test_cli_raises_without_a_gpu_unless_asked_for_the_cpu(tmp_path):
