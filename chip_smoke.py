@@ -116,6 +116,22 @@ Phases, in order; any failure exits non-zero and prints no result:
                 profiler's Chrome trace holding rows 1–5's kernels (their
                 ``__global__`` names read from csrc/) inside the ``step 4``
                 and ``step 5`` annotations; the step times beside phase 4's;
+  4i. distributed — two gloo ranks on the one card (NCCL takes one rank
+                a device; gloo takes the CUDA tensors itself) train phase
+                4's GUM with ``fuse_families`` through ``Trainer(mesh=)``,
+                4 x 1024 rows a rank of the 8 x 1024 batch, 4 steps,
+                ``shard_state`` off then on: the losses and parameters
+                bitwise the one-process run at ``microbatches=2`` (the same
+                fp32 sum of the two halves), the first loss within 1e-6 of
+                phase 4's (the later ones printed beside it), on == off
+                bitwise, each step's collectives (one fp32 gradient and one
+                loss all-reduce, plus the update all-gather under
+                ``shard_state``) and fused GUM's dispatches and rows 1–5's
+                launches on each rank, each rank's family-state bytes
+                against ``sharding.family_state_bytes``; then one
+                ``make_shardmap_train_step`` step over a world-size-1
+                ``nccl`` group (bf16 gradient all-reduce) bitwise the
+                no-mesh step given the same bf16 cast;
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
                 flash_attention launches) against "xla", then a
                 continuous-batching engine of 8 slots answering 16 requests,
@@ -125,10 +141,11 @@ Phases, in order; any failure exits non-zero and prints no result:
                 and 4 requests, one checked against direct decode (cut from
                 8 / 16 to keep the run under 1000 s; phase 12 checks a
                 reused Mamba slot);
-  8. serve    — the dense variants as published, bf16 activations and fp32
-                parameters, one at a time on the card: chatglm3-6b (28
-                layers), starcoder2-7b (32) and qwen1.5-4b (40), each a
-                prefill 4 x 2048 through the bf16 instantiation of flash
+  8. serve    — the dense variants at their published widths, bf16
+                activations and fp32 parameters, one at a time on the card,
+                depth cut to half to make room for phase 4i: chatglm3-6b (14
+                of 28 layers), starcoder2-7b (16 of 32) and qwen1.5-4b (20
+                of 40), each a prefill 4 x 2048 through the bf16 instantiation of flash
                 attention (one launch a layer) against "xla" in fp32 and in
                 bf16 on the same parameters, then an engine: chatglm3-6b's
                 of 8 slots answering 9 requests (cut from 16 to make room
@@ -2340,6 +2357,327 @@ def phase_telemetry(torch) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- phase 4i
+
+# Fused GUM's dispatches per step (3 family stacks): each family's momentum
+# update and NS in the projected space, and its slots' projection,
+# back-projection and NS; a split family runs them on its rows, so every
+# rank dispatches these each step.  Kernel launches follow
+# (lowrank_update runs lowrank_update and project; NS 5 gram + 5 poly_apply).
+FUSED_GUM_DISPATCH = {"lowrank_update": 3, "project": 3, "back_project": 6,
+                      "newton_schulz": 6}
+FUSED_GUM_LAUNCH = {"lowrank_update": 6, "back_project": 6, "gram": 30, "poly_apply": 30}
+DIST_STEPS = 4
+# shard_state on against off on the card: Newton–Schulz's batched Frobenius
+# norm rounds a rank's rows of a stack otherwise than the whole stack (3e-5
+# on a norm of ~440 at 24 of 48 rows; tools/ns_norm_stack_invariance.py),
+# a relative change of 7e-8 to the normalised momentum; the losses moved by
+# 7e-8 at step 3 where it was first read.  The parameters are held after
+# step 3 and, looser, after step 4: that step's refresh runs the rank-256
+# SVD on a gradient that differs in its last bits, which rotates the
+# near-degenerate directions of the subspace (3.6e-4 where first read; the
+# same effect puts phase 4's losses 9e-5 from the mesh run's).  The losses
+# of steps 1-4 are computed before step 4's update.
+SHARD_LOSS_TOL = 1e-6
+SHARD_PARAM_TOL = 1e-6
+REFRESH_PARAM_TOL = 1e-3
+
+
+def distributed_rank(mesh, inputs: dict) -> dict:
+    """Phase 4i, one of two ranks on the one card: phase 4's GUM with
+    ``fuse_families`` through ``Trainer(mesh=...)`` (this rank's 4 x 1024 of
+    the 8 x 1024 batch, fp32 gradient all-reduce), ``shard_state`` off then
+    on, 4 steps each.  Returns per run the losses, a digest of the final
+    parameters, each step's collectives and dispatches, the kernel launches,
+    this rank's family-state bytes beside ``family_state_bytes`` and the
+    step times; for the run with shard_state, the largest relative
+    Frobenius distance of a parameter leaf to the run without it, after
+    step 3 and after step 4."""
+    import hashlib
+
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.core.combinators import slot_projector_bytes, strip_slot_projectors
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.kernels.collective_count import record_collectives, tally
+    from repro_torch.models import build_model
+    from repro_torch.sharding import family_state_bytes
+    from repro_torch.train import Trainer
+
+    out, replicated = {}, None
+    for shard in (False, True):
+        label = "shard" if shard else "replicated"
+        cfg, data = llama130m_data()
+        model = build_model(cfg, device="cuda")
+        opt_cfg = OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3,
+                                  fuse_families=True, shard_state=shard)
+        trainer = Trainer(model, opt_cfg,
+                          RunConfig(steps=DIST_STEPS, log_every=0, seed=0,
+                                    ckpt_dir=os.path.join(inputs["dir"], label)),
+                          data, device="cuda", mesh=mesh)
+        trainer.monitor.z = float("inf")
+        steps = []
+        inner = trainer.step_fn
+
+        before_refresh = {}
+
+        def counted(*args, inner=inner):
+            with record_collectives() as log, launch_count.count_launches() as dispatched:
+                result = inner(*args)
+            steps.append({"collectives": tally(log),
+                          "dtypes": {f"{e['op']}:{e['tag']}": e["dtype"] for e in log},
+                          "bytes": {f"{e['op']}:{e['tag']}": e["bytes"] for e in log},
+                          "dispatch": dict(dispatched)})
+            if len(steps) == DIST_STEPS - 1:  # the last update before step 4's refresh
+                before_refresh.update({k: p.detach().cpu() for k, p in args[0].items()})
+            return result
+
+        trainer.step_fn = counted
+        build.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        digest = hashlib.sha256()
+        final = {k: p.detach().cpu() for k, p in trainer.model.params().items()}
+        for k, p in final.items():
+            digest.update(k.encode())
+            digest.update(p.numpy().tobytes())
+        param_rel = None
+        if replicated is None:
+            replicated = (before_refresh, final)
+        else:
+            param_rel = [max(float(torch.linalg.vector_norm(p - want[k])
+                                   / torch.linalg.vector_norm(want[k]))
+                             for k, p in got.items())
+                         for got, want in zip((before_refresh, final), replicated)]
+        like = {k: torch.empty_like(p, device="meta")
+                for k, p in trainer.model.params().items()}
+        total, per_shard = family_state_bytes(trainer.optimizer.init(like), mesh.shape["data"])
+        bare = strip_slot_projectors(trainer.opt_state)
+        slot_projs = slot_projector_bytes(trainer.opt_state)
+        out[label] = {"losses": result.losses, "digest": digest.hexdigest(),
+                      "steps": steps, "launches": launches,
+                      "held": family_state_bytes(bare, 1)[0], "rule": per_shard,
+                      "whole": total, "slot_projs": slot_projs,
+                      "seconds": [round(t, 4) for t in result.step_seconds],
+                      "param_rel": param_rel,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del trainer, model, bare
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+class LocalMesh:
+    """A one-rank data mesh whose all-reduce leaves its operand as it is:
+    the step of ``make_train_step(mesh=LocalMesh(), reduce_dtype=bf16)`` is
+    the no-mesh step with the gradients cast to bf16 and back."""
+
+    axis_names = ("data",)
+    shape = {"data": 1}
+    data_axis = "data"
+
+    def coordinate(self, axis: str) -> int:
+        return 0
+
+    def all_reduce(self, t, tag: str):
+        return t
+
+
+def nccl_step(torch) -> dict:
+    """Phase 4i's NCCL path: a world-size-1 ``nccl`` process group runs one
+    ``make_shardmap_train_step`` step (bf16 gradient all-reduce) of fused
+    GUM at llama-130m on the 8 x 1024 batch, held bitwise to the no-mesh
+    step given the same bf16 cast.  Returns its kernel launches."""
+    import torch.distributed as dist
+
+    from repro_torch.core import OptimizerConfig, build_optimizer
+    from repro_torch.data import build_stream
+    from repro_torch.kernels import build
+    from repro_torch.kernels.collective_count import record_collectives, tally
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.launch.shardmap_fsdp import make_shardmap_train_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    cfg, data = llama130m_data()
+    opt = build_optimizer(OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3,
+                                          fuse_families=True))
+    batch = {"tokens": torch.from_numpy(build_stream(data).batch_at(0)).to("cuda")}
+    with scratch_dir("nccl") as d:
+        init_distributed("nccl", rank=0, world_size=1, init_method=f"file://{d}/store",
+                         timeout=300)
+        try:
+            mesh = Mesh((1,), ("data",), group=dist.group.WORLD, backend="nccl")
+            outs = []
+            for kind in ("nccl", "plain"):
+                model = build_model(cfg, device="cuda")
+                model.init_params(0)
+                params = model.params()
+                state = opt.init({k: p.detach() for k, p in params.items()})
+                if kind == "nccl":
+                    step = make_shardmap_train_step(model, opt, mesh)
+                    build.reset_launches()
+                    with record_collectives() as log:
+                        state, metrics = step(params, state, batch)
+                    torch.cuda.synchronize()
+                    launches = dict(build.LAUNCHES)
+                else:
+                    step = make_train_step(model, opt, mesh=LocalMesh(),
+                                           reduce_dtype=torch.bfloat16)
+                    state, metrics = step(params, state, batch)
+                outs.append((float(metrics["loss"]),
+                             {k: p.detach().clone() for k, p in params.items()}))
+                del model, params, state
+                gc.collect()
+        finally:
+            dist.destroy_process_group()
+    (loss, got), (want_loss, want) = outs
+    check(loss == want_loss and all(torch.equal(got[k], want[k]) for k in want),
+          f"4i: the nccl step is not the no-mesh step with the bf16 cast "
+          f"(loss {loss} vs {want_loss})")
+    counts = tally(log)
+    check(counts == {"all_reduce:grad": 1, "all_reduce:loss": 1}
+          and log[0]["dtype"] == "bfloat16",
+          f"4i: the nccl step's collectives {log}")
+    print(f"4i nccl world 1: one make_shardmap_train_step step, loss {loss!r} bitwise the "
+          f"no-mesh step with the bf16 cast; collectives {counts}, gradient "
+          f"{log[0]['dtype']} {log[0]['bytes']} bytes", flush=True)
+    del outs, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def one_process_run(torch) -> tuple[list, str]:
+    """Phase 4i's one-process twin: the same fused GUM run with no mesh, at
+    ``microbatches=2`` (rows 0-3 and 4-7 of each batch, the two ranks'
+    rows, summed in fp32 and halved, as the all-reduce does).  Returns the
+    losses and the parameters' digest."""
+    import hashlib
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    cfg, data = llama130m_data()
+    with scratch_dir("distributed_twin") as d:
+        trainer = Trainer(build_model(cfg, device="cuda"),
+                          OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3,
+                                          fuse_families=True),
+                          RunConfig(steps=DIST_STEPS, log_every=0, seed=0, ckpt_dir=d),
+                          data, device="cuda", microbatches=2)
+        result = trainer.train()
+    digest = hashlib.sha256()
+    for k, p in trainer.model.params().items():
+        digest.update(k.encode())
+        digest.update(p.detach().cpu().numpy().tobytes())
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result.losses, digest.hexdigest()
+
+
+def phase_distributed(torch) -> dict:
+    """Phase 4i: data parallelism at llama-130m full width.  Two ranks on
+    the one card (NCCL refuses two ranks on one device, so the group runs
+    ``gloo``, which takes the CUDA tensors itself: no host staging) run
+    phase 4's GUM with ``fuse_families`` through ``Trainer(mesh=...)``:
+    the global batch 8 x 1024 as 4 x 1024 a rank, fp32 gradient all-reduce,
+    4 steps (refreshes at steps 1 and 4), ``shard_state`` off then on.
+    Checks: the losses and parameters bitwise those of the one-process run
+    at ``microbatches=2`` (:func:`one_process_run`: the same fp32 sum of
+    the two halves' gradients), and the first loss (before any update)
+    within 1e-6 of phase 4's (one mean of 8 rows against the mean of two
+    means); the later losses' distance to phase 4's is printed, not held:
+    the refresh's SVD at rank 256 turns the gradient's last-bit rounding
+    into a subspace rotation (9e-5 relative at step 4 in the first run);
+    the run without shard_state bitwise the twin, the run with it within
+    ``SHARD_LOSS_TOL`` (losses) and ``SHARD_PARAM_TOL`` (each parameter
+    leaf's relative Frobenius distance) of it; each rank's family-state bytes
+    against ``family_state_bytes``; each step's collectives (1 gradient
+    and 1 loss all-reduce, plus the update all-gather with shard_state)
+    and fused GUM's dispatches; rows 1-5 launched on each rank.  Then
+    :func:`nccl_step`.  Step times are no yardstick: the two ranks share
+    the card.  Returns the launches of both ranks and of the NCCL step."""
+    from repro_torch.launch.mesh import run_local_ranks
+
+    t0 = time.perf_counter()
+    with scratch_dir("distributed") as d:
+        ranks = run_local_ranks("chip_smoke:distributed_rank", 2, args=({"dir": d},),
+                                workdir=os.path.join(d, "ranks"), backend="gloo",
+                                timeout=600, threads=2, extra_path=[str(ROOT)])
+    print(f"4i backend gloo (CUDA tensors, no host staging), world size 2, reduce dtype "
+          f"float32 (Trainer), {DIST_STEPS} steps, 4 x 1024 rows a rank; ranks ran "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    want = LOSSES["slice"][:DIST_STEPS]
+    twin, twin_digest = one_process_run(torch)
+    print(f"4i one-process run at microbatches=2: losses {twin}", flush=True)
+    launches: dict = {}
+    for k, rank in enumerate(ranks):
+        for label, run in rank.items():
+            losses = run["losses"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+            if label == "replicated":
+                check(losses == twin and run["digest"] == twin_digest,
+                      f"4i rank {k} {label}: losses {losses} are not the one-process "
+                      f"run's {twin}")
+            check(len(losses) == DIST_STEPS and rel[0] <= 1e-6,
+                  f"4i rank {k} {label}: first loss {losses[0]} vs phase 4's {want[0]}")
+            for i, st in enumerate(run["steps"]):
+                want_c = {"all_reduce:grad": 1, "all_reduce:loss": 1}
+                if label == "shard":
+                    want_c["all_gather:update"] = 1
+                check(st["collectives"] == want_c,
+                      f"4i rank {k} {label} step {i + 1}: collectives {st['collectives']}")
+                check(st["dispatch"] == FUSED_GUM_DISPATCH,
+                      f"4i rank {k} {label} step {i + 1}: dispatch {st['dispatch']}")
+            per_step = {n: v / DIST_STEPS for n, v in run["launches"].items() if v}
+            check(per_step == FUSED_GUM_LAUNCH,
+                  f"4i rank {k} {label}: launches per step {per_step}")
+            held, rule = run["held"], run["rule"]
+            check(held == (rule if label == "shard" else run["whole"]),
+                  f"4i rank {k} {label}: family state {held} bytes, rule {rule}")
+            for n, v in run["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+            st = run["steps"][1]
+            print(f"4i rank {k} {label}: losses {losses} (rel to phase 4 "
+                  f"{[float(f'{r:.3g}') for r in rel]}); "
+                  f"family state {held} bytes (rule {rule}, whole {run['whole']}; slot "
+                  f"projectors {run['slot_projs']}); per step {st['collectives']} dtypes "
+                  f"{st['dtypes']} bytes {st['bytes']}; dispatch {st['dispatch']}; launches "
+                  f"per step {per_step}; step s {run['seconds']}; peak "
+                  f"{run['peak_gib']:.3f} GiB", flush=True)
+        on, off = rank["shard"], rank["replicated"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(on["losses"], off["losses"]))
+        (p3, p4), limits = on["param_rel"], (SHARD_PARAM_TOL, REFRESH_PARAM_TOL)
+        check(loss_rel <= SHARD_LOSS_TOL and p3 <= limits[0] and p4 <= limits[1],
+              f"4i rank {k}: shard_state on against off: losses {loss_rel:.3g} relative "
+              f"(limit {SHARD_LOSS_TOL}), parameters after steps 3 and 4 {p3:.3g}, {p4:.3g} "
+              f"(limits {limits})")
+        print(f"4i rank {k} shard_state on against off: losses "
+              f"{[float(f'{abs(a - b) / abs(b):.3g}') for a, b in zip(on['losses'], off['losses'])]}"
+              f" relative (limit {SHARD_LOSS_TOL}); largest parameter leaf's relative "
+              f"Frobenius distance after step 3 {p3!r} (limit {limits[0]}), after step 4's "
+              f"refresh {p4!r} (limit {limits[1]}); bitwise: {on['digest'] == off['digest']}",
+              flush=True)
+    check(ranks[0]["shard"]["digest"] == ranks[1]["shard"]["digest"],
+          "4i: the ranks' parameters differ")
+    print(f"4i ranks equal (parameter digest {ranks[0]['shard']['digest'][:16]})", flush=True)
+    for n, v in nccl_step(torch).items():
+        launches[n] = launches.get(n, 0) + v
+    print(f"4i seconds {time.perf_counter() - t0:.1f}", flush=True)
+    return launches
+
+
 def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     """Device time of one steady step by kernel group (torch.profiler):
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
@@ -2910,25 +3248,28 @@ def phase_serve_mamba(torch) -> dict:
 
 # The head dims flash attention pads D to (its instantiations).
 FLASH_TIERS = (16, 32, 64, 128, 192, 256)
-# Phase 8: the dense variants as published (bf16 activations, fp32
-# parameters), (slots, requests, direct decodes checked) of each engine run.
-DENSE_VARIANTS = {"chatglm3-6b": (8, 9, 2), "starcoder2-7b": (4, 4, 1),
-                  "qwen1.5-4b": (4, 4, 1)}
+# Phase 8: the dense variants at their published widths (bf16 activations,
+# fp32 parameters), (layers, slots, requests, direct decodes checked) of
+# each: depth cut to half of 28 / 32 / 40 layers to make room for phase 4i.
+DENSE_VARIANTS = {"chatglm3-6b": (14, 8, 9, 2), "starcoder2-7b": (16, 4, 4, 1),
+                  "qwen1.5-4b": (20, 4, 4, 1)}
 
 
 def phase_serve_dense(torch) -> dict:
-    """Phase 8: chatglm3-6b, starcoder2-7b and qwen1.5-4b at full width
-    (28 / 32 / 40 layers; 6.2B / 7.4B / 4.0B fp32 parameters, bf16
-    activations), one model on the card at a time: prefill 4 x 2048 through
+    """Phase 8: chatglm3-6b, starcoder2-7b and qwen1.5-4b at full width,
+    depth cut to 14 / 16 / 20 of their 28 / 32 / 40 layers (fp32
+    parameters, bf16 activations), one model on the card at a time:
+    prefill 4 x 2048 through
     the bf16 instantiation of flash attention, one launch a layer, against
     "xla" as :func:`check_low_precision_prefill` says, then the engine
     (DENSE_VARIANTS).  The direct decode runs the request in its slot's row
     of a cache as wide as the engine's, for the reason phase 7 gives."""
     print(f"serve-dense on {smi_line()}", flush=True)
     launches: dict = {}
-    for arch, (slots, requests, checked) in DENSE_VARIANTS.items():
+    for arch, (layers, slots, requests, checked) in DENSE_VARIANTS.items():
         got = phase_serve(torch, f"serve-{arch}", arch, 4, 2048, 1e-4,
-                          direct_batch=slots, slots=slots, requests=requests, checked=checked)
+                          direct_batch=slots, slots=slots, requests=requests, checked=checked,
+                          changes={"n_layers": layers})
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
@@ -3331,7 +3672,7 @@ def phase_agree_serve(torch):
 PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_baselines,
           "accumulate": phase_accumulate, "resume": phase_resume,
           "rank-policy": phase_rank_policy, "resilience": phase_resilience,
-          "telemetry": phase_telemetry,
+          "telemetry": phase_telemetry, "distributed": phase_distributed,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
           "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick,

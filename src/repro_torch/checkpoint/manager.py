@@ -34,8 +34,12 @@ and gives an int leaf back as a Python ``int``.
 leaf is written (fault-injection kill hooks, progress).  With a telemetry
 bus (``telemetry=``, a :class:`repro_torch.telemetry.Telemetry`) each save,
 GC and corrupt-skip is a ``checkpoint`` event, as in the reference; without
-one only problems print.  Not ported: re-sharding on restore
-(``shardings=`` raises).
+one only problems print.
+
+A checkpoint holds whole arrays, as the reference's do: a sharded run
+gathers its split leaves before it saves, and ``restore(shardings=)`` puts
+them back on a rank — each rank loads the whole leaf, then keeps its part
+(the per-leaf rule of :func:`repro_torch.sharding.row_splits`).
 """
 from __future__ import annotations
 
@@ -299,10 +303,12 @@ class CheckpointManager:
                 verify: bool = True) -> tuple[PyTree, dict]:
         """Restore into the structure of ``like``; returns ``(tree, extra)``.
         ``verify=True`` checks every shard against its CRC32 while loading
-        and raises :class:`CheckpointCorruptionError` on a mismatch."""
-        if shardings is not None:
-            raise NotImplementedError("CheckpointManager.restore(shardings=...): "
-                                      "re-sharding onto a mesh is not ported yet")
+        and raises :class:`CheckpointCorruptionError` on a mismatch.
+
+        ``shardings``, a tree of ``like``'s structure, gives each leaf's
+        rule: ``None`` keeps the whole leaf, a
+        :class:`~repro_torch.sharding.RowSplit` keeps this rank's rows of
+        it (``like`` holds the whole shapes)."""
         d = self._step_dir(step)
         manifest = self._checked_manifest(step)
         flat = flatten_with_paths(like)
@@ -330,7 +336,13 @@ class CheckpointManager:
                 raise ValueError(f"{meta['path']}: saved shape {tuple(arr.shape)} != "
                                  f"target {tuple(_shape(ref))}{hint}")
             out.append(_from_numpy(arr, ref))
-        return _rebuild(like, iter(out)), manifest["extra"]
+        tree = _rebuild(like, iter(out))
+        if shardings is not None:
+            from repro_torch.sharding import zip_map
+
+            tree = zip_map(lambda x, rule: x if rule is None else rule.apply(x), tree,
+                            shardings)
+        return tree, manifest["extra"]
 
     def restore_latest(self, like: PyTree, shardings: Optional[PyTree] = None):
         step = self.latest_step()

@@ -131,16 +131,10 @@ def multi_transform(
     return Transform(init, update)
 
 
-# Knobs of the JAX package's OptimizerConfig that the port does not run yet,
-# with the value that means "off".
-_NOT_PORTED = {"shard_state": False}
-
-
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Config resolved by :func:`repro_torch.core.factory.build_optimizer`:
-    the JAX package's fields and defaults.  Setting a knob the port does not
-    run yet raises ``NotImplementedError``."""
+    the JAX package's fields and defaults."""
 
     # gum | galore | galore_muon | golore | muon | adamw | sgdm | fira | lisa
     # | unbiased_galore_adam
@@ -179,6 +173,8 @@ class OptimizerConfig:
     # | a RankPolicy (core/rank_policy.py); the ladder bounds adaptive specs.
     rank_policy: Any = None
     rank_ladder: tuple[int, ...] = ()
+    # Split the family-stacked low-rank state over a mesh's data axis
+    # (ZeRO-style; needs fuse_families and the Trainer's mesh).
     shard_state: bool = False
     # Store the projector drift and a sampled bias residual in the spectrum
     # probes of every lowrank stage (repro_torch.telemetry reads them); the
@@ -188,8 +184,3 @@ class OptimizerConfig:
     def __post_init__(self):
         if self.pad_rank_to < 0:
             raise ValueError(f"pad_rank_to must be >= 0, got {self.pad_rank_to}")
-        for knob, off in _NOT_PORTED.items():
-            if getattr(self, knob) != off:
-                raise NotImplementedError(
-                    f"OptimizerConfig.{knob}={getattr(self, knob)!r} is not ported "
-                    "to the PyTorch package yet")

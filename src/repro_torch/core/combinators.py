@@ -1,5 +1,5 @@
 """Composable optimizer combinators: the JAX package's
-``core/combinators.py`` on PyTorch tensors, less its sharded refresh.
+``core/combinators.py`` on PyTorch tensors.
 
 atomic gradient transforms
     scale_by_momentum    EMA momentum (SGDM; Property-II compliant)
@@ -67,10 +67,20 @@ probing on every refresh stores each leaf's (or family's) spectrum probe in
 ``lowrank(telemetry=True)`` adds to those probes the projector drift at
 each refresh and a bias residual sampled each step, which
 :mod:`repro_torch.telemetry.instrument` reads; the update never reads them.
+
+Under :func:`family_sharding` (a data-parallel step whose ranks all hold the
+whole reduced gradient) the family-stacked state is ZeRO-split: rank ``k``
+of ``n`` keeps rows ``[k·L/n, (k+1)·L/n)`` of every family-stacked state
+tensor whose leading dim divides (:func:`shard_family_state`; the rule of
+:func:`repro_torch.sharding.family_state_sharding`), refreshes and updates
+only those rows, and one all-gather a step, over every split family at once,
+joins the update rows back to full size (see :func:`family_sharding`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -92,6 +102,7 @@ from repro_torch.core.family_plan import (
     unstack_family,
 )
 from repro_torch.core.lowrank_common import (
+    BlockSel,
     FamilyShape,
     Noise,
     compute_projectors,
@@ -102,6 +113,7 @@ from repro_torch.core.lowrank_common import (
     proj_shape,
     project,
     scatter_blocks,
+    stack_shardable,
 )
 from repro_torch.core.newton_schulz import muon_scale
 from repro_torch.kernels import dispatch
@@ -152,10 +164,10 @@ class ProjGrad:
     """Lazy projected gradient leaf handed to transforms inside ``lowrank``."""
 
     __slots__ = ("p", "g", "fs", "kernel_impl", "pad_rank_to", "coeff", "reset",
-                 "refresh", "key", "seg")
+                 "refresh", "key", "seg", "shard")
 
     def __init__(self, p, g, fs, kernel_impl, pad_rank_to=0, coeff=1.0, reset=False,
-                 refresh=False, key=None, seg=None):
+                 refresh=False, key=None, seg=None, shard=None):
         self.p = p                      # (*lead, s, r) refreshed projector
         self.g = g                      # (*lead, m, n) raw fp32 gradient
         self.fs = fs                    # FamilyShape
@@ -167,10 +179,12 @@ class ProjGrad:
         self.key = key                  # (seed, count, leaf index); a list of
                                         # them, one per member, when stacked
         self.seg = seg                  # StackSeg when stacked (else None)
+        self.shard = shard              # ShardView under family_sharding: p and g
+                                        # are then this rank's rows of the stack
 
     def with_coeff(self, coeff: float) -> "ProjGrad":
         return ProjGrad(self.p, self.g, self.fs, self.kernel_impl, self.pad_rank_to,
-                        coeff, self.reset, self.refresh, self.key, self.seg)
+                        coeff, self.reset, self.refresh, self.key, self.seg, self.shard)
 
     def apply_reset(self, x):
         return torch.zeros_like(x) if self.reset else x
@@ -200,6 +214,39 @@ class FullUpdate:
 
     def __init__(self, u):
         self.u = u
+
+
+class ShardView(NamedTuple):
+    """One family stack on rank ``k`` of ``n`` under :func:`family_sharding`:
+    the rows ``[a, b)`` its state holds (all ``L`` when the stack does not
+    divide, ``split`` False), the whole stacked gradient every rank holds
+    after the all-reduce, and at a refresh ``project_blocks(ids)``: the
+    projectors of any blocks of the stack, computed as the whole stack's
+    are (the same gradient, keys and draws)."""
+
+    k: int
+    n: int
+    rows: tuple[int, int]
+    split: bool
+    g_full: torch.Tensor
+    project_blocks: Optional[Callable] = None
+
+
+class RowsUpdate:
+    """An inner transform's update of one split family (under
+    :func:`family_sharding`): ``rows`` of the update this rank computed
+    (the rank's rows, or all of them when the stack does not divide), and
+    the slots still to land after ``lowrank`` gathers the rows: ``slots``,
+    this rank's share of them to gather too, or ``slot_vals``, every slot
+    (computed alike on every rank), each scattered to its block of ``idx``."""
+
+    __slots__ = ("rows", "slots", "idx", "slot_vals")
+
+    def __init__(self, rows, slots=None, idx=None, slot_vals=None):
+        self.rows = rows
+        self.slots = slots
+        self.idx = idx
+        self.slot_vals = slot_vals
 
 
 class RefreshMsg:
@@ -572,6 +619,54 @@ def with_matrix_routing(
 
 
 # ---------------------------------------------------------------------------
+# ZeRO-style family-state sharding context
+# ---------------------------------------------------------------------------
+
+_FAMILY_SHARDING = threading.local()
+
+
+@contextlib.contextmanager
+def family_sharding(mesh):
+    """Declare that family-stacked low-rank state is split over ``mesh``'s
+    data axis (``mesh.data_axis``) along the stack dim (the layout of
+    :func:`shard_family_state`).
+
+    Entered by the step builders (``launch.shardmap_fsdp`` and the mesh
+    ``Trainer``) around ``optimizer.update``; the fused ``lowrank`` path
+    reads it through :func:`active_family_sharding`.  Every rank holds the
+    whole reduced gradient, so a refresh gathers nothing: each rank computes
+    only its rows' projectors, with the whole stack's keys.  The update rows
+    come back to full size in one all-gather a step, coalesced over the
+    split families."""
+    prev = getattr(_FAMILY_SHARDING, "mesh", None)
+    _FAMILY_SHARDING.mesh = mesh
+    try:
+        yield
+    finally:
+        _FAMILY_SHARDING.mesh = prev
+
+
+def active_family_sharding():
+    """The mesh of the active family-sharding declaration, or None."""
+    return getattr(_FAMILY_SHARDING, "mesh", None)
+
+
+def family_shard_count(mesh) -> int:
+    """The shard count of ``mesh``'s data axis (1 when mesh is None)."""
+    if mesh is None:
+        return 1
+    return int(mesh.shape[mesh.data_axis])
+
+
+def _split_rows(L: int, k: int, n: int) -> tuple[tuple[int, int], bool]:
+    """Rank ``k``'s rows of an ``(L, ...)`` stack and whether it splits."""
+    if n > 1 and stack_shardable(L, n):
+        per = L // n
+        return (k * per, (k + 1) * per), True
+    return (0, L), False
+
+
+# ---------------------------------------------------------------------------
 # lowrank — the projection wrapper
 # ---------------------------------------------------------------------------
 
@@ -589,16 +684,22 @@ class LowRankState(NamedTuple):
     probes: PyTree = None
 
 
-def _spectrum_probe(p, g32, fs: FamilyShape, kernel_impl: str, pad_rank_to: int) -> dict:
-    """Squared singular values of the projected gradient sketch ``PᵀG``
-    (the eigenvalues of its r x r Gram, clamped at 0, summed over stacked
-    blocks, in descending order) and the total gradient energy.  ``PᵀG``
+def _eigen_sum(p, g32, fs: FamilyShape, kernel_impl: str, pad_rank_to: int) -> torch.Tensor:
+    """The eigenvalues of each block's r x r Gram of ``PᵀG``, clamped at 0
+    and summed over the blocks, in eigvalsh's ascending order.  ``PᵀG``
     goes through the projection kernel (``dispatch.project``, counted); the
     Gram is a plain product."""
     s = dispatch.project(p, g32, side=fs.side, impl=kernel_impl, pad_rank_to=pad_rank_to)
     gram = torch.matmul(s, s.mT) if fs.side == "left" else torch.matmul(s.mT, s)
     ev = torch.linalg.eigvalsh(gram).clamp_min(0.0)          # (*lead, r)
-    sv2 = torch.sort(ev.reshape(-1, ev.shape[-1]).sum(0), descending=True).values
+    return ev.reshape(-1, ev.shape[-1]).sum(0)
+
+
+def _spectrum_probe(p, g32, fs: FamilyShape, kernel_impl: str, pad_rank_to: int) -> dict:
+    """Squared singular values of the projected gradient sketch ``PᵀG``
+    (:func:`_eigen_sum` in descending order) and the total gradient
+    energy."""
+    sv2 = torch.sort(_eigen_sum(p, g32, fs, kernel_impl, pad_rank_to), descending=True).values
     return {"g2": torch.sum(torch.square(g32)),
             "mn": torch.tensor((fs.m, fs.n), dtype=torch.int32, device=g32.device),
             "sv2": sv2}
@@ -615,27 +716,42 @@ def _probe_zeros(fs: FamilyShape, device: torch.device, telemetry: bool = False)
     return dict(sorted(pr.items()))
 
 
+def _overlap_sum(p_old: torch.Tensor, p_new: torch.Tensor) -> torch.Tensor:
+    """The summed squares of the r×r cross-Grams ``P_oldᵀ P_new`` over the
+    blocks (a plain product, not dispatched and not counted)."""
+    gram = torch.matmul(p_old.to(torch.float32).mT, p_new.to(torch.float32))
+    return torch.sum(torch.square(gram))
+
+
+def _drift_from(overlap_sum: torch.Tensor, r: int, blocks: int) -> torch.Tensor:
+    return torch.clamp(1.0 - overlap_sum / (r * blocks), 0.0, 1.0)
+
+
 def _subspace_drift(p_old: torch.Tensor, p_new: torch.Tensor) -> torch.Tensor:
     """How far the refreshed subspace moved: ``1 − mean squared overlap``
     of the two orthonormal projector stacks through the r×r cross-Gram
     ``P_oldᵀ P_new`` (0 = the same span, 1 = orthogonal), clipped to
-    [0, 1].  A plain product, not dispatched and not counted.  The first
-    refresh compares against the zero-initialised projector and reads 1."""
-    r = p_new.shape[-1]
-    blocks = math.prod(p_new.shape[:-2])
-    gram = torch.matmul(p_old.to(torch.float32).mT, p_new.to(torch.float32))
-    overlap = torch.sum(torch.square(gram)) / (r * blocks)
-    return torch.clamp(1.0 - overlap, 0.0, 1.0)
+    [0, 1].  The first refresh compares against the zero-initialised
+    projector and reads 1."""
+    return _drift_from(_overlap_sum(p_old, p_new), p_new.shape[-1],
+                       math.prod(p_new.shape[:-2]))
+
+
+def _captured_sum(p: torch.Tensor, g32: torch.Tensor, side: str) -> torch.Tensor:
+    """``‖PᵀG‖²`` summed over the blocks (a plain product, not dispatched
+    and not counted)."""
+    return torch.sum(torch.square(project(p, g32, side)))
+
+
+def _bias_from(captured: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - captured / torch.clamp_min(g2, 1e-30), 0.0, 1.0)
 
 
 def _bias_residual(p: torch.Tensor, g32: torch.Tensor, side: str) -> torch.Tensor:
     """The fraction of this step's gradient energy outside the current
-    subspace, ``1 − ‖PᵀG‖²/‖G‖²``, clipped to [0, 1].  A plain product, not
-    dispatched and not counted."""
-    s = project(p, g32, side)
-    g2 = torch.sum(torch.square(g32))
-    return torch.clamp(1.0 - torch.sum(torch.square(s)) / torch.clamp_min(g2, 1e-30),
-                       0.0, 1.0)
+    subspace, ``1 − ‖PᵀG‖²/‖G‖²``, clipped to [0, 1]."""
+    captured = _captured_sum(p, g32, side)
+    return _bias_from(captured, torch.sum(torch.square(g32)))
 
 
 def lowrank(
@@ -717,11 +833,11 @@ def lowrank(
             return inner_refresh_state(state.inner, msgs)
         return _reset_floats(state.inner) if reset_on_refresh else state.inner
 
-    def _msg(proj, g32, fs, refresh: bool, key, seg=None) -> ProjGrad:
+    def _msg(proj, g32, fs, refresh: bool, key, seg=None, shard=None) -> ProjGrad:
         refresh = refresh and in_update_refresh
         return ProjGrad(p=proj, g=g32, fs=fs, kernel_impl=kernel_impl,
                         pad_rank_to=pad_rank_to, reset=refresh and reset_on_refresh,
-                        refresh=refresh, key=key, seg=seg)
+                        refresh=refresh, key=key, seg=seg, shard=shard)
 
     def _pending(msg: ProjGrad, o, w, **member) -> PendingBack:
         return PendingBack(p=msg.p, s=o, w=w, fs=msg.fs, kernel_impl=kernel_impl,
@@ -859,54 +975,162 @@ def lowrank(
                       for fi, fam in enumerate(plan.families)}
         return LowRankState(count=0, projs=projs, inner=inner.init(tmpls), probes=probes)
 
+    def _probe_partial(p_new, p_old, g_loc, g32, fs: FamilyShape, old: dict):
+        """A split family's refresh probe: ``g2`` from the whole gradient,
+        and the sums over this rank's blocks that the probe all-reduce adds
+        up — the eigenvalue sums and (telemetry) the drift's overlap."""
+        pr = {"g2": torch.sum(torch.square(g32)),
+              "mn": torch.tensor((fs.m, fs.n), dtype=torch.int32, device=g32.device)}
+        parts = [_eigen_sum(p_new, g_loc, fs, kernel_impl, pad_rank_to)]
+        if telemetry:
+            pr |= {"bias": old["bias"], "bias_step": old["bias_step"]}
+            parts.append(_overlap_sum(p_old, p_new).reshape(1))
+        return pr, parts
+
+    def _finish_probes(new_probes: dict, partials: dict, plan, mesh) -> None:
+        """One all-reduce of every split family's probe sums, then each
+        probe from the totals."""
+        flat = torch.cat([t for fi in partials for t in partials[fi]])
+        mesh.all_reduce(flat, "probes")
+        at = 0
+        for fi, parts in partials.items():
+            fs, pr = plan.families[fi].fs, new_probes[fi]
+            sizes = [t.numel() for t in parts]
+            tot = flat[at:at + sum(sizes)].split(sizes)
+            at += sum(sizes)
+            pr["sv2"] = torch.sort(tot[0], descending=True).values
+            if telemetry:
+                pr["drift"] = _drift_from(tot[1][0], fs.rank, fs.L)
+            new_probes[fi] = dict(sorted(pr.items()))
+
     def update_fused(updates: dict, state: LowRankState, params: dict):
+        """The pipeline once per family stack.  Under :func:`family_sharding`
+        (the state in the layout of :func:`shard_family_state`) a family
+        whose stack divides the axis refreshes its projectors and runs
+        ``inner`` on this rank's rows; its update rows, the slots an inner
+        could not place on them and, under ``telemetry``, a split bias
+        site's sum over this rank's blocks come back in one all-gather over
+        all such families.  Probe sums over blocks meet in one all-reduce at
+        a refresh.  With one shard every family is whole and nothing is
+        gathered."""
+        mesh = active_family_sharding()
+        n = family_shard_count(mesh)
+        if n > 1 and fused_epilogue:
+            raise NotImplementedError("fused_epilogue under family_sharding is not ported: "
+                                      "the update rows are gathered inside lowrank, before "
+                                      "the chain tail the epilogue folds")
+        if n > 1 and not in_update_refresh:
+            raise NotImplementedError("external_refresh under family_sharding is not ported")
+        k = mesh.coordinate(mesh.data_axis) if n > 1 else 0
         count = state.count + 1
         refresh = (count - 1) % period == 0
         paths, leaves, plan = _plan(params, updates)
         g_leaves = _stacked_grads(paths, updates)
-        msgs, new_projs, fam_params = {}, {}, {}
+        msgs, new_projs, fam_params, partials = {}, {}, {}, {}
         new_probes = dict(state.probes) if probe_spectrum else None
+        kw = {"subspace_iters": subspace_iters, "noise": noise}
         for fi, fam in enumerate(plan.families):
             g32 = stack_family(fam, g_leaves)
+            (a, b), split = _split_rows(fam.fs.L, k, n)
+            g_loc = g32[a:b] if split else g32
             proj, keys = state.projs[fi], member_keys(fam, seed, count)
+            project_blocks = None
             if refresh and in_update_refresh:
-                proj = compute_projectors(projector, g32, fam.fs.rank, fam.fs.side,
-                                          key=keys, subspace_iters=subspace_iters,
-                                          noise=noise)
-                if probe_spectrum:
+                sel = BlockSel(tuple(range(a, b)), fam.seg.member_L) if split else None
+                proj = compute_projectors(projector, g_loc, fam.fs.rank, fam.fs.side,
+                                          key=keys, blocks=sel, **kw)
+                if probe_spectrum and split:
+                    new_probes[fi], partials[fi] = _probe_partial(
+                        proj, state.projs[fi], g_loc, g32, fam.fs, state.probes[fi])
+                elif probe_spectrum:
                     new_probes[fi] = _probe_fresh(proj, state.projs[fi], g32, fam.fs,
                                                   state.probes[fi])
-            msgs[fi] = _msg(proj, g32, fam.fs, refresh, keys, fam.seg)
+
+                def project_blocks(ids, fam=fam, g32=g32, keys=keys):
+                    return compute_projectors(
+                        projector, g32[list(ids)], fam.fs.rank, fam.fs.side, key=keys,
+                        blocks=BlockSel(tuple(ids), fam.seg.member_L), **kw)
+
+            shard = ShardView(k, n, (a, b), split, g32, project_blocks) if n > 1 else None
+            msgs[fi] = _msg(proj, g_loc, fam.fs, refresh, keys, fam.seg, shard)
             new_projs[fi] = proj
             # Stacking the params costs a copy per family per step: only
             # for an inner that reads them (layerwise_unbias).
             fam_params[fi] = stack_family(fam, leaves) if wants_params else None
-        if telemetry and in_update_refresh:
-            _sample_bias(count, [(fi, m.p, m.g, m.fs.side) for fi, m in msgs.items()],
-                         new_probes)
+        bias_part = None
+        if telemetry and in_update_refresh and msgs:
+            fi = (count - 1) % len(msgs)
+            m = msgs[fi]
+            if m.shard is not None and m.shard.split:
+                bias_part = (fi, _captured_sum(m.p, m.g, m.fs.side).reshape(1))
+            else:
+                _sample_bias(count, [(fi, m.p, m.g, m.fs.side)], new_probes)
+        if partials:
+            _finish_probes(new_probes, partials, plan, mesh)
 
         inner_out, new_inner = inner.update(msgs, state.inner, fam_params)
 
-        out = dict.fromkeys(paths)
+        parts, pending, payload = {}, [], []
         for fi, fam in enumerate(plan.families):
             o, msg = inner_out[fi], msgs[fi]
             if isinstance(o, FullUpdate):
-                parts = unstack_family(fam, o.u)
-            elif fused_epilogue:
+                parts[fi] = unstack_family(fam, o.u)
+                continue
+            if fused_epilogue:
                 w = fam_params[fi]
                 if w is None:  # stacked only if the decay term needs it
                     w = lambda fam=fam: stack_family(fam, leaves)
-                parts = [_pending(msg, o, w, member=j, members=fam.seg.members,
-                                  member_lead=fam.member_fs.lead)
-                         for j in range(fam.seg.members)]
-            else:
-                parts = unstack_family(fam, msg.back(o))
-            for i, part in zip(fam.members, parts):
+                parts[fi] = [_pending(msg, o, w, member=j, members=fam.seg.members,
+                                      member_lead=fam.member_fs.lead)
+                             for j in range(fam.seg.members)]
+                continue
+            if not isinstance(o, RowsUpdate):
+                o = RowsUpdate(msg.back(o))
+            if msg.shard is None or (not msg.shard.split and o.slots is None):
+                u = o.rows if o.idx is None else o.rows.index_copy(0, o.idx, o.slot_vals)
+                parts[fi] = unstack_family(fam, u)
+                continue
+            pending.append((fi, o))
+            payload += [t for t in (o.rows if msg.shard.split else None, o.slots)
+                        if t is not None]
+        if bias_part is not None:
+            payload.append(bias_part[1])
+        if payload:
+            gathered = mesh.all_gather(torch.cat([t.reshape(-1) for t in payload]), "update")
+            gathered = gathered.view(n, -1)
+            at = 0
+
+            def take(t: torch.Tensor) -> torch.Tensor:
+                nonlocal at
+                z = t.numel()
+                part = gathered[:, at:at + z].reshape((n * t.shape[0],) + tuple(t.shape[1:]))
+                at += z
+                return part
+
+            for fi, o in pending:
+                u = take(o.rows) if msgs[fi].shard.split else o.rows
+                if o.idx is not None:
+                    vals = take(o.slots) if o.slots is not None else o.slot_vals
+                    u = u.index_copy(0, o.idx, vals)
+                parts[fi] = unstack_family(plan.families[fi], u)
+            if bias_part is not None:
+                fi, g_full = bias_part[0], msgs[bias_part[0]].shard.g_full
+                new_probes[fi] = new_probes[fi] | {
+                    "bias": _bias_from(take(bias_part[1]).sum(),
+                                       torch.sum(torch.square(g_full))),
+                    "bias_step": torch.full((), count, dtype=torch.int32,
+                                            device=g_full.device)}
+        out = dict.fromkeys(paths)
+        for fi, fam in enumerate(plan.families):
+            for i, part in zip(fam.members, parts[fi]):
                 out[paths[i]] = part
         return out, LowRankState(count=count, projs=new_projs, inner=new_inner,
                                  probes=new_probes)
 
     def refresh_fused(grads: dict, state: LowRankState, params: dict) -> LowRankState:
+        if family_shard_count(active_family_sharding()) > 1:
+            raise NotImplementedError("the external refresh (projected-space accumulation) "
+                                      "under family_sharding is not ported")
         count = state.count + 1
         if (count - 1) % period:
             return state
@@ -943,6 +1167,11 @@ class LayerwiseUnbiasState(NamedTuple):
     low: PyTree    # base state over the projected-space leaves
     full: PyTree   # base state over the (gamma, m, n) full-rank slots
     idx: dict      # per-leaf (gamma,) slot -> block assignment
+    # Under family_sharding only (None otherwise, which is no checkpoint
+    # leaf): per family, the projectors of the blocks of the slots this rank
+    # computes, (slots, s, r), where the family's projector rows are split
+    # (a slot's block may lie in another rank's rows); None elsewhere.
+    proj: PyTree = None
 
 
 def layerwise_unbias(
@@ -1021,35 +1250,58 @@ def layerwise_unbias(
         return fresh.to(device=device, dtype=torch.long)
 
     def update(updates: dict, state: LayerwiseUnbiasState, params: dict):
-        low_upds, new_idx, full_upds, full_params = {}, {}, {}, {}
-        refresh_any = False
+        """The base on the low branch and on the full-rank slots.  Under
+        :func:`family_sharding` (leaves carrying a :class:`ShardView`; the
+        state in the layout of :func:`shard_family_state`) the low branch
+        runs on the rank's rows.  Every rank draws every slot from the same
+        keys; it computes the slots of its share of the ``(slots, m, n)``
+        state (all of them where that does not split) from the whole
+        gradient.  Where the family's members divide the ranks, those slots'
+        blocks lie in the rank's rows and land there; otherwise they travel
+        with the rows through ``lowrank``'s gather."""
+        low_upds, new_idx, full_upds, full_params, new_proj, plans = {}, {}, {}, {}, {}, {}
+        refresh_any = sharded = False
         for k, g in updates.items():
             if g is None:
-                low_upds[k] = new_idx[k] = full_upds[k] = full_params[k] = None
+                low_upds[k] = new_idx[k] = full_upds[k] = full_params[k] = new_proj[k] = None
                 continue
             if not isinstance(g, ProjGrad):
                 raise TypeError("layerwise_unbias must be composed inside lowrank() "
                                 f"(got a {type(g).__name__} leaf)")
-            fs = g.fs
+            fs, sh = g.fs, g.shard
+            sharded = sharded or sh is not None
+            split = sh is not None and sh.split
             g_f, q, c_low, c_comp, c_full = _coeffs(fs, g.seg)
             low_upds[k] = g.with_coeff(c_low) if q < 1.0 else None
+            new_proj[k] = None
             if g_f == 0:
                 new_idx[k] = full_upds[k] = full_params[k] = None
                 continue
-            idx = state.idx[k]
+            idx, fresh = state.idx[k], None
             if g.refresh:
                 refresh_any = True
-                idx = _sample(g, g_f, g.g.device)
+                # a split family reads the draws on the host (_slot_projectors)
+                fresh = _sample(g, g_f, torch.device("cpu") if split else g.g.device)
+                idx = fresh.to(g.g.device)
             new_idx[k] = idx
-            g_s = gather_blocks(g.g, idx, fs)        # (slots, m, n)
-            p_s = gather_blocks(g.p, idx, fs)        # (slots, s, r)
+            (c, d), slots_split = _split_rows(idx.shape[0], *((sh.k, sh.n) if sh else (0, 1)))
+            ids = idx[c:d]
+            if not split:
+                p_s = gather_blocks(g.p, ids, fs)        # (slots, s, r)
+            elif fresh is not None:
+                p_s = new_proj[k] = _slot_projectors(g, fresh[c:d].tolist())
+            else:
+                p_s = new_proj[k] = state.proj[k]
+            g_s = gather_blocks(sh.g_full if split else g.g, ids, fs)   # (slots, m, n)
             pad = g.pad_rank_to
             pptg = dispatch.back_project(
                 p_s, dispatch.project(p_s, g_s, side=fs.side, impl=g.kernel_impl,
                                       pad_rank_to=pad),
                 side=fs.side, impl=g.kernel_impl, pad_rank_to=pad)
             full_upds[k] = c_full * (g_s - c_comp * pptg)
-            full_params[k] = gather_blocks(params[k], idx, fs)
+            full_params[k] = gather_blocks(params[k], ids, fs)
+            aligned = split and g.seg is not None and g.seg.members % sh.n == 0
+            plans[k] = (ids, slots_split, aligned)
 
         # Slot -> block assignments change at the boundary, so the slots'
         # base momenta always reset there.
@@ -1062,17 +1314,28 @@ def layerwise_unbias(
             if g is None:
                 outs[k] = None
                 continue
-            fs = g.fs
+            fs, sh = g.fs, g.shard
+            split = sh is not None and sh.split
             g_f, q, *_ = _coeffs(fs, g.seg)
             if q < 1.0:
-                u = g.back(low_out[k])
+                rows = g.back(low_out[k])
             else:
-                u = torch.zeros(fs.lead + (fs.m, fs.n), dtype=torch.float32,
-                                device=g.g.device)
-            if g_f > 0:
-                u = scatter_blocks(u, new_idx[k], full_out[k], fs)
-            outs[k] = FullUpdate(u)
-        return outs, LayerwiseUnbiasState(low=new_low, full=new_full, idx=new_idx)
+                lead = (sh.rows[1] - sh.rows[0],) if split else fs.lead
+                rows = torch.zeros(lead + (fs.m, fs.n), dtype=torch.float32, device=g.g.device)
+            if g_f == 0:
+                outs[k] = RowsUpdate(rows) if split else FullUpdate(rows)
+                continue
+            ids, slots_split, aligned = plans[k]
+            if not split and not slots_split:
+                outs[k] = FullUpdate(scatter_blocks(rows, new_idx[k], full_out[k], fs))
+            elif aligned:
+                outs[k] = RowsUpdate(rows.index_copy(0, ids - sh.rows[0], full_out[k]))
+            elif slots_split:
+                outs[k] = RowsUpdate(rows, slots=full_out[k], idx=new_idx[k])
+            else:
+                outs[k] = RowsUpdate(rows, idx=new_idx[k], slot_vals=full_out[k])
+        return outs, LayerwiseUnbiasState(low=new_low, full=new_full, idx=new_idx,
+                                          proj=new_proj if sharded else None)
 
     def refresh_state(state: LayerwiseUnbiasState, msgs: dict) -> LayerwiseUnbiasState:
         """The external refresh (``lowrank``'s ``update.refresh``): resample
@@ -1087,6 +1350,21 @@ def layerwise_unbias(
             new_idx[k] = _sample(msg, idx.shape[0] // members, idx.device)
         return LayerwiseUnbiasState(low=_reset_floats(state.low),
                                     full=_reset_floats(state.full), idx=new_idx)
+
+    def _slot_projectors(g: ProjGrad, ids: list[int]) -> torch.Tensor:
+        """A refresh's projectors of the blocks ``ids``: this rank's fresh
+        rows where a block lies in them, computed by the family's
+        ``project_blocks`` where it does not."""
+        (a, b), sh = g.shard.rows, g.shard
+        out = torch.empty((len(ids),) + tuple(g.p.shape[1:]), dtype=g.p.dtype,
+                          device=g.p.device)
+        mine = [i for i, blk in enumerate(ids) if a <= blk < b]
+        theirs = [i for i, blk in enumerate(ids) if not a <= blk < b]
+        if mine:
+            out[mine] = g.p[[ids[i] - a for i in mine]]
+        if theirs:
+            out[theirs] = sh.project_blocks([ids[i] for i in theirs])
+        return out
 
     update.wants_params = True  # gathers the sampled blocks' params
     update.refresh_state = refresh_state
@@ -1130,6 +1408,11 @@ def with_fira_residual(base: Transform, *, limiter: float = 1.01,
             if not isinstance(g, ProjGrad):
                 raise TypeError("with_fira_residual must be composed inside lowrank() "
                                 f"(got a {type(g).__name__} leaf)")
+            if g.shard is not None:
+                raise NotImplementedError(
+                    "with_fira_residual under family_sharding is not ported: its per-block "
+                    "norm memory (L,) is replicated by the state rule, and a rank updates "
+                    "only its rows of it")
             reset = reset or g.reset
             r_gs[k] = g.materialize()
 
@@ -1171,17 +1454,97 @@ def find_lowrank_states(state: PyTree) -> list[LowRankState]:
     """Every :class:`LowRankState` inside an optimizer state, in tree order
     (tests and the smoke read projectors through this instead of guessing
     chain indices)."""
-    found: list[LowRankState] = []
+    return find_nodes(state, LowRankState)
 
-    def walk(s):
-        if isinstance(s, LowRankState):
-            found.append(s)
-        elif isinstance(s, tuple):
-            for c in s:
-                walk(c)
-        elif isinstance(s, dict):
-            for c in s.values():
-                walk(c)
 
-    walk(state)
+def is_family_state(st: LowRankState) -> bool:
+    """Whether a :class:`LowRankState` is family-stacked (its projectors keyed
+    by family index) rather than per leaf (keyed by parameter path)."""
+    return (isinstance(st.projs, dict) and bool(st.projs)
+            and all(isinstance(k, int) for k in st.projs))
+
+
+def map_nodes(fn: Callable, tree: PyTree, cls: type) -> PyTree:
+    """``tree`` with ``fn`` applied to every node of type ``cls``."""
+    if isinstance(tree, cls):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_nodes(fn, v, cls) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_nodes(fn, v, cls) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_nodes(fn, v, cls) for v in tree)
+    return tree
+
+
+def find_nodes(tree: PyTree, cls: type) -> list:
+    """Every node of type ``cls`` in ``tree``, in tree order (not looking
+    inside one)."""
+    found: list = []
+    map_nodes(lambda node: found.append(node) or node, tree, cls)
     return found
+
+
+def shard_family_state(opt_state: PyTree, mesh) -> PyTree:
+    """This rank's share of an optimizer state in the whole (replicated)
+    layout, for :func:`family_sharding`: every tensor that
+    :func:`repro_torch.sharding.family_state_sharding` splits keeps this
+    rank's rows, and each ``layerwise_unbias`` state inside a family-stacked
+    ``LowRankState`` gains ``proj``, the projectors of its slots' blocks
+    where the family's projector rows split.  Used at init, on restore (the
+    checkpoint holds the whole layout) and on a rank migration's template."""
+    from repro_torch.sharding import family_state_sharding, split_tree
+
+    n = family_shard_count(mesh)
+    if n <= 1:
+        return opt_state
+    k = mesh.coordinate(mesh.data_axis)
+    local = split_tree(opt_state, family_state_sharding(opt_state, mesh, mesh.data_axis), mesh)
+    whole = iter(find_nodes(opt_state, LowRankState))
+
+    def with_slot_projs(st: LowRankState) -> LowRankState:
+        full = next(whole)
+        if not is_family_state(st):
+            return st
+        idx_of = iter(u.idx for u in find_nodes(full.inner, LayerwiseUnbiasState))
+
+        def attach(u: LayerwiseUnbiasState) -> LayerwiseUnbiasState:
+            proj = {}
+            for fi, idx in next(idx_of).items():
+                p = full.projs.get(fi)
+                if idx is None or p is None or not _split_rows(p.shape[0], k, n)[1]:
+                    proj[fi] = None
+                    continue
+                (c, d), _ = _split_rows(idx.shape[0], k, n)
+                proj[fi] = p[idx[c:d]].clone()
+            return u._replace(proj=proj)
+
+        return st._replace(inner=map_nodes(attach, st.inner, LayerwiseUnbiasState))
+
+    return map_nodes(with_slot_projs, local, LowRankState)
+
+
+def strip_slot_projectors(opt_state: PyTree) -> PyTree:
+    """``opt_state`` without the slot projectors :func:`shard_family_state`
+    adds (the state the sharding rule splits)."""
+    return map_nodes(lambda u: u._replace(proj=None), opt_state, LayerwiseUnbiasState)
+
+
+def slot_projector_bytes(opt_state: PyTree) -> int:
+    """Bytes of the slot projectors a rank's share holds."""
+    return sum(p.numel() * p.element_size() for u in find_nodes(opt_state, LayerwiseUnbiasState)
+               if u.proj is not None for p in u.proj.values() if p is not None)
+
+
+def unshard_family_state(opt_state: PyTree, specs: PyTree, mesh) -> PyTree:
+    """The whole layout of a state :func:`shard_family_state` split (every
+    rank calls it): the split tensors come back to full size in one
+    all-gather, and the slot projectors are dropped.  ``specs`` is
+    ``family_state_sharding`` of the whole layout.  A checkpoint of a
+    sharded run is written from this, so it has the replicated run's
+    layout."""
+    from repro_torch.sharding import gather_tree
+
+    if family_shard_count(mesh) <= 1:
+        return opt_state
+    return gather_tree(strip_slot_projectors(opt_state), specs, mesh, "checkpoint")

@@ -60,6 +60,20 @@ def lowrank_state_shape(fs: FamilyShape) -> tuple[int, ...]:
     return fs.lead + (fs.m, fs.rank)
 
 
+def stack_shardable(L: int, n_shards: int) -> bool:
+    """Whether an ``(L, ...)`` family stack partitions evenly over
+    ``n_shards`` data shards — the one rule that the state sharding
+    (:func:`repro_torch.sharding.family_state_sharding`) and the sharded
+    fused step (``combinators.family_sharding``) both apply.  A stack that
+    does not divide stays replicated rather than padded."""
+    return n_shards >= 1 and L % n_shards == 0
+
+
+def stacked_grad_bytes(fs: FamilyShape) -> int:
+    """fp32 bytes of one family's stacked ``(L, m, n)`` gradient (or update)."""
+    return fs.L * fs.m * fs.n * 4
+
+
 def project(p: torch.Tensor, g: torch.Tensor, side: str) -> torch.Tensor:
     """Low-rank projection. p: (*lead, s, r), g: (*lead, m, n)."""
     if side == "left":
@@ -98,6 +112,15 @@ Noise = Callable[[tuple[int, int, int], str, tuple[int, ...]], torch.Tensor]
 NOISE_KINDS = ("normal", "gumbel", "uniform")
 
 
+class BlockSel(NamedTuple):
+    """Some blocks of a family stack: their global ids and the stack's
+    blocks per member (block ``b`` is row ``b % member_L`` of member
+    ``b // member_L``)."""
+
+    ids: tuple[int, ...]
+    member_L: int
+
+
 def generator_noise(key: tuple[int, int, int], kind: str,
                     shape: tuple[int, ...]) -> torch.Tensor:
     """Default noise: draws on the CPU from a ``torch.Generator`` seeded by
@@ -116,12 +139,22 @@ def generator_noise(key: tuple[int, int, int], kind: str,
 
 
 def _draw(noise: Noise, key, kind: str, lead: tuple[int, ...], tail: tuple[int, ...],
-          device: torch.device) -> torch.Tensor:
+          device: torch.device, blocks: Optional[BlockSel] = None) -> torch.Tensor:
     """``lead + tail`` draws on ``device``.  ``key`` is one leaf's key, or a
     list of per-member keys of a family stack (``lead = (members *
     member_L,)``), each member drawing its own ``(member_L,) + tail`` block
-    as its leaf does on the per-leaf path."""
-    if isinstance(key, list):
+    as its leaf does on the per-leaf path.  With ``blocks`` only those
+    blocks' rows, each cut from its member's whole draw."""
+    if blocks is not None:
+        draws: dict[int, torch.Tensor] = {}
+        rows = []
+        for b in blocks.ids:
+            j = b // blocks.member_L
+            if j not in draws:
+                draws[j] = noise(key[j], kind, (blocks.member_L,) + tail)
+            rows.append(draws[j][b % blocks.member_L])
+        out = torch.stack(rows)
+    elif isinstance(key, list):
         per = lead[0] // len(key)
         out = torch.cat([noise(k, kind, (per,) + tail) for k in key])
     else:
@@ -131,7 +164,8 @@ def _draw(noise: Noise, key, kind: str, lead: tuple[int, ...], tail: tuple[int, 
 
 def compute_projectors(kind: str, g: torch.Tensor, rank: int, side: str, *,
                        key=None, subspace_iters: int = 2,
-                       noise: Optional[Noise] = None) -> torch.Tensor:
+                       noise: Optional[Noise] = None,
+                       blocks: Optional[BlockSel] = None) -> torch.Tensor:
     """Batched per-block projectors ``(*lead, s, rank)`` with orthonormal
     columns (Property I), for every block of ``g (*lead, m, n)`` (of Gᵀ on
     the right side, so ``s`` is the projected side):
@@ -146,7 +180,10 @@ def compute_projectors(kind: str, g: torch.Tensor, rank: int, side: str, *,
 
     Ω, Z and the Gumbel draw come from ``noise`` (default
     :func:`generator_noise`) under ``key`` — one leaf's (seed, count, leaf)
-    or a list of them, one per member of a family stack."""
+    or a list of them, one per member of a family stack.  ``blocks`` says
+    that ``g`` holds only those blocks of a family stack (``key`` still the
+    whole stack's list): each block draws its member's rows, so the result
+    is those blocks' rows of the whole stack's projectors."""
     if side == "right":
         g = g.mT
     g32 = g.to(torch.float32)
@@ -163,17 +200,17 @@ def compute_projectors(kind: str, g: torch.Tensor, rank: int, side: str, *,
         return (q * sign.unsqueeze(-2)).contiguous()
     if kind in ("subspace", "rsvd"):
         iters = 0 if kind == "rsvd" else subspace_iters
-        y = g32 @ _draw(noise, key, "normal", lead, (n, rank), g32.device)
+        y = g32 @ _draw(noise, key, "normal", lead, (n, rank), g32.device, blocks)
         for _ in range(iters):
             y = torch.linalg.qr(y).Q
             y = g32 @ (g32.mT @ y)
         return torch.linalg.qr(y).Q.contiguous()
     if kind == "random":
-        z = _draw(noise, key, "normal", lead, (m, rank), g32.device)
+        z = _draw(noise, key, "normal", lead, (m, rank), g32.device, blocks)
         return torch.linalg.qr(z).Q.contiguous()
     if kind == "grass":
         logits = torch.log(torch.linalg.vector_norm(g32, dim=-1) + 1e-30)  # (*lead, m)
-        scores = logits + _draw(noise, key, "gumbel", lead, (m,), g32.device)
+        scores = logits + _draw(noise, key, "gumbel", lead, (m,), g32.device, blocks)
         idx = torch.topk(scores, rank, dim=-1).indices                      # (*lead, rank)
         p = torch.nn.functional.one_hot(idx, m).to(torch.float32)           # (*lead, rank, m)
         return p.mT.contiguous()

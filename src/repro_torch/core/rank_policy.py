@@ -524,10 +524,17 @@ class RankPolicyController:
     rebuilt chain.  Transforms are cached per map."""
 
     def __init__(self, policy: RankPolicy, build: Callable[[RankMap], Any],
-                 *, period: int, default_rank: int = 128):
+                 *, period: int, default_rank: int = 128,
+                 reshard: Optional[Callable[[PyTree], PyTree]] = None):
+        """``reshard(state) -> state`` maps a state in the whole layout to
+        this rank's (``combinators.shard_family_state`` under a mesh with
+        ``shard_state``): the new rank's template goes through it before
+        the migration, so a split state migrates row by row, and the
+        migrated state is this rank's share of the replicated run's."""
         self.policy = policy
         self.build = build
         self.period = int(period)
+        self.reshard = reshard
         self._pstate = policy.init_state()
         self._map = policy.initial_map(default_rank)
         self._cache: dict[RankMap, Any] = {}
@@ -568,7 +575,10 @@ class RankPolicyController:
         if new_map is None or new_map == self._map:
             return opt_state, False
         new_t = self.transform(new_map)
-        migrated = migrate_opt_state(opt_state, new_t.init(params))
+        template = new_t.init(params)
+        if self.reshard is not None:
+            template = self.reshard(template)
+        migrated = migrate_opt_state(opt_state, template)
         self._map = new_map
         self.history.append((count, new_map))
         return migrated, True

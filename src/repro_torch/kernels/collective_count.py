@@ -1,0 +1,58 @@
+"""A record of the collectives the port issues, beside the dispatch-level
+launch counts of :mod:`repro_torch.kernels.launch_count`.
+
+Every collective of :class:`repro_torch.launch.mesh.Mesh` (the data-parallel
+step's gradient and loss all-reduces, the sharded step's update all-gather,
+the refresh's probe all-reduce, the checkpoint's gathers) appends one entry
+``{"op", "tag", "dtype", "bytes"}`` to every active record, before it is
+issued.  ``bytes`` is the operand this rank sends (an all-gather's input,
+not its ``n``-fold output).
+
+Usage::
+
+    with record_collectives() as log:
+        step(params, opt_state, batch)
+    tally(log)   # {"all_reduce:grad": 1, "all_reduce:loss": 1, ...}
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator
+
+import torch
+
+COLLECTIVE_OPS = ("all_reduce", "all_gather")
+
+_ACTIVE: list[list[dict]] = []
+
+
+def record(op: str, tag: str, tensor: torch.Tensor) -> None:
+    """Log one collective on ``tensor`` in every active record (no-op
+    otherwise)."""
+    if op not in COLLECTIVE_OPS:
+        raise ValueError(f"unknown collective {op!r}; expected one of {COLLECTIVE_OPS}")
+    if not _ACTIVE:
+        return
+    entry = {"op": op, "tag": tag, "dtype": str(tensor.dtype).removeprefix("torch."),
+             "bytes": tensor.numel() * tensor.element_size()}
+    for log in _ACTIVE:
+        log.append(dict(entry))
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[list[dict]]:
+    log: list[dict] = []
+    _ACTIVE.append(log)
+    try:
+        yield log
+    finally:
+        _ACTIVE.remove(log)
+
+
+def tally(log: list[dict]) -> dict[str, int]:
+    """Calls per ``"op:tag"``."""
+    out: dict[str, int] = {}
+    for e in log:
+        key = f"{e['op']}:{e['tag']}"
+        out[key] = out.get(key, 0) + 1
+    return out

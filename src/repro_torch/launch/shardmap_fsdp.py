@@ -1,0 +1,69 @@
+"""The data-parallel train step with its gradient reduction in bf16 (the port
+of the JAX package's ``launch/shardmap_fsdp.py``).
+
+Each rank of the mesh's data axis computes the gradient of its rows of the
+batch; the gradients are cast to ``reduce_dtype`` (bf16: half the bytes of
+an fp32 reduction) and summed in ONE all-reduce of their concatenation, then
+taken back to fp32 and divided by the rank count before the clip and the
+update.  The loss is averaged in a second, fp32 all-reduce.  Parameters are
+replicated on every rank.  The numbers differ from a one-process step only
+by the bf16 rounding of each rank's gradient and of their sum.
+
+``shard_state=True`` (a ``fuse_families=True`` optimizer) splits the
+family-stacked low-rank state over the data axis
+(:func:`repro_torch.core.combinators.family_sharding`), which adds one
+all-gather of the split families' fp32 update rows a step.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core.api import Transform
+from repro_torch.launch.steps import make_train_step
+
+
+def make_shardmap_train_step(model, optimizer: Transform, mesh, *, grad_clip: float = 0.0,
+                             reduce_dtype: torch.dtype = torch.bfloat16,
+                             shard_state: bool = False) -> Callable:
+    """``(params, opt_state, batch) -> (opt_state, metrics)`` on one rank of
+    ``mesh`` (its data axis is ``mesh.data_axis``); ``batch`` is the global
+    batch, of which the rank takes rows
+    ``[k·B/n, (k+1)·B/n)``, and ``params`` (``model.params()``) is updated
+    in place, the same on every rank.
+
+    ``shard_state``: ``opt_state`` is in the layout of
+    :func:`~repro_torch.core.combinators.shard_family_state`; the returned
+    step's ``place_state(opt_state)`` turns ``optimizer.init``'s whole layout
+    into it (and leaves it whole without ``shard_state``).
+
+    The step carries ``sharded_step_info``: the reduction dtype, the data
+    axis, the shard count, the clip and ``shard_state``."""
+    from repro_torch.core.combinators import shard_family_state
+
+    n = int(mesh.shape[mesh.data_axis])
+    k = mesh.coordinate(mesh.data_axis)
+    inner = make_train_step(model, optimizer, grad_clip=grad_clip, mesh=mesh,
+                            reduce_dtype=reduce_dtype, shard_state=shard_state)
+
+    def train_step(params: dict, opt_state, batch: dict):
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not split over {n} ranks")
+        per = rows // n
+        return inner(params, opt_state, {key: v[k * per:(k + 1) * per]
+                                         for key, v in batch.items()})
+
+    def place_state(opt_state):
+        return shard_family_state(opt_state, mesh) if shard_state else opt_state
+
+    train_step.place_state = place_state
+    train_step.sharded_step_info = {
+        "reduce_dtype": reduce_dtype,
+        "data_axis": mesh.data_axis,
+        "n_shards": n,
+        "grad_clip": float(grad_clip),
+        "shard_state": bool(shard_state),
+    }
+    return train_step

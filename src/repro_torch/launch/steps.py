@@ -1,9 +1,12 @@
 """The train, prefill and serve steps (the port of the JAX package's
 ``launch/steps.py``: ``make_train_step`` with gradient accumulation and the
 projected-space accumulator, ``make_prefill_step`` and
-``make_serve_step``)."""
+``make_serve_step``).  On a data mesh ``make_train_step`` is the
+data-parallel step: each rank's gradient of its rows of the batch is summed
+over the ranks in one all-reduce (:func:`reduce_gradients`)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -83,6 +86,27 @@ def loss_and_grads(model: Transformer, params: dict, batch: dict,
     return loss / microbatches, {k: g / microbatches for k, g in grads.items()}
 
 
+def reduce_gradients(mesh, loss: torch.Tensor, grads: dict,
+                     reduce_dtype: torch.dtype) -> tuple[torch.Tensor, dict]:
+    """The mean over the ranks of ``mesh``'s data axis of each rank's loss and
+    gradients: the gradients cast to ``reduce_dtype`` and summed in ONE
+    all-reduce of their concatenation (the reference's tree-level psum),
+    then in fp32 divided by the rank count; the loss summed in fp32 in a
+    second all-reduce and divided the same way."""
+    n = mesh.shape[mesh.data_axis]
+    keys = [k for k, g in grads.items() if g is not None]
+    flat = torch.cat([grads[k].reshape(-1).to(reduce_dtype) for k in keys])
+    mesh.all_reduce(flat, "grad")
+    total = loss.detach().to(torch.float32).reshape(1).clone()
+    mesh.all_reduce(total, "loss")
+    out, at = dict(grads), 0
+    for k in keys:
+        z = grads[k].numel()
+        out[k] = flat[at:at + z].view(grads[k].shape).to(torch.float32) / n
+        at += z
+    return total[0] / n, out
+
+
 def _apply_in_place(params: dict, updates: dict, lowrank_paths: Optional[set]):
     """``p += u`` for every leaf with an update; with ``lowrank_paths`` also
     the norm of the applied change, (p + u) - p, over all leaves and over
@@ -150,7 +174,9 @@ def _guarded_update(transform: Transform, params: dict, opt_state, grads: dict,
 def make_train_step(model: Transformer, optimizer: Transform, *,
                     grad_clip: float = 0.0, microbatches: int = 1,
                     lowrank_accum=None, fault_gate=None,
-                    extra_metrics: bool = False) -> Callable:
+                    extra_metrics: bool = False, mesh=None,
+                    reduce_dtype: torch.dtype = torch.float32,
+                    shard_state: bool = False) -> Callable:
     """``(params, opt_state, batch) -> (opt_state, metrics)``.
 
     ``params`` is ``model.params()``, updated **in place** (``p += u`` under
@@ -183,9 +209,22 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
     ``update_norm_lowrank`` (the same norm over the leaves
     ``default_lowrank_filter`` routes to the low-rank stage: the
     dead-subspace detector's signal).
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) makes it the
+    data-parallel step of one rank: ``batch`` is this rank's rows, and the
+    loss and gradients are averaged over the ranks of its data axis by
+    :func:`reduce_gradients` in ``reduce_dtype`` before the fault gate, the
+    clip and the update, so every rank takes the same update (parameters
+    stay replicated).  ``shard_state`` runs the update under
+    :func:`repro_torch.core.combinators.family_sharding`: ``opt_state`` is
+    then in the layout of ``shard_family_state``.
     """
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    if shard_state and mesh is None:
+        raise ValueError("shard_state needs a mesh")
+    if mesh is not None and lowrank_accum is not None:
+        raise NotImplementedError("the projected-space accumulator on a mesh is not ported")
     if lowrank_accum is not None and microbatches > 1:
         if fault_gate is not None:
             raise NotImplementedError("fault injection is not wired into the projected-space "
@@ -193,10 +232,20 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
         return _make_lowrank_accum_step(model, lowrank_accum, grad_clip, microbatches)
     lowrank_paths = _lowrank_paths(model.params()) if extra_metrics else None
 
+    def sharding():
+        if not shard_state:
+            return contextlib.nullcontext()
+        from repro_torch.core.combinators import family_sharding
+
+        return family_sharding(mesh)
+
     def train_step(params: dict, opt_state, batch: dict, fault: Optional[dict] = None):
         loss, grads = loss_and_grads(model, params, batch, microbatches)
-        return _guarded_update(optimizer, params, opt_state, grads, loss, grad_clip,
-                               fault_gate, fault, lowrank_paths)
+        if mesh is not None:
+            loss, grads = reduce_gradients(mesh, loss, grads, reduce_dtype)
+        with sharding():
+            return _guarded_update(optimizer, params, opt_state, grads, loss, grad_clip,
+                                   fault_gate, fault, lowrank_paths)
 
     return train_step
 

@@ -1,21 +1,29 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch llama-130m ...``
 
 The port of the JAX package's ``launch/train.py``: the same flags, the same
-``Trainer`` wiring (resilience, fault injection, rank policy, telemetry and
-the profiler window) and the same closing lines.  It runs on the CUDA device
-unless ``--device cpu`` is given, and raises where there is no GPU.  The
-flags of subsystems not yet ported (the mesh and sharded state, the static
-audit) raise ``NotImplementedError`` naming their ROADMAP item.
+``Trainer`` wiring (resilience, fault injection, rank policy, telemetry, the
+profiler window, the data mesh and the sharded state) and the same closing
+lines.  It runs on the CUDA device unless ``--device cpu`` is given, and
+raises where there is no GPU.  ``--audit`` (the static audit, not ported)
+raises ``NotImplementedError`` naming its ROADMAP item.
+
+``--mesh data=N`` runs one rank of N: start it under a launcher that sets the
+rendezvous (``torchrun --nproc-per-node N -m repro_torch.launch.train ...
+--mesh data=N``); the process group is ``nccl`` on CUDA (each rank on
+``cuda:LOCAL_RANK``) and ``gloo`` with ``--device cpu``.  ``--shard-state``
+splits the family-stacked optimizer state over the ranks and implies
+``--fuse-families``, as in the reference.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 from typing import Optional, Sequence
 
 # Flags of subsystems the port does not run yet: (flag, ROADMAP queue 1
 # item, the value that means "off").
-_NOT_PORTED = {"mesh": ("--mesh", 5, ""), "shard_state": ("--shard-state", 5, False),
-               "audit": ("--audit", 6, False)}
+_NOT_PORTED = {"audit": ("--audit", 6, False)}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -45,7 +53,9 @@ def parser() -> argparse.ArgumentParser:
                     help="family-stacked optimizer execution: one batched launch per shape "
                          "family instead of one per parameter leaf")
     ap.add_argument("--shard-state", action="store_true",
-                    help="not ported (ROADMAP queue 1 item 5)")
+                    help="ZeRO-style sharded projected state: family-stacked low-rank "
+                         "optimizer state splits over the mesh's data axis (implies "
+                         "--fuse-families; needs --mesh)")
     ap.add_argument("--fused-epilogue", action="store_true",
                     help="fold chain-tail epilogues (-lr, weight decay) into the "
                          "back-projection (back_project_epilogue kernel; galore family)")
@@ -56,7 +66,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--rank-ladder", default="",
                     help="comma-separated ranks an adaptive policy may emit, e.g. 32,64,128")
     ap.add_argument("--mesh", default="", metavar="AXIS=N",
-                    help="not ported (ROADMAP queue 1 item 5)")
+                    help="data-parallel mesh, e.g. 'data=2': this process is one rank, "
+                         "started by torchrun --nproc-per-node N (gloo on --device cpu, "
+                         "nccl on CUDA)")
     ap.add_argument("--resilience", nargs="?", const="", default=None, metavar="SPEC",
                     help="turn on the health monitor + recovery ladder: bare flag = "
                          "defaults, or a knob spec like 'ring=3,snapshot_every=5,spike_z=4' "
@@ -92,6 +104,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             raise NotImplementedError(f"{flag} is not ported to the PyTorch package yet "
                                       f"(ROADMAP queue 1 item {item})")
 
+    if args.shard_state and not args.mesh:
+        raise ValueError("--shard-state splits the optimizer state over a mesh: give --mesh")
+
     from repro_torch.configs import RunConfig, get_config, get_smoke
     from repro_torch.core import OptimizerConfig
     from repro_torch.data import DataConfig
@@ -99,12 +114,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from repro_torch.resilience import FaultPlan
     from repro_torch.train import Trainer
 
+    mesh, device = None, args.device
+    if args.mesh:
+        mesh, device = _join_mesh(args.mesh, args.device, argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, device=args.device)
+    model = build_model(cfg, device=device)
     opt_cfg = OptimizerConfig(
         name=args.opt, lr=args.lr, rank=args.rank, gamma=args.gamma,
         period=args.period, kernel_impl=args.kernel_impl,
-        pad_rank_to=args.pad_rank_to, fuse_families=args.fuse_families,
+        pad_rank_to=args.pad_rank_to,
+        fuse_families=args.fuse_families or args.shard_state,
+        shard_state=args.shard_state,
         fused_epilogue=args.fused_epilogue, rank_policy=args.rank_policy,
         rank_ladder=tuple(int(r) for r in args.rank_ladder.split(",") if r),
         telemetry=args.telemetry is not None,
@@ -116,11 +136,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
     inject = FaultPlan.parse(args.inject, seed=args.inject_seed) if args.inject else None
 
-    trainer = Trainer(model, opt_cfg, run_cfg, data_cfg, device=args.device,
+    trainer = Trainer(model, opt_cfg, run_cfg, data_cfg, device=device,
                       microbatches=args.microbatches, resilience=args.resilience,
                       inject=inject, telemetry=args.telemetry, events_out=args.events_out,
-                      profile_steps=args.profile_steps)
+                      profile_steps=args.profile_steps, mesh=mesh)
     result = trainer.train()
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if not trainer.is_main:
+            return
     print(
         f"done: step={result.final_step} "
         f"first_loss={result.losses[0]:.4f} last_loss={result.losses[-1]:.4f} "
@@ -136,6 +162,35 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         # train() already emitted the closing counters record.
         print(f"telemetry: {result.events_path} "
               f"(python -m repro_torch.telemetry.report {args.ckpt_dir})")
+
+
+def _join_mesh(spec: str, device: str, argv: Optional[Sequence[str]]):
+    """Join the launcher's process group as a rank of the ``spec`` mesh;
+    returns the mesh and this rank's device."""
+    from repro_torch.launch.mesh import Mesh, default_backend, init_distributed, parse_mesh
+
+    axes = parse_mesh(spec)
+    total = 1
+    for _, size in axes:
+        total *= size
+    if "RANK" not in os.environ:
+        args = " ".join(argv if argv is not None else sys.argv[1:])
+        raise RuntimeError(f"--mesh {spec} runs one process per rank; start the {total} "
+                           f"ranks with: torchrun --nproc-per-node {total} -m "
+                           f"repro_torch.launch.train {args}")
+    import torch
+    import torch.distributed as dist
+
+    backend = default_backend(device)
+    if backend == "nccl":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(device)
+    init_distributed(backend)
+    if dist.get_world_size() != total:
+        raise RuntimeError(f"--mesh {spec} has {total} ranks, the launcher started "
+                           f"{dist.get_world_size()}")
+    return Mesh([size for _, size in axes], [a for a, _ in axes], group=dist.group.WORLD,
+                backend=backend), device
 
 
 if __name__ == "__main__":

@@ -273,7 +273,9 @@ def poison_projectors(opt_state: PyTree, mode: str = "refresh_zero") -> PyTree:
     on).  ``refresh_illcond``: every column a copy of the first — the
     subspace collapses to a single direction.  Works on per-leaf
     (``projs[path]``) and family-stacked (``projs[family index]``, (L, s,
-    r)) layouts."""
+    r)) layouts, and on a rank's share of a split one (its slot projectors,
+    ``layerwise_unbias``'s ``proj``, poisoned alike)."""
+    from repro_torch.core.combinators import LayerwiseUnbiasState, map_nodes
     from repro_torch.resilience.recovery import map_lowrank_states
 
     if isinstance(mode, FaultEvent):
@@ -288,8 +290,14 @@ def poison_projectors(opt_state: PyTree, mode: str = "refresh_zero") -> PyTree:
             return torch.zeros_like(p)
         return p[..., :, :1].expand(p.shape).contiguous()
 
+    def poison_slots(u):
+        if u.proj is None:
+            return u
+        return u._replace(proj={k: poison_leaf(p) for k, p in u.proj.items()})
+
     return map_lowrank_states(
-        lambda s: s._replace(projs={k: poison_leaf(p) for k, p in s.projs.items()}),
+        lambda s: s._replace(projs={k: poison_leaf(p) for k, p in s.projs.items()},
+                             inner=map_nodes(poison_slots, s.inner, LayerwiseUnbiasState)),
         opt_state)
 
 

@@ -174,17 +174,9 @@ class SnapshotRing:
 def map_lowrank_states(fn: Callable, state: PyTree) -> PyTree:
     """``state`` with ``fn`` applied to every ``LowRankState`` node (per
     leaf, family-stacked, inside chains and label partitions)."""
-    from repro_torch.core.combinators import LowRankState
+    from repro_torch.core.combinators import LowRankState, map_nodes
 
-    if isinstance(state, LowRankState):
-        return fn(state)
-    if isinstance(state, dict):
-        return {k: map_lowrank_states(fn, v) for k, v in state.items()}
-    if isinstance(state, tuple) and hasattr(state, "_fields"):
-        return type(state)(*(map_lowrank_states(fn, v) for v in state))
-    if isinstance(state, (tuple, list)):
-        return type(state)(map_lowrank_states(fn, v) for v in state)
-    return state
+    return map_nodes(fn, state, LowRankState)
 
 
 def force_refresh(opt_state: PyTree, period: int) -> PyTree:

@@ -101,25 +101,10 @@ def lowrank_family_metrics(opt_state: PyTree) -> list[dict]:
 
 def find_unbias_states(state: PyTree) -> list:
     """Every :class:`~repro_torch.core.combinators.LayerwiseUnbiasState`
-    inside an optimizer state (they live inside ``LowRankState.inner``,
-    which the tuple walk passes through)."""
-    from repro_torch.core.combinators import LayerwiseUnbiasState
+    inside an optimizer state (they live inside ``LowRankState.inner``)."""
+    from repro_torch.core.combinators import LayerwiseUnbiasState, find_nodes
 
-    found: list = []
-
-    def walk(s):
-        if isinstance(s, LayerwiseUnbiasState):
-            found.append(s)
-            return
-        if isinstance(s, tuple):
-            for c in s:
-                walk(c)
-        elif isinstance(s, dict):
-            for c in s.values():
-                walk(c)
-
-    walk(state)
-    return found
+    return find_nodes(state, LayerwiseUnbiasState)
 
 
 class GammaSlotTracker:

@@ -1,6 +1,6 @@
 """The training loop over the synthetic stream, with periodic checkpoints,
-exact resume, the resilience subsystem and telemetry (the port of the JAX
-package's ``train/trainer.py``; its mesh is not ported).
+exact resume, the resilience subsystem, telemetry and data parallelism (the
+port of the JAX package's ``train/trainer.py``).
 
 * **resume** (``RunConfig.resume``): from the newest *verified* committed
   checkpoint in ``RunConfig.ckpt_dir`` — a newest step that fails
@@ -33,7 +33,20 @@ package's ``train/trainer.py``; its mesh is not ported).
 * a **profiler window** (``profile_steps="A:B"``): ``torch.profiler`` over
   steps [A, B), each step marked ``step N``, exported as a Chrome trace
   under ``<ckpt_dir>/profile/``;
-* the NaN/Inf guard of the step (``update_applied``).
+* the NaN/Inf guard of the step (``update_applied``);
+* a **data mesh** (``mesh=``, :class:`repro_torch.launch.mesh.Mesh`): this
+  process is one rank; it trains on its rows ``[k·B/n, (k+1)·B/n)`` of the
+  batch the one-process run draws, the gradients and loss are averaged over
+  the ranks in fp32 (one all-reduce each a step), and the parameters stay
+  replicated (the reference's pjit step also splits them by
+  ``sharding.PARAM_RULES``; the numbers are the same).  With
+  ``OptimizerConfig(shard_state=True, fuse_families=True)`` the
+  family-stacked low-rank state is split over the ranks
+  (``combinators.family_sharding``); checkpoints still hold the whole
+  state.  Only rank 0 prints, writes the run log and writes checkpoints.
+  Every decision (the NaN guard, the health monitor, the recovery ladder,
+  the rank policy) reads reduced values, so the ranks decide alike; the
+  straggler detector, which reads each rank's own clock, is off.
 
 Every console line is an event on the telemetry bus, which always exists:
 with telemetry off it carries only the stdout sink, which renders an event
@@ -59,6 +72,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import OptimizerConfig, build_optimizer, resolve_rank_policy
 from repro_torch.core.api import Transform
 from repro_torch.core.rank_policy import RankPolicyController
+from repro_torch.core.combinators import shard_family_state, unshard_family_state
 from repro_torch.data import DataConfig, build_stream
 from repro_torch.launch.devices import resolve_device
 from repro_torch.launch.steps import make_train_step
@@ -145,6 +159,7 @@ class Trainer:
         telemetry=None,
         events_out: Optional[str] = None,
         profile_steps: Optional[str] = None,
+        mesh=None,
     ):
         """``device`` defaults to the CUDA device and raises when there is
         none (pass ``device="cpu"`` for the CPU); the model moves there.
@@ -177,7 +192,13 @@ class Trainer:
 
         ``profile_steps="A:B"`` runs ``torch.profiler`` (the CPU, and the
         card when the device is CUDA) over steps [A, B) and writes a Chrome
-        trace under ``<ckpt_dir>/profile/``."""
+        trace under ``<ckpt_dir>/profile/``.
+
+        ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` over a process
+        group whose every rank builds the same ``Trainer``) makes this run
+        one data-parallel rank over ``mesh.data_axis``; ``data_cfg`` is the
+        whole run's.  A mesh axis other than that one larger than 1 raises: tensor and expert
+        parallelism are not ported."""
         if model.cfg.param_dtype != "float32":
             raise NotImplementedError(
                 f"training a model with ModelConfig.param_dtype={model.cfg.param_dtype!r} is "
@@ -186,8 +207,27 @@ class Trainer:
         self.model = model.to(self.device)
         self.opt_cfg = opt_cfg
         self.run = run_cfg
-        self.data_cfg = data_cfg
+        self.mesh = mesh
         self.microbatches = microbatches
+        self.shard_state = bool(opt_cfg.shard_state)
+        self.is_main = True
+        if mesh is not None:
+            others = {a: n for a, n in mesh.shape.items() if a != mesh.data_axis and n > 1}
+            if others:
+                raise NotImplementedError(
+                    f"a mesh with {others} beside its data axis: tensor parallelism "
+                    "(ROADMAP queue 1 item 5b) and expert parallelism (item 5c) are not "
+                    "ported; the port runs data-parallel meshes")
+            if data_cfg.num_hosts != 1:
+                raise ValueError("with a mesh, data_cfg is the whole run's (num_hosts=1); "
+                                 "each rank takes its rows of it")
+            n, k = mesh.shape[mesh.data_axis], mesh.coordinate(mesh.data_axis)
+            data_cfg = dataclasses.replace(data_cfg, num_hosts=n, host_id=k)
+            self.is_main = k == 0
+        if self.shard_state and (mesh is None or not opt_cfg.fuse_families):
+            raise ValueError("OptimizerConfig.shard_state needs a mesh and "
+                             "fuse_families=True")
+        self.data_cfg = data_cfg
         if params is not None:
             self.model.load_params(params)
         else:
@@ -196,13 +236,14 @@ class Trainer:
         # The bus always exists: with telemetry off it carries only the
         # stdout sink (the console lines); telemetry adds the JSONL sink, so
         # the console and events.jsonl are two sinks of one record stream.
+        # Off rank 0 the bus has no sink at all.
         self.tele_cfg = TelemetryConfig.parse(telemetry)
         self.events_path: Optional[str] = None
         sinks = []
-        if self.tele_cfg is None or self.tele_cfg.stdout:
+        if self.is_main and (self.tele_cfg is None or self.tele_cfg.stdout):
             sinks.append(StdoutSink())
         self.memory_sink: Optional[MemorySink] = None
-        if self.tele_cfg is not None:
+        if self.tele_cfg is not None and self.is_main:
             path = (events_out or self.tele_cfg.events
                     or os.path.join(run_cfg.ckpt_dir, "events.jsonl"))
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -219,7 +260,7 @@ class Trainer:
         self._profile_window: Optional[tuple[int, int]] = None
         self._profiler = None
         self.trace_path: Optional[str] = None  # the profiler window's Chrome trace
-        if profile_steps:
+        if profile_steps and self.is_main:
             a, _, b = str(profile_steps).partition(":")
             self._profile_window = (int(a), int(b))
 
@@ -248,16 +289,40 @@ class Trainer:
             if policy is not None:
                 self.rank_ctrl = RankPolicyController(
                     policy, lambda m: build_optimizer(opt_cfg, rank_map=m),
-                    period=opt_cfg.period, default_rank=opt_cfg.rank)
+                    period=opt_cfg.period, default_rank=opt_cfg.rank,
+                    reshard=self._place if self.shard_state else None)
                 optimizer = self.rank_ctrl.transform()
         self._set_optimizer(optimizer if optimizer is not None else build_optimizer(opt_cfg))
 
     def _set_optimizer(self, optimizer: Transform) -> None:
         self.optimizer = optimizer
+        self._specs = None  # the split of its state, made on first use
         self.step_fn = make_train_step(self.model, optimizer, grad_clip=self.run.grad_clip,
                                        microbatches=self.microbatches,
                                        fault_gate=self._fault_gate,
-                                       extra_metrics=self.resilience is not None)
+                                       extra_metrics=self.resilience is not None,
+                                       mesh=self.mesh, shard_state=self.shard_state)
+
+    def _place(self, opt_state):
+        """A state in the whole layout as this rank holds it (its share under
+        ``shard_state``, else the state itself)."""
+        if not self.shard_state:
+            return opt_state
+        return shard_family_state(opt_state, self.mesh)
+
+    def _whole(self, opt_state):
+        """The whole layout of this rank's state (every rank calls it)."""
+        if not self.shard_state:
+            return opt_state
+        if self._specs is None:
+            from repro_torch.sharding import family_state_sharding
+
+            # the whole layout's shapes, on the meta device: no memory
+            like = {k: torch.empty_like(p, device="meta")
+                    for k, p in self.model.params().items()}
+            self._specs = family_state_sharding(self.optimizer.init(like), self.mesh,
+                                                self.mesh.data_axis)
+        return unshard_family_state(opt_state, self._specs, self.mesh)
 
     def _profile(self, step: int) -> None:
         """The profiler window: start before step A, stop before step B
@@ -313,9 +378,15 @@ class Trainer:
         """Checkpoint save with the fault plan's kill hook and post-commit
         corruption events attached (no-ops without a plan)."""
         plan = self.fault_plan
+        opt_state = self._whole(opt_state)
+        if not self.is_main:
+            self.mesh.barrier()  # rank 0 has committed the step
+            return
         observer = plan.save_observer(step) if plan is not None else None
         self.ckpt.save(step, ({k: p.detach() for k, p in params.items()}, opt_state),
                        extra=self._ckpt_extra(), observer=observer)
+        if self.mesh is not None:
+            self.mesh.barrier()
         if plan is not None:
             for ev in plan.apply_ckpt_events(self.ckpt.dir, step):
                 self.tele.event("fault", f"fault-injection: {ev.kind} on the step-{step} "
@@ -346,7 +417,7 @@ class Trainer:
         detached = {k: p.detach() for k, p in params.items()}
         (saved, opt_state), _ = self.ckpt.restore(step, (detached, self.optimizer.init(detached)))
         _copy_into(params, saved)
-        return opt_state
+        return self._place(opt_state)
 
     def _gather_probes(self, opt_state, step: int) -> Optional[dict]:
         """Spectrum probes for the health monitor's captured-energy floor —
@@ -377,7 +448,7 @@ class Trainer:
             stream.resume(resumed_from)  # exact skip-ahead
         else:
             start_step = 0
-            opt_state = self.optimizer.init(detached)
+            opt_state = self._place(self.optimizer.init(detached))
 
         loss_by_step: dict[int, float] = {}
         seconds, skipped = [], 0
@@ -441,7 +512,8 @@ class Trainer:
                         # the low-rank leaves' norm: embeddings and norms keep
                         # updating through a dead subspace and would mask it
                         update_norm=scalars.get("update_norm_lowrank"),
-                        dt=dt, probes=self._gather_probes(opt_state, step))
+                        dt=dt if self.mesh is None else None,
+                        probes=self._gather_probes(opt_state, step))
                     for e in report.events:
                         tele.event("health", f"health[{e.severity}] {e.kind}: {e.detail}",
                                    step=step, severity=e.severity, kind=e.kind)

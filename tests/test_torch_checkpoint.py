@@ -233,8 +233,17 @@ def test_unported_arguments_raise(tmp_path):
         ("checkpoint: gc step 1", "debug", {"action": "gc", "gc_step": 1})]
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, _tree(1))
-    with pytest.raises(NotImplementedError):
-        mgr.restore(1, _tree(0), shardings={})
+    # restore(shardings=): a leaf's rule keeps the whole leaf (None) or a
+    # rank's rows of it (RowSplit); the template holds the whole shapes
+    from repro_torch.sharding import RowSplit
+
+    rules = {"a": RowSplit(1, 4), "b": {"c": RowSplit(0, 2)}, "count": None, "none": None,
+             "mask": None}
+    split, _ = mgr.restore(1, _tree(0), shardings=rules)
+    whole, _ = mgr.restore(1, _tree(0))
+    assert torch.equal(split["a"], whole["a"][4:8]) and split["a"].shape == (4, 16)
+    assert torch.equal(split["b"]["c"], whole["b"]["c"][:16])
+    assert split["count"] == 1 and torch.equal(split["mask"], whole["mask"])
 
 
 def test_reference_checkpoint_restores_in_the_port(tmp_path):

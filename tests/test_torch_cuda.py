@@ -912,3 +912,61 @@ def test_telemetry_update_is_bitwise_and_probes_match_the_cpu(cuda_device):
         assert (g["rank"], g["bias_step"]) == (w["rank"], w["bias_step"])
         for k in ("energy", "drift", "bias"):
             assert abs(g[k] - w[k]) <= 1e-5, (g["family"], k, g[k], w[k])
+
+
+class _LocalMesh:
+    """A one-rank data mesh whose all-reduce leaves its operand as it is:
+    ``make_train_step(mesh=_LocalMesh(), reduce_dtype=bf16)`` is the no-mesh
+    step with the gradients cast to bf16 and back."""
+
+    axis_names = ("data",)
+    shape = {"data": 1}
+    data_axis = "data"
+
+    def coordinate(self, axis):
+        return 0
+
+    def all_reduce(self, t, tag):
+        return t
+
+
+def test_nccl_world_one_step_is_the_bf16_cast_step(cuda_device, tmp_path):
+    """One ``make_shardmap_train_step`` step of fused GUM over a world-size-1
+    ``nccl`` group (its bf16 gradient all-reduce launches on the card) equals
+    the no-mesh step given the same bf16 cast, bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import OptimizerConfig, build_optimizer
+    from repro_torch.kernels.collective_count import record_collectives, tally
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.launch.shardmap_fsdp import make_shardmap_train_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    cfg = get_smoke("llama-60m")
+    opt = build_optimizer(OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=3,
+                                          fuse_families=True))
+    tokens = torch.randint(0, cfg.vocab, (4, 64), generator=_GEN["cuda"], device="cuda")
+    init_distributed("nccl", rank=0, world_size=1, init_method=f"file://{tmp_path}/store",
+                     timeout=120)
+    try:
+        mesh = Mesh((1,), ("data",), group=dist.group.WORLD, backend="nccl")
+        runs = []
+        for step_of in (lambda m: make_shardmap_train_step(m, opt, mesh),
+                        lambda m: make_train_step(m, opt, mesh=_LocalMesh(),
+                                                  reduce_dtype=torch.bfloat16)):
+            model = build_model(cfg, device="cuda")
+            model.init_params(0)
+            params = model.params()
+            state = opt.init({k: p.detach() for k, p in params.items()})
+            with record_collectives() as log:
+                _, metrics = step_of(model)(params, state, {"tokens": tokens})
+            runs.append((float(metrics["loss"]), {k: p.detach().clone()
+                                                  for k, p in params.items()}, tally(log)))
+    finally:
+        dist.destroy_process_group()
+    (loss, got, counts), (want_loss, want, _) = runs
+    assert counts == {"all_reduce:grad": 1, "all_reduce:loss": 1}
+    assert loss == want_loss
+    assert all(torch.equal(got[k], want[k]) for k in want)

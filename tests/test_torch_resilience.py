@@ -649,8 +649,17 @@ def test_cli_prints_the_reference_recoveries(tmp_path, monkeypatch, capsys):
 def test_cli_unported_flags_raise(tmp_path, flags, capsys):
     args = ["--device", "cpu", "--arch", "llama-60m", "--smoke", "--steps", "1",
             "--ckpt-dir", str(tmp_path), *flags]
-    if flags[0] in ("--mesh", "--shard-state", "--audit"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item [456]"):
+    if flags[0] == "--audit":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6"):
+            cli.main(args)
+        assert not os.listdir(tmp_path)
+        return
+    # ported since: the mesh runs one rank a process, started by torchrun
+    # (tests/test_torch_distributed.py runs it); alone, each flag says how
+    if flags[0] in ("--mesh", "--shard-state"):
+        want = ((RuntimeError, r"torchrun --nproc-per-node 2 -m repro_torch.launch.train")
+                if flags[0] == "--mesh" else (ValueError, "--mesh"))
+        with pytest.raises(want[0], match=want[1]):
             cli.main(args)
         assert not os.listdir(tmp_path)
         return

@@ -1,0 +1,182 @@
+"""The rank side of ``tests/test_torch_distributed.py``: scenarios each rank
+of a ``repro_torch.launch.mesh.run_local_ranks`` group runs, on llama-60m
+``SMOKE`` over gloo.  Imports no JAX: the test hands in the reference's
+initial parameters and block draws (``inputs``).
+
+:func:`scenarios` runs the named scenarios in order and returns, per name,
+its result or the traceback it raised, so that each test reads its own.
+"""
+from __future__ import annotations
+
+import os
+import traceback
+
+import numpy as np
+import torch
+
+from repro_torch.configs import RunConfig, get_smoke
+from repro_torch.core import OptimizerConfig, build_optimizer, find_lowrank_states
+from repro_torch.core.combinators import (
+    shard_family_state,
+    slot_projector_bytes,
+    strip_slot_projectors,
+)
+from repro_torch.data import DataConfig
+from repro_torch.kernels.collective_count import record_collectives, tally
+from repro_torch.launch.shardmap_fsdp import make_shardmap_train_step
+from repro_torch.models import build_model
+from repro_torch.sharding import family_state_bytes, family_state_sharding, row_splits
+from repro_torch.train import Trainer
+
+ARCH = "llama-60m"
+GUM = dict(name="gum", lr=1e-3, rank=4, gamma=1, period=3, fuse_families=True)
+STEPS = 6
+
+
+def table_sampler(table: dict):
+    """The reference's block draws, looked up by ``(key, L, g_f)``."""
+    def sampler(key, L, g_f):
+        return torch.from_numpy(table[(tuple(key), L, g_f)].astype(np.int64))
+
+    return sampler
+
+
+def _numpy(params: dict) -> dict:
+    return {k: p.detach().cpu().numpy().copy() for k, p in params.items()}
+
+
+def _state_bytes(trainer: Trainer, mesh) -> dict:
+    """This rank's family-stacked state bytes (slot projectors apart) beside
+    ``family_state_bytes``'s per-shard figure for the whole layout."""
+    n = mesh.shape["data"]
+    like = {k: p.detach() for k, p in trainer.model.params().items()}
+    whole = trainer.optimizer.init(like)
+    held = family_state_bytes(strip_slot_projectors(trainer.opt_state), 1)[0]
+    return {"held": held, "rule": family_state_bytes(whole, n)[1],
+            "whole": family_state_bytes(whole, n)[0],
+            "slot_projs": slot_projector_bytes(trainer.opt_state)}
+
+
+def _probes(opt_state) -> list:
+    """Every low-rank state's probe dicts, as numpy."""
+    return [{k: v.cpu().numpy() for k, v in pr.items()}
+            for st in find_lowrank_states(opt_state) if st.probes
+            for pr in st.probes.values() if pr is not None]
+
+
+def train(mesh, inputs: dict, label: str, *, shard: bool, steps: int = STEPS,
+          ckpt_every: int = 100, opt: dict = GUM, reference_draws: bool = True,
+          **trainer_kw) -> dict:
+    cfg = get_smoke(ARCH)
+    opt_cfg = OptimizerConfig(**opt, shard_state=shard)
+    optimizer = None
+    if reference_draws:
+        optimizer = build_optimizer(opt_cfg, sampler=table_sampler(inputs["samples"]))
+    params = {k: torch.from_numpy(v) for k, v in inputs["params"].items()}
+    trainer = Trainer(build_model(cfg, device="cpu"), opt_cfg,
+                      RunConfig(steps=steps, log_every=0, seed=0, ckpt_every=ckpt_every,
+                                ckpt_dir=os.path.join(inputs["dir"], label)),
+                      DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0),
+                      device="cpu", mesh=mesh, optimizer=optimizer, params=params,
+                      **trainer_kw)
+    trainer.monitor.z = float("inf")
+    result = trainer.train()
+    out = {"losses": result.losses, "params": _numpy(trainer.model.params()),
+           "resumed_from": result.resumed_from, "skipped": result.skipped_nonfinite,
+           "recoveries": result.recovery_counts, "bytes": _state_bytes(trainer, mesh)}
+    if trainer.rank_ctrl is not None:
+        out["history"] = [(c, str(m)) for c, m in trainer.rank_ctrl.history]
+    out["probes"] = _probes(trainer.opt_state)
+    return out
+
+
+def resume(mesh, inputs: dict) -> dict:
+    """2 sharded steps and a checkpoint, then a second ``Trainer`` on the
+    directory to step 6 (across the refresh at count 4); and the checkpoint
+    put back on this rank by ``restore(shardings=)``."""
+    first = train(mesh, inputs, "resume", shard=True, steps=2)
+    second = train(mesh, inputs, "resume", shard=True, steps=STEPS)
+    out = {"first": first["losses"], "second": second["losses"],
+           "resumed_from": second["resumed_from"], "params": second["params"]}
+    # restore(shardings=) with the state rule: each leaf's rows, as
+    # shard_family_state cuts them
+    from repro_torch.checkpoint import CheckpointManager
+
+    cfg = get_smoke(ARCH)
+    model = build_model(cfg, device="cpu")
+    like = {k: p.detach() for k, p in model.params().items()}
+    opt = build_optimizer(OptimizerConfig(**GUM, shard_state=True))
+    whole_like = opt.init(like)
+    mgr = CheckpointManager(os.path.join(inputs["dir"], "resume"))
+    rules = ({k: None for k in like}, row_splits(family_state_sharding(whole_like, mesh), mesh))
+    (_, local), _ = mgr.restore(STEPS, (like, whole_like), shardings=rules)
+    (_, whole), _ = mgr.restore(STEPS, (like, whole_like))
+    want = strip_slot_projectors(shard_family_state(whole, mesh))
+    from repro_torch.checkpoint.manager import flatten_with_paths
+
+    a, b = flatten_with_paths(local), flatten_with_paths(want)
+    out["restore_shardings_equal"] = (
+        [p for p, _ in a] == [p for p, _ in b]
+        and all((torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+                for (_, x), (_, y) in zip(a, b)))
+    out["restore_shapes"] = {p: tuple(x.shape) for p, x in a if isinstance(x, torch.Tensor)
+                             and "projs" in p}
+    return out
+
+
+STEP_CASES = {"adamw": dict(name="adamw", lr=1e-3), "gum": GUM,
+              "gum_probes": dict(GUM, telemetry=True)}
+
+
+def shardmap(mesh, inputs: dict, case: str, shard: bool) -> dict:
+    """``make_shardmap_train_step`` (bf16 reduction) from the reference's
+    initial parameters over ``inputs["tokens"]``, one batch a step, with
+    each step's collectives."""
+    cfg = get_smoke(ARCH)
+    model = build_model(cfg, device="cpu")
+    model.load_params({k: torch.from_numpy(v) for k, v in inputs["params"].items()})
+    opt = build_optimizer(OptimizerConfig(**STEP_CASES[case]),
+                          sampler=table_sampler(inputs["samples"]))
+    step = make_shardmap_train_step(model, opt, mesh, shard_state=shard)
+    params = model.params()
+    state = step.place_state(opt.init({k: p.detach() for k, p in params.items()}))
+    losses, logs, probes = [], [], []
+    for tokens in inputs["tokens"]:
+        with record_collectives() as log:
+            state, metrics = step(params, state, {"tokens": torch.from_numpy(tokens)})
+        losses.append(float(metrics["loss"]))
+        logs.append(log)
+        probes.append(_probes(state))
+    return {"losses": losses, "params": _numpy(params), "logs": logs, "probes": probes,
+            "counts": [tally(log) for log in logs], "info": {
+                k: str(v) for k, v in step.sharded_step_info.items()}}
+
+
+def _scenario(mesh, inputs: dict, name: str):
+    kind, _, rest = name.partition(":")
+    if kind == "train":
+        return train(mesh, inputs, f"{name.replace(':', '_')}_{mesh.shape['data']}",
+                     shard=rest == "shard")
+    if kind == "resume":
+        return resume(mesh, inputs)
+    if kind == "spectral":
+        policy = dict(GUM, rank=8, rank_policy="spectral:0.5", rank_ladder=(2, 4, 8))
+        return train(mesh, inputs, f"spectral_{rest}", shard=rest == "shard", opt=policy,
+                     reference_draws=False)
+    if kind == "nan":
+        return train(mesh, inputs, "nan", shard=True, steps=4, resilience="",
+                     inject="grad_nan@2")
+    if kind == "shardmap":
+        case, _, mode = rest.partition(":")
+        return shardmap(mesh, inputs, case, mode == "shard")
+    raise ValueError(name)
+
+
+def scenarios(mesh, inputs: dict) -> dict:
+    out = {}
+    for name in inputs["scenarios"]:
+        try:
+            out[name] = _scenario(mesh, inputs, name)
+        except Exception:
+            out[name] = {"error": traceback.format_exc()}
+    return out
