@@ -132,6 +132,18 @@ Phases, in order; any failure exits non-zero and prints no result:
                 ``make_shardmap_train_step`` step over a world-size-1
                 ``nccl`` group (bf16 gradient all-reduce) bitwise the
                 no-mesh step given the same bf16 cast;
+  4j. audit   — the static audit (``repro_torch.analysis``) at llama-130m:
+                ``audit_optimizer`` of phase 4's GUM on the model's tree on
+                ``meta``, clean; one real steady GUM step whose dispatch
+                counts equal ``expected_launches`` and whose rows 1–5 CUDA
+                launches equal those counts times each op's kernels per
+                call (``ns_steps`` gram and poly_apply per Newton–Schulz,
+                from ``chain_info``); a 2-step ``Trainer`` with telemetry:
+                one ``audit`` event and a ``launch_crosscheck`` of ok;
+                ``audit_sharded`` at ``data=8`` on a fake process group
+                (its two steps on the card), per leaf and family-stacked
+                with ``shard_state``: clean, wire bytes printed; phase 4's
+                model TFLOP/s (``model_flops`` over its steady median);
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
                 flash_attention launches) against "xla", then a
                 continuous-batching engine of 8 slots answering 16 requests,
@@ -143,9 +155,9 @@ Phases, in order; any failure exits non-zero and prints no result:
                 reused Mamba slot);
   8. serve    — the dense variants at their published widths, bf16
                 activations and fp32 parameters, one at a time on the card,
-                depth cut to half to make room for phase 4i: chatglm3-6b (14
-                of 28 layers), starcoder2-7b (16 of 32) and qwen1.5-4b (20
-                of 40), each a prefill 4 x 2048 through the bf16 instantiation of flash
+                depth cut to a quarter to make room for phases 4i and 4j:
+                chatglm3-6b (7 of 28 layers), starcoder2-7b (8 of 32) and
+                qwen1.5-4b (10 of 40), each a prefill 4 x 2048 through the bf16 instantiation of flash
                 attention (one launch a layer) against "xla" in fp32 and in
                 bf16 on the same parameters, then an engine: chatglm3-6b's
                 of 8 slots answering 9 requests (cut from 16 to make room
@@ -257,29 +269,35 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor cores
-# and HBM3 bandwidth.  The bound of a kernel is the larger of its flops over
-# the first and its bytes (each input read once, each output written once)
-# over the second.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-# TF32 on the tensor cores (dense).  Every kernel computes its fp32-accurate
-# products there by 3xTF32, three TF32 products for each fp32 one: the five
-# GEMM kernels on one core (csrc/tf32x3_gemm.cuh), flash_attention and
-# ssd_scan.  So their bound is 3 x flops over this peak (and their fp32 SIMT
-# bound is printed beside it); ssd_scan's products with bf16 x take two
-# (x is exact in TF32, its low part zero: see ssd_flops).
-PEAK_TF32_FLOPS = 495e12
-# BF16 and FP16 on the tensor cores (dense), twice TF32's rate.  The bound of
-# the 16-bit flash attention is the function's, not the kernel's choice of
-# instruction: q kᵀ on 16-bit q and k is one exact product at this peak
-# (fp32 accumulation).  P·V keeps P in fp32 against 16-bit V; the fastest
-# exact route the card has splits P into 16-bit parts that hold at least the
-# 22 significand bits of the TF32 high/low split the kernel issues (two fp16
-# parts, 11 + 11 bits; three bf16 parts, 8 + 8 + 8, as the "bf16x3" product
-# of Henry, Tang and Heinecke, ARITH 2019), each part one product at this
-# peak.  That is quicker than two TF32 products (3 / 989 < 2 / 495).
-PEAK_BF16_FLOPS = 989e12
+# H100 SXM published peaks (NVIDIA data sheet), one source for the port:
+# repro_torch.launch.roofline.  PEAK_FP32_FLOPS is fp32 outside the tensor
+# cores, PEAK_BYTES the HBM3 bandwidth.  The bound of a kernel is the larger
+# of its flops over the first and its bytes (each input read once, each
+# output written once) over the second.
+#
+# PEAK_TF32_FLOPS: TF32 on the tensor cores (dense).  Every kernel computes
+# its fp32-accurate products there by 3xTF32, three TF32 products for each
+# fp32 one: the five GEMM kernels on one core (csrc/tf32x3_gemm.cuh),
+# flash_attention and ssd_scan.  So their bound is 3 x flops over this peak
+# (and their fp32 SIMT bound is printed beside it); ssd_scan's products with
+# bf16 x take two (x is exact in TF32, its low part zero: see ssd_flops).
+#
+# PEAK_BF16_FLOPS: BF16 and FP16 on the tensor cores (dense), twice TF32's
+# rate.  The bound of the 16-bit flash attention is the function's, not the
+# kernel's choice of instruction: q kᵀ on 16-bit q and k is one exact
+# product at this peak (fp32 accumulation).  P·V keeps P in fp32 against
+# 16-bit V; the fastest exact route the card has splits P into 16-bit parts
+# that hold at least the 22 significand bits of the TF32 high/low split the
+# kernel issues (two fp16 parts, 11 + 11 bits; three bf16 parts, 8 + 8 + 8,
+# as the "bf16x3" product of Henry, Tang and Heinecke, ARITH 2019), each
+# part one product at this peak.  That is quicker than two TF32 products
+# (3 / 989 < 2 / 495).
+from repro_torch.launch.roofline import (  # noqa: E402  (after the path insert)
+    PEAK_BF16_FLOPS,
+    PEAK_BYTES,
+    PEAK_FP32_FLOPS,
+    PEAK_TF32_FLOPS,
+)
 
 # max|kernel - plain| / max|plain|.  The kernels and the plain versions
 # (cuBLAS) both sum in fp32, in another order, so they differ by rounding
@@ -1662,7 +1680,8 @@ def policy_trainer_class(torch):
                 update = optimizer.update
 
                 def capturing(grads, state, params):
-                    if self.captured is None:
+                    # (the startup audit's trace runs on meta copies)
+                    if self.captured is None and grads[self.capture].device.type != "meta":
                         self.captured = grads[self.capture].detach().cpu()
                     return update(grads, state, params)
 
@@ -2678,6 +2697,141 @@ def phase_distributed(torch) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------- phase 4j
+
+def phase_audit(torch) -> dict:
+    """Phase 4j: the static audit (``repro_torch.analysis``) at llama-130m
+    full width.  (a) ``audit_optimizer`` of phase 4's GUM on the model's
+    parameter tree on ``meta``: clean.  (b) One real steady GUM step (after
+    a refresh step) through ``make_train_step``: its dispatch counts equal
+    ``expected_launches``, and the CUDA launches of rows 1-5 equal those
+    counts times each op's kernels per call.  (c) A 2-step ``Trainer`` run
+    with telemetry on: one ``audit`` event and a ``launch_crosscheck`` of
+    ok in its run log.  (d) ``audit_sharded`` at ``data=8`` on a fake
+    process group (two real steps of rank 0 on the card), phase 4's GUM and
+    the family-stacked GUM with ``shard_state``: clean, wire bytes printed.
+    Prints phase 4's model TFLOP/s (``model_flops`` over its steady median).
+    Returns the kernel launches of (b), (c) and (d)."""
+    from repro_torch.analysis import audit_optimizer, audit_sharded, expected_launches
+    from repro_torch.analysis.launch_model import chain_ns_steps
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig, build_optimizer
+    from repro_torch.data import build_stream
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.kernels.launch_count import format_counts
+    from repro_torch.launch.roofline import Shape, model_flops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.telemetry.bus import read_jsonl
+    from repro_torch.train import Trainer
+
+    label = "audit"
+    t_phase = time.perf_counter()
+    cfg, data = llama130m_data()
+    opt_cfg = OptimizerConfig(**GUM_130M)
+    meta = build_model(cfg, device="meta").params()
+
+    t0 = time.perf_counter()
+    rep = audit_optimizer(opt_cfg, meta)
+    print(f"{label} audit_optimizer llama-130m ({time.perf_counter() - t0:.2f} s):\n"
+          f"{rep.format()}", flush=True)
+    check(rep.ok, f"{label}: audit_optimizer found errors: {[f.format() for f in rep.errors]}")
+
+    # (b) one real steady step against the closed form
+    transform = build_optimizer(opt_cfg)
+    expected, unmodeled = expected_launches(transform, meta)
+    check(not unmodeled, f"{label}: the launch model cannot account for {unmodeled}")
+    ns_steps = chain_ns_steps(transform)
+    check(ns_steps == opt_cfg.ns_steps, f"{label}: chain_info ns_steps {ns_steps}")
+    want_launch = launch_count.kernel_launches(expected, ns_steps)
+    model = build_model(cfg, device="cuda")
+    model.init_params(0)
+    params = model.params()
+    step_fn = make_train_step(model, transform)
+    stream = build_stream(data)
+    launches = collections.Counter()
+    with torch.no_grad():
+        opt_state = transform.init({k: p.detach() for k, p in params.items()})
+    build.reset_launches()
+    opt_state, _ = step_fn(params, opt_state, {"tokens": torch.from_numpy(next(stream)).cuda()})
+    torch.cuda.synchronize()
+    launches.update(build.LAUNCHES)
+    batch = {"tokens": torch.from_numpy(next(stream)).cuda()}
+    build.reset_launches()
+    with launch_count.count_launches() as dispatched:
+        opt_state, metrics = step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    steady = {k: v for k, v in build.LAUNCHES.items() if v}
+    launches.update(build.LAUNCHES)
+    print(f"{label} steady step: expected_launches {format_counts(expected)}; dispatched "
+          f"{format_counts(dispatched)}; CUDA launches {steady}; expected launches "
+          f"{want_launch} (ns_steps {ns_steps}); loss {float(metrics['loss']):.6f}", flush=True)
+    check(dict(dispatched) == expected,
+          f"{label}: dispatch counts {dict(dispatched)} != expected_launches {expected}")
+    check(steady == want_launch, f"{label}: CUDA launches {steady} != {want_launch}")
+    del model, params, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the Trainer's startup events
+    with scratch_dir(label) as ckpt_dir:
+        build.reset_launches()
+        trainer = Trainer(
+            build_model(cfg, device="cuda"), OptimizerConfig(**GUM_130M, telemetry=True),
+            RunConfig(steps=2, log_every=1, seed=0, ckpt_dir=ckpt_dir), data,
+            device="cuda", telemetry="stdout=0")
+        result = trainer.train()
+        torch.cuda.synchronize()
+        launches.update(build.LAUNCHES)
+        events = [r for r in read_jsonl(result.events_path) if r["kind"] == "event"
+                  and r["name"] in ("audit", "launch_crosscheck")]
+    for r in events:
+        print(f"{label} trainer event {r['name']}: {r['detail']} "
+              f"{ {k: v for k, v in r.get('data', {}).items()} }", flush=True)
+    names = [r["name"] for r in events]
+    check(names == ["audit", "launch_crosscheck"], f"{label}: startup events {names}")
+    xc = events[1]
+    check(xc["severity"] == "info" and "cross-check ok" in xc["detail"]
+          and xc["data"]["expected"] == xc["data"]["traced"],
+          f"{label}: launch_crosscheck {xc}")
+    check("unavailable" not in events[0]["detail"], f"{label}: {events[0]['detail']}")
+    check(result.losses == LOSSES["slice"][:2],
+          f"{label}: losses {result.losses} are not bitwise phase 4's {LOSSES['slice'][:2]}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the sharded audit on a fake process group of 8
+    for name, cfg_kw in (("gum", GUM_130M),
+                         ("gum fused shard_state", dict(GUM_130M, fuse_families=True,
+                                                        shard_state=True))):
+        t0 = time.perf_counter()
+        build.reset_launches()
+        rep = audit_sharded(OptimizerConfig(**cfg_kw), arch="llama-130m",
+                            mesh_axes=(("data", 8),), device="cuda")
+        torch.cuda.synchronize()
+        launches.update(build.LAUNCHES)
+        wire = rep.summary["wire"]
+        print(f"{label} audit_sharded {name} data=8 ({time.perf_counter() - t0:.2f} s): "
+              f"{'clean' if rep.ok else 'ERRORS'}; collectives {rep.summary['collectives']}; "
+              f"wire bytes/step {wire['steady_bytes_per_step']} steady, "
+              f"{wire['boundary_bytes']} refresh-only; per collective "
+              f"{[(c['primitive'], c['tag'], c['dtypes'], c['payload_bytes'], c['wire_bytes']) for c in wire['per_collective']]}; "
+              f"opt_state_realloc_bytes {rep.summary['opt_state_realloc_bytes']}; "
+              f"buffers {rep.summary['buffers']}; per-shard memory "
+              f"{rep.summary['per_shard_memory']}", flush=True)
+        check(rep.ok, f"{label}: audit_sharded {name}: {[f.format() for f in rep.errors]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    flops = model_flops(cfg, Shape("llama-130m", data.seq_len, data.global_batch, "train"))
+    print(f"{label} phase 4's model TFLOP/s: {flops / (STEADY_MS['slice'] / 1e3) / 1e12:.3f} "
+          f"(model_flops {flops:.4e} per step over the steady median "
+          f"{STEADY_MS['slice']:.3f} ms); phase 4j seconds "
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return dict(launches)
+
+
 def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     """Device time of one steady step by kernel group (torch.profiler):
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
@@ -3250,14 +3404,15 @@ def phase_serve_mamba(torch) -> dict:
 FLASH_TIERS = (16, 32, 64, 128, 192, 256)
 # Phase 8: the dense variants at their published widths (bf16 activations,
 # fp32 parameters), (layers, slots, requests, direct decodes checked) of
-# each: depth cut to half of 28 / 32 / 40 layers to make room for phase 4i.
-DENSE_VARIANTS = {"chatglm3-6b": (14, 8, 9, 2), "starcoder2-7b": (16, 4, 4, 1),
-                  "qwen1.5-4b": (20, 4, 4, 1)}
+# each: depth cut to half of 28 / 32 / 40 layers to make room for phase 4i,
+# then to a quarter for phase 4j.
+DENSE_VARIANTS = {"chatglm3-6b": (7, 8, 9, 2), "starcoder2-7b": (8, 4, 4, 1),
+                  "qwen1.5-4b": (10, 4, 4, 1)}
 
 
 def phase_serve_dense(torch) -> dict:
     """Phase 8: chatglm3-6b, starcoder2-7b and qwen1.5-4b at full width,
-    depth cut to 14 / 16 / 20 of their 28 / 32 / 40 layers (fp32
+    depth cut to 7 / 8 / 10 of their 28 / 32 / 40 layers (fp32
     parameters, bf16 activations), one model on the card at a time:
     prefill 4 x 2048 through
     the bf16 instantiation of flash attention, one launch a layer, against
@@ -3673,6 +3828,7 @@ PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_basel
           "accumulate": phase_accumulate, "resume": phase_resume,
           "rank-policy": phase_rank_policy, "resilience": phase_resilience,
           "telemetry": phase_telemetry, "distributed": phase_distributed,
+          "audit": phase_audit,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
           "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick,

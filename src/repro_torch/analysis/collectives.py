@@ -1,0 +1,475 @@
+"""Collective-schedule auditor for the data-parallel train step (RA6xx), the
+port of the JAX package's ``analysis/collectives.py``.
+
+The data-parallel step (:mod:`repro_torch.launch.shardmap_fsdp`) keeps
+wire-level invariants that rot without a check: the gradients are reduced
+exactly once a step, at the *declared* ``reduce_dtype``, and nothing
+gathers a full gradient in the steady state.  This pass checks them the way
+:mod:`repro_torch.analysis.launch_model` checks kernel-launch counts:
+
+  * :func:`trace_sharded_step` runs two steps of the step (a refresh, then a
+    steady one) as rank 0 of a ``fake`` process group of N ranks
+    (``torch.distributed``'s backend whose collectives move no data), so no
+    other rank and no second device is needed to audit an N-way mesh.  The
+    port's own collective record (:mod:`repro_torch.kernels.collective_count`)
+    logs every collective with its tag, dtype, shape and bytes;
+    :func:`collect_collectives` turns the logs into
+    :class:`CollectiveRecord`\\ s, marking those the refresh step adds as
+    boundary-only (``under_cond``, the reference's collectives under a
+    refresh ``cond``).
+  * :func:`expected_collective_schedule` derives the port's closed-form
+    schedule from the parameter tree, the optimizer's ``chain_info`` ×
+    :class:`~repro_torch.core.family_plan.FamilyPlan` and the shard count:
+    every step one gradient all-reduce at ``reduce_dtype`` over every leaf
+    (one concatenated buffer) and one fp32 loss all-reduce; with
+    ``shard_state`` one fp32 all-gather a step of the split families'
+    update rows (and the slots a split family's ranks cannot place); at a
+    refresh no gather, and one probe all-reduce when the spectrum probes
+    are on and a family splits.  The reference gathers at refresh
+    boundaries instead (its ``boundary_gather``); the fields the two share
+    are ``grad_psum`` and ``loss_psum``.
+  * :func:`collective_schedule_findings` diffs traced against expected:
+    RA601 (gradient reduction wider than the declared dtype), RA602
+    (boundary-only collective running every step), RA603 (full-gradient
+    gather in the steady state) and RA606 (schedule divergence).  The
+    reference's second RA601 case, a bf16 psum not pinned by an
+    ``optimization_barrier`` (which XLA may re-promote), has no eager
+    counterpart: the port casts before it reduces and no compiler moves
+    the cast.
+  * :func:`wire_bytes_model` is the per-step wire-bytes accountant, with
+    the reference's ring coefficients.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterable, NamedTuple
+
+import torch
+
+from repro_torch.core.api import Transform
+from repro_torch.core.lowrank_common import stack_shardable
+from repro_torch.kernels import collective_count, launch_count
+
+from .buffers import param_versions, param_writes
+from .findings import Finding
+from .launch_model import _core, lowrank_nodes, lowrank_plan_stats
+from .trace_passes import realloc_bytes
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveRecord:
+    """One collective of a traced step."""
+
+    primitive: str                       # all_reduce / all_gather
+    tag: str                             # grad / loss / update / probes / ...
+    axes: tuple[str, ...]                # mesh axes it runs over
+    dtypes: tuple[str, ...]
+    shapes: tuple[tuple[int, ...], ...]  # the operand this rank sends
+    n_operands: int
+    payload_bytes: int                   # bytes this rank sends
+    under_cond: bool                     # run at a refresh only
+
+    @property
+    def scalar_only(self) -> bool:
+        return all(len(s) == 0 or s == (1,) for s in self.shapes)
+
+
+def collect_collectives(log: list[dict], *, axis: str = "data") -> list[CollectiveRecord]:
+    """:class:`CollectiveRecord`\\ s of a :func:`record_collectives` log
+    (every step; :func:`boundary_only` marks a refresh's extras)."""
+    return [CollectiveRecord(primitive=e["op"], tag=e["tag"], axes=(axis,),
+                             dtypes=(e["dtype"],), shapes=(tuple(e["shape"]),),
+                             n_operands=1, payload_bytes=int(e["bytes"]),
+                             under_cond=False) for e in log]
+
+
+def _key(r: CollectiveRecord) -> tuple:
+    return (r.primitive, r.tag, r.dtypes, r.shapes)
+
+
+def boundary_only(refresh: list[CollectiveRecord],
+                  steady: list[CollectiveRecord]) -> list[CollectiveRecord]:
+    """The collectives the refresh step runs beyond the steady step's, as
+    boundary-only records."""
+    left = [_key(r) for r in steady]
+    out = []
+    for r in refresh:
+        if _key(r) in left:
+            left.remove(_key(r))
+        else:
+            out.append(dataclasses.replace(r, under_cond=True))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# closed-form schedule model
+# ---------------------------------------------------------------------------
+
+
+def _update_gather(transform: Transform | dict, params: dict, n: int,
+                   step: int) -> tuple[int, int, int]:
+    """``(split families, gathered bytes, probe all-reduce bytes)`` of the
+    fused lowrank nodes under ``n``-way state sharding at update ``step``:
+    the rules of ``lowrank``'s fused update and of ``layerwise_unbias``
+    under ``family_sharding``."""
+    split = nbytes = probe = 0
+    for _, node, plan in lowrank_nodes(transform, params):
+        if not node.get("fuse_families"):
+            continue
+        core = _core(node.get("inner", {})) or {}
+        gamma = int(core.get("gamma", 0)) if core.get("kind") == "layerwise_unbias" else 0
+        tele = bool(node.get("telemetry"))
+        probes = tele or bool(node.get("probe_spectrum"))
+        for fi, fam in enumerate(plan.families):
+            L, m, nn = fam.fs.L, fam.fs.m, fam.fs.n
+            rows_split = n > 1 and stack_shardable(L, n)
+            if rows_split:
+                split += 1
+                nbytes += L // n * m * nn * 4
+                if probes:  # the eigenvalue sums, and the drift's overlap
+                    probe += (fam.fs.rank + tele) * 4
+                if tele and (step - 1) % len(plan.families) == fi:
+                    nbytes += 4  # the bias site's sum over this rank's blocks
+            if gamma:
+                slots = fam.seg.members * min(gamma, fam.seg.member_L)
+                aligned = rows_split and fam.seg.members % n == 0
+                if n > 1 and stack_shardable(slots, n) and not aligned:
+                    nbytes += slots // n * m * nn * 4
+    return split, nbytes, probe
+
+
+def expected_collective_schedule(
+    transform: Transform | dict,
+    params: dict,
+    *,
+    n_shards: int,
+    reduce_dtype: torch.dtype = torch.bfloat16,
+    data_axis: str = "data",
+    shard_state: bool = False,
+    step: int = 2,
+) -> dict:
+    """The collective schedule the data-parallel step must show at update
+    ``step`` (steady unless it is a refresh), derived from the parameter
+    tree, the optimizer's composition and family plan, and the shard count.
+
+    Every step: ONE gradient all-reduce at ``reduce_dtype`` carrying every
+    parameter leaf (``operands``) in one buffer, and ONE fp32 loss
+    all-reduce.  ``shard_state``: one fp32 all-gather a step of the split
+    families' update rows, the slots ``layerwise_unbias`` cannot place on a
+    rank's rows, and (telemetry) the bias site's 4 bytes.  At a refresh: no
+    gather; one probe all-reduce of the split families' eigenvalue sums
+    (and drift overlaps) when probes are on.  ``boundary_gather`` is the
+    reference's refresh-boundary gather, which the port does not issue."""
+    itemsize = torch.empty((), dtype=reduce_dtype).element_size()
+    leaves = [p for p in params.values() if p is not None]
+    grad_payload = sum(p.numel() for p in leaves) * itemsize
+    n_families = sum(int(r.get("n_families", 0)) for r in lowrank_plan_stats(transform, params))
+    split = gather = probe = 0
+    if shard_state:
+        split, gather, probe = _update_gather(transform, params, int(n_shards), step)
+    dtype = str(reduce_dtype).removeprefix("torch.")
+    return {
+        "grad_psum": {"count": 1, "dtype": dtype, "operands": len(leaves),
+                      "payload_bytes": int(grad_payload), "axis": data_axis,
+                      "phase": "steady"},
+        "loss_psum": {"count": 1, "dtype": "float32", "operands": 1, "payload_bytes": 4,
+                      "axis": data_axis, "phase": "steady"},
+        "update_gather": {"count": int(gather > 0), "dtype": "float32",
+                          "families": split, "payload_bytes": int(gather),
+                          "axis": data_axis, "phase": "steady"},
+        "probe_reduce": {"count": int(probe > 0), "dtype": "float32",
+                         "payload_bytes": int(probe), "axis": data_axis,
+                         "phase": "boundary"},
+        "boundary_gather": {"count": 0, "families": int(n_families), "payload_bytes": 0,
+                            "phase": "boundary"},
+        "n_shards": int(n_shards),
+        "shard_state": bool(shard_state),
+    }
+
+
+# ---------------------------------------------------------------------------
+# traced-vs-model findings (RA601/602/603/606)
+# ---------------------------------------------------------------------------
+
+
+def _itemsize(dtype: str) -> int:
+    return torch.empty((), dtype=getattr(torch, dtype)).element_size()
+
+
+def collective_schedule_findings(
+    records: Iterable[CollectiveRecord],
+    expected: dict,
+    *,
+    reduce_dtype: torch.dtype = torch.bfloat16,
+    params: dict | None = None,
+    where: str = "sharded-step",
+) -> list[Finding]:
+    """Diff the traced collectives against the closed-form schedule."""
+    records = list(records)
+    rd = str(reduce_dtype).removeprefix("torch.")
+    rd_size = _itemsize(rd)
+    n = max(int(expected.get("n_shards", 1)), 1)
+    out: list[Finding] = []
+
+    steady = [r for r in records if not r.under_cond]
+    boundary = [r for r in records if r.under_cond]
+    grad_red = [r for r in steady if r.primitive == "all_reduce" and r.tag == "grad"]
+    loss_red = [r for r in steady if r.primitive == "all_reduce" and r.tag == "loss"]
+    updates = [r for r in steady if r.primitive == "all_gather" and r.tag == "update"]
+    others = [r for r in steady if r not in grad_red + loss_red + updates]
+
+    param_sizes = set()
+    if params is not None:
+        param_sizes = {p.numel() for p in params.values() if p is not None}
+
+    # RA601 — the gradient reduction runs at the declared reduce_dtype.
+    for r in grad_red:
+        wide = [dt for dt in r.dtypes if _itemsize(dt) > rd_size]
+        if wide:
+            out.append(Finding(
+                code="RA601", where=where,
+                message=f"gradient all-reduce carries {'/'.join(wide)} operands "
+                        f"where reduce_dtype={rd} was declared — "
+                        f"{_bytes(r.payload_bytes)} on the wire instead of "
+                        f"{_bytes(r.payload_bytes * rd_size // _itemsize(wide[0]))}",
+                hint="cast the gradients to the declared reduce_dtype before the "
+                     "all-reduce (see launch/steps.reduce_gradients)",
+                detail={"dtypes": list(r.dtypes), "declared": rd},
+            ))
+
+    # RA602/RA603 — nothing else runs every step.
+    update_expected = expected.get("update_gather", {}).get("count", 0)
+    for r in others + (updates if not update_expected else []):
+        numel = r.payload_bytes // max(_itemsize(r.dtypes[0]), 1)
+        full = r.primitive == "all_gather" and bool(
+            param_sizes & {numel, numel * n})
+        if full:
+            out.append(Finding(
+                code="RA603", where=where,
+                message=f"steady-state {r.primitive} ({r.tag}) materializes a "
+                        f"full-gradient/param-sized buffer ({_bytes(r.payload_bytes * n)}) "
+                        "every step — gathers belong to the split families' rows only",
+                hint="gather the update rows of the split families, compute the "
+                     "rest replicated",
+                detail={"shapes": [list(s) for s in r.shapes]},
+            ))
+        else:
+            out.append(Finding(
+                code="RA602", where=where,
+                message=f"unconditional {r.primitive} ({r.tag}) over "
+                        f"axes={list(r.axes)} in the steady-state step — the "
+                        "schedule model has no such collective every step",
+                hint="run it at the refresh only, or not at all",
+                detail={"primitive": r.primitive, "tag": r.tag,
+                        "payload_bytes": r.payload_bytes},
+            ))
+
+    # RA606 — counts and payloads match the closed-form model.
+    exp_g = expected["grad_psum"]
+    got = {"count": len(grad_red), "payload_bytes": sum(r.payload_bytes for r in grad_red)}
+    want = {k: exp_g[k] for k in got}
+    dtype_ok = all(not [dt for dt in r.dtypes if _itemsize(dt) > rd_size] for r in grad_red)
+    if got["count"] != want["count"] or (dtype_ok and got["payload_bytes"]
+                                         != want["payload_bytes"]):
+        out.append(Finding(
+            code="RA606", where=where,
+            message="traced gradient-reduction schedule diverges from the "
+                    f"closed-form model: traced {got}, expected {want}",
+            hint="one all-reduce of every parameter leaf's gradient at "
+                 "reduce_dtype is the contract; per-leaf reductions or dropped "
+                 "leaves break it",
+            detail={"traced": got, "expected": want},
+        ))
+    if len(loss_red) != expected["loss_psum"]["count"]:
+        out.append(Finding(
+            code="RA606", where=where,
+            message=f"{len(loss_red)} loss reduction(s) traced, expected "
+                    f"{expected['loss_psum']['count']} (the mean over the ranks)",
+            detail={"traced": len(loss_red)},
+        ))
+    exp_u = expected.get("update_gather", {"count": 0, "payload_bytes": 0})
+    got_u = {"count": len(updates), "payload_bytes": sum(r.payload_bytes for r in updates)}
+    if exp_u["count"] and got_u != {k: exp_u[k] for k in got_u}:
+        out.append(Finding(
+            code="RA606", where=where,
+            message=f"traced update all-gather {got_u} diverges from the "
+                    f"closed-form model {dict(count=exp_u['count'], payload_bytes=exp_u['payload_bytes'])}",
+            detail={"traced": got_u, "expected": exp_u},
+        ))
+    exp_p = expected.get("probe_reduce", {"count": 0})
+    n_probe = len([r for r in boundary if r.primitive == "all_reduce"])
+    if n_probe != exp_p["count"]:
+        out.append(Finding(
+            code="RA606", where=where,
+            message=f"{n_probe} refresh-only all-reduce(s) traced, expected "
+                    f"{exp_p['count']} (the split families' probe sums)",
+            detail={"traced": n_probe, "expected": exp_p["count"]},
+        ))
+    exp_b = expected.get("boundary_gather", {"count": 0})
+    n_boundary = len([r for r in boundary if r.primitive == "all_gather"])
+    if n_boundary != exp_b["count"]:
+        out.append(Finding(
+            code="RA606", where=where,
+            message=f"{n_boundary} refresh-only gather(s) traced, expected "
+                    f"{exp_b['count']} (a refresh gathers nothing on this path)",
+            detail={"traced": n_boundary, "expected": exp_b["count"]},
+        ))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wire-bytes accountant
+# ---------------------------------------------------------------------------
+
+# Bytes each rank moves over the wire per payload byte, ring algorithms: the
+# reference's coefficient table, under the port's collective names too.
+_RING_COEFF = {
+    "psum": lambda n: 2.0 * (n - 1) / n,
+    "all_reduce": lambda n: 2.0 * (n - 1) / n,
+    "all_gather": lambda n: (n - 1) / n,
+    "reduce_scatter": lambda n: (n - 1) / n,
+    "all_to_all": lambda n: (n - 1) / n,
+    "ppermute": lambda n: 1.0 if n > 1 else 0.0,
+}
+
+
+def wire_bytes_model(records: Iterable[CollectiveRecord], n_shards: int) -> dict:
+    """Per-step wire bytes each rank sends, from the traced collectives and
+    ring coefficients.  ``steady_bytes_per_step`` counts the collectives of
+    every step; ``boundary_bytes`` the refresh-only ones."""
+    n = max(int(n_shards), 1)
+    per: list[dict] = []
+    steady = boundary = 0
+    for r in records:
+        coeff = _RING_COEFF.get(r.primitive)
+        if coeff is None:
+            continue
+        wire = int(r.payload_bytes * coeff(n)) if n > 1 else 0
+        per.append({"primitive": r.primitive, "tag": r.tag,
+                    "payload_bytes": r.payload_bytes, "wire_bytes": wire,
+                    "phase": "boundary" if r.under_cond else "steady",
+                    "dtypes": list(r.dtypes)})
+        if r.under_cond:
+            boundary += wire
+        else:
+            steady += wire
+    return {"n_shards": n, "steady_bytes_per_step": steady, "boundary_bytes": boundary,
+            "per_collective": per}
+
+
+def _bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024 or unit == "GiB":
+            return f"{n:.1f}{unit}" if unit != "B" else f"{n}B"
+        n /= 1024
+    return f"{n}B"
+
+
+# ---------------------------------------------------------------------------
+# tracing the step on a fake process group
+# ---------------------------------------------------------------------------
+
+
+class ShardedTrace(NamedTuple):
+    """What :func:`trace_sharded_step` saw."""
+
+    records: list[CollectiveRecord]  # the steady step's, then the refresh's extras
+    counts: dict[str, int]           # the steady step: dispatch ops + collectives
+    refresh_counts: dict[str, int]   # the refresh step's dispatch ops
+    params: dict                     # the model's parameters (updated twice)
+    opt_state: PyTree                # init's whole layout
+    batch: dict                      # the global batch
+    rows: list[int]                  # the rows of each forward the steps ran
+    param_writes: dict               # path -> (same storage, in-place writes)
+    realloc_bytes: int               # the steady step's new optimizer state
+
+
+def _trace_mesh_class():
+    from repro_torch.launch.mesh import Mesh
+
+    class TraceMesh(Mesh):
+        """A mesh over the ``fake`` group, whose collectives move no data:
+        an all-gather's result is this rank's operand in every rank's part
+        (so the trace's values stay finite; they are not a real run's)."""
+
+        def all_gather(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+            out = super().all_gather(t, tag)
+            out.view(self.shape[self.data_axis], -1).copy_(t.reshape(1, -1))
+            return out
+
+    return TraceMesh
+
+
+def trace_sharded_step(model, optimizer: Transform, *, n_shards: int,
+                       batch_size: int = 8, seq_len: int | None = None,
+                       reduce_dtype: torch.dtype = torch.bfloat16, grad_clip: float = 1.0,
+                       data_axis: str = "data", shard_state: bool = False,
+                       seed: int = 0) -> ShardedTrace:
+    """Run :func:`repro_torch.launch.shardmap_fsdp.make_shardmap_train_step`
+    as rank 0 of a ``fake`` process group of ``n_shards`` ranks: two steps
+    (a refresh, then a steady one) on ``model``'s device, with its
+    parameters (updated in place) and a global batch of ``batch_size`` rows
+    of seeded tokens.  The group is made here and destroyed before
+    returning; a process that already holds a group is refused."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.shardmap_fsdp import make_shardmap_train_step
+
+    if dist.is_initialized():
+        raise RuntimeError("trace_sharded_step makes its own fake process group; this "
+                           "process already holds one (trace in a fresh process)")
+    if batch_size % int(n_shards):
+        raise ValueError(f"batch_size={batch_size} not divisible by n_shards={n_shards}")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(n_shards))
+    try:
+        mesh = _trace_mesh_class()((int(n_shards),), (data_axis,), group=dist.group.WORLD,
+                                   backend="fake", data_axis=data_axis)
+        step = make_shardmap_train_step(model, optimizer, mesh, grad_clip=grad_clip,
+                                        reduce_dtype=reduce_dtype, shard_state=shard_state)
+        params = model.params()
+        device = next(iter(params.values())).device
+        seq = int(seq_len if seq_len is not None else min(64, model.cfg.max_seq))
+        gen = torch.Generator().manual_seed(seed)
+        batch = {"tokens": torch.randint(0, model.cfg.vocab, (int(batch_size), seq),
+                                         generator=gen, dtype=torch.int32).to(device)}
+        detached = {k: p.detach() for k, p in params.items()}
+        with torch.no_grad(), launch_count.count_launches(isolated=True):
+            whole = optimizer.init(detached)
+        opt_state = step.place_state(whole)
+        rows: list[int] = []
+
+        def seen(module, args, kwargs):
+            x = args[0] if args and isinstance(args[0], torch.Tensor) else kwargs.get("frames")
+            if isinstance(x, torch.Tensor):
+                rows.append(int(x.shape[0]))
+
+        hook = model.register_forward_pre_hook(seen, with_kwargs=True)
+        try:
+            logs, counts = [], []
+            for i in range(2):
+                if i == 1:
+                    before, state_before = param_versions(params), opt_state
+                with collective_count.record_collectives(isolated=True) as log, \
+                        launch_count.count_launches(isolated=True) as dispatched:
+                    opt_state, _ = step(params, opt_state, batch)
+                logs.append(log)
+                counts.append(dict(dispatched))
+        finally:
+            hook.remove()
+        writes = param_writes(params, before)
+        realloc = realloc_bytes(state_before, opt_state)
+    finally:
+        dist.destroy_process_group()
+    steady = collect_collectives(logs[1], axis=data_axis)
+    refresh = collect_collectives(logs[0], axis=data_axis)
+    records = steady + boundary_only(refresh, steady)
+    steady_counts = dict(counts[1])
+    for r in steady:
+        steady_counts[r.primitive] = steady_counts.get(r.primitive, 0) + 1
+    return ShardedTrace(records=records, counts=steady_counts, refresh_counts=counts[0],
+                        params=params, opt_state=whole, batch=batch, rows=rows,
+                        param_writes=writes, realloc_bytes=realloc)
+

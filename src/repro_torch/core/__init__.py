@@ -24,6 +24,7 @@ from repro_torch.core.combinators import (
     ProjGrad,
     add_decayed_weights,
     chain,
+    chain_info,
     find_lowrank_states,
     generator_sampler,
     layerwise_unbias,
@@ -76,7 +77,7 @@ __all__ = [
     "OptimizerConfig", "PendingBack", "ProjGrad", "RankMap", "RankPolicy",
     "RankPolicyController", "StackSeg", "Transform",
     "adamw", "add_decayed_weights", "apply_updates", "build_family_plan",
-    "build_optimizer", "chain", "clip_by_global_norm", "default_lowrank_filter",
+    "build_optimizer", "chain", "chain_info", "clip_by_global_norm", "default_lowrank_filter",
     "find_lowrank_states", "fira", "fira_matrices", "galore", "galore_matrices",
     "gather_probes", "generator_noise", "generator_sampler", "global_norm", "golore", "grass_projector",
     "gum", "gum_accum_tools", "gum_matrices", "layerwise_unbias", "lisa", "lowrank", "make_projector",

@@ -128,6 +128,15 @@ def multi_transform(
         merged = {path: upds[labels[path]][path] for path in grads}
         return merged, MultiState(inner=new_inner)
 
+    # Static composition metadata for the audit (repro_torch.analysis): each
+    # branch's chain_info and the label_fn, which resolves the leaf routing
+    # of a params tree.
+    update.chain_info = {
+        "kind": "multi_transform",
+        "branches": {k: dict(getattr(t.update, "chain_info", None) or {"kind": "opaque"})
+                     for k, t in transforms.items()},
+        "label_fn": label_fn,
+    }
     return Transform(init, update)
 
 

@@ -373,6 +373,20 @@ def _momentum_init(params: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def chain_info(t: Transform) -> dict:
+    """Static composition metadata of a combinator-built transform.
+
+    Every combinator of this module (and ``multi_transform`` and ``lisa``)
+    tags its update function with a ``chain_info`` dict, ``{"kind":
+    <combinator name>, ...}``, with the reference's keys, nesting through
+    ``stages`` (chain), ``inner`` (lowrank / layerwise_unbias /
+    with_fira_residual / lisa) and ``branches`` (multi_transform), so the
+    static audit (:mod:`repro_torch.analysis`) walks the composition
+    without running it.  Other transforms read as ``{"kind": "opaque"}``."""
+    info = getattr(t.update, "chain_info", None) if t is not None else None
+    return dict(info) if info else {"kind": "opaque"}
+
+
 def chain(*transforms: Transform) -> Transform:
     """Sequentially compose gradient transforms; state is the tuple of inner
     states."""
@@ -391,6 +405,7 @@ def chain(*transforms: Transform) -> Transform:
     # layerwise_unbias) reads them too.
     if transforms and getattr(transforms[0].update, "wants_params", False):
         update.wants_params = True
+    update.chain_info = {"kind": "chain", "stages": [chain_info(t) for t in transforms]}
     return Transform(init, update)
 
 
@@ -430,6 +445,7 @@ def scale_by_momentum(beta: float = 0.9, use_muon_scale: bool = False) -> Transf
             new_mu[k] = m2
         return out, new_mu
 
+    update.chain_info = {"kind": "scale_by_momentum", "beta": beta}
     return Transform(_momentum_init, update)
 
 
@@ -467,6 +483,8 @@ def scale_by_muon(beta: float = 0.95, ns_steps: int = 5, nesterov: bool = False,
             new_mu[k] = m2
         return out, new_mu
 
+    update.chain_info = {"kind": "scale_by_muon", "beta": beta, "ns_steps": ns_steps,
+                         "nesterov": nesterov}
     return Transform(_momentum_init, update)
 
 
@@ -516,6 +534,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             mu[k], nu[k] = m2, v2
         return out, ScaleByAdamState(count=count, mu=mu, nu=nu)
 
+    update.chain_info = {"kind": "scale_by_adam", "scale": scale}
     return Transform(init, update)
 
 
@@ -534,6 +553,7 @@ def add_decayed_weights(weight_decay: float = 0.0) -> Transform:
             return updates, ()
         return {k: one(u, params[k]) for k, u in updates.items()}, ()
 
+    update.chain_info = {"kind": "add_decayed_weights", "weight_decay": weight_decay}
     return Transform(lambda params: (), update)
 
 
@@ -558,6 +578,7 @@ def scale_by_lr(lr: Schedule) -> Transform:
         out = materialize_pending({k: one(u, step) for k, u in updates.items()})
         return out, ScaleByLrState(count=count)
 
+    update.chain_info = {"kind": "scale_by_lr"}
     return Transform(lambda params: ScaleByLrState(count=0), update)
 
 
@@ -581,6 +602,7 @@ def scale_by_factor(factor: float) -> Transform:
     def update(updates: dict, state, params: dict):
         return {k: one(u) for k, u in updates.items()}, ()
 
+    update.chain_info = {"kind": "scale_by_factor", "factor": factor}
     return Transform(lambda params: (), update)
 
 
@@ -592,6 +614,7 @@ def clip_by_global_norm(max_norm: float) -> Transform:
     def update(updates: dict, state, params: dict):
         return _clip_tree(materialize_pending(updates), max_norm), ()
 
+    update.chain_info = {"kind": "clip_by_global_norm"}
     return Transform(lambda params: (), update)
 
 
@@ -1151,10 +1174,20 @@ def lowrank(
         return LowRankState(count=state.count, projs=new_projs,
                             inner=_refresh_inner(state, msgs), probes=new_probes)
 
+    info = {
+        "kind": "lowrank", "inner": chain_info(inner), "rank": rank,
+        "period": period, "projector": projector,
+        "kernel_impl": kernel_impl, "pad_rank_to": pad_rank_to,
+        "fuse_families": fuse_families, "fused_epilogue": fused_epilogue,
+        "external_refresh": external_refresh, "rank_policy": rank_policy,
+        "probe_spectrum": probe_spectrum, "telemetry": telemetry,
+    }
     if fuse_families:
         update_fused.refresh = refresh_fused
+        update_fused.chain_info = info
         return Transform(init_fused, update_fused)
     update.refresh = refresh
+    update.chain_info = info
     return Transform(init, update)
 
 
@@ -1240,7 +1273,12 @@ def layerwise_unbias(
 
     def _sample(msg, g_f: int, device: torch.device) -> torch.Tensor:
         """Fresh slot -> block ids for a ProjGrad or RefreshMsg: ``g_f`` per
-        member, offset to the stack."""
+        member, offset to the stack.  On the ``meta`` device (the static
+        audit's shape-only trace) nothing is drawn: the sampler may hold
+        state that a trace must not move."""
+        if torch.device(device).type == "meta":
+            members = msg.seg.members if msg.seg is not None else 1
+            return torch.empty(members * g_f, dtype=torch.long, device=device)
         if msg.seg is None:
             fresh = sampler(msg.key, msg.fs.L, g_f)
         else:
@@ -1368,6 +1406,8 @@ def layerwise_unbias(
 
     update.wants_params = True  # gathers the sampled blocks' params
     update.refresh_state = refresh_state
+    update.chain_info = {"kind": "layerwise_unbias", "inner": chain_info(base),
+                         "gamma": gamma, "compensation": compensation}
     return Transform(init, update)
 
 
@@ -1442,6 +1482,7 @@ def with_fira_residual(base: Transform, *, limiter: float = 1.01,
 
     if getattr(base.update, "wants_params", False):
         update.wants_params = True
+    update.chain_info = {"kind": "with_fira_residual", "inner": chain_info(base)}
     return Transform(init, update)
 
 

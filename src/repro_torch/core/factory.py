@@ -4,9 +4,11 @@ Every name the JAX package's factory builds: ``adamw``, ``sgdm``, ``muon``,
 ``galore``, ``galore_muon``, ``golore``, ``gum``, ``unbiased_galore_adam``,
 ``fira`` and ``lisa``, each composed as the reference's ``_compose`` does
 (the same arguments forwarded, the same defaults left).  The knobs the port
-does not run yet raise in ``OptimizerConfig`` (``core/api.py``), and
-``audit=True`` raises here: the chain linter (``repro.analysis``) is not
-ported.
+does not run yet raise in ``OptimizerConfig`` (``core/api.py``).
+``audit=True`` runs the chain linter
+(:func:`repro_torch.analysis.chain_lint.lint_chain`) on the composed chain
+and raises :class:`repro_torch.analysis.chain_lint.ChainLintError` on an
+error finding, as the reference's factory does.
 
 ``cfg.rank_policy`` / ``cfg.rank_ladder`` (see
 :mod:`repro_torch.core.rank_policy`) make rank a per-family, time-varying
@@ -54,11 +56,19 @@ def build_optimizer(cfg: OptimizerConfig, rank_map: Optional[RankMap] = None, *,
     (or the policy's initial map when one is configured).  ``sampler``
     replaces the block sampler of GUM, unbiased GaLore-Adam and LISA,
     ``noise`` the projectors' random draws (tests inject the reference's
-    draws through them)."""
-    if audit:
-        raise NotImplementedError("build_optimizer(audit=True) needs the chain "
-                                  "linter (repro.analysis), which is not ported yet")
+    draws through them).  ``audit=True`` lints the composed chain and raises
+    :class:`~repro_torch.analysis.chain_lint.ChainLintError` on an error
+    finding: a malformed composition fails here with a lint code and a
+    fix-it hint instead of a TypeError mid-step."""
     opt = _build(cfg, rank_map, sampler, noise)
+    if audit:
+        # Lazy import: repro_torch.analysis sits on top of this module.
+        from repro_torch.analysis.chain_lint import ChainLintError, lint_chain
+
+        errors = [f for f in lint_chain(opt, ladder=cfg.rank_ladder, name=cfg.name.lower())
+                  if f.severity == "error"]
+        if errors:
+            raise ChainLintError(errors)
     return Transform(_fp32_leaves(opt.init), opt.update)
 
 

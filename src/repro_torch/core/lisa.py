@@ -73,6 +73,9 @@ def lisa(
                     masks[k] = None
                     continue
                 L = mask.numel()
+                if mask.device.type == "meta":  # a shape-only trace: no draw
+                    masks[k] = torch.empty_like(mask)
+                    continue
                 idx = sampler((seed, (count - 1) // period, i), L, min(gamma, L))
                 fresh = torch.zeros(L, dtype=torch.bool)
                 fresh[idx.to(torch.long)] = True
@@ -80,4 +83,7 @@ def lisa(
         updates, inner = base.update(_apply(grads, masks), state.inner, params)
         return _apply(updates, masks), LISAState(count=count, inner=inner, masks=masks)
 
+    update.chain_info = {"kind": "lisa", "gamma": gamma, "period": period,
+                         "inner": dict(getattr(base.update, "chain_info", None)
+                                       or {"kind": "opaque"})}
     return Transform(init, update)

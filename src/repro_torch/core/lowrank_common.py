@@ -144,7 +144,11 @@ def _draw(noise: Noise, key, kind: str, lead: tuple[int, ...], tail: tuple[int, 
     list of per-member keys of a family stack (``lead = (members *
     member_L,)``), each member drawing its own ``(member_L,) + tail`` block
     as its leaf does on the per-leaf path.  With ``blocks`` only those
-    blocks' rows, each cut from its member's whole draw."""
+    blocks' rows, each cut from its member's whole draw.  On the ``meta``
+    device (the static audit's shape-only trace) nothing is drawn."""
+    if torch.device(device).type == "meta":
+        shape = ((len(blocks.ids),) if blocks is not None else tuple(lead)) + tuple(tail)
+        return torch.empty(shape, dtype=torch.float32, device=device)
     if blocks is not None:
         draws: dict[int, torch.Tensor] = {}
         rows = []

@@ -4,9 +4,11 @@ launch counts of :mod:`repro_torch.kernels.launch_count`.
 Every collective of :class:`repro_torch.launch.mesh.Mesh` (the data-parallel
 step's gradient and loss all-reduces, the sharded step's update all-gather,
 the refresh's probe all-reduce, the checkpoint's gathers) appends one entry
-``{"op", "tag", "dtype", "bytes"}`` to every active record, before it is
-issued.  ``bytes`` is the operand this rank sends (an all-gather's input,
-not its ``n``-fold output).
+``{"op", "tag", "dtype", "shape", "bytes"}`` to every active record, before
+it is issued.  ``shape`` and ``bytes`` are the operand this rank sends (an
+all-gather's input, not its ``n``-fold output).  ``record_collectives(
+isolated=True)`` logs the body's collectives there only, not in the records
+active around it (the static audit's own trace of a step).
 
 Usage::
 
@@ -34,19 +36,21 @@ def record(op: str, tag: str, tensor: torch.Tensor) -> None:
     if not _ACTIVE:
         return
     entry = {"op": op, "tag": tag, "dtype": str(tensor.dtype).removeprefix("torch."),
-             "bytes": tensor.numel() * tensor.element_size()}
+             "shape": list(tensor.shape), "bytes": tensor.numel() * tensor.element_size()}
     for log in _ACTIVE:
         log.append(dict(entry))
 
 
 @contextlib.contextmanager
-def record_collectives() -> Iterator[list[dict]]:
+def record_collectives(isolated: bool = False) -> Iterator[list[dict]]:
+    global _ACTIVE
     log: list[dict] = []
-    _ACTIVE.append(log)
+    outer = _ACTIVE
+    _ACTIVE = [log] if isolated else outer + [log]
     try:
         yield log
     finally:
-        _ACTIVE.remove(log)
+        _ACTIVE = outer
 
 
 def tally(log: list[dict]) -> dict[str, int]:

@@ -4,8 +4,12 @@ The port of the JAX package's ``launch/train.py``: the same flags, the same
 ``Trainer`` wiring (resilience, fault injection, rank policy, telemetry, the
 profiler window, the data mesh and the sharded state) and the same closing
 lines.  It runs on the CUDA device unless ``--device cpu`` is given, and
-raises where there is no GPU.  ``--audit`` (the static audit, not ported)
-raises ``NotImplementedError`` naming its ROADMAP item.
+raises where there is no GPU.  ``--audit`` runs the full static audit of
+what is about to train before step 0 (:mod:`repro_torch.analysis`:
+``audit_optimizer`` on the model's parameter tree, and with ``--mesh``
+``audit_sharded`` of the data-parallel step on a fake process group of the
+mesh's size, before the real group is joined), prints the reports and
+exits 1 on an error finding, before anything is trained or saved.
 
 ``--mesh data=N`` runs one rank of N: start it under a launcher that sets the
 rendezvous (``torchrun --nproc-per-node N -m repro_torch.launch.train ...
@@ -20,11 +24,6 @@ import argparse
 import os
 import sys
 from typing import Optional, Sequence
-
-# Flags of subsystems the port does not run yet: (flag, ROADMAP queue 1
-# item, the value that means "off").
-_NOT_PORTED = {"audit": ("--audit", 6, False)}
-
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
@@ -93,17 +92,14 @@ def parser() -> argparse.ArgumentParser:
                     help="torch.profiler window over steps [A, B), a Chrome trace written "
                          "under <ckpt-dir>/profile")
     ap.add_argument("--audit", action="store_true",
-                    help="not ported (ROADMAP queue 1 item 6)")
+                    help="static audit before step 0 (chain lint, launch model, dtype "
+                         "flow, signatures; with --mesh the collective schedule and the "
+                         "in-place step); exit 1 on an error finding")
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser().parse_args(argv)
-    for field, (flag, item, off) in _NOT_PORTED.items():
-        if getattr(args, field) != off:
-            raise NotImplementedError(f"{flag} is not ported to the PyTorch package yet "
-                                      f"(ROADMAP queue 1 item {item})")
-
     if args.shard_state and not args.mesh:
         raise ValueError("--shard-state splits the optimizer state over a mesh: give --mesh")
 
@@ -114,11 +110,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from repro_torch.resilience import FaultPlan
     from repro_torch.train import Trainer
 
-    mesh, device = None, args.device
-    if args.mesh:
-        mesh, device = _join_mesh(args.mesh, args.device, argv)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, device=device)
     opt_cfg = OptimizerConfig(
         name=args.opt, lr=args.lr, rank=args.rank, gamma=args.gamma,
         period=args.period, kernel_impl=args.kernel_impl,
@@ -134,6 +126,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         ckpt_every=max(args.steps // 4, 1), log_every=10,
     )
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
+    if args.audit and not _audit(args, cfg, opt_cfg, run_cfg):
+        sys.exit(1)
+    mesh, device = None, args.device
+    if args.mesh:
+        mesh, device = _join_mesh(args.mesh, args.device, argv)
+    model = build_model(cfg, device=device)
     inject = FaultPlan.parse(args.inject, seed=args.inject_seed) if args.inject else None
 
     trainer = Trainer(model, opt_cfg, run_cfg, data_cfg, device=device,
@@ -162,6 +160,36 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         # train() already emitted the closing counters record.
         print(f"telemetry: {result.events_path} "
               f"(python -m repro_torch.telemetry.report {args.ckpt_dir})")
+
+
+def _audit(args, cfg, opt_cfg, run_cfg) -> bool:
+    """The static audit of exactly what is about to train: the optimizer on
+    the model's parameter tree (on ``meta``) and, with ``--mesh``, the
+    data-parallel step (fp32 reduction, as the ``Trainer``'s mesh step) on
+    a fake process group.  Each rank of a mesh run audits alike; rank 0
+    prints.  Returns whether every report is clean."""
+    import torch
+
+    from repro_torch.analysis import audit_optimizer, audit_sharded
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="meta")
+    reports = [audit_optimizer(opt_cfg, model.params(), ladder=opt_cfg.rank_ladder)]
+    if args.mesh:
+        device = args.device
+        if torch.device(device).type == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        reports.append(audit_sharded(opt_cfg, model=model, mesh_axes=tuple(parse_mesh(args.mesh)),
+                                     reduce_dtype=torch.float32, grad_clip=run_cfg.grad_clip,
+                                     batch_size=args.batch, seq_len=args.seq, device=device))
+    ok = all(rep.ok for rep in reports)
+    if int(os.environ.get("RANK", 0)) == 0:
+        for rep in reports:
+            print(rep.format(), flush=True)
+        if not ok:
+            print("audit: error finding(s) before step 0 — not training", flush=True)
+    return ok
 
 
 def _join_mesh(spec: str, device: str, argv: Optional[Sequence[str]]):

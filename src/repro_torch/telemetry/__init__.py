@@ -13,15 +13,14 @@ migration, checkpoint save) and closing counters.
 
 :mod:`repro_torch.telemetry.instrument`
     host-side readers over the live optimizer state: the per-family probe
-    metrics that ``lowrank(telemetry=True)`` stores during the update, and
-    the layerwise-unbias gamma-slot distribution.
+    metrics that ``lowrank(telemetry=True)`` stores during the update, the
+    layerwise-unbias gamma-slot distribution, and ``launch_crosscheck``
+    (the dispatch counts of one traced update against the closed-form
+    launch model of :mod:`repro_torch.analysis`).
 
 :mod:`repro_torch.telemetry.report`
     the run report / diff CLI: ``python -m repro_torch.telemetry.report
     RUN_DIR [--diff OTHER]``.
-
-Not ported: ``launch_crosscheck`` (the runtime launch-count check against
-the closed-form launch model of the reference's ``analysis`` package).
 """
 from repro_torch.telemetry.bus import (
     SCHEMA_VERSION,
@@ -33,6 +32,7 @@ from repro_torch.telemetry.bus import (
 )
 from repro_torch.telemetry.instrument import (
     GammaSlotTracker,
+    launch_crosscheck,
     lowrank_family_metrics,
 )
 
@@ -44,5 +44,6 @@ __all__ = [
     "StdoutSink",
     "MemorySink",
     "GammaSlotTracker",
+    "launch_crosscheck",
     "lowrank_family_metrics",
 ]

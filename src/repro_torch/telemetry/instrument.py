@@ -1,6 +1,5 @@
 """Host-side gatherers over the live optimizer state (the JAX package's
-``telemetry/instrument.py`` on torch tensors, less ``launch_crosscheck``,
-which needs the launch model of the unported ``analysis`` package).
+``telemetry/instrument.py`` on torch tensors).
 
 ``lowrank(telemetry=True)`` stores its in-step measurements inside the
 spectrum-probe dicts (``LowRankState.probes``); this module reads them out
@@ -15,6 +14,10 @@ between steps and turns them into bus metrics:
   * :class:`GammaSlotTracker` — the layerwise-unbias gamma-slot sampling
     distribution: which blocks the debiasing currently runs full-rank, plus
     cumulative per-block visit counts across refreshes.
+  * :func:`launch_crosscheck` — the dispatch counts of one traced update of
+    the live optimizer against the closed-form launch model
+    (:mod:`repro_torch.analysis.launch_model`), the Trainer's
+    ``launch_crosscheck`` event.
 
 Everything here only reads the state.  Each probe dict crosses to the host
 in one copy, and a tracker's observation copies every slot index at once.
@@ -155,3 +158,27 @@ class GammaSlotTracker:
                     "visits_mean": round(float(hist.mean()), 3),
                 })
         return records
+
+
+def launch_crosscheck(transform, params: dict, *, name: str = "optimizer") -> dict:
+    """The launch-count cross-check of the optimizer about to train: the
+    dispatch counts of one update traced on ``meta`` copies of ``params``
+    (:func:`repro_torch.analysis.trace_update`) against the closed-form
+    model (:func:`repro_torch.analysis.expected_launches`), as a telemetry
+    event instead of a hard failure.  The traced update is the first after
+    ``init``, a refresh: the model counts the refresh-only spectrum probe as
+    the reference's trace does, so ``expected``, ``traced`` and ``ok`` are
+    the reference's on the same configuration, telemetry on or off.
+    Returns ``{expected, traced, ok, unmodeled}``; ``ok`` is False when the
+    counts diverge or the model could not account for a stage (RA303)."""
+    from repro_torch.analysis.launch_model import expected_launches
+    from repro_torch.analysis.trace_passes import trace_update
+
+    expected, findings = expected_launches(transform, params, name=name)
+    traced = trace_update(transform, params).counts
+    return {
+        "expected": expected,
+        "traced": traced,
+        "ok": not findings and traced == expected,
+        "unmodeled": [f.code for f in findings],
+    }

@@ -47,13 +47,21 @@ port of the JAX package's ``train/trainer.py``).
   Every decision (the NaN guard, the health monitor, the recovery ladder,
   the rank policy) reads reduced values, so the ranks decide alike; the
   straggler detector, which reads each rank's own clock, is off.
+* the **startup audit**: before the first step of each ``train()`` one
+  ``audit`` event, ``audit[gum]: launches/step=...
+  proj_state=...B sig=...`` (:func:`repro_torch.analysis.audit_summary`),
+  and with telemetry the ``launch_crosscheck`` event (the dispatch counts of
+  one traced update against the closed-form launch model); on a mesh, after
+  the first applied step, one ``audit`` event of the parameters written in
+  place and the rows each rank trained on (RA604 / RA605), with a ``warn``
+  event per finding.  The traces run on ``meta`` copies and draw nothing,
+  so the run's losses and parameters are bitwise those of a run without
+  them; a failure is one ``warn`` event and training goes on.
 
 Every console line is an event on the telemetry bus, which always exists:
 with telemetry off it carries only the stdout sink, which renders an event
 as the reference does, ``step {step:6d} {detail}`` (bare ``detail`` where
-it has no step), with the reference's names, severities and details.  The
-reference's ``audit`` and ``launch_crosscheck`` events are not emitted:
-they come from its static audit (the ``analysis`` package), not ported.
+it has no step), with the reference's names, severities and details.
 """
 from __future__ import annotations
 
@@ -67,6 +75,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import audit_summary
+from repro_torch.analysis.buffers import (
+    inplace_findings,
+    param_versions,
+    param_writes,
+    replication_findings,
+)
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import OptimizerConfig, build_optimizer, resolve_rank_policy
@@ -94,6 +109,7 @@ from repro_torch.telemetry import (
     StdoutSink,
     Telemetry,
     TelemetryConfig,
+    launch_crosscheck,
     lowrank_family_metrics,
 )
 
@@ -449,6 +465,9 @@ class Trainer:
         else:
             start_step = 0
             opt_state = self._place(self.optimizer.init(detached))
+        if self.is_main:
+            self._startup_audit(detached)
+        mesh_check = self.mesh is not None
 
         loss_by_step: dict[int, float] = {}
         seconds, skipped = [], 0
@@ -474,6 +493,8 @@ class Trainer:
                         tele.event("fault", f"fault-injection: {ev.kind}", step=step,
                                    severity="warn", kind=ev.kind)
                 batch = {"tokens": torch.from_numpy(next(stream)).to(self.device)}
+                if mesh_check:
+                    before = param_versions(params)
                 if self._fault_gate is not None:
                     ev = plan.grad_event(step)
                     if ev is not None:
@@ -483,6 +504,9 @@ class Trainer:
                     opt_state, metrics = self.step_fn(params, opt_state, batch, fault)
                 else:
                     opt_state, metrics = self.step_fn(params, opt_state, batch)
+                if mesh_check and metrics["update_applied"]:
+                    mesh_check = False
+                    self._mesh_audit(params, before, batch, step)
                 names = [n for n in _SCALARS if n in metrics]
                 scalars = dict(zip(names, torch.stack(
                     [metrics[n].to(torch.float32) for n in names]).tolist()))
@@ -588,6 +612,41 @@ class Trainer:
             recovery_trace=list(recov.trace) if recov is not None else [],
             fault_log=list(plan.log) if plan is not None else [],
             events_path=self.events_path)
+
+    def _startup_audit(self, params: dict) -> None:
+        """The ``audit`` event and, with telemetry, the ``launch_crosscheck``
+        event of the optimizer about to train (traced on ``meta`` copies of
+        ``params``); best-effort, as in the reference."""
+        name = self.opt_cfg.name
+        try:
+            self.tele.event("audit", audit_summary(self.optimizer, params, name=name))
+            if self.tele_cfg is not None:
+                xc = launch_crosscheck(self.optimizer, params, name=name)
+                self.tele.event(
+                    "launch_crosscheck",
+                    f"audit[{name}]: launch cross-check {'ok' if xc['ok'] else 'MISMATCH'} "
+                    f"(traced {sum(xc['traced'].values())}/step)",
+                    severity="info" if xc["ok"] else "warn",
+                    expected=xc["expected"], traced=xc["traced"], unmodeled=xc["unmodeled"])
+        except Exception as e:  # diagnostics only: never blocks training
+            self.tele.event("audit", f"audit[{name}]: unavailable ({type(e).__name__}: {e})",
+                            severity="warn")
+
+    def _mesh_audit(self, params: dict, before: dict, batch: dict, step: int) -> None:
+        """After the first applied step on a mesh: the parameters the step
+        wrote in place (RA604's counterpart) and this rank's rows of the
+        batch (RA605's)."""
+        name, n = self.opt_cfg.name, self.mesh.shape[self.mesh.data_axis]
+        writes = param_writes(params, before)
+        rows = int(next(iter(batch.values())).shape[0])
+        global_batch = self.data_cfg.global_batch
+        done = sum(same and w > 0 for same, w in writes.values())
+        self.tele.event("audit", f"audit[{name}]: mesh in place {done}/{len(writes)} "
+                        f"params, {rows} rows/rank of {global_batch}", step=step + 1)
+        for f in (inplace_findings(writes, where=name)
+                  + replication_findings([rows], global_batch=global_batch, n_shards=n,
+                                         where=name)):
+            self.tele.event("audit", "  " + f.format(), step=step + 1, severity="warn")
 
     def _family_metrics(self, step: int, opt_state, gamma_tracker: GammaSlotTracker) -> None:
         """A refresh step's subspace metrics: rank, captured energy, drift

@@ -970,3 +970,69 @@ def test_nccl_world_one_step_is_the_bf16_cast_step(cuda_device, tmp_path):
     assert counts == {"all_reduce:grad": 1, "all_reduce:loss": 1}
     assert loss == want_loss
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+AUDIT_CASES = {
+    "gum": dict(name="gum", lr=1e-3, rank=4, gamma=1, period=3),
+    "gum_fused": dict(name="gum", lr=1e-3, rank=4, gamma=1, period=3, fuse_families=True),
+    "galore_epilogue": dict(name="galore", lr=1e-2, rank=4, period=3, fuse_families=True,
+                            fused_epilogue=True, weight_decay=0.01),
+    "galore_muon": dict(name="galore_muon", lr=1e-2, rank=4, period=3),
+    "fira": dict(name="fira", lr=1e-2, rank=4, period=3),
+    "muon": dict(name="muon", lr=1e-2),
+}
+
+
+@pytest.mark.parametrize("case", list(AUDIT_CASES))
+def test_static_launches_equal_the_cards_launches(cuda_device, case):
+    """The static audit against the card (chip_smoke.py phase 4j at the smoke
+    size): one steady train step of llama-60m's SMOKE model after a refresh
+    step dispatches ``expected_launches`` (held to the JAX package's model
+    at the same shapes by tests/test_torch_analysis.py), and the CUDA
+    kernels launch those counts times each op's kernels per call
+    (``kernel_launches`` at the chain's ``ns_steps``)."""
+    from repro_torch.analysis import expected_launches
+    from repro_torch.analysis.launch_model import chain_ns_steps
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import OptimizerConfig, build_optimizer
+    from repro_torch.kernels import launch_count
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    cfg = get_smoke("llama-60m")
+    opt = build_optimizer(OptimizerConfig(**AUDIT_CASES[case]))
+    model = build_model(cfg, device="cuda")
+    model.init_params(0)
+    params = model.params()
+    expected, unmodeled = expected_launches(opt, build_model(cfg, device="meta").params())
+    assert not unmodeled
+    step = make_train_step(model, opt)
+    state = opt.init({k: p.detach() for k, p in params.items()})
+    tokens = [torch.randint(0, cfg.vocab, (2, 64), generator=_GEN["cuda"], device="cuda")
+              for _ in range(2)]
+    state, _ = step(params, state, {"tokens": tokens[0]})
+    build.reset_launches()
+    with launch_count.count_launches() as dispatched:
+        state, metrics = step(params, state, {"tokens": tokens[1]})
+    torch.cuda.synchronize()
+    assert metrics["update_applied"]
+    assert dict(dispatched) == expected
+    assert {k: v for k, v in build.LAUNCHES.items() if v} == \
+        launch_count.kernel_launches(expected, chain_ns_steps(opt))
+
+
+def test_sharded_audit_on_the_card_is_clean(cuda_device):
+    """``audit_sharded`` at ``data=8`` on a fake process group with the two
+    steps of rank 0 on the card, per leaf and with ``shard_state``: clean,
+    one bf16 gradient and one loss all-reduce a step (plus the update
+    all-gather under ``shard_state``), the parameters written in place."""
+    from repro_torch.analysis import audit_sharded
+    from repro_torch.core import OptimizerConfig
+
+    for kw in ({}, {"fuse_families": True, "shard_state": True}):
+        rep = audit_sharded(OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=3,
+                                            **kw), mesh_axes=(("data", 8),), device="cuda")
+        assert rep.ok, [f.format() for f in rep.errors]
+        want = "3 [all_gather=1, all_reduce=2]" if kw else "2 [all_reduce=2]"
+        assert rep.summary["collectives"] == want
+        assert rep.summary["buffers"]["params_in_place"] == rep.summary["buffers"]["params"]

@@ -43,7 +43,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_the_scan_covers_every_subpackage():
     subpackages = {p.parent.name for p in PORT_FILES if p.name == "__init__.py"}
-    assert {"checkpoint", "core", "kernels", "models", "train", "launch"} <= subpackages
+    assert {"checkpoint", "core", "kernels", "models", "train", "launch",
+            "analysis"} <= subpackages
+    assert ROOT / "src" / "repro_torch" / "launch" / "roofline.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -123,8 +125,13 @@ def test_unported_knobs_raise(tmp_path):
     from repro_torch.core import build_optimizer
     from repro_torch.telemetry import MemorySink, Telemetry
 
-    with pytest.raises(NotImplementedError):
-        build_optimizer(OptimizerConfig(name="gum"), audit=True)
+    # ported since: audit=True lints the chain; a malformed one (its initial
+    # rank off the declared ladder) raises ChainLintError
+    from repro_torch.analysis import ChainLintError
+
+    with pytest.raises(ChainLintError, match="RC105"):
+        build_optimizer(OptimizerConfig(name="gum", rank=5, rank_ladder=(8, 16)), audit=True)
+    build_optimizer(OptimizerConfig(name="gum"), audit=True)
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, {"a": torch.zeros(2)})
     # ported since: restore(shardings=) takes the per-leaf rule

@@ -646,13 +646,29 @@ def test_cli_prints_the_reference_recoveries(tmp_path, monkeypatch, capsys):
                                    ["--telemetry", "every=2"], ["--events-out", "e.jsonl"],
                                    ["--profile-steps", "1:2"], ["--audit"]],
                          ids=lambda f: f[0])
-def test_cli_unported_flags_raise(tmp_path, flags, capsys):
+def test_cli_unported_flags_raise(tmp_path, flags, capsys, monkeypatch):
     args = ["--device", "cpu", "--arch", "llama-60m", "--smoke", "--steps", "1",
             "--ckpt-dir", str(tmp_path), *flags]
     if flags[0] == "--audit":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 6"):
-            cli.main(args)
-        assert not os.listdir(tmp_path)
+        # ported since: the static audit runs before step 0; a clean config
+        # trains, an error finding (here RC103: a chain whose scale_by_lr is
+        # not its last stage) exits 1 before anything is trained or saved
+        cli.main([*args, "--batch", "2", "--seq", "32", "--rank", "4"])
+        out = capsys.readouterr().out
+        assert "audit gum: clean" in out and "done: step=1" in out
+        from repro_torch.core import combinators as C
+        from repro_torch.core import factory
+
+        build = factory._build
+        monkeypatch.setattr(factory, "_build",
+                            lambda *a: C.chain(C.scale_by_lr(1e-3), build(*a)))
+        bad = tmp_path / "bad"
+        with pytest.raises(SystemExit) as exit_:
+            cli.main(["--device", "cpu", "--arch", "llama-60m", "--smoke", "--steps", "1",
+                      "--ckpt-dir", str(bad), "--audit"])
+        out = capsys.readouterr().out
+        assert exit_.value.code == 1 and "RC103 error" in out
+        assert "not training" in out and not bad.exists()
         return
     # ported since: the mesh runs one rank a process, started by torchrun
     # (tests/test_torch_distributed.py runs it); alone, each flag says how
