@@ -144,6 +144,16 @@ Phases, in order; any failure exits non-zero and prints no result:
                 (its two steps on the card), per leaf and family-stacked
                 with ``shard_state``: clean, wire bytes printed; phase 4's
                 model TFLOP/s (``model_flops`` over its steady median);
+  4k. bf16    — llama-130m stored in bf16 (``param_dtype``) with bf16
+                activations, fp32 optimizer state: GUM 6 steps with phase
+                4's dispatch and launch counts and rows 1–5's
+                instantiations (``build.VARIANTS``), a second ``Trainer``
+                resuming from the step-3 checkpoint bitwise equal to the
+                run, its step, tokens/s, refresh, peak and profiled groups
+                beside phase 4's; fused GaLore (weight decay 0.01) 4 steps,
+                every row-6 launch of its bf16-W instantiation; a 3-step
+                bf16-stored GUM run on llama-60m SMOKE on the card and on
+                the CPU, each leaf within 2^-8;
   6. serve    — llama-130m: prefill 8 x 1024 at attn_impl="pallas" (12
                 flash_attention launches) against "xla", then a
                 continuous-batching engine of 8 slots answering 16 requests,
@@ -152,7 +162,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                 against "xla" in fp32 and in bf16, then an engine of 4 slots
                 and 4 requests, one checked against direct decode (cut from
                 8 / 16 to keep the run under 1000 s; phase 12 checks a
-                reused Mamba slot);
+                reused Mamba slot; prompts of at most 64 tokens, as in
+                phases 8 and 12, to make room for phase 4k);
   8. serve    — the dense variants at their published widths, bf16
                 activations and fp32 parameters, one at a time on the card,
                 depth cut to a quarter to make room for phases 4i and 4j:
@@ -463,6 +474,19 @@ RANK128_CASES = dict(lu_shapes=[(12, 768, 128, 2048, "left", True, "r128"),
                      ns_shapes=[(12, 128, 2048, "momenta_r128")])
 
 
+EPI_SHAPES = [(24, 768, 256, 2048, "left", True, True),
+              (24, 768, 256, 2048, "left", False, False),
+              (48, 768, 256, 768, "left", False, False),
+              (12, 2048, 256, 768, "right", True, False),
+              (12, 2048, 256, 768, "right", False, False),
+              (2, 1000, 96, 1376, "left", True, False),
+              (2, 1376, 96, 1000, "right", True, False),
+              (2, 1000, 97, 1375, "left", True, False),
+              (2, 1000, 97, 1375, "right", False, False),
+              (4, 768, 4, 2048, "left", False, False),
+              (4, 2048, 4, 768, "right", True, False)]
+
+
 def kernel_cases(torch, gen, lu_shapes=None, bp_shapes=None, epi_shapes=None,
                  ns_shapes=None):
     """(kernel, label, kernel fn, plain fn, library fn, flops, bytes,
@@ -561,17 +585,7 @@ def kernel_cases(torch, gen, lu_shapes=None, bp_shapes=None, epi_shapes=None,
     scale, decay = -0.0025, -1e-4
     zero = torch.zeros(1, 1, 1, device="cuda")
     if epi_shapes is None:
-        epi_shapes = [(24, 768, 256, 2048, "left", True, True),
-                      (24, 768, 256, 2048, "left", False, False),
-                      (48, 768, 256, 768, "left", False, False),
-                      (12, 2048, 256, 768, "right", True, False),
-                      (12, 2048, 256, 768, "right", False, False),
-                      (2, 1000, 96, 1376, "left", True, False),
-                      (2, 1376, 96, 1000, "right", True, False),
-                      (2, 1000, 97, 1375, "left", True, False),
-                      (2, 1000, 97, 1375, "right", False, False),
-                      (4, 768, 4, 2048, "left", False, False),
-                      (4, 2048, 4, 768, "right", True, False)]
+        epi_shapes = EPI_SHAPES
     for L, m, r, n, side, with_w, principal in epi_shapes:
         p = randn(L, m if side == "left" else n, r)
         s = randn(*((L, r, n) if side == "left" else (L, m, r)))
@@ -587,6 +601,25 @@ def kernel_cases(torch, gen, lu_shapes=None, bp_shapes=None, epi_shapes=None,
                                                            beta=0.0 if w is None else decay,
                                                            alpha=scale)),
                       2.0 * L * m * n * r, nbytes, principal))
+    # ... and at the principal shape on a bf16-stored W (phase 4k's GaLore:
+    # the bf16 instantiation reads W as stored; P, S and out fp32), tagged
+    # "bf16_w", from a generator of its own (the other cases keep their
+    # inputs); the library call widens W first.
+    if epi_shapes is EPI_SHAPES:
+        L, m, r, n = 24, 768, 256, 2048
+        g6 = torch.Generator(device="cuda").manual_seed(6)
+        p, s, w = (torch.randn(*shape, generator=g6, device="cuda")
+                   for shape in ((L, m, r), (L, r, n), (L, m, n)))
+        w = w.to(torch.bfloat16)
+        cases.append(("back_project_epilogue", f"left P{tuple(p.shape)} S{tuple(s.shape)} "
+                      "W=bf16",
+                      (lambda p=p, s=s, w=w:
+                       fst.back_project_epilogue_batched(p, s, w, scale, decay)),
+                      (lambda p=p, s=s, w=w: ref.back_project_epilogue_ref(p, s, w, scale, decay)),
+                      (lambda p=p, s=s, w=w: torch.baddbmm(w.float(), p, s, beta=decay,
+                                                           alpha=scale)),
+                      2.0 * L * m * n * r, 4 * (L * m * r + L * r * n + L * m * n) + 2 * L * m * n,
+                      "bf16_w"))
 
     # gram / poly_apply: NS on the low-rank momenta (12, 256, n), on the
     # full slots (4, 768, n) and on Muon's full-rank momenta (12, 768, n);
@@ -812,6 +845,16 @@ def phase_kernels(torch):
         elif principal:
             row[principal] = found | {"max_abs_err": abs_err}
 
+    # Row 6's launches on a bf16 W ran its bf16 instantiation (the fifth
+    # template argument 1), every other launch the fp32 one.
+    epi = build.VARIANTS["back_project_epilogue"]
+    bf16_w = sorted(key for key in epi if key[4] == 1)
+    check(len(bf16_w) == 1 and all(len(key) == 5 for key in epi),
+          f"back_project_epilogue instantiations {epi}: want one with a bf16 W")
+    rows["back_project_epilogue"]["bf16_w"]["variant"] = list(bf16_w[0])
+    print(f"back_project_epilogue bf16 W instantiation {bf16_w[0]} ({epi[bf16_w[0]]} "
+          f"launches); fp32 W or none {sorted(key for key in epi if key[4] == 0)}", flush=True)
+
     # Dispatch level: both projection sides and the ragged shape, through the
     # same transposes and lead flattening the optimizer uses.
     def randn(*shape):
@@ -838,8 +881,14 @@ def phase_kernels(torch):
                                                         side=side, impl="cuda"),
                          -0.5 * back_project(p, st, side) - 0.01 * w)
         check(rel <= TOL_GEMM, f"dispatch back_project_epilogue {side} {(L, m, n)}: {rel:.3e}")
+        w16 = w.to(torch.bfloat16)  # a bf16-stored W reaches the kernel uncast
+        _, rel = rel_err(dispatch.back_project_epilogue(p, st, w=w16, scale=-0.5, decay=-0.01,
+                                                        side=side, impl="cuda"),
+                         -0.5 * back_project(p, st, side) - 0.01 * w16.float())
+        check(rel <= TOL_GEMM, f"dispatch back_project_epilogue bf16 W {side} {(L, m, n)}: "
+              f"{rel:.3e}")
         print(f"dispatch {side:5s} {(L, m, n)} r={r}: lowrank_update/project/back_project/"
-              f"back_project_epilogue ok", flush=True)
+              f"back_project_epilogue (fp32 and bf16 W) ok", flush=True)
 
     # The epilogue against the back-projection it replaces, at the mlp
     # family's shape (no W, as GaLore's weight decay 0 gives).
@@ -879,12 +928,17 @@ def scratch_dir(label: str):
         shutil.rmtree(path, ignore_errors=True)
 
 
-# Each training phase's refresh-step times (ms), by label, for phases 4f and
-# 4h, its steady median (ms), for phases 4g and 4h, and its losses, for
-# phase 4h.
+# Each training phase's refresh-step times (ms), by label, for phases 4f,
+# 4h and 4k, its steady median (ms), for phases 4g, 4h and 4k, its losses,
+# for phase 4h, and for phase 4k its peak memory (GiB), its profiled steady
+# step (print_groups' numbers) and its launches' instantiations
+# (build.VARIANTS).
 REFRESH_MS: dict[str, list[float]] = {}
 STEADY_MS: dict[str, float] = {}
 LOSSES: dict[str, list[float]] = {}
+PEAK_GIB: dict[str, float] = {}
+STEP_PROFILE: dict[str, dict] = {}
+PHASE_VARIANTS: dict[str, dict] = {}
 
 
 def llama130m_data():
@@ -896,25 +950,35 @@ def llama130m_data():
 
 
 def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
-                     want_launch: dict, microbatches: int = 1) -> tuple[dict, float]:
+                     want_launch: dict, microbatches: int = 1, *, steps: int = 6,
+                     model_changes: dict | None = None, ckpt_dir: str | None = None,
+                     ckpt_every: int = 0, after_train=None) -> tuple[dict, float]:
     """Pretrain llama-130m at full width and depth through the port's
-    ``Trainer`` (6 steps, batch 8 x 1024, period 3: refreshes at steps 1 and
-    4; ``microbatches`` slices of each batch), assert finite losses and the
-    per-step dispatch and kernel launch counts, print the step times and
-    peak memory, and profile one steady step.  Returns this phase's kernel
-    launches and the peak memory (GiB) of its 6 steps."""
+    ``Trainer`` (``steps`` steps, batch 8 x 1024, period 3: refreshes at
+    steps 1 and 4; ``microbatches`` slices of each batch; ``model_changes``
+    to its config, e.g. bf16 storage), assert finite losses and the per-step
+    dispatch and kernel launch counts, print the step times and peak memory,
+    and profile one steady step.  Checkpoints go to ``ckpt_dir`` (kept) or a
+    directory removed after, every ``ckpt_every`` steps (0: the config's);
+    ``after_train(trainer, result)`` runs before the profiled steps move the
+    parameters.  Records the launches' integer arguments and instantiations
+    under ``label`` (``PHASE_CALLS``, ``PHASE_VARIANTS``).  Returns this
+    phase's kernel launches and the peak memory (GiB) of its steps."""
     from repro_torch.configs import RunConfig
     from repro_torch.kernels import build, launch_count
     from repro_torch.models import build_model
     from repro_torch.train import Trainer
 
-    steps, period = 6, opt_cfg.period
+    period = opt_cfg.period
     cfg, data = llama130m_data()
+    cfg = cfg.replace(**(model_changes or {}))
     model = build_model(cfg, device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
-    with scratch_dir(label.replace(" ", "_")) as ckpt_dir:
+    keep = contextlib.nullcontext(ckpt_dir) if ckpt_dir else scratch_dir(label.replace(" ", "_"))
+    with keep as ckpt_dir:
         trainer = Trainer(model, opt_cfg,
-                          RunConfig(steps=steps, log_every=1, seed=0, ckpt_dir=ckpt_dir),
+                          RunConfig(steps=steps, log_every=1, seed=0, ckpt_dir=ckpt_dir,
+                                    **({"ckpt_every": ckpt_every} if ckpt_every else {})),
                           data, device="cuda", microbatches=microbatches)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -924,9 +988,14 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
             result = trainer.train()
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
+        PHASE_CALLS[label] = {k: dict(v) for k, v in build.CALLS.items()}
+        PHASE_VARIANTS[label] = {k: dict(v) for k, v in build.VARIANTS.items()}
+        if after_train is not None:
+            after_train(trainer, result)
 
     losses = result.losses
-    print(f"{label} llama-130m ({n_params / 1e6:.1f}M params) {opt_cfg.name} "
+    print(f"{label} llama-130m ({n_params / 1e6:.1f}M params, {cfg.param_dtype} stored, "
+          f"{cfg.dtype} activations) {opt_cfg.name} "
           f"r={opt_cfg.rank} period={period} microbatches={microbatches}: losses {losses}",
           flush=True)
     check(len(losses) == steps and all(math.isfinite(v) for v in losses),
@@ -948,6 +1017,7 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     STEADY_MS[label] = steady_ms
     LOSSES[label] = losses
     peak = torch.cuda.max_memory_allocated() / 2**30
+    PEAK_GIB[label] = peak
     print(f"{label} step ms: all {[round(t * 1e3, 3) for t in result.step_seconds]}; "
           f"steady median {steady_ms:.3f}; refresh steps {[round(t * 1e3, 3) for t in refresh]}; "
           f"tokens/s {tokens / (steady_ms / 1e3):.0f}; max_memory_allocated {peak:.3f} GiB",
@@ -2832,6 +2902,149 @@ def phase_audit(torch) -> dict:
     return dict(launches)
 
 
+# Phase 4k's storage: llama-130m's matrices (every leaf of two or more dims)
+# stored in bf16, as the reference's ModelConfig.param_dtype casts them, and
+# bf16 activations; the optimizer state stays fp32.
+BF16_STORAGE = dict(param_dtype="bfloat16", dtype="bfloat16")
+# 2^-8: the card against the CPU on bf16-stored parameters, each leaf by its
+# relative Frobenius distance.  Both devices round every update into bf16
+# (2^-9 relative at most, an ulp apart where their fp32 updates straddle a
+# rounding boundary) and their bf16 forwards round at other places; 2^-8 is
+# one bf16 rounding of the whole leaf, as TOL_FLASH_16 is of an output.
+TOL_BF16_LEAF = 2.0 ** -8
+
+
+def phase_bf16_train(torch) -> dict:
+    """Phase 4k: training on bf16-stored parameters (fp32 optimizer state).
+    llama-130m at full width with ``param_dtype="bfloat16"`` and bf16
+    activations, phase 4's recipe otherwise: (a) GUM, 6 steps, rows 1–5
+    launching 14 / 14 / 70 / 70 a step (phase 4's counts: the optimizer
+    casts each gradient to fp32 before any kernel, so rows 1–5 run the
+    instantiations phase 4 ran, read from ``build.VARIANTS``), a checkpoint
+    at step 3, and a second ``Trainer`` resuming from it (the step-6
+    checkpoint removed) that ends bitwise where the first run did; its
+    steady step, tokens/s, refresh steps, peak and profiled groups printed
+    beside phase 4's; (b) GaLore family-stacked with the fused epilogue, 4
+    steps, weight decay 0.01 (the epilogue reads W only with a decay; 0 is
+    phase 4b's published setting): row 6 launches 3 times a step, every
+    launch of its bf16-W instantiation; (c) a 3-step GUM ``Trainer`` on
+    bf16-stored llama-60m SMOKE on the card and on the CPU from the same
+    parameters: finite losses, every leaf within TOL_BF16_LEAF.  Returns
+    the launches of (a) and (b)."""
+    from repro_torch.configs import RunConfig, get_smoke
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.core.api import tree_map
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    label = "bf16"
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    first: dict = {}
+
+    def keep_final(trainer, result):
+        first["tree"] = tree_map(lambda x: x.detach().clone() if isinstance(x, torch.Tensor)
+                                 else x, (dict(trainer.model.params()), trainer.opt_state))
+        first["losses"] = result.losses
+        first["dtypes"] = sorted({str(p.dtype) for p in trainer.model.params().values()})
+
+    with scratch_dir("bf16_gum") as ckpt_dir:
+        got, _ = train_full_width(torch, f"{label} gum", OptimizerConfig(**GUM_130M),
+                                  GUM_DISPATCH, GUM_LAUNCH, model_changes=BF16_STORAGE,
+                                  ckpt_dir=ckpt_dir, ckpt_every=3, after_train=keep_final)
+        launches.update(got)
+        check(first["dtypes"] == ["torch.bfloat16", "torch.float32"],
+              f"{label}: parameter dtypes {first['dtypes']}")
+        rows15 = ("lowrank_update", "back_project", "gram", "poly_apply")
+        ran = {k: sorted(PHASE_VARIANTS[f"{label} gum"][k]) for k in rows15}
+        want = {k: sorted(PHASE_VARIANTS["slice"][k]) for k in rows15}
+        check(ran == want, f"{label}: rows 1-5 instantiations {ran} != phase 4's {want}")
+        print(f"{label} gum rows 1-5 instantiations (build.VARIANTS) equal phase 4's fp32 "
+              f"run's: {ran}", flush=True)
+
+        # the resume: step 3's checkpoint, step 6's removed
+        shutil.rmtree(os.path.join(ckpt_dir, "step_000000006"))
+        cfg, data = llama130m_data()
+        t0 = time.perf_counter()
+        resumed = Trainer(build_model(cfg.replace(**BF16_STORAGE), device="cuda"),
+                          OptimizerConfig(**GUM_130M),
+                          RunConfig(steps=6, ckpt_every=3, log_every=0, seed=0,
+                                    ckpt_dir=ckpt_dir), data, device="cuda")
+        result = resumed.train()
+        torch.cuda.synchronize()
+        diff = bitwise_diff(first["tree"], (dict(resumed.model.params()), resumed.opt_state))
+        check(result.resumed_from == 3 and result.losses == first["losses"][3:] and not diff,
+              f"{label}: resumed from {result.resumed_from}, losses {result.losses} vs "
+              f"{first['losses'][3:]}, leaves {diff[:8]}")
+        print(f"{label} gum resumed from step 3 to 6 ({time.perf_counter() - t0:.1f} s): "
+              f"losses and {len(flat_state(first['tree']))} leaves bitwise the "
+              f"uninterrupted run's", flush=True)
+        del resumed, first["tree"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    a, b = f"{label} gum", "slice"
+    pa, pb = STEP_PROFILE[a], STEP_PROFILE[b]
+    port = ", ".join(f"{k} {pa['groups'][k]:.3f} / {pb['groups'][k]:.3f}" for k in KERNEL_META
+                     if pa["groups"][k] or pb["groups"][k])
+    print(f"{label} gum against phase 4 (bf16-stored / fp32, this process): steady median "
+          f"{STEADY_MS[a]:.3f} / {STEADY_MS[b]:.3f} ms; tokens/s "
+          f"{8 * 1024 / STEADY_MS[a] * 1e3:.0f} / {8 * 1024 / STEADY_MS[b] * 1e3:.0f}; refresh "
+          f"steps {REFRESH_MS[a]} / {REFRESH_MS[b]}; peak {PEAK_GIB[a]:.3f} / {PEAK_GIB[b]:.3f} "
+          f"GiB; busy / wall (idle) {pa['busy']:.3f} / {pa['wall']:.3f} "
+          f"({1 - pa['busy'] / pa['wall']:.3f}) against {pb['busy']:.3f} / {pb['wall']:.3f} "
+          f"({1 - pb['busy'] / pb['wall']:.3f}); cuBLAS {pa['groups']['cuBLAS gemm']:.3f} / "
+          f"{pb['groups']['cuBLAS gemm']:.3f}, other {pa['groups']['other']:.3f} / "
+          f"{pb['groups']['other']:.3f}; port kernels {port}", flush=True)
+
+    # (b) fused GaLore: every row-6 launch reads the bf16 W stack
+    galore = f"{label} galore"
+    got, _ = train_full_width(
+        torch, galore,
+        OptimizerConfig(name="galore", lr=1e-2, rank=256, period=3, weight_decay=0.01,
+                        fuse_families=True, fused_epilogue=True),
+        GALORE_DISPATCH, GALORE_LAUNCH, steps=4, model_changes=BF16_STORAGE)
+    launches.update(got)
+    epi = PHASE_VARIANTS[galore]["back_project_epilogue"]
+    check(epi and all(key[4] == 1 for key in epi),
+          f"{galore}: row 6 instantiations {epi}, want the bf16-W one alone")
+    print(f"{galore}: row 6's {sum(epi.values())} launches all of its bf16-W instantiation "
+          f"{sorted(epi)}", flush=True)
+
+    # (c) the card against the CPU on bf16-stored llama-60m SMOKE
+    smoke = get_smoke("llama-60m").replace(param_dtype="bfloat16")
+    init = build_model(smoke, device="cpu")
+    init.init_params(0)
+    params = {k: v.detach() for k, v in init.params().items()}
+    out = {}
+    for device in ("cpu", "cuda"):
+        with scratch_dir("bf16_agree") as ckpt_dir:
+            before = build.LAUNCHES["lowrank_update"]
+            trainer = Trainer(build_model(smoke, device=device),
+                              OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2),
+                              RunConfig(steps=3, log_every=0, seed=0, ckpt_dir=ckpt_dir),
+                              DataConfig(vocab=smoke.vocab, seq_len=64, global_batch=2, seed=0),
+                              device=device, params=params)
+            losses = trainer.train().losses
+            check(all(math.isfinite(v) for v in losses), f"{label} agree {device}: {losses}")
+            check((build.LAUNCHES["lowrank_update"] > before) == (device == "cuda"),
+                  f"{label} agree {device}: lowrank_update launches {before} -> "
+                  f"{build.LAUNCHES['lowrank_update']}")
+            out[device] = (losses, {k: p.detach().cpu() for k, p in
+                                    trainer.model.params().items()})
+    dist = {k: float(torch.linalg.vector_norm((p.float() - out["cpu"][1][k].float()))
+                     / torch.linalg.vector_norm(out["cpu"][1][k].float()))
+            for k, p in out["cuda"][1].items()}
+    worst = max(dist, key=dist.get)
+    print(f"{label} agree llama-60m smoke gum: cuda {out['cuda'][0]} cpu {out['cpu'][0]}; "
+          f"worst leaf {worst} {dist[worst]:.3e} (tol {TOL_BF16_LEAF:.3e})", flush=True)
+    check(dist[worst] <= TOL_BF16_LEAF, f"{label} agree: {worst} at {dist[worst]:.3e}")
+    print(f"{label} phase 4k seconds {time.perf_counter() - t_phase:.1f}", flush=True)
+    return dict(launches)
+
+
 def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     """Device time of one steady step by kernel group (torch.profiler):
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
@@ -2853,7 +3066,8 @@ def profile_steady_step(torch, label: str, trainer, done: int) -> None:
         t0 = time.perf_counter()
         step(state)
         step_ms = (time.perf_counter() - t0) * 1e3
-    print_groups(f"{label} profiled steady step (step {done + 2})", prof, step_ms)
+    STEP_PROFILE[label] = print_groups(f"{label} profiled steady step (step {done + 2})", prof,
+                                       step_ms)
 
 
 # Idle host time at each end of a profiled window, so that a kernel's device
@@ -2880,10 +3094,10 @@ def profiled():
 GROUPS = {k: rf"(^|\W){k}_kernel" for k in KERNEL_META} | {"ssd_scan": r"(^|\W)ssd_\w*kernel"}
 
 
-def print_groups(label: str, prof, wall_ms: float) -> None:
+def print_groups(label: str, prof, wall_ms: float) -> dict:
     """Device time of a profiled window by group — each port kernel, the
     cuBLAS GEMMs, the rest — its busy time and its idle share against the
-    window's own host wall time."""
+    window's own host wall time; returns those (ms)."""
     from torch.autograd import DeviceType
 
     groups = dict.fromkeys(list(KERNEL_META) + ["cuBLAS gemm", "other"], 0.0)
@@ -2912,6 +3126,8 @@ def print_groups(label: str, prof, wall_ms: float) -> None:
     print(f"{label} device ms by group: {parts}; busy {busy_ms:.3f} of its {wall_ms:.3f} "
           f"wall ms (idle share {1 - busy_ms / wall_ms:.3f}); largest in other: {top}",
           flush=True)
+    return {"groups": {k: v / 1e3 for k, v in groups.items()}, "busy": busy_ms,
+            "wall": wall_ms}
 
 
 # --------------------------------------------------------------------- phases 6, 7
@@ -2997,7 +3213,7 @@ def set_vlm_gates(torch, model) -> list[float]:
 def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
                 direct_batch: int, *, slots: int = 8, requests: int = 16, checked: int = 2,
                 changes: dict | None = None, reference=None,
-                per_tick: dict | None = None) -> dict:
+                per_tick: dict | None = None, prompt_max: int = 256) -> dict:
     """Serve ``arch`` (its config with ``changes``: a depth cut, the
     parameter storage) at full width on the card, through the port's entry
     points: ``make_prefill_step`` at ``attn_impl="pallas"`` on ``batch`` x
@@ -3010,7 +3226,8 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
     in bf16 as :func:`check_low_precision_prefill` says, against
     ``reference`` where one is given), then, where the family decodes, a
     ``ServeEngine`` of ``slots`` slots answering ``requests`` seeded
-    requests (prompts of 16–256 tokens, 32 new tokens each) with exactly
+    requests (prompts of 16–``prompt_max`` tokens, 32 new tokens each; a
+    tick runs until the longest prompt is fed and decoded) with exactly
     ``per_tick`` kernel launches a tick (default none), ``checked`` of which
     — the second in a reused slot where slots are reused — must equal the
     direct greedy decode of that request alone
@@ -3045,7 +3262,7 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
     prefill = make_prefill_step(model)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
-               for n in rng.integers(16, 257, requests if decodes else 0)]
+               for n in rng.integers(16, prompt_max + 1, requests if decodes else 0)]
     gc.collect()  # an earlier phase's cycles would otherwise count in this peak
     torch.cuda.synchronize()
 
@@ -3397,7 +3614,14 @@ def phase_serve_mamba(torch) -> dict:
     batch size pick other cuBLAS kernels, which round differently and move
     near-tied bf16 logits."""
     return phase_serve(torch, "serve-mamba", "mamba2-370m", 4, 4096, 1e-4, direct_batch=4,
-                       slots=4, requests=4, checked=1)
+                       slots=4, requests=4, checked=1, prompt_max=SHORT_PROMPT_MAX)
+
+
+# The longest engine prompt of phases 7, 8 and 12, cut from 256 tokens to
+# make room for phase 4k: their engines tick until the longest prompt is fed
+# and 32 tokens are decoded (252 ticks before the cut), and each checked
+# request's direct decode as long again.
+SHORT_PROMPT_MAX = 64
 
 
 # The head dims flash attention pads D to (its instantiations).
@@ -3424,7 +3648,7 @@ def phase_serve_dense(torch) -> dict:
     for arch, (layers, slots, requests, checked) in DENSE_VARIANTS.items():
         got = phase_serve(torch, f"serve-{arch}", arch, 4, 2048, 1e-4,
                           direct_batch=slots, slots=slots, requests=requests, checked=checked,
-                          changes={"n_layers": layers})
+                          changes={"n_layers": layers}, prompt_max=SHORT_PROMPT_MAX)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
@@ -3554,7 +3778,7 @@ def phase_serve_zamba2(torch) -> dict:
           f"layers, the shared block {apps} times", flush=True)
     launches = phase_serve(torch, "serve-zamba2", "zamba2-1.2b", 4, 4096, 1e-4,
                            direct_batch=8, requests=ZAMBA2_REQUESTS,
-                           changes={"n_layers": ZAMBA2_LAYERS})
+                           changes={"n_layers": ZAMBA2_LAYERS}, prompt_max=SHORT_PROMPT_MAX)
     torch.cuda.empty_cache()
     return launches
 
@@ -3828,7 +4052,7 @@ PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_basel
           "accumulate": phase_accumulate, "resume": phase_resume,
           "rank-policy": phase_rank_policy, "resilience": phase_resilience,
           "telemetry": phase_telemetry, "distributed": phase_distributed,
-          "audit": phase_audit,
+          "audit": phase_audit, "bf16-train": phase_bf16_train,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
           "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick,
@@ -3855,7 +4079,9 @@ TAGGED = {("flash_attention", "bf16"): (tuple(f"serve-{a}" for a in DENSE_VARIAN
                                                      lambda key: not key[6] and key[1] > 1),
           ("flash_attention", "bf16_vision_decode"): (("serve-vision",),
                                                       lambda key: not key[6] and key[1] == 1),
-          ("flash_attention", "bf16_hubert"): (("serve-hubert",), every_launch)}
+          ("flash_attention", "bf16_hubert"): (("serve-hubert",), every_launch),
+          # back_project_epilogue's (L, m, r, n, right, w_bf16)
+          ("back_project_epilogue", "bf16_w"): (("bf16 galore",), lambda key: key[5] == 1)}
 # Shapes reported beside a row's principal one: rows 1-5 at rank 128.
 RANK_TAGS = ("r128", "r128_project", "momenta_r256", "momenta_r128")
 

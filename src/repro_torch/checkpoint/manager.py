@@ -28,7 +28,11 @@ does, so a parameter tree written by either package restores in the other.
 Leaves are visited in the tree's own order (dict insertion order: the
 port's ``{path: tensor}`` trees are already in the reference's leaf order).
 ``restore`` puts each leaf on the device and dtype of the template's leaf,
-and gives an int leaf back as a Python ``int``.
+and gives an int leaf back as a Python ``int``.  A bfloat16 leaf is written
+in the reference's layout (its 2-byte words under an ``'<V2'`` header,
+manifest dtype ``"bfloat16"``) and restored bit for bit, from either
+package's checkpoint; the reference's own restore cannot read it back
+(numpy has no cast from its void type).
 
 ``save(..., observer=...)`` calls ``observer(leaf_index, total)`` after each
 leaf is written (fault-injection kill hooks, progress).  With a telemetry
@@ -107,21 +111,51 @@ def _rebuild(like: PyTree, leaves) -> PyTree:
     return type(like)(vals)
 
 
-def _to_numpy(leaf) -> np.ndarray:
+# numpy has no bfloat16: a bf16 leaf's words travel as int16, are written
+# under the header the reference's (ml_dtypes) arrays get, and load back as
+# a 2-byte void type.
+_BF16 = "bfloat16"
+_BF16_DESCR = "<V2"
+
+
+def _to_numpy(leaf) -> tuple[np.ndarray, str]:
+    """A leaf's values on the host and its manifest dtype: a bfloat16
+    tensor's words as int16 with ``"bfloat16"``, a Python scalar as a 0-d
+    array."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError("bfloat16 leaves are not checkpointed (numpy has no bfloat16)")
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), _BF16
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
 
 
-def _from_numpy(arr: np.ndarray, ref):
+def _write_npy(path: str, arr: np.ndarray, dtype: str) -> None:
+    """``np.save``, with the reference's ``'<V2'`` header for bf16 words."""
+    if dtype != _BF16:
+        np.save(path, arr)
+        return
+    arr = np.ascontiguousarray(arr)
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    header["descr"] = _BF16_DESCR
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        f.write(arr.tobytes())
+
+
+def _from_numpy(arr: np.ndarray, ref, dtype: str = ""):
     """``arr`` as ``ref``'s kind of leaf: a tensor on its device and of its
-    dtype, or a Python scalar of its type."""
+    dtype, or a Python scalar of its type.  ``dtype`` is the manifest's:
+    ``"bfloat16"`` reads ``arr``'s 2-byte words as bfloat16, bit for bit."""
     if isinstance(ref, torch.Tensor):
         # (ascontiguousarray makes a 0-d array 1-d: reshape it back)
-        return torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape).to(
-            device=ref.device, dtype=ref.dtype)
+        if dtype == _BF16:
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.reshape(arr.shape).to(device=ref.device, dtype=ref.dtype)
     return type(ref)(arr.item())
 
 
@@ -187,11 +221,11 @@ class CheckpointManager:
         manifest = {"step": step, "treedef": f"{len(flat)} leaves", "extra": extra or {},
                     "leaves": []}
         for i, (path, leaf) in enumerate(flat):
-            arr = _to_numpy(leaf)
+            arr, dtype = _to_numpy(leaf)
             fname = f"arr_{i:05d}.shard0.npy"
-            np.save(os.path.join(tmp, fname), arr)
-            meta = {"id": i, "path": path, "shape": list(arr.shape),
-                    "dtype": str(arr.dtype), "shards": [fname]}
+            _write_npy(os.path.join(tmp, fname), arr, dtype)
+            meta = {"id": i, "path": path, "shape": list(arr.shape), "dtype": dtype,
+                    "shards": [fname]}
             if self.checksums:
                 meta["crc32"] = [_crc(arr)]
             manifest["leaves"].append(meta)
@@ -335,7 +369,7 @@ class CheckpointManager:
                             "migrate_opt_state)")
                 raise ValueError(f"{meta['path']}: saved shape {tuple(arr.shape)} != "
                                  f"target {tuple(_shape(ref))}{hint}")
-            out.append(_from_numpy(arr, ref))
+            out.append(_from_numpy(arr, ref, meta.get("dtype", "")))
         tree = _rebuild(like, iter(out))
         if shardings is not None:
             from repro_torch.sharding import zip_map

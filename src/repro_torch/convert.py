@@ -9,7 +9,10 @@ Decode caches keep the reference's nesting in both: flat ``{"k", "v"}`` or
 {"k", "v"}}`` and the vlm's ``{"self": {"k", "v"}, "xk", "xv"}``.
 Nothing here imports JAX: pass ``jax.device_get(tree)`` (or any nested
 dict of array-likes) in, and get nested numpy dicts out.  bfloat16 arrays
-(numpy's ``ml_dtypes`` bfloat16) become ``torch.bfloat16`` tensors.
+(numpy's ``ml_dtypes`` bfloat16) become ``torch.bfloat16`` tensors, and a
+``torch.bfloat16`` tensor comes back as its raw words in a ``uint16`` array
+(numpy has no bfloat16: ``.view(ml_dtypes.bfloat16)`` on the JAX side gives
+the values, bit for bit).
 """
 from __future__ import annotations
 
@@ -56,12 +59,15 @@ def cache_from_jax(cache: dict, device: Optional[str | torch.device] = "cpu") ->
 
 
 def params_to_numpy(params: dict[str, torch.Tensor]) -> dict:
-    """``{path: tensor}`` -> nested dict of numpy arrays (the JAX layout)."""
+    """``{path: tensor}`` -> nested dict of numpy arrays (the JAX layout;
+    a bfloat16 leaf as its ``uint16`` words)."""
     out: dict = {}
     for path, t in params.items():
         node = out
         *parents, leaf = path.split("/")
         for part in parents:
             node = node.setdefault(part, {})
-        node[leaf] = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        node[leaf] = (t.view(torch.int16).numpy().view(np.uint16)
+                      if t.dtype == torch.bfloat16 else t.numpy())
     return out

@@ -21,8 +21,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from repro_torch.core.adamw import adamw, sgdm
 from repro_torch.core.api import OptimizerConfig, Transform
 from repro_torch.core.combinators import Sampler
@@ -69,23 +67,7 @@ def build_optimizer(cfg: OptimizerConfig, rank_map: Optional[RankMap] = None, *,
                   if f.severity == "error"]
         if errors:
             raise ChainLintError(errors)
-    return Transform(_fp32_leaves(opt.init), opt.update)
-
-
-def _fp32_leaves(init):
-    """``init`` refusing 16-bit leaves: the reference keeps fp32 optimizer
-    states over bf16-stored parameters (``ModelConfig.param_dtype``), a path
-    the port does not run yet."""
-    def checked(params: dict):
-        low = sorted(k for k, p in params.items()
-                     if p.dtype in (torch.bfloat16, torch.float16))
-        if low:
-            raise NotImplementedError(
-                f"optimizer state over 16-bit parameters (ModelConfig.param_dtype) is not "
-                f"ported to the PyTorch package yet: {low}")
-        return init(params)
-
-    return checked
+    return opt
 
 
 def _build(cfg: OptimizerConfig, rank_map: Optional[RankMap], sampler: Optional[Sampler],

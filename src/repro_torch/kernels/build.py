@@ -40,7 +40,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "lowrank_update": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P, _P),
     "back_project": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "back_project_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "back_project_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P),
     "gram": (_P, _P, _I, _I, _I, _P, _P),
     "poly_apply": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P),

@@ -19,11 +19,19 @@
 //   right  P (n, r), S (m, r):  out(i, j) = sum_k S(i, k) P(j, k)
 // so the right side (mlp/w_out) needs no transpose of S, W or out.
 //
+// W is fp32, or bf16 when the parameters are stored in bf16
+// (ModelConfig.param_dtype="bfloat16", as the TPU kernel's body casts a W of
+// any dtype to fp32): the same GEMM, instantiated with a bf16 epilogue
+// operand that each thread widens to fp32 as it reads it, so no fp32 copy of
+// the W stack is made.  P, S and out stay fp32 (the TPU kernel's output is
+// fp32 too).  The instantiation is the fifth template argument reported
+// (0 fp32 W or none, 1 bf16 W).
+//
 // Bound on the H100: at llama-130m's mlp family, P (24, 768, 256),
 // S (24, 256, 2048) and W (24, 768, 2048) give 19.3 GFLOP on 371 MB: three
 // TF32 products per fp32 product over 495 TFLOP/s is 0.1171 ms, just above
 // the bytes' 0.1108 ms at 3.35 TB/s, so it sits near the ridge (bound by
-// operations).
+// operations).  A bf16 W moves 296 MB (0.088 ms): still bound by operations.
 #include <cuda_runtime.h>
 
 #include "tf32x3_gemm.cuh"
@@ -32,38 +40,50 @@ namespace {
 
 using namespace repro_torch::tc;
 
-template <int BM, int BN, bool B_KC, bool VEC>
+template <int BM, int BN, bool B_KC, bool VEC, typename WT>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) back_project_epilogue_kernel(Args p) {
-  gemm_tile<BM, BN, true, B_KC, VEC, false>(p);
+  gemm_tile<BM, BN, true, B_KC, VEC, false, WT>(p);
 }
 
-template <int BM, int BN, bool B_KC, bool VEC>
+template <int BM, int BN, bool B_KC, bool VEC, typename WT>
 int launch_tile(const Args& p, int L, int* variant, cudaStream_t stream) {
-  constexpr auto kernel = back_project_epilogue_kernel<BM, BN, B_KC, VEC>;
-  repro_torch::report_variant(variant, BM, BN, B_KC, VEC);
+  constexpr auto kernel = back_project_epilogue_kernel<BM, BN, B_KC, VEC, WT>;
+  repro_torch::report_variant(variant, BM, BN, B_KC, VEC, sizeof(WT) == 2);
   return launch<kernel, Tile<BM, BN, true, B_KC>>(p, L, stream);
 }
 
-template <bool B_KC, bool VEC>
+template <bool B_KC, bool VEC, typename WT>
 int launch_tiled(const Args& p, int L, int* variant, cudaStream_t stream) {
   switch (pick_tile(p, L)) {
-    case 64064: return launch_tile<64, 64, B_KC, VEC>(p, L, variant, stream);
-    case 64032: return launch_tile<64, 32, B_KC, VEC>(p, L, variant, stream);
-    default: return launch_tile<32, 32, B_KC, VEC>(p, L, variant, stream);
+    case 64064: return launch_tile<64, 64, B_KC, VEC, WT>(p, L, variant, stream);
+    case 64032: return launch_tile<64, 32, B_KC, VEC, WT>(p, L, variant, stream);
+    default: return launch_tile<32, 32, B_KC, VEC, WT>(p, L, variant, stream);
   }
+}
+
+template <typename WT>
+int launch_w(const Args& a, int right, int L, int* variant, cudaStream_t st) {
+  const bool vec = rows_aligned16(a);
+  if (right)
+    return vec ? launch_tiled<true, true, WT>(a, L, variant, st)
+               : launch_tiled<true, false, WT>(a, L, variant, st);
+  return vec ? launch_tiled<false, true, WT>(a, L, variant, st)
+             : launch_tiled<false, false, WT>(a, L, variant, st);
 }
 
 }  // namespace
 
 // left:  p (L, m, r), s (L, r, n);  right (right != 0):  p (L, n, r),
-// s (L, m, r);  w (L, m, n) or null, out (L, m, n).  All contiguous fp32 on
-// the device.  Returns cudaGetLastError() (0 on success): a refused launch
-// never runs, so the caller must check the code.
-extern "C" int back_project_epilogue(const float* p, const float* s, const float* w,
+// s (L, m, r);  w (L, m, n) or null, out (L, m, n).  All contiguous on the
+// device, fp32 but w, which is bf16 when w_bf16 is 1.  Returns
+// cudaGetLastError() (0 on success): a refused launch never runs, so the
+// caller must check the code.
+extern "C" int back_project_epilogue(const float* p, const float* s, const void* w,
                                      float* out, int L, int m, int r, int n,
-                                     int right, float scale, float decay,
+                                     int right, int w_bf16, float scale, float decay,
                                      int* variant, void* stream) {
-  if (L <= 0 || m <= 0 || r <= 0 || n <= 0 || (right != 0 && right != 1))
+  if (L <= 0 || m <= 0 || r <= 0 || n <= 0 || (right != 0 && right != 1) ||
+      (w_bf16 != 0 && w_bf16 != 1) || (w_bf16 && w == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.lda = r;
@@ -87,10 +107,8 @@ extern "C" int back_project_epilogue(const float* p, const float* s, const float
   a.K = r;
   a.alpha = scale;
   a.beta = decay;
-  set_out_vec(a);
-  const bool vec = rows_aligned16(a);
+  set_out_vec(a, w_bf16 ? 2 : 4);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (right)
-    return vec ? launch_tiled<true, true>(a, L, variant, st) : launch_tiled<true, false>(a, L, variant, st);
-  return vec ? launch_tiled<false, true>(a, L, variant, st) : launch_tiled<false, false>(a, L, variant, st);
+  if (w_bf16) return launch_w<__nv_bfloat16>(a, right, L, variant, st);
+  return launch_w<float>(a, right, L, variant, st);
 }

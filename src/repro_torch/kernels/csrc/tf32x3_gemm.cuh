@@ -4,7 +4,9 @@
 //
 //   C[l](i, j) = alpha * sum_k A[l](i, k) * B[l](k, j)  +  beta * D[l](i, j)
 //
-// over L members, with D optional.  A and B are read through one leading
+// over L members, with D optional and of type DT (fp32, or bf16 widened to
+// fp32 as it is read: back_project_epilogue.cu's bf16-stored W; the other
+// callers keep the fp32 default).  A and B are read through one leading
 // dimension each, in the caller's layout; the template flags say which of
 // their two axes is contiguous in memory:
 //   A_KC  true : A(i, k) = a[i * lda + k]     false : A(i, k) = a[k * lda + i]
@@ -55,6 +57,7 @@
 // and K are zero-filled in the copies and masked in the stores.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,7 +75,7 @@ constexpr int SMS = 132;       // H100 SXM
 struct Args {
   const float* a;  // A(i, k), layout by A_KC
   const float* b;  // B(k, j), layout by B_KC
-  const float* d;  // epilogue operand, (M, N) row-major like C; may be null
+  const void* d;   // epilogue operand of the kernel's DT, (M, N) row-major like C; may be null
   float* c;
   int M, N, K;
   int lda, ldb, ldc;
@@ -172,8 +175,19 @@ struct Tile {
   static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tile must hold whole mma tiles");
 };
 
+// The epilogue operand's entries as fp32: one, or two neighbours (8 bytes
+// of fp32, 4 of bf16).
+__device__ __forceinline__ float load_d(const float* d) { return *d; }
+__device__ __forceinline__ float load_d(const __nv_bfloat16* d) { return __bfloat162float(*d); }
+__device__ __forceinline__ float2 load_d2(const float* d) {
+  return *reinterpret_cast<const float2*>(d);
+}
+__device__ __forceinline__ float2 load_d2(const __nv_bfloat16* d) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d));
+}
+
 // The body of every kernel on the core: one block's output tile.
-template <int BM, int BN, bool A_KC, bool B_KC, bool VEC, bool SYM>
+template <int BM, int BN, bool A_KC, bool B_KC, bool VEC, bool SYM, typename DT = float>
 __device__ __forceinline__ void gemm_tile(const Args& p) {
   static_assert(!SYM || BM == BN, "the symmetric mode takes square tiles");
   using T = Tile<BM, BN, A_KC, B_KC>;
@@ -289,7 +303,7 @@ __device__ __forceinline__ void gemm_tile(const Args& p) {
   // Epilogue: C = alpha * acc + beta * D, masked at the ragged edges.  c0,
   // c1 lie at (g, 2t), (g, 2t+1); c2, c3 eight rows down.
   float* c = p.c + (size_t)l * p.c_batch;
-  const float* d = p.d ? p.d + (size_t)l * p.c_batch : nullptr;
+  const DT* d = p.d ? static_cast<const DT*>(p.d) + (size_t)l * p.c_batch : nullptr;
 #pragma unroll
   for (int i = 0; i < T::MT; ++i) {
 #pragma unroll
@@ -297,7 +311,7 @@ __device__ __forceinline__ void gemm_tile(const Args& p) {
       const int gi = m0 + wm0 + i * 16 + g + h * 8;
       if (gi >= p.M) continue;
       float* crow = c + (size_t)gi * p.ldc;
-      const float* drow = d ? d + (size_t)gi * p.ldc : nullptr;
+      const DT* drow = d ? d + (size_t)gi * p.ldc : nullptr;
 #pragma unroll
       for (int j = 0; j < T::NT; ++j) {
         const int gj = n0 + wn0 + j * 8 + 2 * t;
@@ -314,14 +328,14 @@ __device__ __forceinline__ void gemm_tile(const Args& p) {
           }
         } else if (p.out_vec && gj + 1 < p.N) {
           if (drow) {
-            const float2 dv = *reinterpret_cast<const float2*>(drow + gj);
+            const float2 dv = load_d2(drow + gj);
             o0 = fmaf(p.beta, dv.x, o0);
             o1 = fmaf(p.beta, dv.y, o1);
           }
           *reinterpret_cast<float2*>(crow + gj) = make_float2(o0, o1);
         } else {
-          if (gj < p.N) crow[gj] = drow ? fmaf(p.beta, drow[gj], o0) : o0;
-          if (gj + 1 < p.N) crow[gj + 1] = drow ? fmaf(p.beta, drow[gj + 1], o1) : o1;
+          if (gj < p.N) crow[gj] = drow ? fmaf(p.beta, load_d(drow + gj), o0) : o0;
+          if (gj + 1 < p.N) crow[gj + 1] = drow ? fmaf(p.beta, load_d(drow + gj + 1), o1) : o1;
         }
       }
     }
@@ -338,9 +352,10 @@ inline bool rows_aligned16(const Args& p) {
          p.ldb % 4 == 0 && p.b_batch % 4 == 0;
 }
 
-// Sets out_vec: C (and D) take 8-byte accesses.
-inline void set_out_vec(Args& p) {
-  p.out_vec = p.ldc % 2 == 0 && aligned(p.c, 8) && (!p.d || aligned(p.d, 8));
+// Sets out_vec: C takes 8-byte accesses and D two-entry ones (d_bytes the
+// size of D's entries: 4 for fp32, 2 for bf16).
+inline void set_out_vec(Args& p, int d_bytes = 4) {
+  p.out_vec = p.ldc % 2 == 0 && aligned(p.c, 8) && (!p.d || aligned(p.d, 2 * d_bytes));
 }
 
 inline long long blocks(const Args& p, int L, int bm, int bn) {

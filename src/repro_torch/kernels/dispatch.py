@@ -199,7 +199,8 @@ def back_project_epilogue(p, s, *, w=None, scale: float = 1.0, decay: float = 0.
     s) + decay·W`` in one launch (see :mod:`repro_torch.kernels.fused_step`):
     the materialization of ``combinators.PendingBack``, where scale carries
     -lr (and GaLore's alpha), decay -lr·wd and ``w`` the (family-stacked)
-    params.
+    params; a bf16 ``w`` (bf16-stored params) reaches the kernel as it is,
+    any other dtype as fp32.
 
     left  side: p (*lead, m, r), s (*lead, r, n), w (*lead, m, n) or None
     right side: p (*lead, n, r), s (*lead, m, r), w (*lead, m, n) or None
@@ -216,9 +217,11 @@ def back_project_epilogue(p, s, *, w=None, scale: float = 1.0, decay: float = 0.
             out = out + decay * _f32(w)
         return out
     lead = tuple(s.shape[:-2])
+    if w is not None and w.dtype != torch.bfloat16:  # bf16 W is read as stored
+        w = _f32(w)
     out = back_project_epilogue_batched(
         _flatten_lead(_f32(p)), _flatten_lead(_f32(s)),
-        None if w is None else _flatten_lead(_f32(w)), scale, decay, side=side)
+        None if w is None else _flatten_lead(w), scale, decay, side=side)
     return out.reshape(lead + tuple(out.shape[-2:]))
 
 

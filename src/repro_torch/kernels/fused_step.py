@@ -9,7 +9,9 @@ The wrapper runs the CUDA kernel (``csrc/back_project_epilogue.cu``) for
 CUDA tensors and the plain version in :mod:`repro_torch.kernels.ref` for CPU
 tensors — and takes the plain version for no other reason: on a CUDA tensor
 it launches the kernel or raises.  ``scale`` and ``decay`` are Python floats
-passed by value.  Both projection sides run natively, W and the output in
+passed by value.  P, S and the output are fp32; W is fp32, or bf16 (a
+bf16-stored parameter stack, read as it is stored and widened in the
+kernel's epilogue).  Both projection sides run natively, W and the output in
 their own ``(L, m, n)`` layout:
 
   left   p (L, m, r), s (L, r, n), w (L, m, n) or None -> scale·P S + decay·W
@@ -35,7 +37,9 @@ def back_project_epilogue_batched(
         if right:  # S Pᵀ is the left-side product with (S, Pᵀ) as (P, S)
             return ref.back_project_epilogue_ref(s, p.mT, w, scale, decay)
         return ref.back_project_epilogue_ref(p, s, w, scale, decay)
-    build.check_operands(s.device, p=p, s=s, w=w)
+    build.check_operands(s.device, p=p, s=s)
+    build.check_operands(s.device, dtypes=(torch.float32, torch.bfloat16), w=w)
+    w_bf16 = w is not None and w.dtype == torch.bfloat16
     L, r = p.shape[0], p.shape[-1]
     m, n = (s.shape[1], p.shape[1]) if right else (p.shape[1], s.shape[-1])
     want_s = (L, m, r) if right else (L, r, n)
@@ -45,5 +49,5 @@ def back_project_epilogue_batched(
     out = torch.empty((L, m, n), device=s.device, dtype=torch.float32)
     build.launch("back_project_epilogue", s.device, p.data_ptr(), s.data_ptr(),
                  None if w is None else w.data_ptr(), out.data_ptr(),
-                 L, m, r, n, int(right), float(scale), float(decay))
+                 L, m, r, n, int(right), int(w_bf16), float(scale), float(decay))
     return out

@@ -258,7 +258,8 @@ class _LM(nn.Module):
         if cfg.dtype not in ("float32", "bfloat16") or cfg.param_dtype not in ("float32",
                                                                               "bfloat16"):
             raise NotImplementedError(f"the {cfg.family} family takes fp32 or bf16 parameters "
-                                      "and fp32 or bf16 activations")
+                                      "and fp32 or bf16 activations (fp16 storage: ROADMAP "
+                                      "queue 1 item 2i)")
         ops.check_impl(cfg.attn_impl)
 
     def _init_norms(self, *groups: nn.Module) -> None:
@@ -461,7 +462,8 @@ class _MambaStack(_LM):
                                       "token embedding is ported")
         if cfg.param_dtype != "float32" or cfg.dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(f"the {cfg.family} family takes fp32 parameters and "
-                                      "fp32 or bf16 activations")
+                                      "fp32 or bf16 activations (bf16 storage: ROADMAP queue 1 "
+                                      "item 2)")
         ops.check_impl(cfg.attn_impl)
         self.cfg, self._device = cfg, device
         L, d = cfg.n_layers, cfg.d_model

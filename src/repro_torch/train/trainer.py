@@ -187,10 +187,10 @@ class Trainer:
         tensor}``, e.g. from :func:`repro_torch.convert.params_from_jax`) is
         the initial state; without it the model is initialised from
         ``run_cfg.seed``.  A resumed run takes its parameters and optimizer
-        state from the checkpoint instead.  A model whose parameters are
-        stored below fp32 (``ModelConfig.param_dtype``) raises: the
-        reference trains such leaves with fp32 optimizer states, which the
-        port does not yet.
+        state from the checkpoint instead.  A model whose matrices are
+        stored in bf16 (``ModelConfig.param_dtype="bfloat16"``) trains as
+        the reference's does: fp32 optimizer state, each update rounded
+        into the bf16 leaf.
 
         ``resilience`` turns on the health monitor and the recovery ladder:
         True or "" for defaults, a spec string ("ring=3,snapshot_every=5"),
@@ -214,11 +214,13 @@ class Trainer:
         group whose every rank builds the same ``Trainer``) makes this run
         one data-parallel rank over ``mesh.data_axis``; ``data_cfg`` is the
         whole run's.  A mesh axis other than that one larger than 1 raises: tensor and expert
-        parallelism are not ported."""
-        if model.cfg.param_dtype != "float32":
+        parallelism are not ported.  A mesh over bf16-stored parameters
+        raises: the reference reduces the bf16 gradients, the port's step
+        reduces in fp32 (ROADMAP queue 1 item 5h)."""
+        if mesh is not None and model.cfg.param_dtype != "float32":
             raise NotImplementedError(
-                f"training a model with ModelConfig.param_dtype={model.cfg.param_dtype!r} is "
-                "not ported to the PyTorch package yet (serving is)")
+                f"a mesh with ModelConfig.param_dtype={model.cfg.param_dtype!r}: data-parallel "
+                "training on 16-bit-stored parameters is not ported (ROADMAP queue 1 item 5h)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.opt_cfg = opt_cfg

@@ -183,6 +183,44 @@ def test_back_project_epilogue_kernel_matches_plain(cuda_device, L, m, r, n, sid
     assert build.LAUNCHES["back_project_epilogue"] == before + 3
 
 
+@pytest.mark.parametrize("L,m,r,n,side", EPILOGUE_SHAPES)
+def test_back_project_epilogue_bf16_w_matches_plain(cuda_device, L, m, r, n, side):
+    """Row 6 on a bf16-stored W (the bf16 instantiation, read as stored and
+    widened in the epilogue) against the plain version on the same W, with
+    W and without; the dispatcher hands the bf16 stack through uncast.
+    ``build.VARIANTS`` tells the instantiations apart (fifth argument 1 for
+    the bf16 W, 0 without W)."""
+    p = _randn(L, m if side == "left" else n, r)
+    s = _randn(*((L, r, n) if side == "left" else (L, m, r)))
+    w = _randn(L, m, n).to(torch.bfloat16)
+    a, b = (p, s) if side == "left" else (s, p.mT)
+    before = _variants()
+    for ww in (w, None):
+        got = back_project_epilogue_batched(p, s, ww, -0.0025, -2.5e-5, side=side)
+        assert got.dtype == torch.float32 and got.shape == (L, m, n)
+        assert _rel(got, ref.back_project_epilogue_ref(a, b, ww, -0.0025, -2.5e-5)) <= 1e-5
+    got = dispatch.back_project_epilogue(p, s, w=w, scale=-0.0025, decay=-2.5e-5,
+                                         side=side, impl="cuda")
+    assert _rel(got, ref.back_project_epilogue_ref(a, b, w, -0.0025, -2.5e-5)) <= 1e-5
+    new = _variants_since(before)
+    assert list(new) == ["back_project_epilogue"]
+    assert sorted((key[4], n) for key, n in new["back_project_epilogue"].items()) == \
+        [(0, 1), (1, 2)]
+
+
+def test_back_project_epilogue_refuses_other_16_bit_operands(cuda_device):
+    """Only W may be bf16: a bf16 P or S, or an fp16 W, raises before any
+    launch."""
+    p, s = _randn(2, 64, 8), _randn(2, 8, 32)
+    w = _randn(2, 64, 32).to(torch.bfloat16)
+    before = build.LAUNCHES["back_project_epilogue"]
+    for args in ((p.to(torch.bfloat16), s, w), (p, s.to(torch.bfloat16), w),
+                 (p, s, w.to(torch.float16)), (p.half(), s, None)):
+        with pytest.raises(TypeError):
+            back_project_epilogue_batched(*args, -1.0, 0.5)
+    assert build.LAUNCHES["back_project_epilogue"] == before
+
+
 # Branches of the back-projection kernels (csrc/back_project.cu and
 # csrc/back_project_epilogue.cu on csrc/tf32x3_gemm.cuh), each case (L, m, r,
 # n, side): out (L, m, n) = P S on the left, S Pᵀ on the right (B read
@@ -266,8 +304,9 @@ def test_back_project_kernels_launch_the_tile_their_query_names(cuda_device, L, 
     back_project_epilogue_batched(p, s, None, 1.0, 0.0, side=side)
     bm, bn = back_project_tile(L, m, r, n, side)
     want = (bm, bn, int(side == "right"), int(_bp_vec(r, n, side)))
+    # the epilogue's fifth argument: its W is fp32 (or absent), not bf16
     assert _variants_since(before) == {"back_project": {want: 1},
-                                       "back_project_epilogue": {want: 1}}
+                                       "back_project_epilogue": {want + (0,): 1}}
 
 
 class _AtenOps(TorchDispatchMode):

@@ -1,7 +1,7 @@
 """The port stands alone and never falls back quietly.
 
-* No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX or
-  the JAX package ``repro`` (an AST scan of every import).
+* No file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX,
+  the JAX package ``repro`` or ``ml_dtypes`` (an AST scan of every import).
 * The entry points run on CUDA unless told otherwise: without a CUDA device
   and without ``device="cpu"`` they raise.
 * A CUDA path asked for on a CPU tensor raises instead of taking the plain
@@ -50,7 +50,9 @@ def test_the_scan_covers_every_subpackage():
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    # ml_dtypes too: the card's machine has none (bf16 checkpoints and
+    # convert.py carry bf16 as its 2-byte words)
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 

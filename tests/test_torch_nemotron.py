@@ -21,9 +21,9 @@ reference's own initial parameters (carried across with
   logits of the same draws stored in fp32 (the rule of
   ``tests/test_torch_dense_variants.py``, bf16 being storage and
   activations here);
-* the bf16-stored init: each leaf is the fp32 init's draw, rounded;
-* training on bf16-stored parameters raises, in the ``Trainer`` and in an
-  optimizer's ``init``.
+* the bf16-stored init: each leaf is the fp32 init's draw, rounded.
+Training on bf16-stored parameters is held in
+``tests/test_torch_bf16_train.py``.
 
 fp32 tolerance: rtol 1e-4 with atol 1e-4 of each tensor's largest entry, as
 ``tests/test_torch_dense_variants.py``.  Gradients of bf16-stored leaves are
@@ -45,13 +45,10 @@ import torch
 from repro.configs import get_smoke as j_get_smoke
 from repro.launch.steps import make_prefill_step as j_make_prefill_step
 from repro.models import build_model as j_build_model
-from repro_torch.configs import RunConfig, get_config, get_smoke
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.convert import cache_from_jax, params_from_jax
-from repro_torch.core import OptimizerConfig, build_optimizer
-from repro_torch.data import DataConfig
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import build_model, lm_loss
-from repro_torch.train import Trainer
 from torch_threads import _one_thread  # noqa: F401  (autouse)
 
 
@@ -229,19 +226,3 @@ def test_bf16_storage_init_is_the_fp32_draw_rounded():
     for (path, a), b in zip(fp32.params().items(), low.params().values()):
         assert b.dtype == (torch.bfloat16 if a.dim() >= 2 else torch.float32), path
         assert torch.equal(a.to(b.dtype), b), path
-
-
-def test_training_bf16_storage_raises(tmp_path):
-    cfg = get_smoke(ARCH).replace(param_dtype="bfloat16")
-    opt = OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2)
-    with pytest.raises(NotImplementedError, match="param_dtype"):
-        Trainer(build_model(cfg, device="cpu"), opt,
-                RunConfig(steps=1, log_every=0, seed=0, ckpt_dir=str(tmp_path)),
-                DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2, seed=0),
-                device="cpu")
-    model = build_model(cfg, device="cpu")
-    model.init_params(0)
-    params = {k: p.detach() for k, p in model.params().items()}
-    for name in ("gum", "adamw", "muon"):
-        with pytest.raises(NotImplementedError, match="param_dtype"):
-            build_optimizer(OptimizerConfig(name=name, lr=1e-3, rank=4)).init(params)
