@@ -474,6 +474,17 @@ RANK128_CASES = dict(lu_shapes=[(12, 768, 128, 2048, "left", True, "r128"),
                      ns_shapes=[(12, 128, 2048, "momenta_r128")])
 
 
+# Rows 1-5 at phase 4l's shapes, mamba2-370m's ssm_in (n = 4384, which the
+# 64-wide tiles cover raggedly): the momentum update and its back-projection
+# over the 48 layers, the projection of the 4 sampled blocks, Newton-Schulz
+# on the low-rank momenta (48, 256, 4384) and on the full-rank slots
+# (4, 1024, 4384); reported beside each row's principal shape.
+SSM_CASES = dict(lu_shapes=[(48, 1024, 256, 4384, "left", True, "ssm"),
+                            (4, 1024, 256, 4384, "left", False, "ssm_project")],
+                 bp_shapes=[(48, 1024, 256, 4384, "left", "ssm")], epi_shapes=[],
+                 ns_shapes=[(48, 256, 4384, "ssm"), (4, 1024, 4384, "ssm_full")])
+
+
 EPI_SHAPES = [(24, 768, 256, 2048, "left", True, True),
               (24, 768, 256, 2048, "left", False, False),
               (48, 768, 256, 768, "left", False, False),
@@ -817,6 +828,8 @@ def phase_kernels(torch):
     cases += serving_kernel_cases(torch, gen)
     gen128 = torch.Generator(device="cuda").manual_seed(128)
     cases += [case + (TOL_GEMM,) for case in kernel_cases(torch, gen128, **RANK128_CASES)]
+    gen_ssm = torch.Generator(device="cuda").manual_seed(4384)
+    cases += [case + (TOL_GEMM,) for case in kernel_cases(torch, gen_ssm, **SSM_CASES)]
     for name, label, kfn, pfn, lfn, flops, nbytes, principal, tol, *tf32 in cases:
         out, want = kfn(), UNROUNDED.get(id(pfn), pfn)()
         torch.cuda.synchronize()
@@ -929,9 +942,10 @@ def scratch_dir(label: str):
 
 
 # Each training phase's refresh-step times (ms), by label, for phases 4f,
-# 4h and 4k, its steady median (ms), for phases 4g, 4h and 4k, its losses,
-# for phase 4h, and for phase 4k its peak memory (GiB), its profiled steady
-# step (print_groups' numbers) and its launches' instantiations
+# 4h, 4k and 4l, its steady median (ms), for phases 4g, 4h, 4k and 4l, its
+# losses, for phase 4h, and for phases 4k and 4l its peak memory (GiB), its
+# profiled steady step (print_groups' numbers, with that step's dispatch
+# counts and kernel launches) and its launches' instantiations
 # (build.VARIANTS).
 REFRESH_MS: dict[str, list[float]] = {}
 STEADY_MS: dict[str, float] = {}
@@ -941,22 +955,26 @@ STEP_PROFILE: dict[str, dict] = {}
 PHASE_VARIANTS: dict[str, dict] = {}
 
 
-def llama130m_data():
+def full_width_data(arch: str = "llama-130m", batch: int = 8, seq: int = 1024):
+    """An arch's full config and the synthetic stream of ``batch`` x ``seq``
+    tokens a step (llama-130m's 8 x 1024 by default)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig
 
-    cfg = get_config("llama-130m")
-    return cfg, DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=0)
+    cfg = get_config(arch)
+    return cfg, DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)
 
 
 def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
                      want_launch: dict, microbatches: int = 1, *, steps: int = 6,
                      model_changes: dict | None = None, ckpt_dir: str | None = None,
-                     ckpt_every: int = 0, after_train=None) -> tuple[dict, float]:
-    """Pretrain llama-130m at full width and depth through the port's
-    ``Trainer`` (``steps`` steps, batch 8 x 1024, period 3: refreshes at
-    steps 1 and 4; ``microbatches`` slices of each batch; ``model_changes``
-    to its config, e.g. bf16 storage), assert finite losses and the per-step
+                     ckpt_every: int = 0, after_train=None,
+                     data: tuple = ("llama-130m", 8, 1024)) -> tuple[dict, float]:
+    """Pretrain ``data``'s arch (llama-130m by default) at full width and
+    depth through the port's ``Trainer`` (``steps`` steps of ``data``'s
+    batch x sequence, 8 x 1024 by default, period 3: refreshes at steps 1
+    and 4; ``microbatches`` slices of each batch; ``model_changes`` to its
+    config, e.g. bf16 storage), assert finite losses and the per-step
     dispatch and kernel launch counts, print the step times and peak memory,
     and profile one steady step.  Checkpoints go to ``ckpt_dir`` (kept) or a
     directory removed after, every ``ckpt_every`` steps (0: the config's);
@@ -970,7 +988,7 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     from repro_torch.train import Trainer
 
     period = opt_cfg.period
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data(*data)
     cfg = cfg.replace(**(model_changes or {}))
     model = build_model(cfg, device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
@@ -994,7 +1012,7 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
             after_train(trainer, result)
 
     losses = result.losses
-    print(f"{label} llama-130m ({n_params / 1e6:.1f}M params, {cfg.param_dtype} stored, "
+    print(f"{label} {cfg.name} ({n_params / 1e6:.1f}M params, {cfg.param_dtype} stored, "
           f"{cfg.dtype} activations) {opt_cfg.name} "
           f"r={opt_cfg.rank} period={period} microbatches={microbatches}: losses {losses}",
           flush=True)
@@ -1009,7 +1027,7 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     print(f"{label} dispatch per step {want_dispatch}; kernel launches per step "
           f"{want_launch}", flush=True)
 
-    tokens = 8 * 1024
+    tokens = data.global_batch * data.seq_len
     steady = [t for i, t in enumerate(result.step_seconds) if i % period]
     refresh = [t for i, t in enumerate(result.step_seconds) if i % period == 0]
     steady_ms = statistics.median(steady) * 1e3
@@ -1158,18 +1176,25 @@ def accum_counts(microbatches: int, leaves: int, units: int) -> tuple[dict, dict
     return dispatch, launch
 
 
+# Phase 4c's steps a baseline: one refresh and two steady steps (cut from 6,
+# two periods, to make room for phase 4l; the profiled steady step follows a
+# second refresh either way).
+BASELINE_STEPS = 3
+
+
 def phase_baselines(torch) -> dict:
-    """Each of :data:`BASELINES` through :func:`train_full_width`, then the
-    projector refresh alone (the 7 hidden leaves of llama-130m, rank 256)
-    for each kind, and the default noise's host draw and its copy to the
-    card, which the random kinds pay once a period."""
+    """Each of :data:`BASELINES` through :func:`train_full_width`
+    (BASELINE_STEPS steps), then the projector refresh alone (the 7 hidden
+    leaves of llama-130m, rank 256, two timed calls after one warm-up) for
+    each kind, and the default noise's host draw and its copy to the card,
+    which the random kinds pay once a period."""
     from repro_torch.core import OptimizerConfig
     from repro_torch.core.lowrank_common import compute_projectors, generator_noise
 
     launches: dict = {}
     for label, kw, want_dispatch, want_launch in BASELINES:
         got, _ = train_full_width(torch, f"baseline {label}", OptimizerConfig(**kw),
-                               want_dispatch, want_launch)
+                                  want_dispatch, want_launch, steps=BASELINE_STEPS)
         launches = {k: launches.get(k, 0) + got.get(k, 0) for k in set(launches) | set(got)}
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1186,7 +1211,7 @@ def phase_baselines(torch) -> dict:
             side = "left" if g.shape[1] <= g.shape[2] else "right"
             key = (0, 1, i)
             refresh += time_ms(lambda g=g, side=side, key=key: compute_projectors(
-                kind, g, 256, side, key=key), iters=3, warmup=1)
+                kind, g, 256, side, key=key), iters=2, warmup=1)
             if kind in draws:
                 dist, tail = draws[kind]
                 shape = (12,) + tail(*sorted(g.shape[1:]))  # (short side, long side)
@@ -1316,7 +1341,7 @@ def projected_accumulation(torch, full_peak: float) -> dict:
     from repro_torch.launch.steps import loss_and_grads, make_train_step
     from repro_torch.models import build_model
 
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     model = build_model(cfg, device="cuda")
     model.init_params(0)
     opt = {k: v for k, v in GUM_130M.items() if k != "name"}
@@ -1444,7 +1469,7 @@ def phase_accumulate(torch) -> dict:
     from repro_torch.data import build_stream
     from repro_torch.models import build_model
 
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     model = build_model(cfg, device="cuda")
     model.init_params(0)
     batch = {"tokens": torch.from_numpy(build_stream(data).batch_at(0)).to("cuda")}
@@ -1510,7 +1535,7 @@ def phase_resume(torch) -> dict:
     from repro_torch.models import build_model
     from repro_torch.train import Trainer
 
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     init = build_model(cfg, device="cuda")
     init.init_params(0)
     params0 = {k: v.detach().clone() for k, v in init.params().items()}
@@ -1838,7 +1863,7 @@ def policy_trainer(torch, params0: dict, dispatched: dict) -> None:
     from repro_torch.core import OptimizerConfig, RankMap
     from repro_torch.models import build_model
 
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     opt_cfg = OptimizerConfig(**GUM_130M, rank_policy=POLICY_STEPWISE)
     Recording = policy_trainer_class(torch)
 
@@ -1991,7 +2016,7 @@ def spectral_trainer(torch, params0: dict, dispatched: dict) -> None:
     from repro_torch.core import OptimizerConfig, find_lowrank_states, gather_probes
     from repro_torch.models import build_model
 
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     opt_cfg = OptimizerConfig(**GUM_130M, **POLICY_SPECTRAL)
     Recording = policy_trainer_class(torch)
     with scratch_dir("spectral") as ckpt_dir:
@@ -2044,7 +2069,7 @@ def phase_rank_policy(torch) -> dict:
     from repro_torch.kernels import build, launch_count
     from repro_torch.models import build_model
 
-    cfg, _ = llama130m_data()
+    cfg, _ = full_width_data()
     init = build_model(cfg, device="cuda")
     init.init_params(0)
     params0 = {k: v.detach().clone() for k, v in init.params().items()}
@@ -2103,7 +2128,7 @@ def resilient_run(torch, label: str, opt: dict, steps: int, want_dispatch: dict,
     from repro_torch.models import build_model
     from repro_torch.train import Trainer
 
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     with scratch_dir(label.replace(" ", "_")) as ckpt_dir:
         trainer = Trainer(build_model(cfg, device="cuda"), OptimizerConfig(**opt),
                           RunConfig(steps=steps, log_every=1, seed=0, ckpt_dir=ckpt_dir),
@@ -2183,7 +2208,7 @@ def extra_metrics_cost(torch, trainer, done: int) -> None:
     params, state = trainer.model.params(), trainer.opt_state
     state, _ = trainer.step_fn(params, state, {"tokens": torch.from_numpy(next(stream)).cuda()})
     torch.cuda.synchronize()
-    with profiled() as prof:
+    with profiled(host=True) as prof:
         t0 = time.perf_counter()
         trainer.step_fn(params, state, {"tokens": torch.from_numpy(next(stream)).cuda()})
         torch.cuda.synchronize()
@@ -2403,7 +2428,7 @@ def phase_telemetry(torch) -> dict:
     from repro_torch.models import build_model
 
     steps, label = 6, "telemetry"
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     with scratch_dir(label) as ckpt_dir:
         build.reset_launches()
         with launch_count.count_launches() as dispatched:
@@ -2501,7 +2526,7 @@ def distributed_rank(mesh, inputs: dict) -> dict:
     out, replicated = {}, None
     for shard in (False, True):
         label = "shard" if shard else "replicated"
-        cfg, data = llama130m_data()
+        cfg, data = full_width_data()
         model = build_model(cfg, device="cuda")
         opt_cfg = OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3,
                                   fuse_families=True, shard_state=shard)
@@ -2596,7 +2621,7 @@ def nccl_step(torch) -> dict:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model
 
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     opt = build_optimizer(OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3,
                                           fuse_families=True))
     batch = {"tokens": torch.from_numpy(build_stream(data).batch_at(0)).to("cuda")}
@@ -2657,7 +2682,7 @@ def one_process_run(torch) -> tuple[list, str]:
     from repro_torch.models import build_model
     from repro_torch.train import Trainer
 
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     with scratch_dir("distributed_twin") as d:
         trainer = Trainer(build_model(cfg, device="cuda"),
                           OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3,
@@ -2797,7 +2822,7 @@ def phase_audit(torch) -> dict:
 
     label = "audit"
     t_phase = time.perf_counter()
-    cfg, data = llama130m_data()
+    cfg, data = full_width_data()
     opt_cfg = OptimizerConfig(**GUM_130M)
     meta = build_model(cfg, device="meta").params()
 
@@ -2928,14 +2953,12 @@ def phase_bf16_train(torch) -> dict:
     steps, weight decay 0.01 (the epilogue reads W only with a decay; 0 is
     phase 4b's published setting): row 6 launches 3 times a step, every
     launch of its bf16-W instantiation; (c) a 3-step GUM ``Trainer`` on
-    bf16-stored llama-60m SMOKE on the card and on the CPU from the same
-    parameters: finite losses, every leaf within TOL_BF16_LEAF.  Returns
-    the launches of (a) and (b)."""
-    from repro_torch.configs import RunConfig, get_smoke
+    the bf16-stored SMOKE of llama-60m, mamba2-370m and zamba2-1.2b on the
+    card and on the CPU (:func:`bf16_agree`).  Returns the launches of (a)
+    and (b)."""
+    from repro_torch.configs import RunConfig
     from repro_torch.core import OptimizerConfig
     from repro_torch.core.api import tree_map
-    from repro_torch.data import DataConfig
-    from repro_torch.kernels import build
     from repro_torch.models import build_model
     from repro_torch.train import Trainer
 
@@ -2966,7 +2989,7 @@ def phase_bf16_train(torch) -> dict:
 
         # the resume: step 3's checkpoint, step 6's removed
         shutil.rmtree(os.path.join(ckpt_dir, "step_000000006"))
-        cfg, data = llama130m_data()
+        cfg, data = full_width_data()
         t0 = time.perf_counter()
         resumed = Trainer(build_model(cfg.replace(**BF16_STORAGE), device="cuda"),
                           OptimizerConfig(**GUM_130M),
@@ -3013,8 +3036,157 @@ def phase_bf16_train(torch) -> dict:
     print(f"{galore}: row 6's {sum(epi.values())} launches all of its bf16-W instantiation "
           f"{sorted(epi)}", flush=True)
 
-    # (c) the card against the CPU on bf16-stored llama-60m SMOKE
-    smoke = get_smoke("llama-60m").replace(param_dtype="bfloat16")
+    # (c) the card against the CPU on bf16-stored SMOKE models
+    for arch in BF16_AGREE:
+        bf16_agree(torch, label, arch)
+    print(f"{label} phase 4k seconds {time.perf_counter() - t_phase:.1f}", flush=True)
+    return dict(launches)
+
+
+# Phase 4l: mamba2-370m trained at full width and depth (48 layers, d 1024,
+# ssm_in (1024, 4384), ssm_out (2048, 1024)), stored in bf16 with bf16
+# activations, remat on (the config's), 4 x 2048 tokens a step.
+SSM_TRAIN = ("mamba2-370m", 4, 2048)
+
+
+def phase_ssm_train(torch) -> dict:
+    """Phase 4l: the first full-width training of an ssm model.  GUM (phase
+    4's rank 256, gamma 4, period 3) for 6 steps through the ``Trainer`` on
+    SSM_TRAIN, bf16-stored; the SSD runs its plain chunked autograd at
+    "xla" (the scan kernel is forward-only, as the reference's), rows 1-5
+    on ``ssm_in`` (the left projection, n = 4384: ragged 64-wide tiles) and
+    ``ssm_out`` (the right).  Finite losses; the optimizer state all fp32;
+    the per-step dispatch counts and one profiled steady step's equal to
+    ``expected_launches`` of the model's tree, rows 1-5's CUDA launches to
+    those counts times each op's kernels per call (as phase 4j holds
+    them); rows 1-5 launched at n = 4384, their instantiations printed from
+    ``build.VARIANTS``.  Prints phase 4's metrics for the run and the plain
+    SSD's share of the steady step's device time: its forward and forward +
+    backward alone at one layer's shapes, each profiled (device time, not
+    the host's: the plain SSD is many small ops), times 48 layers (remat
+    runs each forward twice).  Returns the phase's kernel launches."""
+    from repro_torch.analysis import expected_launches
+    from repro_torch.analysis.launch_model import chain_ns_steps
+    from repro_torch.core import OptimizerConfig, build_optimizer
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.kernels import launch_count, ops
+    from repro_torch.models import build_model
+    from repro_torch.models.mamba2 import dims
+
+    label = "ssm train"
+    t_phase = time.perf_counter()
+    cfg, data = full_width_data(*SSM_TRAIN)
+    cfg = cfg.replace(**BF16_STORAGE)
+    opt_cfg = OptimizerConfig(**GUM_130M)
+    transform = build_optimizer(opt_cfg)
+    expected, unmodeled = expected_launches(transform, build_model(cfg, device="meta").params())
+    check(not unmodeled, f"{label}: the launch model cannot account for {unmodeled}")
+    want_launch = launch_count.kernel_launches(expected, chain_ns_steps(transform))
+    print(f"{label} on {smi_line()}: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{data.global_batch} x {data.seq_len} tokens a step; expected_launches "
+          f"{expected}, rows 1-5 launches {want_launch}", flush=True)
+    state_dtypes: set = set()
+
+    def keep_dtypes(trainer, result):
+        state_dtypes.update(str(x.dtype) for x in tree_leaves(trainer.opt_state)
+                            if isinstance(x, torch.Tensor) and x.is_floating_point())
+
+    launches, _ = train_full_width(torch, label, opt_cfg, expected, want_launch,
+                                   model_changes=BF16_STORAGE, after_train=keep_dtypes,
+                                   data=SSM_TRAIN)
+    check(state_dtypes == {"torch.float32"}, f"{label}: optimizer state dtypes {state_dtypes}")
+    prof = STEP_PROFILE[label]
+    check(prof["dispatched"] == expected and prof["launches"] == want_launch,
+          f"{label}: the steady step dispatched {prof['dispatched']}, launched "
+          f"{prof['launches']}; expected {expected}, {want_launch}")
+    calls = PHASE_CALLS[label]
+    wide = {k: sum(n for key, n in calls[k].items() if 4384 in key) for k in GUM_KERNELS}
+    check(all(wide.values()), f"{label}: rows 1-5 launches at n = 4384 {wide}")
+    print(f"{label}: optimizer state {sorted(state_dtypes)}; the profiled steady step "
+          f"dispatched {prof['dispatched']} and launched {prof['launches']} (equal to "
+          f"expected_launches); launches at n = 4384 over the 6 steps {wide}; rows 1-5 "
+          f"instantiations (build.VARIANTS) {({k: PHASE_VARIANTS[label][k] for k in GUM_KERNELS})}; "
+          f"integer arguments (build.CALLS) {({k: calls[k] for k in GUM_KERNELS})}", flush=True)
+
+    # The plain SSD alone at one layer's shapes, bf16 x as the layer gives it.
+    _, H, N, _ = dims(cfg)
+    B, S, P = data.global_batch, data.seq_len, cfg.ssm_headdim
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def leaf(*shape, scale=1.0, dtype=torch.float32):
+        t = scale * torch.randn(*shape, generator=gen, device="cuda")
+        return t.to(dtype).requires_grad_()
+
+    x = leaf(B, S, H, P, dtype=torch.bfloat16)
+    dt = torch.nn.functional.softplus(leaf(B, S, H) - 4.0).detach().requires_grad_()
+    a = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device="cuda"))).bfloat16()
+    b, c = leaf(B, S, N, scale=0.1), leaf(B, S, N, scale=0.1)
+    skip = torch.ones(H, device="cuda", dtype=torch.bfloat16)
+
+    def ssd():
+        return ops.ssd(x, dt, a, b, c, skip, chunk=cfg.ssm_chunk, impl="xla")[0]
+
+    def busy_ms(what: str, grad: bool) -> float:
+        """Device ms of one call of the plain SSD (after one warm call)."""
+        def call():
+            if grad:
+                torch.autograd.grad(ssd().float().sum(), (x, dt, b, c))
+            else:
+                with torch.no_grad():
+                    ssd()
+            torch.cuda.synchronize()
+
+        call()
+        with profiled() as ssd_prof:
+            t0 = time.perf_counter()
+            call()
+            wall = (time.perf_counter() - t0) * 1e3
+        return print_groups(f"{label} plain SSD alone, {what}", ssd_prof, wall)["busy"]
+
+    fwd_ms, fb_ms = busy_ms("forward", False), busy_ms("forward + backward", True)
+    ssd_ms = cfg.n_layers * (fwd_ms + fb_ms)
+    print(f"{label} plain SSD at one layer's shapes x ({B}, {S}, {H}, {P}) bf16, N {N}, chunk "
+          f"{cfg.ssm_chunk}: device ms forward {fwd_ms:.3f}, forward + backward {fb_ms:.3f}; "
+          f"{cfg.n_layers} layers x (forward + recompute + backward) {ssd_ms:.3f} ms against "
+          f"the profiled steady step's busy {prof['busy']:.3f} ms (share "
+          f"{ssd_ms / prof['busy']:.3f})", flush=True)
+    del x, dt, b, c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    groups = prof["groups"]
+    port = ", ".join(f"{k} {groups[k]:.3f}" for k in KERNEL_META if groups[k])
+    tokens = data.global_batch * data.seq_len
+    print(f"{label} {cfg.name} GUM bf16-stored (phase 4's metrics): steady median "
+          f"{STEADY_MS[label]:.3f} ms; tokens/s {tokens / STEADY_MS[label] * 1e3:.0f}; refresh "
+          f"steps {REFRESH_MS[label]}; peak {PEAK_GIB[label]:.3f} GiB; busy / wall (idle) "
+          f"{prof['busy']:.3f} / {prof['wall']:.3f} ({1 - prof['busy'] / prof['wall']:.3f}; "
+          f"against the unprofiled steady median {1 - prof['busy'] / STEADY_MS[label]:.3f}); "
+          f"cuBLAS {groups['cuBLAS gemm']:.3f}, other {groups['other']:.3f}; port kernels "
+          f"{port}; plain SSD share {ssd_ms / prof['busy']:.3f}; phase 4l seconds "
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
+# Phase 4k (c): the SMOKE models trained on bf16-stored parameters on the
+# card and on the CPU, one of each family that trains on bf16 storage since
+# its slice (the dense family's, then the ssm and hybrid families').
+BF16_AGREE = ("llama-60m", "mamba2-370m", "zamba2-1.2b")
+
+
+def bf16_agree(torch, label: str, arch: str) -> None:
+    """A 3-step GUM ``Trainer`` on ``arch``'s bf16-stored SMOKE
+    (batch 2 x 64) on the card and on the CPU from the same parameters:
+    finite losses, rows 1-2 launched on the card only, every leaf within
+    TOL_BF16_LEAF (relative Frobenius)."""
+    from repro_torch.configs import RunConfig, get_smoke
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    smoke = get_smoke(arch).replace(param_dtype="bfloat16")
     init = build_model(smoke, device="cpu")
     init.init_params(0)
     params = {k: v.detach() for k, v in init.params().items()}
@@ -3028,9 +3200,10 @@ def phase_bf16_train(torch) -> dict:
                               DataConfig(vocab=smoke.vocab, seq_len=64, global_batch=2, seed=0),
                               device=device, params=params)
             losses = trainer.train().losses
-            check(all(math.isfinite(v) for v in losses), f"{label} agree {device}: {losses}")
+            check(all(math.isfinite(v) for v in losses), f"{label} agree {arch} {device}: "
+                  f"{losses}")
             check((build.LAUNCHES["lowrank_update"] > before) == (device == "cuda"),
-                  f"{label} agree {device}: lowrank_update launches {before} -> "
+                  f"{label} agree {arch} {device}: lowrank_update launches {before} -> "
                   f"{build.LAUNCHES['lowrank_update']}")
             out[device] = (losses, {k: p.detach().cpu() for k, p in
                                     trainer.model.params().items()})
@@ -3038,19 +3211,21 @@ def phase_bf16_train(torch) -> dict:
                      / torch.linalg.vector_norm(out["cpu"][1][k].float()))
             for k, p in out["cuda"][1].items()}
     worst = max(dist, key=dist.get)
-    print(f"{label} agree llama-60m smoke gum: cuda {out['cuda'][0]} cpu {out['cpu'][0]}; "
-          f"worst leaf {worst} {dist[worst]:.3e} (tol {TOL_BF16_LEAF:.3e})", flush=True)
-    check(dist[worst] <= TOL_BF16_LEAF, f"{label} agree: {worst} at {dist[worst]:.3e}")
-    print(f"{label} phase 4k seconds {time.perf_counter() - t_phase:.1f}", flush=True)
-    return dict(launches)
+    print(f"{label} agree {arch} smoke gum (3 steps, "
+          f"{sum(p.dtype == torch.bfloat16 for p in params.values())} of {len(params)} leaves "
+          f"bf16): cuda {out['cuda'][0]} cpu {out['cpu'][0]}; worst leaf {worst} "
+          f"{dist[worst]:.3e} (tol {TOL_BF16_LEAF:.3e})", flush=True)
+    check(dist[worst] <= TOL_BF16_LEAF, f"{label} agree {arch}: {worst} at {dist[worst]:.3e}")
 
 
 def profile_steady_step(torch, label: str, trainer, done: int) -> None:
     """Device time of one steady step by kernel group (torch.profiler):
     step ``done + 1`` is a refresh step and runs unprofiled, ``done + 2``
-    is profiled.  Its idle share is 1 − busy / that step's own wall time
-    (host clock, ending in a synchronise, profiler on)."""
+    is profiled, its dispatch counts and kernel launches recorded beside.
+    Its idle share is 1 − busy / that step's own wall time (host clock,
+    ending in a synchronise, profiler on)."""
     from repro_torch.data import build_stream
+    from repro_torch.kernels import build, launch_count
 
     stream = build_stream(trainer.data_cfg).resume(done)
     params, state = trainer.model.params(), trainer.opt_state
@@ -3062,12 +3237,16 @@ def profile_steady_step(torch, label: str, trainer, done: int) -> None:
         return state
 
     state = step(state)
-    with profiled() as prof:
+    before = dict(build.LAUNCHES)
+    with profiled() as prof, launch_count.count_launches() as dispatched:
         t0 = time.perf_counter()
         step(state)
         step_ms = (time.perf_counter() - t0) * 1e3
     STEP_PROFILE[label] = print_groups(f"{label} profiled steady step (step {done + 2})", prof,
                                        step_ms)
+    STEP_PROFILE[label]["dispatched"] = dict(dispatched)
+    STEP_PROFILE[label]["launches"] = {k: v - before.get(k, 0) for k, v in
+                                       build.LAUNCHES.items() if v != before.get(k, 0)}
 
 
 # Idle host time at each end of a profiled window, so that a kernel's device
@@ -3078,12 +3257,19 @@ PROFILE_PAD_S = 0.05
 
 
 @contextlib.contextmanager
-def profiled():
-    """``torch.profiler.profile`` of the host and the card over the block,
-    padded at both ends by PROFILE_PAD_S."""
+def profiled(host: bool = False):
+    """``torch.profiler.profile`` of the card, and of the host's ops where
+    ``host`` is set (phase 4g reads a ``record_function`` range), over the
+    block, padded at both ends by PROFILE_PAD_S.  Without the host's ops
+    the window records the card's kernels and the runtime's launch calls
+    alone: a fraction of the events to parse after it (one
+    steady step of phase 4l: 4.7-8.2 s against 31-33 s with them), and
+    less of the profiler's own host time in the window's wall time (the
+    same step: 1.7 s against 2.5-2.8 s; llama-130m's alike)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         time.sleep(PROFILE_PAD_S)
         yield prof
         time.sleep(PROFILE_PAD_S)
@@ -3210,10 +3396,18 @@ def set_vlm_gates(torch, model) -> list[float]:
     return [round(g, 4) for g in torch.cat([cross.gate_attn, cross.gate_mlp]).tolist()]
 
 
+# The longest engine prompt of every serving phase, cut from 256 tokens: to
+# 64 in phases 7, 8 and 12 to make room for phase 4k, to 32 in every phase
+# for phase 4l.  An engine ticks until the longest prompt is fed and 32
+# tokens are decoded (252 ticks before the cuts), and each checked request's
+# direct decode as long again.
+SHORT_PROMPT_MAX = 32
+
+
 def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
                 direct_batch: int, *, slots: int = 8, requests: int = 16, checked: int = 2,
                 changes: dict | None = None, reference=None,
-                per_tick: dict | None = None, prompt_max: int = 256) -> dict:
+                per_tick: dict | None = None, prompt_max: int = SHORT_PROMPT_MAX) -> dict:
     """Serve ``arch`` (its config with ``changes``: a depth cut, the
     parameter storage) at full width on the card, through the port's entry
     points: ``make_prefill_step`` at ``attn_impl="pallas"`` on ``batch`` x
@@ -3224,8 +3418,9 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
     and the cache where the family has one, against the same prefill at
     ``attn_impl="xla"`` on the same parameters: rel <= ``tol`` in fp32, and
     in bf16 as :func:`check_low_precision_prefill` says, against
-    ``reference`` where one is given), then, where the family decodes, a
-    ``ServeEngine`` of ``slots`` slots answering ``requests`` seeded
+    ``reference`` where one is given), then, where the family decodes and
+    ``requests`` is not 0, a ``ServeEngine`` of ``slots`` slots answering
+    ``requests`` seeded
     requests (prompts of 16–``prompt_max`` tokens, 32 new tokens each; a
     tick runs until the longest prompt is fed and decoded) with exactly
     ``per_tick`` kernel launches a tick (default none), ``checked`` of which
@@ -3250,7 +3445,7 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
     from repro_torch.serve.engine import ServeEngine, greedy_decode
 
     cfg = get_config(arch).replace(**(changes or {}))
-    routed, decodes = cfg.family == "moe", cfg.has_decode
+    routed, decodes = cfg.family == "moe", cfg.has_decode and requests > 0
     per_prefill = expected_launches(cfg)
     model = build_model(cfg.replace(attn_impl="pallas"), device="cuda")
     model.init_params(0)
@@ -3264,6 +3459,11 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
                for n in rng.integers(16, prompt_max + 1, requests if decodes else 0)]
     gc.collect()  # an earlier phase's cycles would otherwise count in this peak
+    # The init's fp32 draws (one leaf at a time: 21.5 GB for a maverick expert
+    # stack stored in bf16) leave a cached segment; the path's logits, kept
+    # across the comparison prefills, would split it and keep check_pinned_
+    # prefill's fp32 casts of the same size from it.
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
     # The path: one prefill, then the engine; counts set to 0 just before.
@@ -3351,7 +3551,8 @@ def phase_serve(torch, label: str, arch: str, batch: int, seq: int, tol: float,
     if cfg.family == "vlm":
         check_vlm_decode(torch, label, model, inputs)
     if not decodes:
-        print(f"{label}: {cfg.name} is encoder-only, so no engine runs", flush=True)
+        print(f"{label}: {cfg.name} " + ("runs no engine here" if cfg.has_decode else
+                                         "is encoder-only, so no engine runs"), flush=True)
         build.reset_launches()
         return launches
 
@@ -3612,16 +3813,43 @@ def phase_serve_mamba(torch) -> dict:
     The direct decode runs the request alone in its slot's row of a 4-row
     cache (the other rows idle, as the engine's): bf16 GEMMs of another
     batch size pick other cuBLAS kernels, which round differently and move
-    near-tied bf16 logits."""
-    return phase_serve(torch, "serve-mamba", "mamba2-370m", 4, 4096, 1e-4, direct_batch=4,
-                       slots=4, requests=4, checked=1, prompt_max=SHORT_PROMPT_MAX)
+    near-tied bf16 logits.  Then the same draws stored in bf16
+    (``param_dtype``): the prefill held by the same rule against the
+    fp32-stored model's fp32 logits (:func:`fp32_stored_reference`), an
+    engine of 2 slots and 2 requests, one checked."""
+    launches = collections.Counter(phase_serve(
+        torch, "serve-mamba", "mamba2-370m", 4, 4096, 1e-4, direct_batch=4, slots=4,
+        requests=4, checked=1))
+    reference = fp32_stored_reference(torch, "serve-mamba-bf16", "mamba2-370m", 4, 4096, {})
+    launches.update(phase_serve(
+        torch, "serve-mamba-bf16", "mamba2-370m", 4, 4096, 1e-4, direct_batch=2, slots=2,
+        requests=2, checked=1, changes={"param_dtype": "bfloat16"}, reference=reference))
+    del reference
+    torch.cuda.empty_cache()
+    return dict(launches)
 
 
-# The longest engine prompt of phases 7, 8 and 12, cut from 256 tokens to
-# make room for phase 4k: their engines tick until the longest prompt is fed
-# and 32 tokens are decoded (252 ticks before the cut), and each checked
-# request's direct decode as long again.
-SHORT_PROMPT_MAX = 64
+def fp32_stored_reference(torch, label: str, arch: str, batch: int, seq: int,
+                          changes: dict):
+    """The fp32 "xla" prefill logits, on the card, of ``arch`` (``changes``
+    to its config) stored in fp32 from seed 0's draws, on
+    :func:`serve_batch`'s inputs: what a bf16-stored copy of the same draws
+    is held to (:func:`check_low_precision_prefill`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).replace(dtype="float32", attn_impl="xla", **changes)
+    model = build_model(cfg, device="cuda")
+    model.init_params(0)
+    with torch.no_grad():
+        logits = make_prefill_step(model)(serve_batch(torch, cfg, batch, seq))[0]
+    torch.cuda.synchronize()
+    print(f"{label} fp32-stored reference prefill {batch} x {seq}: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M fp32 parameters", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return logits
 
 
 # The head dims flash attention pads D to (its instantiations).
@@ -3648,7 +3876,7 @@ def phase_serve_dense(torch) -> dict:
     for arch, (layers, slots, requests, checked) in DENSE_VARIANTS.items():
         got = phase_serve(torch, f"serve-{arch}", arch, 4, 2048, 1e-4,
                           direct_batch=slots, slots=slots, requests=requests, checked=checked,
-                          changes={"n_layers": layers}, prompt_max=SHORT_PROMPT_MAX)
+                          changes={"n_layers": layers})
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
@@ -3769,18 +3997,29 @@ def phase_serve_zamba2(torch) -> dict:
     a shared-block application), held to "xla" as
     :func:`check_low_precision_prefill` says, then an engine of 8 slots and
     ZAMBA2_REQUESTS requests (the decode runs no kernel), a reused slot
-    checked against direct decode in its slot's row of an 8-row cache."""
+    checked against direct decode in its slot's row of an 8-row cache.
+    Then the same draws stored in bf16: the prefill and its rule against the
+    fp32-stored model's fp32 logits (:func:`fp32_stored_reference`), no
+    engine."""
     from repro_torch.configs import get_config
 
     cfg = get_config("zamba2-1.2b")
     apps = -(-ZAMBA2_LAYERS // cfg.shared_attn_every)
     print(f"serve-zamba2 on {smi_line()}: depth cut from {cfg.n_layers} to {ZAMBA2_LAYERS} "
           f"layers, the shared block {apps} times", flush=True)
-    launches = phase_serve(torch, "serve-zamba2", "zamba2-1.2b", 4, 4096, 1e-4,
-                           direct_batch=8, requests=ZAMBA2_REQUESTS,
-                           changes={"n_layers": ZAMBA2_LAYERS}, prompt_max=SHORT_PROMPT_MAX)
+    launches = collections.Counter(phase_serve(
+        torch, "serve-zamba2", "zamba2-1.2b", 4, 4096, 1e-4, direct_batch=8,
+        requests=ZAMBA2_REQUESTS, changes={"n_layers": ZAMBA2_LAYERS}))
     torch.cuda.empty_cache()
-    return launches
+    # the same draws stored in bf16: the prefill and its rule, no engine
+    depth = {"n_layers": ZAMBA2_LAYERS}
+    reference = fp32_stored_reference(torch, "serve-zamba2-bf16", "zamba2-1.2b", 4, 4096, depth)
+    launches.update(phase_serve(
+        torch, "serve-zamba2-bf16", "zamba2-1.2b", 4, 4096, 1e-4, direct_batch=8, requests=0,
+        changes={**depth, "param_dtype": "bfloat16"}, reference=reference))
+    del reference
+    torch.cuda.empty_cache()
+    return dict(launches)
 
 
 # Phase 13: llama-3.2-vision-11b at full width, its depth cut from 40 layers
@@ -4052,7 +4291,7 @@ PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_basel
           "accumulate": phase_accumulate, "resume": phase_resume,
           "rank-policy": phase_rank_policy, "resilience": phase_resilience,
           "telemetry": phase_telemetry, "distributed": phase_distributed,
-          "audit": phase_audit, "bf16-train": phase_bf16_train,
+          "audit": phase_audit, "bf16-train": phase_bf16_train, "ssm-train": phase_ssm_train,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
           "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick,
@@ -4082,6 +4321,17 @@ TAGGED = {("flash_attention", "bf16"): (tuple(f"serve-{a}" for a in DENSE_VARIAN
           ("flash_attention", "bf16_hubert"): (("serve-hubert",), every_launch),
           # back_project_epilogue's (L, m, r, n, right, w_bf16)
           ("back_project_epilogue", "bf16_w"): (("bf16 galore",), lambda key: key[5] == 1)}
+# Rows 1-5 at phase 4l's shapes (SSM_CASES): its launches on ssm_in (n =
+# 4384), over the 48 layers ("ssm") and over the 4 sampled blocks
+# ("ssm_project", "ssm_full"); (L, m, r, n, right) and gram / poly_apply's
+# (L, s, n).
+TAGGED |= {(kernel, tag): (("ssm train",), lambda key, lead=lead: key[0] == lead
+                           and 4384 in key[1:])
+           for kernel, tag, lead in (("lowrank_update", "ssm", 48),
+                                     ("lowrank_update", "ssm_project", 4),
+                                     ("back_project", "ssm", 48), ("gram", "ssm", 48),
+                                     ("gram", "ssm_full", 4), ("poly_apply", "ssm", 48),
+                                     ("poly_apply", "ssm_full", 4))}
 # Shapes reported beside a row's principal one: rows 1-5 at rank 128.
 RANK_TAGS = ("r128", "r128_project", "momenta_r256", "momenta_r128")
 
@@ -4118,8 +4368,15 @@ def main() -> None:
         print("kernels-only: phase 3 passed; the path did not run, so no result is printed",
               flush=True)
         return
-    paths, seconds = {}, {}
+    paths, seconds, held = {}, {}, {}
     for name, fn in PHASES.items():
+        # an earlier phase's reference cycles and cached blocks go before this
+        # phase allocates: a block held across phases can split a large
+        # cached segment and keep a later large allocation (an fp32 cast of
+        # a 21.5 GB expert stack) from it
+        gc.collect()
+        torch.cuda.empty_cache()
+        held[name] = round(torch.cuda.memory_allocated() / 2**30, 3)
         t0 = time.perf_counter()
         paths[name] = fn(torch)
         seconds[name] = round(time.perf_counter() - t0, 1)
@@ -4129,6 +4386,7 @@ def main() -> None:
         fn(torch)
         seconds[fn.__name__] = round(time.perf_counter() - t0, 1)
     print(f"seconds by phase: {seconds}", flush=True)
+    print(f"GiB allocated on the card at each phase's start: {held}", flush=True)
 
     kernels = []
     for name, (source, replaces, headers) in KERNEL_META.items():

@@ -130,7 +130,8 @@ def decode_mamba_block(p: dict[str, torch.Tensor], x: torch.Tensor,
     z, xbc, dt = _split_in(h, cfg)
     wdtype = torch.promote_types(conv_state.dtype, xbc.dtype)
     window = torch.cat([conv_state.to(wdtype), xbc[:, None, :].to(wdtype)], dim=1)
-    conv = torch.einsum("bwc,wc->bc", window.to(torch.float32), p["conv_w"])
+    # a bf16 conv_w widens exactly, as the reference's einsum promotes it
+    conv = torch.einsum("bwc,wc->bc", window.to(torch.float32), p["conv_w"].to(torch.float32))
     xbc = F.silu(conv + p["conv_bias"]).to(x.dtype)
     gN = cfg.ssm_ngroups * N
     xs, bvec, cvec = xbc[..., :d_inner], xbc[..., d_inner:d_inner + gN], xbc[..., d_inner + gN:]

@@ -75,10 +75,10 @@ Under ``cfg.remat``, when autograd records, each layer (or group) runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``):
 ``remat_policy="dots"`` keeps the un-batched products, any other policy
 keeps nothing, and backward recomputes the rest.
-Parameters are fp32, or, for the dense, audio, moe and vlm families under
-``cfg.param_dtype="bfloat16"``, stored as the reference stores them: every
-leaf with two or more dims in bf16 (the layer-stacked norms and biases and
-the router included), the ``(d,)`` leaves of ``final_norm`` and the vlm
+Parameters are fp32, or, under ``cfg.param_dtype="bfloat16"``, stored as
+the reference stores them: every leaf with two or more dims in bf16 (the
+layer-stacked norms, biases and Mamba vectors and the router included), the
+``(d,)`` leaves of ``final_norm``, of the hybrid's shared norms and the vlm
 gates in fp32.  All families
 compute in ``cfg.dtype`` (bf16 for every full-size config but the paper's
 LLaMA), casting each weight at its use, as the reference does (a no-op on a
@@ -127,6 +127,29 @@ def _group(**params: torch.Tensor) -> nn.Module:
     for name, t in params.items():
         m.register_parameter(name, nn.Parameter(t))
     return m
+
+
+class _CastGather(torch.autograd.Function):
+    """``table.to(dtype)[tokens]`` without a cast copy of the whole table:
+    the rows are gathered, then cast.  Backward sums each row's gradients in
+    the wider of ``dtype`` and the table's dtype and rounds the sum once into
+    the table's, as the reference's cast-then-gather does on a bf16 table in
+    fp32 (autograd's gather-then-cast would round every row's gradient to
+    bf16 before summing them in bf16); otherwise it is autograd's own."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens].to(dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (tokens,) = ctx.saved_tensors
+        wide = torch.promote_types(g.dtype, ctx.table_dtype)
+        total = g.new_zeros(ctx.table_shape, dtype=wide)
+        total.index_put_((tokens,), g.to(wide), accumulate=True)
+        return total.to(ctx.table_dtype), None, None
 
 
 def _at(group: nn.Module, l: Optional[int] = None) -> dict[str, torch.Tensor]:
@@ -217,8 +240,7 @@ class _LM(nn.Module):
                 p.copy_(params[k])
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        # gather, then cast: the reference's cast-then-gather, elementwise
-        return self.embed.embed[tokens].to(self.dtype)
+        return _CastGather.apply(self.embed.embed, tokens, self.dtype)
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         return apply_norm(x, _at(self.final_norm), self.cfg)
@@ -255,6 +277,12 @@ class _LM(nn.Module):
                 or cfg.rope not in ("rope", "rope2d", "none") or cfg.frontend not in frontends):
             raise NotImplementedError(f"{cfg.name}: act {cfg.act!r}, norm {cfg.norm!r}, rope "
                                       f"{cfg.rope!r}, frontend {cfg.frontend!r} is not ported")
+        self._check_dtypes(cfg)
+
+    @staticmethod
+    def _check_dtypes(cfg: ModelConfig) -> None:
+        """Raise for a storage or activation dtype not ported, and an
+        unknown attention route."""
         if cfg.dtype not in ("float32", "bfloat16") or cfg.param_dtype not in ("float32",
                                                                               "bfloat16"):
             raise NotImplementedError(f"the {cfg.family} family takes fp32 or bf16 parameters "
@@ -460,11 +488,7 @@ class _MambaStack(_LM):
         if cfg.ssm_ngroups != 1 or cfg.norm != "rmsnorm" or cfg.frontend != "none":
             raise NotImplementedError(f"{cfg.name}: only ngroups=1 with RMSNorm and a "
                                       "token embedding is ported")
-        if cfg.param_dtype != "float32" or cfg.dtype not in ("float32", "bfloat16"):
-            raise NotImplementedError(f"the {cfg.family} family takes fp32 parameters and "
-                                      "fp32 or bf16 activations (bf16 storage: ROADMAP queue 1 "
-                                      "item 2)")
-        ops.check_impl(cfg.attn_impl)
+        self._check_dtypes(cfg)
         self.cfg, self._device = cfg, device
         L, d = cfg.n_layers, cfg.d_model
         empty = self._empty
@@ -519,7 +543,8 @@ class _MambaStack(_LM):
 
 class Mamba2(_MambaStack):
     """Attention-free Mamba-2 (SSD) model: pre-norm Mamba blocks, untied or
-    tied head; fp32 parameters, activations in ``cfg.dtype``."""
+    tied head; parameters in fp32 or stored in ``cfg.param_dtype`` (bf16),
+    activations in ``cfg.dtype``."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         super().__init__()
@@ -567,7 +592,7 @@ class Hybrid(_MambaStack):
     copy, not stacked) run after Mamba layer l when ``l %
     shared_attn_every == 0``.  As in the reference, the prefill builds no
     decode cache; the decode cache holds the Mamba state and one KV slot a
-    shared-block application.  fp32 parameters, activations in
+    shared-block application.  Parameters as :class:`Mamba2`'s, activations in
     ``cfg.dtype``."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):

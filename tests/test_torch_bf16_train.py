@@ -275,6 +275,9 @@ def _ref_params(ckpt_dir, step: int) -> dict:
 
 
 _REF_RUNS: dict = {}
+# the checkpoint directories of those runs, and of check_trainer_case's
+# port runs under ("port", arch, opt, dtype)
+_REF_DIRS: dict = {}
 
 
 @contextlib.contextmanager
@@ -341,6 +344,7 @@ def _ref_run(tmp_factory, arch, opt, param_dtype, dtype, microbatches=1):
                 JDataConfig(vocab=jcfg.vocab, seq_len=SEQ, global_batch=2, seed=0),
                 microbatches=microbatches).train()
         _REF_RUNS[key] = (np.array(result.losses), _ref_params(tmp, 3), routing)
+        _REF_DIRS[key] = tmp
     return _REF_RUNS[key]
 
 
@@ -397,7 +401,8 @@ def check_trainer_case(tmp_path_factory, arch, opt, dtype) -> None:
     from repro_torch.models import moe
 
     ref16 = _ref_run(tmp_path_factory, arch, opt, "bfloat16", dtype)
-    t = _port_trainer(tmp_path_factory.mktemp("port"), arch, opt, dtype)
+    tmp = _REF_DIRS[("port", arch, opt, dtype)] = tmp_path_factory.mktemp("port")
+    t = _port_trainer(tmp, arch, opt, dtype)
     # the moe family trains on the reference's routing: a token that one
     # ulp sends to another expert moves the loss by far more than rounding
     replay = moe.replay_routing(ref16[2]) if ref16[2].calls else contextlib.nullcontext()
@@ -668,9 +673,10 @@ def test_audit_of_bf16_stored_llama_130m():
 
 
 def test_unported_storage_paths_raise():
-    """A mesh over bf16 storage (ROADMAP queue 1 item 5h), fp16 storage
-    (item 2i) and bf16 storage for the ssm and hybrid families (item 2)
-    raise ``NotImplementedError`` naming their items."""
+    """A mesh over bf16 storage (ROADMAP queue 1 item 5h) and fp16 storage
+    (item 2i), on the dense family and on ``Mamba2``, raise
+    ``NotImplementedError`` naming their items; bf16 storage builds for the
+    ssm and hybrid families (``tests/test_torch_ssm_bf16.py``)."""
     from repro_torch.configs import RunConfig, get_smoke
     from repro_torch.data import DataConfig
     from repro_torch.models import build_model
@@ -682,8 +688,9 @@ def test_unported_storage_paths_raise():
                 RunConfig(steps=1, ckpt_dir="/nonexistent"),
                 DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2), device="cpu",
                 mesh=object())  # refused before the mesh is read
-    with pytest.raises(NotImplementedError, match="item 2i"):
-        build_model(get_smoke("llama-60m").replace(param_dtype="float16"), device="cpu")
+    for arch, dtype in (("llama-60m", "float16"), ("mamba2-370m", "float16"),
+                        ("mamba2-370m", "float64"), ("zamba2-1.2b", "float16")):
+        with pytest.raises(NotImplementedError, match="item 2i"):
+            build_model(get_smoke(arch).replace(param_dtype=dtype), device="cpu")
     for arch in ("mamba2-370m", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="item 2\\)"):
-            build_model(get_smoke(arch).replace(param_dtype="bfloat16"), device="cpu")
+        build_model(get_smoke(arch).replace(param_dtype="bfloat16"), device="cpu")

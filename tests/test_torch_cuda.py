@@ -16,6 +16,7 @@ test's own name, so a failure reproduces.  Which template instantiation a
 launch ran (tile, copy width, layout) is read from ``build.VARIANTS``, which
 each C entry point fills through its ``variant`` out-argument.
 """
+import math
 import zlib
 
 import pytest
@@ -1075,3 +1076,47 @@ def test_sharded_audit_on_the_card_is_clean(cuda_device):
         want = "3 [all_gather=1, all_reduce=2]" if kw else "2 [all_reduce=2]"
         assert rep.summary["collectives"] == want
         assert rep.summary["buffers"]["params_in_place"] == rep.summary["buffers"]["params"]
+
+
+def test_bf16_stored_mamba2_training_matches_the_cpu(cuda_device, tmp_path):
+    """Two GUM steps of the port's ``Trainer`` on mamba2-370m's SMOKE model
+    stored in bf16 (every leaf of two or more dims, the stacked Mamba
+    vectors included), on the card and on the CPU from the same parameters:
+    finite losses, rows 1-2 launched on the card, the optimizer state fp32,
+    and every parameter leaf within 2^-8 of the CPU's in relative Frobenius
+    distance (``chip_smoke.py``'s TOL_BF16_LEAF: both devices round each
+    update into bf16, an ulp apart where their fp32 updates straddle a
+    rounding boundary)."""
+    from repro_torch.configs import RunConfig, get_smoke
+    from repro_torch.core import OptimizerConfig, find_lowrank_states
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    cfg = get_smoke("mamba2-370m").replace(param_dtype="bfloat16")
+    init = build_model(cfg, device="cpu")
+    init.init_params(0)
+    params = {k: v.detach() for k, v in init.params().items()}
+    assert {str(p.dtype) for p in params.values()} == {"torch.bfloat16", "torch.float32"}
+    out = {}
+    for device in ("cpu", "cuda"):
+        before = build.LAUNCHES["lowrank_update"]
+        trainer = Trainer(build_model(cfg, device=device),
+                          OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=2),
+                          RunConfig(steps=2, log_every=0, seed=0, ckpt_dir=str(tmp_path / device)),
+                          DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2, seed=0),
+                          device=device, params=params)
+        losses = trainer.train().losses
+        assert len(losses) == 2 and all(math.isfinite(v) for v in losses), (device, losses)
+        assert (build.LAUNCHES["lowrank_update"] > before) == (device == "cuda")
+        for low in find_lowrank_states(trainer.opt_state):
+            assert all(x.dtype != torch.bfloat16 for x in tree_leaves(low)
+                       if isinstance(x, torch.Tensor))
+        out[device] = {k: p.detach().cpu() for k, p in trainer.model.params().items()}
+    for k, p in out["cuda"].items():
+        want = out["cpu"][k]
+        assert p.dtype == want.dtype, k
+        dist = float(torch.linalg.vector_norm(p.float() - want.float())
+                     / torch.linalg.vector_norm(want.float()))
+        assert dist <= 2.0 ** -8, (k, dist)
