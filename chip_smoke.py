@@ -116,7 +116,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                 profiler's Chrome trace holding rows 1–5's kernels (their
                 ``__global__`` names read from csrc/) inside the ``step 4``
                 and ``step 5`` annotations; the step times beside phase 4's;
-  4i. distributed — two gloo ranks on the one card (NCCL takes one rank
+  4i. distributed (after 4k, whose run and 4d's are twins of its last
+                three) — two gloo ranks on the one card (NCCL takes one rank
                 a device; gloo takes the CUDA tensors itself) train phase
                 4's GUM with ``fuse_families`` through ``Trainer(mesh=)``,
                 4 x 1024 rows a rank of the 8 x 1024 batch, 4 steps,
@@ -128,10 +129,20 @@ Phases, in order; any failure exits non-zero and prints no result:
                 loss all-reduce, plus the update all-gather under
                 ``shard_state``) and fused GUM's dispatches and rows 1–5's
                 launches on each rank, each rank's family-state bytes
-                against ``sharding.family_state_bytes``; then one
-                ``make_shardmap_train_step`` step over a world-size-1
-                ``nccl`` group (bf16 gradient all-reduce) bitwise the
-                no-mesh step given the same bf16 cast;
+                against ``sharding.family_state_bytes``; in the same
+                spawn, 3 steps each of phase 4k's bf16-stored GUM
+                (family-stacked) and fused GaLore (bf16 W, weight decay
+                0.01) under ``shard_state`` and of phase 4d's
+                ``gum_accum_tools`` at 2 ranks x 2 microbatches: 4k's first
+                loss within 1e-6, every row-6 launch of the bf16-W
+                instantiation, each step's collectives at
+                ``analysis.collectives``' bytes (the accumulator's refresh
+                broadcast and compact gradient all-reduce), the
+                accumulator within 1e-6 of 4d's run at 4 microbatches, the
+                ranks equal; then one ``make_shardmap_train_step`` step
+                over a world-size-1 ``nccl`` group (bf16 gradient
+                all-reduce) bitwise the no-mesh step given the same bf16
+                cast;
   4j. audit   — the static audit (``repro_torch.analysis``) at llama-130m:
                 ``audit_optimizer`` of phase 4's GUM on the model's tree on
                 ``meta``, clean; one real steady GUM step whose dispatch
@@ -1327,6 +1338,12 @@ def check_reconstruction(torch, label: str, captured: dict, mean_grads: dict) ->
           f"on {worst[1]}")
 
 
+# The one-process twin of phase 4i's accumulator on a mesh: phase 4d's run's
+# losses and parameters after its first ACCUM_MESH_STEPS steps.
+ACCUM_MESH_STEPS = 3
+ACCUM_TWIN: dict = {}
+
+
 def projected_accumulation(torch, full_peak: float) -> dict:
     """Six GUM steps at 4 microbatches through ``gum_accum_tools`` and
     ``make_train_step(lowrank_accum=)``: finite losses, the exact per-step
@@ -1383,6 +1400,9 @@ def projected_accumulation(torch, full_peak: float) -> dict:
                   "no gradient")
             check_reconstruction(torch, f"gum_accum_tools step {i + 1} "
                                  f"({'refresh' if i == 0 else 'steady'})", captured, mean_grads)
+        if i + 1 == ACCUM_MESH_STEPS:  # phase 4i's mesh run is held to these
+            ACCUM_TWIN.update(losses=list(losses),
+                              params={k: p.detach().cpu().clone() for k, p in params.items()})
     check(all(math.isfinite(v) for v in losses), f"gum_accum_tools: losses {losses}")
     print(f"accumulate gum_accum_tools llama-130m microbatches=4: losses {losses}; dispatch "
           f"per step {want_dispatch}; kernel launches per step {want_launch}", flush=True)
@@ -2586,7 +2606,267 @@ def distributed_rank(mesh, inputs: dict) -> dict:
         del trainer, model, bare
         gc.collect()
         torch.cuda.empty_cache()
+    out |= distributed_paths(torch, mesh, inputs)
     return out
+
+
+# Phase 4i's runs of bf16 storage, the fused epilogue under shard_state and
+# the projected-space accumulator on a mesh, each 3 steps (period 3: the
+# refresh at step 1) from the same seed as its one-process twin: phase 4k's
+# bf16-stored GUM (family-stacked, shard_state), phase 4k's fused GaLore
+# (bf16 W, weight decay 0.01, shard_state) and phase 4d's projected-space
+# accumulator (2 local microbatches a rank).
+PATH_STEPS = 3
+MESH_GALORE = dict(name="galore", lr=1e-2, rank=256, period=3, weight_decay=0.01,
+                   fuse_families=True, fused_epilogue=True)
+
+
+def _digest(params: dict) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for k, p in params.items():
+        digest.update(k.encode())
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _mesh_trainer_run(torch, mesh, inputs: dict, label: str, opt: dict) -> dict:
+    """A bf16-stored llama-130m ``Trainer(mesh=)`` of ``opt`` under
+    ``shard_state`` for ``PATH_STEPS`` steps: its losses, parameter digest,
+    each step's collectives (with bytes) and dispatches, the kernel
+    launches, instantiations and integer arguments, and the update
+    all-gather's bytes by ``analysis.collectives``' model."""
+    from repro_torch.analysis.collectives import expected_collective_schedule
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.kernels.collective_count import record_collectives, tally
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer
+
+    cfg, data = full_width_data()
+    model = build_model(cfg.replace(**BF16_STORAGE), device="cuda")
+    opt_cfg = OptimizerConfig(**opt, shard_state=True)
+    trainer = Trainer(model, opt_cfg,
+                      RunConfig(steps=PATH_STEPS, log_every=0, seed=0,
+                                ckpt_dir=os.path.join(inputs["dir"], label)),
+                      data, device="cuda", mesh=mesh)
+    trainer.monitor.z = float("inf")
+    steps, inner = [], trainer.step_fn
+
+    def counted(*args):
+        with record_collectives() as log, launch_count.count_launches() as dispatched:
+            result = inner(*args)
+        steps.append({"collectives": tally(log),
+                      "bytes": {f"{e['op']}:{e['tag']}": e["bytes"] for e in log},
+                      "dtypes": {f"{e['op']}:{e['tag']}": e["dtype"] for e in log},
+                      "dispatch": dict(dispatched)})
+        return result
+
+    trainer.step_fn = counted
+    build.reset_launches()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    like = {k: torch.empty_like(p, device="meta") for k, p in model.params().items()}
+    model_gather = expected_collective_schedule(
+        trainer.optimizer, like, n_shards=mesh.shape["data"], reduce_dtype=torch.float32,
+        shard_state=True)["update_gather"]["payload_bytes"]
+    out = {"losses": result.losses, "digest": _digest(model.params()), "steps": steps,
+           "launches": dict(build.LAUNCHES),
+           "variants": {k: dict(v) for k, v in build.VARIANTS.items()},
+           "calls": {k: dict(v) for k, v in build.CALLS.items()},
+           "model_gather": model_gather,
+           "dtypes": sorted({str(p.dtype) for p in model.params().values()}),
+           "seconds": [round(t, 4) for t in result.step_seconds]}
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_accum_run(torch, mesh) -> dict:
+    """Phase 4d's ``gum_accum_tools`` on the mesh: this rank's 4 x 1024 rows
+    of each of the first ``PATH_STEPS`` batches as 2 microbatches
+    (``make_train_step(mesh=, lowrank_accum=)``); its losses, digest, each
+    step's collectives with bytes and dispatches, the kernel launches, and
+    the compact and full gradient bytes of ``analysis.collectives``' model.
+    Rank 0 also returns its parameters."""
+    from repro_torch.analysis.collectives import expected_collective_schedule
+    from repro_torch.core import gum_accum_tools
+    from repro_torch.data import build_stream
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.kernels.collective_count import record_collectives
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+
+    cfg, data = full_width_data()
+    model = build_model(cfg, device="cuda")
+    model.init_params(0)
+    opt = {k: v for k, v in GUM_130M.items() if k != "name"}
+    tools = gum_accum_tools(opt.pop("lr"), **opt)
+    step = make_train_step(model, tools.transform, microbatches=2, lowrank_accum=tools,
+                           mesh=mesh)
+    params = model.params()
+    state = tools.transform.init({k: p.detach() for k, p in params.items()})
+    n, k = mesh.shape["data"], mesh.coordinate("data")
+    stream = build_stream(data)
+    per = data.global_batch // n
+    losses, steps = [], []
+    build.reset_launches()
+    for _ in range(PATH_STEPS):
+        tokens = torch.from_numpy(next(stream)[k * per:(k + 1) * per]).to("cuda")
+        with record_collectives() as log, launch_count.count_launches() as dispatched:
+            state, metrics = step(params, state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+        steps.append({"collectives": [(f"{e['op']}:{e['tag']}", e["dtype"], e["bytes"])
+                                      for e in log], "dispatch": dict(dispatched)})
+    torch.cuda.synchronize()
+    like = {key: torch.empty_like(p, device="meta") for key, p in params.items()}
+    kw = dict(n_shards=n, reduce_dtype=torch.float32)
+    model_bytes = {
+        "compact": expected_collective_schedule(tools.transform, like, lowrank_accum=True,
+                                                **kw)["grad_psum"]["payload_bytes"],
+        "full": expected_collective_schedule(tools.transform, like,
+                                             **kw)["grad_psum"]["payload_bytes"],
+        "refresh": expected_collective_schedule(
+            tools.transform, like, lowrank_accum=True, **kw)["refresh_broadcast"]["payload_bytes"]}
+    out = {"losses": losses, "digest": _digest(params), "steps": steps,
+           "launches": dict(build.LAUNCHES), "model_bytes": model_bytes,
+           "params": {key: p.detach().cpu() for key, p in params.items()} if k == 0 else None}
+    del step, state, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def distributed_paths(torch, mesh, inputs: dict) -> dict:
+    """Phase 4i's new runs on one rank (see :func:`check_distributed_paths`)."""
+    from repro_torch.kernels import build
+
+    out = {"bf16 gum": _mesh_trainer_run(torch, mesh, inputs, "bf16_gum",
+                                         dict(GUM_130M, fuse_families=True)),
+           "bf16 galore": _mesh_trainer_run(torch, mesh, inputs, "bf16_galore", MESH_GALORE),
+           "accum": _mesh_accum_run(torch, mesh)}
+    build.reset_launches()
+    return out
+
+
+def check_distributed_paths(torch, ranks: list) -> dict:
+    """Phase 4i's new runs, held on the parent: (i) phase 4k's bf16-stored
+    GUM with ``fuse_families`` and ``shard_state`` through ``Trainer(mesh=)``
+    (fp32 reduction): the first loss within 1e-6 relative of phase 4k's
+    (before any update; the later distances printed), per step 1 grad + 1
+    loss all-reduce + 1 update all-gather, fused GUM's dispatches and rows
+    1-5's launches on each rank, the ranks' parameters equal; (ii) phase
+    4k's fused GaLore on bf16 storage under ``shard_state``: every row-6
+    launch on each rank of its bf16-W instantiation, the update
+    all-gather's bytes those of ``analysis.collectives``' model (the
+    projector and projected update rows), the ranks' parameters equal;
+    (iii) phase 4d's accumulator at 2 ranks x 2 microbatches against phase
+    4d's one-process run at 4 microbatches of the same batches
+    (``ACCUM_TWIN``): losses within ``SHARD_LOSS_TOL``, each parameter
+    leaf's relative Frobenius distance within ``SHARD_PARAM_TOL`` (no
+    second refresh in 3 steps), per step the refresh broadcast (steps on a
+    boundary), the compact gradient all-reduce and the loss all-reduce,
+    their bytes printed beside the full gradient's.  Returns the launches
+    of the ranks."""
+    launches: dict = collections.Counter()
+    PHASE_CALLS["distributed galore"] = {}
+    for k, rank in enumerate(ranks):
+        for label in ("bf16 gum", "bf16 galore"):
+            run = rank[label]
+            check(run["dtypes"] == ["torch.bfloat16", "torch.float32"],
+                  f"4i rank {k} {label}: parameter dtypes {run['dtypes']}")
+            check(len(run["losses"]) == PATH_STEPS
+                  and all(math.isfinite(v) for v in run["losses"]),
+                  f"4i rank {k} {label}: losses {run['losses']}")
+            want_d, want_l = ((FUSED_GUM_DISPATCH, FUSED_GUM_LAUNCH) if label == "bf16 gum"
+                              else (GALORE_DISPATCH, GALORE_LAUNCH))
+            for i, st in enumerate(run["steps"]):
+                check(st["collectives"] == {"all_reduce:grad": 1, "all_reduce:loss": 1,
+                                            "all_gather:update": 1},
+                      f"4i rank {k} {label} step {i + 1}: collectives {st['collectives']}")
+                check(st["dispatch"] == want_d,
+                      f"4i rank {k} {label} step {i + 1}: dispatch {st['dispatch']}")
+                check(st["bytes"]["all_gather:update"] == run["model_gather"],
+                      f"4i rank {k} {label} step {i + 1}: update all-gather "
+                      f"{st['bytes']['all_gather:update']} bytes, the model's "
+                      f"{run['model_gather']}")
+            per_step = {n: v / PATH_STEPS for n, v in run["launches"].items() if v}
+            check(per_step == want_l, f"4i rank {k} {label}: launches per step {per_step}")
+            launches.update(run["launches"])
+            st = run["steps"][1]
+            print(f"4i rank {k} {label} (shard_state, bf16 stored): losses {run['losses']}; "
+                  f"per step {st['collectives']} dtypes {st['dtypes']} bytes {st['bytes']} "
+                  f"(update all-gather: the model's {run['model_gather']}); dispatch "
+                  f"{st['dispatch']}; launches per step {per_step}; step s {run['seconds']}",
+                  flush=True)
+        epi = rank["bf16 galore"]["variants"]["back_project_epilogue"]
+        check(epi and all(key[4] == 1 for key in epi),
+              f"4i rank {k} bf16 galore: row 6 instantiations {epi}, want the bf16-W one alone")
+        print(f"4i rank {k} bf16 galore: row 6's {sum(epi.values())} launches all of its "
+              f"bf16-W instantiation {sorted(epi)}", flush=True)
+        calls = rank["bf16 galore"]["calls"]
+        for name, got in calls.items():
+            mine = PHASE_CALLS["distributed galore"].setdefault(name, {})
+            for key, v in got.items():
+                mine[key] = mine.get(key, 0) + v
+    for label in ("bf16 gum", "bf16 galore"):
+        check(ranks[0][label]["digest"] == ranks[1][label]["digest"],
+              f"4i {label}: the ranks' parameters differ")
+    gum = ranks[0]["bf16 gum"]["losses"]
+    want = LOSSES["bf16 gum"][:PATH_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(gum, want)]
+    check(rel[0] <= SHARD_LOSS_TOL,
+          f"4i bf16 gum: first loss {gum[0]} vs phase 4k's {want[0]} ({rel[0]:.3g} relative)")
+    print(f"4i bf16 gum against phase 4k's one-process run: losses relative "
+          f"{[float(f'{r:.3g}') for r in rel]} (the first held to {SHARD_LOSS_TOL}); ranks "
+          f"equal (digest {ranks[0]['bf16 gum']['digest'][:16]})", flush=True)
+
+    # (iii) the projected-space accumulator
+    acc = [rank["accum"] for rank in ranks]
+    twin = ACCUM_TWIN
+    want_d, want_l = accum_counts(2, 7, 7)
+    for k, run in enumerate(acc):
+        for i, st in enumerate(run["steps"]):
+            tags = [t for t, _, _ in st["collectives"]]
+            refresh = i % GUM_130M["period"] == 0
+            check(tags == ["broadcast:refresh"] * refresh + ["all_reduce:grad",
+                                                             "all_reduce:loss"],
+                  f"4i rank {k} accum step {i + 1}: collectives {st['collectives']}")
+            grad = st["collectives"][refresh]
+            check(grad[1] == "float32" and grad[2] == run["model_bytes"]["compact"],
+                  f"4i rank {k} accum step {i + 1}: grad all-reduce {grad}, the model's "
+                  f"{run['model_bytes']}")
+            if refresh:
+                check(st["collectives"][0][2] == run["model_bytes"]["refresh"],
+                      f"4i rank {k} accum step {i + 1}: refresh broadcast "
+                      f"{st['collectives'][0]}, the model's {run['model_bytes']}")
+            check(st["dispatch"] == want_d,
+                  f"4i rank {k} accum step {i + 1}: dispatch {st['dispatch']} != {want_d}")
+        per_step = {n: v / PATH_STEPS for n, v in run["launches"].items() if v}
+        check(per_step == want_l, f"4i rank {k} accum: launches per step {per_step}")
+        launches.update(run["launches"])
+    check(acc[0]["digest"] == acc[1]["digest"], "4i accum: the ranks' parameters differ")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(acc[0]["losses"], twin["losses"])]
+    leaf_rel = {key: float(torch.linalg.vector_norm(p.float() - twin["params"][key].float())
+                           / torch.linalg.vector_norm(twin["params"][key].float()))
+                for key, p in acc[0]["params"].items()}
+    worst = max(leaf_rel.items(), key=lambda kv: kv[1])
+    check(max(loss_rel) <= SHARD_LOSS_TOL and worst[1] <= SHARD_PARAM_TOL,
+          f"4i accum against phase 4d's one-process run: losses {loss_rel} (limit "
+          f"{SHARD_LOSS_TOL}), worst leaf {worst} (limit {SHARD_PARAM_TOL})")
+    mb = acc[0]["model_bytes"]
+    print(f"4i accum 2 ranks x 2 microbatches against phase 4d's 4 microbatches: losses "
+          f"{acc[0]['losses']} vs {twin['losses']} (relative "
+          f"{[float(f'{r:.3g}') for r in loss_rel]}); worst parameter leaf {worst[0]} "
+          f"{worst[1]!r}; per step {acc[0]['steps'][1]['collectives']} (refresh steps add "
+          f"{acc[0]['steps'][0]['collectives'][0]}); the grad all-reduce carries "
+          f"{mb['compact']} bytes, the full gradient's would be {mb['full']} "
+          f"({mb['compact'] / mb['full']:.4f}); dispatch {acc[0]['steps'][1]['dispatch']}; "
+          f"launches per step {per_step}", flush=True)
+    return dict(launches)
 
 
 class LocalMesh:
@@ -2719,9 +2999,14 @@ def phase_distributed(torch) -> dict:
     leaf's relative Frobenius distance) of it; each rank's family-state bytes
     against ``family_state_bytes``; each step's collectives (1 gradient
     and 1 loss all-reduce, plus the update all-gather with shard_state)
-    and fused GUM's dispatches; rows 1-5 launched on each rank.  Then
-    :func:`nccl_step`.  Step times are no yardstick: the two ranks share
-    the card.  Returns the launches of both ranks and of the NCCL step."""
+    and fused GUM's dispatches; rows 1-5 launched on each rank.  The same
+    spawn then runs bf16 storage and the accumulator on the mesh, held by
+    :func:`check_distributed_paths` (after phase 4k and phase 4d, whose
+    one-process runs are their twins): bf16-stored GUM and fused GaLore
+    under ``shard_state`` (row 6 on a bf16 W), and the projected-space
+    accumulator.  Then :func:`nccl_step`.  Step times are no yardstick: the
+    two ranks share the card.  Returns the launches of both ranks and of
+    the NCCL step."""
     from repro_torch.launch.mesh import run_local_ranks
 
     t0 = time.perf_counter()
@@ -2737,7 +3022,8 @@ def phase_distributed(torch) -> dict:
     print(f"4i one-process run at microbatches=2: losses {twin}", flush=True)
     launches: dict = {}
     for k, rank in enumerate(ranks):
-        for label, run in rank.items():
+        for label in ("replicated", "shard"):
+            run = rank[label]
             losses = run["losses"]
             rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
             if label == "replicated":
@@ -2786,6 +3072,10 @@ def phase_distributed(torch) -> dict:
     check(ranks[0]["shard"]["digest"] == ranks[1]["shard"]["digest"],
           "4i: the ranks' parameters differ")
     print(f"4i ranks equal (parameter digest {ranks[0]['shard']['digest'][:16]})", flush=True)
+    for n, v in check_distributed_paths(torch, ranks).items():
+        launches[n] = launches.get(n, 0) + v
+    del ranks
+    gc.collect()
     for n, v in nccl_step(torch).items():
         launches[n] = launches.get(n, 0) + v
     print(f"4i seconds {time.perf_counter() - t0:.1f}", flush=True)
@@ -4290,8 +4580,9 @@ def phase_agree_serve(torch):
 PHASES = {"slice": phase_slice, "galore": phase_galore, "baselines": phase_baselines,
           "accumulate": phase_accumulate, "resume": phase_resume,
           "rank-policy": phase_rank_policy, "resilience": phase_resilience,
-          "telemetry": phase_telemetry, "distributed": phase_distributed,
-          "audit": phase_audit, "bf16-train": phase_bf16_train, "ssm-train": phase_ssm_train,
+          "telemetry": phase_telemetry, "audit": phase_audit,
+          "bf16-train": phase_bf16_train, "distributed": phase_distributed,
+          "ssm-train": phase_ssm_train,
           "serve-llama": phase_serve_llama, "serve-mamba": phase_serve_mamba,
           "serve-dense": phase_serve_dense, "serve-nemotron": phase_serve_nemotron,
           "serve-dbrx": phase_serve_dbrx, "serve-maverick": phase_serve_maverick,
@@ -4320,7 +4611,8 @@ TAGGED = {("flash_attention", "bf16"): (tuple(f"serve-{a}" for a in DENSE_VARIAN
                                                       lambda key: not key[6] and key[1] == 1),
           ("flash_attention", "bf16_hubert"): (("serve-hubert",), every_launch),
           # back_project_epilogue's (L, m, r, n, right, w_bf16)
-          ("back_project_epilogue", "bf16_w"): (("bf16 galore",), lambda key: key[5] == 1)}
+          ("back_project_epilogue", "bf16_w"): (("bf16 galore", "distributed galore"),
+                                                lambda key: key[5] == 1)}
 # Rows 1-5 at phase 4l's shapes (SSM_CASES): its launches on ssm_in (n =
 # 4384), over the 48 layers ("ssm") and over the 4 sampled blocks
 # ("ssm_project", "ssm_full"); (L, m, r, n, right) and gram / poly_apply's

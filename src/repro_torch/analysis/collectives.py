@@ -42,17 +42,18 @@ gathers a full gradient in the steady state.  This pass checks them the way
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Iterable, NamedTuple
 
 import torch
 
 from repro_torch.core.api import Transform
-from repro_torch.core.lowrank_common import stack_shardable
+from repro_torch.core.lowrank_common import family_shape, lowrank_state_shape, stack_shardable
 from repro_torch.kernels import collective_count, launch_count
 
 from .buffers import param_versions, param_writes
 from .findings import Finding
-from .launch_model import _core, lowrank_nodes, lowrank_plan_stats
+from .launch_model import _core, _inner_coeffs, lowrank_nodes, lowrank_plan_stats, lowrank_views
 from .trace_passes import realloc_bytes
 
 PyTree = Any
@@ -112,22 +113,31 @@ def _update_gather(transform: Transform | dict, params: dict, n: int,
                    step: int) -> tuple[int, int, int]:
     """``(split families, gathered bytes, probe all-reduce bytes)`` of the
     fused lowrank nodes under ``n``-way state sharding at update ``step``:
-    the rules of ``lowrank``'s fused update and of ``layerwise_unbias``
-    under ``family_sharding``."""
+    the rules of ``lowrank``'s fused update, of ``layerwise_unbias`` and of
+    ``with_fira_residual`` under ``family_sharding``.  A split family sends
+    its update rows, ``m·n`` values a block; under ``fused_epilogue`` (an
+    inner that returns a projected update) its projector rows and projected
+    update rows instead, ``r·(m + n)``; Fira adds its norm memory's rows,
+    one value a block."""
     split = nbytes = probe = 0
     for _, node, plan in lowrank_nodes(transform, params):
         if not node.get("fuse_families"):
             continue
-        core = _core(node.get("inner", {})) or {}
+        inner = node.get("inner", {})
+        core = _core(inner) or {}
         gamma = int(core.get("gamma", 0)) if core.get("kind") == "layerwise_unbias" else 0
+        fira = core.get("kind") == "with_fira_residual"
+        epilogue = bool(node.get("fused_epilogue")) and _inner_coeffs(inner, "", [])[1]
         tele = bool(node.get("telemetry"))
         probes = tele or bool(node.get("probe_spectrum"))
         for fi, fam in enumerate(plan.families):
-            L, m, nn = fam.fs.L, fam.fs.m, fam.fs.n
+            L, m, nn, r = fam.fs.L, fam.fs.m, fam.fs.n, fam.fs.rank
             rows_split = n > 1 and stack_shardable(L, n)
             if rows_split:
                 split += 1
-                nbytes += L // n * m * nn * 4
+                nbytes += L // n * (r * (m + nn) if epilogue else m * nn) * 4
+                if fira:
+                    nbytes += L // n * 4
                 if probes:  # the eigenvalue sums, and the drift's overlap
                     probe += (fam.fs.rank + tele) * 4
                 if tele and (step - 1) % len(plan.families) == fi:
@@ -140,6 +150,38 @@ def _update_gather(transform: Transform | dict, params: dict, n: int,
     return split, nbytes, probe
 
 
+def accum_payload(transform: Transform | dict, params: dict) -> tuple[int, int, int]:
+    """``(compact values, compact tensors, refresh bytes)`` of the
+    projected-space accumulator (``gum_accum_tools``) over ``params``: a
+    low-rank leaf contributes ``Pᵀ G`` (``r·n`` or ``m·r`` a block) and,
+    with ``gamma``, its sampled blocks' ``m·n`` each; any other leaf its
+    whole gradient.  The refresh bytes are the low-rank leaves' raw
+    gradients at their common dtype (rank 0's broadcast)."""
+    values = tensors = 0
+    low: dict[str, torch.Tensor] = {}
+    for _, node, view in lowrank_views(transform, params):
+        core = _core(node.get("inner", {})) or {}
+        gamma = int(core.get("gamma", 0)) if core.get("kind") == "layerwise_unbias" else 0
+        for k, p in view.items():
+            if p is None:
+                continue
+            low[k] = p
+            fs = family_shape(p, node.get("rank"))
+            g_f = min(gamma, fs.L)
+            values += math.prod(lowrank_state_shape(fs)) + g_f * fs.m * fs.n
+            tensors += 1 + (g_f > 0)
+    for k, p in params.items():
+        if p is not None and k not in low:
+            values += p.numel()
+            tensors += 1
+    dtypes = [p.dtype for p in low.values()]
+    dtype = dtypes[0] if dtypes else torch.float32
+    for d in dtypes:
+        dtype = torch.promote_types(dtype, d)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return values, tensors, sum(p.numel() for p in low.values()) * itemsize
+
+
 def expected_collective_schedule(
     transform: Transform | dict,
     params: dict,
@@ -149,6 +191,7 @@ def expected_collective_schedule(
     data_axis: str = "data",
     shard_state: bool = False,
     step: int = 2,
+    lowrank_accum: bool = False,
 ) -> dict:
     """The collective schedule the data-parallel step must show at update
     ``step`` (steady unless it is a refresh), derived from the parameter
@@ -161,18 +204,26 @@ def expected_collective_schedule(
     rank's rows, and (telemetry) the bias site's 4 bytes.  At a refresh: no
     gather; one probe all-reduce of the split families' eigenvalue sums
     (and drift overlaps) when probes are on.  ``boundary_gather`` is the
-    reference's refresh-boundary gather, which the port does not issue."""
+    reference's refresh-boundary gather, which the port does not issue.
+
+    ``lowrank_accum`` (the projected-space accumulator, ``transform`` its
+    ``tools.transform``): the gradient all-reduce carries the compact
+    accumulator (:func:`accum_payload`) in place of the gradients, and a
+    refresh adds ONE broadcast of rank 0's raw low-rank gradients
+    (``refresh_broadcast``)."""
     itemsize = torch.empty((), dtype=reduce_dtype).element_size()
     leaves = [p for p in params.values() if p is not None]
-    grad_payload = sum(p.numel() for p in leaves) * itemsize
+    grad_values, operands, refresh_bytes = sum(p.numel() for p in leaves), len(leaves), 0
+    if lowrank_accum:
+        grad_values, operands, refresh_bytes = accum_payload(transform, params)
     n_families = sum(int(r.get("n_families", 0)) for r in lowrank_plan_stats(transform, params))
     split = gather = probe = 0
     if shard_state:
         split, gather, probe = _update_gather(transform, params, int(n_shards), step)
     dtype = str(reduce_dtype).removeprefix("torch.")
     return {
-        "grad_psum": {"count": 1, "dtype": dtype, "operands": len(leaves),
-                      "payload_bytes": int(grad_payload), "axis": data_axis,
+        "grad_psum": {"count": 1, "dtype": dtype, "operands": operands,
+                      "payload_bytes": int(grad_values * itemsize), "axis": data_axis,
                       "phase": "steady"},
         "loss_psum": {"count": 1, "dtype": "float32", "operands": 1, "payload_bytes": 4,
                       "axis": data_axis, "phase": "steady"},
@@ -184,6 +235,8 @@ def expected_collective_schedule(
                          "phase": "boundary"},
         "boundary_gather": {"count": 0, "families": int(n_families), "payload_bytes": 0,
                             "phase": "boundary"},
+        "refresh_broadcast": {"count": int(lowrank_accum), "payload_bytes": int(refresh_bytes),
+                              "axis": data_axis, "phase": "boundary"},
         "n_shards": int(n_shards),
         "shard_state": bool(shard_state),
     }
@@ -307,6 +360,17 @@ def collective_schedule_findings(
                     f"{exp_p['count']} (the split families' probe sums)",
             detail={"traced": n_probe, "expected": exp_p["count"]},
         ))
+    exp_r = expected.get("refresh_broadcast", {"count": 0, "payload_bytes": 0})
+    got_r = [r for r in boundary if r.primitive == "broadcast"]
+    got_r = {"count": len(got_r), "payload_bytes": sum(r.payload_bytes for r in got_r)}
+    if got_r != {k: exp_r[k] for k in got_r}:
+        out.append(Finding(
+            code="RA606", where=where,
+            message=f"refresh-only broadcast {got_r} diverges from the closed-form model "
+                    f"{dict(count=exp_r['count'], payload_bytes=exp_r['payload_bytes'])} "
+                    "(the accumulator's refresh sends rank 0's low-rank gradients once)",
+            detail={"traced": got_r, "expected": exp_r},
+        ))
     exp_b = expected.get("boundary_gather", {"count": 0})
     n_boundary = len([r for r in boundary if r.primitive == "all_gather"])
     if n_boundary != exp_b["count"]:
@@ -329,6 +393,7 @@ _RING_COEFF = {
     "psum": lambda n: 2.0 * (n - 1) / n,
     "all_reduce": lambda n: 2.0 * (n - 1) / n,
     "all_gather": lambda n: (n - 1) / n,
+    "broadcast": lambda n: (n - 1) / n,
     "reduce_scatter": lambda n: (n - 1) / n,
     "all_to_all": lambda n: (n - 1) / n,
     "ppermute": lambda n: 1.0 if n > 1 else 0.0,

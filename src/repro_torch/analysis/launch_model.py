@@ -251,8 +251,17 @@ def lowrank_nodes(transform: Transform | dict, params: dict, *,
     """``(where, chain_info node, FamilyPlan)`` of every ``lowrank()`` node
     the chain routes, on the same masked-leaf view ``_walk`` uses for the
     launch counts.  Purely static; unknown stages are skipped."""
+    return [(where, node, build_family_plan(_leaves(view), node.get("rank")))
+            for where, node, view in lowrank_views(transform, params, name=name)]
+
+
+def lowrank_views(transform: Transform | dict, params: dict, *,
+                  name: str = "chain") -> list[tuple[str, dict, dict]]:
+    """``(where, chain_info node, masked params)`` of every ``lowrank()``
+    node the chain routes: ``params`` with the leaves the node does not see
+    set to None."""
     info = transform if isinstance(transform, dict) else _chain_info(transform)
-    out: list[tuple[str, dict, object]] = []
+    out: list[tuple[str, dict, dict]] = []
 
     def visit(node: dict, params, where: str) -> None:
         kind = node.get("kind", "opaque")
@@ -267,7 +276,7 @@ def lowrank_nodes(transform: Transform | dict, params: dict, *,
             for i, stage in enumerate(node.get("stages", [])):
                 visit(stage, params, f"{where}/stage{i}")
         elif kind == "lowrank":
-            out.append((where, node, build_family_plan(_leaves(params), node.get("rank"))))
+            out.append((where, node, params))
         elif "inner" in node:
             visit(node["inner"], params, f"{where}/inner")
 

@@ -74,7 +74,12 @@ of ``n`` keeps rows ``[k·L/n, (k+1)·L/n)`` of every family-stacked state
 tensor whose leading dim divides (:func:`shard_family_state`; the rule of
 :func:`repro_torch.sharding.family_state_sharding`), refreshes and updates
 only those rows, and one all-gather a step, over every split family at once,
-joins the update rows back to full size (see :func:`family_sharding`).
+joins the update rows back to full size (see :func:`family_sharding`).  Fira's
+per-block norm memory, which the rule keeps whole, rides in that gather as
+this rank's rows; under ``fused_epilogue`` a split family's projector rows
+and projected update rows ride there in place of its update rows, and every
+rank runs the epilogue over the whole stack.  The external refresh (the
+projected-space accumulator) is the one path refused under it.
 """
 from __future__ import annotations
 
@@ -238,15 +243,20 @@ class RowsUpdate:
     (the rank's rows, or all of them when the stack does not divide), and
     the slots still to land after ``lowrank`` gathers the rows: ``slots``,
     this rank's share of them to gather too, or ``slot_vals``, every slot
-    (computed alike on every rank), each scattered to its block of ``idx``."""
+    (computed alike on every rank), each scattered to its block of ``idx``.
+    ``riders`` (a split family's only) are ``(rows, whole)`` pairs of the
+    inner's new state: this rank's rows of a state tensor that the rule
+    keeps whole on every rank (Fira's norm memory), which ride in the same
+    all-gather and are written into ``whole`` in place."""
 
-    __slots__ = ("rows", "slots", "idx", "slot_vals")
+    __slots__ = ("rows", "slots", "idx", "slot_vals", "riders")
 
-    def __init__(self, rows, slots=None, idx=None, slot_vals=None):
+    def __init__(self, rows, slots=None, idx=None, slot_vals=None, riders=()):
         self.rows = rows
         self.slots = slots
         self.idx = idx
         self.slot_vals = slot_vals
+        self.riders = tuple(riders)
 
 
 class RefreshMsg:
@@ -669,6 +679,17 @@ def family_sharding(mesh):
         _FAMILY_SHARDING.mesh = prev
 
 
+# The one refusal left under family_sharding: the projected-space
+# accumulator (the external refresh) projects each rank's gradient onto every
+# block's projector, and a split state holds only its rows' projectors.
+ACCUM_SHARDING_REFUSAL = (
+    "the projected-space accumulator (lowrank's external refresh) under shard_state "
+    "(family_sharding) is not ported (ROADMAP queue 1 item 5i): each rank projects its "
+    "own gradient onto every block's projector, and the split state holds only its "
+    "rows' projectors; it needs a reduce-scatter of the raw gradients or a gather of "
+    "the projectors")
+
+
 def active_family_sharding():
     """The mesh of the active family-sharding declaration, or None."""
     return getattr(_FAMILY_SHARDING, "mesh", None)
@@ -862,8 +883,8 @@ def lowrank(
                         pad_rank_to=pad_rank_to, reset=refresh and reset_on_refresh,
                         refresh=refresh, key=key, seg=seg, shard=shard)
 
-    def _pending(msg: ProjGrad, o, w, **member) -> PendingBack:
-        return PendingBack(p=msg.p, s=o, w=w, fs=msg.fs, kernel_impl=kernel_impl,
+    def _pending(p, o, w, fs: FamilyShape, **member) -> PendingBack:
+        return PendingBack(p=p, s=o, w=w, fs=fs, kernel_impl=kernel_impl,
                            pad_rank_to=pad_rank_to, **member)
 
     def _probe_fresh(p_new, p_old, g32, fs: FamilyShape, old: dict) -> dict:
@@ -939,7 +960,7 @@ def lowrank(
             elif isinstance(o, FullUpdate):
                 out[k] = o.u
             elif fused_epilogue:
-                out[k] = _pending(msg, o, params[k])
+                out[k] = _pending(msg.p, o, params[k], msg.fs)
             else:
                 out[k] = msg.back(o)
         return out, LowRankState(count=count, projs=new_projs, inner=new_inner,
@@ -1031,19 +1052,21 @@ def lowrank(
         (the state in the layout of :func:`shard_family_state`) a family
         whose stack divides the axis refreshes its projectors and runs
         ``inner`` on this rank's rows; its update rows, the slots an inner
-        could not place on them and, under ``telemetry``, a split bias
+        could not place on them, the rows of an inner's whole-kept state
+        (``RowsUpdate.riders``) and, under ``telemetry``, a split bias
         site's sum over this rank's blocks come back in one all-gather over
-        all such families.  Probe sums over blocks meet in one all-reduce at
-        a refresh.  With one shard every family is whole and nothing is
-        gathered."""
+        all such families.  Under ``fused_epilogue`` a split family's
+        projector rows and projected update rows ride in that gather in
+        place of its update rows (``r·(m + n)`` values a block instead of
+        ``m·n``), and every rank builds the whole stack's
+        :class:`PendingBack`, so the chain tail folds into one epilogue
+        launch over the whole stack, as unsharded.  Probe sums over blocks
+        meet in one all-reduce at a refresh.  With one shard every family
+        is whole and nothing is gathered."""
         mesh = active_family_sharding()
         n = family_shard_count(mesh)
-        if n > 1 and fused_epilogue:
-            raise NotImplementedError("fused_epilogue under family_sharding is not ported: "
-                                      "the update rows are gathered inside lowrank, before "
-                                      "the chain tail the epilogue folds")
         if n > 1 and not in_update_refresh:
-            raise NotImplementedError("external_refresh under family_sharding is not ported")
+            raise NotImplementedError(ACCUM_SHARDING_REFUSAL)
         k = mesh.coordinate(mesh.data_axis) if n > 1 else 0
         count = state.count + 1
         refresh = (count - 1) % period == 0
@@ -1093,29 +1116,38 @@ def lowrank(
 
         inner_out, new_inner = inner.update(msgs, state.inner, fam_params)
 
+        def epilogue_parts(fi: int, p, s) -> list:
+            fam = plan.families[fi]
+            w = fam_params[fi]
+            if w is None:  # stacked only if the decay term needs it
+                w = lambda fam=fam: stack_family(fam, leaves)
+            return [_pending(p, s, w, fam.fs, member=j, members=fam.seg.members,
+                             member_lead=fam.member_fs.lead)
+                    for j in range(fam.seg.members)]
+
         parts, pending, payload = {}, [], []
         for fi, fam in enumerate(plan.families):
             o, msg = inner_out[fi], msgs[fi]
+            split = msg.shard is not None and msg.shard.split
             if isinstance(o, FullUpdate):
                 parts[fi] = unstack_family(fam, o.u)
                 continue
-            if fused_epilogue:
-                w = fam_params[fi]
-                if w is None:  # stacked only if the decay term needs it
-                    w = lambda fam=fam: stack_family(fam, leaves)
-                parts[fi] = [_pending(msg, o, w, member=j, members=fam.seg.members,
-                                      member_lead=fam.member_fs.lead)
-                             for j in range(fam.seg.members)]
+            if fused_epilogue and not isinstance(o, RowsUpdate):
+                if split:  # the projector and projected update rows travel
+                    pending.append((fi, o))
+                    payload += [msg.p, o]
+                else:
+                    parts[fi] = epilogue_parts(fi, msg.p, o)
                 continue
             if not isinstance(o, RowsUpdate):
                 o = RowsUpdate(msg.back(o))
-            if msg.shard is None or (not msg.shard.split and o.slots is None):
+            if msg.shard is None or (not split and o.slots is None):
                 u = o.rows if o.idx is None else o.rows.index_copy(0, o.idx, o.slot_vals)
                 parts[fi] = unstack_family(fam, u)
                 continue
             pending.append((fi, o))
-            payload += [t for t in (o.rows if msg.shard.split else None, o.slots)
-                        if t is not None]
+            payload += [t for t in (o.rows if split else None, o.slots) if t is not None]
+            payload += [rows for rows, _ in o.riders]
         if bias_part is not None:
             payload.append(bias_part[1])
         if payload:
@@ -1131,10 +1163,15 @@ def lowrank(
                 return part
 
             for fi, o in pending:
+                if not isinstance(o, RowsUpdate):  # a split family's epilogue
+                    parts[fi] = epilogue_parts(fi, take(msgs[fi].p), take(o))
+                    continue
                 u = take(o.rows) if msgs[fi].shard.split else o.rows
                 if o.idx is not None:
                     vals = take(o.slots) if o.slots is not None else o.slot_vals
                     u = u.index_copy(0, o.idx, vals)
+                for rows, whole in o.riders:
+                    whole.copy_(take(rows))
                 parts[fi] = unstack_family(plan.families[fi], u)
             if bias_part is not None:
                 fi, g_full = bias_part[0], msgs[bias_part[0]].shard.g_full
@@ -1152,8 +1189,7 @@ def lowrank(
 
     def refresh_fused(grads: dict, state: LowRankState, params: dict) -> LowRankState:
         if family_shard_count(active_family_sharding()) > 1:
-            raise NotImplementedError("the external refresh (projected-space accumulation) "
-                                      "under family_sharding is not ported")
+            raise NotImplementedError(ACCUM_SHARDING_REFUSAL)
         count = state.count + 1
         if (count - 1) % period:
             return state
@@ -1430,7 +1466,10 @@ def with_fira_residual(base: Transform, *, limiter: float = 1.01,
     Per leaf it projects once (``ProjGrad.materialize``) and back-projects
     twice (the residual and the update).  Must be composed inside
     :func:`lowrank`; no unbiasedness guarantee (the paper's point of
-    comparison)."""
+    comparison).  Under :func:`family_sharding` a split family runs on the
+    rank's rows, and the rows of its ``(L,)`` norm memory (replicated by
+    the state rule) ride in ``lowrank``'s update all-gather, so every rank
+    writes the whole vector."""
 
     def init(params: dict) -> FiraResidualState:
         return FiraResidualState(
@@ -1448,11 +1487,6 @@ def with_fira_residual(base: Transform, *, limiter: float = 1.01,
             if not isinstance(g, ProjGrad):
                 raise TypeError("with_fira_residual must be composed inside lowrank() "
                                 f"(got a {type(g).__name__} leaf)")
-            if g.shard is not None:
-                raise NotImplementedError(
-                    "with_fira_residual under family_sharding is not ported: its per-block "
-                    "norm memory (L,) is replicated by the state rule, and a rank updates "
-                    "only its rows of it")
             reset = reset or g.reset
             r_gs[k] = g.materialize()
 
@@ -1469,6 +1503,9 @@ def with_fira_residual(base: Transform, *, limiter: float = 1.01,
                 outs[k], new_pn[k] = None, prev_norm[k]
                 continue
             r_g, s, prev = r_gs[k], s_out[k], prev_norm[k]
+            split = g.shard is not None and g.shard.split
+            if split:  # this rank's rows [a, b) of the stack
+                prev = prev[g.shard.rows[0]:g.shard.rows[1]]
             resid = g.g - g.back(r_g)
             phi = (torch.linalg.vector_norm(s, dim=(-2, -1))
                    / (torch.linalg.vector_norm(r_g, dim=(-2, -1)) + eps))
@@ -1476,8 +1513,15 @@ def with_fira_residual(base: Transform, *, limiter: float = 1.01,
             rnorm = torch.linalg.vector_norm(scaled, dim=(-2, -1))
             cap = torch.where(prev > 0, limiter * prev, rnorm)
             shrink = torch.clamp(cap / (rnorm + eps), max=1.0)
-            new_pn[k] = rnorm * shrink
-            outs[k] = FullUpdate(g.back(s) + shrink[..., None, None] * scaled)
+            u = g.back(s) + shrink[..., None, None] * scaled
+            if split:
+                # the (L,) memory stays whole on every rank: its rows ride in
+                # lowrank's one update all-gather and land in new_pn[k]
+                new_pn[k] = torch.empty_like(prev_norm[k])
+                outs[k] = RowsUpdate(u, riders=[(rnorm * shrink, new_pn[k])])
+            else:
+                new_pn[k] = rnorm * shrink
+                outs[k] = FullUpdate(u)
         return outs, FiraResidualState(inner=new_inner, prev_norm=new_pn)
 
     if getattr(base.update, "wants_params", False):

@@ -224,6 +224,8 @@ class GUMAccumTools(NamedTuple):
     refresh: Callable          # (grads, state, params) -> state
     project: Callable          # (grads, state, params) -> compact tree
     reconstruct: Callable      # (compact, state, params) -> grads tree
+    refresh_reads: Callable    # (grads, state, params) -> the grads refresh
+                               # reads (None elsewhere), or None off a boundary
 
 
 def gum_accum_tools(
@@ -283,6 +285,15 @@ def gum_accum_tools(
                 out[paths[i]] = (projs[j], member_idx)
         return out
 
+    def refresh_reads(grads: dict, state, params: dict) -> Optional[dict]:
+        """What ``refresh`` reads of ``grads`` at this step: the low-rank
+        leaves' gradients (None at the others) on a period boundary, else
+        None (the data-parallel step sends rank 0's to every rank only
+        then)."""
+        if (_lowrank_state(state).count % period) != 0:
+            return None
+        return mask(grads, labels(params))
+
     def refresh(grads: dict, state, params: dict):
         """The period-boundary projector refresh and block resampling against
         raw gradients, ``count`` untouched (the step's ``update`` sees the
@@ -330,4 +341,4 @@ def gum_accum_tools(
         return out
 
     return GUMAccumTools(transform=transform, refresh=refresh, project=project,
-                         reconstruct=reconstruct)
+                         reconstruct=reconstruct, refresh_reads=refresh_reads)

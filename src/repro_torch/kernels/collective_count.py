@@ -3,7 +3,8 @@ launch counts of :mod:`repro_torch.kernels.launch_count`.
 
 Every collective of :class:`repro_torch.launch.mesh.Mesh` (the data-parallel
 step's gradient and loss all-reduces, the sharded step's update all-gather,
-the refresh's probe all-reduce, the checkpoint's gathers) appends one entry
+the refresh's probe all-reduce, the projected-space accumulator's refresh
+broadcast, the checkpoint's gathers) appends one entry
 ``{"op", "tag", "dtype", "shape", "bytes"}`` to every active record, before
 it is issued.  ``shape`` and ``bytes`` are the operand this rank sends (an
 all-gather's input, not its ``n``-fold output).  ``record_collectives(
@@ -23,7 +24,7 @@ from typing import Iterator
 
 import torch
 
-COLLECTIVE_OPS = ("all_reduce", "all_gather")
+COLLECTIVE_OPS = ("all_reduce", "all_gather", "broadcast")
 
 _ACTIVE: list[list[dict]] = []
 

@@ -116,6 +116,16 @@ class Mesh:
         dist.all_gather_into_tensor(out, x, group=group)
         return out
 
+    def broadcast(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """``t`` of the data axis's first rank (coordinate 0) on every rank,
+        in place; returns ``t``."""
+        import torch.distributed as dist
+
+        group = self._data_group()
+        collective_count.record("broadcast", tag, t)
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        return t
+
     def barrier(self) -> None:
         import torch.distributed as dist
 

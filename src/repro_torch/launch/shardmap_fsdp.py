@@ -7,12 +7,22 @@ an fp32 reduction) and summed in ONE all-reduce of their concatenation, then
 taken back to fp32 and divided by the rank count before the clip and the
 update.  The loss is averaged in a second, fp32 all-reduce.  Parameters are
 replicated on every rank.  The numbers differ from a one-process step only
-by the bf16 rounding of each rank's gradient and of their sum.
+by the bf16 rounding of each rank's gradient and of their sum.  On
+bf16-stored parameters (``ModelConfig.param_dtype="bfloat16"``) the
+gradients are bf16 already: the all-reduce sums them with one rounding of
+the n-term sum, as the reference's ``psum`` of its bf16 gradients does.  (The
+``Trainer``'s mesh step reduces in fp32 instead: each rank's bf16 gradient
+cast once to fp32, the casts summed, the one-process run at
+``microbatches=n``.)
 
 ``shard_state=True`` (a ``fuse_families=True`` optimizer) splits the
 family-stacked low-rank state over the data axis
-(:func:`repro_torch.core.combinators.family_sharding`), which adds one
-all-gather of the split families' fp32 update rows a step.
+(:func:`repro_torch.core.combinators.family_sharding`), which adds one fp32
+all-gather a step: the split families' update rows, with Fira's norm rows
+beside them, or under ``fused_epilogue`` their projector and projected
+update rows in their place.  Every optimizer of the factory runs under it;
+the projected-space accumulator (``make_train_step(lowrank_accum=)``) does
+not (ROADMAP queue 1 item 5i).
 """
 from __future__ import annotations
 

@@ -3,7 +3,8 @@
 projected-space accumulator, ``make_prefill_step`` and
 ``make_serve_step``).  On a data mesh ``make_train_step`` is the
 data-parallel step: each rank's gradient of its rows of the batch is summed
-over the ranks in one all-reduce (:func:`reduce_gradients`)."""
+over the ranks in one all-reduce (:func:`reduce_gradients`); under the
+projected-space accumulator the ranks' compact accumulators are."""
 from __future__ import annotations
 
 import contextlib
@@ -186,10 +187,10 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
     a batch that does not divide raises ``ValueError``).
 
     ``lowrank_accum`` (a :class:`repro_torch.core.gum.GUMAccumTools`) with
-    ``microbatches > 1`` accumulates in the PROJECTED space instead: the
-    low-rank leaves hold ``Pᵀ G`` plus the gamma sampled blocks in place
-    of a full-shape fp32 gradient, and ``lowrank_accum.transform`` takes the
-    step (``optimizer`` is not used).
+    more than one microbatch in all accumulates in the PROJECTED space
+    instead: the low-rank leaves hold ``Pᵀ G`` plus the gamma sampled
+    blocks in place of a full-shape fp32 gradient, and
+    ``lowrank_accum.transform`` takes the step (``optimizer`` is not used).
 
     **NaN/Inf guard:** when the loss or the (clipped) gradient norm is not
     finite the step applies no update and returns the old optimizer state
@@ -215,21 +216,45 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
     loss and gradients are averaged over the ranks of its data axis by
     :func:`reduce_gradients` in ``reduce_dtype`` before the fault gate, the
     clip and the update, so every rank takes the same update (parameters
-    stay replicated).  ``shard_state`` runs the update under
-    :func:`repro_torch.core.combinators.family_sharding`: ``opt_state`` is
-    then in the layout of ``shard_family_state``.
-    """
+    stay replicated).  Each rank's gradients are cast once to
+    ``reduce_dtype`` and summed in one all-reduce: the ``Trainer`` passes
+    fp32, so on bf16-stored parameters each rank's bf16 gradient is cast to
+    fp32 and the casts are summed, the arithmetic of the one-process run at
+    ``microbatches=n``; ``launch.shardmap_fsdp`` passes bf16 (one rounding
+    of the n-term sum, as the reference's ``psum``).  ``shard_state`` runs
+    the update under :func:`repro_torch.core.combinators.family_sharding`:
+    ``opt_state`` is then in the layout of ``shard_family_state``.
+
+    ``mesh`` with ``lowrank_accum``: the step of rank ``k`` of ``n`` is the
+    one-process accumulator at ``n·microbatches`` microbatches over the
+    global batch; the rank's local microbatch ``j`` is global microbatch
+    ``k·microbatches + j`` (its rows are ``[k·B/n, (k+1)·B/n)``).  On a
+    period boundary the projectors refresh from global microbatch 0, rank
+    0's first: its raw low-rank gradients reach every rank in one
+    broadcast (tag ``refresh``), and every rank refreshes on them with the
+    same keys.  Each rank projects its microbatches and sums the compact
+    leaves in order; the ranks' sums meet in ONE all-reduce at
+    ``reduce_dtype`` (tag ``grad``, fp32 by default: ``r·n`` plus the
+    sampled blocks a low-rank leaf, in place of ``m·n``), the loss in a
+    second, fp32 one (:func:`reduce_gradients`); the sums are divided by
+    ``n``, then by ``microbatches``, reconstructed and applied by the
+    guarded update.  With ``shard_state`` it raises
+    ``NotImplementedError`` (ROADMAP queue 1 item 5i)."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if shard_state and mesh is None:
         raise ValueError("shard_state needs a mesh")
-    if mesh is not None and lowrank_accum is not None:
-        raise NotImplementedError("the projected-space accumulator on a mesh is not ported")
-    if lowrank_accum is not None and microbatches > 1:
+    ranks = 1 if mesh is None else int(mesh.shape[mesh.data_axis])
+    if lowrank_accum is not None and microbatches * ranks > 1:
+        if shard_state:
+            from repro_torch.core.combinators import ACCUM_SHARDING_REFUSAL
+
+            raise NotImplementedError(ACCUM_SHARDING_REFUSAL)
         if fault_gate is not None:
             raise NotImplementedError("fault injection is not wired into the projected-space "
                                       "accumulation step")
-        return _make_lowrank_accum_step(model, lowrank_accum, grad_clip, microbatches)
+        return _make_lowrank_accum_step(model, lowrank_accum, grad_clip, microbatches, mesh,
+                                        reduce_dtype)
     lowrank_paths = _lowrank_paths(model.params()) if extra_metrics else None
 
     def sharding():
@@ -250,11 +275,32 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
     return train_step
 
 
+def _broadcast_from_first(mesh, grads: dict) -> dict:
+    """Rank 0's gradients (the leaves that are not None) on every rank, in
+    ONE broadcast of their concatenation (tag ``refresh``) at their common
+    dtype (a cast both ways is exact)."""
+    keys = [k for k, g in grads.items() if g is not None]
+    dtype = grads[keys[0]].dtype
+    for k in keys[1:]:
+        dtype = torch.promote_types(dtype, grads[k].dtype)
+    flat = torch.cat([grads[k].reshape(-1).to(dtype) for k in keys])
+    mesh.broadcast(flat, "refresh")
+    out, at = dict(grads), 0
+    for k in keys:
+        z = grads[k].numel()
+        out[k] = flat[at:at + z].view(grads[k].shape).to(grads[k].dtype)
+        at += z
+    return out
+
+
 def _make_lowrank_accum_step(model: Transformer, tools, grad_clip: float,
-                             microbatches: int) -> Callable:
+                             microbatches: int, mesh=None,
+                             reduce_dtype: torch.dtype = torch.float32) -> Callable:
     """Microbatch 0's raw gradients refresh the projectors (on a period
     boundary), every microbatch is projected and summed, and the mean is
-    reconstructed to full shape for the standard update."""
+    reconstructed to full shape for the standard update.  On a ``mesh``
+    the refresh reads rank 0's microbatch 0 and the compact sums meet in
+    one all-reduce (see :func:`make_train_step`)."""
 
     def add(acc: Optional[dict], part: Optional[dict]) -> Optional[dict]:
         if part is None:
@@ -268,7 +314,14 @@ def _make_lowrank_accum_step(model: Transformer, tools, grad_clip: float,
         first, *rest = split_microbatches(batch, microbatches)
         loss, grads = _value_and_grad(model, params, first)
         with torch.no_grad():
-            opt_state = tools.refresh(grads, opt_state, detached)
+            reads = grads
+            if mesh is not None:
+                reads = tools.refresh_reads(grads, opt_state, detached)
+                if reads is not None:
+                    reads = _broadcast_from_first(mesh, reads)
+            if reads is not None:
+                opt_state = tools.refresh(reads, opt_state, detached)
+            del reads
             acc = tools.project(grads, opt_state, detached)
         del grads
         for mb in rest:
@@ -278,8 +331,14 @@ def _make_lowrank_accum_step(model: Transformer, tools, grad_clip: float,
                 part = tools.project(grads, opt_state, detached)
             acc = {k: add(a, part[k]) for k, a in acc.items()}
             del grads, part
-        loss = loss / microbatches
         with torch.no_grad():
+            if mesh is not None:  # the mean over the ranks of each rank's sum
+                flat = {(k, key): t for k, a in acc.items() if a is not None
+                        for key, t in a.items()}
+                loss, flat = reduce_gradients(mesh, loss, flat, reduce_dtype)
+                acc = {k: None if a is None else {key: flat[(k, key)] for key in a}
+                       for k, a in acc.items()}
+            loss = loss / microbatches
             acc = {k: None if a is None else {key: t / microbatches for key, t in a.items()}
                    for k, a in acc.items()}
             grads = tools.reconstruct(acc, opt_state, detached)

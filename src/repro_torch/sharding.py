@@ -125,7 +125,7 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     mesh = _mesh()
     if mesh is not None and "model" in mesh.axis_names and mesh.shape["model"] > 1:
         raise NotImplementedError("activation sharding over a model axis is not ported "
-                                  "(ROADMAP queue 1: tensor parallelism)")
+                                  "(tensor parallelism, ROADMAP queue 1 item 5b)")
     return x
 
 
@@ -344,7 +344,7 @@ def row_splits(specs: PyTree, mesh) -> PyTree:
                 and isinstance(spec[0], str):
             return RowSplit(mesh.coordinate(spec[0]), mesh.shape[spec[0]])
         raise NotImplementedError(f"spec {spec}: only a split of the leading dim over one "
-                                  "axis is ported (parameter sharding waits, ROADMAP queue 1)")
+                                  "axis is ported (parameter sharding, ROADMAP queue 1 item 5a)")
 
     return _map(one, specs)
 

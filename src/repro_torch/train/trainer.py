@@ -214,13 +214,13 @@ class Trainer:
         group whose every rank builds the same ``Trainer``) makes this run
         one data-parallel rank over ``mesh.data_axis``; ``data_cfg`` is the
         whole run's.  A mesh axis other than that one larger than 1 raises: tensor and expert
-        parallelism are not ported.  A mesh over bf16-stored parameters
-        raises: the reference reduces the bf16 gradients, the port's step
-        reduces in fp32 (ROADMAP queue 1 item 5h)."""
-        if mesh is not None and model.cfg.param_dtype != "float32":
-            raise NotImplementedError(
-                f"a mesh with ModelConfig.param_dtype={model.cfg.param_dtype!r}: data-parallel "
-                "training on 16-bit-stored parameters is not ported (ROADMAP queue 1 item 5h)")
+        parallelism are not ported.  The gradients are summed over the
+        ranks in fp32: on bf16-stored parameters each rank's bf16 gradient
+        is cast once to fp32 and the casts are summed, so a mesh of ``n``
+        ranks is the one-process run at ``microbatches=n`` (bitwise at
+        2 ranks on the CPU); the reference's pjit step leaves that sum to
+        XLA in bf16.  Every ``OptimizerConfig`` trains on a mesh, Fira and
+        the fused epilogue under ``shard_state`` too."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.opt_cfg = opt_cfg

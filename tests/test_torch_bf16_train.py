@@ -24,7 +24,8 @@ larger cases ((b) at nemotron-4-340b and maverick, (d)) are in
     package's bf16 checkpoint restoring in the port, and the reference's
     own restore failing on it.
 (f) The static audit of a bf16-stored llama-130m on ``meta`` tensors.
-Also: the paths that stay refused raise ``NotImplementedError``.
+Also: the storage dtypes that stay refused raise ``NotImplementedError``
+(a mesh over bf16 storage trains: ``tests/test_torch_distributed_paths.py``).
 
 The precision rule of (b) and (c) is the serving slices' (ROADMAP ground
 rules, Precision): bf16 rounds at other places in the two packages, so the
@@ -673,21 +674,13 @@ def test_audit_of_bf16_stored_llama_130m():
 
 
 def test_unported_storage_paths_raise():
-    """A mesh over bf16 storage (ROADMAP queue 1 item 5h) and fp16 storage
-    (item 2i), on the dense family and on ``Mamba2``, raise
-    ``NotImplementedError`` naming their items; bf16 storage builds for the
-    ssm and hybrid families (``tests/test_torch_ssm_bf16.py``)."""
-    from repro_torch.configs import RunConfig, get_smoke
-    from repro_torch.data import DataConfig
+    """fp16 storage (ROADMAP queue 1 item 2i), on the dense family and on
+    ``Mamba2``, raises ``NotImplementedError`` naming its item; bf16 storage
+    builds for the ssm and hybrid families (``tests/test_torch_ssm_bf16.py``)
+    and trains on a mesh (item 5h, ``tests/test_torch_distributed_paths.py``)."""
+    from repro_torch.configs import get_smoke
     from repro_torch.models import build_model
-    from repro_torch.train import Trainer
 
-    cfg = get_smoke("llama-60m").replace(param_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 5h"):
-        Trainer(build_model(cfg, device="cpu"), OptimizerConfig(name="gum", rank=4, gamma=1),
-                RunConfig(steps=1, ckpt_dir="/nonexistent"),
-                DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2), device="cpu",
-                mesh=object())  # refused before the mesh is read
     for arch, dtype in (("llama-60m", "float16"), ("mamba2-370m", "float16"),
                         ("mamba2-370m", "float64"), ("zamba2-1.2b", "float16")):
         with pytest.raises(NotImplementedError, match="item 2i"):

@@ -1,6 +1,7 @@
-"""The rank side of ``tests/test_torch_distributed.py``: scenarios each rank
-of a ``repro_torch.launch.mesh.run_local_ranks`` group runs, on llama-60m
-``SMOKE`` over gloo.  Imports no JAX: the test hands in the reference's
+"""The rank side of ``tests/test_torch_distributed.py`` and
+``tests/test_torch_distributed_paths.py``: scenarios each rank of a
+``repro_torch.launch.mesh.run_local_ranks`` group runs, on llama-60m
+``SMOKE`` over gloo.  Imports no JAX: the tests hand in the reference's
 initial parameters and block draws (``inputs``).
 
 :func:`scenarios` runs the named scenarios in order and returns, per name,
@@ -42,7 +43,9 @@ def table_sampler(table: dict):
 
 
 def _numpy(params: dict) -> dict:
-    return {k: p.detach().cpu().numpy().copy() for k, p in params.items()}
+    """The parameters as numpy (a bf16 leaf as its exact fp32 cast)."""
+    return {k: p.detach().cpu().float().numpy().copy() if p.dtype == torch.bfloat16
+            else p.detach().cpu().numpy().copy() for k, p in params.items()}
 
 
 def _state_bytes(trainer: Trainer, mesh) -> dict:
@@ -152,8 +155,128 @@ def shardmap(mesh, inputs: dict, case: str, shard: bool) -> dict:
                 k: str(v) for k, v in step.sharded_step_info.items()}}
 
 
+# ---------------------------------------------------------------------------
+# tests/test_torch_distributed_paths.py: the paths a mesh refused before
+# ---------------------------------------------------------------------------
+
+PATH_STEPS = 3  # period 2: refreshes at steps 1 and 3
+PATH_OPTS = {
+    "gum": dict(GUM, period=2),
+    "fira": dict(name="fira", lr=1e-3, rank=4, period=2, fuse_families=True),
+    "galore_epi": dict(name="galore", lr=1e-2, rank=4, period=2, weight_decay=0.01,
+                       fuse_families=True, fused_epilogue=True),
+}
+ACCUM = dict(rank=4, gamma=1, period=2, fuse_families=True, weight_decay=0.01)
+ACCUM_LR = 1e-2
+
+
+def _counted(step_fn, logs: list):
+    """``step_fn`` recording each call's collectives into ``logs``."""
+    def step(*args):
+        with record_collectives() as log:
+            out = step_fn(*args)
+        logs.append(log)
+        return out
+
+    return step
+
+
+def path_train(mesh, inputs: dict, opt: str, dtype: str, shard: bool, *,
+               steps: int = PATH_STEPS, label: str = "") -> dict:
+    """``Trainer(mesh=)`` with ``PATH_OPTS[opt]`` from the reference's initial
+    parameters (``dtype`` "bf16": the reference's bf16-stored init), its
+    block draws injected; each step's collectives."""
+    cfg = get_smoke(ARCH).replace(param_dtype="bfloat16" if dtype == "bf16" else "float32")
+    opt_cfg = OptimizerConfig(**PATH_OPTS[opt], shard_state=shard)
+    params = {k: torch.as_tensor(v) for k, v in inputs[f"params_{dtype}"].items()}
+    label = label or f"{opt}_{dtype}_{'shard' if shard else 'replicated'}"
+    trainer = Trainer(build_model(cfg, device="cpu"), opt_cfg,
+                      RunConfig(steps=steps, log_every=0, seed=0, ckpt_every=100,
+                                ckpt_dir=os.path.join(inputs["dir"], label)),
+                      DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=0),
+                      device="cpu", mesh=mesh, params=params,
+                      optimizer=build_optimizer(opt_cfg,
+                                                sampler=table_sampler(inputs["samples"])))
+    trainer.monitor.z = float("inf")
+    logs: list = []
+    trainer.step_fn = _counted(trainer.step_fn, logs)
+    result = trainer.train()
+    return {"losses": result.losses, "params": _numpy(trainer.model.params()),
+            "dtypes": {k: str(p.dtype) for k, p in trainer.model.params().items()},
+            "logs": logs, "resumed_from": result.resumed_from,
+            "bytes": _state_bytes(trainer, mesh)}
+
+
+def bf16_resume(mesh, inputs: dict) -> dict:
+    """bf16-stored GUM under ``shard_state``: 1 step and a checkpoint, then a
+    second ``Trainer`` on the directory to step 3, across the refresh."""
+    first = path_train(mesh, inputs, "gum", "bf16", True, steps=1, label="bf16_resume")
+    second = path_train(mesh, inputs, "gum", "bf16", True, label="bf16_resume")
+    return {"first": first["losses"], "second": second["losses"],
+            "resumed_from": second["resumed_from"], "params": second["params"]}
+
+
+def shardmap_bf16(mesh, inputs: dict, shard: bool) -> dict:
+    """``make_shardmap_train_step`` (bf16 reduction) of GUM on the
+    reference's bf16-stored initial parameters, one batch of
+    ``inputs["tokens"]`` a step."""
+    model = build_model(get_smoke(ARCH).replace(param_dtype="bfloat16"), device="cpu")
+    model.load_params({k: torch.as_tensor(v) for k, v in inputs["params_bf16"].items()})
+    opt = build_optimizer(OptimizerConfig(**GUM), sampler=table_sampler(inputs["samples"]))
+    step = make_shardmap_train_step(model, opt, mesh, shard_state=shard)
+    params = model.params()
+    state = step.place_state(opt.init({k: p.detach() for k, p in params.items()}))
+    losses, logs = [], []
+    step = _counted(step, logs)
+    for tokens in inputs["tokens"]:
+        state, metrics = step(params, state, {"tokens": torch.from_numpy(tokens)})
+        losses.append(float(metrics["loss"]))
+    return {"losses": losses, "params": _numpy(params), "logs": logs}
+
+
+def accum_tools(inputs: dict):
+    from repro_torch.core import gum_accum_tools
+
+    return gum_accum_tools(ACCUM_LR, sampler=table_sampler(inputs["samples"]), **ACCUM)
+
+
+def accum_run(mesh, inputs: dict, microbatches: int) -> dict:
+    """``make_train_step(lowrank_accum=gum_accum_tools(...))`` over
+    ``inputs["accum_tokens"]`` (this rank's rows of each global batch on a
+    mesh, the whole batch without one), from the reference's initial
+    parameters and draws; each step's collectives."""
+    from repro_torch.launch.steps import make_train_step
+
+    model = build_model(get_smoke(ARCH), device="cpu")
+    model.load_params({k: torch.as_tensor(v) for k, v in inputs["params_fp32"].items()})
+    tools = accum_tools(inputs)
+    step = make_train_step(model, tools.transform, microbatches=microbatches,
+                           lowrank_accum=tools, mesh=mesh)
+    params = model.params()
+    state = tools.transform.init({k: p.detach() for k, p in params.items()})
+    n = 1 if mesh is None else mesh.shape["data"]
+    k = 0 if mesh is None else mesh.coordinate("data")
+    losses, logs = [], []
+    step = _counted(step, logs)
+    for tokens in inputs["accum_tokens"]:
+        per = tokens.shape[0] // n
+        state, metrics = step(params, state,
+                              {"tokens": torch.from_numpy(tokens[k * per:(k + 1) * per])})
+        losses.append(float(metrics["loss"]))
+    return {"losses": losses, "params": _numpy(params), "logs": logs}
+
+
 def _scenario(mesh, inputs: dict, name: str):
     kind, _, rest = name.partition(":")
+    if kind == "path":
+        opt, dtype, mode = rest.split(":")
+        return path_train(mesh, inputs, opt, dtype, mode == "shard")
+    if kind == "bf16_resume":
+        return bf16_resume(mesh, inputs)
+    if kind == "shardmap_bf16":
+        return shardmap_bf16(mesh, inputs, rest == "shard")
+    if kind == "accum":
+        return accum_run(mesh, inputs, int(rest))
     if kind == "train":
         return train(mesh, inputs, f"{name.replace(':', '_')}_{mesh.shape['data']}",
                      shard=rest == "shard")
