@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero and prints no result:
                 rank 128, phase 4f's, reported beside the principal shapes,
                 from a generator of their own)
                 and of GaLore's family stacks, both projection sides, plus
-                one ragged shape;
+                one ragged shape; the fused epilogue also on a bf16 W, and
+                on a bf16 W at the cut that split parameters give it
+                (w_in / w_gate's rows at 2 ranks, tag ``bf16_w_cut``);
                 Newton–Schulz's two kernels also at Muon's full-rank shapes;
                 flash attention at llama-130m's prefill, a GQA short-query,
                 a ragged and a padded-head-dim case, and its 16-bit
@@ -139,7 +141,20 @@ Phases, in order; any failure exits non-zero and prints no result:
                 ``analysis.collectives``' bytes (the accumulator's refresh
                 broadcast and compact gradient all-reduce), the
                 accumulator within 1e-6 of 4d's run at 4 microbatches, the
-                ranks equal; then one ``make_shardmap_train_step`` step
+                ranks equal; in the same spawn, split parameters
+                (``Trainer(shard_params=True)``, FSDP by ``PARAM_RULES``):
+                phase 4's GUM with ``shard_state`` off and on, 3 steps, and
+                4k's fused GaLore (bf16 W, ``shard_state``), 3 steps, each
+                bitwise its replicated twin of the spawn over those steps
+                (or the first
+                differing step reported, within 1e-6), 219061248 parameter
+                bytes a rank for GUM (``per_shard_bytes``), every step's
+                collectives (a layer's all-gather per layer read, its fp32
+                reduce-scatter, the once leaves', the gradient parts'
+                all-gather) against ``analysis.collectives``' model, row 6
+                on the parts (4 launches a step: the (768, 768) family
+                splits rows and columns), the peak by part of the step
+                beside the twin's; then one ``make_shardmap_train_step`` step
                 over a world-size-1 ``nccl`` group (bf16 gradient
                 all-reduce) bitwise the no-mesh step given the same bf16
                 cast;
@@ -642,6 +657,22 @@ def kernel_cases(torch, gen, lu_shapes=None, bp_shapes=None, epi_shapes=None,
                                                            alpha=scale)),
                       2.0 * L * m * n * r, 4 * (L * m * r + L * r * n + L * m * n) + 2 * L * m * n,
                       "bf16_w"))
+        # ... and at that family's cut on split parameters (phase 4i's fused
+        # GaLore under shard_params at 2 ranks: w_in and w_gate split on
+        # their rows, so P's rows and W's part), tagged "bf16_w_cut"
+        L, m, r, n = 24, 384, 256, 2048
+        p, s, w = (torch.randn(*shape, generator=g6, device="cuda")
+                   for shape in ((L, m, r), (L, r, n), (L, m, n)))
+        w = w.to(torch.bfloat16)
+        cases.append(("back_project_epilogue", f"left P{tuple(p.shape)} S{tuple(s.shape)} "
+                      "W=bf16 (split rows)",
+                      (lambda p=p, s=s, w=w:
+                       fst.back_project_epilogue_batched(p, s, w, scale, decay)),
+                      (lambda p=p, s=s, w=w: ref.back_project_epilogue_ref(p, s, w, scale, decay)),
+                      (lambda p=p, s=s, w=w: torch.baddbmm(w.float(), p, s, beta=decay,
+                                                           alpha=scale)),
+                      2.0 * L * m * n * r, 4 * (L * m * r + L * r * n + L * m * n) + 2 * L * m * n,
+                      "bf16_w_cut"))
 
     # gram / poly_apply: NS on the low-rank momenta (12, 256, n), on the
     # full slots (4, 768, n) and on Muon's full-rank momenta (12, 768, n);
@@ -841,6 +872,7 @@ def phase_kernels(torch):
     cases += [case + (TOL_GEMM,) for case in kernel_cases(torch, gen128, **RANK128_CASES)]
     gen_ssm = torch.Generator(device="cuda").manual_seed(4384)
     cases += [case + (TOL_GEMM,) for case in kernel_cases(torch, gen_ssm, **SSM_CASES)]
+    epi_fns = {}
     for name, label, kfn, pfn, lfn, flops, nbytes, principal, tol, *tf32 in cases:
         out, want = kfn(), UNROUNDED.get(id(pfn), pfn)()
         torch.cuda.synchronize()
@@ -868,14 +900,26 @@ def phase_kernels(torch):
             row.update(found)
         elif principal:
             row[principal] = found | {"max_abs_err": abs_err}
+        if name == "back_project_epilogue" and principal in ("bf16_w", "bf16_w_cut"):
+            epi_fns[principal] = kfn
 
     # Row 6's launches on a bf16 W ran its bf16 instantiation (the fifth
-    # template argument 1), every other launch the fp32 one.
+    # template argument 1), every other launch the fp32 one; each bf16-W
+    # case's own launch (one more) names its instantiation.
     epi = build.VARIANTS["back_project_epilogue"]
     bf16_w = sorted(key for key in epi if key[4] == 1)
     check(len(bf16_w) == 1 and all(len(key) == 5 for key in epi),
           f"back_project_epilogue instantiations {epi}: want one with a bf16 W")
-    rows["back_project_epilogue"]["bf16_w"]["variant"] = list(bf16_w[0])
+    for tag, fn in epi_fns.items():
+        before = dict(build.VARIANTS["back_project_epilogue"])
+        fn()
+        torch.cuda.synchronize()
+        new = [key for key, n in build.VARIANTS["back_project_epilogue"].items()
+               if n != before.get(key, 0)]
+        check(len(new) == 1 and new[0][4] == 1,
+              f"back_project_epilogue {tag}: instantiations {new}, want one with a bf16 W")
+        rows["back_project_epilogue"][tag]["variant"] = list(new[0])
+        print(f"back_project_epilogue {tag} instantiation {new[0]}", flush=True)
     print(f"back_project_epilogue bf16 W instantiation {bf16_w[0]} ({epi[bf16_w[0]]} "
           f"launches); fp32 W or none {sorted(key for key in epi if key[4] == 0)}", flush=True)
 
@@ -2115,6 +2159,10 @@ RESILIENT_GALORE = dict(name="galore", lr=1e-2, rank=256, period=8, weight_decay
                         fuse_families=True, fused_epilogue=True)
 GALORE_DISPATCH = {"project": 3, "back_project_epilogue": 3}
 GALORE_LAUNCH = {"lowrank_update": 3, "back_project_epilogue": 3}
+# ... on split parameters: the (768, 768) family's members split on rows
+# (wq, wk, wv) and on columns (wo), so its epilogue launches once a cut.
+SPLIT_GALORE_DISPATCH = {"project": 3, "back_project_epilogue": 4}
+SPLIT_GALORE_LAUNCH = {"lowrank_update": 3, "back_project_epilogue": 4}
 
 
 def logged_steps(trainer, period: int) -> list:
@@ -2502,6 +2550,9 @@ FUSED_GUM_DISPATCH = {"lowrank_update": 3, "project": 3, "back_project": 6,
                       "newton_schulz": 6}
 FUSED_GUM_LAUNCH = {"lowrank_update": 6, "back_project": 6, "gram": 30, "poly_apply": 30}
 DIST_STEPS = 4
+# The split-parameter runs stop before step 4's refresh (to hold 4i's cost):
+# each is held to its twin's losses and parameters after step 3.
+SPLIT_STEPS = DIST_STEPS - 1
 # shard_state on against off on the card: Newton–Schulz's batched Frobenius
 # norm rounds a rank's rows of a stack otherwise than the whole stack (3e-5
 # on a norm of ~440 at 24 of 48 rows; tools/ns_norm_stack_invariance.py),
@@ -2521,19 +2572,21 @@ def distributed_rank(mesh, inputs: dict) -> dict:
     """Phase 4i, one of two ranks on the one card: phase 4's GUM with
     ``fuse_families`` through ``Trainer(mesh=...)`` (this rank's 4 x 1024 of
     the 8 x 1024 batch, fp32 gradient all-reduce), ``shard_state`` off then
-    on, 4 steps each.  Returns per run the losses, a digest of the final
-    parameters, each step's collectives and dispatches, the kernel launches,
-    this rank's family-state bytes beside ``family_state_bytes`` and the
-    step times; for the run with shard_state, the largest relative
-    Frobenius distance of a parameter leaf to the run without it, after
-    step 3 and after step 4."""
-    import hashlib
-
+    on, 4 steps each, then the same two on split parameters
+    (``shard_params``) for ``SPLIT_STEPS``.  Returns per run the losses,
+    digests of the final parameters and of those after step 3, each step's
+    collectives and dispatches, the kernel launches, this rank's
+    family-state bytes beside ``family_state_bytes``, the step times and
+    the peak by part of the step; for the run with shard_state, the largest
+    relative Frobenius distance of a parameter leaf to the run without it,
+    after step 3 and after step 4; for a split run, :func:`split_record`'s
+    checks and that distance to its twin after step 3."""
     import torch
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import repro_torch.launch.steps as steps_mod
     from repro_torch.configs import RunConfig
     from repro_torch.core import OptimizerConfig
     from repro_torch.core.combinators import slot_projector_bytes, strip_slot_projectors
@@ -2543,71 +2596,205 @@ def distributed_rank(mesh, inputs: dict) -> dict:
     from repro_torch.sharding import family_state_bytes
     from repro_torch.train import Trainer
 
-    out, replicated = {}, None
-    for shard in (False, True):
-        label = "shard" if shard else "replicated"
+    out, replicated, finals = {}, None, {}
+    for shard, split in ((False, False), (True, False), (False, True), (True, True)):
+        label = {(False, False): "replicated", (True, False): "shard",
+                 (False, True): "split", (True, True): "split shard"}[shard, split]
+        held_before = torch.cuda.memory_allocated()  # what earlier runs left allocated
         cfg, data = full_width_data()
         model = build_model(cfg, device="cuda")
         opt_cfg = OptimizerConfig(name="gum", lr=5e-3, rank=256, gamma=4, period=3,
                                   fuse_families=True, shard_state=shard)
         trainer = Trainer(model, opt_cfg,
-                          RunConfig(steps=DIST_STEPS, log_every=0, seed=0,
-                                    ckpt_dir=os.path.join(inputs["dir"], label)),
-                          data, device="cuda", mesh=mesh)
+                          RunConfig(steps=SPLIT_STEPS if split else DIST_STEPS, log_every=0,
+                                    seed=0, ckpt_dir=os.path.join(inputs["dir"], label)),
+                          data, device="cuda", mesh=mesh, shard_params=split)
         trainer.monitor.z = float("inf")
-        steps = []
+        steps, logs = [], []
         inner = trainer.step_fn
 
         before_refresh = {}
 
-        def counted(*args, inner=inner):
+        # the peak by part of the step: up to the gradient reduction (the
+        # forward and backward), from it to the step's end (the reduction
+        # and the update), and between steps (the final checkpoint's save)
+        parts = {"backward": 0, "update": 0}
+
+        def mark(part):
+            parts[part] = max(parts[part], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+
+        def counted(*args, inner=inner, trainer=trainer):
             with record_collectives() as log, launch_count.count_launches() as dispatched:
                 result = inner(*args)
+            mark("update")
+            logs.append(log)
             steps.append({"collectives": tally(log),
                           "dtypes": {f"{e['op']}:{e['tag']}": e["dtype"] for e in log},
                           "bytes": {f"{e['op']}:{e['tag']}": e["bytes"] for e in log},
                           "dispatch": dict(dispatched)})
-            if len(steps) == DIST_STEPS - 1:  # the last update before step 4's refresh
-                before_refresh.update({k: p.detach().cpu() for k, p in args[0].items()})
+            if len(steps) == SPLIT_STEPS:  # the last update before step 4's refresh
+                before_refresh.update(trainer.whole_params("cpu"))
+            torch.cuda.reset_peak_memory_stats()
             return result
 
         trainer.step_fn = counted
         build.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        result = trainer.train()
+        reduce_name = "reduce_split_gradients" if split else "reduce_gradients"
+        reduce = getattr(steps_mod, reduce_name)
+
+        def marked(*args, reduce=reduce):
+            mark("backward")
+            return reduce(*args)
+
+        setattr(steps_mod, reduce_name, marked)
+        try:
+            result = trainer.train()
+        finally:
+            setattr(steps_mod, reduce_name, reduce)
         torch.cuda.synchronize()
+        parts["save"] = torch.cuda.max_memory_allocated()
+        peak = max(parts.values()) / 2**30
         launches = dict(build.LAUNCHES)
-        digest = hashlib.sha256()
-        final = {k: p.detach().cpu() for k, p in trainer.model.params().items()}
-        for k, p in final.items():
-            digest.update(k.encode())
-            digest.update(p.numpy().tobytes())
+        final = trainer.whole_params("cpu")
         param_rel = None
         if replicated is None:
             replicated = (before_refresh, final)
-        else:
-            param_rel = [max(float(torch.linalg.vector_norm(p - want[k])
-                                   / torch.linalg.vector_norm(want[k]))
-                             for k, p in got.items())
+        elif label == "shard":
+            param_rel = [_leaf_rel(got, want)
                          for got, want in zip((before_refresh, final), replicated)]
-        like = {k: torch.empty_like(p, device="meta")
-                for k, p in trainer.model.params().items()}
+        like = trainer._like()
         total, per_shard = family_state_bytes(trainer.optimizer.init(like), mesh.shape["data"])
         bare = strip_slot_projectors(trainer.opt_state)
         slot_projs = slot_projector_bytes(trainer.opt_state)
-        out[label] = {"losses": result.losses, "digest": digest.hexdigest(),
+        out[label] = {"losses": result.losses, "digest": _digest(final),
+                      "digest3": _digest(before_refresh),
                       "steps": steps, "launches": launches,
                       "held": family_state_bytes(bare, 1)[0], "rule": per_shard,
                       "whole": total, "slot_projs": slot_projs,
                       "seconds": [round(t, 4) for t in result.step_seconds],
-                      "param_rel": param_rel,
-                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        del trainer, model, bare
+                      "param_rel": param_rel, "peak_gib": peak,
+                      "held_before_gib": held_before / 2**30,
+                      "peak_parts": {k: round(v / 2**30, 3) for k, v in parts.items()}}
+        finals[label] = before_refresh  # after step 3, the split runs' last
+        if split:
+            twin = finals["shard" if shard else "replicated"]
+            out[label] |= split_record(torch, trainer, mesh, logs, cfg)
+            out[label]["twin_rel"] = _leaf_rel(final, twin)
+        # the loop's closures hold the trainer and its step, and ``like`` views
+        # the parameters: drop them too, or the next run starts with this
+        # one's parameters and state allocated
+        del trainer, model, bare, final, counted, inner, marked, like
         gc.collect()
         torch.cuda.empty_cache()
+    del replicated, finals
     out |= distributed_paths(torch, mesh, inputs)
     return out
+
+
+# Phase 4i's split parameters (shard_params): llama-130m's parameter bytes a
+# rank at data=2 by sharding.per_shard_bytes (every leaf divides but
+# final_norm's (768,)), against 438119424 whole.
+SPLIT_PARAM_BYTES = 219061248
+
+
+def split_record(torch, trainer, mesh, logs: list, cfg) -> dict:
+    """A split-parameter run's own checks, on its rank: the parameter bytes
+    it holds beside ``per_shard_bytes``, and every step's collectives
+    against ``analysis.collectives``' model (the counts of each op and tag,
+    and a steady step's findings)."""
+    from repro_torch.analysis.collectives import (
+        collect_collectives,
+        collective_schedule_findings,
+        expected_collective_schedule,
+    )
+    from repro_torch.kernels.collective_count import tally
+    from repro_torch.sharding import per_shard_bytes
+
+    split = trainer.param_split
+    like = split.standins()
+    held = sum(p.numel() * p.element_size() for p in trainer.model.params().values())
+    findings, model_counts = [], []
+    for i, log in enumerate(logs):
+        expected = expected_collective_schedule(
+            trainer.optimizer, like, n_shards=mesh.shape["data"], reduce_dtype=torch.float32,
+            shard_state=trainer.shard_state, param_split=split, remat=cfg.remat, step=i + 1)
+        findings += [f"step {i + 1}: {f.format()}" for f in collective_schedule_findings(
+            collect_collectives(log), expected, reduce_dtype=torch.float32)]
+        model_counts.append(tally(log))
+    sched = {k: v for k, v in expected.items() if isinstance(v, dict) and v.get("count")}
+    return {"param_bytes": held, "param_rule": per_shard_bytes(like, mesh),
+            "param_whole": sum(p.numel() * p.element_size() for p in like.values()),
+            "findings": findings, "schedule": {
+                k: (v["count"], v.get("dtype"), v["payload_bytes"]) for k, v in sched.items()}}
+
+
+def split_against_twin(run: dict, twin: dict, twin_digest: str = "digest3") -> tuple[bool, str]:
+    """A split run against its replicated twin: whether it holds, and
+    "bitwise", or the first step whose loss differs with its relative
+    distance and the largest parameter leaf's relative Frobenius distance
+    (``run["twin_rel"]``).  The split run's final parameters are held to
+    the twin's ``twin_digest`` (its parameters after as many steps).  Short
+    of bitwise it holds when every loss is within ``SHARD_LOSS_TOL`` and the
+    parameters within ``REFRESH_PARAM_TOL`` (a refresh's SVD turns a
+    last-bit difference into a rotation, as ``shard_state``'s does)."""
+    want = twin["losses"][:len(run["losses"])]
+    if run["losses"] == want and run["digest"] == twin[twin_digest]:
+        return True, "bitwise"
+    rels = [abs(a - b) / abs(b) for a, b in zip(run["losses"], want)]
+    first = next((i for i, r in enumerate(rels) if r), None)
+    where = "losses bitwise" if first is None else (
+        f"first differing step {first + 1}, loss {rels[first]!r} relative (within "
+        f"{SHARD_LOSS_TOL}: {rels[first] <= SHARD_LOSS_TOL})")
+    ok = max(rels) <= SHARD_LOSS_TOL and run["twin_rel"] <= REFRESH_PARAM_TOL
+    return ok, f"{where}; parameters {run['twin_rel']!r} relative"
+
+
+def check_split_runs(ranks: list) -> dict:
+    """Phase 4i's split-parameter runs (``Trainer(shard_params=True)``), held
+    on the parent: (i) phase 4's GUM, ``shard_state`` off, against the
+    replicated run of the same spawn; (ii) with ``shard_state``, against the
+    run with it; ``SPLIT_STEPS`` steps each, held to the twin's first
+    ``SPLIT_STEPS``.  Each: the losses and the gathered parameters bitwise (or
+    the first step that differs, reported; :func:`split_against_twin`);
+    each rank's parameter bytes those of ``per_shard_bytes``
+    (``SPLIT_PARAM_BYTES``); every step's collectives equal to
+    ``analysis.collectives``' model (no finding); fused GUM's dispatches and
+    rows 1-5's launches as the replicated run's; the per-rank peak printed
+    beside the twin's.  Returns their launches."""
+    launches: dict = collections.Counter()
+    for label, twin_label in (("split", "replicated"), ("split shard", "shard")):
+        for k, rank in enumerate(ranks):
+            run, twin = rank[label], rank[twin_label]
+            ok, verdict = split_against_twin(run, twin)
+            check(ok, f"4i rank {k} {label}: against {twin_label}: {verdict}")
+            check(run["param_bytes"] == run["param_rule"] == SPLIT_PARAM_BYTES,
+                  f"4i rank {k} {label}: {run['param_bytes']} parameter bytes, per_shard_bytes "
+                  f"{run['param_rule']}, want {SPLIT_PARAM_BYTES}")
+            check(not run["findings"], f"4i rank {k} {label}: collectives against the model: "
+                  f"{run['findings']}")
+            for i, st in enumerate(run["steps"]):
+                check(st["dispatch"] == FUSED_GUM_DISPATCH,
+                      f"4i rank {k} {label} step {i + 1}: dispatch {st['dispatch']}")
+            per_step = {n: v / SPLIT_STEPS for n, v in run["launches"].items() if v}
+            check(per_step == FUSED_GUM_LAUNCH,
+                  f"4i rank {k} {label}: launches per step {per_step}")
+            launches.update(run["launches"])
+            st = run["steps"][1]
+            print(f"4i rank {k} {label} (shard_params, {SPLIT_STEPS} steps): against "
+                  f"{twin_label}'s first {SPLIT_STEPS}: {verdict}; "
+                  f"losses {run['losses']}; parameters {run['param_bytes']} bytes a rank "
+                  f"(per_shard_bytes {run['param_rule']}, whole {run['param_whole']}); per "
+                  f"step {st['collectives']} bytes {st['bytes']} dtypes {st['dtypes']} (the "
+                  f"model's {run['schedule']}); dispatch {st['dispatch']}; step s "
+                  f"{run['seconds']}; peak {run['peak_gib']:.3f} GiB {run['peak_parts']} "
+                  f"(allocated at its start {run['held_before_gib']:.3f}; {twin_label}: "
+                  f"{twin['peak_gib']:.3f} GiB {twin['peak_parts']})", flush=True)
+        check(ranks[0][label]["digest"] == ranks[1][label]["digest"],
+              f"4i {label}: the ranks' gathered parameters differ")
+    return dict(launches)
 
 
 # Phase 4i's runs of bf16 storage, the fused epilogue under shard_state and
@@ -2621,6 +2808,15 @@ MESH_GALORE = dict(name="galore", lr=1e-2, rank=256, period=3, weight_decay=0.01
                    fuse_families=True, fused_epilogue=True)
 
 
+def _leaf_rel(got: dict, want: dict) -> float:
+    """The largest relative Frobenius distance of a leaf of ``got`` to the
+    same leaf of ``want``, in fp32."""
+    import torch
+
+    return max(float(torch.linalg.vector_norm(p.float() - want[k].float())
+                     / torch.linalg.vector_norm(want[k].float())) for k, p in got.items())
+
+
 def _digest(params: dict) -> str:
     import hashlib
 
@@ -2631,12 +2827,19 @@ def _digest(params: dict) -> str:
     return digest.hexdigest()
 
 
-def _mesh_trainer_run(torch, mesh, inputs: dict, label: str, opt: dict) -> dict:
+def _mesh_trainer_run(torch, mesh, inputs: dict, label: str, opt: dict,
+                      shard_params: bool = False, twin: dict | None = None,
+                      keep_whole: bool = False) -> dict:
     """A bf16-stored llama-130m ``Trainer(mesh=)`` of ``opt`` under
-    ``shard_state`` for ``PATH_STEPS`` steps: its losses, parameter digest,
-    each step's collectives (with bytes) and dispatches, the kernel
-    launches, instantiations and integer arguments, and the update
-    all-gather's bytes by ``analysis.collectives``' model."""
+    ``shard_state`` (and ``shard_params``) for ``PATH_STEPS`` steps: its
+    losses, the digest of its (gathered) parameters, each step's
+    collectives (with bytes) and dispatches, the kernel launches,
+    instantiations and integer arguments, and the update all-gather's
+    bytes by ``analysis.collectives``' model (under ``shard_params`` also
+    :func:`split_record`'s checks).  ``twin`` (a replicated twin's final
+    parameters on the CPU) adds ``twin_rel``, the largest leaf's relative
+    distance to them; ``keep_whole`` returns the final parameters on the
+    CPU as ``whole``."""
     from repro_torch.analysis.collectives import expected_collective_schedule
     from repro_torch.configs import RunConfig
     from repro_torch.core import OptimizerConfig
@@ -2651,13 +2854,14 @@ def _mesh_trainer_run(torch, mesh, inputs: dict, label: str, opt: dict) -> dict:
     trainer = Trainer(model, opt_cfg,
                       RunConfig(steps=PATH_STEPS, log_every=0, seed=0,
                                 ckpt_dir=os.path.join(inputs["dir"], label)),
-                      data, device="cuda", mesh=mesh)
+                      data, device="cuda", mesh=mesh, shard_params=shard_params)
     trainer.monitor.z = float("inf")
-    steps, inner = [], trainer.step_fn
+    steps, logs, inner = [], [], trainer.step_fn
 
     def counted(*args):
         with record_collectives() as log, launch_count.count_launches() as dispatched:
             result = inner(*args)
+        logs.append(log)
         steps.append({"collectives": tally(log),
                       "bytes": {f"{e['op']}:{e['tag']}": e["bytes"] for e in log},
                       "dtypes": {f"{e['op']}:{e['tag']}": e["dtype"] for e in log},
@@ -2666,19 +2870,29 @@ def _mesh_trainer_run(torch, mesh, inputs: dict, label: str, opt: dict) -> dict:
 
     trainer.step_fn = counted
     build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     result = trainer.train()
     torch.cuda.synchronize()
-    like = {k: torch.empty_like(p, device="meta") for k, p in model.params().items()}
+    like = trainer._like()
     model_gather = expected_collective_schedule(
         trainer.optimizer, like, n_shards=mesh.shape["data"], reduce_dtype=torch.float32,
         shard_state=True)["update_gather"]["payload_bytes"]
-    out = {"losses": result.losses, "digest": _digest(model.params()), "steps": steps,
+    whole = trainer.whole_params("cpu")
+    out = {"losses": result.losses, "digest": _digest(whole), "steps": steps,
            "launches": dict(build.LAUNCHES),
            "variants": {k: dict(v) for k, v in build.VARIANTS.items()},
            "calls": {k: dict(v) for k, v in build.CALLS.items()},
            "model_gather": model_gather,
-           "dtypes": sorted({str(p.dtype) for p in model.params().values()}),
-           "seconds": [round(t, 4) for t in result.step_seconds]}
+           "dtypes": sorted({str(p.dtype) for p in whole.values()}),
+           "seconds": [round(t, 4) for t in result.step_seconds],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if shard_params:
+        out |= split_record(torch, trainer, mesh, logs, cfg)
+    if twin is not None:
+        out["twin_rel"] = _leaf_rel(whole, twin)
+    if keep_whole:
+        out["whole"] = whole
+    del whole
     del trainer, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2746,8 +2960,13 @@ def distributed_paths(torch, mesh, inputs: dict) -> dict:
 
     out = {"bf16 gum": _mesh_trainer_run(torch, mesh, inputs, "bf16_gum",
                                          dict(GUM_130M, fuse_families=True)),
-           "bf16 galore": _mesh_trainer_run(torch, mesh, inputs, "bf16_galore", MESH_GALORE),
-           "accum": _mesh_accum_run(torch, mesh)}
+           "bf16 galore": _mesh_trainer_run(torch, mesh, inputs, "bf16_galore", MESH_GALORE,
+                                            keep_whole=True)}
+    twin = out["bf16 galore"].pop("whole")
+    out["split galore"] = _mesh_trainer_run(torch, mesh, inputs, "split_galore", MESH_GALORE,
+                                            shard_params=True, twin=twin)
+    del twin
+    out["accum"] = _mesh_accum_run(torch, mesh)
     build.reset_launches()
     return out
 
@@ -2812,7 +3031,39 @@ def check_distributed_paths(torch, ranks: list) -> dict:
             mine = PHASE_CALLS["distributed galore"].setdefault(name, {})
             for key, v in got.items():
                 mine[key] = mine.get(key, 0) + v
-    for label in ("bf16 gum", "bf16 galore"):
+    PHASE_CALLS["split galore"] = {}
+    for k, rank in enumerate(ranks):
+        run, twin = rank["split galore"], rank["bf16 galore"]
+        ok, verdict = split_against_twin(run, twin, "digest")
+        check(ok, f"4i rank {k} split galore against bf16 galore: {verdict}")
+        check(run["param_bytes"] == run["param_rule"],
+              f"4i rank {k} split galore: {run['param_bytes']} parameter bytes, "
+              f"per_shard_bytes {run['param_rule']}")
+        check(not run["findings"], f"4i rank {k} split galore: collectives against the "
+              f"model: {run['findings']}")
+        for i, st in enumerate(run["steps"]):
+            check(st["dispatch"] == SPLIT_GALORE_DISPATCH,
+                  f"4i rank {k} split galore step {i + 1}: dispatch {st['dispatch']}")
+        per_step = {n: v / PATH_STEPS for n, v in run["launches"].items() if v}
+        check(per_step == SPLIT_GALORE_LAUNCH,
+              f"4i rank {k} split galore: launches per step {per_step}")
+        epi = run["variants"]["back_project_epilogue"]
+        check(epi and all(key[4] == 1 for key in epi),
+              f"4i rank {k} split galore: row 6 instantiations {epi}, want the bf16-W one")
+        cut = sorted(run["calls"]["back_project_epilogue"])
+        launches.update(run["launches"])
+        for name, got in run["calls"].items():
+            mine = PHASE_CALLS["split galore"].setdefault(name, {})
+            for key, v in got.items():
+                mine[key] = mine.get(key, 0) + v
+        print(f"4i rank {k} split galore (shard_params, shard_state, bf16 W): against bf16 "
+              f"galore: {verdict}; parameters "
+              f"{run['param_bytes']} bytes a rank (per_shard_bytes {run['param_rule']}); "
+              f"row 6 on the parts, (L, m, r, n, right, w_bf16): {cut}; per step "
+              f"{run['steps'][1]['collectives']} (the model's {run['schedule']}); launches "
+              f"per step {per_step}; step s {run['seconds']}; peak {run['peak_gib']:.3f} GiB "
+              f"(bf16 galore: {twin['peak_gib']:.3f} GiB)", flush=True)
+    for label in ("bf16 gum", "bf16 galore", "split galore"):
         check(ranks[0][label]["digest"] == ranks[1][label]["digest"],
               f"4i {label}: the ranks' parameters differ")
     gum = ranks[0]["bf16 gum"]["losses"]
@@ -3055,7 +3306,8 @@ def phase_distributed(torch) -> dict:
                   f"projectors {run['slot_projs']}); per step {st['collectives']} dtypes "
                   f"{st['dtypes']} bytes {st['bytes']}; dispatch {st['dispatch']}; launches "
                   f"per step {per_step}; step s {run['seconds']}; peak "
-                  f"{run['peak_gib']:.3f} GiB", flush=True)
+                  f"{run['peak_gib']:.3f} GiB {run['peak_parts']} (allocated at its start "
+                  f"{run['held_before_gib']:.3f})", flush=True)
         on, off = rank["shard"], rank["replicated"]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(on["losses"], off["losses"]))
         (p3, p4), limits = on["param_rel"], (SHARD_PARAM_TOL, REFRESH_PARAM_TOL)
@@ -3072,6 +3324,8 @@ def phase_distributed(torch) -> dict:
     check(ranks[0]["shard"]["digest"] == ranks[1]["shard"]["digest"],
           "4i: the ranks' parameters differ")
     print(f"4i ranks equal (parameter digest {ranks[0]['shard']['digest'][:16]})", flush=True)
+    for n, v in check_split_runs(ranks).items():
+        launches[n] = launches.get(n, 0) + v
     for n, v in check_distributed_paths(torch, ranks).items():
         launches[n] = launches.get(n, 0) + v
     del ranks
@@ -4612,7 +4866,10 @@ TAGGED = {("flash_attention", "bf16"): (tuple(f"serve-{a}" for a in DENSE_VARIAN
           ("flash_attention", "bf16_hubert"): (("serve-hubert",), every_launch),
           # back_project_epilogue's (L, m, r, n, right, w_bf16)
           ("back_project_epilogue", "bf16_w"): (("bf16 galore", "distributed galore"),
-                                                lambda key: key[5] == 1)}
+                                                lambda key: key[5] == 1),
+          # ... on the parts of split parameters (phase 4i's fused GaLore)
+          ("back_project_epilogue", "bf16_w_cut"): (("split galore",),
+                                                    lambda key: key[5] == 1)}
 # Rows 1-5 at phase 4l's shapes (SSM_CASES): its launches on ssm_in (n =
 # 4384), over the 48 layers ("ssm") and over the 4 sampled blocks
 # ("ssm_project", "ssm_full"); (L, m, r, n, right) and gram / poly_apply's

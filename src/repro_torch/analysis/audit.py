@@ -229,6 +229,7 @@ def audit_sharded(
     batch_size: int = 8,
     seq_len: int | None = None,
     device: str | torch.device = "cpu",
+    shard_params: bool = False,
 ) -> AuditReport:
     """Audit the data-parallel step of :mod:`repro_torch.launch.shardmap_fsdp`
     on a ``fake`` process group (no second device): the collective schedule
@@ -238,7 +239,8 @@ def audit_sharded(
 
     The step runs two real steps of a fresh model of ``arch`` (or of
     ``model``'s config), seeded parameters on ``device``; ``model`` itself
-    is not touched."""
+    is not touched.  ``shard_params`` audits the step on split parameters
+    (its reduction in fp32, whatever ``reduce_dtype`` says)."""
     from repro_torch.models import build_model
 
     (data_axis, n_shards), = mesh_axes  # data parallelism: exactly one axis
@@ -247,6 +249,9 @@ def audit_sharded(
     name = f"sharded:{_cell_name(cfg)}@{data_axis}={n_shards}"
     if shard_state:
         name += "+zero"
+    if shard_params:
+        name += "+fsdp"
+        reduce_dtype = torch.float32
     report = AuditReport(name=name)
 
     transform = build_optimizer(cfg)
@@ -260,17 +265,21 @@ def audit_sharded(
     batch_size = n_shards * -(-int(batch_size) // n_shards)  # round up to /N
     tr = trace_sharded_step(fresh, transform, n_shards=n_shards, batch_size=batch_size,
                             seq_len=seq_len, reduce_dtype=reduce_dtype, grad_clip=grad_clip,
-                            data_axis=data_axis, shard_state=shard_state)
+                            data_axis=data_axis, shard_state=shard_state,
+                            shard_params=shard_params)
+    # the whole shapes the optimizer sees (stand-ins under shard_params)
+    params = tr.params if tr.param_split is None else tr.param_split.standins()
 
     expected = expected_collective_schedule(
-        transform, tr.params, n_shards=n_shards, reduce_dtype=reduce_dtype,
-        data_axis=data_axis, shard_state=shard_state)
+        transform, params, n_shards=n_shards, reduce_dtype=reduce_dtype,
+        data_axis=data_axis, shard_state=shard_state, param_split=tr.param_split,
+        remat=bool(mcfg.remat))
     report.extend(collective_schedule_findings(
-        tr.records, expected, reduce_dtype=reduce_dtype, params=tr.params, where=name))
+        tr.records, expected, reduce_dtype=reduce_dtype, params=params, where=name))
 
     # the dispatch-launch contract holds on each rank: the refresh step's
     # counts are the model's (the spectrum probe runs at a refresh)
-    exp_launch, model_findings = expected_launches(transform, tr.params, name=name)
+    exp_launch, model_findings = expected_launches(transform, params, name=name)
     report.extend(model_findings)
     if not model_findings:
         report.extend(launch_findings(exp_launch, tr.refresh_counts,
@@ -286,9 +295,10 @@ def audit_sharded(
         "collectives": launch_count.format_counts(collectives),
         "expected_schedule": expected,
         "wire": wire_bytes_model(tr.records, n_shards),
-        "per_shard_memory": per_shard_memory(tr.params, tr.opt_state, tr.batch,
+        "per_shard_memory": per_shard_memory(params, tr.opt_state, tr.batch,
                                              n_shards=n_shards, reduce_dtype=reduce_dtype,
-                                             shard_state=shard_state),
+                                             shard_state=shard_state,
+                                             shard_params=shard_params),
         "launch_counts": launch_count.format_counts(tr.counts),
         "opt_state_realloc_bytes": tr.realloc_bytes,
         "buffers": {"params_in_place": sum(same and n > 0
@@ -388,6 +398,9 @@ def main(argv=None) -> int:
                     help="mesh spec for --sharded (default: data=8)")
     ap.add_argument("--shard-state", action="store_true",
                     help="audit the ZeRO-split fused step (implies --fuse-families)")
+    ap.add_argument("--shard-params", action="store_true",
+                    help="audit the step on split parameters (FSDP by PARAM_RULES; fp32 "
+                         "reduction)")
     ap.add_argument("--reduce-dtype", default="bf16", choices=sorted(_REDUCE_DTYPES),
                     help="declared gradient-reduction dtype for --sharded")
     ap.add_argument("--json", action="store_true", dest="as_json")
@@ -402,7 +415,8 @@ def main(argv=None) -> int:
             shard_state=args.shard_state)
         rep = audit_sharded(cfg, arch=args.arch or "llama-60m-smoke",
                             mesh_axes=_parse_mesh(args.mesh),
-                            reduce_dtype=_REDUCE_DTYPES[args.reduce_dtype])
+                            reduce_dtype=_REDUCE_DTYPES[args.reduce_dtype],
+                            shard_params=args.shard_params)
         reports = {rep.name: rep}
     else:
         params = arch_params(args.arch) if args.arch else None

@@ -97,7 +97,7 @@ def replication_findings(rows: list[int], *, global_batch: int, n_shards: int,
 
 def per_shard_memory(params: dict, opt_state: PyTree, batch: PyTree, *, n_shards: int,
                      reduce_dtype: torch.dtype = torch.bfloat16,
-                     shard_state: bool = False) -> dict:
+                     shard_state: bool = False, shard_params: bool = False) -> dict:
     """Static per-shard peak bytes of one data-parallel step from tensors of
     any device (``meta`` too); nothing allocates.
 
@@ -106,8 +106,10 @@ def per_shard_memory(params: dict, opt_state: PyTree, batch: PyTree, *, n_shards
     1/N over the data axis.  The optimizer state is replicated; with
     ``shard_state=True`` the family-stacked low-rank leaves are charged 1/N
     (:func:`repro_torch.sharding.family_state_bytes`, the rule the runtime
-    splits by)."""
-    from repro_torch.sharding import family_state_bytes
+    splits by).  ``shard_params``: the parameters charged per shard by
+    :func:`repro_torch.sharding.per_shard_bytes` over a data axis of N
+    (``params_bytes_per_shard``), the rest as above."""
+    from repro_torch.sharding import family_state_bytes, per_shard_bytes
 
     rd = torch.empty((), dtype=reduce_dtype).element_size()
     n = max(int(n_shards), 1)
@@ -128,8 +130,14 @@ def per_shard_memory(params: dict, opt_state: PyTree, batch: PyTree, *, n_shards
         "grad_wire_bytes": p_elems * rd,
         "batch_bytes_per_shard": -(-reference_state_bytes(batch) // n),
     }
+    params_held = out["params_bytes"]
+    if shard_params:
+        from repro_torch.launch.mesh import Mesh
+
+        params_held = out["params_bytes_per_shard"] = per_shard_bytes(params,
+                                                                      Mesh((n,), ("data",)))
     out["peak_bytes_per_shard"] = (
-        out["params_bytes"] + out["opt_state_bytes_per_shard"]
+        params_held + out["opt_state_bytes_per_shard"]
         + out["grad_bytes_fp32"] + out["grad_wire_bytes"]
         + out["batch_bytes_per_shard"]
     )

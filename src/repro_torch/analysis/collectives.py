@@ -25,7 +25,10 @@ gathers a full gradient in the steady state.  This pass checks them the way
     ``shard_state`` one fp32 all-gather a step of the split families'
     update rows (and the slots a split family's ranks cannot place); at a
     refresh no gather, and one probe all-reduce when the spectrum probes
-    are on and a family splits.  The reference gathers at refresh
+    are on and a family splits; on split parameters (``shard_params``,
+    :func:`param_split_schedule`) a layer's all-gather per layer read and
+    fp32 reduce-scatter per layer, the once leaves' pair, the whole
+    leaves' fp32 all-reduce and one fp32 all-gather of the gradient parts.  The reference gathers at refresh
     boundaries instead (its ``boundary_gather``); the fields the two share
     are ``grad_psum`` and ``loss_psum``.
   * :func:`collective_schedule_findings` diffs traced against expected:
@@ -182,6 +185,69 @@ def accum_payload(transform: Transform | dict, params: dict) -> tuple[int, int, 
     return values, tensors, sum(p.numel() for p in low.values()) * itemsize
 
 
+def param_split_schedule(split, *, remat: bool = False, microbatches: int = 1) -> dict:
+    """The collectives a step of split parameters (``shard_params``, a
+    :class:`repro_torch.sharding.ParamSplit`) adds, per step on one rank:
+    each layer read gathers that layer's parts of every layer leaf in ONE
+    all-gather at their dtype (``param_gather``: the layers a forward reads,
+    once more under remat for the recomputation, every microbatch), whose
+    backward reduce-scatters the layer's whole fp32 gradient once
+    (``grad_scatter``); the once leaves' parts gather once a forward
+    (``param_gather_once``) and their fp32 gradients reduce-scatter once
+    (``grad_scatter_once``); the whole leaves' fp32 gradients are summed in
+    one all-reduce (``grad_psum``, no split leaf in it) and the reduced fp32
+    parts gathered whole in one all-gather (``grad_gather``).  The layers a
+    forward reads: the layer leaves grouped by their stack dims' shape, each
+    group read once per index (the dense stack's L layers; maverick's G·per
+    dense blocks and G MoE blocks)."""
+    def nbytes(shape, dtype) -> int:
+        return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+    groups: dict[tuple, list[str]] = {}
+    for k in split.shapes:
+        if k in split.layer:
+            groups.setdefault(split.shapes[k][:split.stack[k]], []).append(k)
+    reads = sum(math.prod(lead) for lead in groups)
+    passes = (2 if remat else 1) * int(microbatches)
+    gather = scatter = 0
+    dtypes = set()
+    for lead, paths in groups.items():
+        layers = math.prod(lead)
+        dtype = split.dtypes[paths[0]]
+        for k in paths[1:]:
+            dtype = torch.promote_types(dtype, split.dtypes[k])
+        dtypes.add(str(dtype).removeprefix("torch."))
+        gather += layers * sum(nbytes(split.part_shape(k)[split.stack[k]:], dtype)
+                               for k in paths)
+        scatter += layers * sum(nbytes(split.shapes[k][split.stack[k]:], torch.float32)
+                                for k in paths)
+    once_dtype = None
+    for k in split.once:
+        once_dtype = split.dtypes[k] if once_dtype is None else torch.promote_types(
+            once_dtype, split.dtypes[k])
+    whole = [k for k in split.shapes if k not in split.rules]
+    mb = int(microbatches)
+    return {
+        "param_gather": {"count": reads * passes, "dtype": "/".join(sorted(dtypes)),
+                         "layers": reads, "payload_bytes": gather * passes},
+        "param_gather_once": {"count": mb if split.once else 0,
+                              "dtype": str(once_dtype).removeprefix("torch."),
+                              "payload_bytes": mb * sum(nbytes(split.part_shape(k), once_dtype)
+                                                        for k in split.once)},
+        "grad_scatter": {"count": reads * mb, "dtype": "float32",
+                         "payload_bytes": scatter * mb},
+        "grad_scatter_once": {"count": mb if split.once else 0, "dtype": "float32",
+                              "payload_bytes": mb * sum(nbytes(split.shapes[k], torch.float32)
+                                                        for k in split.once)},
+        "grad_psum": {"count": int(bool(whole)), "dtype": "float32", "operands": len(whole),
+                      "payload_bytes": sum(nbytes(split.shapes[k], torch.float32)
+                                           for k in whole)},
+        "grad_gather": {"count": 1, "dtype": "float32",
+                        "payload_bytes": sum(nbytes(split.part_shape(k), torch.float32)
+                                             for k in split.rules)},
+    }
+
+
 def expected_collective_schedule(
     transform: Transform | dict,
     params: dict,
@@ -192,6 +258,9 @@ def expected_collective_schedule(
     shard_state: bool = False,
     step: int = 2,
     lowrank_accum: bool = False,
+    param_split=None,
+    remat: bool = False,
+    microbatches: int = 1,
 ) -> dict:
     """The collective schedule the data-parallel step must show at update
     ``step`` (steady unless it is a refresh), derived from the parameter
@@ -210,7 +279,13 @@ def expected_collective_schedule(
     ``tools.transform``): the gradient all-reduce carries the compact
     accumulator (:func:`accum_payload`) in place of the gradients, and a
     refresh adds ONE broadcast of rank 0's raw low-rank gradients
-    (``refresh_broadcast``)."""
+    (``refresh_broadcast``).
+
+    ``param_split`` (split parameters, a
+    :class:`repro_torch.sharding.ParamSplit` of ``params``' model, with the
+    model's ``remat`` and the step's ``microbatches``): the gradient
+    all-reduce carries the whole leaves only, in fp32, and the entries of
+    :func:`param_split_schedule` join the schedule."""
     itemsize = torch.empty((), dtype=reduce_dtype).element_size()
     leaves = [p for p in params.values() if p is not None]
     grad_values, operands, refresh_bytes = sum(p.numel() for p in leaves), len(leaves), 0
@@ -221,10 +296,17 @@ def expected_collective_schedule(
     if shard_state:
         split, gather, probe = _update_gather(transform, params, int(n_shards), step)
     dtype = str(reduce_dtype).removeprefix("torch.")
-    return {
-        "grad_psum": {"count": 1, "dtype": dtype, "operands": operands,
-                      "payload_bytes": int(grad_values * itemsize), "axis": data_axis,
-                      "phase": "steady"},
+    params_sched = {}
+    if param_split is not None:
+        params_sched = param_split_schedule(param_split, remat=remat,
+                                            microbatches=microbatches)
+        for entry in params_sched.values():
+            entry.update(axis=data_axis, phase="steady")
+    return params_sched | {
+        "grad_psum": params_sched.get("grad_psum") or {
+            "count": 1, "dtype": dtype, "operands": operands,
+            "payload_bytes": int(grad_values * itemsize), "axis": data_axis,
+            "phase": "steady"},
         "loss_psum": {"count": 1, "dtype": "float32", "operands": 1, "payload_bytes": 4,
                       "axis": data_axis, "phase": "steady"},
         "update_gather": {"count": int(gather > 0), "dtype": "float32",
@@ -239,6 +321,7 @@ def expected_collective_schedule(
                               "axis": data_axis, "phase": "boundary"},
         "n_shards": int(n_shards),
         "shard_state": bool(shard_state),
+        "shard_params": param_split is not None,
     }
 
 
@@ -271,7 +354,18 @@ def collective_schedule_findings(
     grad_red = [r for r in steady if r.primitive == "all_reduce" and r.tag == "grad"]
     loss_red = [r for r in steady if r.primitive == "all_reduce" and r.tag == "loss"]
     updates = [r for r in steady if r.primitive == "all_gather" and r.tag == "update"]
-    others = [r for r in steady if r not in grad_red + loss_red + updates]
+    # split parameters (shard_params): schedule entry -> (primitive, tag)
+    split_ops = {"param_gather": ("all_gather", "layer"),
+                 "param_gather_once": ("all_gather", "once"),
+                 "grad_scatter": ("reduce_scatter", "layer"),
+                 "grad_scatter_once": ("reduce_scatter", "once"),
+                 "grad_gather": ("all_gather", "grad")}
+    split_recs = {}
+    if expected.get("shard_params"):
+        split_recs = {name: [r for r in steady if (r.primitive, r.tag) == op]
+                      for name, op in split_ops.items()}
+    split_all = [r for rs in split_recs.values() for r in rs]
+    others = [r for r in steady if r not in grad_red + loss_red + updates + split_all]
 
     param_sizes = set()
     if params is not None:
@@ -351,6 +445,21 @@ def collective_schedule_findings(
                     f"closed-form model {dict(count=exp_u['count'], payload_bytes=exp_u['payload_bytes'])}",
             detail={"traced": got_u, "expected": exp_u},
         ))
+    for name, recs in split_recs.items():
+        exp = expected[name]
+        got_s = {"count": len(recs), "payload_bytes": sum(r.payload_bytes for r in recs)}
+        want_s = {k: exp[k] for k in got_s}
+        dtypes = sorted({dt for r in recs for dt in r.dtypes})
+        if got_s != want_s or (recs and "/".join(dtypes) != exp["dtype"]):
+            out.append(Finding(
+                code="RA606", where=where,
+                message=f"traced {'/'.join(split_ops[name])} {got_s} ({'/'.join(dtypes)}) "
+                        f"diverges from the closed-form model {want_s} ({exp['dtype']}) "
+                        "of the split parameters",
+                hint="one all-gather of a layer's parts per layer read, one fp32 "
+                     "reduce-scatter of its gradient, the once leaves once a step",
+                detail={"traced": got_s, "expected": want_s, "entry": name},
+            ))
     exp_p = expected.get("probe_reduce", {"count": 0})
     n_probe = len([r for r in boundary if r.primitive == "all_reduce"])
     if n_probe != exp_p["count"]:
@@ -449,6 +558,7 @@ class ShardedTrace(NamedTuple):
     rows: list[int]                  # the rows of each forward the steps ran
     param_writes: dict               # path -> (same storage, in-place writes)
     realloc_bytes: int               # the steady step's new optimizer state
+    param_split: Any = None          # the ParamSplit under shard_params
 
 
 def _trace_mesh_class():
@@ -464,6 +574,11 @@ def _trace_mesh_class():
             out.view(self.shape[self.data_axis], -1).copy_(t.reshape(1, -1))
             return out
 
+        def reduce_scatter(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+            out = super().reduce_scatter(t, tag)
+            out.copy_(t.reshape(self.shape[self.data_axis], -1)[0])  # this rank's chunk
+            return out
+
     return TraceMesh
 
 
@@ -471,13 +586,16 @@ def trace_sharded_step(model, optimizer: Transform, *, n_shards: int,
                        batch_size: int = 8, seq_len: int | None = None,
                        reduce_dtype: torch.dtype = torch.bfloat16, grad_clip: float = 1.0,
                        data_axis: str = "data", shard_state: bool = False,
-                       seed: int = 0) -> ShardedTrace:
+                       shard_params: bool = False, seed: int = 0) -> ShardedTrace:
     """Run :func:`repro_torch.launch.shardmap_fsdp.make_shardmap_train_step`
     as rank 0 of a ``fake`` process group of ``n_shards`` ranks: two steps
     (a refresh, then a steady one) on ``model``'s device, with its
     parameters (updated in place) and a global batch of ``batch_size`` rows
     of seeded tokens.  The group is made here and destroyed before
-    returning; a process that already holds a group is refused."""
+    returning; a process that already holds a group is refused.
+    ``shard_params`` splits ``model``'s parameters (they stay split: the
+    returned ``params`` are rank 0's parts, ``step.param_split`` has the
+    layout)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -493,16 +611,16 @@ def trace_sharded_step(model, optimizer: Transform, *, n_shards: int,
         mesh = _trace_mesh_class()((int(n_shards),), (data_axis,), group=dist.group.WORLD,
                                    backend="fake", data_axis=data_axis)
         step = make_shardmap_train_step(model, optimizer, mesh, grad_clip=grad_clip,
-                                        reduce_dtype=reduce_dtype, shard_state=shard_state)
+                                        reduce_dtype=reduce_dtype, shard_state=shard_state,
+                                        shard_params=shard_params)
         params = model.params()
         device = next(iter(params.values())).device
         seq = int(seq_len if seq_len is not None else min(64, model.cfg.max_seq))
         gen = torch.Generator().manual_seed(seed)
         batch = {"tokens": torch.randint(0, model.cfg.vocab, (int(batch_size), seq),
                                          generator=gen, dtype=torch.int32).to(device)}
-        detached = {k: p.detach() for k, p in params.items()}
         with torch.no_grad(), launch_count.count_launches(isolated=True):
-            whole = optimizer.init(detached)
+            whole = step.init_state(optimizer)
         opt_state = step.place_state(whole)
         rows: list[int] = []
 
@@ -536,5 +654,5 @@ def trace_sharded_step(model, optimizer: Transform, *, n_shards: int,
         steady_counts[r.primitive] = steady_counts.get(r.primitive, 0) + 1
     return ShardedTrace(records=records, counts=steady_counts, refresh_counts=counts[0],
                         params=params, opt_state=whole, batch=batch, rows=rows,
-                        param_writes=writes, realloc_bytes=realloc)
+                        param_writes=writes, realloc_bytes=realloc, param_split=step.param_split)
 

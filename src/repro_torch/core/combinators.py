@@ -344,19 +344,87 @@ def _member_slice(stacked: torch.Tensor, leaf: PendingBack) -> torch.Tensor:
 def materialize_pending(updates: dict) -> dict:
     """Materialize every :class:`PendingBack` leaf, one
     ``back_project_epilogue`` launch per family stack (members are grouped
-    by the identity of their shared ``s``).  Other leaves pass as they are."""
-    groups: dict[int, list[str]] = {}
+    by the identity of their shared ``s``).  Other leaves pass as they are.
+    Under :func:`param_parts` a split leaf's update is this rank's part: its
+    group launches on the cut operands (:func:`_materialize_cut`), one
+    launch for the members that split the same dim."""
+    groups: dict[tuple, list[str]] = {}
     for k, leaf in updates.items():
         if isinstance(leaf, PendingBack):
-            groups.setdefault(id(leaf.s), []).append(k)
+            groups.setdefault((id(leaf.s), _pending_cut(k, leaf)), []).append(k)
     if not groups:
         return updates
     out = dict(updates)
-    for keys in groups.values():
+    for (_, cut), keys in groups.items():
+        if cut is not None:
+            out.update(_materialize_cut(updates, keys, cut))
+            continue
         full = updates[keys[0]].materialize_stack()
         for k in keys:
             out[k] = _member_slice(full, updates[k])
     return out
+
+
+def _pending_cut(path: str, leaf: PendingBack) -> Optional[str]:
+    """``"row"`` or ``"col"``: the matrix dim of the leaf at ``path`` that
+    :func:`param_parts` splits, ``"whole"`` where it splits none (None
+    outside :func:`param_parts`)."""
+    part = _PARAM_PARTS.get(path)
+    if part is None:
+        return None
+    rule = part[1]
+    if rule is None:
+        return "whole"
+    ndim = len(leaf.member_lead if leaf.member is not None else leaf.fs.lead) + 2
+    if rule.dim == ndim - 2:
+        return "row"
+    if rule.dim == ndim - 1:
+        return "col"
+    raise NotImplementedError(f"{path}: a fused epilogue over a split of a stack dim is not "
+                              "ported (only the update's row or column dim splits)")
+
+
+def _materialize_cut(updates: dict, keys: list[str], cut: str) -> dict:
+    """This rank's part of each of ``keys``' updates, which share one
+    :class:`PendingBack` payload and split the same matrix dim: one epilogue
+    launch on P's rows (left side) or S's rows (right side) for a row split,
+    on S's columns (left) or P's rows (right) for a column split, with W the
+    stacked parts, ``scale·P_k S + decay·W_k``: the same function on smaller
+    operands."""
+    first = updates[keys[0]]
+    p, s = first.p, first.s
+    if first.member is not None:
+        members = [updates[k].member for k in keys]
+        if members != list(range(first.members)):  # the members of this cut only
+            per = p.shape[0] // first.members
+            sel = torch.cat([torch.arange(j * per, (j + 1) * per, device=p.device)
+                             for j in members])
+            p, s = p[sel], s[sel]
+    rule = _PARAM_PARTS[keys[0]][1]
+
+    def narrow(t: torch.Tensor, dim: int) -> torch.Tensor:
+        a, b = rule.rows(int(t.shape[dim]))
+        return t.narrow(dim, a, b - a).contiguous()
+
+    left = first.fs.side == "left"
+    if cut == "whole":
+        pass
+    elif cut == "row":
+        p, s = (narrow(p, -2), s) if left else (p, narrow(s, -2))
+    else:
+        p, s = (p, narrow(s, -1)) if left else (narrow(p, -2), s)
+    w = None
+    if first.decay != 0.0:
+        parts = [_PARAM_PARTS[k][0] for k in keys]
+        w = parts[0] if first.member is None else torch.stack(parts).reshape(
+            (-1,) + tuple(parts[0].shape[-2:]))
+    out = dispatch.back_project_epilogue(p, s, w=w, scale=first.scale, decay=first.decay,
+                                         side=first.fs.side, impl=first.kernel_impl,
+                                         pad_rank_to=first.pad_rank_to)
+    if first.member is None:
+        return {keys[0]: out}
+    out = out.reshape((len(keys),) + tuple(first.member_lead) + tuple(out.shape[-2:]))
+    return {k: out[i] for i, k in enumerate(keys)}
 
 
 def _zeros_momentum(leaf):
@@ -402,11 +470,14 @@ def chain(*transforms: Transform) -> Transform:
     states."""
 
     def init(params: PyTree) -> tuple:
-        return tuple(t.init(params) for t in transforms)
+        return tuple(t.init(_part_standins(params) if _on_parts(t) else params)
+                     for t in transforms)
 
     def update(updates: PyTree, state: tuple, params: PyTree):
         new_states = []
         for t, s in zip(transforms, state):
+            if _on_parts(t):
+                updates = {k: cut_update(k, u) for k, u in updates.items()}
             updates, ns = t.update(updates, s, params)
             new_states.append(ns)
         return updates, tuple(new_states)
@@ -551,17 +622,19 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 def add_decayed_weights(weight_decay: float = 0.0) -> Transform:
     """Decoupled weight decay ``u + wd * p`` (apply before scale_by_lr)."""
 
-    def one(u, p):
+    def one(k, u, p):
         if u is None:
             return None
         if isinstance(u, PendingBack):
             return u.decayed(weight_decay)
+        if k in _PARAM_PARTS:  # the live parameter: a split one's part
+            p = _PARAM_PARTS[k][0]
         return u + weight_decay * p.to(torch.float32)
 
     def update(updates: dict, state, params: dict):
         if weight_decay == 0.0:
             return updates, ()
-        return {k: one(u, params[k]) for k, u in updates.items()}, ()
+        return {k: one(k, u, params[k]) for k, u in updates.items()}, ()
 
     update.chain_info = {"kind": "add_decayed_weights", "weight_decay": weight_decay}
     return Transform(lambda params: (), update)
@@ -622,6 +695,10 @@ def clip_by_global_norm(max_norm: float) -> Transform:
     materialize first, since the norm reads every leaf."""
 
     def update(updates: dict, state, params: dict):
+        if _PARAM_PARTS:
+            raise NotImplementedError("clip_by_global_norm as a chain stage under split "
+                                      "parameters (shard_params) is not ported: its norm "
+                                      "would read parts; clip in the step (grad_clip)")
         return _clip_tree(materialize_pending(updates), max_norm), ()
 
     update.chain_info = {"kind": "clip_by_global_norm"}
@@ -649,6 +726,79 @@ def with_matrix_routing(
                 for k, path in tree_paths(params).items()}
 
     return multi_transform({matrix_label: matrix, fallback_label: fallback}, label_fn)
+
+
+# ---------------------------------------------------------------------------
+# Split parameters (shard_params): the update of a rank's parts
+# ---------------------------------------------------------------------------
+
+# {path: (tensor, RowSplit or None)} of the active param_parts declaration ({} without
+# one); the optimizer runs on the calling thread.
+_PARAM_PARTS: dict = {}
+
+
+@contextlib.contextmanager
+def param_parts(parts: dict):
+    """Declare that the parameters are split (``shard_params``): ``parts``
+    maps each leaf's path to ``(tensor, rule)``, this rank's part and its
+    :class:`repro_torch.sharding.RowSplit`, or a whole leaf and None.
+
+    Entered by the mesh step around ``optimizer.init`` and
+    ``optimizer.update``, which then take whole-shaped stand-ins for the
+    parameters (their shapes are what every stage but the decay reads) and
+    whole gradients.  The cut has one seam, :func:`chain`: before each
+    stage of :data:`_PART_STAGES` (the elementwise ones) it cuts every
+    whole update of a split leaf to the rank's part, and it inits those
+    stages on stand-ins of the parts' shapes, so ``scale_by_adam`` and
+    ``scale_by_momentum`` keep state of the part's shape (AdamW's moments
+    split as the reference's ``opt_state_sharding`` splits them) and
+    ``add_decayed_weights`` and ``scale_by_lr`` see parts.  Two stages read
+    the declaration themselves: ``add_decayed_weights`` the live part it
+    decays, and a :class:`PendingBack` launches on its cut operands with
+    W's part (:func:`materialize_pending`).  The low-rank stages and Muon
+    run on whole gradients with whole state, as unsplit."""
+    global _PARAM_PARTS
+    prev, _PARAM_PARTS = _PARAM_PARTS, dict(parts)
+    try:
+        yield
+    finally:
+        _PARAM_PARTS = prev
+
+
+# The stages that run on a split leaf's part (cut in front of them by chain).
+_PART_STAGES = frozenset({"scale_by_adam", "scale_by_momentum", "add_decayed_weights",
+                          "scale_by_lr"})
+
+
+def _on_parts(t: Transform) -> bool:
+    """Whether :func:`chain` hands ``t`` this rank's parts: under
+    :func:`param_parts`, a stage of :data:`_PART_STAGES`."""
+    return bool(_PARAM_PARTS) and chain_info(t)["kind"] in _PART_STAGES
+
+
+def _part_standins(params: dict) -> dict:
+    """``params`` with each split tensor leaf a zero-stride stand-in of its
+    part's shape (what an elementwise stage's init reads)."""
+    out = dict(params)
+    for k, v in params.items():
+        rule = _PARAM_PARTS[k][1] if k in _PARAM_PARTS else None
+        if isinstance(v, torch.Tensor) and rule is not None:
+            out[k] = v.new_zeros(()).expand(rule.part_shape(v.shape))
+    return out
+
+
+def cut_update(path: str, u):
+    """This rank's part of a whole update ``u`` of the leaf at ``path``
+    under :func:`param_parts` (``u`` itself where the leaf is whole or ``u``
+    is a part already)."""
+    part = _PARAM_PARTS.get(path)
+    if part is None or part[1] is None or u is None or isinstance(u, PendingBack):
+        return u
+    if tuple(u.shape) == tuple(part[0].shape):
+        return u
+    rule = part[1]
+    a, b = rule.rows(int(u.shape[rule.dim]))
+    return u.narrow(rule.dim, a, b - a)
 
 
 # ---------------------------------------------------------------------------
@@ -1619,17 +1769,3 @@ def slot_projector_bytes(opt_state: PyTree) -> int:
     """Bytes of the slot projectors a rank's share holds."""
     return sum(p.numel() * p.element_size() for u in find_nodes(opt_state, LayerwiseUnbiasState)
                if u.proj is not None for p in u.proj.values() if p is not None)
-
-
-def unshard_family_state(opt_state: PyTree, specs: PyTree, mesh) -> PyTree:
-    """The whole layout of a state :func:`shard_family_state` split (every
-    rank calls it): the split tensors come back to full size in one
-    all-gather, and the slot projectors are dropped.  ``specs`` is
-    ``family_state_sharding`` of the whole layout.  A checkpoint of a
-    sharded run is written from this, so it has the replicated run's
-    layout."""
-    from repro_torch.sharding import gather_tree
-
-    if family_shard_count(mesh) <= 1:
-        return opt_state
-    return gather_tree(strip_slot_projectors(opt_state), specs, mesh, "checkpoint")

@@ -3,11 +3,13 @@ launch counts of :mod:`repro_torch.kernels.launch_count`.
 
 Every collective of :class:`repro_torch.launch.mesh.Mesh` (the data-parallel
 step's gradient and loss all-reduces, the sharded step's update all-gather,
-the refresh's probe all-reduce, the projected-space accumulator's refresh
+the parameter split's per-layer all-gathers and fp32 reduce-scatters, the
+refresh's probe all-reduce, the projected-space accumulator's refresh
 broadcast, the checkpoint's gathers) appends one entry
 ``{"op", "tag", "dtype", "shape", "bytes"}`` to every active record, before
 it is issued.  ``shape`` and ``bytes`` are the operand this rank sends (an
-all-gather's input, not its ``n``-fold output).  ``record_collectives(
+all-gather's input, not its ``n``-fold output; a reduce-scatter's whole
+input, not its ``1/n`` output).  ``record_collectives(
 isolated=True)`` logs the body's collectives there only, not in the records
 active around it (the static audit's own trace of a step).
 
@@ -24,7 +26,7 @@ from typing import Iterator
 
 import torch
 
-COLLECTIVE_OPS = ("all_reduce", "all_gather", "broadcast")
+COLLECTIVE_OPS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast")
 
 _ACTIVE: list[list[dict]] = []
 

@@ -116,6 +116,19 @@ class Mesh:
         dist.all_gather_into_tensor(out, x, group=group)
         return out
 
+    def reduce_scatter(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """The 1-D ``t`` summed over the data axis, this rank's ``1/n`` of it
+        (chunk ``coordinate`` of ``n`` equal chunks, ``numel / n``)."""
+        import torch.distributed as dist
+
+        group = self._data_group()
+        collective_count.record("reduce_scatter", tag, t)
+        x = t.reshape(-1).contiguous()
+        out = torch.empty(x.numel() // self.shape[self.data_axis], dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+        return out
+
     def broadcast(self, t: torch.Tensor, tag: str) -> torch.Tensor:
         """``t`` of the data axis's first rank (coordinate 0) on every rank,
         in place; returns ``t``."""

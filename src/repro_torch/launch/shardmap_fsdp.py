@@ -36,7 +36,7 @@ from repro_torch.launch.steps import make_train_step
 
 def make_shardmap_train_step(model, optimizer: Transform, mesh, *, grad_clip: float = 0.0,
                              reduce_dtype: torch.dtype = torch.bfloat16,
-                             shard_state: bool = False) -> Callable:
+                             shard_state: bool = False, shard_params: bool = False) -> Callable:
     """``(params, opt_state, batch) -> (opt_state, metrics)`` on one rank of
     ``mesh`` (its data axis is ``mesh.data_axis``); ``batch`` is the global
     batch, of which the rank takes rows
@@ -48,14 +48,32 @@ def make_shardmap_train_step(model, optimizer: Transform, mesh, *, grad_clip: fl
     step's ``place_state(opt_state)`` turns ``optimizer.init``'s whole layout
     into it (and leaves it whole without ``shard_state``).
 
+    ``shard_params`` splits ``model``'s parameters over the data axis (a
+    :class:`~repro_torch.sharding.ParamSplit`, the step's ``param_split``;
+    ``params`` is then this rank's parts) and reduces in fp32 (any other
+    ``reduce_dtype`` raises ``ValueError``).  ``init_state(optimizer)`` is
+    ``optimizer.init`` of the whole layout (of the whole shapes, under
+    ``shard_params`` the elementwise stages' state of a split parameter in
+    its part's shape).
+
     The step carries ``sharded_step_info``: the reduction dtype, the data
-    axis, the shard count, the clip and ``shard_state``."""
+    axis, the shard count, the clip, ``shard_state`` and, when set,
+    ``shard_params``."""
     from repro_torch.core.combinators import shard_family_state
+    from repro_torch.sharding import ParamSplit
 
     n = int(mesh.shape[mesh.data_axis])
     k = mesh.coordinate(mesh.data_axis)
+    split = None
+    if shard_params:
+        if reduce_dtype != torch.float32:
+            raise ValueError("split parameters reduce their gradients in fp32: pass "
+                             "reduce_dtype=torch.float32")
+        split = ParamSplit(model, mesh)
+        split.split_params()
     inner = make_train_step(model, optimizer, grad_clip=grad_clip, mesh=mesh,
-                            reduce_dtype=reduce_dtype, shard_state=shard_state)
+                            reduce_dtype=reduce_dtype, shard_state=shard_state,
+                            param_split=split)
 
     def train_step(params: dict, opt_state, batch: dict):
         rows = next(iter(batch.values())).shape[0]
@@ -68,7 +86,14 @@ def make_shardmap_train_step(model, optimizer: Transform, mesh, *, grad_clip: fl
     def place_state(opt_state):
         return shard_family_state(opt_state, mesh) if shard_state else opt_state
 
+    def init_state(opt: Transform):
+        if split is None:
+            return opt.init({key: p.detach() for key, p in model.params().items()})
+        return split.init_state(opt, next(iter(model.params().values())).device)
+
     train_step.place_state = place_state
+    train_step.init_state = init_state
+    train_step.param_split = split
     train_step.sharded_step_info = {
         "reduce_dtype": reduce_dtype,
         "data_axis": mesh.data_axis,
@@ -76,4 +101,6 @@ def make_shardmap_train_step(model, optimizer: Transform, mesh, *, grad_clip: fl
         "grad_clip": float(grad_clip),
         "shard_state": bool(shard_state),
     }
+    if shard_params:
+        train_step.sharded_step_info["shard_params"] = True
     return train_step

@@ -14,8 +14,10 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.core.api import Transform, clip_by_global_norm, global_norm
+from repro_torch.core.combinators import param_parts
 from repro_torch.core.lowrank_common import default_lowrank_filter
 from repro_torch.models.transformer import Transformer, chunked_lm_loss, lm_loss
+from repro_torch.sharding import gather_parts
 
 
 def _model_inputs(model, batch: dict) -> tuple[Optional[torch.Tensor], dict]:
@@ -87,6 +89,68 @@ def loss_and_grads(model: Transformer, params: dict, batch: dict,
     return loss / microbatches, {k: g / microbatches for k, g in grads.items()}
 
 
+def split_loss_and_grads(model: Transformer, params: dict, batch: dict, split,
+                         microbatches: int = 1) -> tuple[torch.Tensor, dict]:
+    """:func:`loss_and_grads` on split parameters (a
+    :class:`repro_torch.sharding.ParamSplit`): each microbatch's forward and
+    backward run under ``split.gathered()``, so the split leaves' gradients
+    are reduce-scattered layer by layer into ``split.grads`` (summed over
+    the ranks and the microbatches, in fp32) and only the whole leaves'
+    come back, accumulated as :func:`loss_and_grads` does; both divided by
+    ``microbatches``."""
+    split.begin_step()
+    loss, grads = None, None
+    for mb in split_microbatches(batch, microbatches):
+        with split.gathered():
+            mb_loss = _loss_from_batch(model, mb)
+            got = torch.autograd.grad(mb_loss, list(params.values()), allow_unused=True)
+        mb_grads = {k: g for k, g in zip(params, got) if k not in split.rules}
+        if loss is None:
+            loss, grads = mb_loss.detach(), mb_grads
+            if microbatches > 1:
+                grads = {k: None if g is None else g.to(torch.float32) for k, g in grads.items()}
+            continue
+        loss = loss + mb_loss.detach()
+        for k, g in mb_grads.items():
+            if g is not None:
+                grads[k].add_(g.to(torch.float32))
+    if microbatches > 1:
+        loss = loss / microbatches
+        grads = {k: None if g is None else g / microbatches for k, g in grads.items()}
+        for part in split.grads.values():
+            part.div_(microbatches)
+    return loss, grads
+
+
+def reduce_split_gradients(mesh, loss: torch.Tensor, grads: dict, split) -> tuple[torch.Tensor,
+                                                                                     dict]:
+    """:func:`reduce_gradients` after :func:`split_loss_and_grads`: the whole
+    leaves' gradients summed in one fp32 all-reduce (tag ``grad``), the split
+    leaves' reduced fp32 parts gathered whole in ONE all-gather (tag
+    ``grad``), the loss summed in a third, fp32 one; each divided by the
+    rank count in fp32.  A reduce-scatter then an all-gather send the bytes
+    of one all-reduce, and at 2 ranks the same sums."""
+    n = mesh.shape[mesh.data_axis]
+    keys = [k for k, g in grads.items() if g is not None]
+    reduced = {}
+    if keys:
+        flat = torch.cat([grads[k].reshape(-1).to(torch.float32) for k in keys])
+        mesh.all_reduce(flat, "grad")
+        at = 0
+        for k in keys:
+            z = grads[k].numel()
+            reduced[k] = flat[at:at + z].view(grads[k].shape) / n
+            at += z
+    paths = [k for k in split.shapes if k in split.rules]
+    wholes = gather_parts(mesh, [split.grads[k] for k in paths],
+                          [split.rules[k].dim for k in paths], "grad")
+    split.grads = {}  # the parts are spent: free them before the update
+    reduced.update({k: w.div_(n) for k, w in zip(paths, wholes)})  # fresh buffers
+    total = loss.detach().to(torch.float32).reshape(1).clone()
+    mesh.all_reduce(total, "loss")
+    return total[0] / n, {k: reduced.get(k) for k in split.shapes}
+
+
 def reduce_gradients(mesh, loss: torch.Tensor, grads: dict,
                      reduce_dtype: torch.dtype) -> tuple[torch.Tensor, dict]:
     """The mean over the ranks of ``mesh``'s data axis of each rank's loss and
@@ -108,12 +172,17 @@ def reduce_gradients(mesh, loss: torch.Tensor, grads: dict,
     return total[0] / n, out
 
 
-def _apply_in_place(params: dict, updates: dict, lowrank_paths: Optional[set]):
+def _apply_in_place(params: dict, updates: dict, lowrank_paths: Optional[set], split=None):
     """``p += u`` for every leaf with an update; with ``lowrank_paths`` also
     the norm of the applied change, (p + u) - p, over all leaves and over
     those paths: one pass over each leaf's change, the two norms from the
-    same per-leaf sums."""
+    same per-leaf sums.  On split parameters (``split``, a
+    :class:`repro_torch.sharding.ParamSplit`) the updates are the rank's
+    parts (:func:`repro_torch.core.combinators.param_parts`) and each rank
+    adds them to its parts, and the norms' sums over the parts (a whole leaf
+    counted on the first rank only) meet in one fp32 all-reduce."""
     total, lowrank = [], []
+    first = split is None or split.mesh.coordinate(split.mesh.data_axis) == 0
     for k, p in params.items():
         u = updates[k]
         if u is None:
@@ -125,13 +194,20 @@ def _apply_in_place(params: dict, updates: dict, lowrank_paths: Optional[set]):
         with record_function("extra_metrics"):  # the profiler's name for this pass
             sq = torch.sum(torch.square((new - p).to(torch.float32)))
         p.copy_(new)
+        if not first and k not in split.rules:
+            continue
         total.append(sq)
         if k in lowrank_paths:
             lowrank.append(sq)
     if lowrank_paths is None:
         return None
     zero = torch.zeros((), device=next(iter(params.values())).device)
-    return torch.sqrt(sum(total, zero)), torch.sqrt(sum(lowrank, zero))
+    sums = sum(total, zero), sum(lowrank, zero)
+    if split is not None:
+        both = torch.stack(sums)
+        split.mesh.all_reduce(both, "norms")
+        sums = both[0], both[1]
+    return torch.sqrt(sums[0]), torch.sqrt(sums[1])
 
 
 def _lowrank_paths(params: dict) -> set:
@@ -142,13 +218,18 @@ def _lowrank_paths(params: dict) -> set:
 
 def _guarded_update(transform: Transform, params: dict, opt_state, grads: dict,
                     loss: torch.Tensor, grad_clip: float, fault_gate=None,
-                    fault: Optional[dict] = None, lowrank_paths: Optional[set] = None):
+                    fault: Optional[dict] = None, lowrank_paths: Optional[set] = None,
+                    split=None):
     """Corrupt the raw gradients through ``fault_gate`` (when given), clip,
     then apply ``transform``'s update in place unless the loss or the
     (clipped) gradient norm is not finite.  ``lowrank_paths`` (extra
     metrics on) adds ``grad_norm_raw``, ``update_norm`` and
     ``update_norm_lowrank``; the raw norm is the clip's own, so the clipped
-    gradients are the bits of :func:`clip_by_global_norm`'s."""
+    gradients are the bits of :func:`clip_by_global_norm`'s.  On split
+    parameters (``split``) the update runs under
+    :func:`repro_torch.core.combinators.param_parts` on whole gradients with
+    the parameters' whole-shaped stand-ins, and each rank applies its
+    parts."""
     if fault_gate is not None and fault is not None:
         grads = fault_gate.apply(grads, fault)
     extra = lowrank_paths is not None
@@ -160,9 +241,14 @@ def _guarded_update(transform: Transform, params: dict, opt_state, grads: dict,
     norms = None
     if finite:
         with torch.no_grad():
-            updates, opt_state = transform.update(
-                grads, opt_state, {k: p.detach() for k, p in params.items()})
-            norms = _apply_in_place(params, updates, lowrank_paths)
+            if split is None:
+                updates, opt_state = transform.update(
+                    grads, opt_state, {k: p.detach() for k, p in params.items()})
+                norms = _apply_in_place(params, updates, lowrank_paths)
+            else:
+                with param_parts(split.parts()):
+                    updates, opt_state = transform.update(grads, opt_state, split.standins())
+                    norms = _apply_in_place(params, updates, lowrank_paths, split)
     metrics = {"loss": loss.detach(), "grad_norm": gnorm, "update_applied": finite}
     if extra:
         # a skipped step changes nothing: both update norms are 0
@@ -177,7 +263,7 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
                     lowrank_accum=None, fault_gate=None,
                     extra_metrics: bool = False, mesh=None,
                     reduce_dtype: torch.dtype = torch.float32,
-                    shard_state: bool = False) -> Callable:
+                    shard_state: bool = False, param_split=None) -> Callable:
     """``(params, opt_state, batch) -> (opt_state, metrics)``.
 
     ``params`` is ``model.params()``, updated **in place** (``p += u`` under
@@ -239,13 +325,30 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
     second, fp32 one (:func:`reduce_gradients`); the sums are divided by
     ``n``, then by ``microbatches``, reconstructed and applied by the
     guarded update.  With ``shard_state`` it raises
-    ``NotImplementedError`` (ROADMAP queue 1 item 5i)."""
+    ``NotImplementedError`` (ROADMAP queue 1 item 5i).
+
+    ``param_split`` (a :class:`repro_torch.sharding.ParamSplit` of
+    ``model`` over ``mesh``, whose parameters it has split) is the step on
+    split parameters (ZeRO-3): the forward gathers each layer's parameter
+    parts in one all-gather, the backward reduce-scatters each layer's
+    gradient in one fp32 collective (:func:`split_loss_and_grads`), one
+    all-gather makes the reduced parts whole gradients
+    (:func:`reduce_split_gradients`), the optimizer runs on them as it does
+    on a replicated mesh, and each rank applies its part of the update
+    (:func:`repro_torch.core.combinators.param_parts`).  At 2 ranks it is
+    bitwise the replicated mesh step (the same fp32 sums); the
+    projected-space accumulator under it raises ``NotImplementedError``
+    (ROADMAP queue 1 item 5j)."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if shard_state and mesh is None:
         raise ValueError("shard_state needs a mesh")
+    if param_split is not None and mesh is None:
+        raise ValueError("param_split needs a mesh")
     ranks = 1 if mesh is None else int(mesh.shape[mesh.data_axis])
     if lowrank_accum is not None and microbatches * ranks > 1:
+        if param_split is not None:
+            raise NotImplementedError(ACCUM_PARAM_SPLIT_REFUSAL)
         if shard_state:
             from repro_torch.core.combinators import ACCUM_SHARDING_REFUSAL
 
@@ -265,14 +368,27 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
         return family_sharding(mesh)
 
     def train_step(params: dict, opt_state, batch: dict, fault: Optional[dict] = None):
-        loss, grads = loss_and_grads(model, params, batch, microbatches)
-        if mesh is not None:
-            loss, grads = reduce_gradients(mesh, loss, grads, reduce_dtype)
+        if param_split is not None:
+            loss, grads = split_loss_and_grads(model, params, batch, param_split,
+                                               microbatches)
+            loss, grads = reduce_split_gradients(mesh, loss, grads, param_split)
+        else:
+            loss, grads = loss_and_grads(model, params, batch, microbatches)
+            if mesh is not None:
+                loss, grads = reduce_gradients(mesh, loss, grads, reduce_dtype)
         with sharding():
             return _guarded_update(optimizer, params, opt_state, grads, loss, grad_clip,
-                                   fault_gate, fault, lowrank_paths)
+                                   fault_gate, fault, lowrank_paths, param_split)
 
     return train_step
+
+
+# The projected-space accumulator projects every microbatch's gradient, and
+# split parameters give a rank only its parts of it.
+ACCUM_PARAM_SPLIT_REFUSAL = (
+    "the projected-space accumulator (make_train_step(lowrank_accum=)) on split parameters "
+    "(shard_params) is not ported (ROADMAP queue 1 item 5j): it projects every "
+    "microbatch's whole gradient, and a rank holds only its reduce-scattered parts of it")
 
 
 def _broadcast_from_first(mesh, grads: dict) -> dict:

@@ -16,7 +16,10 @@ rendezvous (``torchrun --nproc-per-node N -m repro_torch.launch.train ...
 --mesh data=N``); the process group is ``nccl`` on CUDA (each rank on
 ``cuda:LOCAL_RANK``) and ``gloo`` with ``--device cpu``.  ``--shard-state``
 splits the family-stacked optimizer state over the ranks and implies
-``--fuse-families``, as in the reference.
+``--fuse-families``, as in the reference.  ``--shard-params`` splits the
+parameters over the ranks by the reference's ``PARAM_RULES`` (FSDP:
+``Trainer(shard_params=True)``); with ``--audit`` the sharded audit traces
+that step.
 """
 from __future__ import annotations
 
@@ -55,6 +58,10 @@ def parser() -> argparse.ArgumentParser:
                     help="ZeRO-style sharded projected state: family-stacked low-rank "
                          "optimizer state splits over the mesh's data axis (implies "
                          "--fuse-families; needs --mesh)")
+    ap.add_argument("--shard-params", action="store_true",
+                    help="FSDP: split the parameters over the mesh's data axis by the "
+                         "reference's PARAM_RULES, a per-layer all-gather and fp32 "
+                         "reduce-scatter (needs --mesh)")
     ap.add_argument("--fused-epilogue", action="store_true",
                     help="fold chain-tail epilogues (-lr, weight decay) into the "
                          "back-projection (back_project_epilogue kernel; galore family)")
@@ -102,6 +109,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser().parse_args(argv)
     if args.shard_state and not args.mesh:
         raise ValueError("--shard-state splits the optimizer state over a mesh: give --mesh")
+    if args.shard_params and not args.mesh:
+        raise ValueError("--shard-params splits the parameters over a mesh: give --mesh")
 
     from repro_torch.configs import RunConfig, get_config, get_smoke
     from repro_torch.core import OptimizerConfig
@@ -137,7 +146,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     trainer = Trainer(model, opt_cfg, run_cfg, data_cfg, device=device,
                       microbatches=args.microbatches, resilience=args.resilience,
                       inject=inject, telemetry=args.telemetry, events_out=args.events_out,
-                      profile_steps=args.profile_steps, mesh=mesh)
+                      profile_steps=args.profile_steps, mesh=mesh,
+                      shard_params=args.shard_params)
     result = trainer.train()
     if mesh is not None:
         import torch.distributed as dist
@@ -182,7 +192,8 @@ def _audit(args, cfg, opt_cfg, run_cfg) -> bool:
             device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
         reports.append(audit_sharded(opt_cfg, model=model, mesh_axes=tuple(parse_mesh(args.mesh)),
                                      reduce_dtype=torch.float32, grad_clip=run_cfg.grad_clip,
-                                     batch_size=args.batch, seq_len=args.seq, device=device))
+                                     batch_size=args.batch, seq_len=args.seq, device=device,
+                                     shard_params=args.shard_params))
     ok = all(rep.ok for rep in reports)
     if int(os.environ.get("RANK", 0)) == 0:
         for rep in reports:

@@ -120,6 +120,7 @@ from repro_torch.models.attention import (
     self_attention,
 )
 from repro_torch.models.layers import apply_mlp, apply_norm, trunc_normal_, unembed
+from repro_torch.sharding import active_param_split
 
 
 def _group(**params: torch.Tensor) -> nn.Module:
@@ -152,10 +153,22 @@ class _CastGather(torch.autograd.Function):
         return total.to(ctx.table_dtype), None, None
 
 
-def _at(group: nn.Module, l: Optional[int] = None) -> dict[str, torch.Tensor]:
-    """A group's parameters by name: layer ``l`` of each stack, or the
-    tensors themselves (``l`` None)."""
-    return {k: p if l is None else p[l] for k, p in group.named_parameters()}
+def _at_groups(groups: dict[str, nn.Module], l=None) -> dict[str, dict[str, torch.Tensor]]:
+    """Each group's parameters by name: layer ``l`` of each stack (an int, or
+    a (group, j) pair over two stack dims), or the tensors themselves (``l``
+    None).  Under parameter sharding (:class:`repro_torch.sharding.ParamSplit`)
+    the split stacks' slices of layer ``l`` come whole from ONE all-gather
+    over all the groups."""
+    split = active_param_split()
+    if split is not None and l is not None:
+        return split.layer_params(groups, l)
+    return {name: {k: p if l is None else p[l] for k, p in group.named_parameters()}
+            for name, group in groups.items()}
+
+
+def _at(group: nn.Module, l=None) -> dict[str, torch.Tensor]:
+    """A group's parameters by name (see :func:`_at_groups`)."""
+    return _at_groups({"": group}, l)[""]
 
 
 # The products without batch dimensions, which remat_policy="dots" keeps (the
@@ -324,7 +337,13 @@ class _LM(nn.Module):
     def _block(blocks: nn.Module, i) -> dict[str, dict[str, torch.Tensor]]:
         """Block ``i`` (an int, a (group, j) pair, or None for an unstacked
         block) of ``blocks``' stacks."""
-        return {name: _at(group, i) for name, group in blocks.named_children()}
+        return _at_groups(dict(blocks.named_children()), i)
+
+    def stack_dims(self, path: str) -> int:
+        """How many leading dims of the leaf at ``path`` index its layers
+        (the dims the layer loop selects): one under ``blocks/``, none
+        elsewhere."""
+        return 1 if path.startswith("blocks/") else 0
 
     def _attend(self, x, p, positions, causal):
         h, (k, v) = self_attention(apply_norm(x, p["ln1"], self.cfg), p["attn"], self.cfg,
@@ -404,8 +423,7 @@ class Transformer(_LM):
     def _layer(self, l: int) -> dict[str, dict[str, torch.Tensor]]:
         """Layer ``l``'s parameters: {"attn", "ln1", "ln2", "mlp": {name: tensor}}."""
         b = self.blocks
-        return {"attn": _at(b.attn, l), "ln1": _at(b.ln1, l), "ln2": _at(b.ln2, l),
-                "mlp": _at(b.mlp, l)}
+        return _at_groups({"attn": b.attn, "ln1": b.ln1, "ln2": b.ln2, "mlp": b.mlp}, l)
 
     def _input(self, tokens: Optional[torch.Tensor],
                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -721,6 +739,10 @@ class MoETransformer(_LM):
         blocks.moe = _group(**{name: self._empty(*lead, *shape)
                                for name, shape in moe.param_shapes(self.cfg).items()})
 
+    def stack_dims(self, path: str) -> int:
+        """Two for the (G, per) stacks of the dense blocks between MoE blocks."""
+        return 2 if path.startswith("blocks/dense/") else super().stack_dims(path)
+
     @property
     def moe_blocks(self) -> nn.Module:
         """The module of the MoE blocks' stacks (``attn``, ``ln1``, ``ln2``,
@@ -917,6 +939,10 @@ class VisionLM(_LM):
     def groups(self) -> int:
         return self.cfg.n_layers // self.cfg.cross_attn_every
 
+    def stack_dims(self, path: str) -> int:
+        """Two for the (G, per) stacks of the self-attention blocks."""
+        return 2 if path.startswith("blocks/self/") else super().stack_dims(path)
+
     def init_params(self, seed: int) -> None:
         """Initialise from ``seed``: the reference's distributions and
         scales, not its draws (see :meth:`Transformer.init_params`); the
@@ -933,7 +959,7 @@ class VisionLM(_LM):
     def _cross(self, g: int) -> dict:
         """Group ``g``'s cross block: its groups' tensors and the two gates."""
         cross = self.blocks.cross
-        return {name: _at(group, g) for name, group in cross.named_children()} | {
+        return _at_groups(dict(cross.named_children()), g) | {
             "gate_attn": cross.gate_attn[g], "gate_mlp": cross.gate_mlp[g]}
 
     def _cross_block(self, x, p, xk, xv):

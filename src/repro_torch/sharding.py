@@ -12,27 +12,30 @@ or a ``jax.sharding`` mesh):
   "ep"    -> "model"   (expert parallelism reuses the model axis)
   None    -> replicated
 
-What the port runs on a mesh: parameters replicated over the data axis (the
-rules below say how the reference's pjit step splits them; the port does
-not, ROADMAP queue 1), and with ``shard_state`` the family-stacked low-rank
-optimizer state split on its leading stack dim by
-:func:`family_state_sharding`.  The port's models make no activation
-annotations, so :func:`shard` passes its input through on a data-only mesh.
+What the port runs on a mesh: parameters replicated over the data axis, or
+with ``shard_params`` split by the parameter rules below
+(:class:`ParamSplit`: :func:`param_shardings` resolved on the data mesh,
+each split one dim over the data axis, a per-layer all-gather in the
+forward and a per-layer fp32 reduce-scatter in the backward); and with
+``shard_state`` the family-stacked low-rank optimizer state split on its
+leading stack dim by :func:`family_state_sharding`.  The port's models
+make no activation annotations, so :func:`shard` passes its input through
+on a data-only mesh.
 
-The port's paths call only :func:`family_state_sharding`,
-:func:`family_state_bytes` and the row helpers (:class:`RowSplit`,
-:func:`row_splits`, :func:`split_tree`, :func:`gather_tree`,
-:func:`zip_map`).  The rest — :func:`use_mesh`, :func:`shard`,
-``PARAM_RULES``, :func:`spec_for_param`, :func:`param_specs`,
-:func:`param_shardings`, :func:`per_shard_bytes` and
-:func:`opt_state_sharding` — is held to the reference's decisions by
-``tests/test_torch_sharding.py`` and waits for parameter sharding (ROADMAP
-queue 1 item 5a): nothing else calls it yet.
+The rules (``PARAM_RULES``, :func:`spec_for_param`, :func:`param_shardings`,
+:func:`per_shard_bytes`, :func:`opt_state_sharding`) are held to the
+reference's decisions by ``tests/test_torch_sharding.py``; the helpers
+(:class:`RowSplit`, :func:`row_splits`, :func:`split_tree`,
+:func:`gather_tree`, :func:`gather_parts`, :func:`reduce_scatter_parts`,
+:func:`zip_map`) apply a spec that splits one dim over one axis on a rank.
+:func:`use_mesh` and :func:`shard` are the reference's activation
+annotations, which no port path needs on a data mesh.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import re
 import threading
 from typing import Any, Optional, Sequence
@@ -319,32 +322,45 @@ def opt_state_sharding(opt_state: PyTree, mesh, *, family_axis: Optional[str] = 
 @dataclasses.dataclass(frozen=True)
 class RowSplit:
     """Rank ``index`` of ``count`` keeps rows ``[index·d/count,
-    (index+1)·d/count)`` of a leaf's leading dim ``d``."""
+    (index+1)·d/count)`` of a leaf's dim ``dim`` (of size ``d``): the
+    leading dim of family state, any one dim of a parameter."""
 
     index: int
     count: int
+    dim: int = 0
 
     def rows(self, d: int) -> tuple[int, int]:
         per = d // self.count
         return self.index * per, (self.index + 1) * per
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        a, b = self.rows(int(x.shape[0]))
-        return x[a:b].clone()
+        a, b = self.rows(int(x.shape[self.dim]))
+        return x.narrow(self.dim, a, b - a).clone()
+
+    def part_shape(self, shape) -> tuple[int, ...]:
+        """The shape of this rank's part of a leaf of ``shape``."""
+        shape = list(shape)
+        shape[self.dim] //= self.count
+        return tuple(shape)
 
 
 def row_splits(specs: PyTree, mesh) -> PyTree:
-    """Each ``(axis,)`` spec as this rank's :class:`RowSplit` (its
-    coordinate on that axis), every other spec as ``None`` (kept whole): the
-    per-leaf rule :meth:`CheckpointManager.restore` takes as ``shardings``."""
+    """Each spec that splits one dim over one axis as this rank's
+    :class:`RowSplit` (its coordinate on that axis), every other spec as
+    ``None`` (kept whole): the per-leaf rule :meth:`CheckpointManager.restore`
+    takes as ``shardings``.  A spec that splits two dims, or one dim over two
+    axes, raises: that is a model axis beside the data axis (ROADMAP queue 1
+    item 5b)."""
     def one(spec):
         if not isinstance(spec, Spec) or all(a is None for a in spec):
             return None
-        if spec[0] is not None and all(a is None for a in spec[1:]) \
-                and isinstance(spec[0], str):
-            return RowSplit(mesh.coordinate(spec[0]), mesh.shape[spec[0]])
-        raise NotImplementedError(f"spec {spec}: only a split of the leading dim over one "
-                                  "axis is ported (parameter sharding, ROADMAP queue 1 item 5a)")
+        dims = [d for d, a in enumerate(spec) if a is not None]
+        if len(dims) == 1 and isinstance(spec[dims[0]], str):
+            axis = spec[dims[0]]
+            return RowSplit(mesh.coordinate(axis), mesh.shape[axis], dims[0])
+        raise NotImplementedError(f"spec {spec}: a split of two dims, or of one dim over two "
+                                  "axes, is not ported (tensor parallelism, ROADMAP queue 1 "
+                                  "item 5b)")
 
     return _map(one, specs)
 
@@ -362,36 +378,280 @@ def zip_map(fn, tree: PyTree, specs: PyTree) -> PyTree:
 
 
 def split_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
-    """This rank's part of every leaf of ``tree`` (its rows where its spec
-    splits the leading dim, the leaf itself elsewhere)."""
+    """This rank's part of every leaf of ``tree`` (its rows of the dim its
+    spec splits, the leaf itself elsewhere)."""
     splits = row_splits(specs, mesh)
     return zip_map(lambda x, rs: rs.apply(x) if rs is not None else x, tree, splits)
 
 
-def gather_tree(tree: PyTree, specs: PyTree, mesh, tag: str) -> PyTree:
-    """The whole of every leaf :func:`split_tree` split, from every rank's
-    rows, in one all-gather over the mesh (every rank calls it).  The split
-    leaves must share one dtype."""
-    splits = row_splits(specs, mesh)
-    parts: list[torch.Tensor] = []
-    zip_map(lambda x, rs: parts.append(x) if rs is not None else None, tree, splits)
-    if not parts:
-        return tree
+def gather_parts(mesh, parts: Sequence[torch.Tensor], dims: Sequence[int],
+                 tag: str) -> list[torch.Tensor]:
+    """The whole of each rank's ``parts`` (split on ``dims`` in rank order) in
+    ONE all-gather of their concatenation over the mesh's data axis (every
+    rank calls it).  The parts must share one dtype."""
     dtypes = {t.dtype for t in parts}
     if len(dtypes) > 1:
         raise TypeError(f"split leaves of several dtypes {sorted(map(str, dtypes))}")
-    axis = mesh.data_axis
-    n = mesh.shape[axis]
+    n = mesh.shape[mesh.data_axis]
     gathered = mesh.all_gather(torch.cat([t.reshape(-1) for t in parts]), tag).view(n, -1)
-    at = 0
-
-    def whole(x, rs):
-        nonlocal at
-        if rs is None:
-            return x
-        z = x.numel()
-        out = gathered[:, at:at + z].reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+    out, at = [], 0
+    for t, d in zip(parts, dims):
+        z = t.numel()
+        x = gathered[:, at:at + z].reshape((n,) + tuple(t.shape)).movedim(0, d)
+        shape = list(t.shape)
+        shape[d] *= n
+        out.append(x.reshape(shape))
         at += z
+    return out
+
+
+def reduce_scatter_parts(mesh, wholes: Sequence[torch.Tensor], dims: Sequence[int],
+                         tag: str) -> list[torch.Tensor]:
+    """This rank's part (on ``dims``) of the sum over the mesh's data axis of
+    each of ``wholes``, cast to fp32, in ONE reduce-scatter (every rank calls
+    it)."""
+    n = mesh.shape[mesh.data_axis]
+    rows, shapes = [], []
+    for t, d in zip(wholes, dims):
+        shape = list(t.shape)
+        shape[d] //= n
+        shapes.append(shape)
+        x = t.to(torch.float32).reshape(shape[:d] + [n] + shape[d:]).movedim(d, 0)
+        rows.append(x.reshape(n, -1))
+    flat = mesh.reduce_scatter(torch.cat(rows, dim=1).reshape(-1), tag)
+    out, at = [], 0
+    for shape in shapes:
+        z = math.prod(shape)
+        out.append(flat[at:at + z].view(shape))
+        at += z
+    return out
+
+
+def gather_tree(tree: PyTree, specs: PyTree, mesh, tag: str) -> PyTree:
+    """The whole of every leaf :func:`split_tree` split, from every rank's
+    part, in one all-gather over the mesh (every rank calls it).  The split
+    leaves must share one dtype."""
+    splits = row_splits(specs, mesh)
+    parts: list[torch.Tensor] = []
+    dims: list[int] = []
+
+    def collect(x, rs):
+        if rs is not None:
+            parts.append(x)
+            dims.append(rs.dim)
+
+    zip_map(collect, tree, splits)
+    if not parts:
+        return tree
+    wholes = iter(gather_parts(mesh, parts, dims, tag))
+    return zip_map(lambda x, rs: x if rs is None else next(wholes), tree, splits)
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding (ZeRO-3) on a data mesh
+# ---------------------------------------------------------------------------
+
+# The split the model's layers read (see ParamSplit.gathered): process-wide,
+# not per thread, since autograd runs a CUDA backward (and remat's
+# recomputation inside it) on a thread of its own.
+_GATHER: list = [None]
+
+
+def active_param_split() -> Optional["ParamSplit"]:
+    """The :class:`ParamSplit` whose forward and backward are running, or None."""
+    return _GATHER[0]
+
+
+class _Gathered(torch.autograd.Function):
+    """The whole of parameter parts, from one all-gather; backward
+    reduce-scatters the wholes' gradients in one fp32 collective into the
+    split's accumulator and hands autograd no gradient for the parts."""
+
+    @staticmethod
+    def forward(ctx, split, key, *parts):
+        ctx.split, ctx.key = split, key
+        return tuple(split._gather(key, parts))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.split._scatter(ctx.key, grads)
+        return (None, None) + (None,) * len(grads)
+
+
+class ParamSplit:
+    """Parameters split over a mesh's data axis by :data:`PARAM_RULES` (the
+    reference's ``named_sharding_tree``): each rank holds its part of every
+    leaf :func:`param_shardings` splits, one dim over the data axis, and the
+    whole of the others (an indivisible dim stays whole).
+
+    A split leaf is a **layer** leaf when ``model.stack_dims(path)`` stack
+    dims lead it and its split dim is not one of them (``wq`` (L, d, d)
+    split on d): the model's layer loop gathers layer ``l``'s slices of all
+    such leaves in ONE all-gather (tag ``layer``) each time it reads them,
+    in the forward and again in remat's recomputation, and the backward of
+    that gather reduce-scatters their gradients in ONE fp32 collective (tag
+    ``layer``).  Every other split leaf (``embed``, the stacked norms split
+    on the layer dim, an unstacked block's leaves) is a **once** leaf: its
+    whole is gathered in one all-gather (tag ``once``) before the forward,
+    and its gradient comes back in one fp32 reduce-scatter (tag ``once``).
+
+    The reduced gradient parts land in an fp32 accumulator (``grads``),
+    summed over the ranks and over the microbatches of a step; autograd
+    returns no gradient for a split leaf, so the whole gradient of a layer
+    leaf never exists during backward."""
+
+    def __init__(self, model, mesh):
+        params = model.params()
+        self.mesh = mesh
+        self.n = int(mesh.shape[mesh.data_axis])
+        self.specs = param_shardings(params, mesh)
+        rules = row_splits(self.specs, mesh)
+        self.rules = {k: r for k, r in rules.items() if r is not None}
+        self.shapes = {k: tuple(p.shape) for k, p in params.items()}
+        self.dtypes = {k: p.dtype for k, p in params.items()}
+        self.stack = {k: int(model.stack_dims(k)) for k in params}
+        self.layer = {k for k, r in self.rules.items() if 0 < self.stack[k] <= r.dim}
+        self.once = [k for k in params if k in self.rules and k not in self.layer]
+        self.paths = {id(p): k for k, p in params.items()}
+        self.model = model
+        self.grads: dict[str, torch.Tensor] = {}
+        self._written: set = set()
+        # (kind, layer, shapes) of every gather and reduce-scatter, while on
+        self.log: Optional[list] = None
+
+    # -- layout -------------------------------------------------------------
+
+    def part_shape(self, path: str) -> tuple[int, ...]:
+        rule = self.rules.get(path)
+        return self.shapes[path] if rule is None else rule.part_shape(self.shapes[path])
+
+    def split_params(self) -> None:
+        """Cut the model's parameters to this rank's parts, in place (each
+        ``Parameter`` keeps its identity; its data becomes the part)."""
+        with torch.no_grad():
+            for k, p in self.model.params().items():
+                if k in self.rules and tuple(p.shape) == self.shapes[k]:
+                    p.data = self.rules[k].apply(p.data)
+
+    def whole_params(self, tag: str = "params", device=None) -> dict:
+        """Every parameter whole (every rank calls it), one all-gather a
+        split leaf, each whole moved to ``device`` (default: where the
+        parts are) before the next is gathered, so at most one leaf's
+        gather is in flight on the card."""
+        out = {}
+        for k, p in self.model.params().items():
+            rule = self.rules.get(k)
+            whole = p.detach() if rule is None else gather_parts(
+                self.mesh, [p.detach()], [rule.dim], tag)[0]
+            out[k] = whole if device is None else whole.to(device)
         return out
 
-    return zip_map(whole, tree, splits)
+    def standins(self, device="meta") -> dict:
+        """Whole-shaped stand-ins of the parameters for the optimizer: on
+        ``meta`` (the update reads only their shapes; a stage that read their
+        values would fail there), or on a real device as a zero-sized
+        expansion (``init`` allocates its state where they are)."""
+        out = {}
+        for k, shape in self.shapes.items():
+            if torch.device(device).type == "meta":
+                out[k] = torch.empty(shape, dtype=self.dtypes[k], device="meta")
+            else:
+                out[k] = torch.zeros((), dtype=self.dtypes[k], device=device).expand(shape)
+        return out
+
+    def init_state(self, optimizer, device):
+        """``optimizer.init`` of the whole shapes (stand-ins on ``device``)
+        under :func:`repro_torch.core.combinators.param_parts`: the low-rank
+        state whole, the elementwise stages' state of a split parameter in
+        its part's shape."""
+        from repro_torch.core.combinators import param_parts
+
+        with param_parts(self.parts()):
+            return optimizer.init(self.standins(device))
+
+    def parts(self) -> dict:
+        """``{path: (tensor, rule)}``: the live parameters, this rank's part
+        and its rule for a split leaf, the whole and None for the others."""
+        return {k: (p.detach(), self.rules.get(k)) for k, p in self.model.params().items()}
+
+    # -- the forward and backward ------------------------------------------
+
+    def begin_step(self) -> None:
+        """Start a step's gradient accumulator (every microbatch adds in)."""
+        self.grads = {}
+        self._written = set()
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """Run the model's forward and backward inside: the once leaves are
+        gathered whole (one all-gather) and stand in for their parameters'
+        module attributes, and the layer loop's reads gather their layer."""
+        params = self.model.params()
+        swapped = []
+        if self.once:
+            wholes = _Gathered.apply(self, ("once",), *[params[k] for k in self.once])
+            for k, w in zip(self.once, wholes):
+                mod_path, _, name = k.rpartition("/")
+                mod = self.model.get_submodule(mod_path.replace("/", "."))
+                swapped.append((mod, name, mod._parameters[name]))
+                mod._parameters[name] = w
+        prev, _GATHER[0] = _GATHER[0], self
+        try:
+            yield
+        finally:
+            _GATHER[0] = prev
+            for mod, name, p in swapped:
+                mod._parameters[name] = p
+
+    def layer_params(self, groups: dict, l) -> dict:
+        """Layer ``l`` of every group's stacks (``{name: {leaf: tensor}}``),
+        the layer leaves' slices whole from ONE all-gather over all groups."""
+        out, need = {}, []
+        for name, group in groups.items():
+            d = out[name] = {}
+            for leaf, p in group.named_parameters():
+                path = self.paths.get(id(p))
+                if path in self.layer:
+                    need.append((name, leaf, path, p[l]))
+                else:
+                    d[leaf] = p[l]
+        if need:
+            key = ("layer", l, tuple(path for _, _, path, _ in need))
+            wholes = _Gathered.apply(self, key, *[x for *_, x in need])
+            for (name, leaf, _, _), w in zip(need, wholes):
+                out[name][leaf] = w
+        return out
+
+    def _dims(self, key) -> list[int]:
+        if key[0] == "once":
+            return [self.rules[k].dim for k in self.once]
+        return [self.rules[k].dim - self.stack[k] for k in key[2]]
+
+    def _gather(self, key, parts) -> list[torch.Tensor]:
+        if self.log is not None:
+            self.log.append(("all_gather", key[0], key[1] if key[0] == "layer" else None,
+                             [tuple(t.shape) for t in parts]))
+        dtype = parts[0].dtype
+        for t in parts[1:]:
+            dtype = torch.promote_types(dtype, t.dtype)
+        wholes = gather_parts(self.mesh, [t.to(dtype) for t in parts], self._dims(key), key[0])
+        return [w.to(t.dtype) for w, t in zip(wholes, parts)]
+
+    def _scatter(self, key, grads) -> None:
+        if self.log is not None:
+            self.log.append(("reduce_scatter", key[0], key[1] if key[0] == "layer" else None,
+                             [tuple(g.shape) for g in grads]))
+        paths = self.once if key[0] == "once" else key[2]
+        parts = reduce_scatter_parts(self.mesh, grads, self._dims(key), key[0])
+        for path, part in zip(paths, parts):
+            at = key[1] if key[0] == "layer" else None
+            acc = self.grads.get(path)
+            if acc is None:
+                acc = self.grads[path] = torch.empty(self.part_shape(path), dtype=torch.float32,
+                                                     device=part.device)
+            dst = acc if at is None else acc[at]
+            if (path, at) in self._written:
+                dst.add_(part)
+            else:
+                dst.copy_(part)
+                self._written.add((path, at))

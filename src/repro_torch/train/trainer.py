@@ -38,8 +38,8 @@ port of the JAX package's ``train/trainer.py``).
   process is one rank; it trains on its rows ``[k·B/n, (k+1)·B/n)`` of the
   batch the one-process run draws, the gradients and loss are averaged over
   the ranks in fp32 (one all-reduce each a step), and the parameters stay
-  replicated (the reference's pjit step also splits them by
-  ``sharding.PARAM_RULES``; the numbers are the same).  With
+  replicated, or with ``shard_params`` are split by ``sharding.PARAM_RULES``
+  as the reference's pjit step splits them (the numbers are the same).  With
   ``OptimizerConfig(shard_state=True, fuse_families=True)`` the
   family-stacked low-rank state is split over the ranks
   (``combinators.family_sharding``); checkpoints still hold the whole
@@ -87,11 +87,16 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import OptimizerConfig, build_optimizer, resolve_rank_policy
 from repro_torch.core.api import Transform
 from repro_torch.core.rank_policy import RankPolicyController
-from repro_torch.core.combinators import shard_family_state, unshard_family_state
+from repro_torch.core.combinators import (
+    param_parts,
+    shard_family_state,
+    strip_slot_projectors,
+)
 from repro_torch.data import DataConfig, build_stream
 from repro_torch.launch.devices import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.transformer import Transformer
+from repro_torch.sharding import ParamSplit, zip_map
 from repro_torch.resilience import (
     FaultGate,
     FaultPlan,
@@ -176,6 +181,7 @@ class Trainer:
         events_out: Optional[str] = None,
         profile_steps: Optional[str] = None,
         mesh=None,
+        shard_params: bool = False,
     ):
         """``device`` defaults to the CUDA device and raises when there is
         none (pass ``device="cpu"`` for the CPU); the model moves there.
@@ -220,7 +226,21 @@ class Trainer:
         ranks is the one-process run at ``microbatches=n`` (bitwise at
         2 ranks on the CPU); the reference's pjit step leaves that sum to
         XLA in bf16.  Every ``OptimizerConfig`` trains on a mesh, Fira and
-        the fused epilogue under ``shard_state`` too."""
+        the fused epilogue under ``shard_state`` too.
+
+        ``shard_params=True`` (it needs ``mesh``) splits the parameters over
+        the data axis by :func:`repro_torch.sharding.param_shardings` (the
+        reference's ``PARAM_RULES``): each rank holds its part of every leaf
+        whose rule divides, the model's layer loop gathers each layer's parts
+        in one all-gather and reduce-scatters its gradient in one fp32
+        collective, and each rank applies its part of the update
+        (:class:`repro_torch.sharding.ParamSplit`); at 2 ranks the run is
+        bitwise the replicated mesh run.  ``model.params()`` then holds this
+        rank's parts; :meth:`whole_params` gathers them.  Checkpoints keep
+        the whole-array layout, so a replicated run's checkpoint restores
+        under ``shard_params`` and the reverse.  A rank policy and the
+        projected-space accumulator are not ported under it
+        (``NotImplementedError``)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.opt_cfg = opt_cfg
@@ -229,6 +249,12 @@ class Trainer:
         self.microbatches = microbatches
         self.shard_state = bool(opt_cfg.shard_state)
         self.is_main = True
+        if shard_params and mesh is None:
+            raise ValueError("shard_params splits the parameters over a mesh: give mesh=")
+        if shard_params and opt_cfg.rank_policy is not None and optimizer is None:
+            raise NotImplementedError("a rank policy under shard_params is not ported (ROADMAP "
+                                      "queue 1 item 5k): its state migration reads whole "
+                                      "parameters")
         if mesh is not None:
             others = {a: n for a, n in mesh.shape.items() if a != mesh.data_axis and n > 1}
             if others:
@@ -250,6 +276,10 @@ class Trainer:
             self.model.load_params(params)
         else:
             self.model.init_params(run_cfg.seed)
+        self.param_split: Optional[ParamSplit] = None
+        if shard_params:
+            self.param_split = ParamSplit(self.model, mesh)
+            self.param_split.split_params()
 
         # The bus always exists: with telemetry off it carries only the
         # stdout sink (the console lines); telemetry adds the JSONL sink, so
@@ -314,33 +344,89 @@ class Trainer:
 
     def _set_optimizer(self, optimizer: Transform) -> None:
         self.optimizer = optimizer
-        self._specs = None  # the split of its state, made on first use
+        self._state_specs = None  # the split of its state, made on first use
         self.step_fn = make_train_step(self.model, optimizer, grad_clip=self.run.grad_clip,
                                        microbatches=self.microbatches,
                                        fault_gate=self._fault_gate,
                                        extra_metrics=self.resilience is not None,
-                                       mesh=self.mesh, shard_state=self.shard_state)
+                                       mesh=self.mesh, shard_state=self.shard_state,
+                                       param_split=self.param_split)
+
+    def _like(self, device=None) -> dict:
+        """The parameters in their whole shapes: the live tensors, or under
+        ``shard_params`` stand-ins (``meta`` by default, see
+        :meth:`ParamSplit.standins`)."""
+        if self.param_split is None:
+            return {k: p.detach() for k, p in self.model.params().items()}
+        return self.param_split.standins(device or "meta")
+
+    def whole_params(self, device=None) -> dict:
+        """Every parameter whole (under ``shard_params`` gathered from the
+        ranks' parts, a leaf at a time: every rank calls it), on ``device``
+        when given."""
+        if self.param_split is None:
+            return {k: p.detach() if device is None else p.detach().to(device)
+                    for k, p in self.model.params().items()}
+        return self.param_split.whole_params(device=device)
+
+    def _init_state(self):
+        """The optimizer's initial state as this rank holds it: built from
+        the whole shapes, the elementwise stages' state of a split parameter
+        in its part's shape (``param_parts``), the family state split under
+        ``shard_state``."""
+        if self.param_split is None:
+            return self._place(self.optimizer.init(self._like()))
+        return self._place(self.param_split.init_state(self.optimizer, self.device))
 
     def _place(self, opt_state):
-        """A state in the whole layout as this rank holds it (its share under
-        ``shard_state``, else the state itself)."""
+        """A state in the whole family layout as this rank holds it (its
+        share under ``shard_state``, else the state itself)."""
         if not self.shard_state:
             return opt_state
         return shard_family_state(opt_state, self.mesh)
 
+    def _state_split(self) -> tuple:
+        """The specs of the state's split leaves in the whole layout (its
+        structure, ``Spec()`` where whole): all of them (the family rule
+        under ``shard_state``, the elementwise stages' parts under
+        ``shard_params``) and the parts' alone, the parts read off the
+        shapes of an init on ``meta`` under ``param_parts``."""
+        if self._state_specs is None:
+            from repro_torch.core.api import tree_leaves, tree_map
+            from repro_torch.sharding import Spec, family_state_sharding
+
+            like = self._like()
+            whole = self.optimizer.init(like)
+            specs = parts_only = tree_map(
+                lambda x: Spec() if isinstance(x, torch.Tensor) else None, whole)
+            if self.shard_state:
+                specs = family_state_sharding(whole, self.mesh, self.mesh.data_axis)
+            if self.param_split is not None:
+                with param_parts({k: (None, self.param_split.rules.get(k))
+                                  for k in self.param_split.shapes}):
+                    parts = self.optimizer.init(like)
+                # each leaf in tree order: the spec of its split dim, or None
+                cuts = [None if not isinstance(w, torch.Tensor) or w.shape == p.shape
+                        else Spec((None,) * [a != b for a, b in zip(w.shape, p.shape)].index(True)
+                                  + (self.mesh.data_axis,))
+                        for w, p in zip(tree_leaves(whole), tree_leaves(parts))]
+
+                def with_cuts(tree):
+                    it = iter(cuts)
+                    return zip_map(lambda _, spec: next(it) or spec, whole, tree)
+
+                specs, parts_only = with_cuts(specs), with_cuts(parts_only)
+            self._state_specs = specs, parts_only
+        return self._state_specs
+
     def _whole(self, opt_state):
         """The whole layout of this rank's state (every rank calls it)."""
-        if not self.shard_state:
+        if not self.shard_state and self.param_split is None:
             return opt_state
-        if self._specs is None:
-            from repro_torch.sharding import family_state_sharding
+        from repro_torch.sharding import gather_tree
 
-            # the whole layout's shapes, on the meta device: no memory
-            like = {k: torch.empty_like(p, device="meta")
-                    for k, p in self.model.params().items()}
-            self._specs = family_state_sharding(self.optimizer.init(like), self.mesh,
-                                                self.mesh.data_axis)
-        return unshard_family_state(opt_state, self._specs, self.mesh)
+        return gather_tree(strip_slot_projectors(opt_state), self._state_split()[0],
+                           self.mesh, "checkpoint")
 
     def _profile(self, step: int) -> None:
         """The profiler window: start before step A, stop before step B
@@ -397,12 +483,13 @@ class Trainer:
         corruption events attached (no-ops without a plan)."""
         plan = self.fault_plan
         opt_state = self._whole(opt_state)
+        # a leaf at a time to the host, where the files are written from
+        params = self.whole_params("cpu" if self.param_split is not None else None)
         if not self.is_main:
             self.mesh.barrier()  # rank 0 has committed the step
             return
         observer = plan.save_observer(step) if plan is not None else None
-        self.ckpt.save(step, ({k: p.detach() for k, p in params.items()}, opt_state),
-                       extra=self._ckpt_extra(), observer=observer)
+        self.ckpt.save(step, (params, opt_state), extra=self._ckpt_extra(), observer=observer)
         if self.mesh is not None:
             self.mesh.barrier()
         if plan is not None:
@@ -432,9 +519,21 @@ class Trainer:
             if "rank_policy" in extra:
                 self.rank_ctrl.load_state_dict(extra["rank_policy"])
                 self._set_optimizer(self.rank_ctrl.transform())
-        detached = {k: p.detach() for k, p in params.items()}
-        (saved, opt_state), _ = self.ckpt.restore(step, (detached, self.optimizer.init(detached)))
+        like = self._like(self.device)
+        template = self.optimizer.init(like)
+        shardings = None
+        if self.param_split is not None:  # each rank loads its parts of the parameters
+            from repro_torch.core.api import tree_map
+            from repro_torch.sharding import row_splits
+
+            shardings = (row_splits(self.param_split.specs, self.mesh),
+                         tree_map(lambda x: None, template))
+        (saved, opt_state), _ = self.ckpt.restore(step, (like, template), shardings=shardings)
         _copy_into(params, saved)
+        if self.param_split is not None:  # the elementwise state's parts
+            from repro_torch.sharding import split_tree
+
+            opt_state = split_tree(opt_state, self._state_split()[1], self.mesh)
         return self._place(opt_state)
 
     def _gather_probes(self, opt_state, step: int) -> Optional[dict]:
@@ -466,9 +565,9 @@ class Trainer:
             stream.resume(resumed_from)  # exact skip-ahead
         else:
             start_step = 0
-            opt_state = self._place(self.optimizer.init(detached))
+            opt_state = self._init_state()
         if self.is_main:
-            self._startup_audit(detached)
+            self._startup_audit(self._like())
         mesh_check = self.mesh is not None
 
         loss_by_step: dict[int, float] = {}

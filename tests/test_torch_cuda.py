@@ -1120,3 +1120,37 @@ def test_bf16_stored_mamba2_training_matches_the_cpu(cuda_device, tmp_path):
         dist = float(torch.linalg.vector_norm(p.float() - want.float())
                      / torch.linalg.vector_norm(want.float()))
         assert dist <= 2.0 ** -8, (k, dist)
+
+
+@pytest.mark.parametrize("cut,side", [("row", "left"), ("col", "left"), ("row", "right"),
+                                      ("col", "right")])
+def test_cut_epilogue_records_its_variant(cuda_device, cut, side):
+    """Row 6 on split parameters (``shard_params``): a :class:`PendingBack`
+    materialized under ``param_parts`` launches once on its cut operands
+    (P's or S's rows, S's columns) with the rank's part of a bf16 W, equals
+    the plain version's whole update cut to that part, and records the
+    bf16-W instantiation of that launch in ``build.VARIANTS``."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.combinators import PendingBack, materialize_pending, param_parts
+    from repro_torch.sharding import RowSplit
+
+    L, m, r, n = 4, 256, 32, 384
+    p = _randn(L, m if side == "left" else n, r)
+    s = _randn(*((L, r, n) if side == "left" else (L, m, r)))
+    w = _randn(L, m, n).to(torch.bfloat16)
+    rule = RowSplit(1, 2, 1 if cut == "row" else 2)
+    part = rule.apply(w)
+    leaf = PendingBack(p, s, torch.empty(L, m, n, device="meta"),
+                       SimpleNamespace(side=side, lead=(L,)), "cuda", scale=-0.0025,
+                       decay=-2.5e-5)
+    a, b = (p, s) if side == "left" else (s, p.mT)
+    before, launches = _variants(), build.LAUNCHES["back_project_epilogue"]
+    with param_parts({"w": (part, rule)}):
+        got = materialize_pending({"w": leaf})["w"]
+    assert build.LAUNCHES["back_project_epilogue"] == launches + 1
+    assert got.shape == part.shape
+    assert _rel(got, rule.apply(ref.back_project_epilogue_ref(a, b, w, -0.0025, -2.5e-5))) <= 1e-5
+    new = _variants_since(before)
+    assert list(new) == ["back_project_epilogue"]
+    assert [(key[4], k) for key, k in new["back_project_epilogue"].items()] == [(1, 1)]

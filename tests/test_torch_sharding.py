@@ -202,8 +202,9 @@ def test_row_splits_and_shard_are_the_ported_subset():
 
 
 def test_trainer_refuses_a_model_axis(tmp_path):
-    """Parameters stay replicated over the data axis; a model axis larger
-    than 1 (tensor parallelism) raises, naming its ROADMAP item."""
+    """The Trainer runs data meshes (its parameters replicated, or split
+    over the data axis with ``shard_params``); a model axis larger than 1
+    (tensor parallelism) raises, naming its ROADMAP item."""
     from repro_torch.configs import RunConfig
     from repro_torch.data import DataConfig
     from repro_torch.train import Trainer

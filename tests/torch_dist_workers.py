@@ -266,8 +266,174 @@ def accum_run(mesh, inputs: dict, microbatches: int) -> dict:
     return {"losses": losses, "params": _numpy(params), "logs": logs}
 
 
+# ---------------------------------------------------------------------------
+# tests/test_torch_fsdp.py: split parameters (shard_params)
+# ---------------------------------------------------------------------------
+
+FSDP_STEPS = 4  # period 3: refreshes at steps 1 and 4
+FSDP_OPTS = {
+    "gum": GUM,
+    "gum_leaf": dict(GUM, fuse_families=False),
+    "gum_zero": dict(GUM, shard_state=True),
+    "adamw": dict(name="adamw", lr=1e-3),
+    "galore_wd": dict(name="galore", lr=1e-2, rank=4, period=3, weight_decay=0.01,
+                      fuse_families=True, fused_epilogue=True),
+    "gum_bf16": GUM,
+    "mamba": GUM,
+}
+
+
+def _held_bytes(params: dict) -> int:
+    return sum(p.numel() * p.element_size() for p in params.values())
+
+
+def fsdp_train(mesh, inputs: dict, case: str, mode: str, *, steps: int = FSDP_STEPS,
+               label: str = "", microbatches: int = 1) -> dict:
+    """``Trainer(mesh=, shard_params=mode == "split")`` with ``FSDP_OPTS[case]``
+    on llama-60m ``SMOKE`` (mamba2-370m for ``mamba``; bf16-stored for
+    ``gum_bf16``) from the seed's parameters, or for ``gum`` and ``gum_zero``
+    the reference's with its block draws injected; the whole parameters after the
+    run, each step's collectives and their findings against the model, and
+    the bytes this rank holds beside ``per_shard_bytes``."""
+    from repro_torch.analysis.collectives import (
+        collect_collectives,
+        collective_schedule_findings,
+        expected_collective_schedule,
+    )
+    from repro_torch.sharding import per_shard_bytes
+
+    arch = "mamba2-370m" if case == "mamba" else ARCH
+    cfg = get_smoke(arch).replace(param_dtype="bfloat16" if case == "gum_bf16" else "float32")
+    opt_cfg = OptimizerConfig(**FSDP_OPTS[case])
+    params, reference = None, case in ("gum", "gum_zero")
+    if reference:
+        params = {k: torch.from_numpy(v) for k, v in inputs["params"].items()}
+    label = label or f"fsdp_{case}_{mode}_{mesh.shape['data']}"
+    trainer = Trainer(build_model(cfg, device="cpu"), opt_cfg,
+                      RunConfig(steps=steps, log_every=0, seed=0, ckpt_every=2,
+                                ckpt_dir=os.path.join(inputs["dir"], label)),
+                      DataConfig(vocab=cfg.vocab, seq_len=64 if reference else 32,
+                                 global_batch=4, seed=0),
+                      device="cpu", mesh=mesh, params=params, microbatches=microbatches,
+                      optimizer=build_optimizer(opt_cfg, sampler=table_sampler(
+                          inputs["samples"]) if reference else None),
+                      shard_params=mode == "split")
+    trainer.monitor.z = float("inf")
+    logs: list = []
+    trainer.step_fn = _counted(trainer.step_fn, logs)
+    result = trainer.train()
+    whole = trainer.whole_params()
+    out = {"losses": result.losses, "params": _numpy(whole),
+           "resumed_from": result.resumed_from, "counts": [tally(log) for log in logs],
+           "held": _held_bytes(trainer.model.params()), "whole": _held_bytes(whole),
+           "rule": per_shard_bytes(whole, mesh)}
+    if trainer.param_split is not None and logs:
+        expected = expected_collective_schedule(
+            trainer.optimizer, trainer.param_split.standins(), n_shards=mesh.shape["data"],
+            reduce_dtype=torch.float32, shard_state=opt_cfg.shard_state,
+            param_split=trainer.param_split, remat=cfg.remat, microbatches=microbatches,
+            step=len(logs))
+        out["expected"] = expected
+        out["findings"] = [f.format() for f in collective_schedule_findings(
+            collect_collectives(logs[-1]), expected, reduce_dtype=torch.float32)]
+    return out
+
+
+def fsdp_backward(mesh, inputs: dict) -> dict:
+    """One forward and backward of split llama-60m ``SMOKE`` parameters with
+    the split's log on: what autograd returned for each leaf, the shapes
+    every gather and reduce-scatter saw, and the accumulator's shapes."""
+    from repro_torch.launch.steps import split_loss_and_grads
+    from repro_torch.sharding import ParamSplit
+
+    cfg = get_smoke(ARCH)
+    model = build_model(cfg, device="cpu")
+    model.init_params(0)
+    split = ParamSplit(model, mesh)
+    split.split_params()
+    split.log = []
+    params = model.params()
+    tokens = torch.from_numpy(inputs["tokens"][0][:2])
+    _, grads = split_loss_and_grads(model, params, {"tokens": tokens}, split)
+    return {"returned": {k: None if g is None else tuple(g.shape) for k, g in grads.items()},
+            "log": split.log, "layer": sorted(split.layer), "once": list(split.once),
+            "acc": {k: tuple(v.shape) for k, v in split.grads.items()},
+            "parts": {k: tuple(p.shape) for k, p in params.items()},
+            "whole": dict(split.shapes)}
+
+
+def fsdp_cli_twin(mesh, inputs: dict) -> dict:
+    """The ``Trainer`` run that ``python -m repro_torch.launch.train --smoke
+    --steps 4 --batch 4 --seq 32 --rank 4 --gamma 1 --period 3 --mesh data=2
+    --shard-params`` makes."""
+    cfg = get_smoke(ARCH)
+    trainer = Trainer(build_model(cfg, device="cpu"),
+                      OptimizerConfig(name="gum", lr=1e-3, rank=4, gamma=1, period=3),
+                      RunConfig(steps=4, ckpt_every=1, log_every=10,
+                                ckpt_dir=os.path.join(inputs["dir"], "cli_twin")),
+                      DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4),
+                      device="cpu", mesh=mesh, shard_params=True)
+    return {"losses": trainer.train().losses}
+
+
+def fsdp_family(mesh, inputs: dict, arch: str) -> dict:
+    """``make_shardmap_train_step`` (fp32 reduction) of per-leaf GUM on
+    ``arch``'s ``SMOKE`` model from seed 0, replicated and on split
+    parameters, 2 steps each over one seeded global batch (tokens; images
+    beside them for the vlm, frames and targets for audio)."""
+    cfg = get_smoke(arch)
+    rng = np.random.default_rng(0)
+    rows, seq = 4, 16
+    if cfg.frontend == "frames":
+        batch = {"frames": rng.standard_normal((rows, seq, cfg.d_model), np.float32),
+                 "targets": rng.integers(0, cfg.vocab, (rows, seq))}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab, (rows, seq))}
+    if cfg.family == "vlm":
+        batch["images"] = rng.standard_normal((rows, cfg.n_image_tokens, cfg.d_model),
+                                              np.float32)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    for mode in ("replicated", "split"):
+        model = build_model(cfg, device="cpu")
+        model.init_params(0)
+        if cfg.family == "vlm":  # nonzero gates: tanh(0) = 0 skips the cross blocks
+            with torch.no_grad():
+                model.blocks.cross.gate_attn.fill_(0.5)
+                model.blocks.cross.gate_mlp.fill_(0.5)
+        opt = build_optimizer(OptimizerConfig(**dict(GUM, fuse_families=False)))
+        step = make_shardmap_train_step(model, opt, mesh, reduce_dtype=torch.float32,
+                                        shard_params=mode == "split")
+        state = step.place_state(step.init_state(opt))
+        params, losses = model.params(), []
+        for _ in range(2):
+            state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+        whole = step.param_split.whole_params() if step.param_split else params
+        out[mode] = {"losses": losses, "params": _numpy(whole)}
+    return out
+
+
 def _scenario(mesh, inputs: dict, name: str):
     kind, _, rest = name.partition(":")
+    if kind == "fsdp_family":
+        return fsdp_family(mesh, inputs, rest)
+    if kind == "fsdp":
+        case, mode = rest.split(":")
+        return fsdp_train(mesh, inputs, case, mode)
+    if kind == "fsdp_mb":
+        return fsdp_train(mesh, inputs, "gum", rest, microbatches=2,
+                          label=f"fsdp_mb_{rest}")
+    if kind == "fsdp_resume":
+        # 2 steps in one layout, then 2 more in ``rest``'s from the checkpoint
+        first, second = rest.split(">")
+        label = f"fsdp_resume_{first}_{second}"
+        fsdp_train(mesh, inputs, "gum_zero", first, steps=2, label=label)
+        return fsdp_train(mesh, inputs, "gum_zero", second, label=label)
+    if kind == "fsdp_backward":
+        return fsdp_backward(mesh, inputs)
+    if kind == "fsdp_cli_twin":
+        return fsdp_cli_twin(mesh, inputs)
     if kind == "path":
         opt, dtype, mode = rest.split(":")
         return path_train(mesh, inputs, opt, dtype, mode == "shard")
