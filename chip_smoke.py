@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
                 and of GaLore's family stacks, both projection sides, plus
                 one ragged shape; the fused epilogue also on a bf16 W, and
                 on a bf16 W at the cut that split parameters give it
-                (w_in / w_gate's rows at 2 ranks, tag ``bf16_w_cut``);
+                (w_in / w_gate's rows at 2 ranks, tag ``bf16_w_cut``), and
+                at the model-axis cut of tensor-parallel GaLore (w_in /
+                w_gate's columns over model, tag ``tp_cut``);
                 Newton–Schulz's two kernels also at Muon's full-rank shapes;
                 flash attention at llama-130m's prefill, a GQA short-query,
                 a ragged and a padded-head-dim case, and its 16-bit
@@ -157,7 +159,23 @@ Phases, in order; any failure exits non-zero and prints no result:
                 beside the twin's; then one ``make_shardmap_train_step`` step
                 over a world-size-1 ``nccl`` group (bf16 gradient
                 all-reduce) bitwise the no-mesh step given the same bf16
-                cast;
+                cast.  The same spawn then also builds a (data=1,
+                model=2) mesh over its two ranks and trains phase 4's GUM
+                and phase 4b's fused GaLore (row 6 on the model-axis cuts)
+                with tensor parallelism (Megatron-split layers, the
+                vocab-parallel embedding and loss) for 3 steps each, each
+                rank on all 8 x 1024 rows: the first loss within 1e-6 of
+                its phase's, the later ones within ``TP_LOSS_TOL`` (1e-3),
+                each parameter leaf after step 3 within 1e-3 (GUM) or 1e-2
+                (GaLore) of its phase's own (``TP_TWINS``; the limits'
+                basis: ``tools/tp_loss_spread.py``), the ranks' gathered
+                parameters equal, 219098112 parameter bytes a rank, every
+                collective (op, axis, bytes) against
+                ``analysis.collectives``' model, the dispatch and launch
+                counts, the peak a rank; then one forward of the trained
+                GUM model at attn_impl="pallas" (row 7 on each rank's 6 of
+                12 heads, 12 launches a rank) against "xla", the logits
+                within 1e-4;
   4j. audit   — the static audit (``repro_torch.analysis``) at llama-130m:
                 ``audit_optimizer`` of phase 4's GUM on the model's tree on
                 ``meta``, clean; one real steady GUM step whose dispatch
@@ -673,6 +691,21 @@ def kernel_cases(torch, gen, lu_shapes=None, bp_shapes=None, epi_shapes=None,
                                                            alpha=scale)),
                       2.0 * L * m * n * r, 4 * (L * m * r + L * r * n + L * m * n) + 2 * L * m * n,
                       "bf16_w_cut"))
+        # ... and at a model-axis cut, as phase 4i's tensor-parallel GaLore
+        # on (data=1, model=2) runs it: w_in / w_gate's columns over model,
+        # so S's columns and W's columns (the fp32-W instantiation), tagged
+        # "tp_cut"
+        L, m, r, n = 24, 768, 256, 1024
+        p, s, w = (torch.randn(*shape, generator=g6, device="cuda")
+                   for shape in ((L, m, r), (L, r, n), (L, m, n)))
+        cases.append(("back_project_epilogue", f"left P{tuple(p.shape)} S{tuple(s.shape)} "
+                      "W (split columns over model)",
+                      (lambda p=p, s=s, w=w:
+                       fst.back_project_epilogue_batched(p, s, w, scale, decay)),
+                      (lambda p=p, s=s, w=w: ref.back_project_epilogue_ref(p, s, w, scale, decay)),
+                      (lambda p=p, s=s, w=w: torch.baddbmm(w, p, s, beta=decay, alpha=scale)),
+                      2.0 * L * m * n * r, 4 * (L * m * r + L * r * n + 2 * L * m * n),
+                      "tp_cut"))
 
     # gram / poly_apply: NS on the low-rank momenta (12, 256, n), on the
     # full slots (4, 768, n) and on Muon's full-rank momenta (12, 768, n);
@@ -1024,7 +1057,8 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
                      want_launch: dict, microbatches: int = 1, *, steps: int = 6,
                      model_changes: dict | None = None, ckpt_dir: str | None = None,
                      ckpt_every: int = 0, after_train=None,
-                     data: tuple = ("llama-130m", 8, 1024)) -> tuple[dict, float]:
+                     data: tuple = ("llama-130m", 8, 1024),
+                     snapshot: dict | None = None) -> tuple[dict, float]:
     """Pretrain ``data``'s arch (llama-130m by default) at full width and
     depth through the port's ``Trainer`` (``steps`` steps of ``data``'s
     batch x sequence, 8 x 1024 by default, period 3: refreshes at steps 1
@@ -1034,7 +1068,10 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
     and profile one steady step.  Checkpoints go to ``ckpt_dir`` (kept) or a
     directory removed after, every ``ckpt_every`` steps (0: the config's);
     ``after_train(trainer, result)`` runs before the profiled steps move the
-    parameters.  Records the launches' integer arguments and instantiations
+    parameters.  ``snapshot`` (``{"step": k}``) gets the parameters after
+    step ``k`` as host tensors under ``"params"`` (copied to the host at the
+    start of step ``k + 1``, a refresh step when ``k`` is 3, so the steady
+    steps' times and the peak device memory hold no copy).  Records the launches' integer arguments and instantiations
     under ``label`` (``PHASE_CALLS``, ``PHASE_VARIANTS``).  Returns this
     phase's kernel launches and the peak memory (GiB) of its steps."""
     from repro_torch.configs import RunConfig
@@ -1053,6 +1090,16 @@ def train_full_width(torch, label: str, opt_cfg, want_dispatch: dict,
                           RunConfig(steps=steps, log_every=1, seed=0, ckpt_dir=ckpt_dir,
                                     **({"ckpt_every": ckpt_every} if ckpt_every else {})),
                           data, device="cuda", microbatches=microbatches)
+        if snapshot is not None:
+            inner, calls = trainer.step_fn, []
+
+            def step_fn(params, *args):
+                if len(calls) == snapshot["step"]:
+                    snapshot["params"] = {k: p.detach().cpu() for k, p in params.items()}
+                calls.append(None)
+                return inner(params, *args)
+
+            trainer.step_fn = step_fn
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
@@ -1140,7 +1187,6 @@ def remat_peaks(torch) -> None:
 def phase_slice(torch) -> dict:
     """GUM, the paper's main path: Appendix C.3's rank 256, gamma 4."""
     from repro_torch.core import OptimizerConfig
-    from repro_torch.core.lowrank_common import compute_projectors
 
     remat_peaks(torch)
     launches, _ = train_full_width(
@@ -1148,17 +1194,8 @@ def phase_slice(torch) -> dict:
         want_dispatch={"lowrank_update": 7, "project": 7, "back_project": 14,
                        "newton_schulz": 14},
         want_launch={"lowrank_update": 14, "back_project": 14, "gram": 70,
-                     "poly_apply": 70})
-
-    # The projector refresh alone: one batched SVD per hidden leaf.
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    total = 0.0
-    for shape in [(12, 768, 768)] * 4 + [(12, 768, 2048)] * 2 + [(12, 2048, 768)]:
-        g = torch.randn(*shape, generator=gen, device="cuda")
-        side = "left" if shape[1] <= shape[2] else "right"
-        total += time_ms(lambda g=g, side=side: compute_projectors("svd", g, 256, side),
-                         iters=2, warmup=1)
-    print(f"slice svd refresh ms (7 leaves, torch.linalg.svd): {total:.3f}", flush=True)
+                     "poly_apply": 70}, snapshot=TP_TWINS["slice"])
+    # The projector refresh alone is timed once, in phase 4c (its svd kind).
     return launches
 
 
@@ -1171,10 +1208,10 @@ def phase_galore(torch) -> dict:
 
     return train_full_width(
         torch, "galore",
-        OptimizerConfig(name="galore", lr=1e-2, rank=256, period=3, weight_decay=0.0,
-                        fuse_families=True, fused_epilogue=True),
+        OptimizerConfig(**GALORE_130M),
         want_dispatch={"project": 3, "back_project_epilogue": 3},
-        want_launch={"lowrank_update": 3, "back_project_epilogue": 3})[0]
+        want_launch={"lowrank_update": 3, "back_project_epilogue": 3},
+        snapshot=TP_TWINS["galore"])[0]
 
 
 # Phase 4c: the paper's other optimizers at llama-130m, rank 256, period 3,
@@ -1292,6 +1329,8 @@ def phase_baselines(torch) -> dict:
 # --------------------------------------------------------------------- phases 4d, 4e
 
 GUM_130M = dict(name="gum", lr=5e-3, rank=256, gamma=4, period=3)
+GALORE_130M = dict(name="galore", lr=1e-2, rank=256, period=3, weight_decay=0.0,
+                   fuse_families=True, fused_epilogue=True)
 GUM_DISPATCH = {"lowrank_update": 7, "project": 7, "back_project": 14, "newton_schulz": 14}
 GUM_LAUNCH = {"lowrank_update": 14, "back_project": 14, "gram": 70, "poly_apply": 70}
 
@@ -2691,7 +2730,226 @@ def distributed_rank(mesh, inputs: dict) -> dict:
         torch.cuda.empty_cache()
     del replicated, finals
     out |= distributed_paths(torch, mesh, inputs)
+    out["tp"] = tensor_parallel_rank(torch, mesh, inputs)
     return out
+
+
+# Phase 4i's tensor-parallel runs on a (data=1, model=2) mesh over the
+# spawn's two ranks, each 3 steps (a refresh and two steady steps) held to
+# its one-process phase's first 3 (the twin: that phase's parameters after
+# step 3): phase 4's GUM (per leaf; rows 1-5) and phase 4b's GaLore
+# (family-stacked with the fused epilogue, so row 6 on the model-axis cuts:
+# the (768, 768) family's wq / wk / wv on columns and wo on rows, one launch
+# a cut, as SPLIT_GALORE_*).  The row-parallel sums round otherwise than one
+# GEMM, and the rank-256 SVD of the refresh turns such a difference into a
+# rotation of the subspace, so the first loss is held to 1e-6, the later
+# ones to TP_LOSS_TOL and each parameter leaf to its run's limit (GUM's
+# Newton-Schulz step is blind to a rotation inside the subspace, GaLore's
+# Adam moments are not).  The basis (tools/tp_loss_spread.py on an H100,
+# PERF.md section 6; seeds 0-2, a rerun bitwise): steps 2-3 read at most
+# 8.12e-5 (GUM) and 1.69e-4 (GaLore) from one process, the farthest leaf
+# 4.90e-4 and 2.35e-3; with Megatron's f skipping its backward all-reduce
+# 3.83e-2 and 5.63e-2, the leaf 0.255 and 0.345.  1e-3 (losses) lies 5.9x
+# above the larger reading and 38x below the smaller control, GUM's 1e-3
+# (REFRESH_PARAM_TOL) 2x and 255x, GaLore's 1e-2 4.3x and 35x.  Each rank
+# holds llama-130m's model-split leaves halved and its 19200 norm parameters
+# whole (sharding.per_shard_bytes over the model axis).
+TP_STEPS = 3
+TP_RUNS = {"tp": ("slice", GUM_130M, GUM_DISPATCH, GUM_LAUNCH, REFRESH_PARAM_TOL),
+           "tp galore": ("galore", GALORE_130M, SPLIT_GALORE_DISPATCH, SPLIT_GALORE_LAUNCH,
+                         1e-2)}
+TP_TWINS: dict = {phase: {"step": TP_STEPS} for phase, *_ in TP_RUNS.values()}
+TP_LOSS_TOL = 1e-3
+TP_PARAM_BYTES = 219098112
+# Row 7 on a rank's heads: its forward at attn_impl="pallas" against "xla"
+# on the same parameters, the logits by serve-llama's fp32 rule.
+TP_ATTN_TOL = 1e-4
+
+
+def tensor_parallel_attention(torch, trainer, cfg, data) -> dict:
+    """Row 7 on this rank's 6 of llama-130m's 12 heads: one forward and loss
+    of the tensor-parallel model (its trained parameters, a seeded batch of
+    ``data``'s shape, alike on both ranks) at ``attn_impl="pallas"`` and at
+    ``"xla"``.  Returns the relative Frobenius distance of this rank's
+    vocab columns of the logits, both losses, and each forward's
+    flash_attention launches."""
+    from repro_torch.kernels import build
+    from repro_torch.models import lm_loss
+
+    model, split = trainer.model, trainer.param_split
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (data.global_batch, data.seq_len), generator=gen,
+                           device="cuda")
+    logits, out = {}, {"loss": {}, "launches": {}}
+    for impl in ("xla", "pallas"):
+        build.reset_launches()
+        with torch.no_grad(), with_config(model, attn_impl=impl), split.gathered():
+            logits[impl] = model(tokens)
+            out["loss"][impl] = float(lm_loss(logits[impl], tokens))
+        torch.cuda.synchronize()
+        out["launches"][impl] = build.LAUNCHES.get("flash_attention", 0)
+    out["columns"] = logits["pallas"].shape[-1]
+    out["rel"] = float((logits["pallas"] - logits["xla"]).norm() / logits["xla"].norm())
+    del logits
+    return out
+
+
+def tensor_parallel_rank(torch, mesh, inputs: dict) -> dict:
+    """Phase 4i's tensor-parallel runs, on one of the two ranks: a (data=1,
+    model=2) mesh over the spawn's group, each of ``TP_RUNS`` through
+    ``Trainer(mesh=)`` on the whole 8 x 1024 batch for ``TP_STEPS`` steps,
+    and after GUM's :func:`tensor_parallel_attention`.  Returns per run its
+    losses, the gathered parameters' digest (rank 0: the parameters, on the
+    host), each step's dispatches, every collective of the last step and the
+    findings of every step's against ``analysis.collectives``' model, the
+    kernel launches and integer arguments, the parameter bytes this rank
+    holds beside ``per_shard_bytes``, the step times and the peak."""
+    from repro_torch.analysis.collectives import (
+        collect_collectives,
+        collective_schedule_findings,
+        expected_collective_schedule,
+    )
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import OptimizerConfig
+    from repro_torch.kernels import build, launch_count
+    from repro_torch.kernels.collective_count import record_collectives
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import per_shard_bytes
+    from repro_torch.train import Trainer
+
+    tp_mesh = Mesh((1, 2), ("data", "model"), group=mesh.group, backend=mesh.backend)
+    cfg, data = full_width_data()
+    runs = {}
+    for label, (_, opt, *_) in TP_RUNS.items():
+        t0 = time.perf_counter()
+        held_before = torch.cuda.memory_allocated()
+        trainer = Trainer(build_model(cfg, device="cuda"), OptimizerConfig(**opt),
+                          RunConfig(steps=TP_STEPS, log_every=0, seed=0,
+                                    ckpt_dir=os.path.join(inputs["dir"], label.replace(" ", "_"))),
+                          data, device="cuda", mesh=tp_mesh)
+        trainer.monitor.z = float("inf")
+        steps, logs = [], []
+        inner = trainer.step_fn
+
+        def counted(*args, inner=inner, steps=steps, logs=logs):
+            with record_collectives() as log, launch_count.count_launches() as dispatched:
+                result = inner(*args)
+            logs.append(log)
+            steps.append(dict(dispatched))
+            return result
+
+        trainer.step_fn = counted
+        build.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(build.LAUNCHES)
+        calls = {k: dict(v) for k, v in build.CALLS.items()}
+        split = trainer.param_split
+        like = split.standins()
+        findings = []
+        for i, log in enumerate(logs):
+            expected = expected_collective_schedule(
+                trainer.optimizer, like, n_shards=1, reduce_dtype=torch.float32,
+                param_split=split, remat=cfg.remat, step=i + 1,
+                tensor_parallel={"cfg": cfg, "rows": data.global_batch, "seq": data.seq_len})
+            findings += [f"step {i + 1}: {f.format()}" for f in collective_schedule_findings(
+                collect_collectives(log), expected, reduce_dtype=torch.float32)]
+        final = trainer.whole_params("cpu")
+        out = {"losses": result.losses, "digest": _digest(final), "dispatch": steps,
+               "launches": launches, "calls": calls, "findings": findings, "peak_gib": peak,
+               "held_before_gib": held_before / 2**30,
+               "seconds": [round(t, 4) for t in result.step_seconds],
+               "param_bytes": sum(p.numel() * p.element_size()
+                                  for p in trainer.model.params().values()),
+               "param_rule": per_shard_bytes(like, tp_mesh, ("model",)),
+               "schedule": {k: (v["count"], v.get("axis"), v["payload_bytes"])
+                            for k, v in expected.items()
+                            if isinstance(v, dict) and v.get("count")},
+               "log": [(e["op"], e["tag"], e["axis"], e["dtype"], e["bytes"])
+                       for e in logs[-1]]}
+        if tp_mesh.rank == 0:
+            out["params"] = final
+        if label == "tp":
+            out["attention"] = tensor_parallel_attention(torch, trainer, cfg, data)
+        del trainer, inner, counted, like, split, final
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["wall_s"] = time.perf_counter() - t0
+        runs[label] = out
+    return runs
+
+
+def check_tensor_parallel(ranks: list) -> dict:
+    """Phase 4i's tensor-parallel runs held on the parent against their
+    phases' first ``TP_STEPS`` steps (:func:`tensor_parallel_rank`), and
+    row 7 on each rank's heads against ``"xla"``; every reading is printed
+    before it is held.  Returns both ranks' kernel launches."""
+    launches: dict = collections.Counter()
+    for label, (phase, _, want_dispatch, want_launch, param_tol) in TP_RUNS.items():
+        want = LOSSES[phase][:TP_STEPS]
+        twin = TP_TWINS[phase]["params"]
+        PHASE_CALLS[label] = {}
+        for k, rank in enumerate(ranks):
+            run = rank["tp"][label]
+            losses = run["losses"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+            per_step = {n: v / TP_STEPS for n, v in run["launches"].items() if v}
+            ops = collections.defaultdict(list)
+            for op, tag, axis, dtype, nbytes in run["log"]:
+                ops[f"{op}:{tag}@{axis}"].append((dtype, nbytes))
+            calls = {key: (len(v), sorted(set(v))) for key, v in ops.items()}
+            print(f"4i rank {k} {label} (data=1, model=2; {TP_STEPS} steps of 8 x 1024 on each "
+                  f"rank): losses {losses} (relative to {phase}'s "
+                  f"{[float(f'{r:.3g}') for r in rel]}; first within 1e-6, the rest within "
+                  f"{TP_LOSS_TOL}); parameters {run['param_bytes']} bytes a rank "
+                  f"(per_shard_bytes over model {run['param_rule']}); step s {run['seconds']}; "
+                  f"the run {run['wall_s']:.1f} s; peak {run['peak_gib']:.3f} GiB (allocated at "
+                  f"its start {run['held_before_gib']:.3f}; {phase}: {PEAK_GIB[phase]:.3f}); "
+                  f"step 3's collectives (calls, [(dtype, bytes)]) {calls}; the model's "
+                  f"{run['schedule']}; findings {run['findings']}; dispatch {run['dispatch']}; "
+                  f"launches per step {per_step}; row 6's (L, m, r, n, right, w_bf16) "
+                  f"{sorted(run['calls'].get('back_project_epilogue', {}))}", flush=True)
+            check(len(losses) == TP_STEPS and rel[0] <= 1e-6 and max(rel) <= TP_LOSS_TOL,
+                  f"4i rank {k} {label}: losses {losses} against {phase}'s {want}: {rel}")
+            check(not run["findings"], f"4i rank {k} {label}: collectives against the model: "
+                  f"{run['findings']}")
+            check(run["param_bytes"] == run["param_rule"] == TP_PARAM_BYTES,
+                  f"4i rank {k} {label}: {run['param_bytes']} parameter bytes, per_shard_bytes "
+                  f"{run['param_rule']}, want {TP_PARAM_BYTES}")
+            for i, st in enumerate(run["dispatch"]):
+                check(st == want_dispatch, f"4i rank {k} {label} step {i + 1}: dispatch {st}")
+            check(per_step == want_launch, f"4i rank {k} {label}: launches per step {per_step}")
+            launches.update(run["launches"])
+            for name, got in run["calls"].items():
+                mine = PHASE_CALLS[label].setdefault(name, {})
+                for key, v in got.items():
+                    mine[key] = mine.get(key, 0) + v
+        got = ranks[0]["tp"][label]["params"]
+        rels = {k: _leaf_rel({k: p}, {k: twin[k]}) for k, p in got.items()}
+        worst = max(rels, key=rels.get)
+        print(f"4i {label}: digests {[r['tp'][label]['digest'][:16] for r in ranks]}; each "
+              f"leaf's relative Frobenius distance to {phase}'s after step {TP_STEPS} (limit "
+              f"{param_tol}): { {k: float(f'{v:.3g}') for k, v in rels.items()} }", flush=True)
+        check(ranks[0]["tp"][label]["digest"] == ranks[1]["tp"][label]["digest"],
+              f"4i {label}: the ranks' gathered parameters differ")
+        check(rels[worst] <= param_tol,
+              f"4i {label}: parameters after step {TP_STEPS} against {phase}'s: {worst} "
+              f"{rels[worst]!r} relative (limit {param_tol})")
+    n_layers = full_width_data()[0].n_layers
+    for k, rank in enumerate(ranks):
+        attn = rank["tp"]["tp"]["attention"]
+        print(f"4i rank {k} tp row 7 on its 6 of 12 heads: one forward at attn_impl=pallas "
+              f"against xla, its {attn['columns']} vocab columns of the logits "
+              f"{attn['rel']:.3e} relative (limit {TP_ATTN_TOL}); losses {attn['loss']}; "
+              f"flash_attention launches {attn['launches']}", flush=True)
+        check(attn["rel"] <= TP_ATTN_TOL and attn["launches"] == {"xla": 0, "pallas": n_layers},
+              f"4i rank {k} tp row 7: pallas vs xla {attn}")
+        launches["flash_attention"] += attn["launches"]["pallas"]
+    return dict(launches)
 
 
 # Phase 4i's split parameters (shard_params): llama-130m's parameter bytes a
@@ -3325,6 +3583,8 @@ def phase_distributed(torch) -> dict:
           "4i: the ranks' parameters differ")
     print(f"4i ranks equal (parameter digest {ranks[0]['shard']['digest'][:16]})", flush=True)
     for n, v in check_split_runs(ranks).items():
+        launches[n] = launches.get(n, 0) + v
+    for n, v in check_tensor_parallel(ranks).items():
         launches[n] = launches.get(n, 0) + v
     for n, v in check_distributed_paths(torch, ranks).items():
         launches[n] = launches.get(n, 0) + v
@@ -4869,7 +5129,9 @@ TAGGED = {("flash_attention", "bf16"): (tuple(f"serve-{a}" for a in DENSE_VARIAN
                                                 lambda key: key[5] == 1),
           # ... on the parts of split parameters (phase 4i's fused GaLore)
           ("back_project_epilogue", "bf16_w_cut"): (("split galore",),
-                                                    lambda key: key[5] == 1)}
+                                                    lambda key: key[5] == 1),
+          # ... on the model-axis cuts of phase 4i's tensor-parallel GaLore
+          ("back_project_epilogue", "tp_cut"): (("tp galore",), every_launch)}
 # Rows 1-5 at phase 4l's shapes (SSM_CASES): its launches on ssm_in (n =
 # 4384), over the 48 layers ("ssm") and over the 4 sampled blocks
 # ("ssm_project", "ssm_full"); (L, m, r, n, right) and gram / poly_apply's

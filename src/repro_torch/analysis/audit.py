@@ -232,7 +232,9 @@ def audit_sharded(
     shard_params: bool = False,
 ) -> AuditReport:
     """Audit the data-parallel step of :mod:`repro_torch.launch.shardmap_fsdp`
-    on a ``fake`` process group (no second device): the collective schedule
+    (with a ``model`` axis larger than 1 in ``mesh_axes``, the
+    tensor-parallel step of the ``Trainer``, fp32 reduction) on a ``fake``
+    process group (no second device): the collective schedule
     (RA601/602/603/606) and its wire bytes, the dispatch-launch contract,
     the parameters written in place (RA604's counterpart), each rank's
     batch rows (RA605's) and the per-shard memory model.
@@ -243,10 +245,15 @@ def audit_sharded(
     (its reduction in fp32, whatever ``reduce_dtype`` says)."""
     from repro_torch.models import build_model
 
-    (data_axis, n_shards), = mesh_axes  # data parallelism: exactly one axis
+    axes = dict(mesh_axes)
+    tp = int(axes.pop("model", 1))
+    (data_axis, n_shards), = axes.items()  # one data axis, and the model axis
     n_shards = int(n_shards)
     shard_state = bool(cfg.shard_state)
     name = f"sharded:{_cell_name(cfg)}@{data_axis}={n_shards}"
+    if tp > 1:
+        name += f",model={tp}"
+        reduce_dtype = torch.float32
     if shard_state:
         name += "+zero"
     if shard_params:
@@ -266,14 +273,17 @@ def audit_sharded(
     tr = trace_sharded_step(fresh, transform, n_shards=n_shards, batch_size=batch_size,
                             seq_len=seq_len, reduce_dtype=reduce_dtype, grad_clip=grad_clip,
                             data_axis=data_axis, shard_state=shard_state,
-                            shard_params=shard_params)
+                            shard_params=shard_params, tp=tp)
     # the whole shapes the optimizer sees (stand-ins under shard_params)
     params = tr.params if tr.param_split is None else tr.param_split.standins()
 
+    seq = int(tr.batch["tokens"].shape[1])
     expected = expected_collective_schedule(
         transform, params, n_shards=n_shards, reduce_dtype=reduce_dtype,
         data_axis=data_axis, shard_state=shard_state, param_split=tr.param_split,
-        remat=bool(mcfg.remat))
+        remat=bool(mcfg.remat),
+        tensor_parallel={"cfg": mcfg, "rows": batch_size // n_shards, "seq": seq}
+        if tp > 1 else None)
     report.extend(collective_schedule_findings(
         tr.records, expected, reduce_dtype=reduce_dtype, params=params, where=name))
 
@@ -294,11 +304,11 @@ def audit_sharded(
         "n_shards": n_shards,
         "collectives": launch_count.format_counts(collectives),
         "expected_schedule": expected,
-        "wire": wire_bytes_model(tr.records, n_shards),
+        "wire": wire_bytes_model(tr.records, n_shards, {"model": tp}),
         "per_shard_memory": per_shard_memory(params, tr.opt_state, tr.batch,
                                              n_shards=n_shards, reduce_dtype=reduce_dtype,
                                              shard_state=shard_state,
-                                             shard_params=shard_params),
+                                             shard_params=shard_params, tp=tp),
         "launch_counts": launch_count.format_counts(tr.counts),
         "opt_state_realloc_bytes": tr.realloc_bytes,
         "buffers": {"params_in_place": sum(same and n > 0
@@ -395,7 +405,8 @@ def main(argv=None) -> int:
                          "wire bytes, in-place parameters and per-shard buffers, on a "
                          "fake process group of the mesh's size")
     ap.add_argument("--mesh", default="data=8", metavar="AXIS=N",
-                    help="mesh spec for --sharded (default: data=8)")
+                    help="mesh spec for --sharded (default: data=8; data=D,model=T audits "
+                         "the tensor-parallel step on D·T fake ranks)")
     ap.add_argument("--shard-state", action="store_true",
                     help="audit the ZeRO-split fused step (implies --fuse-families)")
     ap.add_argument("--shard-params", action="store_true",

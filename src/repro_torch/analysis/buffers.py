@@ -97,7 +97,8 @@ def replication_findings(rows: list[int], *, global_batch: int, n_shards: int,
 
 def per_shard_memory(params: dict, opt_state: PyTree, batch: PyTree, *, n_shards: int,
                      reduce_dtype: torch.dtype = torch.bfloat16,
-                     shard_state: bool = False, shard_params: bool = False) -> dict:
+                     shard_state: bool = False, shard_params: bool = False,
+                     tp: int = 1) -> dict:
     """Static per-shard peak bytes of one data-parallel step from tensors of
     any device (``meta`` too); nothing allocates.
 
@@ -108,7 +109,10 @@ def per_shard_memory(params: dict, opt_state: PyTree, batch: PyTree, *, n_shards
     (:func:`repro_torch.sharding.family_state_bytes`, the rule the runtime
     splits by).  ``shard_params``: the parameters charged per shard by
     :func:`repro_torch.sharding.per_shard_bytes` over a data axis of N
-    (``params_bytes_per_shard``), the rest as above."""
+    (``params_bytes_per_shard``), the rest as above.  ``tp`` (a model axis
+    of that size, tensor parallelism): the parameters charged per shard by
+    the rules over the model axis too (over it alone without
+    ``shard_params``)."""
     from repro_torch.sharding import family_state_bytes, per_shard_bytes
 
     rd = torch.empty((), dtype=reduce_dtype).element_size()
@@ -131,11 +135,12 @@ def per_shard_memory(params: dict, opt_state: PyTree, batch: PyTree, *, n_shards
         "batch_bytes_per_shard": -(-reference_state_bytes(batch) // n),
     }
     params_held = out["params_bytes"]
-    if shard_params:
+    if shard_params or tp > 1:
         from repro_torch.launch.mesh import Mesh
 
-        params_held = out["params_bytes_per_shard"] = per_shard_bytes(params,
-                                                                      Mesh((n,), ("data",)))
+        mesh = Mesh((n, int(tp)), ("data", "model"))
+        axes = ("data", "model") if shard_params else ("model",)
+        params_held = out["params_bytes_per_shard"] = per_shard_bytes(params, mesh, axes)
     out["peak_bytes_per_shard"] = (
         params_held + out["opt_state_bytes_per_shard"]
         + out["grad_bytes_fp32"] + out["grad_wire_bytes"]

@@ -80,10 +80,11 @@ class CollectiveRecord:
         return all(len(s) == 0 or s == (1,) for s in self.shapes)
 
 
-def collect_collectives(log: list[dict], *, axis: str = "data") -> list[CollectiveRecord]:
+def collect_collectives(log: list[dict]) -> list[CollectiveRecord]:
     """:class:`CollectiveRecord`\\ s of a :func:`record_collectives` log
-    (every step; :func:`boundary_only` marks a refresh's extras)."""
-    return [CollectiveRecord(primitive=e["op"], tag=e["tag"], axes=(axis,),
+    (every step; :func:`boundary_only` marks a refresh's extras), each over
+    the mesh axis its entry names."""
+    return [CollectiveRecord(primitive=e["op"], tag=e["tag"], axes=(e.get("axis", "data"),),
                              dtypes=(e["dtype"],), shapes=(tuple(e["shape"]),),
                              n_operands=1, payload_bytes=int(e["bytes"]),
                              under_cond=False) for e in log]
@@ -219,13 +220,13 @@ def param_split_schedule(split, *, remat: bool = False, microbatches: int = 1) -
         dtypes.add(str(dtype).removeprefix("torch."))
         gather += layers * sum(nbytes(split.part_shape(k)[split.stack[k]:], dtype)
                                for k in paths)
-        scatter += layers * sum(nbytes(split.shapes[k][split.stack[k]:], torch.float32)
-                                for k in paths)
+        scatter += layers * sum(nbytes(split.model_part_shape(k)[split.stack[k]:],
+                                       torch.float32) for k in paths)
     once_dtype = None
     for k in split.once:
         once_dtype = split.dtypes[k] if once_dtype is None else torch.promote_types(
             once_dtype, split.dtypes[k])
-    whole = [k for k in split.shapes if k not in split.rules]
+    whole = [k for k in split.shapes if k not in split.data_rules]
     mb = int(microbatches)
     return {
         "param_gather": {"count": reads * passes, "dtype": "/".join(sorted(dtypes)),
@@ -237,15 +238,89 @@ def param_split_schedule(split, *, remat: bool = False, microbatches: int = 1) -
         "grad_scatter": {"count": reads * mb, "dtype": "float32",
                          "payload_bytes": scatter * mb},
         "grad_scatter_once": {"count": mb if split.once else 0, "dtype": "float32",
-                              "payload_bytes": mb * sum(nbytes(split.shapes[k], torch.float32)
+                              "payload_bytes": mb * sum(nbytes(split.model_part_shape(k),
+                                                               torch.float32)
                                                         for k in split.once)},
         "grad_psum": {"count": int(bool(whole)), "dtype": "float32", "operands": len(whole),
-                      "payload_bytes": sum(nbytes(split.shapes[k], torch.float32)
+                      "payload_bytes": sum(nbytes(split.model_part_shape(k), torch.float32)
                                            for k in whole)},
-        "grad_gather": {"count": 1, "dtype": "float32",
+        "grad_gather": {"count": int(bool(split.data_rules)), "dtype": "float32",
                         "payload_bytes": sum(nbytes(split.part_shape(k), torch.float32)
-                                             for k in split.rules)},
+                                             for k in split.data_rules)},
     }
+
+
+def tensor_parallel_schedule(split, cfg, rows: int, seq: int, *, microbatches: int = 1) -> dict:
+    """The collectives over the ``model`` axis that a tensor-parallel step
+    (a :class:`repro_torch.sharding.ParamSplit` with ``tp > 1``, the model's
+    config ``cfg``) adds, per step on one rank that trains ``rows`` rows of
+    ``seq`` tokens in ``microbatches`` equal slices.  Each forward of a
+    layer sums its attention's and its MLP's row-parallel products in two
+    fp32 all-reduces of a ``(rows, seq, d)`` activation (``tp_fwd``), the
+    embedding in one more; remat's recomputation of a layer runs its
+    forward only as far as the last tensor its backward reads, so it sums
+    the attention's products again but not the MLP's, whose sum is the
+    layer's output; each backward of
+    a layer sums the gradients at the entries of its two column-parallel
+    regions (``tp_bwd``), the head's input in one more; the vocab-parallel
+    loss reduces each row's max, sum of exponentials and target logit
+    (``tp_loss``: three fp32 all-reduces of the ``rows · (seq - 1)`` shifted
+    rows, a chunk's rows each under ``logit_chunk``); where the kv heads do
+    not divide over the axis and a rule splits ``wk`` and ``wv``, each
+    layer read gathers each of them whole (``tp_kv_gather``) and its
+    backward reduce-scatters its fp32 gradient (``tp_kv_scatter``).  After
+    the backward: one fp32 all-reduce of the gradients of the leaves a rank
+    reads in slices (``tp_grad_psum``) and ONE fp32 all-gather of every
+    model-split gradient part (``tp_grad_gather``)."""
+    from repro_torch.models import tensor_parallel
+
+    def nbytes(shape, dtype=torch.float32) -> int:
+        return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+    mb, L, T = int(microbatches), int(cfg.n_layers), split.tp
+    r = int(rows) // mb
+    passes = 2 if cfg.remat else 1
+    fwd = (2 + int(bool(cfg.remat))) * L + 1
+    act = r * int(seq) * int(cfg.d_model) * 4
+    chunk = int(cfg.logit_chunk)
+    if chunk > 0:
+        loss_calls, loss_bytes = -(-(int(seq) - 1) // chunk), r * chunk * 4
+    else:
+        loss_calls, loss_bytes = 1, r * (int(seq) - 1) * 4
+    kv = [k for k in ("blocks/attn/wk", "blocks/attn/wv") if k in split.model_rules]
+    kv_gathered = cfg.kv_heads % T != 0 and kv
+    kv_dtype = str(split.dtypes[kv[0]]).removeprefix("torch.") if kv else "float32"
+    summed = sorted(tensor_parallel.summed_paths(split))
+    parts = [k for k in split.shapes if k in split.model_rules]
+    entry = {"dtype": "float32", "axis": "model", "phase": "steady"}
+    return {
+        "tp_fwd": entry | {"count": mb * fwd, "payload_bytes": mb * fwd * act},
+        "tp_bwd": entry | {"count": mb * (2 * L + 1), "payload_bytes": mb * (2 * L + 1) * act},
+        "tp_loss": entry | {"count": mb * 3 * loss_calls,
+                            "payload_bytes": mb * 3 * loss_calls * loss_bytes},
+        "tp_kv_gather": entry | {
+            "count": mb * passes * L * len(kv) if kv_gathered else 0, "dtype": kv_dtype,
+            "payload_bytes": mb * passes * sum(nbytes(split.model_part_shape(k),
+                                                      split.dtypes[k]) for k in kv)
+            if kv_gathered else 0},
+        "tp_kv_scatter": entry | {
+            "count": mb * L * len(kv) if kv_gathered else 0,
+            "payload_bytes": mb * sum(nbytes(split.shapes[k]) for k in kv)
+            if kv_gathered else 0},
+        "tp_grad_psum": entry | {"count": int(bool(summed)), "operands": len(summed),
+                                 "payload_bytes": sum(nbytes(split.shapes[k]) for k in summed)},
+        "tp_grad_gather": entry | {"count": int(bool(parts)), "operands": len(parts),
+                                   "payload_bytes": sum(nbytes(split.model_part_shape(k))
+                                                        for k in parts)},
+    }
+
+
+# The tensor-parallel schedule's entries: (primitive, tag) of their records.
+TP_OPS = {"tp_fwd": ("all_reduce", "tp_fwd"), "tp_bwd": ("all_reduce", "tp_bwd"),
+          "tp_loss": ("all_reduce", "tp_loss"), "tp_kv_gather": ("all_gather", "tp_kv"),
+          "tp_kv_scatter": ("reduce_scatter", "tp_kv"),
+          "tp_grad_psum": ("all_reduce", "tp_grad"),
+          "tp_grad_gather": ("all_gather", "tp_grad")}
 
 
 def expected_collective_schedule(
@@ -261,6 +336,7 @@ def expected_collective_schedule(
     param_split=None,
     remat: bool = False,
     microbatches: int = 1,
+    tensor_parallel: dict | None = None,
 ) -> dict:
     """The collective schedule the data-parallel step must show at update
     ``step`` (steady unless it is a refresh), derived from the parameter
@@ -285,7 +361,12 @@ def expected_collective_schedule(
     :class:`repro_torch.sharding.ParamSplit` of ``params``' model, with the
     model's ``remat`` and the step's ``microbatches``): the gradient
     all-reduce carries the whole leaves only, in fp32, and the entries of
-    :func:`param_split_schedule` join the schedule."""
+    :func:`param_split_schedule` join the schedule.
+
+    ``tensor_parallel`` (``{"cfg", "rows", "seq"}``: the model's config and
+    a rank's rows and sequence length a step, with ``param_split`` a split
+    over a model axis): the entries of :func:`tensor_parallel_schedule`
+    join it, and ``n_shards`` is the data axis's size."""
     itemsize = torch.empty((), dtype=reduce_dtype).element_size()
     leaves = [p for p in params.values() if p is not None]
     grad_values, operands, refresh_bytes = sum(p.numel() for p in leaves), len(leaves), 0
@@ -302,6 +383,10 @@ def expected_collective_schedule(
                                             microbatches=microbatches)
         for entry in params_sched.values():
             entry.update(axis=data_axis, phase="steady")
+        if tensor_parallel is not None:
+            params_sched |= tensor_parallel_schedule(
+                param_split, tensor_parallel["cfg"], tensor_parallel["rows"],
+                tensor_parallel["seq"], microbatches=microbatches)
     return params_sched | {
         "grad_psum": params_sched.get("grad_psum") or {
             "count": 1, "dtype": dtype, "operands": operands,
@@ -321,7 +406,8 @@ def expected_collective_schedule(
                               "axis": data_axis, "phase": "boundary"},
         "n_shards": int(n_shards),
         "shard_state": bool(shard_state),
-        "shard_params": param_split is not None,
+        "shard_params": param_split is not None and bool(param_split.data_rules),
+        "tensor_parallel": tensor_parallel is not None,
     }
 
 
@@ -364,6 +450,10 @@ def collective_schedule_findings(
     if expected.get("shard_params"):
         split_recs = {name: [r for r in steady if (r.primitive, r.tag) == op]
                       for name, op in split_ops.items()}
+    if expected.get("tensor_parallel"):
+        split_ops |= TP_OPS
+        split_recs |= {name: [r for r in steady if (r.primitive, r.tag) == op]
+                       for name, op in TP_OPS.items()}
     split_all = [r for rs in split_recs.values() for r in rs]
     others = [r for r in steady if r not in grad_red + loss_red + updates + split_all]
 
@@ -450,12 +540,14 @@ def collective_schedule_findings(
         got_s = {"count": len(recs), "payload_bytes": sum(r.payload_bytes for r in recs)}
         want_s = {k: exp[k] for k in got_s}
         dtypes = sorted({dt for r in recs for dt in r.dtypes})
-        if got_s != want_s or (recs and "/".join(dtypes) != exp["dtype"]):
+        axes = {a for r in recs for a in r.axes}
+        if got_s != want_s or (recs and "/".join(dtypes) != exp["dtype"]) or (
+                recs and axes != {exp.get("axis", axes and next(iter(axes)))}):
             out.append(Finding(
                 code="RA606", where=where,
-                message=f"traced {'/'.join(split_ops[name])} {got_s} ({'/'.join(dtypes)}) "
-                        f"diverges from the closed-form model {want_s} ({exp['dtype']}) "
-                        "of the split parameters",
+                message=f"traced {'/'.join(split_ops[name])} {got_s} ({'/'.join(dtypes)} over "
+                        f"{sorted(axes)}) diverges from the closed-form model {want_s} "
+                        f"({exp['dtype']} over {exp.get('axis')}) of the split parameters",
                 hint="one all-gather of a layer's parts per layer read, one fp32 "
                      "reduce-scatter of its gradient, the once leaves once a step",
                 detail={"traced": got_s, "expected": want_s, "entry": name},
@@ -509,18 +601,23 @@ _RING_COEFF = {
 }
 
 
-def wire_bytes_model(records: Iterable[CollectiveRecord], n_shards: int) -> dict:
+def wire_bytes_model(records: Iterable[CollectiveRecord], n_shards: int,
+                     axis_sizes: dict | None = None) -> dict:
     """Per-step wire bytes each rank sends, from the traced collectives and
     ring coefficients.  ``steady_bytes_per_step`` counts the collectives of
-    every step; ``boundary_bytes`` the refresh-only ones."""
+    every step; ``boundary_bytes`` the refresh-only ones.  A record over an
+    axis of ``axis_sizes`` (e.g. ``{"model": T}``) takes that axis's ring
+    size, the others ``n_shards``."""
     n = max(int(n_shards), 1)
+    sizes = axis_sizes or {}
     per: list[dict] = []
     steady = boundary = 0
     for r in records:
         coeff = _RING_COEFF.get(r.primitive)
         if coeff is None:
             continue
-        wire = int(r.payload_bytes * coeff(n)) if n > 1 else 0
+        ring = max(int(sizes.get(r.axes[0], n)), 1) if r.axes else n
+        wire = int(r.payload_bytes * coeff(ring)) if ring > 1 else 0
         per.append({"primitive": r.primitive, "tag": r.tag,
                     "payload_bytes": r.payload_bytes, "wire_bytes": wire,
                     "phase": "boundary" if r.under_cond else "steady",
@@ -569,14 +666,15 @@ def _trace_mesh_class():
         an all-gather's result is this rank's operand in every rank's part
         (so the trace's values stay finite; they are not a real run's)."""
 
-        def all_gather(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-            out = super().all_gather(t, tag)
-            out.view(self.shape[self.data_axis], -1).copy_(t.reshape(1, -1))
+        def all_gather(self, t: torch.Tensor, tag: str, *, axis=None) -> torch.Tensor:
+            out = super().all_gather(t, tag, axis=axis)
+            out.view(self.shape[axis or self.data_axis], -1).copy_(t.reshape(1, -1))
             return out
 
-        def reduce_scatter(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-            out = super().reduce_scatter(t, tag)
-            out.copy_(t.reshape(self.shape[self.data_axis], -1)[0])  # this rank's chunk
+        def reduce_scatter(self, t: torch.Tensor, tag: str, *, axis=None) -> torch.Tensor:
+            out = super().reduce_scatter(t, tag, axis=axis)
+            # this rank's chunk
+            out.copy_(t.reshape(self.shape[axis or self.data_axis], -1)[0])
             return out
 
     return TraceMesh
@@ -586,7 +684,7 @@ def trace_sharded_step(model, optimizer: Transform, *, n_shards: int,
                        batch_size: int = 8, seq_len: int | None = None,
                        reduce_dtype: torch.dtype = torch.bfloat16, grad_clip: float = 1.0,
                        data_axis: str = "data", shard_state: bool = False,
-                       shard_params: bool = False, seed: int = 0) -> ShardedTrace:
+                       shard_params: bool = False, seed: int = 0, tp: int = 1) -> ShardedTrace:
     """Run :func:`repro_torch.launch.shardmap_fsdp.make_shardmap_train_step`
     as rank 0 of a ``fake`` process group of ``n_shards`` ranks: two steps
     (a refresh, then a steady one) on ``model``'s device, with its
@@ -595,24 +693,52 @@ def trace_sharded_step(model, optimizer: Transform, *, n_shards: int,
     returning; a process that already holds a group is refused.
     ``shard_params`` splits ``model``'s parameters (they stay split: the
     returned ``params`` are rank 0's parts, ``step.param_split`` has the
-    layout)."""
+    layout).  ``tp > 1`` traces the tensor-parallel step of a ``Trainer``
+    instead (:func:`repro_torch.launch.steps.make_train_step` on a
+    ``(n_shards, tp)`` mesh of axes ``(data_axis, "model")``, fp32 reduction,
+    rank 0 taking its data coordinate's rows); the fake group then has
+    ``n_shards · tp`` ranks, and the values of a forward whose partial sums
+    are never summed are not a real run's either."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     from repro_torch.launch.shardmap_fsdp import make_shardmap_train_step
+    from repro_torch.core.combinators import shard_family_state
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.sharding import ParamSplit
 
     if dist.is_initialized():
         raise RuntimeError("trace_sharded_step makes its own fake process group; this "
                            "process already holds one (trace in a fresh process)")
     if batch_size % int(n_shards):
         raise ValueError(f"batch_size={batch_size} not divisible by n_shards={n_shards}")
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(n_shards))
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(n_shards) * int(tp))
     try:
-        mesh = _trace_mesh_class()((int(n_shards),), (data_axis,), group=dist.group.WORLD,
-                                   backend="fake", data_axis=data_axis)
-        step = make_shardmap_train_step(model, optimizer, mesh, grad_clip=grad_clip,
-                                        reduce_dtype=reduce_dtype, shard_state=shard_state,
-                                        shard_params=shard_params)
+        if tp > 1:
+            mesh = _trace_mesh_class()((int(n_shards), int(tp)), (data_axis, "model"),
+                                       group=dist.group.WORLD, backend="fake",
+                                       data_axis=data_axis)
+            split = ParamSplit(model, mesh, data=shard_params)
+            split.split_params()
+            inner = make_train_step(model, optimizer, grad_clip=grad_clip, mesh=mesh,
+                                    shard_state=shard_state, param_split=split)
+
+            def step(params, opt_state, batch):
+                per = next(iter(batch.values())).shape[0] // int(n_shards)
+                return inner(params, opt_state, {k: v[:per] for k, v in batch.items()})
+
+            step.param_split = split
+            step.init_state = lambda opt: split.init_state(opt, next(
+                iter(model.params().values())).device)
+            step.place_state = ((lambda st: shard_family_state(st, mesh)) if shard_state
+                                else (lambda st: st))
+        else:
+            mesh = _trace_mesh_class()((int(n_shards),), (data_axis,), group=dist.group.WORLD,
+                                       backend="fake", data_axis=data_axis)
+            step = make_shardmap_train_step(model, optimizer, mesh, grad_clip=grad_clip,
+                                            reduce_dtype=reduce_dtype, shard_state=shard_state,
+                                            shard_params=shard_params)
         params = model.params()
         device = next(iter(params.values())).device
         seq = int(seq_len if seq_len is not None else min(64, model.cfg.max_seq))
@@ -646,8 +772,8 @@ def trace_sharded_step(model, optimizer: Transform, *, n_shards: int,
         realloc = realloc_bytes(state_before, opt_state)
     finally:
         dist.destroy_process_group()
-    steady = collect_collectives(logs[1], axis=data_axis)
-    refresh = collect_collectives(logs[0], axis=data_axis)
+    steady = collect_collectives(logs[1])
+    refresh = collect_collectives(logs[0])
     records = steady + boundary_only(refresh, steady)
     steady_counts = dict(counts[1])
     for r in steady:

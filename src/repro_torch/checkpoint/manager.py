@@ -43,7 +43,8 @@ one only problems print.
 A checkpoint holds whole arrays, as the reference's do: a sharded run
 gathers its split leaves before it saves, and ``restore(shardings=)`` puts
 them back on a rank — each rank loads the whole leaf, then keeps its part
-(the per-leaf rule of :func:`repro_torch.sharding.row_splits`).
+(the per-leaf rule of :func:`repro_torch.sharding.row_splits`: one dim, or
+two dims, one over each mesh axis, under tensor parallelism).
 """
 from __future__ import annotations
 
@@ -342,7 +343,8 @@ class CheckpointManager:
         ``shardings``, a tree of ``like``'s structure, gives each leaf's
         rule: ``None`` keeps the whole leaf, a
         :class:`~repro_torch.sharding.RowSplit` keeps this rank's rows of
-        it (``like`` holds the whole shapes)."""
+        it, a :class:`~repro_torch.sharding.GridSplit` its block of two
+        dims (``like`` holds the whole shapes)."""
         d = self._step_dir(step)
         manifest = self._checked_manifest(step)
         flat = flatten_with_paths(like)

@@ -347,7 +347,7 @@ def materialize_pending(updates: dict) -> dict:
     by the identity of their shared ``s``).  Other leaves pass as they are.
     Under :func:`param_parts` a split leaf's update is this rank's part: its
     group launches on the cut operands (:func:`_materialize_cut`), one
-    launch for the members that split the same dim."""
+    launch for the members that split the same dims the same way."""
     groups: dict[tuple, list[str]] = {}
     for k, leaf in updates.items():
         if isinstance(leaf, PendingBack):
@@ -365,10 +365,11 @@ def materialize_pending(updates: dict) -> dict:
     return out
 
 
-def _pending_cut(path: str, leaf: PendingBack) -> Optional[str]:
-    """``"row"`` or ``"col"``: the matrix dim of the leaf at ``path`` that
-    :func:`param_parts` splits, ``"whole"`` where it splits none (None
-    outside :func:`param_parts`)."""
+def _pending_cut(path: str, leaf: PendingBack):
+    """How :func:`param_parts` cuts the leaf at ``path``: ``"whole"`` where
+    it splits none, else a tuple of ``(side, index, count)`` for each split
+    matrix dim, ``side`` ``"row"`` or ``"col"`` (one of each where a leaf
+    splits over two axes); None outside :func:`param_parts`."""
     part = _PARAM_PARTS.get(path)
     if part is None:
         return None
@@ -376,21 +377,20 @@ def _pending_cut(path: str, leaf: PendingBack) -> Optional[str]:
     if rule is None:
         return "whole"
     ndim = len(leaf.member_lead if leaf.member is not None else leaf.fs.lead) + 2
-    if rule.dim == ndim - 2:
-        return "row"
-    if rule.dim == ndim - 1:
-        return "col"
-    raise NotImplementedError(f"{path}: a fused epilogue over a split of a stack dim is not "
-                              "ported (only the update's row or column dim splits)")
+    sides = {ndim - 2: "row", ndim - 1: "col"}
+    if any(c.dim not in sides for c in rule.cuts):
+        raise NotImplementedError(f"{path}: a fused epilogue over a split of a stack dim is "
+                                  "not ported (only the update's row or column dim splits)")
+    return tuple(sorted((sides[c.dim], c.index, c.count) for c in rule.cuts))
 
 
-def _materialize_cut(updates: dict, keys: list[str], cut: str) -> dict:
+def _materialize_cut(updates: dict, keys: list[str], cut) -> dict:
     """This rank's part of each of ``keys``' updates, which share one
-    :class:`PendingBack` payload and split the same matrix dim: one epilogue
-    launch on P's rows (left side) or S's rows (right side) for a row split,
-    on S's columns (left) or P's rows (right) for a column split, with W the
-    stacked parts, ``scale·P_k S + decay·W_k``: the same function on smaller
-    operands."""
+    :class:`PendingBack` payload and split the same matrix dims alike: one
+    epilogue launch on P's rows (left side) or S's rows (right side) for a
+    row split, on S's columns (left) or P's rows (right) for a column split
+    (both for a leaf split over two axes), with W the stacked parts,
+    ``scale·P_k S + decay·W_k``: the same function on smaller operands."""
     first = updates[keys[0]]
     p, s = first.p, first.s
     if first.member is not None:
@@ -400,19 +400,19 @@ def _materialize_cut(updates: dict, keys: list[str], cut: str) -> dict:
             sel = torch.cat([torch.arange(j * per, (j + 1) * per, device=p.device)
                              for j in members])
             p, s = p[sel], s[sel]
-    rule = _PARAM_PARTS[keys[0]][1]
+    from repro_torch.sharding import RowSplit
 
     def narrow(t: torch.Tensor, dim: int) -> torch.Tensor:
         a, b = rule.rows(int(t.shape[dim]))
         return t.narrow(dim, a, b - a).contiguous()
 
     left = first.fs.side == "left"
-    if cut == "whole":
-        pass
-    elif cut == "row":
-        p, s = (narrow(p, -2), s) if left else (p, narrow(s, -2))
-    else:
-        p, s = (p, narrow(s, -1)) if left else (narrow(p, -2), s)
+    for side, index, count in () if cut == "whole" else cut:
+        rule = RowSplit(index, count)
+        if side == "row":
+            p, s = (narrow(p, -2), s) if left else (p, narrow(s, -2))
+        else:
+            p, s = (p, narrow(s, -1)) if left else (narrow(p, -2), s)
     w = None
     if first.decay != 0.0:
         parts = [_PARAM_PARTS[k][0] for k in keys]
@@ -732,7 +732,7 @@ def with_matrix_routing(
 # Split parameters (shard_params): the update of a rank's parts
 # ---------------------------------------------------------------------------
 
-# {path: (tensor, RowSplit or None)} of the active param_parts declaration ({} without
+# {path: (tensor, RowSplit / GridSplit or None)} of the active param_parts declaration ({} without
 # one); the optimizer runs on the calling thread.
 _PARAM_PARTS: dict = {}
 
@@ -741,7 +741,8 @@ _PARAM_PARTS: dict = {}
 def param_parts(parts: dict):
     """Declare that the parameters are split (``shard_params``): ``parts``
     maps each leaf's path to ``(tensor, rule)``, this rank's part and its
-    :class:`repro_torch.sharding.RowSplit`, or a whole leaf and None.
+    :class:`repro_torch.sharding.RowSplit` (or ``GridSplit``: a leaf split
+    over the data and the model axis), or a whole leaf and None.
 
     Entered by the mesh step around ``optimizer.init`` and
     ``optimizer.update``, which then take whole-shaped stand-ins for the
@@ -796,9 +797,7 @@ def cut_update(path: str, u):
         return u
     if tuple(u.shape) == tuple(part[0].shape):
         return u
-    rule = part[1]
-    a, b = rule.rows(int(u.shape[rule.dim]))
-    return u.narrow(rule.dim, a, b - a)
+    return part[1].narrow(u)
 
 
 # ---------------------------------------------------------------------------

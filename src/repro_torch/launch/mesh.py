@@ -4,11 +4,10 @@
 A :class:`Mesh` names its axes and their sizes the way ``jax.sharding.Mesh``
 does (``axis_names``, ``shape[axis]``), so the sharding rules of
 :mod:`repro_torch.sharding` read either.  A mesh built over an initialised
-process group also carries this process's coordinates and the collectives of
-its data axis, each recorded by :mod:`repro_torch.kernels.collective_count`.
-Only the data axis carries collectives: a mesh whose other axes are larger
-than 1 (tensor or expert parallelism) names its shape and raises when asked
-for one.
+process group also carries this process's coordinates and one process group
+per line of each axis (the ranks that differ in that coordinate alone), and
+its collectives run over one axis (``axis=``, the data axis by default),
+each recorded by :mod:`repro_torch.kernels.collective_count`.
 
 The backend is always an explicit choice: ``nccl`` for CUDA tensors,
 ``gloo`` for CPU tensors, and nothing retries with another backend after a
@@ -49,7 +48,12 @@ PRODUCTION_SHAPE = {False: ((16, 16), ("data", "model")),
 class Mesh:
     """Named axes over the ranks of a process group, row-major (the last axis
     varies fastest).  ``group=None`` with no process group gives a mesh of
-    shape only (the sharding rules need nothing more)."""
+    shape only (the sharding rules need nothing more).
+
+    Over a group, every rank of it must build the mesh, in the same order
+    as any other mesh over that group: the constructor makes the process
+    group of every line of every axis larger than 1 that is not the whole
+    group (a collective call of every rank, axis by axis, line by line)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
                  group=None, backend: Optional[str] = None, data_axis: str = "data"):
@@ -62,10 +66,37 @@ class Mesh:
         self.backend = backend
         self.data_axis = data_axis if data_axis in self.shape else self.axis_names[0]
         self.rank: Optional[int] = None
+        self._lines: dict = {}
         if group is not None:
             import torch.distributed as dist
 
             self.rank = dist.get_rank(group)
+            self._lines = self._make_lines(dist)
+
+    def _make_lines(self, dist) -> dict:
+        """``{axis: group}``: this rank's line of each axis (the mesh's own
+        group where the axis spans it, no group for an axis of size 1)."""
+        size = math.prod(self.shape.values())
+        members = dist.get_process_group_ranks(self.group)
+        lines = {}
+        for i, axis in enumerate(self.axis_names):
+            n = self.shape[axis]
+            if n == size:
+                lines[axis] = self.group
+                continue
+            if n == 1:
+                lines[axis] = None
+                continue
+            stride = math.prod(self.shape[a] for a in self.axis_names[i + 1:])
+            for first in range(size):
+                if (first // stride) % n:
+                    continue  # not the line's first rank
+                ranks = [members[first + j * stride] for j in range(n)]
+                g = dist.new_group(ranks)
+                if first <= self.rank and (self.rank - first) % stride == 0 \
+                        and self.rank < first + n * stride:
+                    lines[axis] = g
+        return lines
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
@@ -83,66 +114,79 @@ class Mesh:
             stride *= self.shape[a]
         raise KeyError(axis)
 
-    def _data_group(self):
+    def _run(self, op: str, tag: str, t: torch.Tensor, axis: Optional[str]):
+        """The process group of this rank's line of ``axis`` (default the
+        data axis; None where the axis has one rank: the collective moves
+        nothing), after recording the collective."""
         if self.rank is None:
             raise RuntimeError(f"{self!r} has no process group: it carries no collectives")
-        others = {a: n for a, n in self.shape.items() if a != self.data_axis and n > 1}
-        if others:
-            raise NotImplementedError(
-                f"collectives over a mesh with {others} beside its data axis: tensor "
-                "parallelism (ROADMAP queue 1 item 5b) and expert parallelism (item 5c) "
-                "are not ported")
-        return self.group
+        axis = axis or self.data_axis
+        if axis not in self.shape:
+            raise KeyError(f"{self!r} has no axis {axis!r}")
+        collective_count.record(op, tag, t, axis)
+        return self._lines[axis]
 
-    def all_reduce(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        """``t`` summed over the data axis, in place; returns ``t``."""
+    def all_reduce(self, t: torch.Tensor, tag: str, *, axis: Optional[str] = None,
+                   op: str = "sum") -> torch.Tensor:
+        """``t`` summed (``op="max"``: its maximum) over ``axis`` (default the
+        data axis), in place; returns ``t``."""
         import torch.distributed as dist
 
-        group = self._data_group()
-        collective_count.record("all_reduce", tag, t)
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        group = self._run("all_reduce", tag, t, axis)
+        if group is not None:
+            red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+            dist.all_reduce(t, op=red, group=group)
         return t
 
-    def all_gather(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        """The 1-D ``t`` of every rank of the data axis, concatenated in rank
-        order (``n * numel``)."""
+    def all_gather(self, t: torch.Tensor, tag: str, *, axis: Optional[str] = None
+                   ) -> torch.Tensor:
+        """The 1-D ``t`` of every rank of ``axis``'s line (default the data
+        axis), concatenated in coordinate order (``n * numel``)."""
         import torch.distributed as dist
 
-        group = self._data_group()
-        collective_count.record("all_gather", tag, t)
+        group = self._run("all_gather", tag, t, axis)
         x = t.reshape(-1).contiguous()
-        out = torch.empty(self.shape[self.data_axis] * x.numel(), dtype=x.dtype,
+        if group is None:
+            return x.clone()
+        out = torch.empty(self.shape[axis or self.data_axis] * x.numel(), dtype=x.dtype,
                           device=x.device)
         dist.all_gather_into_tensor(out, x, group=group)
         return out
 
-    def reduce_scatter(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        """The 1-D ``t`` summed over the data axis, this rank's ``1/n`` of it
-        (chunk ``coordinate`` of ``n`` equal chunks, ``numel / n``)."""
+    def reduce_scatter(self, t: torch.Tensor, tag: str, *, axis: Optional[str] = None
+                       ) -> torch.Tensor:
+        """The 1-D ``t`` summed over ``axis``'s line (default the data axis),
+        this rank's ``1/n`` of it (chunk ``coordinate`` of ``n`` equal chunks,
+        ``numel / n``)."""
         import torch.distributed as dist
 
-        group = self._data_group()
-        collective_count.record("reduce_scatter", tag, t)
+        group = self._run("reduce_scatter", tag, t, axis)
         x = t.reshape(-1).contiguous()
-        out = torch.empty(x.numel() // self.shape[self.data_axis], dtype=x.dtype,
+        if group is None:
+            return x.clone()
+        out = torch.empty(x.numel() // self.shape[axis or self.data_axis], dtype=x.dtype,
                           device=x.device)
         dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
         return out
 
-    def broadcast(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        """``t`` of the data axis's first rank (coordinate 0) on every rank,
-        in place; returns ``t``."""
+    def broadcast(self, t: torch.Tensor, tag: str, *, axis: Optional[str] = None
+                  ) -> torch.Tensor:
+        """``t`` of the first rank (coordinate 0) of ``axis``'s line (default
+        the data axis) on every rank of it, in place; returns ``t``."""
         import torch.distributed as dist
 
-        group = self._data_group()
-        collective_count.record("broadcast", tag, t)
-        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        group = self._run("broadcast", tag, t, axis)
+        if group is not None:
+            dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
         return t
 
     def barrier(self) -> None:
+        """Every rank of the mesh."""
         import torch.distributed as dist
 
-        dist.barrier(group=self._data_group())
+        if self.rank is None:
+            raise RuntimeError(f"{self!r} has no process group: it carries no collectives")
+        dist.barrier(group=self.group)
 
 
 def default_backend(device: str | torch.device) -> str:
@@ -197,17 +241,19 @@ def make_data_mesh(n_shards: int, axis: str = "data", backend: Optional[str] = N
 
 
 def make_debug_mesh(shape=(2, 2), axes=("data", "model"), backend: Optional[str] = None) -> Mesh:
-    """A small mesh over the first ``prod(shape)`` ranks; raises when the
-    world is smaller.  The reference's surface: no path of the port calls
-    it (its model axis waits for ROADMAP queue 1 item 5b)."""
+    """A small mesh over the first ``prod(shape)`` ranks, (data=2, model=2)
+    by default; raises when the world is smaller.  ``Trainer(mesh=)`` trains
+    the dense family on it: data parallelism over ``data`` and tensor
+    parallelism over ``model``."""
     return _world_mesh(tuple(shape), tuple(axes), backend)
 
 
 def make_production_mesh(*, multi_pod: bool = False, backend: Optional[str] = None) -> Mesh:
     """The JAX package's pod mesh, (data=16, model=16) or (pod=2, data=16,
     model=16); raises when the world is smaller (it is 256 or 512 ranks).
-    The reference's surface, like :func:`make_debug_mesh`: no path of the
-    port calls it (the production meshes wait, ROADMAP queue 1 item 5d)."""
+    Its one-pod shape is a (data, model) mesh as :func:`make_debug_mesh`'s;
+    the two-pod one splits a dim over ``("pod", "data")``, which the port's
+    parameter rules do not place yet (ROADMAP queue 1 item 5d)."""
     shape, axes = PRODUCTION_SHAPE[multi_pod]
     return _world_mesh(shape, axes, backend)
 
@@ -244,7 +290,9 @@ def run_local_ranks(target: str, n: int, *, args: tuple = (), workdir: str,
     this Python, ranks ``0 .. n-1`` of one ``backend`` process group that
     meet through a file store in ``workdir``; each calls ``fn(mesh, *args)``
     on a data mesh of ``n`` and the rank's return value comes back (a list
-    in rank order, through ``torch.save`` files in ``workdir``).
+    in rank order, through ``torch.save`` files in ``workdir``).  ``fn`` may
+    build other meshes over ``mesh.group`` (every rank alike, e.g. (2, 2)
+    and (1, 4) over 4 ranks).
 
     ``timeout`` (seconds) bounds the whole run and the group's own
     collectives; a rank that exits non-zero or outlives it ends every rank

@@ -8,7 +8,8 @@ the JAX package's ``launch/roofline.py``).
   a card set below 700 W runs slower under load.
 * :func:`count_params` and :func:`model_flops`: the reference's analytic
   parameter count (6·N·D training, 2·N·D inference; MoE counts the active
-  experts), pure Python over a model config.
+  experts), pure Python over a model config; :func:`model_flops_per_device`
+  divides them over a mesh's D·T devices.
 * :class:`RooflineReport` / :func:`roofline_report`: the reference's
   arithmetic (each term a count over a rate, the bottleneck the largest
   term, the model's share of the counted FLOPs) over these rates.
@@ -100,6 +101,17 @@ def model_flops(cfg, shape) -> float:
         return 2.0 * n * tokens
     # decode: one token per sequence
     return 2.0 * n * shape.global_batch
+
+
+def model_flops_per_device(cfg, shape, mesh=None) -> float:
+    """:func:`model_flops` of the whole step over the devices of ``mesh``
+    (anything with ``shape[axis]``; None is one device): D·T on a (data,
+    model) mesh, since each data line's ranks take its rows and each model
+    line's ranks a 1/T share of every layer's products."""
+    n = 1
+    for size in (mesh.shape.values() if mesh is not None else ()):
+        n *= int(size)
+    return model_flops(cfg, shape) / n
 
 
 @dataclasses.dataclass

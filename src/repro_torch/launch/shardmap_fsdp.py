@@ -23,6 +23,10 @@ beside them, or under ``fused_epilogue`` their projector and projected
 update rows in their place.  Every optimizer of the factory runs under it;
 the projected-space accumulator (``make_train_step(lowrank_accum=)``) does
 not (ROADMAP queue 1 item 5i).
+
+Like the reference's shard_map step it is data parallelism alone: a mesh
+whose ``model`` axis is larger than 1 raises (tensor parallelism runs
+through ``Trainer(mesh=)`` and ``make_train_step(param_split=)``).
 """
 from __future__ import annotations
 
@@ -62,6 +66,12 @@ def make_shardmap_train_step(model, optimizer: Transform, mesh, *, grad_clip: fl
     from repro_torch.core.combinators import shard_family_state
     from repro_torch.sharding import ParamSplit
 
+    others = {a: s for a, s in mesh.shape.items() if a != mesh.data_axis and s > 1}
+    if others:
+        raise NotImplementedError(
+            f"make_shardmap_train_step is the data-parallel step, as the reference's shard_map "
+            f"step: a mesh with {others} beside its data axis trains through Trainer(mesh=) "
+            "(tensor parallelism over the model axis)")
     n = int(mesh.shape[mesh.data_axis])
     k = mesh.coordinate(mesh.data_axis)
     split = None

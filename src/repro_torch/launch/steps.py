@@ -4,7 +4,9 @@ projected-space accumulator, ``make_prefill_step`` and
 ``make_serve_step``).  On a data mesh ``make_train_step`` is the
 data-parallel step: each rank's gradient of its rows of the batch is summed
 over the ranks in one all-reduce (:func:`reduce_gradients`); under the
-projected-space accumulator the ranks' compact accumulators are."""
+projected-space accumulator the ranks' compact accumulators are.  On a
+mesh with a ``model`` axis it is also the tensor-parallel step
+(:func:`reduce_split_gradients`)."""
 from __future__ import annotations
 
 import contextlib
@@ -16,6 +18,7 @@ from torch.profiler import record_function
 from repro_torch.core.api import Transform, clip_by_global_norm, global_norm
 from repro_torch.core.combinators import param_parts
 from repro_torch.core.lowrank_common import default_lowrank_filter
+from repro_torch.models import tensor_parallel
 from repro_torch.models.transformer import Transformer, chunked_lm_loss, lm_loss
 from repro_torch.sharding import gather_parts
 
@@ -93,18 +96,19 @@ def split_loss_and_grads(model: Transformer, params: dict, batch: dict, split,
                          microbatches: int = 1) -> tuple[torch.Tensor, dict]:
     """:func:`loss_and_grads` on split parameters (a
     :class:`repro_torch.sharding.ParamSplit`): each microbatch's forward and
-    backward run under ``split.gathered()``, so the split leaves' gradients
-    are reduce-scattered layer by layer into ``split.grads`` (summed over
-    the ranks and the microbatches, in fp32) and only the whole leaves'
-    come back, accumulated as :func:`loss_and_grads` does; both divided by
-    ``microbatches``."""
+    backward run under ``split.gathered()``, so the gradients of the leaves
+    split over ``data`` are reduce-scattered layer by layer into
+    ``split.grads`` (summed over the ranks and the microbatches, in fp32)
+    and only the others' come back (a leaf split over ``model`` alone in
+    its part's shape), accumulated as :func:`loss_and_grads` does; both
+    divided by ``microbatches``."""
     split.begin_step()
     loss, grads = None, None
     for mb in split_microbatches(batch, microbatches):
         with split.gathered():
             mb_loss = _loss_from_batch(model, mb)
             got = torch.autograd.grad(mb_loss, list(params.values()), allow_unused=True)
-        mb_grads = {k: g for k, g in zip(params, got) if k not in split.rules}
+        mb_grads = {k: g for k, g in zip(params, got) if k not in split.data_rules}
         if loss is None:
             loss, grads = mb_loss.detach(), mb_grads
             if microbatches > 1:
@@ -124,12 +128,14 @@ def split_loss_and_grads(model: Transformer, params: dict, batch: dict, split,
 
 def reduce_split_gradients(mesh, loss: torch.Tensor, grads: dict, split) -> tuple[torch.Tensor,
                                                                                      dict]:
-    """:func:`reduce_gradients` after :func:`split_loss_and_grads`: the whole
-    leaves' gradients summed in one fp32 all-reduce (tag ``grad``), the split
-    leaves' reduced fp32 parts gathered whole in ONE all-gather (tag
-    ``grad``), the loss summed in a third, fp32 one; each divided by the
-    rank count in fp32.  A reduce-scatter then an all-gather send the bytes
-    of one all-reduce, and at 2 ranks the same sums."""
+    """:func:`reduce_gradients` after :func:`split_loss_and_grads`, over the
+    data axis: the other leaves' gradients summed in one fp32 all-reduce
+    (tag ``grad``), the reduced fp32 parts of those split over ``data``
+    gathered in ONE all-gather (tag ``grad``), the loss summed in a third,
+    fp32 one; each divided by the rank count in fp32.  A reduce-scatter then
+    an all-gather send the bytes of one all-reduce, and at 2 ranks the same
+    sums.  On a model axis (tensor parallelism) the gradients are then made
+    whole over it (:func:`tensor_parallel_gradients`)."""
     n = mesh.shape[mesh.data_axis]
     keys = [k for k, g in grads.items() if g is not None]
     reduced = {}
@@ -141,14 +147,46 @@ def reduce_split_gradients(mesh, loss: torch.Tensor, grads: dict, split) -> tupl
             z = grads[k].numel()
             reduced[k] = flat[at:at + z].view(grads[k].shape) / n
             at += z
-    paths = [k for k in split.shapes if k in split.rules]
-    wholes = gather_parts(mesh, [split.grads[k] for k in paths],
-                          [split.rules[k].dim for k in paths], "grad")
-    split.grads = {}  # the parts are spent: free them before the update
-    reduced.update({k: w.div_(n) for k, w in zip(paths, wholes)})  # fresh buffers
+    paths = [k for k in split.shapes if k in split.data_rules]
+    if paths:
+        wholes = gather_parts(mesh, [split.grads[k] for k in paths],
+                              [split.data_rules[k].dim for k in paths], "grad")
+        split.grads = {}  # the parts are spent: free them before the update
+        reduced.update({k: w.div_(n) for k, w in zip(paths, wholes)})  # fresh buffers
     total = loss.detach().to(torch.float32).reshape(1).clone()
     mesh.all_reduce(total, "loss")
-    return total[0] / n, {k: reduced.get(k) for k in split.shapes}
+    reduced = {k: reduced.get(k) for k in split.shapes}
+    if split.tp > 1:
+        reduced = tensor_parallel_gradients(mesh, reduced, split)
+    return total[0] / n, reduced
+
+
+def tensor_parallel_gradients(mesh, grads: dict, split) -> dict:
+    """The gradients of a tensor-parallel step made whole over the model
+    axis (every rank of a model line alike): the leaves a rank reads in
+    slices (:func:`repro_torch.models.tensor_parallel.summed_paths`) summed
+    in one fp32 all-reduce (tag ``tp_grad``), then the fp32 parts of every
+    leaf split over ``model`` gathered whole in ONE all-gather (tag
+    ``tp_grad``).  With them the optimizer runs as on one process and each
+    rank applies its part of the update."""
+    grads = dict(grads)
+    summed = [k for k in split.shapes if k in tensor_parallel.summed_paths(split)
+              and grads.get(k) is not None]
+    if summed:
+        flat = torch.cat([grads[k].reshape(-1).to(torch.float32) for k in summed])
+        mesh.all_reduce(flat, "tp_grad", axis="model")
+        at = 0
+        for k in summed:
+            z = grads[k].numel()
+            grads[k] = flat[at:at + z].view(grads[k].shape)
+            at += z
+    paths = [k for k in split.shapes if k in split.model_rules and grads.get(k) is not None]
+    if paths:
+        wholes = gather_parts(mesh, [grads[k].to(torch.float32) for k in paths],
+                              [split.model_rules[k].dim for k in paths], "tp_grad",
+                              axis="model")
+        grads.update(zip(paths, wholes))
+    return grads
 
 
 def reduce_gradients(mesh, loss: torch.Tensor, grads: dict,
@@ -180,9 +218,18 @@ def _apply_in_place(params: dict, updates: dict, lowrank_paths: Optional[set], s
     :class:`repro_torch.sharding.ParamSplit`) the updates are the rank's
     parts (:func:`repro_torch.core.combinators.param_parts`) and each rank
     adds them to its parts, and the norms' sums over the parts (a whole leaf
-    counted on the first rank only) meet in one fp32 all-reduce."""
+    counted on the first rank only) meet in one fp32 all-reduce; on a model
+    axis a leaf counts on the ranks at coordinate 0 of each axis that does
+    not split it, and the sums meet over the model axis too."""
     total, lowrank = [], []
-    first = split is None or split.mesh.coordinate(split.mesh.data_axis) == 0
+
+    def counts(k) -> bool:
+        if split is None:
+            return True
+        mesh = split.mesh
+        return all(mesh.coordinate(axis) == 0 for axis, cuts in
+                   ((mesh.data_axis, split.data_rules), ("model", split.model_rules))
+                   if axis in mesh.shape and k not in cuts)
     for k, p in params.items():
         u = updates[k]
         if u is None:
@@ -194,7 +241,7 @@ def _apply_in_place(params: dict, updates: dict, lowrank_paths: Optional[set], s
         with record_function("extra_metrics"):  # the profiler's name for this pass
             sq = torch.sum(torch.square((new - p).to(torch.float32)))
         p.copy_(new)
-        if not first and k not in split.rules:
+        if not counts(k):
             continue
         total.append(sq)
         if k in lowrank_paths:
@@ -206,6 +253,8 @@ def _apply_in_place(params: dict, updates: dict, lowrank_paths: Optional[set], s
     if split is not None:
         both = torch.stack(sums)
         split.mesh.all_reduce(both, "norms")
+        if split.tp > 1:
+            split.mesh.all_reduce(both, "norms", axis="model")
         sums = both[0], both[1]
     return torch.sqrt(sums[0]), torch.sqrt(sums[1])
 
@@ -338,14 +387,27 @@ def make_train_step(model: Transformer, optimizer: Transform, *,
     (:func:`repro_torch.core.combinators.param_parts`).  At 2 ranks it is
     bitwise the replicated mesh step (the same fp32 sums); the
     projected-space accumulator under it raises ``NotImplementedError``
-    (ROADMAP queue 1 item 5j)."""
+    (ROADMAP queue 1 item 5j).
+
+    On a mesh with a ``model`` axis larger than 1 ``param_split`` is
+    required (the ``Trainer`` makes it, with or without the data side):
+    the layers compute on the model-side parts (tensor parallelism,
+    :mod:`repro_torch.models.tensor_parallel`), the gradients are reduced
+    over ``data`` as above, then made whole over ``model``
+    (:func:`tensor_parallel_gradients`), and each rank applies its part.
+    The projected-space accumulator there raises (item 5j)."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if shard_state and mesh is None:
         raise ValueError("shard_state needs a mesh")
     if param_split is not None and mesh is None:
         raise ValueError("param_split needs a mesh")
+    if mesh is not None and mesh.shape.get("model", 1) > 1 and param_split is None:
+        raise ValueError("a model axis larger than 1 needs param_split: the ParamSplit that "
+                         "holds the parameters' model-side parts")
     ranks = 1 if mesh is None else int(mesh.shape[mesh.data_axis])
+    if lowrank_accum is not None and getattr(param_split, "tp", 1) > 1:
+        raise NotImplementedError(ACCUM_MODEL_AXIS_REFUSAL)
     if lowrank_accum is not None and microbatches * ranks > 1:
         if param_split is not None:
             raise NotImplementedError(ACCUM_PARAM_SPLIT_REFUSAL)
@@ -389,6 +451,12 @@ ACCUM_PARAM_SPLIT_REFUSAL = (
     "the projected-space accumulator (make_train_step(lowrank_accum=)) on split parameters "
     "(shard_params) is not ported (ROADMAP queue 1 item 5j): it projects every "
     "microbatch's whole gradient, and a rank holds only its reduce-scattered parts of it")
+
+
+ACCUM_MODEL_AXIS_REFUSAL = (
+    "the projected-space accumulator (make_train_step(lowrank_accum=)) on a model axis "
+    "(tensor parallelism) is not ported (ROADMAP queue 1 item 5j): it projects every "
+    "microbatch's whole gradient, and a rank computes only its model-side parts of it")
 
 
 def _broadcast_from_first(mesh, grads: dict) -> dict:

@@ -19,7 +19,10 @@ splits the family-stacked optimizer state over the ranks and implies
 ``--fuse-families``, as in the reference.  ``--shard-params`` splits the
 parameters over the ranks by the reference's ``PARAM_RULES`` (FSDP:
 ``Trainer(shard_params=True)``); with ``--audit`` the sharded audit traces
-that step.
+that step.  ``--mesh data=D,model=T`` (D·T ranks) adds tensor parallelism
+over the model axis for the dense family (Megatron-split layers, the
+vocab-parallel embedding and loss), with or without ``--shard-params``;
+``--audit`` then traces the tensor-parallel step on D·T fake ranks.
 """
 from __future__ import annotations
 
@@ -72,9 +75,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--rank-ladder", default="",
                     help="comma-separated ranks an adaptive policy may emit, e.g. 32,64,128")
     ap.add_argument("--mesh", default="", metavar="AXIS=N",
-                    help="data-parallel mesh, e.g. 'data=2': this process is one rank, "
-                         "started by torchrun --nproc-per-node N (gloo on --device cpu, "
-                         "nccl on CUDA)")
+                    help="mesh, e.g. 'data=2' or 'data=2,model=2' (tensor parallelism over "
+                         "model): this process is one rank, started by torchrun "
+                         "--nproc-per-node N (gloo on --device cpu, nccl on CUDA)")
     ap.add_argument("--resilience", nargs="?", const="", default=None, metavar="SPEC",
                     help="turn on the health monitor + recovery ladder: bare flag = "
                          "defaults, or a knob spec like 'ring=3,snapshot_every=5,spike_z=4' "

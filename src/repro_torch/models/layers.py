@@ -3,7 +3,9 @@ partial and ChatGLM's 2-D), the MLP variants (SwiGLU, GeGLU, GELU, squared
 ReLU) with optional biases, the unembedding and the truncated-normal
 initializer (as the JAX package's ``models/layers.py``).  Each layer
 computes in its input's dtype, casting each weight to it at its use, and
-the norm computes in fp32 and casts back."""
+the norm computes in fp32 and casts back.  On a model axis
+(:mod:`repro_torch.models.tensor_parallel`) the MLP runs column-parallel
+then row-parallel and the unembedding gives this rank's vocab columns."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tensor_parallel
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
@@ -91,12 +94,19 @@ def mlp_act(h: torch.Tensor, g: Optional[torch.Tensor], act: str) -> torch.Tenso
 def apply_mlp(x: torch.Tensor, p: dict[str, torch.Tensor], act: str) -> torch.Tensor:
     """``act(x w_in + bias_in[, x w_gate]) w_out + bias_out`` with one
     layer's weights ``p`` (``w_gate`` for the gated acts, the biases where
-    the config has them)."""
+    the config has them).  On a model axis: this rank's columns of
+    ``w_in`` / ``w_gate`` (and of ``bias_in``), its rows of ``w_out``, the
+    partial products summed over the axis before ``bias_out``."""
+    tp = tensor_parallel.active()
+    if tp is not None:
+        x = tensor_parallel.enter(tp, x)
     h = x @ p["w_in"].to(x.dtype)
     if "bias_in" in p:
-        h = h + p["bias_in"].to(x.dtype)
+        h = h + tensor_parallel.local(tp, p["bias_in"], h.shape[-1]).to(x.dtype)
     g = x @ p["w_gate"].to(x.dtype) if "w_gate" in p else None
     out = mlp_act(h, g, act) @ p["w_out"].to(x.dtype)
+    if tp is not None:
+        out = tensor_parallel.leave(tp, out)
     if "bias_out" in p:
         out = out + p["bias_out"].to(x.dtype)
     return out
@@ -104,7 +114,12 @@ def apply_mlp(x: torch.Tensor, p: dict[str, torch.Tensor], act: str) -> torch.Te
 
 def unembed(x: torch.Tensor, embed: torch.Tensor, lm_head=None) -> torch.Tensor:
     """Logits in x's dtype: the tied unembedding ``x @ embedᵀ``, or the
-    untied head ``x @ lm_head`` (d, vocab) when there is one."""
+    untied head ``x @ lm_head`` (d, vocab) when there is one.  On a model
+    axis: this rank's vocab columns (from its rows of the table), and ``x``'s
+    gradient summed over the axis."""
+    tp = tensor_parallel.active()
+    if tp is not None:
+        x = tensor_parallel.enter(tp, x)
     if lm_head is None:
         return x @ embed.to(x.dtype).T
     return x @ lm_head.to(x.dtype)

@@ -112,7 +112,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import sort_paths
 from repro_torch.kernels import ops
 from repro_torch.launch.devices import resolve_device
-from repro_torch.models import mamba2, moe
+from repro_torch.models import mamba2, moe, tensor_parallel
 from repro_torch.models.attention import (
     cross_attention,
     decode_self_attention,
@@ -253,6 +253,9 @@ class _LM(nn.Module):
                 p.copy_(params[k])
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        tp = tensor_parallel.active()
+        if tp is not None:  # this rank's vocab rows, summed over the model axis
+            return tensor_parallel.vocab_embed(tp, self.embed.embed, tokens, self.dtype)
         return _CastGather.apply(self.embed.embed, tokens, self.dtype)
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
@@ -1049,9 +1052,15 @@ class VisionLM(_LM):
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, aux: Optional[torch.Tensor] = None,
             *, shift: bool = True) -> torch.Tensor:
     """Mean next-token cross-entropy, plus 0.01·aux (the MoE load-balancing
-    loss) when there is one."""
+    loss) when there is one.  On a model axis ``logits`` are this rank's
+    vocab columns (:func:`repro_torch.models.tensor_parallel.
+    vocab_cross_entropy`)."""
     if shift:
         logits, targets = logits[:, :-1], targets[:, 1:]
+    tp = tensor_parallel.active()
+    if tp is not None:
+        ce = torch.mean(tensor_parallel.vocab_cross_entropy(tp, logits, targets))
+        return ce if aux is None else ce + 0.01 * aux
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
@@ -1064,11 +1073,18 @@ class _ChunkCrossEntropy(torch.autograd.Function):
     rows.  The chunk's ``(B, chunk, V)`` logits live only inside forward and
     backward, one buffer each: forward takes the logsumexp in place, and
     backward recomputes the logits and turns them into the softmax's
-    gradient in place."""
+    gradient in place.  With ``split`` (a model axis) ``w`` holds this
+    rank's vocab columns: the log-sum-exp and the target logit come from
+    :func:`repro_torch.models.tensor_parallel.lse_and_gold`."""
 
     @staticmethod
-    def forward(ctx, h, w, targets, mask):
+    def forward(ctx, h, w, targets, mask, split=None):
         logits = (h @ w.to(h.dtype)).to(torch.float32)
+        ctx.split = split
+        if split is not None:
+            lse, gold, at, inside = tensor_parallel.lse_and_gold(split, logits, targets)
+            ctx.save_for_backward(h, w, at, mask, lse, inside)
+            return torch.sum((lse - gold) * mask)
         gold = torch.gather(logits, -1, targets[..., None])[..., 0]
         top = logits.amax(dim=-1)
         lse = logits.sub_(top[..., None]).exp_().sum(dim=-1).log_().add_(top)
@@ -1077,17 +1093,20 @@ class _ChunkCrossEntropy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        h, w, targets, mask, lse = ctx.saved_tensors
+        h, w, targets, mask, lse, *inside = ctx.saved_tensors
         wh = w.to(h.dtype)
         d = (h @ wh).to(torch.float32)
-        d.sub_(lse[..., None]).exp_()                       # softmax
-        d.scatter_add_(-1, targets[..., None],
-                       torch.full(targets.shape + (1,), -1.0, device=d.device))
+        if inside:  # targets are this rank's columns, inside[0] their mask
+            tensor_parallel.softmax_grad_(targets, inside[0], d, lse)
+        else:
+            d.sub_(lse[..., None]).exp_()                       # softmax
+            d.scatter_add_(-1, targets[..., None],
+                           torch.full(targets.shape + (1,), -1.0, device=d.device))
         d.mul_((grad * mask)[..., None])                    # d loss / d logits
         d = d.to(h.dtype)
         dh = d @ wh.mT
         dw = h.reshape(-1, h.shape[-1]).mT @ d.reshape(-1, d.shape[-1])
-        return dh, dw.to(w.dtype), None, None
+        return dh, dw.to(w.dtype), None, None, None
 
 
 def chunked_lm_loss(hidden: torch.Tensor, targets: torch.Tensor, chunk: int,
@@ -1100,7 +1119,12 @@ def chunked_lm_loss(hidden: torch.Tensor, targets: torch.Tensor, chunk: int,
     the tied ``embed`` (vocab, d) or the untied ``lm_head`` (d, vocab).  The
     last chunk is zero-padded and masked out; backward recomputes each
     chunk's logits.  ``aux`` (the MoE load-balancing loss) adds at 0.01, as
-    in :func:`lm_loss`."""
+    in :func:`lm_loss`.  On a model axis the head is this rank's vocab
+    columns, each chunk's three reductions run over the axis, and
+    ``hidden``'s gradient is summed over it once."""
+    tp = tensor_parallel.active()
+    if tp is not None:
+        hidden = tensor_parallel.enter(tp, hidden)
     if shift:
         hidden, targets = hidden[:, :-1], targets[:, 1:]
     B, S, _ = hidden.shape
@@ -1116,7 +1140,7 @@ def chunked_lm_loss(hidden: torch.Tensor, targets: torch.Tensor, chunk: int,
     for c0 in range(0, S + pad, chunk):
         part = slice(c0, c0 + chunk)
         total = total + _ChunkCrossEntropy.apply(hidden[:, part], w, targets[:, part],
-                                                 valid[:, part])
+                                                 valid[:, part], tp)
     ce = total / (B * S)
     return ce if aux is None else ce + 0.01 * aux
 

@@ -14,22 +14,27 @@ or a ``jax.sharding`` mesh):
 
 What the port runs on a mesh: parameters replicated over the data axis, or
 with ``shard_params`` split by the parameter rules below
-(:class:`ParamSplit`: :func:`param_shardings` resolved on the data mesh,
-each split one dim over the data axis, a per-layer all-gather in the
-forward and a per-layer fp32 reduce-scatter in the backward); and with
-``shard_state`` the family-stacked low-rank optimizer state split on its
-leading stack dim by :func:`family_state_sharding`.  The port's models
-make no activation annotations, so :func:`shard` passes its input through
-on a data-only mesh.
+(:class:`ParamSplit`: :func:`param_shardings` resolved on the mesh, a leaf
+split on one dim over the data axis, a per-layer all-gather in the forward
+and a per-layer fp32 reduce-scatter in the backward); on a ``model`` axis
+larger than 1 every leaf whose rule names ``model`` split on that dim, for
+good (tensor parallelism: the layers of
+:mod:`repro_torch.models.tensor_parallel` compute on the parts), so a leaf
+may be split on two dims, one per axis; and with ``shard_state`` the
+family-stacked low-rank optimizer state split on its leading stack dim by
+:func:`family_state_sharding`.  The port's layers place their work
+explicitly, so :func:`shard`, the reference's activation annotation, passes
+its input through.
 
 The rules (``PARAM_RULES``, :func:`spec_for_param`, :func:`param_shardings`,
 :func:`per_shard_bytes`, :func:`opt_state_sharding`) are held to the
 reference's decisions by ``tests/test_torch_sharding.py``; the helpers
-(:class:`RowSplit`, :func:`row_splits`, :func:`split_tree`,
-:func:`gather_tree`, :func:`gather_parts`, :func:`reduce_scatter_parts`,
-:func:`zip_map`) apply a spec that splits one dim over one axis on a rank.
-:func:`use_mesh` and :func:`shard` are the reference's activation
-annotations, which no port path needs on a data mesh.
+(:class:`RowSplit`, :class:`GridSplit`, :func:`row_splits`,
+:func:`split_tree`, :func:`gather_tree`, :func:`gather_parts`,
+:func:`reduce_scatter_parts`, :func:`zip_map`) apply a spec that splits up
+to two dims, each over one axis, on a rank.  :func:`use_mesh` and
+:func:`shard` are the reference's activation annotations, which no port
+path needs.
 """
 from __future__ import annotations
 
@@ -122,13 +127,9 @@ def validate_spec(shape, spec: Spec, mesh) -> Spec:
 
 
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
-    """An activation annotation: ``x`` itself.  On a mesh with a model axis
-    larger than 1 the annotation would place activations, which the port
-    does not, so it raises there."""
-    mesh = _mesh()
-    if mesh is not None and "model" in mesh.axis_names and mesh.shape["model"] > 1:
-        raise NotImplementedError("activation sharding over a model axis is not ported "
-                                  "(tensor parallelism, ROADMAP queue 1 item 5b)")
+    """An activation annotation: ``x`` itself, on any mesh.  The port's
+    tensor-parallel layers (:mod:`repro_torch.models.tensor_parallel`) place
+    their work explicitly, where the reference leaves it to GSPMD."""
     return x
 
 
@@ -160,6 +161,12 @@ PARAM_RULES: list[tuple[str, tuple[Optional[str], ...]]] = [
     (r"frame_proj", ("fsdp", "tp")),
     # everything 1-D (norms, biases, dt, A) replicated
 ]
+
+
+# The untied head's rule in PARAM_RULES, (d, vocab): the tensor-parallel
+# layout reads it (see ParamSplit); param_shardings resolves ``embed/lm_head``
+# by the ``embed`` rule that precedes it, as the reference does.
+HEAD_RULE = ("fsdp", "tp")
 
 
 def _ndim(p) -> int:
@@ -201,10 +208,12 @@ def _paths_and_leaves(tree: PyTree) -> list[tuple[str, Any]]:
     return flatten_with_paths(tree)
 
 
-def per_shard_bytes(tree: PyTree, mesh) -> int:
+def per_shard_bytes(tree: PyTree, mesh, axes: Optional[Sequence[str]] = None) -> int:
     """Bytes ONE device holds of ``tree`` split by the parameter rules on
     ``mesh``: each leaf's bytes over the shard count of its resolved,
-    divisibility-validated spec.  Leaves without a shape count nothing."""
+    divisibility-validated spec.  Leaves without a shape count nothing.
+    ``axes`` (e.g. ``("model",)``: tensor parallelism with the data side
+    replicated) counts only the splits over those axes."""
     total = 0
     for path, x in _paths_and_leaves(tree):
         if not hasattr(x, "shape"):
@@ -213,7 +222,8 @@ def per_shard_bytes(tree: PyTree, mesh) -> int:
         spec = validate_spec(x.shape, resolve_spec(spec_for_param(path, x), mesh), mesh)
         shards = 1
         for ax in spec:
-            shards *= _axis_size(ax, mesh)
+            if axes is None or ax in axes:
+                shards *= _axis_size(ax, mesh)
         total += nbytes // max(shards, 1)
     return total
 
@@ -329,13 +339,21 @@ class RowSplit:
     count: int
     dim: int = 0
 
+    @property
+    def cuts(self) -> tuple["RowSplit", ...]:
+        return (self,)
+
     def rows(self, d: int) -> tuple[int, int]:
         per = d // self.count
         return self.index * per, (self.index + 1) * per
 
-    def apply(self, x: torch.Tensor) -> torch.Tensor:
+    def narrow(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``x``, a view."""
         a, b = self.rows(int(x.shape[self.dim]))
-        return x.narrow(self.dim, a, b - a).clone()
+        return x.narrow(self.dim, a, b - a)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self.narrow(x).clone()
 
     def part_shape(self, shape) -> tuple[int, ...]:
         """The shape of this rank's part of a leaf of ``shape``."""
@@ -344,30 +362,69 @@ class RowSplit:
         return tuple(shape)
 
 
+@dataclasses.dataclass(frozen=True)
+class GridSplit:
+    """Two :class:`RowSplit` cuts of two dims, each over its own mesh axis
+    (a parameter split over ``data`` and ``model``): this rank keeps the
+    block where its rows of both meet."""
+
+    cuts: tuple[RowSplit, ...]
+
+    def narrow(self, x: torch.Tensor) -> torch.Tensor:
+        for c in self.cuts:
+            x = c.narrow(x)
+        return x
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return self.narrow(x).clone()
+
+    def part_shape(self, shape) -> tuple[int, ...]:
+        for c in self.cuts:
+            shape = c.part_shape(shape)
+        return tuple(shape)
+
+
+def axis_cut(spec, mesh, axis: str) -> Optional[RowSplit]:
+    """The cut ``spec`` makes over ``axis`` on this rank (its coordinate
+    there), or None."""
+    if not isinstance(spec, Spec):
+        return None
+    for d, a in enumerate(spec):
+        if a == axis:
+            return RowSplit(mesh.coordinate(axis), mesh.shape[axis], d)
+    return None
+
+
 def row_splits(specs: PyTree, mesh) -> PyTree:
-    """Each spec that splits one dim over one axis as this rank's
-    :class:`RowSplit` (its coordinate on that axis), every other spec as
-    ``None`` (kept whole): the per-leaf rule :meth:`CheckpointManager.restore`
-    takes as ``shardings``.  A spec that splits two dims, or one dim over two
-    axes, raises: that is a model axis beside the data axis (ROADMAP queue 1
-    item 5b)."""
+    """Each spec as this rank's rule (its coordinate on each axis the spec
+    names): a :class:`RowSplit` for one split dim, a :class:`GridSplit` for
+    two dims over two axes, ``None`` (kept whole) for a spec that splits
+    nothing; the per-leaf rule :meth:`CheckpointManager.restore` takes as
+    ``shardings``.  A spec that splits one dim over two axes raises (the
+    multi-pod mesh's ``("pod", "data")``, ROADMAP queue 1 item 5d), as does
+    one that names an axis twice."""
     def one(spec):
         if not isinstance(spec, Spec) or all(a is None for a in spec):
             return None
         dims = [d for d, a in enumerate(spec) if a is not None]
-        if len(dims) == 1 and isinstance(spec[dims[0]], str):
-            axis = spec[dims[0]]
-            return RowSplit(mesh.coordinate(axis), mesh.shape[axis], dims[0])
-        raise NotImplementedError(f"spec {spec}: a split of two dims, or of one dim over two "
-                                  "axes, is not ported (tensor parallelism, ROADMAP queue 1 "
-                                  "item 5b)")
+        axes = [spec[d] for d in dims]
+        if not all(isinstance(a, str) for a in axes):
+            raise NotImplementedError(f"spec {spec}: a split of one dim over two axes is not "
+                                      "ported (the multi-pod mesh, ROADMAP queue 1 item 5d)")
+        if len(set(axes)) != len(axes):
+            raise ValueError(f"spec {spec} names an axis twice")
+        cuts = tuple(RowSplit(mesh.coordinate(a), mesh.shape[a], d) for d, a in zip(dims, axes))
+        return cuts[0] if len(cuts) == 1 else GridSplit(cuts)
 
     return _map(one, specs)
 
 
 def zip_map(fn, tree: PyTree, specs: PyTree) -> PyTree:
     """``fn(leaf, spec)`` over ``tree`` and a tree of its structure whose
-    leaves are specs or rules (``None`` where ``tree`` has a non-tensor)."""
+    leaves are specs or rules (``None`` where ``tree`` has a non-tensor); a
+    :class:`Spec` in ``tree`` is a leaf."""
+    if isinstance(tree, Spec):
+        return fn(tree, specs)
     if isinstance(tree, dict):
         return {k: zip_map(fn, v, specs[k]) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -377,23 +434,40 @@ def zip_map(fn, tree: PyTree, specs: PyTree) -> PyTree:
     return fn(tree, specs)
 
 
+def paths_map(tree: PyTree, prefix: str = "") -> PyTree:
+    """``tree``'s structure with each leaf's path in its place (keys and
+    field names joined with ``/``, sequence positions by index)."""
+    def join(part) -> str:
+        return f"{prefix}/{part}" if prefix else str(part)
+
+    if isinstance(tree, dict):
+        return {k: paths_map(v, join(k)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(paths_map(v, join(f)) for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(paths_map(v, join(i)) for i, v in enumerate(tree))
+    return prefix
+
+
 def split_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
-    """This rank's part of every leaf of ``tree`` (its rows of the dim its
+    """This rank's part of every leaf of ``tree`` (its block of the dims its
     spec splits, the leaf itself elsewhere)."""
     splits = row_splits(specs, mesh)
     return zip_map(lambda x, rs: rs.apply(x) if rs is not None else x, tree, splits)
 
 
 def gather_parts(mesh, parts: Sequence[torch.Tensor], dims: Sequence[int],
-                 tag: str) -> list[torch.Tensor]:
-    """The whole of each rank's ``parts`` (split on ``dims`` in rank order) in
-    ONE all-gather of their concatenation over the mesh's data axis (every
-    rank calls it).  The parts must share one dtype."""
+                 tag: str, axis: Optional[str] = None) -> list[torch.Tensor]:
+    """The whole of each rank's ``parts`` (split on ``dims`` in coordinate
+    order) in ONE all-gather of their concatenation over the mesh's ``axis``
+    (default its data axis; every rank of the line calls it).  The parts
+    must share one dtype."""
     dtypes = {t.dtype for t in parts}
     if len(dtypes) > 1:
         raise TypeError(f"split leaves of several dtypes {sorted(map(str, dtypes))}")
-    n = mesh.shape[mesh.data_axis]
-    gathered = mesh.all_gather(torch.cat([t.reshape(-1) for t in parts]), tag).view(n, -1)
+    n = mesh.shape[axis or mesh.data_axis]
+    on = {} if axis in (None, mesh.data_axis) else {"axis": axis}
+    gathered = mesh.all_gather(torch.cat([t.reshape(-1) for t in parts]), tag, **on).view(n, -1)
     out, at = [], 0
     for t, d in zip(parts, dims):
         z = t.numel()
@@ -406,11 +480,11 @@ def gather_parts(mesh, parts: Sequence[torch.Tensor], dims: Sequence[int],
 
 
 def reduce_scatter_parts(mesh, wholes: Sequence[torch.Tensor], dims: Sequence[int],
-                         tag: str) -> list[torch.Tensor]:
-    """This rank's part (on ``dims``) of the sum over the mesh's data axis of
-    each of ``wholes``, cast to fp32, in ONE reduce-scatter (every rank calls
-    it)."""
-    n = mesh.shape[mesh.data_axis]
+                         tag: str, axis: Optional[str] = None) -> list[torch.Tensor]:
+    """This rank's part (on ``dims``) of the sum over the mesh's ``axis``
+    (default its data axis) of each of ``wholes``, cast to fp32, in ONE
+    reduce-scatter (every rank of the line calls it)."""
+    n = mesh.shape[axis or mesh.data_axis]
     rows, shapes = [], []
     for t, d in zip(wholes, dims):
         shape = list(t.shape)
@@ -418,7 +492,8 @@ def reduce_scatter_parts(mesh, wholes: Sequence[torch.Tensor], dims: Sequence[in
         shapes.append(shape)
         x = t.to(torch.float32).reshape(shape[:d] + [n] + shape[d:]).movedim(d, 0)
         rows.append(x.reshape(n, -1))
-    flat = mesh.reduce_scatter(torch.cat(rows, dim=1).reshape(-1), tag)
+    on = {} if axis in (None, mesh.data_axis) else {"axis": axis}
+    flat = mesh.reduce_scatter(torch.cat(rows, dim=1).reshape(-1), tag, **on)
     out, at = [], 0
     for shape in shapes:
         z = math.prod(shape)
@@ -429,22 +504,36 @@ def reduce_scatter_parts(mesh, wholes: Sequence[torch.Tensor], dims: Sequence[in
 
 def gather_tree(tree: PyTree, specs: PyTree, mesh, tag: str) -> PyTree:
     """The whole of every leaf :func:`split_tree` split, from every rank's
-    part, in one all-gather over the mesh (every rank calls it).  The split
-    leaves must share one dtype."""
-    splits = row_splits(specs, mesh)
-    parts: list[torch.Tensor] = []
-    dims: list[int] = []
+    part: one all-gather over each axis the specs name (the data axis
+    first; every rank calls it).  The split leaves must share one dtype."""
+    axes = []
+    for spec in _leaves_of(specs):
+        for a in spec:
+            if a is not None and a not in axes:
+                axes.append(a)
+    axes.sort(key=lambda a: a != mesh.data_axis)
+    for axis in axes:
+        cuts = _map(lambda spec: axis_cut(spec, mesh, axis), specs)
+        parts: list[torch.Tensor] = []
+        dims: list[int] = []
 
-    def collect(x, rs):
-        if rs is not None:
-            parts.append(x)
-            dims.append(rs.dim)
+        def collect(x, rs):
+            if rs is not None:
+                parts.append(x)
+                dims.append(rs.dim)
 
-    zip_map(collect, tree, splits)
-    if not parts:
-        return tree
-    wholes = iter(gather_parts(mesh, parts, dims, tag))
-    return zip_map(lambda x, rs: x if rs is None else next(wholes), tree, splits)
+        zip_map(collect, tree, cuts)
+        if not parts:
+            continue
+        wholes = iter(gather_parts(mesh, parts, dims, tag, axis=axis))
+        tree = zip_map(lambda x, rs: x if rs is None else next(wholes), tree, cuts)
+    return tree
+
+
+def _leaves_of(specs: PyTree) -> list:
+    out: list = []
+    _map(lambda s: out.append(s) if isinstance(s, Spec) else None, specs)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -479,39 +568,66 @@ class _Gathered(torch.autograd.Function):
 
 
 class ParamSplit:
-    """Parameters split over a mesh's data axis by :data:`PARAM_RULES` (the
-    reference's ``named_sharding_tree``): each rank holds its part of every
-    leaf :func:`param_shardings` splits, one dim over the data axis, and the
-    whole of the others (an indivisible dim stays whole).
+    """Parameters split over a mesh by :data:`PARAM_RULES` (the reference's
+    ``named_sharding_tree``): each rank holds its part of every leaf
+    :func:`param_shardings` splits and the whole of the others (an
+    indivisible dim stays whole).  The split's axes: ``data`` when ``data``
+    is set (``shard_params``), and ``model`` whenever the mesh's model axis
+    is larger than 1 (tensor parallelism), so a leaf may be split on two
+    dims, one per axis (``rules``: its :class:`RowSplit` or
+    :class:`GridSplit`; ``data_rules`` and ``model_rules``: the cut over
+    each axis).
 
-    A split leaf is a **layer** leaf when ``model.stack_dims(path)`` stack
-    dims lead it and its split dim is not one of them (``wq`` (L, d, d)
-    split on d): the model's layer loop gathers layer ``l``'s slices of all
-    such leaves in ONE all-gather (tag ``layer``) each time it reads them,
+    The data side is gathered as the layers read it.  A leaf with a data
+    cut is a **layer** leaf when ``model.stack_dims(path)`` stack dims lead
+    it and its data dim is not one of them (``wq`` (L, d, d) split on d):
+    the model's layer loop gathers layer ``l``'s slices of all such leaves
+    over ``data`` in ONE all-gather (tag ``layer``) each time it reads them,
     in the forward and again in remat's recomputation, and the backward of
     that gather reduce-scatters their gradients in ONE fp32 collective (tag
-    ``layer``).  Every other split leaf (``embed``, the stacked norms split
-    on the layer dim, an unstacked block's leaves) is a **once** leaf: its
-    whole is gathered in one all-gather (tag ``once``) before the forward,
-    and its gradient comes back in one fp32 reduce-scatter (tag ``once``).
+    ``layer``).  Every other leaf with a data cut (``embed``, the stacked
+    norms split on the layer dim, an unstacked block's leaves) is a
+    **once** leaf: its data side is gathered in one all-gather (tag
+    ``once``) before the forward, and its gradient comes back in one fp32
+    reduce-scatter (tag ``once``).  The reduced gradient parts land in an
+    fp32 accumulator (``grads``), summed over the ranks and over the
+    microbatches of a step; autograd returns no gradient for such a leaf,
+    so the whole gradient of a layer leaf never exists during backward.
 
-    The reduced gradient parts land in an fp32 accumulator (``grads``),
-    summed over the ranks and over the microbatches of a step; autograd
-    returns no gradient for a split leaf, so the whole gradient of a layer
-    leaf never exists during backward."""
+    The model side stays split through the forward and the backward: the
+    tensor-parallel layers (:mod:`repro_torch.models.tensor_parallel`)
+    compute on it, and autograd returns a model-split leaf's gradient in
+    its part's shape (``tp``: the model axis's size, ``tp_index`` this
+    rank's coordinate on it)."""
 
-    def __init__(self, model, mesh):
+    def __init__(self, model, mesh, *, data: bool = True):
         params = model.params()
         self.mesh = mesh
         self.n = int(mesh.shape[mesh.data_axis])
-        self.specs = param_shardings(params, mesh)
+        self.tp = int(mesh.shape.get("model", 1))
+        self.tp_index = mesh.coordinate("model") if self.tp > 1 else 0
+        keep = ({mesh.data_axis} if data else set()) | ({"model"} if self.tp > 1 else set())
+        specs = param_shardings(params, mesh)
+        if self.tp > 1:
+            # the untied head splits on its vocab over ``model`` (vocab-parallel
+            # logits): its own rule, which the ``embed`` rule shadows on the
+            # path ``embed/lm_head``
+            specs.update({k: validate_spec(p.shape, resolve_spec(HEAD_RULE, mesh), mesh)
+                          for k, p in params.items() if k.endswith("lm_head")})
+        self.specs = {k: Spec(a if a in keep or isinstance(a, tuple) else None for a in spec)
+                      for k, spec in specs.items()}
         rules = row_splits(self.specs, mesh)
         self.rules = {k: r for k, r in rules.items() if r is not None}
+        self.data_rules = {k: c for k, c in ((k, axis_cut(s, mesh, mesh.data_axis))
+                                             for k, s in self.specs.items()) if c is not None}
+        self.model_rules = ({k: c for k, c in ((k, axis_cut(s, mesh, "model"))
+                                               for k, s in self.specs.items()) if c is not None}
+                            if self.tp > 1 else {})
         self.shapes = {k: tuple(p.shape) for k, p in params.items()}
         self.dtypes = {k: p.dtype for k, p in params.items()}
         self.stack = {k: int(model.stack_dims(k)) for k in params}
-        self.layer = {k for k, r in self.rules.items() if 0 < self.stack[k] <= r.dim}
-        self.once = [k for k in params if k in self.rules and k not in self.layer]
+        self.layer = {k for k, r in self.data_rules.items() if 0 < self.stack[k] <= r.dim}
+        self.once = [k for k in params if k in self.data_rules and k not in self.layer]
         self.paths = {id(p): k for k, p in params.items()}
         self.model = model
         self.grads: dict[str, torch.Tensor] = {}
@@ -522,7 +638,15 @@ class ParamSplit:
     # -- layout -------------------------------------------------------------
 
     def part_shape(self, path: str) -> tuple[int, ...]:
+        """The shape of this rank's part of the leaf at ``path``."""
         rule = self.rules.get(path)
+        return self.shapes[path] if rule is None else rule.part_shape(self.shapes[path])
+
+    def model_part_shape(self, path: str) -> tuple[int, ...]:
+        """The shape of the leaf's model-side part (its data side whole):
+        what the layers compute on, and its gradient's shape before the
+        gather over ``model``."""
+        rule = self.model_rules.get(path)
         return self.shapes[path] if rule is None else rule.part_shape(self.shapes[path])
 
     def split_params(self) -> None:
@@ -534,15 +658,17 @@ class ParamSplit:
                     p.data = self.rules[k].apply(p.data)
 
     def whole_params(self, tag: str = "params", device=None) -> dict:
-        """Every parameter whole (every rank calls it), one all-gather a
-        split leaf, each whole moved to ``device`` (default: where the
-        parts are) before the next is gathered, so at most one leaf's
-        gather is in flight on the card."""
+        """Every parameter whole (every rank calls it), one all-gather over
+        each axis that splits a leaf (data, then model), each whole moved to
+        ``device`` (default: where the parts are) before the next is
+        gathered, so at most one leaf's gather is in flight on the card."""
         out = {}
         for k, p in self.model.params().items():
-            rule = self.rules.get(k)
-            whole = p.detach() if rule is None else gather_parts(
-                self.mesh, [p.detach()], [rule.dim], tag)[0]
+            whole = p.detach()
+            for axis, cuts in ((self.mesh.data_axis, self.data_rules),
+                               ("model", self.model_rules)):
+                if k in cuts:
+                    whole = gather_parts(self.mesh, [whole], [cuts[k].dim], tag, axis=axis)[0]
             out[k] = whole if device is None else whole.to(device)
         return out
 
@@ -624,8 +750,8 @@ class ParamSplit:
 
     def _dims(self, key) -> list[int]:
         if key[0] == "once":
-            return [self.rules[k].dim for k in self.once]
-        return [self.rules[k].dim - self.stack[k] for k in key[2]]
+            return [self.data_rules[k].dim for k in self.once]
+        return [self.data_rules[k].dim - self.stack[k] for k in key[2]]
 
     def _gather(self, key, parts) -> list[torch.Tensor]:
         if self.log is not None:

@@ -96,7 +96,7 @@ from repro_torch.data import DataConfig, build_stream
 from repro_torch.launch.devices import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.transformer import Transformer
-from repro_torch.sharding import ParamSplit, zip_map
+from repro_torch.sharding import ParamSplit, paths_map, zip_map
 from repro_torch.resilience import (
     FaultGate,
     FaultPlan,
@@ -219,8 +219,7 @@ class Trainer:
         ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` over a process
         group whose every rank builds the same ``Trainer``) makes this run
         one data-parallel rank over ``mesh.data_axis``; ``data_cfg`` is the
-        whole run's.  A mesh axis other than that one larger than 1 raises: tensor and expert
-        parallelism are not ported.  The gradients are summed over the
+        whole run's.  The gradients are summed over the
         ranks in fp32: on bf16-stored parameters each rank's bf16 gradient
         is cast once to fp32 and the casts are summed, so a mesh of ``n``
         ranks is the one-process run at ``microbatches=n`` (bitwise at
@@ -228,10 +227,23 @@ class Trainer:
         XLA in bf16.  Every ``OptimizerConfig`` trains on a mesh, Fira and
         the fused epilogue under ``shard_state`` too.
 
+        A ``model`` axis larger than 1 trains the dense family with tensor
+        parallelism (:mod:`repro_torch.models.tensor_parallel`): every leaf
+        whose rule names ``model`` stays split over it, the layers compute
+        on the parts (Megatron's column- and row-parallel products, the
+        vocab-parallel embedding and loss), the gradients are reduced over
+        ``data`` as above and gathered whole over ``model``, and each rank
+        applies its part of the update.  The ranks of one model line read
+        the same rows (their data coordinate's); rank 0 logs and
+        checkpoints.  Other families, a q-head count that the axis does not
+        divide, a rank policy and another axis larger than 1 raise
+        ``NotImplementedError``.
+
         ``shard_params=True`` (it needs ``mesh``) splits the parameters over
         the data axis by :func:`repro_torch.sharding.param_shardings` (the
         reference's ``PARAM_RULES``): each rank holds its part of every leaf
-        whose rule divides, the model's layer loop gathers each layer's parts
+        whose rule divides (on a model axis, its part over both axes), the
+        model's layer loop gathers each layer's parts
         in one all-gather and reduce-scatters its gradient in one fp32
         collective, and each rank applies its part of the update
         (:class:`repro_torch.sharding.ParamSplit`); at 2 ranks the run is
@@ -255,19 +267,30 @@ class Trainer:
             raise NotImplementedError("a rank policy under shard_params is not ported (ROADMAP "
                                       "queue 1 item 5k): its state migration reads whole "
                                       "parameters")
+        tp = 1
         if mesh is not None:
-            others = {a: n for a, n in mesh.shape.items() if a != mesh.data_axis and n > 1}
+            others = {a: n for a, n in mesh.shape.items()
+                      if a not in (mesh.data_axis, "model") and n > 1}
             if others:
                 raise NotImplementedError(
-                    f"a mesh with {others} beside its data axis: tensor parallelism "
-                    "(ROADMAP queue 1 item 5b) and expert parallelism (item 5c) are not "
-                    "ported; the port runs data-parallel meshes")
+                    f"a mesh with {others} beside its data and model axes is not ported "
+                    "(the multi-pod mesh, ROADMAP queue 1 item 5d)")
+            tp = int(mesh.shape.get("model", 1))
+            if tp > 1:
+                from repro_torch.models import tensor_parallel
+
+                tensor_parallel.check_family(model.cfg)
+                tensor_parallel.check_heads(model.cfg, tp)
+                if opt_cfg.rank_policy is not None and optimizer is None:
+                    raise NotImplementedError(
+                        "a rank policy on a model axis is not ported (ROADMAP queue 1 item "
+                        "5k): its state migration reads whole parameters")
             if data_cfg.num_hosts != 1:
                 raise ValueError("with a mesh, data_cfg is the whole run's (num_hosts=1); "
                                  "each rank takes its rows of it")
             n, k = mesh.shape[mesh.data_axis], mesh.coordinate(mesh.data_axis)
             data_cfg = dataclasses.replace(data_cfg, num_hosts=n, host_id=k)
-            self.is_main = k == 0
+            self.is_main = mesh.rank == 0
         if self.shard_state and (mesh is None or not opt_cfg.fuse_families):
             raise ValueError("OptimizerConfig.shard_state needs a mesh and "
                              "fuse_families=True")
@@ -277,8 +300,8 @@ class Trainer:
         else:
             self.model.init_params(run_cfg.seed)
         self.param_split: Optional[ParamSplit] = None
-        if shard_params:
-            self.param_split = ParamSplit(self.model, mesh)
+        if shard_params or tp > 1:
+            self.param_split = ParamSplit(self.model, mesh, data=shard_params)
             self.param_split.split_params()
 
         # The bus always exists: with telemetry off it carries only the
@@ -392,7 +415,7 @@ class Trainer:
         ``shard_params``) and the parts' alone, the parts read off the
         shapes of an init on ``meta`` under ``param_parts``."""
         if self._state_specs is None:
-            from repro_torch.core.api import tree_leaves, tree_map
+            from repro_torch.core.api import tree_map
             from repro_torch.sharding import Spec, family_state_sharding
 
             like = self._like()
@@ -405,15 +428,24 @@ class Trainer:
                 with param_parts({k: (None, self.param_split.rules.get(k))
                                   for k in self.param_split.shapes}):
                     parts = self.optimizer.init(like)
-                # each leaf in tree order: the spec of its split dim, or None
-                cuts = [None if not isinstance(w, torch.Tensor) or w.shape == p.shape
-                        else Spec((None,) * [a != b for a, b in zip(w.shape, p.shape)].index(True)
-                                  + (self.mesh.data_axis,))
-                        for w, p in zip(tree_leaves(whole), tree_leaves(parts))]
+                # each leaf: the axes of its split dims (its parameter's rule,
+                # read off the path it lives under), or None
+                rules = self.param_split.specs
+
+                def cut(w, part_and_path):
+                    part, path = part_and_path
+                    if not isinstance(w, torch.Tensor) or w.shape == part.shape:
+                        return None
+                    rule = next(rules[k] for k in sorted(rules, key=len, reverse=True)
+                                if path.endswith(k))
+                    return Spec(a if a is not None and w.shape[d] != part.shape[d] else None
+                                for d, a in enumerate(rule))
+
+                cuts = zip_map(cut, whole, zip_map(lambda p, path: (p, path), parts,
+                                                    paths_map(whole)))
 
                 def with_cuts(tree):
-                    it = iter(cuts)
-                    return zip_map(lambda _, spec: next(it) or spec, whole, tree)
+                    return zip_map(lambda c, spec: c or spec, cuts, tree)
 
                 specs, parts_only = with_cuts(specs), with_cuts(parts_only)
             self._state_specs = specs, parts_only

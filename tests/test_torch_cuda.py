@@ -1154,3 +1154,39 @@ def test_cut_epilogue_records_its_variant(cuda_device, cut, side):
     new = _variants_since(before)
     assert list(new) == ["back_project_epilogue"]
     assert [(key[4], k) for key, k in new["back_project_epilogue"].items()] == [(1, 1)]
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_model_axis_cut_epilogue_records_its_variant(cuda_device, side, w_dtype):
+    """Row 6 under tensor parallelism with split parameters: a leaf cut over
+    both mesh axes (rows over ``data``, columns over ``model``, a
+    ``GridSplit``) materializes in one launch on operands cut on both sides,
+    equals the plain version's whole update cut to that block, and records
+    the instantiation of its W (fifth template argument 1 for bf16, 0 for
+    fp32)."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.combinators import PendingBack, materialize_pending, param_parts
+    from repro_torch.sharding import GridSplit, RowSplit
+
+    L, m, r, n = 4, 256, 32, 384
+    p = _randn(L, m if side == "left" else n, r)
+    s = _randn(*((L, r, n) if side == "left" else (L, m, r)))
+    w = _randn(L, m, n).to(getattr(torch, w_dtype))
+    rule = GridSplit((RowSplit(1, 2, 1), RowSplit(0, 2, 2)))
+    part = rule.apply(w)
+    leaf = PendingBack(p, s, torch.empty(L, m, n, device="meta"),
+                       SimpleNamespace(side=side, lead=(L,)), "cuda", scale=-0.0025,
+                       decay=-2.5e-5)
+    a, b = (p, s) if side == "left" else (s, p.mT)
+    before, launches = _variants(), build.LAUNCHES["back_project_epilogue"]
+    with param_parts({"w": (part, rule)}):
+        got = materialize_pending({"w": leaf})["w"]
+    assert build.LAUNCHES["back_project_epilogue"] == launches + 1
+    assert got.shape == part.shape == (L, m // 2, n // 2)
+    assert _rel(got, rule.apply(ref.back_project_epilogue_ref(a, b, w, -0.0025, -2.5e-5))) <= 1e-5
+    new = _variants_since(before)
+    assert list(new) == ["back_project_epilogue"]
+    bf16 = int(w_dtype == "bfloat16")
+    assert [(key[4], k) for key, k in new["back_project_epilogue"].items()] == [(bf16, 1)]

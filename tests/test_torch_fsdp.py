@@ -28,9 +28,10 @@ count; the rank side is ``tests/torch_dist_workers.py``), the CLI's
     checkpoint written by either layout restores in the other, bitwise.
 (f) ``split_tree`` then ``gather_parts`` give every family's ``SMOKE``
     parameters back bitwise at 2 and 4 ranks, with no process group.
-(g) What raises: the projected-space accumulator (item 5j), a model axis
-    (5b), a rank policy (5k), a spec over two dims (5b), and
-    ``shard_params`` without a mesh (``ValueError``).
+(g) What raises: the projected-space accumulator (item 5j), a mesh axis
+    beside data and model (5d), a rank policy (5k), a spec of one dim over
+    two axes (5d), and ``shard_params`` without a mesh (``ValueError``); a
+    spec over two dims, one per axis, splits.
 """
 import json
 import os
@@ -311,8 +312,8 @@ def test_what_raises(tmp_path):
 
     with pytest.raises(ValueError, match="give mesh="):
         trainer()
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        trainer(mesh=Mesh((2, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="item 5d"):
+        trainer(mesh=Mesh((2, 2, 2), ("pod", "data", "model")))
     with pytest.raises(NotImplementedError, match="item 5k"):
         trainer(opt=OptimizerConfig(**GUM, rank_policy="stepwise:0=4"),
                 mesh=Mesh((2,), ("data",)))
@@ -321,9 +322,15 @@ def test_what_raises(tmp_path):
         make_train_step(build_model(cfg, device="cpu"), tools.transform, microbatches=2,
                         lowrank_accum=tools, mesh=Mesh((2,), ("data",)),
                         param_split=object())
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        row_splits({"w": Spec(("data", "model"))}, Mesh((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    class Placed(Mesh):  # a (2, 2) mesh at rank 3 (coordinates 1, 1)
+        def coordinate(self, axis):
+            return 1
+
+    rule = row_splits({"w": Spec(("data", "model"))}, Placed((2, 2), ("data", "model")))["w"]
+    assert [(c.index, c.count, c.dim) for c in rule.cuts] == [(1, 2, 0), (1, 2, 1)]
+    w = torch.arange(16.0).reshape(4, 4)
+    assert torch.equal(rule.apply(w), w[2:, 2:])
+    with pytest.raises(NotImplementedError, match="item 5d"):
         row_splits({"w": Spec((("pod", "data"), None))}, Mesh((2, 2), ("pod", "data")))
 
 
